@@ -4,11 +4,21 @@
 
 Builds the CUDA kernels from openwurli_tpu_torch/csrc, compares each
 kernel with its plain torch version on the card, checks the tonal anchor
-against the reference's golden harmonics, then renders the headline grid
-(128 streams × 64 voices, 43·1024 samples at 44.1 kHz) through
-`openwurli_tpu_torch.fast.render_grid`, checks that both kernels carried
-it, and holds each kernel bit for bit to its plain version at the shapes
-that render gives it. Any failed check raises: the script exits non-zero
+against the reference's golden harmonics, then drives three paths of
+`openwurli_tpu_torch.fast`, each with the launch counts set to 0 just
+before it and read just after:
+
+  * `render_grid`: the headline grid (128 streams × 64 voices, 43·1024
+    samples at 44.1 kHz) through K1 (voice bank) and K2 (mono chain);
+  * `render_events`: a short event-scheduled render, block-streamed with
+    carried state, through K3 (voice bank with events) and K2 at one stream;
+  * `render_events_parallel`: a 36 s, 120-note song at the renderer's
+    defaults through K3, K4 (tremolo pre-roll) and K2 over 120 segments.
+
+Each kernel is held bit for bit to its plain version at the shapes those
+paths give it, on the calls' own arguments, which the script records
+while it drives the path (the plain versions over a prefix where the
+whole span would take minutes). Any failed check raises: the script exits non-zero
 and prints no result. It needs one CUDA device and imports nothing of JAX.
 
 Output: the card's name and power limit (nvidia-smi), one line per phase,
@@ -80,6 +90,170 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet): float32 outside
+# the tensor cores, and device memory.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+
+# float32 operations per voice lane, read off csrc/voice_bank.cu (an add,
+# a multiply, a division or a transcendental counts as one; selects,
+# integer work and conversions count as none).
+VB_OPS_REFRESH = 7 * (11 + 7 * 10 + 6 * 4 + 7)  # jitter + powers, per 16
+VB_OPS_FAST_GROUP = 7 * (2 + 2 + 7 * 4 + 2 + 8)  # P/Q, 8 mode sums, env, R^8
+VB_OPS_LEGACY_GROUP = 8 * (3 + 7 * 14) + 7 * 8   # damper sub-steps, R^8
+VB_OPS_PICKUP = 20                                # per sample
+VB_OPS_ONSET = 6                                  # per sample before steady
+VB_OPS_NOISE = 22                                 # per sample before steady
+
+# float32 operations of csrc/mono_chain.cu per stream, from its loop
+# extents: one tremolo update; one oversampled preamp step; one
+# oversampled power-amp step.
+GP_DERIVS_OPS, GP_CURRENTS_OPS = 70, 35
+TREM_UPDATE_OPS = (11 * 11 * 2
+                   + 3 * (2 * GP_DERIVS_OPS + 4 * 4 * 2 + 4 * 4 + 4 * 4 * 4
+                          + 100 + 4 * 8)
+                   + 2 * GP_CURRENTS_OPS + 25)
+PREAMP_STEP_OPS = (16 * 16 * 2 + 2 * 8 * 4 * 20 + 4 * 16 * 2 + 5 * 2 * 40
+                   + 16 * 8 + 60)
+PA_STEP_OPS = (37 * 37 * 2 + 37 * 6
+               + 8 * (8 * GP_DERIVS_OPS + 16 * 16 * 2 + 10 * 16 * 4 + 1300
+                      + 6 * 10 * 2 + 16 * 8)
+               + 8 * GP_CURRENTS_OPS + 16 * 16 * 2 + 120)
+CHAIN_SAMPLE_OPS = 2 * (PREAMP_STEP_OPS + PA_STEP_OPS) + 4 * 12 + 60
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of bytes over its memory rate and operations over its float32
+    peak."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def voice_bank_bound(lanes, samples, n0, steady, min_release=None):
+    """Bound of one voice-bank call: params and state read once, output
+    and state written once; operations of this call's groups (warm-phase
+    groups before `steady`, legacy groups past `min_release`)."""
+    n_bytes = 4 * lanes * (13 * 8 + 2 * 48 + samples)
+    groups = np.arange(n0, n0 + samples, 8)
+    legacy = 0 if min_release is None or min_release >= 0.5e12 \
+        else int((groups + 8 > min_release).sum())
+    ops = (samples // 16 * VB_OPS_REFRESH
+           + (len(groups) - legacy) * VB_OPS_FAST_GROUP
+           + legacy * VB_OPS_LEGACY_GROUP + samples * VB_OPS_PICKUP
+           + 8 * int((groups < steady[0]).sum()) * VB_OPS_ONSET
+           + 8 * int((groups < steady[1]).sum()) * VB_OPS_NOISE)
+    return bound(n_bytes, lanes * ops)
+
+
+def chain_bound(streams, samples):
+    """Bound of one chain call: audio in, audio out, state in and out,
+    controls and constants once."""
+    n_bytes = 4 * (streams * (2 * samples + 2 * 328 + 19) + 3312 + 67)
+    ops = streams * samples * (CHAIN_SAMPLE_OPS + TREM_UPDATE_OPS / 2)
+    return bound(n_bytes, ops)
+
+
+def preroll_bound(n_captures, stride):
+    """Bound of one pre-roll call: no update follows the last capture."""
+    n_bytes = 4 * (3312 + 67 + 19 + 328 + n_captures * 19)
+    return bound(n_bytes,
+                 (n_captures - 1) * (stride // 2) * TREM_UPDATE_OPS)
+
+
+class StageTimer:
+    """Wraps functions of modules so that each call is timed with the
+    device synchronised before and after; times in ms by key. With
+    `keep`, the arguments of every call are kept too, by key."""
+
+    def __init__(self):
+        self.ms = {}
+        self.calls = {}
+        self._saved = []
+
+    def wrap(self, mod, name, key, keep=False):
+        fn = getattr(mod, name)
+
+        def timed(*args, **kw):
+            if keep:
+                self.calls.setdefault(key, []).append((args, kw))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms[key] = self.ms.get(key, 0.0) \
+                + (time.perf_counter() - t0) * 1e3
+            return result
+
+        self._saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+
+    def restore(self):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        self._saved = []
+
+
+def reset_counts(vb, mc):
+    vb.KERNEL_LAUNCHES = vb.PLAIN_CALLS = 0
+    for name in vb.LAUNCHES_BY_KERNEL:
+        vb.LAUNCHES_BY_KERNEL[name] = 0
+    mc.KERNEL_LAUNCHES = mc.PLAIN_CALLS = 0
+    mc.PREROLL_KERNEL_LAUNCHES = mc.PREROLL_PLAIN_CALLS = 0
+
+
+def read_counts(vb, mc):
+    """Kernel launches by kernel name since reset_counts, and the calls
+    that any plain version served."""
+    return {**vb.LAUNCHES_BY_KERNEL, "mono_chain": mc.KERNEL_LAUNCHES,
+            "trem_preroll": mc.PREROLL_KERNEL_LAUNCHES,
+            "plain": vb.PLAIN_CALLS + mc.PLAIN_CALLS
+            + mc.PREROLL_PLAIN_CALLS}
+
+
+def bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def compare_chain(mc, call, t_cmp, what):
+    """K2 against its plain version over the first t_cmp samples of one
+    recorded `mc.render` call (its controls, its starting state, its
+    audio): output and state bit for bit. Returns the comparison's
+    numbers for the kernels line."""
+    (sr, ctrl, st0, audio), _kw = call
+    a_cmp = audio[:t_cmp].contiguous()
+    out, st = mc.render(sr, ctrl, st0, a_cmp)
+    plain_ms, (p_out, p_st) = host_ms(lambda: mc.render_chain_plain(
+        mc.pack_consts(sr), ctrl, st0, a_cmp))
+    ms = cuda_ms(lambda: mc.render(sr, ctrl, st0, a_cmp))
+    err = float((out - p_out).abs().max())
+    check(torch.isfinite(out).all().item(), f"K2 {what}: output not finite")
+    # the state compared as bit patterns: its nz_lcg rows hold u32 LCG
+    # words, some of which read as NaN floats
+    st_bits, p_st_bits = st.view(torch.int32), p_st.view(torch.int32)
+    check(torch.equal(out, p_out) and torch.equal(st_bits, p_st_bits),
+          f"K2 {what}: max abs err {err:.3e} against the plain version; "
+          f"differing {first_diff(out, p_out)}, state "
+          f"{first_diff(st_bits, p_st_bits)}")
+    return {"shape": f"{audio.shape[1]} streams x {t_cmp}", "inputs": what,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "peak_in": float(a_cmp.abs().max())}
+
+
+def song_schedule(seconds=36.0, n_notes=120, seed=7):
+    """The reference bench's pseudo-song (bench.py `_child_song`): onsets
+    from 0.5 s to 4 s before the end, midi 36-95, velocity 0.4-1.0,
+    durations 0.2-3.0 s."""
+    rng = np.random.default_rng(seed)
+    onsets = np.sort(rng.uniform(0.5, seconds - 4.0, n_notes)) * SR
+    midis = rng.integers(36, 96, n_notes).astype(np.float64)
+    vels = rng.uniform(0.4, 1.0, n_notes)
+    durs = rng.uniform(0.2, 3.0, n_notes) * SR
+    return midis, vels, onsets, onsets + durs
+
+
 def harmonics_db(seg, f0, sr, n=6, span_hz=5.0, steps=21):
     """Single-bin DFT magnitudes of H1..Hn after refining f0 by a ±span
     scan (calib/goertzel.py's harmonic_ladder, in NumPy)."""
@@ -122,6 +296,12 @@ def main():
     _build.library()
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.BUILD_SECONDS} s)", flush=True)
+    # what ptxas reports for each entry function (none if the library was
+    # already built)
+    for line in (_build.BUILD_LOG or "").splitlines():
+        if ("Compiling entry function" in line or "stack frame" in line
+                or "Used " in line):
+            print("phase 1 " + " ".join(line.split()), flush=True)
 
     # ── phase 2: K1 on the card against its plain version on the card ──
     notes = np.repeat(np.arange(36, 100), 4).astype(np.float64)
@@ -156,10 +336,10 @@ def main():
           f"kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms", flush=True)
 
     # ── phase 3: K2 on the card against its plain version on the card ──
-    s_n, t_n = 8, 2048
+    s_n, t_n = 8, 512
     tt = np.arange(t_n) / SR
     levels = np.linspace(0.02, 0.1, s_n)
-    env = np.minimum(np.arange(t_n) / 400.0, 1.0)
+    env = np.minimum(np.arange(t_n) / 200.0, 1.0)
     audio = torch.from_numpy(
         (env[:, None] * levels[None] * (np.sin(2 * np.pi * 220 * tt)
                                         + 0.5 * np.sin(2 * np.pi * 440 * tt)
@@ -190,7 +370,7 @@ def main():
     check(torch.equal(k2_st[g0], p2_st[g0]),
           'torch.equal(k2_st[g0], p2_st[g0])')
     check((k2_db <= -70.0).all(), f"K2 per-stream dB {k2_db}")
-    print(f"phase 3 K2: 8 streams x 2048, levels 0.02-0.1, per-stream "
+    print(f"phase 3 K2: 8 streams x {t_n}, levels 0.02-0.1, per-stream "
           f"{np.array2string(k2_db, precision=1)} dB, max abs err "
           f"{k2_err:.3e}, guard fires {float(k2_st[g0].sum())}, "
           f"kernel {k2_ms:.1f} ms, plain {k2_plain_ms:.1f} ms", flush=True)
@@ -213,17 +393,14 @@ def main():
     vel = (0.95 + 0.0005 * np.arange(streams))[:, None] \
         * np.ones((1, midis.shape[1]))
     seconds = 43 * 1024 / SR
-    for mod in (vb, mc):
-        mod.KERNEL_LAUNCHES = 0
-        mod.PLAIN_CALLS = 0
+    reset_counts(vb, mc)
     grid = fast.render_grid(midis, vel, seconds, SR, volume=0.5, depth=0.5,
                             character=0.0, device=dev)
     torch.cuda.synchronize()
-    counts = {"voice_bank": (vb.KERNEL_LAUNCHES, vb.PLAIN_CALLS),
-              "mono_chain": (mc.KERNEL_LAUNCHES, mc.PLAIN_CALLS)}
-    for name, (k, p) in counts.items():
-        check(k >= 1 and p == 0,
-              (name, k, p))
+    launches = {"render_grid": read_counts(vb, mc)}
+    counts = launches["render_grid"]
+    check(counts["voice_bank"] >= 1 and counts["mono_chain"] >= 1
+          and counts["plain"] == 0, counts)
     g = grid.cpu().numpy()
     check(g.shape == (43 * 1024, streams),
           'g.shape == (43 * 1024, streams)')
@@ -284,39 +461,336 @@ def main():
           f"{k1_main_err:.3e} against the plain version; differing "
           f"{first_diff(voices, p_voices)}")
     t_cmp = 512
-    a_cmp = audio[:t_cmp].contiguous()
-    k2_out, k2_st = mc.render(SR, ctrl, st0, a_cmp)
-    k2_main_plain_ms, (p2_out, p2_st) = host_ms(
-        lambda: mc.render_chain_plain(mc.pack_consts(SR), ctrl, st0, a_cmp))
-    k2_main_ms = cuda_ms(lambda: mc.render(SR, ctrl, st0, a_cmp))
-    k2_main_err = float((k2_out - p2_out).abs().max())
-    check(torch.isfinite(k2_out).all().item(),
-          "K2 main-path comparison output not finite")
-    # the state compared as bit patterns: its nz_lcg rows hold u32 LCG
-    # words, some of which read as NaN floats
-    st_bits, p_st_bits = k2_st.view(torch.int32), p2_st.view(torch.int32)
-    check(torch.equal(k2_out, p2_out) and torch.equal(st_bits, p_st_bits),
-          f"K2 at {streams} streams x {t_cmp}: max abs err "
-          f"{k2_main_err:.3e} against the plain version; differing "
-          f"{first_diff(k2_out, p2_out)}, state "
-          f"{first_diff(st_bits, p_st_bits)}")
+    k2_cmp = [compare_chain(mc, ((SR, ctrl, st0, audio), {}), t_cmp,
+                            "render_grid's lane sum from init_state")]
+    k2_main_ms, k2_main_plain_ms = k2_cmp[0]["ms"], k2_cmp[0]["plain_ms"]
     print(f"phase 6 main-path shapes: K1 {streams * 64} lanes x {t_pad} "
           f"bit-identical, kernel {k1_main_ms:.1f} ms, plain "
           f"{k1_main_plain_ms:.1f} ms; K2 {streams} streams x {t_cmp} "
           f"bit-identical (output and state), kernel {k2_main_ms:.1f} ms, "
           f"plain {k2_main_plain_ms:.1f} ms [{card}]", flush=True)
 
+    k1_bound = voice_bank_bound(streams * 64, t_pad, 0, steady)
+    k2_bound = chain_bound(streams, t_cmp)
+
+    # ── phase 7: K3 (voice bank with events) against its plain version,
+    # bit for bit, on a small schedule: staggered onsets, releases in all
+    # three damper-ramp registers (midi < 48, < 72, >= 72), an undamped top
+    # key (midi >= 92), a never-released voice, padding lanes; long enough
+    # that every register passes min_release and its ramp. ──
+    notes = [40.0, 50.0, 69.0, 80.0, 95.0, 60.0, 45.0, 75.0]
+    vels = [0.9, 0.8, 0.85, 0.7, 0.6, 0.9, 0.8, 0.7]
+    onsets = [0, 512, 1024, 2048, 160, 0, 3008, 64]
+    releases = [4000, 6000, 5000, 5200, 4500, np.inf, 7000, 4100]
+    params, n_act = vb.make_kernel_params(notes, vels, SR, lanes=256,
+                                          onsets=onsets, releases=releases,
+                                          device=dev)
+    steady = vb.steady_limits(params)
+    check(vb._has_events(params) and vb._min_release(params) == 4000.0,
+          "phase 7 schedule facts")
+    k3_out, k3_st = vb.render_voice_bank(params, 8192, steady=steady,
+                                         return_state=True)
+    torch.cuda.synchronize()
+    p3_out, p3_st = vb.render_voice_bank_plain(
+        params, 8192, steady=steady, return_state=True, events=True)
+    check(torch.equal(k3_out, p3_out) and bits_equal(k3_st, p3_st),
+          f"K3 256 lanes x 8192: output {first_diff(k3_out, p3_out)}, state "
+          f"{first_diff(k3_st.view(torch.int32), p3_st.view(torch.int32))}")
+    for k, on in enumerate(onsets):
+        check(on == 0 or k3_out[:on, k].abs().max().item() == 0.0,
+              f"K3 voice {k} sounds before its onset {on}")
+    check(k3_out[:, n_act:].abs().max().item() == 0.0,
+          "K3 padding lanes sound")
+    damped = k3_out[-256:, 2].abs().max() / k3_out[4744:5000, 2].abs().max()
+    ringing = k3_out[-256:, 4].abs().max() / k3_out[4244:4500, 4].abs().max()
+    check(damped.item() < 0.1 < ringing.item(),
+          f"damper: released voice at {damped.item():.3f} of its level, "
+          f"undamped top key at {ringing.item():.3f}")
+    # a schedule without events through K3 equals K1 bit for bit
+    plain_params, _ = vb.make_kernel_params(notes, vels, SR, lanes=256,
+                                            device=dev)
+    st_p = vb.steady_limits(plain_params)
+    check(torch.equal(
+        vb.render_voice_bank(plain_params, 2048, steady=st_p, events=True),
+        vb.render_voice_bank(plain_params, 2048, steady=st_p, events=False)),
+        "K3 on a trivial schedule differs from K1")
+    print("phase 7 K3: 256 lanes x 8192 with onsets and releases "
+          "bit-identical to its plain version (output and state), "
+          "pre-onset samples 0.0, trivial schedule equals K1", flush=True)
+
+    # ── phase 8: K4 (tremolo pre-roll) against its plain version at a small
+    # stride, bit for bit ──
+    ctrl1 = mc.make_controls(SR, 1, volume=0.5, depth=0.5, character=0.0,
+                             device=dev)
+    rows, caps = mc.trem_preroll(SR, ctrl1, 4, 64)
+    torch.cuda.synchronize()
+    p_caps = mc.trem_preroll_plain(mc.pack_consts(SR), ctrl1,
+                                   mc.init_state(SR, 1, device=dev), 4, 64)
+    check(bits_equal(caps, p_caps),
+          f"K4 4 captures x 64: {first_diff(caps, p_caps)}")
+    print("phase 8 K4: 4 captures x stride 64 bit-identical to its plain "
+          "version", flush=True)
+
+    # ── phase 9: the serial path, fast.render_events: three notes (one per
+    # damper register) with releases, block-streamed in 0.25 s blocks
+    # behind the default 0.6 s warm-up ──
+    ev_midis = np.array([45.0, 60.0, 76.0])
+    ev_vels = np.array([0.9, 0.85, 0.8])
+    ev_on = np.array([4096.0, 8192.0, 12288.0])
+    ev_rel = np.array([20000.0, 21000.0, 22000.0])
+    ev_seconds = 1.0
+    reset_counts(vb, mc)
+    ev_log = StageTimer()
+    ev_log.wrap(vb, "render_voice_bank", "K3", keep=True)
+    ev_log.wrap(mc, "render", "K2", keep=True)
+    try:
+        ser_ms, ser = host_ms(lambda: fast.render_events(
+            ev_midis, ev_vels, ev_on, ev_rel, ev_seconds, SR,
+            block_seconds=0.25, device=dev))
+    finally:
+        ev_log.restore()
+    launches["render_events"] = read_counts(vb, mc)
+    counts = launches["render_events"]
+    # 0.25 s blocks round down to 10 tiles of 1024: 5 blocks cover 1 s
+    check(counts["voice_bank_events"] == 5 and counts["mono_chain"] == 6
+          and counts["voice_bank"] == 0 and counts["plain"] == 0, counts)
+    check(ser.shape == (44100,) and torch.isfinite(ser).all().item(),
+          "render_events shape or finiteness")
+    head = ser[:4096].abs().max().item()
+    body = ser[6000:20000].abs().max().item()
+    tail = ser[-2000:].abs().max().item()
+    check(body > 1e-3 and head < 0.01 * body and tail < 0.2 * body,
+          f"render_events head {head:.2e}, body {body:.2e}, tail {tail:.2e}")
+    print(f"phase 9 render_events 3 notes x {ev_seconds} s (+0.6 s warm-up, "
+          f"5 blocks): {ser_ms / 1e3:.2f} s, head {head:.2e}, body "
+          f"{body:.3f}, tail {tail:.2e}, launches {counts} [{card}]",
+          flush=True)
+
+    # Both kernels against their plain versions on this path's own calls,
+    # bit for bit. K3: blocks 1 and 2 whole (128 lanes x 10240 from the
+    # carried state; block 1 crosses min_release, block 2 holds the other
+    # two releases). K2: the first 256 samples of block 1 at one stream,
+    # from the state carried through the warm-up and block 0.
+    k3_ev_err = 0.0
+    for b in (1, 2):
+        args, kw = ev_log.calls["K3"][b]
+        check(kw["n0"] == b * 10240 and kw["events"] and args[1] == 10240
+              and kw["min_release"] == 20000.0, f"block {b} call {kw}")
+        e_out, e_st = vb.render_voice_bank(*args, **kw)
+        pe_out, pe_st = vb.render_voice_bank_plain(*args, **kw)
+        k3_ev_err = max(k3_ev_err, float((e_out - pe_out).abs().max()))
+        check(torch.equal(e_out, pe_out) and bits_equal(e_st, pe_st),
+              f"K3 block {b} of render_events: output "
+              f"{first_diff(e_out, pe_out)}, state "
+              f"{first_diff(e_st.view(torch.int32), pe_st.view(torch.int32))}")
+    check(len(ev_log.calls["K2"]) == 6, "render_events chain calls")
+    k2_cmp.append(compare_chain(mc, ev_log.calls["K2"][2], 256,
+                                "render_events block 1 from its carried "
+                                "state"))
+    check(k2_cmp[-1]["peak_in"] > 1e-3, "block 1 of render_events is silent")
+    print("phase 9 kernels on this path's calls: K3 blocks 1 and 2 (128 "
+          "lanes x 10240 from the carried state, n0 10240 and 20480) "
+          "bit-identical to the plain version (output and state); K2 "
+          f"{k2_cmp[-1]['shape']} of block 1 from the carried state "
+          f"bit-identical (output and state), kernel {k2_cmp[-1]['ms']:.1f} "
+          f"ms, plain {k2_cmp[-1]['plain_ms']:.1f} ms [{card}]", flush=True)
+    del ev_log
+
+    # ── phase 10: the song path at full width, fast.render_events_parallel
+    # with its defaults on the reference bench's pseudo-song ──
+    song_s = 36.0
+    s_midis, s_vels, s_on, s_rel = song_schedule(song_s)
+    reset_counts(vb, mc)
+    cold_ms, song = host_ms(lambda: fast.render_events_parallel(
+        s_midis, s_vels, s_on, s_rel, song_s, SR, device=dev))
+    launches["render_events_parallel"] = read_counts(vb, mc)
+    counts = launches["render_events_parallel"]
+    check(counts["voice_bank_events"] == 1 and counts["trem_preroll"] == 1
+          and counts["mono_chain"] == 1 and counts["plain"] == 0, counts)
+    t_song = int(round(song_s * SR))
+    seg_len = -(-(-(-t_song // 128)) // mc.T_TILE) * mc.T_TILE
+    n_seg = -(-t_song // seg_len)
+    warm = -(-int(round(1.0 * SR)) // mc.T_TILE) * mc.T_TILE
+    check((seg_len, n_seg, warm) == (13312, 120, 45056),
+          (seg_len, n_seg, warm))
+    check(song.shape == (t_song,) and torch.isfinite(song).all().item(),
+          "song shape or finiteness")
+    song_peak = song.abs().max().item()
+    check(song_peak < ceiling,
+          f"song peak {song_peak:.4f} above the chain ceiling {ceiling:.3f}")
+    on16 = np.round(s_on / 16.0) * 16.0
+    s_lens = fast._voice_lifetimes(s_midis, on16, s_rel, SR, t_song)
+    seg_rms = torch.sqrt((torch.nn.functional.pad(
+        song, (0, n_seg * seg_len - t_song)).reshape(n_seg, seg_len) ** 2)
+        .mean(1)).cpu().numpy()
+    for k in range(n_seg):
+        a, b = k * seg_len, min((k + 1) * seg_len, t_song)
+        # a note well inside its life somewhere in the segment
+        sounding = ((on16 < b - 2048) & (on16 + 0.5 * s_lens > a)).any()
+        check(not sounding or seg_rms[k] > 1e-5,
+              f"segment {k} is silent (rms {seg_rms[k]:.2e}) though a note "
+              "sounds in it")
+
+    # one warm call, with its stages timed inside it
+    timer = StageTimer()
+    timer.wrap(vb, "render_voice_bank", "K3")
+    timer.wrap(fast, "_scatter_voices", "scatter")
+    timer.wrap(mc, "trem_preroll", "K4")
+    timer.wrap(fast, "_segment_windows", "segment windows")
+    timer.wrap(mc, "render", "K2", keep=True)
+    try:
+        warm_ms, song2 = host_ms(lambda: fast.render_events_parallel(
+            s_midis, s_vels, s_on, s_rel, song_s, SR, device=dev))
+    finally:
+        timer.restore()
+    check(torch.equal(song, song2), "two renders of the song differ: "
+          + first_diff(song, song2))
+    stage_ms = dict(timer.ms)
+    stage_ms["host packing and glue"] = warm_ms - sum(timer.ms.values())
+    print(f"phase 10 render_events_parallel {song_s} s, 120 notes, "
+          f"{n_seg} segments x ({warm} + {seg_len}): cold call "
+          f"{cold_ms / 1e3:.2f} s, warm call {warm_ms / 1e3:.2f} s = "
+          f"{song_s / (warm_ms / 1e3):.2f} song seconds per wall second, "
+          f"peak {song_peak:.4f}, two renders bit-identical, launches "
+          f"{counts} [{card}]", flush=True)
+    print("phase 10 stages of the warm call (ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+          + f" [{card}]", flush=True)
+
+    # the song's first 0.93 s (four 0.25 s blocks of the serial path)
+    # against the serial path on the same song with the same warm-up, at
+    # the reference's gate (−35 dB RMS)
+    t_head = 40960
+    head_ms, ser_head = host_ms(lambda: fast.render_events(
+        s_midis, s_vels, s_on, s_rel, t_head / SR, SR, warm_seconds=1.0,
+        block_seconds=0.25, device=dev))
+    err = (song[:t_head] - ser_head).double()
+    par_db = 10 * torch.log10((err ** 2).mean().clamp(min=1e-60)
+                              / (ser_head.double() ** 2).mean()).item()
+    check(par_db < -35.0, f"parallel vs serial {par_db:.1f} dB")
+    print(f"phase 10 parallel vs serial over the first {t_head} samples: "
+          f"{par_db:.1f} dB RMS (gate -35), serial render {head_ms / 1e3:.2f}"
+          f" s [{card}]", flush=True)
+
+    # ── phase 11: K3 and K4 against their plain versions at the song
+    # path's shapes, on its own inputs. K3: the song's 128 lanes over a
+    # prefix that crosses min_release, then a later window from the
+    # kernel's own carried state. K4: the song's stride; the plain version
+    # over the first interval, and captures 1-3 against the tremolo rows
+    # of K2's own carried state after k·stride samples of silence. ──
+    rel_local = s_rel - on16
+    sp, _ = vb.make_kernel_params(s_midis, s_vels, SR, onsets=np.zeros(120),
+                                  releases=rel_local, device=dev)
+    s_steady = vb.steady_limits(sp)
+    min_rel = vb._min_release(sp)
+    t_voice = -(-int(s_lens.max()) // mc.T_TILE) * mc.T_TILE
+    t_pre = 16384
+    check(min_rel + 2048 < t_pre, f"min_release {min_rel} not inside {t_pre}")
+    k3_main_ms = cuda_ms(lambda: vb.render_voice_bank(sp, t_voice,
+                                                      steady=s_steady))
+    k3_pre = vb.render_voice_bank(sp, t_pre, steady=s_steady)
+    k3_plain_ms, p3_pre = host_ms(lambda: vb.render_voice_bank_plain(
+        sp, t_pre, steady=s_steady, events=True))
+    k3_pre_ms = cuda_ms(lambda: vb.render_voice_bank(sp, t_pre,
+                                                     steady=s_steady))
+    k3_err = float((k3_pre - p3_pre).abs().max())
+    check(torch.equal(k3_pre, p3_pre),
+          f"K3 128 lanes x {t_pre}: {first_diff(k3_pre, p3_pre)}")
+    _, k3_carry = vb.render_voice_bank(sp, t_pre, steady=s_steady,
+                                       return_state=True)
+    w_out, w_st = vb.render_voice_bank(sp, 2048, steady=s_steady,
+                                       state=k3_carry, n0=t_pre,
+                                       return_state=True)
+    pw_out, pw_st = vb.render_voice_bank_plain(
+        sp, 2048, steady=s_steady, state=k3_carry, n0=t_pre,
+        return_state=True, events=True)
+    check(torch.equal(w_out, pw_out) and bits_equal(w_st, pw_st),
+          f"K3 carried window at {t_pre}: {first_diff(w_out, pw_out)}")
+    k3_bound = voice_bank_bound(128, t_pre, 0, s_steady, min_rel)
+
+    k4_main_ms, (_, caps) = host_ms(
+        lambda: mc.trem_preroll(SR, ctrl1, n_seg, seg_len))
+    k4_ms = cuda_ms(lambda: mc.trem_preroll(SR, ctrl1, 2, seg_len))
+    k4_plain_ms, p_caps = host_ms(lambda: mc.trem_preroll_plain(
+        mc.pack_consts(SR), ctrl1, mc.init_state(SR, 1, device=dev), 2,
+        seg_len))
+    k4_err = float((caps[:2] - p_caps).abs().max())
+    check(bits_equal(caps[:2], p_caps),
+          f"K4 stride {seg_len}: {first_diff(caps[:2], p_caps)}")
+    st1 = mc.init_state(SR, 1, device=dev)
+    silence = torch.zeros((seg_len, 1), dtype=torch.float32, device=dev)
+    phase_row = [ca for name, _a, _b, ca, _cb in rows
+                 if name == "trem_phase"][0]
+    for k in range(1, 4):
+        _, st1 = mc.render(SR, ctrl1, st1, silence)
+        k2_rows = torch.cat([st1[a:b, 0] for _n, a, b, _ca, _cb in rows])
+        differ = (k2_rows.view(torch.int32)
+                  != caps[k].view(torch.int32)).nonzero().flatten().tolist()
+        # K2 leaves trem_phase at 4.0 after an even sample count, the
+        # pre-roll at 0.0; the next update zeroes it before it is read
+        check(differ == [phase_row] and k2_rows[phase_row].item() == 4.0,
+              f"K4 capture {k} vs K2's state: rows {differ} differ")
+    k4_bound = preroll_bound(2, seg_len)
+
+    print(f"phase 11 song-path shapes: K3 128 lanes x {t_pre} (min_release "
+          f"{min_rel:.0f}) bit-identical, then 2048 more from its carried "
+          f"state bit-identical (output and state), kernel {k3_pre_ms:.2f} "
+          f"ms, plain {k3_plain_ms:.1f} ms, whole voice window {t_voice}: "
+          f"{k3_main_ms:.1f} ms; K4 stride {seg_len}: first interval "
+          f"bit-identical to its plain version, kernel {k4_ms:.1f} ms, "
+          f"plain {k4_plain_ms:.1f} ms, captures 1-3 equal K2's carried "
+          f"tremolo rows; all {n_seg} captures {k4_main_ms:.1f} ms = "
+          f"{k4_main_ms * 1e3 / ((n_seg - 1) * seg_len // 2):.2f} us per update "
+          f"[{card}]", flush=True)
+
+    # K2 on the song's own call: 120 streams (a full block of 64 threads
+    # and a partial one) from the state with the captures injected, over
+    # the first 512 samples of the segment windows.
+    song_call, = timer.calls["K2"]
+    check(song_call[0][3].shape == (warm + seg_len, n_seg),
+          "the song's chain call")
+    k2_cmp.append(compare_chain(mc, song_call, 512,
+                                "render_events_parallel's segment windows "
+                                "from the state with K4's captures"))
+    check(k2_cmp[-1]["peak_in"] > 1e-3, "the song's windows start silent")
+    print(f"phase 11 K2 on the song's call: {k2_cmp[-1]['shape']} "
+          f"bit-identical to the plain version (output and state), kernel "
+          f"{k2_cmp[-1]['ms']:.1f} ms, plain {k2_cmp[-1]['plain_ms']:.1f} ms "
+          f"[{card}]", flush=True)
+    def by_path(name):
+        return {path: c[name] for path, c in launches.items()}
+
+    def entry(name, source, replaces, shape, err, ms, plain_ms, bnd, **more):
+        return {"name": name, "route": "cuda",
+                "source": "openwurli_tpu_torch/csrc/" + source,
+                "replaces": "openwurli_tpu/kernels/" + replaces,
+                "launches": sum(by_path(name).values()),
+                "launches_by_path": by_path(name), "shape": shape,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                # no single PyTorch call computes any of these recurrences
+                "library_ms": None, **more}
+
     kernels = [
-        {"name": "voice_bank", "route": "cuda",
-         "source": "openwurli_tpu_torch/csrc/voice_bank.cu",
-         "replaces": "openwurli_tpu/kernels/voice_bank.py:767",
-         "launches": counts["voice_bank"][0], "max_abs_err": k1_main_err,
-         "ms": k1_main_ms, "plain_ms": k1_main_plain_ms},
-        {"name": "mono_chain", "route": "cuda",
-         "source": "openwurli_tpu_torch/csrc/mono_chain.cu",
-         "replaces": "openwurli_tpu/kernels/mono_chain.py:1710",
-         "launches": counts["mono_chain"][0], "max_abs_err": k2_main_err,
-         "ms": k2_main_ms, "plain_ms": k2_main_plain_ms},
+        entry("voice_bank", "voice_bank.cu", "voice_bank.py:767",
+              f"{streams * 64} lanes x {t_pad}", k1_main_err, k1_main_ms,
+              k1_main_plain_ms, k1_bound),
+        entry("mono_chain", "mono_chain.cu", "mono_chain.py:1710",
+              f"{streams} streams x {t_cmp}",
+              max(c["max_abs_err"] for c in k2_cmp), k2_main_ms,
+              k2_main_plain_ms, k2_bound, compared=k2_cmp,
+              main_path_ms={"render_grid 128 streams x 44032": k2_grid_ms,
+                            f"render_events_parallel {n_seg} streams x "
+                            f"{warm + seg_len}": stage_ms["K2"]}),
+        entry("voice_bank_events", "voice_bank.cu", "voice_bank.py:767",
+              f"128 lanes x {t_pre}", max(k3_err, k3_ev_err), k3_pre_ms,
+              k3_plain_ms, k3_bound,
+              main_path_ms={f"128 lanes x {t_voice}": k3_main_ms}),
+        entry("trem_preroll", "mono_chain.cu", "mono_chain.py:964",
+              f"2 captures x stride {seg_len}", k4_err, k4_ms, k4_plain_ms,
+              k4_bound,
+              main_path_ms={f"{n_seg} captures x stride {seg_len}":
+                            k4_main_ms}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,6 @@ import os
 
 __version__ = "0.1.0"
 
-# The reference package's data files (MLP weights, settled tremolo states),
-# read by path so that the port never imports the JAX package.
-DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "openwurli_tpu", "data")
+# The package's own data files (MLP weights, settled tremolo states): byte
+# for byte copies of the reference package's, so the port stands alone.
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")

@@ -26,12 +26,16 @@ LIB_NAME = "libowkernels.so"
 SOURCES = ("voice_bank.cu", "mono_chain.cu")
 # -fmad=false: no FMA contraction anywhere, so the kernels round like their
 # plain torch twins (and the compensated sums in mono_chain.cu stay exact).
+# --threads 0: the sources compile side by side, one thread per core.
+# -Xptxas -v: registers, stack and spills of each kernel go to the log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "--threads", "0", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
 BUILD_SECONDS = None  # wall time of the last nvcc run in this process
+BUILD_LOG = None      # its output: ptxas' registers, stack and spills
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,9 +44,14 @@ _SIGNATURES = {
     # params, state_in, out, state_out, lanes, total, t_tile, n0,
     # steady0, steady1, stream
     "ow_voice_bank": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # the same, with min_release before the stream
+    "ow_voice_bank_events": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     # consts, n_consts, scalars, n_scalars, controls, state_in, audio, out,
     # state_out, streams, t_len, stream
     "ow_mono_chain": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    # consts, n_consts, scalars, n_scalars, controls, state_in, caps,
+    # n_captures, steps_per_capture, stream
+    "ow_trem_preroll": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -67,7 +76,7 @@ def source_hash() -> str:
 def build() -> str:
     """Compile the sources if the library for their hash is missing;
     returns the library path."""
-    global BUILD_SECONDS
+    global BUILD_SECONDS, BUILD_LOG
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"{source_hash()}-{LIB_NAME}")
     if os.path.exists(lib_path):
@@ -78,9 +87,10 @@ def build() -> str:
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                           f"{' '.join(cmd)}\n{BUILD_LOG}")
     os.replace(tmp, lib_path)
     link = os.path.join(BUILD_DIR, LIB_NAME)
     if os.path.lexists(link):

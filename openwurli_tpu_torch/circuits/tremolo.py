@@ -75,7 +75,7 @@ def make_params(sample_rate) -> TremoloParams:
 
 def settled_osc_state(sample_rate) -> mna.SolverState:
     """The oscillator's steady-amplitude limit-cycle state, read from the
-    reference's `data/tremolo_settled.npz` (44.1/48/88.2/96 kHz)."""
+    package's `data/tremolo_settled.npz` (44.1/48/88.2/96 kHz)."""
     key = f"sr{int(round(sample_rate))}"
     with np.load(SETTLED_PATH) as z:
         if f"{key}_v" not in z:

@@ -61,3 +61,26 @@ def state_from_numpy(state, device="cpu"):
 
 def mlp_weights_from_npz(path=mlp.WEIGHTS_PATH) -> mlp.MlpWeights:
     return mlp.load_weights(path)
+
+
+def preroll_captures_from_numpy(caps, device="cpu"):
+    """The reference's tremolo pre-roll captures (n_captures, 19) → float32
+    tensor."""
+    caps = np.asarray(caps)
+    if caps.ndim != 2 or caps.shape[1] != mc.PREROLL_ROWS:
+        raise ValueError(f"captures shape {caps.shape} is not "
+                         f"(n, {mc.PREROLL_ROWS})")
+    return torch.from_numpy(np.array(caps, dtype=np.float32, order="C",
+                                     copy=True)).to(device)
+
+
+def check_preroll_rows(rows):
+    """Raise unless the reference's `preroll_rows()` table equals the
+    port's: the captures are injected into the chain state by these spans.
+    Returns the port's table."""
+    mine = mc.preroll_rows()
+    theirs = [(str(n), int(a), int(b), int(ca), int(cb))
+              for n, a, b, ca, cb in rows]
+    if theirs != mine:
+        raise ValueError(f"preroll rows differ: {theirs} != {mine}")
+    return mine

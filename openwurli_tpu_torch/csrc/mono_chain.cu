@@ -26,6 +26,16 @@
 // is accumulated in double and rounded once (the accuracy the reference
 // gets from FMA contraction there). Guards keep select semantics: NaNs
 // propagate through min/max/clamp as they do in torch.
+//
+// Tremolo pre-roll (kernel K4), `trem_preroll_kernel` at the end of this
+// file. Replaces: openwurli_tpu/kernels/mono_chain.py, `_make_preroll_kernel`
+// as launched by `_trem_preroll_jit` / `trem_preroll`. It advances only the
+// tremolo-owned rows and writes them out once per capture interval. It is
+// one serial recurrence (each update needs the one before), so one thread
+// walks it and its time is that thread's arithmetic latency per update
+// times the number of updates; the bytes (19 floats per capture) are
+// nothing beside it. The thread calls `Chain::trem_update`, the device
+// function K2 calls, so the captures are K2's own tremolo states.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -746,7 +756,63 @@ mono_chain_kernel(const float* __restrict__ consts,
   for (int r = 0; r < STATE_ROWS; ++r) state_out[r * streams + s] = ch.st[r];
 }
 
+// K4: thread 0 walks n_captures intervals of steps_per_capture tremolo
+// updates; caps[k] is the state entering interval k (before its first
+// update), in the order trem_z, trem_di, trem_vnl, trem_env, gldr_cur,
+// gldr_upd_prev, trem_phase.
+constexpr int PREROLL_ROWS = 19;
+__constant__ int kPrerollSpans[7][2] = {
+    {ST_TREM_Z, 7},      {ST_TREM_DI, 4},       {ST_TREM_VNL, 4},
+    {ST_TREM_ENV, 1},    {ST_GLDR_CUR, 1},      {ST_GLDR_UPD_PREV, 1},
+    {ST_TREM_PHASE, 1}};
+
+__global__ void __launch_bounds__(64)
+trem_preroll_kernel(const float* __restrict__ consts,
+                    const float* __restrict__ scalars,
+                    const float* __restrict__ controls,
+                    const float* __restrict__ state_in,
+                    float* __restrict__ caps, int n_captures,
+                    int steps_per_capture) {
+  __shared__ float s_consts[A_TOTAL];
+  __shared__ float s_scalars[N_SCALARS];
+  for (int i = threadIdx.x; i < A_TOTAL; i += blockDim.x)
+    s_consts[i] = consts[i];
+  for (int i = threadIdx.x; i < N_SCALARS; i += blockDim.x)
+    s_scalars[i] = scalars[i];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+
+  Chain ch;
+  ch.A = s_consts;
+  ch.K = s_scalars;
+  for (int r = 0; r < CTRL_ROWS; ++r) ch.ctrl[r] = controls[r];
+  for (int r = 0; r < STATE_ROWS; ++r) ch.st[r] = state_in[r];
+  for (int k = 0; k < n_captures; ++k) {
+    int col = 0;
+    for (int sp = 0; sp < 7; ++sp)
+      for (int r = 0; r < kPrerollSpans[sp][1]; ++r)
+        caps[k * PREROLL_ROWS + col++] = ch.st[kPrerollSpans[sp][0] + r];
+    // the updates after the last capture would reach no output
+    if (k + 1 < n_captures)
+      for (int i = 0; i < steps_per_capture; ++i) ch.trem_update();
+  }
+}
+
 }  // namespace
+
+extern "C" int ow_trem_preroll(const float* consts, int n_consts,
+                               const float* scalars, int n_scalars,
+                               const float* controls, const float* state_in,
+                               float* caps, int n_captures,
+                               int steps_per_capture, cudaStream_t stream) {
+  if (n_consts != A_TOTAL || n_scalars != N_SCALARS || n_captures <= 0 ||
+      steps_per_capture <= 0)
+    return (int)cudaErrorInvalidValue;
+  trem_preroll_kernel<<<1, 64, 0, stream>>>(consts, scalars, controls,
+                                            state_in, caps, n_captures,
+                                            steps_per_capture);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int ow_mono_chain(const float* consts, int n_consts,
                              const float* scalars, int n_scalars,

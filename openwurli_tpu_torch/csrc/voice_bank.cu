@@ -1,9 +1,12 @@
-// Voice bank (kernel K1) for Hopper: 7 modal reed modes + attack noise +
-// electrostatic pickup, one thread per voice lane.
+// Voice bank (kernels K1 and K3) for Hopper: 7 modal reed modes + attack
+// noise + electrostatic pickup, one thread per voice lane.
 //
 // Replaces: openwurli_tpu/kernels/voice_bank.py, `_kernel_body` as built by
-// `_make_kernel` and launched by `_render_voice_bank_jit` (plain variant,
-// events=False, steady gating on).
+// `_make_kernel` and launched by `_render_voice_bank_jit`: the plain variant
+// (K1, events=False) and the events variant (K3, events=True), both with
+// steady gating. One template, `voice_bank_kernel<EVENTS>`: every events
+// addition sits under `if constexpr (EVENTS)`, so K1's instantiation holds
+// none of it.
 //
 // What bounds it on this card: the per-lane recurrence is serial in time,
 // so a lane's work cannot be split; the card fills only with thousands of
@@ -23,6 +26,20 @@
 // The quadrature renorm fires at the end of each t_tile-sample tile whose
 // span holds a multiple of 1024 — the reference's rule, with t_tile
 // computed from the lane count by the wrapper.
+//
+// K3 adds per-lane onset and release samples. A lane is active from its
+// onset (a multiple of 16, so constant over a group); before it every
+// update is a select that keeps the old value, so the lane stays at its
+// note-on state bit for bit and its LCG streams do not advance. Groups that
+// end at or before `min_release` (the earliest release of the whole call, a
+// uniform branch like `steady`) take K1's fast stage with P/Q masked;
+// later groups take the legacy stage: the 3-phase damper and the natural
+// decay per sub-step, the quadrature state of sub-step j straight from the
+// group's start through raw R^j (kept beside the folded coefficients).
+// Never-released lanes overflow the damper's expf to inf; the selects
+// discard it, as the reference's do. What bounds K3: the same per-thread
+// latency as K1, plus 7 expf per mode and sub-step in legacy groups and 98
+// more floats of rotation powers per thread (local memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,7 +53,10 @@ constexpr int JITTER_SUBSAMPLE = 16;
 constexpr int RENORM_INTERVAL = 1024;
 constexpr int STATE_ROWS = 48;
 constexpr int ROW_COSM1 = 0, ROW_SIN = 1, ROW_PHASE = 2, ROW_AMP = 3,
-              ROW_DECAYM1 = 4, ROW_SCAL = 5, ROW_NOISE = 8, ROW_DM8M1 = 12;
+              ROW_DECAYM1 = 4, ROW_SCAL = 5, ROW_NOISE = 8, ROW_EVT = 9,
+              ROW_DRATE = 10, ROW_DM1 = 11, ROW_DM8M1 = 12;
+constexpr int EVT_ONSET_F = 0, EVT_RELEASE_F = 1, EVT_RAMP = 2;
+constexpr float NEVER = 1.0e12f;  // release sentinel
 constexpr int S0 = 0, C0 = 8, E0 = 16, D0 = 24, N0 = 32, I0 = 40;
 
 __constant__ uint32_t kLcgAPow[NM] = {
@@ -46,12 +66,13 @@ __constant__ uint32_t kLcgCAcc[NM] = {
     1013904223u, 1196435762u, 3519870697u, 2868466484u, 1649599747u,
     2670642822u, 1476291629u};
 
+template <bool EVENTS>
 __global__ void __launch_bounds__(128)
 voice_bank_kernel(const float* __restrict__ params,
                   const float* __restrict__ state_in,
                   float* __restrict__ out, float* __restrict__ state_out,
                   int lanes, int total, int t_tile, int n0, float steady0,
-                  float steady1) {
+                  float steady1, float min_release) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= lanes) return;
   auto P = [&](int row, int m) { return params[(row * SUB + m) * lanes + v]; };
@@ -75,6 +96,21 @@ voice_bank_kernel(const float* __restrict__ params,
   const float noise_decay = P(ROW_NOISE, 1), noise_dur = P(ROW_NOISE, 2),
               nb0 = P(ROW_NOISE, 3), nb2 = P(ROW_NOISE, 4),
               na1 = P(ROW_NOISE, 5), na2 = P(ROW_NOISE, 6);
+  // Events schedule and damper constants (K3 only).
+  float onset_f = 0.0f, release_f = NEVER, ramp_f = 1.0f;
+  float drate[NM], dm1[NM];
+  if constexpr (EVENTS) {
+    onset_f = P(ROW_EVT, EVT_ONSET_F);
+    release_f = P(ROW_EVT, EVT_RELEASE_F);
+    ramp_f = P(ROW_EVT, EVT_RAMP);
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      drate[m] = P(ROW_DRATE, m);
+      dm1[m] = P(ROW_DM1, m);
+    }
+  }
+  // A schedule that never releases never takes the legacy stage.
+  const bool legacy_possible = EVENTS && min_release < 0.5f * NEVER;
 
   // State rows; row 7 of each block is padding (no mode) and is carried
   // through exactly as the reference's arithmetic leaves it.
@@ -92,7 +128,9 @@ voice_bank_kernel(const float* __restrict__ params,
 
   // Composed rotation powers: slots 0..6 hold the folded output
   // coefficients for sub-steps 1..7, slot 7 the raw R^8 (state advance).
+  // K3 also keeps raw R^1..R^7 (rawa/rawb) for the legacy stage.
   float rota[UNROLL][NM], rotb[UNROLL][NM];
+  float rawa[EVENTS ? UNROLL - 1 : 1][NM], rawb[EVENTS ? UNROLL - 1 : 1][NM];
   auto refresh = [&]() {
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
@@ -103,6 +141,10 @@ voice_bank_kernel(const float* __restrict__ params,
       float dj = amp[m] * dm;
       rota[0][m] = dj + dj * a1;
       rotb[0][m] = dj * b1;
+      if constexpr (EVENTS) {
+        rawa[0][m] = a1;
+        rawb[0][m] = b1;
+      }
       float aj = a1, bj = b1;
 #pragma unroll
       for (int j = 2; j <= UNROLL; ++j) {
@@ -114,6 +156,10 @@ voice_bank_kernel(const float* __restrict__ params,
           dj = dj * dm;
           rota[j - 1][m] = dj + dj * aj;
           rotb[j - 1][m] = dj * bj;
+          if constexpr (EVENTS) {
+            rawa[j - 1][m] = aj;
+            rawb[j - 1][m] = bj;
+          }
         } else {
           rota[UNROLL - 1][m] = aj;
           rotb[UNROLL - 1][m] = bj;
@@ -144,8 +190,11 @@ voice_bank_kernel(const float* __restrict__ params,
   for (int tile = 0; tile < n_tiles; ++tile) {
     for (int gi = 0; gi < t_tile / UNROLL; ++gi) {
       const int n_g = n0 + tile * t_tile + gi * UNROLL;
+      // Onsets are multiples of 16: constant over the 8-sample group.
+      const bool active0 = !EVENTS || (n_f0 - onset_f) >= 0.0f;
       if ((n_g & (JITTER_SUBSAMPLE - 1)) == 0) {
-        // NM draws from one composed-LCG step per mode.
+        // NM draws from one composed-LCG step per mode. A pre-onset
+        // lane's stream has not started: it keeps drift and LCG state.
         const uint32_t st = irng[0];
         uint32_t sk = st;
 #pragma unroll
@@ -153,16 +202,19 @@ voice_bank_kernel(const float* __restrict__ params,
           sk = kLcgAPow[m] * st + kLcgCAcc[m];
           const float u = (float)(int32_t)(sk >> 1) * u_scale;
           const float noise = (u * 2.0f - 1.0f) * sqrt3;
-          drift[m] = revert * drift[m] + diffusion * noise;
+          const float nd = revert * drift[m] + diffusion * noise;
+          drift[m] = active0 ? nd : drift[m];
         }
-        irng[0] = sk;
+        irng[0] = active0 ? sk : st;
         refresh();
       }
 
       if (n_f0 < steady0) {  // onset ramp rows for the group
 #pragma unroll
         for (int j = 0; j < UNROLL; ++j) {
-          const float n_loc = n_f0 + (float)j;
+          // onset-local time (onset_f is 0 without events: n − 0 = n)
+          const float n_loc = EVENTS ? (n_f0 + (float)j) - onset_f
+                                     : n_f0 + (float)j;
           const float cosine = 0.5f * (1.0f - cosf(n_loc * onset_inc));
           float shaped;
           if (onset_exp <= 1.001f) shaped = cosine;
@@ -174,10 +226,13 @@ voice_bank_kernel(const float* __restrict__ params,
       if (n_f0 < steady1) {  // attack noise: LCG → bandpass → envelope
 #pragma unroll
         for (int j = 0; j < UNROLL; ++j) {
-          const float n_loc = n_f0 + (float)j;
-          irng[1] = irng[1] * 1664525u + 1013904223u;
-          const float white = (float)(int32_t)irng[1] * w_scale;
-          const bool nact = n_loc < noise_dur;
+          const float n_loc = EVENTS ? (n_f0 + (float)j) - onset_f
+                                     : n_f0 + (float)j;
+          const bool active = !EVENTS || n_loc >= 0.0f;
+          const uint32_t nrng = irng[1] * 1664525u + 1013904223u;
+          irng[1] = active ? nrng : irng[1];
+          const float white = (float)(int32_t)nrng * w_scale;
+          const bool nact = n_loc < noise_dur && active;
           const float namp = nst[0], z1 = nst[1], z2 = nst[2];
           const float filtered = nb0 * white + z1;
           const float z1_new = -na1 * filtered + z2;
@@ -192,35 +247,70 @@ voice_bank_kernel(const float* __restrict__ params,
         }
       }
 
-      // Spiral-folded mode sums; env advances once per group.
       float stage[UNROLL];
-      float p_row[NM], q_row[NM];
+      if (legacy_possible && n_f0 + (float)UNROLL > min_release) {
+        // Legacy stage (K3 past min_release): damper and natural decay
+        // per sub-step; s_j from the group's start through raw R^j.
+        if constexpr (EVENTS) {
+          const float ramp_div = fmaxf(ramp_f, 1.0f);
 #pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        p_row[m] = env[m] * s[m];
-        q_row[m] = env[m] * c[m];
-      }
-      {
-        float acc = 0.0f;
+          for (int j = 0; j < UNROLL; ++j) {
+            const float t_rel = ((n_f0 + (float)j) - release_f) + 1.0f;
+            const bool in_ramp = t_rel >= 1.0f && t_rel <= ramp_f;
+            const bool post = t_rel > ramp_f;
+            const float ratio = t_rel / ramp_div;
+            float acc = 0.0f;
 #pragma unroll
-        for (int m = 0; m < NM; ++m) acc += amp[m] * p_row[m];
-        stage[0] = acc;
-      }
+            for (int m = 0; m < NM; ++m) {
+              const float inst = drate[m] * ratio;
+              float e = env[m];
+              e = in_ramp ? e * expf(-inst) : e;
+              e = post ? e - e * dm1[m] : e;
+              float sj = s[m];
+              if (j > 0) {
+                const float rot = s[m] * rawa[j - 1][m] + c[m] * rawb[j - 1][m];
+                sj = s[m] + (active0 ? rot : 0.0f);
+              }
+              acc += (amp[m] * sj) * e;
+              env[m] = active0 ? e - e * decaym1[m] : e;
+            }
+            stage[j] = acc;
+          }
+        }
+      } else {
+        // Fast stage: spiral-folded mode sums; env advances once per
+        // group. A pre-onset lane's c = 1 must not leak into the output.
+        float p_row[NM], q_row[NM];
 #pragma unroll
-      for (int j = 1; j < UNROLL; ++j) {
-        float acc = 0.0f;
+        for (int m = 0; m < NM; ++m) {
+          p_row[m] = active0 ? env[m] * s[m] : 0.0f;
+          q_row[m] = active0 ? env[m] * c[m] : 0.0f;
+        }
+        {
+          float acc = 0.0f;
+#pragma unroll
+          for (int m = 0; m < NM; ++m) acc += amp[m] * p_row[m];
+          stage[0] = acc;
+        }
+#pragma unroll
+        for (int j = 1; j < UNROLL; ++j) {
+          float acc = 0.0f;
+#pragma unroll
+          for (int m = 0; m < NM; ++m)
+            acc += p_row[m] * rota[j - 1][m] + q_row[m] * rotb[j - 1][m];
+          stage[j] = acc;
+        }
 #pragma unroll
         for (int m = 0; m < NM; ++m)
-          acc += p_row[m] * rota[j - 1][m] + q_row[m] * rotb[j - 1][m];
-        stage[j] = acc;
+          env[m] = active0 ? env[m] - env[m] * dm8m1[m] : env[m];
       }
+      // Group-end state advance by raw R^8.
 #pragma unroll
       for (int m = 0; m < NM; ++m) {
-        env[m] = env[m] - env[m] * dm8m1[m];
         const float d_s = s[m] * rota[UNROLL - 1][m] + c[m] * rotb[UNROLL - 1][m];
         const float d_c = c[m] * rota[UNROLL - 1][m] - s[m] * rotb[UNROLL - 1][m];
-        s[m] = s[m] + d_s;
-        c[m] = c[m] + d_c;
+        s[m] = active0 ? s[m] + d_s : s[m];
+        c[m] = active0 ? c[m] + d_c : c[m];
       }
 
       // Pickup: soft saturation, bilinear charge update, post gain.
@@ -246,11 +336,13 @@ voice_bank_kernel(const float* __restrict__ params,
 
     const int n_end = n0 + (tile + 1) * t_tile;
     if ((n_end & (RENORM_INTERVAL - 1)) < t_tile) {
+      // K3: active as of the tile's last sample.
+      const bool act = !EVENTS || (n_f0 - 1.0f) >= onset_f;
 #pragma unroll
       for (int m = 0; m < SUB; ++m) {
         const float r_inv = rsqrtf(fmaxf(s[m] * s[m] + c[m] * c[m], 1e-30f));
-        s[m] = s[m] * r_inv;
-        c[m] = c[m] * r_inv;
+        s[m] = act ? s[m] * r_inv : s[m];
+        c[m] = act ? c[m] * r_inv : c[m];
       }
     }
   }
@@ -266,18 +358,42 @@ voice_bank_kernel(const float* __restrict__ params,
   }
 }
 
+template <bool EVENTS>
+int launch_voice_bank(const float* params, const float* state_in, float* out,
+                      float* state_out, int lanes, int total, int t_tile,
+                      int n0, float steady0, float steady1, float min_release,
+                      cudaStream_t stream) {
+  if (lanes <= 0 || t_tile <= 0 || t_tile % 16 || total % t_tile || n0 % 16)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const int blocks = (lanes + threads - 1) / threads;
+  voice_bank_kernel<EVENTS><<<blocks, threads, 0, stream>>>(
+      params, state_in, out, state_out, lanes, total, t_tile, n0, steady0,
+      steady1, min_release);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// K1: the plain variant.
 extern "C" int ow_voice_bank(const float* params, const float* state_in,
                              float* out, float* state_out, int lanes,
                              int total, int t_tile, int n0, float steady0,
                              float steady1, cudaStream_t stream) {
-  if (lanes <= 0 || t_tile <= 0 || t_tile % 16 || total % t_tile)
-    return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (lanes + threads - 1) / threads;
-  voice_bank_kernel<<<blocks, threads, 0, stream>>>(
-      params, state_in, out, state_out, lanes, total, t_tile, n0, steady0,
-      steady1);
-  return (int)cudaGetLastError();
+  return launch_voice_bank<false>(params, state_in, out, state_out, lanes,
+                                  total, t_tile, n0, steady0, steady1, NEVER,
+                                  stream);
+}
+
+// K3: the events variant; min_release is the earliest release sample of
+// the whole schedule (>= 0.5e12: no lane is ever released).
+extern "C" int ow_voice_bank_events(const float* params,
+                                    const float* state_in, float* out,
+                                    float* state_out, int lanes, int total,
+                                    int t_tile, int n0, float steady0,
+                                    float steady1, float min_release,
+                                    cudaStream_t stream) {
+  return launch_voice_bank<true>(params, state_in, out, state_out, lanes,
+                                 total, t_tile, n0, steady0, steady1,
+                                 min_release, stream);
 }

@@ -1,5 +1,6 @@
 """Mono analog chain (kernel K2): tremolo → twin DK preamp → Class-AB power
-amp → 2× oversampling → speaker, per stream, in float32 deviation form.
+amp → 2× oversampling → speaker, per stream, in float32 deviation form; and
+the tremolo pre-roll (kernel K4), which advances the tremolo alone.
 
 Port of `openwurli_tpu/kernels/mono_chain.py`, noise-off variant. Pieces:
 
@@ -12,7 +13,12 @@ Port of `openwurli_tpu/kernels/mono_chain.py`, noise-off variant. Pieces:
     the reference's, and `render_chain_plain`, a Python loop over base
     samples — the CPU path and the oracle the CUDA kernel is held to;
   * `render`, the wrapper: a CPU tensor goes to the plain version, a CUDA
-    tensor to `csrc/mono_chain.cu`. No fallback.
+    tensor to `csrc/mono_chain.cu`. No fallback;
+  * `trem_preroll` (K4) with `trem_preroll_plain` beside it: the tremolo
+    never reads the audio, so its state on a stride grid can be computed
+    ahead of the chain. The time-parallel song renderer injects those
+    captures into its segments' initial states. The CUDA kernel runs the
+    same device function as K2's tremolo update.
 
 Only the reduced 10-port power-amp solve (`PA_ACTIVE` / `PA_RELEG`) is
 ported: the reference's dense 16-port branch never runs in production.
@@ -47,10 +53,13 @@ T_TILE = 1024
 
 f32 = np.float32
 
-# Launch counters: KERNEL_LAUNCHES counts CUDA launches, PLAIN_CALLS counts
-# calls served by the plain version.
+# Launch counters of `render` (K2): KERNEL_LAUNCHES counts CUDA launches,
+# PLAIN_CALLS counts calls served by the plain version. The PREROLL_ pair
+# counts `trem_preroll` (K4) the same way.
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
+PREROLL_KERNEL_LAUNCHES = 0
+PREROLL_PLAIN_CALLS = 0
 
 
 class ChainConsts(NamedTuple):
@@ -1131,3 +1140,101 @@ def render(base_sr, controls, state, audio, noise=False):
         raise RuntimeError(f"mono_chain kernel failed: {_build.error(err)}")
     KERNEL_LAUNCHES += 1
     return out, st_out
+
+
+# ───────────────────────── tremolo pre-roll (K4) ─────────────────────────
+
+TREM_STATE = ("trem_z", "trem_di", "trem_vnl", "trem_env",
+              "gldr_cur", "gldr_upd_prev", "trem_phase")
+PREROLL_ROWS = sum(_OFFSETS[n][1] - _OFFSETS[n][0] for n in TREM_STATE)
+
+
+def preroll_rows():
+    """[(name, chain_a, chain_b, cap_a, cap_b)]: the row span of each
+    tremolo-owned component in the packed chain state and in the capture
+    rows returned by trem_preroll."""
+    rows = []
+    off = 0
+    for name in TREM_STATE:
+        a, b = _OFFSETS[name]
+        rows.append((name, a, b, off, off + (b - a)))
+        off += b - a
+    return rows
+
+
+def trem_preroll_plain(consts: ChainConsts, controls, state, n_captures,
+                       capture_stride):
+    """Plain-torch K4 on the inputs' device: controls (CTRL_ROWS, 1) and
+    state (STATE_ROWS, 1) → caps (n_captures, PREROLL_ROWS). A Python loop
+    of `trem_update`, capturing before each interval's first update (the
+    last interval's updates reach no capture and are not run)."""
+    c = chain_tensors(consts, controls)
+    sc = scalar_tensors(consts)
+    full = unpack_state(state)
+    st = {n: full[n].clone() for n in TREM_STATE}
+    caps = torch.empty((n_captures, PREROLL_ROWS), dtype=torch.float32,
+                       device=state.device)
+    with torch.inference_mode():
+        for k in range(n_captures):
+            caps[k] = torch.cat([st[n][:, 0] for n in TREM_STATE])
+            if k + 1 < n_captures:
+                for _ in range(capture_stride // SUB_BASE):
+                    st = trem_update(c, sc, st)
+    return caps
+
+
+def trem_preroll(base_sr, controls, n_captures, capture_stride,
+                 state_flat=None):
+    """Advance only the tremolo (it never reads the audio) and capture its
+    state on a stride grid → (rows, caps).
+
+    rows = preroll_rows(); caps (n_captures, PREROLL_ROWS) float32 on the
+    controls' device, caps[k] the tremolo-owned state entering base sample
+    k·capture_stride, before that sample's update: what a serial render
+    holds there. controls (CTRL_ROWS, S) and state_flat (STATE_ROWS, S),
+    default init_state: stream 0 is used. capture_stride is a multiple of
+    SUB_BASE. A CPU tensor runs the plain version, a CUDA tensor the CUDA
+    kernel."""
+    global PREROLL_KERNEL_LAUNCHES, PREROLL_PLAIN_CALLS
+    n_captures, capture_stride = int(n_captures), int(capture_stride)
+    if n_captures < 1 or capture_stride < SUB_BASE \
+            or capture_stride % SUB_BASE:
+        raise ValueError(f"n_captures={n_captures} must be positive and "
+                         f"capture_stride={capture_stride} a positive "
+                         f"multiple of {SUB_BASE}")
+    if controls.dtype != torch.float32 or controls.shape[0] != CTRL_ROWS:
+        raise TypeError("controls must be float32 (CTRL_ROWS, S)")
+    dev = controls.device
+    if state_flat is None:
+        state_flat = init_state(base_sr, 1, device=dev)
+    if state_flat.dtype != torch.float32 \
+            or state_flat.shape[0] != STATE_ROWS:
+        raise TypeError("state_flat must be float32 (STATE_ROWS, S)")
+    if state_flat.device != dev:
+        raise ValueError("controls and state_flat must be on one device")
+    ctrl1 = controls[:, :1].contiguous()
+    state1 = state_flat[:, :1].contiguous()
+    consts = pack_consts(float(base_sr))
+
+    if dev.type == "cpu":
+        PREROLL_PLAIN_CALLS += 1
+        return preroll_rows(), trem_preroll_plain(
+            consts, ctrl1, state1, n_captures, capture_stride)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+    from openwurli_tpu_torch import _build
+
+    lib = _build.library()
+    flat, scal = _kernel_inputs(float(base_sr), str(dev))
+    caps = torch.empty((n_captures, PREROLL_ROWS), dtype=torch.float32,
+                       device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ow_trem_preroll(
+        flat.data_ptr(), flat.numel(), scal.data_ptr(), scal.numel(),
+        ctrl1.data_ptr(), state1.data_ptr(), caps.data_ptr(), n_captures,
+        capture_stride // SUB_BASE, stream)
+    if err:
+        raise RuntimeError(f"trem_preroll kernel failed: {_build.error(err)}")
+    PREROLL_KERNEL_LAUNCHES += 1
+    return preroll_rows(), caps

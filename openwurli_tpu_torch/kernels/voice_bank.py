@@ -1,8 +1,9 @@
-"""Voice bank (kernel K1): 7 modal reed modes + attack noise + pickup, per
-voice lane, in float32 deviation form.
+"""Voice bank (kernels K1 and K3): 7 modal reed modes + attack noise +
+pickup, per voice lane, in float32 deviation form.
 
-Port of `openwurli_tpu/kernels/voice_bank.py`, plain (non-events) variant.
-Three pieces live here:
+Port of `openwurli_tpu/kernels/voice_bank.py`: the plain variant (K1) and
+the events variant (K3: per-voice onset and release schedules, pre-onset
+lanes frozen bit for bit, the 3-phase damper). Three pieces live here:
 
   * the host packers (`make_kernel_params`, `damper_rows`, `steady_limits`,
     `init_bank_state`), float64 NumPy producing the reference's packed
@@ -12,6 +13,16 @@ Three pieces live here:
     path and the oracle the CUDA kernel is held to;
   * `render_voice_bank`, the wrapper: a CPU tensor goes to the plain
     version, a CUDA tensor to `csrc/voice_bank.cu`. No fallback.
+
+Events variant: a lane is active from its onset sample (a multiple of 16,
+so constant over an 8-sample group). Before it nothing of the lane moves:
+not its LCG streams, drift, noise filter, quadrature state or envelope.
+Groups that end at or before `min_release`, the earliest release of the
+WHOLE call, take the fast stage (K1's folded coefficients, P/Q masked by
+the active flag); later groups take the legacy stage, which applies the
+damper and the natural decay per sub-step and reads raw rotation powers
+R¹..R⁷. The two stages round differently, so `min_release` is always the
+global value over all lanes, never a per-lane or per-chunk one.
 
 The arithmetic follows the reference kernel op for op: composed rotation
 powers R¹..R⁸ with amplitude·decayʲ folded into the output coefficients,
@@ -72,9 +83,12 @@ for _k in range(8):
     LCG_C_ACC.append((LCG_C_ACC[-1] * LCG_A + LCG_C) & 0xFFFFFFFF)
 
 # Launch counters: KERNEL_LAUNCHES counts CUDA launches (one per call on
-# the card), PLAIN_CALLS counts calls served by the plain version.
+# the card), PLAIN_CALLS counts calls served by the plain version. The
+# per-variant counts say which kernel a launch was ("voice_bank" is K1,
+# "voice_bank_events" K3).
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
+LAUNCHES_BY_KERNEL = {"voice_bank": 0, "voice_bank_events": 0}
 
 
 # ───────────────────────────── host packers ─────────────────────────────
@@ -223,12 +237,33 @@ def init_bank_state(params):
 def steady_limits(params):
     """(onset_done, noise_done) global sample counts after which every
     voice's onset ramp / attack noise has finished (+64-sample margin)."""
-    p = params.detach().to("cpu").numpy() if torch.is_tensor(params) \
-        else np.asarray(params)
+    p = _host(params)
     onset0 = p[ROW_EVT][EVT_ONSET_F] if p.shape[0] > ROW_EVT else 0.0
     onset = int(np.ceil((onset0 + p[ROW_SCAL][0]).max())) + 64
     noise = int(np.ceil((onset0 + p[ROW_NOISE][2]).max())) + 64
     return onset, noise
+
+
+def _host(x):
+    """A tensor (any device) or array as a NumPy array."""
+    return x.detach().to("cpu").numpy() if torch.is_tensor(x) \
+        else np.asarray(x)
+
+
+def _has_events(params) -> bool:
+    """Whether the packed schedule holds any onset > 0 or any release.
+    Compared in float32: NEVER is stored as 999999995904."""
+    if params.shape[0] <= ROW_EVT:
+        return False
+    evt = _host(params[ROW_EVT, :2])  # the two schedule rows only
+    return bool((evt[EVT_ONSET_F] > 0).any()
+                or (evt[EVT_RELEASE_F] < np.float32(NEVER)).any())
+
+
+def _min_release(params) -> float:
+    """The earliest release sample over all lanes (NEVER without lanes)."""
+    rel = _host(params[ROW_EVT, EVT_RELEASE_F])
+    return float(rel.min()) if rel.size else NEVER
 
 
 def render_tile(lanes: int, num_samples: int, exact_state: bool) -> int:
@@ -277,14 +312,17 @@ def _lcg(x):
 
 def render_voice_bank_plain(params, num_samples: int, steady=None,
                             state=None, n0: int = 0,
-                            return_state: bool = False):
-    """Plain-torch K1 on the params' device: the same call and result as
-    `render_voice_bank`, tile (and so renorm timing) included.
+                            return_state: bool = False,
+                            events: bool = False, min_release=None):
+    """Plain-torch K1 (events=False) or K3 (events=True) on the params'
+    device: the same call and result as `render_voice_bank`, tile (and so
+    renorm timing) included.
 
     Loops over 8-sample groups in Python and vectorises over lanes, with
     the reference kernel's arithmetic (see the module docstring). The
     render covers whole tiles; the state returned is the state after
-    them, exactly as the reference returns it."""
+    them, exactly as the reference returns it. min_release (events only)
+    defaults to the schedule's earliest release."""
     f32 = torch.float32
     p = params
     lanes = p.shape[-1]
@@ -303,6 +341,18 @@ def render_voice_bank_plain(params, num_samples: int, steady=None,
     nz = p[ROW_NOISE]
     noise_decay, noise_dur = nz[1:2], nz[2:3]
     nb0, nb2, na1, na2 = nz[3:4], nz[4:5], nz[5:6], nz[6:7]
+    legacy = False
+    if events:
+        evt = p[ROW_EVT]
+        onset_f = evt[EVT_ONSET_F:EVT_ONSET_F + 1]
+        release_f = evt[EVT_RELEASE_F:EVT_RELEASE_F + 1]
+        ramp_f = evt[EVT_RAMP:EVT_RAMP + 1]
+        drate, dm1 = p[ROW_DRATE], p[ROW_DM1]
+        if min_release is None:
+            min_release = _min_release(p)
+        # a schedule that never releases never takes the legacy stage
+        legacy = float(min_release) < 0.5 * NEVER
+        min_rel_f = float(np.float32(min_release))
 
     s = state[_S0:_S0 + 8].clone()
     c = state[_C0:_C0 + 8].clone()
@@ -330,12 +380,16 @@ def render_voice_bank_plain(params, num_samples: int, steady=None,
     steady1 = float("inf") if steady is None else float(steady[1])
 
     def refresh_powers(drift):
+        """→ (rota, rotb, raw): folded output coefficients for sub-steps
+        1..7 plus raw R⁸ in slot 7; raw = [(A_j, B_j)] for j = 1..7 (read
+        by the events variant's legacy stage only)."""
         delta = drift * phase_inc
         a1 = cosm1 - delta * sin_inc
         b1 = delta * (1.0 + cosm1) + sin_inc
         dm = 1.0 - decaym1
         dj = amplitude * dm
         rota, rotb = [dj + dj * a1], [dj * b1]
+        raw = [(a1, b1)]
         aj, bj = a1, b1
         for j in range(2, UNROLL + 1):
             aj, bj = (aj + a1 + aj * a1 - bj * b1,
@@ -344,17 +398,21 @@ def render_voice_bank_plain(params, num_samples: int, steady=None,
                 dj = dj * dm
                 rota.append(dj + dj * aj)
                 rotb.append(dj * bj)
+                raw.append((aj, bj))
             else:
                 rota.append(aj)
                 rotb.append(bj)
-        return rota, rotb
+        return rota, rotb, raw
 
-    rota, rotb = refresh_powers(drift)
+    rota, rotb, raw = refresh_powers(drift)
     out = torch.empty((n_tiles * t_tile, lanes), dtype=f32, device=dev)
     n_f0 = float(np.float32(n0))  # the reference's f32 sample counter
     for tile in range(n_tiles):
         for gi in range(t_tile // UNROLL):
             n_g = n0 + tile * t_tile + gi * UNROLL
+            if events:
+                # onsets are multiples of 16: constant over the group
+                active0 = (n_f0 - onset_f) >= 0.0
             if n_g & (JITTER_SUBSAMPLE - 1) == 0:
                 st = irng[0:1]
                 sk = torch.cat(
@@ -363,14 +421,20 @@ def render_voice_bank_plain(params, num_samples: int, steady=None,
                     + [torch.zeros_like(st)], dim=0)
                 u = (sk >> 1).to(f32) * u_scale
                 noise = (u * 2.0 - 1.0) * sqrt3
-                drift = torch.where(mode_mask,
-                                    revert * drift + diffusion * noise, drift)
-                irng[0:1] = sk[NUM_MODES - 1:NUM_MODES]
-                rota, rotb = refresh_powers(drift)
+                new_drift = torch.where(
+                    mode_mask, revert * drift + diffusion * noise, drift)
+                st_out = sk[NUM_MODES - 1:NUM_MODES]
+                if events:  # a pre-onset lane's stream has not started
+                    drift = torch.where(active0, new_drift, drift)
+                    irng[0:1] = torch.where(active0, st_out, st)
+                else:
+                    drift = new_drift
+                    irng[0:1] = st_out
+                rota, rotb, raw = refresh_powers(drift)
 
             if n_f0 < steady0:
                 for j in range(UNROLL):
-                    n_loc = n_f0 + j
+                    n_loc = (n_f0 + j) - onset_f if events else n_f0 + j
                     cosine = 0.5 * (1.0 - torch.cos(onset_inc * n_loc))
                     shaped = torch.where(
                         onset_exp <= 1.001, cosine,
@@ -381,18 +445,28 @@ def render_voice_bank_plain(params, num_samples: int, steady=None,
                                                   shaped, 1.0)
             if n_f0 < steady1:
                 for j in range(UNROLL):
-                    n_loc = n_f0 + j
                     nst = _lcg(irng[1:2])
-                    irng[1:2] = nst
                     signed = torch.where(nst >= 2 ** 31, nst - 2 ** 32, nst)
                     white = signed.to(f32) * w_scale
-                    nact = n_loc < noise_dur
+                    if events:  # onset-local time, per lane
+                        n_loc = (n_f0 + j) - onset_f
+                        active = n_loc >= 0.0
+                        nact = (n_loc < noise_dur) & active
+                        irng[1:2] = torch.where(active, nst, irng[1:2])
+                    else:
+                        n_loc = n_f0 + j
+                        nact = n_loc < noise_dur
+                        irng[1:2] = nst
                     namp, z1, z2 = nstate[0:1], nstate[1:2], nstate[2:3]
                     filtered = nb0 * white + z1
                     z1_new = -na1 * filtered + z2
                     z2_new = nb2 * white - na2 * filtered
                     fade = 1.0
-                    if n_loc < NOISE_FADE_IN:
+                    if events:
+                        fade_t = torch.clamp(n_loc / 16.0, max=1.0)
+                        fade = 0.5 * (1.0 - torch.cos(pi32 * fade_t))
+                        fade = torch.where(n_loc < NOISE_FADE_IN, fade, 1.0)
+                    elif n_loc < NOISE_FADE_IN:
                         # on the device, with its cos (as the kernel does)
                         fade_t = torch.full((1,), n_loc / 16.0, dtype=f32,
                                             device=dev)
@@ -403,22 +477,54 @@ def render_voice_bank_plain(params, num_samples: int, steady=None,
                     nstate[1:2] = torch.where(nact, z1_new, z1)
                     nstate[2:3] = torch.where(nact, z2_new, z2)
 
-            # spiral-folded mode sums for the group, env advanced once;
-            # summed over modes in index order, as the CUDA kernel does
-            # (torch's own reduction order depends on the tensor's width)
-            p_row = env * s
-            q_row = env * c
-            terms = torch.stack(
-                [amplitude * p_row]
-                + [p_row * rota[j - 1] + q_row * rotb[j - 1]
-                   for j in range(1, UNROLL)], dim=0)
+            # mode sums for the group, summed over modes in index order,
+            # as the CUDA kernel does (torch's own reduction order depends
+            # on the tensor's width)
+            if legacy and n_f0 + UNROLL > min_rel_f:
+                # legacy stage: damper and natural decay per sub-step, the
+                # quadrature state of sub-step j straight from the group's
+                # start through raw R^j. Never-released lanes overflow exp
+                # to inf; the selects discard it.
+                rows = []
+                for j in range(UNROLL):
+                    t_rel = (n_f0 + j) - release_f + 1.0
+                    in_ramp = (t_rel >= 1.0) & (t_rel <= ramp_f)
+                    post = t_rel > ramp_f
+                    inst = drate * (t_rel / torch.clamp(ramp_f, min=1.0))
+                    env = torch.where(in_ramp, env * torch.exp(-inst), env)
+                    env = torch.where(post, env - env * dm1, env)
+                    if j == 0:
+                        sj = s
+                    else:
+                        aj, bj = raw[j - 1]
+                        sj = s + torch.where(active0, s * aj + c * bj, 0.0)
+                    rows.append(amplitude * sj * env)
+                    env = torch.where(active0, env - env * decaym1, env)
+                terms = torch.stack(rows, dim=0)
+            else:
+                # fast stage: spiral-folded coefficients, env advanced once
+                p_row = env * s
+                q_row = env * c
+                if events:  # a pre-onset lane's c = 1 must not leak out
+                    p_row = torch.where(active0, p_row, 0.0)
+                    q_row = torch.where(active0, q_row, 0.0)
+                terms = torch.stack(
+                    [amplitude * p_row]
+                    + [p_row * rota[j - 1] + q_row * rotb[j - 1]
+                       for j in range(1, UNROLL)], dim=0)
+                env_new = env - env * dm8m1
+                env = torch.where(active0, env_new, env) if events \
+                    else env_new
             stage = terms[:, 0]
             for m in range(1, NUM_MODES):
                 stage = stage + terms[:, m]
-            env = env - env * dm8m1
             d_s = s * rota[UNROLL - 1] + c * rotb[UNROLL - 1]
             d_c = c * rota[UNROLL - 1] - s * rotb[UNROLL - 1]
-            s, c = s + d_s, c + d_c
+            if events:
+                s = torch.where(active0, s + d_s, s)
+                c = torch.where(active0, c + d_c, c)
+            else:
+                s, c = s + d_s, c + d_c
 
             # batched pickup, serial bilinear charge recurrence
             y_raw = (stage * onset8 + noise8) * ds
@@ -444,7 +550,12 @@ def render_voice_bank_plain(params, num_samples: int, steady=None,
         n_end = n0 + (tile + 1) * t_tile
         if (n_end & (RENORM_INTERVAL - 1)) < t_tile:
             r_inv = torch.rsqrt(torch.clamp(s * s + c * c, min=1e-30))
-            s, c = s * r_inv, c * r_inv
+            if events:  # active as of the tile's last sample
+                act = (n_f0 - 1.0) >= onset_f
+                s = torch.where(act, s * r_inv, s)
+                c = torch.where(act, c * r_inv, c)
+            else:
+                s, c = s * r_inv, c * r_inv
 
     if not return_state:
         return out[:num_samples]
@@ -467,19 +578,19 @@ def _check(name, x, rows, lanes):
 
 def render_voice_bank(params, num_samples: int, steady=None, state=None,
                       n0: int = 0, return_state: bool = False,
-                      events: bool = False):
+                      events=None, min_release=None):
     """Render V voices × num_samples → (num_samples, V) float32 on the
     params' device, or (out, state') when return_state.
 
     params: (N_ROWS, 8, V) float32 from make_kernel_params. steady: None or
     steady_limits(params). state/n0 carry a render across calls (n0 a
-    multiple of 16; state from a previous return_state=True call). A CPU
-    tensor runs the plain version, a CUDA tensor the CUDA kernel."""
+    multiple of 16; state from a previous return_state=True call). events:
+    run the events variant (default: decided from the params' schedule);
+    min_release: the earliest release sample of the whole schedule
+    (default: read from the params). Both defaults read schedule rows back
+    from the device, so callers in a loop pass them. A CPU tensor runs the
+    plain version, a CUDA tensor the CUDA kernel."""
     global KERNEL_LAUNCHES, PLAIN_CALLS
-    if events:
-        raise NotImplementedError(
-            "the events variant of the voice bank (kernel K3: onset/release "
-            "schedules and the damper) is not ported yet")
     if n0 % JITTER_SUBSAMPLE:
         raise ValueError(f"n0={n0} must be a multiple of {JITTER_SUBSAMPLE}")
     lanes = params.shape[-1]
@@ -489,13 +600,22 @@ def render_voice_bank(params, num_samples: int, steady=None, state=None,
     _check("state", state, (STATE_ROWS,), lanes)
     if state.device != params.device:
         raise ValueError("params and state must be on one device")
+    if params.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {params.device}")
+    if events is None:
+        events = _has_events(params)
+    if not events:
+        min_rel = NEVER
+    elif min_release is None:
+        min_rel = _min_release(params)
+    else:
+        min_rel = float(min_release)
 
     if params.device.type == "cpu":
         PLAIN_CALLS += 1
         return render_voice_bank_plain(params, num_samples, steady, state,
-                                       n0, return_state)
-    if params.device.type != "cuda":
-        raise ValueError(f"unsupported device {params.device}")
+                                       n0, return_state, bool(events),
+                                       min_rel)
     t_tile = render_tile(lanes, num_samples, return_state)
 
     from openwurli_tpu_torch import _build
@@ -508,12 +628,19 @@ def render_voice_bank(params, num_samples: int, steady=None, state=None,
     big = 3.0e38  # steady=None: the warm-phase branches never gate off
     s0, s1 = (big, big) if steady is None else map(float, steady)
     stream = torch.cuda.current_stream(params.device).cuda_stream
-    err = lib.ow_voice_bank(
-        params.data_ptr(), state.data_ptr(), out.data_ptr(),
-        st_out.data_ptr(), lanes, total, t_tile, int(n0),
-        ctypes.c_float(s0), ctypes.c_float(s1), stream)
+    args = (params.data_ptr(), state.data_ptr(), out.data_ptr(),
+            st_out.data_ptr(), lanes, total, t_tile, int(n0),
+            ctypes.c_float(s0), ctypes.c_float(s1))
+    if events:
+        name = "voice_bank_events"
+        err = lib.ow_voice_bank_events(*args, ctypes.c_float(min_rel),
+                                       stream)
+    else:
+        name = "voice_bank"
+        err = lib.ow_voice_bank(*args, stream)
     if err:
-        raise RuntimeError(f"voice_bank kernel failed: {_build.error(err)}")
+        raise RuntimeError(f"{name} kernel failed: {_build.error(err)}")
     KERNEL_LAUNCHES += 1
+    LAUNCHES_BY_KERNEL[name] += 1
     out = out[:num_samples]
     return (out, st_out) if return_state else out

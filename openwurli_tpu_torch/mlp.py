@@ -1,7 +1,7 @@
 """Per-note MLP v2 parameter corrections (2→16→16→11), float64 NumPy.
 
-Port of `openwurli_tpu/mlp.py`. The weights are read from the reference
-package's `data/mlp_weights.npz` by path.
+Port of `openwurli_tpu/mlp.py`. The weights are read from the package's
+`data/mlp_weights.npz`, a copy of the reference's.
 """
 
 from __future__ import annotations

@@ -57,3 +57,70 @@ def test_mono_chain_kernel_matches_plain(cuda):
     assert torch.equal(out, ref)
     # bit patterns: the nz_lcg rows hold u32 words, some NaN as floats
     assert torch.equal(st.view(torch.int32), ref_st.view(torch.int32))
+
+
+def test_voice_bank_events_kernel_matches_plain(cuda):
+    """K3: onsets, releases in the three damper registers, an undamped top
+    key and padding lanes; output and state bit for bit, across
+    min_release, and again from the carried state."""
+    notes = [40.0, 60.0, 80.0, 95.0, 50.0]
+    vels = [0.9, 0.8, 0.7, 0.6, 0.85]
+    params, n = vb.make_kernel_params(
+        notes, vels, SR, onsets=[0, 256, 512, 64, 1024],
+        releases=[1500, 2000, 1800, 1600, np.inf], device=cuda)
+    steady = vb.steady_limits(params)
+    out, st = vb.render_voice_bank(params, 2048, steady=steady,
+                                   return_state=True)
+    ref, ref_st = vb.render_voice_bank_plain(
+        params, 2048, steady=steady, return_state=True, events=True)
+    assert torch.equal(out, ref)
+    assert torch.equal(st.view(torch.int32), ref_st.view(torch.int32))
+    assert out[:256, 1].abs().max().item() == 0.0
+    assert out[:, n:].abs().max().item() == 0.0
+    out2, st2 = vb.render_voice_bank(params, 1024, steady=steady, state=st,
+                                     n0=2048, return_state=True)
+    ref2, ref_st2 = vb.render_voice_bank_plain(
+        params, 1024, steady=steady, state=st, n0=2048, return_state=True,
+        events=True)
+    assert torch.equal(out2, ref2)
+    assert torch.equal(st2.view(torch.int32), ref_st2.view(torch.int32))
+
+
+def test_trem_preroll_kernel_matches_plain_and_chain(cuda):
+    """K4 against its plain version, and against the tremolo rows that K2
+    carries after the same number of samples (all but trem_phase, which
+    the chain leaves at 4.0 and the next update resets)."""
+    ctrl = mc.make_controls(SR, 1, depth=0.7, device=cuda)
+    rows, caps = mc.trem_preroll(SR, ctrl, 3, 32)
+    ref = mc.trem_preroll_plain(mc.pack_consts(SR), ctrl,
+                                mc.init_state(SR, 1, device=cuda), 3, 32)
+    assert torch.equal(caps.view(torch.int32), ref.view(torch.int32))
+    st = mc.init_state(SR, 1, device=cuda)
+    for k in (1, 2):
+        _, st = mc.render(SR, ctrl, st, torch.zeros((32, 1), device=cuda))
+        for name, a, b, ca, cb in rows:
+            if name != "trem_phase":
+                assert torch.equal(st[a:b, 0], caps[k, ca:cb]), (k, name)
+
+
+def test_mono_chain_kernel_partial_block_from_injected_state(cuda):
+    """K2 as the time-parallel renderer calls it: more streams than one
+    block of 64 threads and fewer than two, each stream starting from the
+    pre-roll's captured tremolo rows; then once more from the carried
+    state. Output and state bit for bit."""
+    s, t = 72, 64
+    rng = np.random.default_rng(3)
+    audio = torch.from_numpy(
+        (0.03 * rng.standard_normal((2 * t, s))).astype(np.float32)).to(cuda)
+    ctrl = mc.make_controls(SR, s, depth=0.5, device=cuda)
+    st0 = mc.init_state(SR, s, device=cuda)
+    rows, caps = mc.trem_preroll(SR, ctrl, s, 32)
+    for _name, a, b, ca, cb in rows:
+        st0[a:b, :] = caps[:, ca:cb].T
+    consts = mc.pack_consts(SR)
+    for a_blk in (audio[:t].contiguous(), audio[t:].contiguous()):
+        out, st = mc.render(SR, ctrl, st0, a_blk)
+        ref, ref_st = mc.render_chain_plain(consts, ctrl, st0, a_blk)
+        assert torch.equal(out, ref)
+        assert torch.equal(st.view(torch.int32), ref_st.view(torch.int32))
+        st0 = st

@@ -26,7 +26,14 @@ REPO = os.path.dirname(PKG_DIR)
 
 def test_imports_without_jax():
     code = ("import sys, openwurli_tpu_torch, openwurli_tpu_torch.fast, "
-            "openwurli_tpu_torch.convert\n"
+            "openwurli_tpu_torch.convert, openwurli_tpu_torch.io.midi_file, "
+            "openwurli_tpu_torch.io.wav\n"
+            "from openwurli_tpu_torch import fast\n"
+            "for name in ('schedule_events', 'render_events', "
+            "'render_events_parallel', 'render_midi_file', "
+            "'_voice_lifetimes', '_song_voices', '_scatter_voices', "
+            "'_segment_windows', 'VOICE_TIMEOUT_S'):\n"
+            "    assert hasattr(fast, name), name\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'openwurli_tpu' "
             "or m.startswith('openwurli_tpu.')]\n"
@@ -75,6 +82,14 @@ def test_cuda_wrappers_raise_without_cuda():
     from openwurli_tpu_torch import fast
     with pytest.raises((RuntimeError, AssertionError)):
         fast.render_grid([[60.0]], 0.8, 0.01, device="cuda")
+    # the event renderers default to the card as well
+    with pytest.raises((RuntimeError, AssertionError)):
+        fast.render_events([60.0], [0.8], [0.0], [100.0], 0.01)
+    with pytest.raises((RuntimeError, AssertionError)):
+        fast.render_events_parallel([60.0], [0.8], [0.0], [100.0], 0.01)
+    with pytest.raises((RuntimeError, AssertionError)):
+        mc.trem_preroll(44100.0, mc.make_controls(44100.0, 1,
+                                                  device="cuda"), 2, 8)
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():
@@ -87,8 +102,10 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
         vb.render_voice_bank(p[..., :64], 64, state=vb.init_bank_state(p))
     with pytest.raises(ValueError, match="multiple of 16"):
         vb.render_voice_bank(p, 64, n0=8)
-    with pytest.raises(NotImplementedError, match="K3"):
-        vb.render_voice_bank(p, 64, events=True)
+    assert vb.render_voice_bank(p, 64, events=True).shape == (64, 128)
+    with pytest.raises(ValueError, match="unsupported device"):
+        vb.render_voice_bank(p.to("meta"), 64, events=True,
+                             min_release=vb.NEVER)
     ctrl = mc.make_controls(44100.0, 2)
     st = mc.init_state(44100.0, 2)
     audio = torch.zeros((4, 2))
@@ -113,6 +130,35 @@ def test_build_needs_nvcc():
 def test_unknown_tremolo_rate_raises():
     with pytest.raises(NotImplementedError, match="slice 4"):
         tremolo.settled_osc_state(22050.0)
+
+
+def test_build_signatures_cover_every_entry_point():
+    """Every extern "C" function of the CUDA sources has its ctypes
+    signature, with as many arguments as the C declaration."""
+    found = {}
+    for src in _build.SOURCES:
+        with open(os.path.join(PKG_DIR, "csrc", src)) as f:
+            text = f.read()
+        for name, args in re.findall(r'extern "C" int (\w+)\((.*?)\)\s*\{',
+                                     text, re.S):
+            found[name] = len(args.split(","))
+    assert set(found) == set(_build._SIGNATURES) == {
+        "ow_voice_bank", "ow_voice_bank_events", "ow_mono_chain",
+        "ow_trem_preroll"}
+    for name, n_args in found.items():
+        assert len(_build._SIGNATURES[name]) == n_args, name
+
+
+def test_preroll_capture_layout_matches_cuda():
+    """The pre-roll kernel's capture order is preroll_rows()."""
+    with open(os.path.join(PKG_DIR, "csrc", "mono_chain.cu")) as f:
+        src = f.read()
+    body = re.search(r"kPrerollSpans\[7\]\[2\] = \{(.*?)\};", src,
+                     re.S).group(1)
+    spans = re.findall(r"\{ST_(\w+), (\d+)\}", body)
+    assert [(n.lower(), int(r)) for n, r in spans] == \
+        [(name, b - a) for name, a, b, _ca, _cb in mc.preroll_rows()]
+    assert "PREROLL_ROWS = %d;" % mc.PREROLL_ROWS in src
 
 
 def _cu_enum(name):
