@@ -4,16 +4,21 @@
 
 Builds the CUDA kernels from openwurli_tpu_torch/csrc, compares each
 kernel with its plain torch version on the card, checks the tonal anchor
-against the reference's golden harmonics, then drives three paths of
-`openwurli_tpu_torch.fast`, each with the launch counts set to 0 just
-before it and read just after:
+against the reference's golden harmonics, then drives the port's paths,
+each with the launch counts set to 0 just before it and read just after:
 
   * `render_grid`: the headline grid (128 streams × 64 voices, 43·1024
     samples at 44.1 kHz) through K1 (voice bank) and K2 (mono chain);
   * `render_events`: a short event-scheduled render, block-streamed with
     carried state, through K3 (voice bank with events) and K2 at one stream;
   * `render_events_parallel`: a 36 s, 120-note song at the renderer's
-    defaults through K3, K4 (tremolo pre-roll) and K2 over 120 segments.
+    defaults through K3, K4 (tremolo pre-roll) and K2 over 120 segments;
+  * the interactive path: a live note_on / note_off / set_sustain session
+    on `fast_engine.FastEngine` at its defaults (128 lanes, blocks of 1024)
+    through K3 and K2, once more with thermal noise compiled in (K5, at
+    gain 0 and at level 8), and the same engine behind
+    `stream_host.StreamHost`'s NDJSON commands;
+  * `tools/torch_probe.py`: the probe kernel (P1) over its list of probes.
 
 Each kernel is held bit for bit to its plain version at the shapes those
 paths give it, on the calls' own arguments, which the script records
@@ -147,17 +152,19 @@ def voice_bank_bound(lanes, samples, n0, steady, min_release=None):
     return bound(n_bytes, lanes * ops)
 
 
-def chain_bound(streams, samples):
+def chain_bound(streams, samples, noise=False):
     """Bound of one chain call: audio in, audio out, state in and out,
-    controls and constants once."""
-    n_bytes = 4 * (streams * (2 * samples + 2 * 328 + 19) + 3312 + 67)
+    controls and constants once; with `noise`, the thermal-noise branch's
+    operations on top (its nz_ rows are in the state's bytes already)."""
+    n_bytes = 4 * (streams * (2 * samples + 2 * 328 + 19) + 3312 + 68)
     ops = streams * samples * (CHAIN_SAMPLE_OPS + TREM_UPDATE_OPS / 2)
-    return bound(n_bytes, ops)
+    return bound(n_bytes, ops + (noise_ops(streams, samples) if noise
+                                 else 0))
 
 
 def preroll_bound(n_captures, stride):
     """Bound of one pre-roll call: no update follows the last capture."""
-    n_bytes = 4 * (3312 + 67 + 19 + 328 + n_captures * 19)
+    n_bytes = 4 * (3312 + 68 + 19 + 328 + n_captures * 19)
     return bound(n_bytes,
                  (n_captures - 1) * (stride // 2) * TREM_UPDATE_OPS)
 
@@ -196,20 +203,27 @@ class StageTimer:
 
 
 def reset_counts(vb, mc):
+    from openwurli_tpu_torch.kernels import probe
+
     vb.KERNEL_LAUNCHES = vb.PLAIN_CALLS = 0
     for name in vb.LAUNCHES_BY_KERNEL:
         vb.LAUNCHES_BY_KERNEL[name] = 0
-    mc.KERNEL_LAUNCHES = mc.PLAIN_CALLS = 0
+    mc.KERNEL_LAUNCHES = mc.NOISE_KERNEL_LAUNCHES = mc.PLAIN_CALLS = 0
     mc.PREROLL_KERNEL_LAUNCHES = mc.PREROLL_PLAIN_CALLS = 0
+    probe.KERNEL_LAUNCHES = probe.PLAIN_CALLS = 0
 
 
 def read_counts(vb, mc):
     """Kernel launches by kernel name since reset_counts, and the calls
     that any plain version served."""
+    from openwurli_tpu_torch.kernels import probe
+
     return {**vb.LAUNCHES_BY_KERNEL, "mono_chain": mc.KERNEL_LAUNCHES,
+            "mono_chain_noise": mc.NOISE_KERNEL_LAUNCHES,
             "trem_preroll": mc.PREROLL_KERNEL_LAUNCHES,
+            "probe": probe.KERNEL_LAUNCHES,
             "plain": vb.PLAIN_CALLS + mc.PLAIN_CALLS
-            + mc.PREROLL_PLAIN_CALLS}
+            + mc.PREROLL_PLAIN_CALLS + probe.PLAIN_CALLS}
 
 
 def bits_equal(a, b):
@@ -218,28 +232,155 @@ def bits_equal(a, b):
 
 
 def compare_chain(mc, call, t_cmp, what):
-    """K2 against its plain version over the first t_cmp samples of one
-    recorded `mc.render` call (its controls, its starting state, its
-    audio): output and state bit for bit. Returns the comparison's
-    numbers for the kernels line."""
-    (sr, ctrl, st0, audio), _kw = call
+    """K2 (K5 where the call asked for noise) against its plain version
+    over the first t_cmp samples of one recorded `mc.render` call (its
+    controls, its starting state, its audio): output and state bit for
+    bit. Returns the comparison's numbers for the kernels line."""
+    (sr, ctrl, st0, audio), kw = call
+    noise = bool(kw.get("noise", False))
     a_cmp = audio[:t_cmp].contiguous()
-    out, st = mc.render(sr, ctrl, st0, a_cmp)
+    out, st = mc.render(sr, ctrl, st0, a_cmp, noise=noise)
     plain_ms, (p_out, p_st) = host_ms(lambda: mc.render_chain_plain(
-        mc.pack_consts(sr), ctrl, st0, a_cmp))
-    ms = cuda_ms(lambda: mc.render(sr, ctrl, st0, a_cmp))
+        mc.pack_consts(sr), ctrl, st0, a_cmp, noise=noise))
+    ms = cuda_ms(lambda: mc.render(sr, ctrl, st0, a_cmp, noise=noise))
     err = float((out - p_out).abs().max())
-    check(torch.isfinite(out).all().item(), f"K2 {what}: output not finite")
+    what = ("K5 " if noise else "K2 ") + what
+    check(torch.isfinite(out).all().item(), f"{what}: output not finite")
     # the state compared as bit patterns: its nz_lcg rows hold u32 LCG
     # words, some of which read as NaN floats
     st_bits, p_st_bits = st.view(torch.int32), p_st.view(torch.int32)
     check(torch.equal(out, p_out) and torch.equal(st_bits, p_st_bits),
-          f"K2 {what}: max abs err {err:.3e} against the plain version; "
+          f"{what}: max abs err {err:.3e} against the plain version; "
           f"differing {first_diff(out, p_out)}, state "
           f"{first_diff(st_bits, p_st_bits)}")
     return {"shape": f"{audio.shape[1]} streams x {t_cmp}", "inputs": what,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "peak_in": float(a_cmp.abs().max())}
+
+
+def noise_ops(streams, samples):
+    """float32 operations the thermal-noise branch adds to a chain call,
+    read off csrc/mono_chain.cu: per oversampled step 40 uniforms (2
+    operations each), 10 Irwin-Hall sums (3 adds, 2 multiplies), the
+    two-draw stamp (9 adds), the (8, 9) and (2, 9) matvecs and 13 adds into
+    the solver. The ~400 integer operations of the 40 LCG steps and hashes
+    count as none, as everywhere in this file."""
+    return streams * samples * 2 * (40 * 2 + 10 * 5 + 9 + 10 * 17 + 13)
+
+
+def run_session(eng, script, n_chunks, chunk):
+    """Drive a live session: before chunk k the calls script[k] (each a
+    function of the engine) are made, then `chunk` samples are rendered,
+    timed on the host clock (render returns host memory, so the card has
+    finished) → (audio (n_chunks·chunk,), wall seconds per chunk)."""
+    pieces, walls = [], []
+    for k in range(n_chunks):
+        for call in script.get(k, ()):
+            call(eng)
+        t0 = time.perf_counter()
+        pieces.append(eng.render(chunk))
+        walls.append(time.perf_counter() - t0)
+    return np.concatenate(pieces), np.asarray(walls)
+
+
+def session_stats(walls, chunk, sr):
+    """Per-chunk wall times → the sustained realtime factor and the
+    percentiles a host's audio callback cares about."""
+    chunk_s = chunk / sr
+    seconds, wall = len(walls) * chunk_s, float(walls.sum())
+    return {"seconds": seconds, "wall_s": wall, "rtf": seconds / wall,
+            "chunk_ms": chunk_s * 1e3,
+            "p50_ms": float(np.percentile(walls, 50)) * 1e3,
+            "p99_ms": float(np.percentile(walls, 99)) * 1e3,
+            "max_ms": float(walls.max()) * 1e3,
+            "over_budget": float((walls > chunk_s).mean())}
+
+
+# The interactive phase's session, in blocks of 1024: note-ons at in-block
+# offsets, a pedal hold, a release under the pedal, a pedal lift mid-block,
+# a re-strike. SESSION_SCHEDULE is what it amounts to, per voice in note-on
+# order: (midi, velocity, onset, release) in samples.
+SESSION_BLOCKS = 9
+SESSION_SCRIPT = {
+    0: [lambda e: e.note_on(60, 0.9, offset=48)],
+    1: [lambda e: e.note_on(64, 0.7, offset=1024 - 16),
+        lambda e: e.set_sustain(True)],
+    2: [lambda e: e.note_off(60, offset=100)],          # held by the pedal
+    3: [lambda e: e.set_sustain(False, offset=32),      # lifts it mid-block
+        lambda e: e.note_on(67, 0.8, offset=512)],
+    4: [lambda e: e.note_on(64, 0.5, offset=256)],      # re-strike
+    5: [lambda e: e.note_off(64), lambda e: e.note_off(67, offset=700)],
+}
+SESSION_SCHEDULE = [
+    (60.0, 0.9, 48.0, 3 * 1024 + 32.0),
+    (64.0, 0.7, 1024 + 1008.0, 4 * 1024 + 256.0),
+    (67.0, 0.8, 3 * 1024 + 512.0, 5 * 1024 + 700.0),
+    (64.0, 0.5, 4 * 1024 + 256.0, 5 * 1024.0),
+]
+
+
+def drive_session(vb, mc, eng, what):
+    """precompile the engine, run the session with the launch counts
+    zeroed and every kernel call recorded → dict of its audio, counts,
+    calls, times and the chain state after the warm-up."""
+    chain_ms = []
+    render = mc.render
+
+    def timed(*args, **kw):
+        ms, result = host_ms(lambda: render(*args, **kw))
+        chain_ms.append(ms)
+        return result
+
+    mc.render = timed
+    try:
+        pre_ms, _ = host_ms(eng.precompile)
+    finally:
+        mc.render = render
+    # precompile's chain calls: the throwaway block, then the warm-up
+    check(len(chain_ms) == 2, f"{what}: precompile's chain calls")
+    warm_ms = chain_ms[1]
+    warm_state = eng._chain_state.clone()
+    log = StageTimer()
+    log.wrap(vb, "render_voice_bank", "K3", keep=True)
+    log.wrap(mc, "render", "chain", keep=True)
+    reset_counts(vb, mc)
+    try:
+        audio, walls = run_session(eng, SESSION_SCRIPT, SESSION_BLOCKS,
+                                   eng.block)
+    finally:
+        log.restore()
+    counts = read_counts(vb, mc)
+    check(audio.shape == (SESSION_BLOCKS * eng.block,)
+          and np.isfinite(audio).all(), f"{what}: shape or finiteness")
+    n = len(SESSION_SCHEDULE)
+    got = list(zip(eng._midis[:n], eng._vels[:n], eng._onsets[:n],
+                   eng._releases[:n]))
+    check(eng._n_used == n and got == SESSION_SCHEDULE,
+          f"{what}: the engine's schedule {got}")
+    return {"audio": audio, "walls": walls, "counts": counts,
+            "calls": log.calls, "stage_ms": dict(log.ms),
+            "precompile_ms": pre_ms, "warm_ms": warm_ms,
+            "warm_state": warm_state,
+            "stats": session_stats(walls, eng.block, eng.sample_rate)}
+
+
+def session_block_loop(vb, mc, eng, warm_state, noise=False):
+    """The session's schedule, known from t=0, through the engine's block
+    written out: K3 with the engine's two pins, the lane sum, the chain,
+    from `warm_state` → (SESSION_BLOCKS·block,) array."""
+    midis, vels, onsets, releases = (list(x) for x in zip(*SESSION_SCHEDULE))
+    params, _ = vb.make_kernel_params(midis, vels, eng.sample_rate,
+                                      onsets=onsets, releases=releases,
+                                      lanes=128, device=eng.device)
+    vstate, state, outs = vb.init_bank_state(params), warm_state, []
+    for b in range(SESSION_BLOCKS):
+        voices, vstate = vb.render_voice_bank(
+            params, eng.block, steady=None, state=vstate, n0=b * eng.block,
+            return_state=True, events=True, min_release=0.0)
+        out, state = mc.render(eng.sample_rate, eng._controls(), state,
+                               voices.sum(-1, keepdim=True), noise=noise)
+        outs.append(out[:, 0])
+    return torch.cat(outs).cpu().numpy()
 
 
 def song_schedule(seconds=36.0, n_notes=120, seed=7):
@@ -336,7 +477,7 @@ def main():
           f"kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms", flush=True)
 
     # ── phase 3: K2 on the card against its plain version on the card ──
-    s_n, t_n = 8, 512
+    s_n, t_n = 8, 256
     tt = np.arange(t_n) / SR
     levels = np.linspace(0.02, 0.1, s_n)
     env = np.minimum(np.arange(t_n) / 200.0, 1.0)
@@ -472,6 +613,7 @@ def main():
 
     k1_bound = voice_bank_bound(streams * 64, t_pad, 0, steady)
     k2_bound = chain_bound(streams, t_cmp)
+    grid_chain = (ctrl, st0, audio)   # phase 12 compares K5 on these
 
     # ── phase 7: K3 (voice bank with events) against its plain version,
     # bit for bit, on a small schedule: staggered onsets, releases in all
@@ -757,13 +899,320 @@ def main():
           f"bit-identical to the plain version (output and state), kernel "
           f"{k2_cmp[-1]['ms']:.1f} ms, plain {k2_cmp[-1]['plain_ms']:.1f} ms "
           f"[{card}]", flush=True)
+
+    # ── phase 12: K5 (the chain with thermal noise) against its plain
+    # version, bit for bit (output and state as int32), on the first 256
+    # samples of phase 5's lane sum at 128 streams: at noise_level 1.0,
+    # again at per-stream gains 0-30; then K5 at gain 0 against K2 on the
+    # same call: equal output and non-nz_ rows, nz_lcg advanced. ──
+    t_p12 = time.perf_counter()
+    from openwurli_tpu_torch.kernels import probe
+
+    _g_ctrl, g_st0, g_audio = grid_chain
+    t_k5 = 256
+    k5_cmp = []
+    for what, level in (("noise_level 1.0", 1.0),
+                        ("per-stream gains 0-30",
+                         np.linspace(0.0, 30.0, streams))):
+        n_ctrl = mc.make_controls(SR, streams, volume=0.5, depth=0.5,
+                                  character=0.0, noise_level=level,
+                                  device=dev)
+        k5_cmp.append(compare_chain(
+            mc, ((SR, n_ctrl, g_st0, g_audio), {"noise": True}), t_k5,
+            f"render_grid's lane sum at {what}"))
+    z_ctrl = mc.make_controls(SR, streams, volume=0.5, depth=0.5,
+                              character=0.0, noise_level=0.0, device=dev)
+    a_k5 = g_audio[:t_k5].contiguous()
+    z_out, z_st = mc.render(SR, z_ctrl, g_st0, a_k5, noise=True)
+    q_out, q_st = mc.render(SR, z_ctrl, g_st0, a_k5)
+    nz_a, nz_b = mc._OFFSETS["nz_w"][0], mc._OFFSETS["nz_lcg"][0]
+    check(bits_equal(z_out, q_out) and bits_equal(z_st[:nz_a], q_st[:nz_a]),
+          "K5 at gain 0 differs from K2: output "
+          f"{first_diff(z_out, q_out)}, state "
+          f"{first_diff(z_st[:nz_a].view(torch.int32), q_st[:nz_a].view(torch.int32))}")
+    check(not bits_equal(z_st[nz_b:], q_st[nz_b:])
+          and bits_equal(q_st[nz_a:], g_st0[nz_a:]),
+          "nz_lcg: K5 must advance it and K2 must leave it")
+    k5_ms, k5_plain_ms = k5_cmp[0]["ms"], k5_cmp[0]["plain_ms"]
+    k2_same_ms = cuda_ms(lambda: mc.render(SR, z_ctrl, g_st0, a_k5))
+    print(f"phase 12 K5: {streams} streams x {t_k5} of the grid's lane sum "
+          "bit-identical to its plain version (output and state) at "
+          "noise_level 1.0 and at per-stream gains 0-30; at gain 0 equal to "
+          "K2 in output and in every row but nz_w / nz_lcg, nz_lcg advanced; "
+          f"kernel {k5_ms:.1f} ms (K2 on the same call {k2_same_ms:.1f} ms), "
+          f"plain {k5_plain_ms:.1f} ms [{card}] "
+          f"({time.perf_counter() - t_p12:.0f} s)", flush=True)
+    k5_bound = chain_bound(streams, t_k5, noise=True)
+
+    # ── phase 13: the noise level on the card, through fast.render_grid on
+    # silence (velocity 0), 128 streams, 0.25 s, at noise_level 0, 1 and 8 ──
+    t_p13 = time.perf_counter()
+    sil = {}
+    reset_counts(vb, mc)
+    for level in (0.0, 1.0, 8.0):
+        sil[level] = fast.render_grid(
+            np.full((streams, 1), 60.0), 0.0, 0.25, SR, volume=0.5,
+            depth=0.5, character=0.0, noise_level=level, device=dev)
+    torch.cuda.synchronize()
+    launches["render_grid on silence, noise_level 0, 1, 8"] = \
+        read_counts(vb, mc)
+    counts = launches["render_grid on silence, noise_level 0, 1, 8"]
+    check(counts["mono_chain"] == 1 and counts["mono_chain_noise"] == 2
+          and counts["voice_bank"] == 3 and counts["plain"] == 0, counts)
+    for level, out in sil.items():
+        check(out.shape == (11025, streams)
+              and torch.isfinite(out).all().item(),
+              f"noise_level {level}: shape or finiteness")
+    quiet = sil[0.0].double()
+    quiet_rms = quiet.pow(2).mean().sqrt().item()
+    d1 = (sil[1.0].double() - quiet)
+    d8 = (sil[8.0].double() - quiet)
+    rms1, rms8 = d1.pow(2).mean().sqrt().item(), d8.pow(2).mean().sqrt().item()
+    check(not torch.equal(sil[8.0], sil[0.0]), "8x noise equals the quiet render")
+    check(0.0 < rms1 < rms8, f"noise RMS does not rise: {rms1} {rms8}")
+    dd = torch.diff(d8[2048:], dim=0)
+    dd = dd - dd.mean(0)
+    cc = (dd.T @ dd) / torch.outer(dd.norm(dim=0), dd.norm(dim=0))
+    neigh = torch.diagonal(cc, offset=1).abs().max().item()
+    check(neigh < 0.15, f"neighbouring streams correlate at 8x: {neigh:.3f}")
+    print(f"phase 13 noise on the card (render_grid on silence, {streams} "
+          f"streams x 11025): quiet render RMS {quiet_rms:.3e} (the cold "
+          f"chain's settling); render minus quiet at noise_level 1: RMS "
+          f"{rms1:.3e} = {rms1 / quiet_rms:.3e} of quiet, at 8: {rms8:.3e} = "
+          f"{rms8 / quiet_rms:.3e} of quiet, 8 over 1: {rms8 / rms1:.2f}; "
+          f"neighbouring streams' first differences correlate at most "
+          f"{neigh:.3f} at 8x (gate 0.15); launches {counts} [{card}] "
+          f"({time.perf_counter() - t_p13:.0f} s)", flush=True)
+
+    # ── phase 14: the interactive path at full width: FastEngine at its
+    # defaults (128 lanes, blocks of 1024, on the card), precompile, then
+    # the 9-block session of SESSION_SCRIPT ──
+    t_p14 = time.perf_counter()
+    from openwurli_tpu_torch import fast_engine, stream_host
+
+    eng = fast_engine.FastEngine(SR)
+    check((fast_engine.LANES, eng.block, eng.device.type)
+          == (128, 1024, "cuda"), "the engine's defaults")
+    ses = drive_session(vb, mc, eng, "FastEngine session")
+    launches["FastEngine session"] = counts = ses["counts"]
+    check(counts["voice_bank_events"] == SESSION_BLOCKS
+          and counts["mono_chain"] == SESSION_BLOCKS
+          and counts["mono_chain_noise"] == 0 and counts["voice_bank"] == 0
+          and counts["plain"] == 0, counts)
+    loop_audio = session_block_loop(vb, mc, eng, ses["warm_state"])
+    check(np.array_equal(ses["audio"].view(np.int32),
+                         loop_audio.view(np.int32)),
+          "the session differs from its block loop: "
+          + first_diff(torch.from_numpy(ses["audio"]),
+                       torch.from_numpy(loop_audio)))
+    peak = float(np.abs(ses["audio"]).max())
+    check(1e-3 < peak < ceiling, f"session peak {peak}")
+    check(np.abs(ses["audio"][:48]).max() < 0.05 * peak,
+          "the session sounds before its first onset")
+    # one engine block against the plain versions on its recorded
+    # arguments: K3 whole, the chain on its first 256 samples
+    blk_i = 4
+    args, kw = ses["calls"]["K3"][blk_i]
+    check(kw["n0"] == blk_i * 1024 and kw["events"] and kw["steady"] is None
+          and kw["min_release"] == 0.0 and args[1] == 1024,
+          f"engine block {blk_i} call {kw}")
+    e_out, e_st = vb.render_voice_bank(*args, **kw)
+    k3_eng_plain_ms, (pe_out, pe_st) = host_ms(
+        lambda: vb.render_voice_bank_plain(*args, **kw))
+    k3_eng_ms = cuda_ms(lambda: vb.render_voice_bank(*args, **kw), reps=5)
+    k3_eng_err = float((e_out - pe_out).abs().max())
+    check(torch.equal(e_out, pe_out) and bits_equal(e_st, pe_st),
+          f"K3 engine block {blk_i}: output {first_diff(e_out, pe_out)}, "
+          f"state {first_diff(e_st.view(torch.int32), pe_st.view(torch.int32))}")
+    k2_cmp.append(compare_chain(mc, ses["calls"]["chain"][blk_i], 256,
+                                f"FastEngine block {blk_i} from its carried "
+                                "state"))
+    check(k2_cmp[-1]["peak_in"] > 1e-3, "the engine's block 4 is silent")
+    k2_blk_ms = cuda_ms(lambda: mc.render(*ses["calls"]["chain"][blk_i][0]))
+    st = ses["stats"]
+    print(f"phase 14 FastEngine(44100) session, {SESSION_BLOCKS} blocks of "
+          f"1024 at 128 lanes: bit-identical to its block loop from the "
+          f"warmed state, peak {peak:.4f}, launches {counts}; per-block "
+          f"wall p50 {st['p50_ms']:.1f} ms, max {st['max_ms']:.1f} ms for "
+          f"{st['chunk_ms']:.1f} ms of audio, sustained {st['rtf']:.4f}x "
+          f"realtime; precompile {ses['precompile_ms'] / 1e3:.2f} s of "
+          f"which the 26624-sample warm-up {ses['warm_ms'] / 1e3:.2f} s; "
+          f"one block's kernels: K3 {k3_eng_ms:.3f} ms, K2 {k2_blk_ms:.1f} "
+          f"ms; block {blk_i} replayed: K3 whole and K2 on 256 samples "
+          f"bit-identical to the plain versions (K3 plain "
+          f"{k3_eng_plain_ms:.0f} ms, K2 kernel {k2_cmp[-1]['ms']:.1f} ms, "
+          f"plain {k2_cmp[-1]['plain_ms']:.0f} ms) [{card}] "
+          f"({time.perf_counter() - t_p14:.0f} s)", flush=True)
+    k3_eng_bound = voice_bank_bound(128, 1024, blk_i * 1024, (3e38, 3e38),
+                                    0.0)
+
+    # ── phase 15: noise through the entry point. An engine built with
+    # noise=True and disabled before its warm-up renders the session
+    # bit-identically to the noise-off engine (K5 at gain 0 on the real
+    # path); at level 8 it differs and stays finite. ──
+    t_p15 = time.perf_counter()
+    eng0 = fast_engine.FastEngine(SR, noise=True)
+    eng0.set_noise_enabled(False)
+    ses0 = drive_session(vb, mc, eng0, "FastEngine session, noise at gain 0")
+    launches["FastEngine session, noise compiled in, gain 0"] = counts0 = \
+        ses0["counts"]
+    check(counts0["mono_chain_noise"] == SESSION_BLOCKS
+          and counts0["mono_chain"] == 0
+          and counts0["voice_bank_events"] == SESSION_BLOCKS
+          and counts0["plain"] == 0, counts0)
+    check(np.array_equal(ses0["audio"].view(np.int32),
+                         ses["audio"].view(np.int32)),
+          "the noise engine at gain 0 differs from the noise-off engine: "
+          + first_diff(torch.from_numpy(ses0["audio"]),
+                       torch.from_numpy(ses["audio"])))
+    eng8 = fast_engine.FastEngine(SR, noise=True, noise_level=8.0)
+    ses8 = drive_session(vb, mc, eng8, "FastEngine session, noise level 8")
+    launches["FastEngine session, noise level 8"] = counts8 = ses8["counts"]
+    check(counts8["mono_chain_noise"] == SESSION_BLOCKS
+          and counts8["mono_chain"] == 0 and counts8["plain"] == 0, counts8)
+    check(not np.array_equal(ses8["audio"], ses["audio"]),
+          "noise level 8 changes nothing")
+    loop8 = session_block_loop(vb, mc, eng8, ses8["warm_state"], noise=True)
+    check(np.array_equal(ses8["audio"].view(np.int32), loop8.view(np.int32)),
+          "the noisy session differs from its block loop")
+    k5_cmp.append(compare_chain(mc, ses8["calls"]["chain"][blk_i], 256,
+                                f"FastEngine block {blk_i} at noise level 8 "
+                                "from its carried state"))
+    check(ses8["calls"]["chain"][blk_i][1] == {"noise": True},
+          "the noisy engine's chain call")
+    k5_blk_ms = cuda_ms(lambda: mc.render(*ses8["calls"]["chain"][blk_i][0],
+                                          noise=True))
+    nd = ses8["audio"].astype(np.float64) - ses["audio"]
+    st8 = ses8["stats"]
+    print(f"phase 15 noise through FastEngine: noise=True with "
+          f"set_noise_enabled(False) before the warm-up is bit-identical to "
+          f"the noise-off session, launches {counts0}; at noise_level 8 the "
+          f"session is finite, equals its own block loop bit for bit and "
+          f"differs from the quiet one by RMS {np.sqrt((nd ** 2).mean()):.3e}"
+          f" (peak {np.abs(nd).max():.3e}), launches {counts8}; block "
+          f"{blk_i}'s K5 call on 256 samples bit-identical to the plain "
+          f"version, one block's K5 {k5_blk_ms:.1f} ms; per-block wall p50 "
+          f"{st8['p50_ms']:.1f} ms, warm-up {ses8['warm_ms'] / 1e3:.2f} s "
+          f"[{card}] ({time.perf_counter() - t_p15:.0f} s)", flush=True)
+
+    # ── phase 16: plugin and transport: StreamHost over the fast engine,
+    # NDJSON commands in, stereo float32 PCM out ──
+    t_p16 = time.perf_counter()
+    import io
+
+    for bad in ({}, {"engine": "f64"}):
+        try:
+            stream_host.StreamHost(SR, **bad)
+        except NotImplementedError:
+            continue
+        raise RuntimeError('chip_smoke check failed: engine="f64" did not '
+                           "raise")
+    reset_counts(vb, mc)
+    sh = stream_host.StreamHost(SR, engine="fast")
+    pcm = io.BytesIO()
+    for msg in (
+            {"cmd": "init", "sample_rate": SR, "block": 4096},
+            {"cmd": "param", "name": "volume", "value": 0.6},
+            {"cmd": "events", "events": [
+                {"offset": 100, "kind": "note_on", "note": 60,
+                 "velocity": 0.8},
+                {"offset": 2000, "kind": "cc", "cc": 64, "value": 127},
+                {"offset": 3000, "kind": "note_off", "note": 60}]},
+            {"cmd": "render", "blocks": 2}):
+        check(sh.handle(json.dumps(msg), pcm) is True, msg)
+    check(sh.plugin.engine.is_sustain_held(), "CC64 did not reach the engine")
+    check(not np.isfinite(sh.plugin.engine._releases[0]),
+          "the note-off under the pedal released the voice")
+    for msg in (
+            {"cmd": "param", "name": "authentic_noise", "value": True},
+            {"cmd": "events", "events": [
+                {"offset": 10, "kind": "cc", "cc": 64, "value": 0}]},
+            {"cmd": "render"}):
+        check(sh.handle(json.dumps(msg), pcm) is True, msg)
+    check(sh.handle('{"cmd": "quit"}', pcm) is False, "quit")
+    launches["StreamHost"] = counts = read_counts(vb, mc)
+    # precompile: 1 block and the warm-up; then 8 engine blocks without and
+    # 4 with noise
+    check(counts["voice_bank_events"] == 13 and counts["mono_chain"] == 10
+          and counts["mono_chain_noise"] == 4 and counts["plain"] == 0,
+          counts)
+    check(not sh.plugin.engine.is_sustain_held()
+          and sh.plugin.engine._releases[0] == 2 * 4096 + 10.0
+          and sh.plugin.engine._volume == 0.6, "the engine behind StreamHost")
+    stereo = np.frombuffer(pcm.getvalue(), np.float32).reshape(-1, 2)
+    check(stereo.shape == (3 * 4096, 2) and np.isfinite(stereo).all()
+          and np.array_equal(stereo[:, 0], stereo[:, 1]),
+          "the PCM is not finite stereo with equal channels")
+    sh_peak = float(np.abs(stereo[4096:]).max())
+    check(1e-3 < sh_peak < ceiling, f"StreamHost peak {sh_peak}")
+    print(f"phase 16 StreamHost(engine='fast'): init, param, events, render "
+          f"x 3 blocks of 4096: stereo PCM {stereo.shape}, equal channels, "
+          f"finite, peak {sh_peak:.4f}; CC64 reached the engine and held "
+          f"the note-off, authentic_noise switched the last block to K5; "
+          f"engine='f64' raises; launches {counts} [{card}] "
+          f"({time.perf_counter() - t_p16:.0f} s)", flush=True)
+
+    # ── phase 17: P1, the probe kernel: every probe of the tool's list at
+    # its own size for 7 iterations, at 128, 64 and 1 threads per block,
+    # against its plain version bit for bit (the 128-lane output row and
+    # aux); then the tool's timed list ──
+    t_p17 = time.perf_counter()
+    import importlib.util
+    import os
+
+    for name, (_l, body, sub, lan, depth, mat, _it) in probe.PROBES.items():
+        p_out, p_aux = probe.probe_plain(body, 7, sub, lan, depth, x0=0.37,
+                                         mat=mat, device=dev)
+        for threads in (128, 64, 1):
+            out, aux = probe.run_probe(body, 7, sub, lan, depth, x0=0.37,
+                                       mat=mat, threads=threads, device=dev)
+            check(bits_equal(out, p_out)
+                  and (aux is None) == (p_aux is None)
+                  and (aux is None or bits_equal(aux, p_aux)),
+                  f"P1 {name} at {threads} threads differs from its plain "
+                  f"version: {first_diff(out, p_out)}")
+    spec = importlib.util.spec_from_file_location(
+        "torch_probe", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tools", "torch_probe.py"))
+    torch_probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_probe)
+    reset_counts(vb, mc)
+    probe_rows = torch_probe.main(["--target-s", "0.05"])
+    launches["tools/torch_probe.py"] = counts = read_counts(vb, mc)
+    check(counts["probe"] >= 2 * len(probe.PROBES) and counts["plain"] == 0,
+          counts)
+    check(len(probe_rows) == len(probe.PROBES)
+          and all(r["per_iter_us"] > 0 and np.isfinite(r["chk"])
+                  for r in probe_rows), "the probe list's results")
+    for threads in (64, 1):
+        for name in ("chain20_8x128", "ge16_128"):
+            probe_rows.append(probe.measure(name, threads=threads,
+                                            target_s=0.05))
+    print(f"phase 17 P1: {len(probe.PROBES)} probes x (128, 64, 1) threads "
+          "bit-identical to their plain versions; per-iteration times "
+          "(launch subtracted): "
+          + "; ".join(f"{r['name']}@{r['threads']} {r['per_iter_us']:.4f} us"
+                      for r in probe_rows)
+          + f" [{card}] ({time.perf_counter() - t_p17:.0f} s)", flush=True)
+    # the kernels line's P1 entry: chain d=20 on (8, 128) for 2000 iterations
+    p1_iters = 2000
+    p1_args = ("chain", p1_iters, 8, 128, 20)
+    p1_out, _ = probe.run_probe(*p1_args, device=dev)
+    p1_plain_ms, (p1_ref, _) = host_ms(lambda: probe.probe_plain(
+        *p1_args, device=dev))
+    p1_ms = cuda_ms(lambda: probe.run_probe(*p1_args, device=dev), reps=5)
+    check(bits_equal(p1_out, p1_ref), "P1 chain d=20 x 2000 iterations: "
+          + first_diff(p1_out, p1_ref))
+    p1_bound = bound(4 + 4 * 128, p1_iters * 20 * 2 * 8 * 128)
+
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
 
     def entry(name, source, replaces, shape, err, ms, plain_ms, bnd, **more):
         return {"name": name, "route": "cuda",
                 "source": "openwurli_tpu_torch/csrc/" + source,
-                "replaces": "openwurli_tpu/kernels/" + replaces,
+                "replaces": replaces if "/" in replaces
+                else "openwurli_tpu/kernels/" + replaces,
                 "launches": sum(by_path(name).values()),
                 "launches_by_path": by_path(name), "shape": shape,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -781,17 +1230,39 @@ def main():
               k2_main_plain_ms, k2_bound, compared=k2_cmp,
               main_path_ms={"render_grid 128 streams x 44032": k2_grid_ms,
                             f"render_events_parallel {n_seg} streams x "
-                            f"{warm + seg_len}": stage_ms["K2"]}),
+                            f"{warm + seg_len}": stage_ms["K2"],
+                            "FastEngine block, 1 stream x 1024": k2_blk_ms,
+                            "FastEngine warm-up, 1 stream x 26624":
+                            ses["warm_ms"]}),
         entry("voice_bank_events", "voice_bank.cu", "voice_bank.py:767",
               f"128 lanes x {t_pre}", max(k3_err, k3_ev_err), k3_pre_ms,
               k3_plain_ms, k3_bound,
-              main_path_ms={f"128 lanes x {t_voice}": k3_main_ms}),
+              main_path_ms={f"128 lanes x {t_voice}": k3_main_ms,
+                            "FastEngine block, 128 lanes x 1024": k3_eng_ms},
+              engine_block={"max_abs_err": k3_eng_err,
+                            "plain_ms": k3_eng_plain_ms,
+                            "bound_ms": k3_eng_bound[0],
+                            "bound_by": k3_eng_bound[1]}),
         entry("trem_preroll", "mono_chain.cu", "mono_chain.py:964",
               f"2 captures x stride {seg_len}", k4_err, k4_ms, k4_plain_ms,
               k4_bound,
               main_path_ms={f"{n_seg} captures x stride {seg_len}":
                             k4_main_ms}),
+        entry("mono_chain_noise", "mono_chain.cu", "mono_chain.py:1710",
+              f"{streams} streams x {t_k5}",
+              max(c["max_abs_err"] for c in k5_cmp), k5_ms, k5_plain_ms,
+              k5_bound, compared=k5_cmp,
+              main_path_ms={"FastEngine block, 1 stream x 1024": k5_blk_ms,
+                            "FastEngine warm-up, 1 stream x 26624":
+                            ses8["warm_ms"]}),
+        entry("probe", "probe.cu", "tools/tpu_probe.py:52",
+              f"chain d=20 on (8, 128) x {p1_iters} iterations",
+              float((p1_out - p1_ref).abs().max()), p1_ms, p1_plain_ms,
+              p1_bound, per_iter_us=probe_rows),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"kernel {k['name']} was never launched on "
+              "a driven path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "openwurli_tpu_torch")
 LIB_NAME = "libowkernels.so"
-SOURCES = ("voice_bank.cu", "mono_chain.cu")
+SOURCES = ("voice_bank.cu", "mono_chain.cu", "probe.cu")
 # -fmad=false: no FMA contraction anywhere, so the kernels round like their
 # plain torch twins (and the compensated sums in mono_chain.cu stay exact).
 # --threads 0: the sources compile side by side, one thread per core.
@@ -49,9 +49,13 @@ _SIGNATURES = {
     # consts, n_consts, scalars, n_scalars, controls, state_in, audio, out,
     # state_out, streams, t_len, stream
     "ow_mono_chain": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    # the same arguments: the thermal-noise variant
+    "ow_mono_chain_noise": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
     # consts, n_consts, scalars, n_scalars, controls, state_in, caps,
     # n_captures, steps_per_capture, stream
     "ow_trem_preroll": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
+    # body, x, mat, iters, depth, sub, lanes, threads, out, aux, stream
+    "ow_probe": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

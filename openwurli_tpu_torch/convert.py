@@ -84,3 +84,45 @@ def check_preroll_rows(rows):
     if theirs != mine:
         raise ValueError(f"preroll rows differ: {theirs} != {mine}")
     return mine
+
+
+def fast_engine_from_numpy(sample_rate, midis, vels, onsets, releases,
+                           n_used, ringing, pending, sustain, horizon,
+                           chain_state=None, voice_state=None, device="cpu",
+                           **engine_kw):
+    """A port `FastEngine` in the session state of a reference engine: its
+    host arrays (`_midis`, `_vels`, `_onsets`, `_releases`, `_n_used`,
+    `_ringing`, `_pending`, `_sustain`, `_horizon`) and, optionally, its
+    packed chain state (328, 1) and voice-bank state (48, 128).
+
+    Without a voice state every used lane starts from its note-on state at
+    the next block, as in an engine that has not rendered yet; with one,
+    the lanes carry on from it."""
+    from openwurli_tpu_torch.fast_engine import LANES, FastEngine
+
+    eng = FastEngine(sample_rate, device=device, **engine_kw)
+    for name, arr in (("_midis", midis), ("_vels", vels),
+                      ("_onsets", onsets), ("_releases", releases)):
+        a = np.array(arr, dtype=np.float64)
+        if a.shape != (LANES,):
+            raise ValueError(f"{name} shape {a.shape} != ({LANES},)")
+        setattr(eng, name, a)
+    eng._n_used = int(n_used)
+    eng._ringing = {int(k): int(v) for k, v in dict(ringing).items()}
+    eng._pending = {int(x) for x in pending}
+    eng._sustain = bool(sustain)
+    eng._horizon = int(horizon)
+    eng._params_dirty = True
+    if chain_state is not None:
+        st = state_from_numpy(chain_state, device)
+        if tuple(st.shape) != (mc.STATE_ROWS, 1):
+            raise ValueError(f"chain state shape {tuple(st.shape)} != "
+                             f"({mc.STATE_ROWS}, 1)")
+        eng._chain_state = st
+    if voice_state is not None:
+        st = state_from_numpy(voice_state, device)
+        if tuple(st.shape) != (vb.STATE_ROWS, LANES):
+            raise ValueError(f"voice state shape {tuple(st.shape)} != "
+                             f"({vb.STATE_ROWS}, {LANES})")
+        eng._vstate = st
+    return eng

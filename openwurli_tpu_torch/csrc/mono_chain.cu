@@ -27,6 +27,20 @@
 // gets from FMA contraction there). Guards keep select semantics: NaNs
 // propagate through min/max/clamp as they do in torch.
 //
+// Thermal-noise variant (kernel K5), `mono_chain_kernel<true>`. Replaces the
+// same `_make_kernel` launched with noise=True: `preamp_step`'s noise
+// branch. Per oversampled sample each stream advances its 40 LCG words
+// (×1664525 + 1013904223), hashes each (murmur3 finalizer), turns the top
+// 31 bits into a uniform and sums four into one of 10 unit-variance draws;
+// the draws, scaled by the `noise` control row, enter the main solver's
+// right-hand side through the pack-time columns pre_NS / pre_NP as the
+// two-draw stamp w[n] + w[n−1], and draw 0 rides the input. About 400
+// integer and 300 float operations beside the step's ~16000, so what bounds
+// K2 bounds K5. It is the same template as K2 with every addition under
+// `if constexpr (NOISE)`: the noise-off instantiation is the code it was
+// before, and carries the nz_ rows untouched. One thread owns its stream's
+// 40 words in native uint32_t; sums run in the plain version's order.
+//
 // Tremolo pre-roll (kernel K4), `trem_preroll_kernel` at the end of this
 // file. Replaces: openwurli_tpu/kernels/mono_chain.py, `_make_preroll_kernel`
 // as launched by `_trem_preroll_jit` / `trem_preroll`. It advances only the
@@ -39,6 +53,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -64,7 +79,7 @@ enum Sc {
   PA_A_ATT, PA_A_REL, PA_OUT_IDX, TREM_VDC_OUT, TREM_OUT_IDX, TREM_VMAX,
   TREM_VSPAN, TREM_ATT, TREM_REL, TREM_GAMMA, TREM_LN_RMAX, TREM_LN_SPAN,
   TREM_RMAX, TREM_R18, OS_A0, OS_A1, OS_A2, OS_B0, OS_B1, OS_B2,
-  SPK_THERMAL_ALPHA, POST_GAIN, DRIVE, N_SCALARS
+  SPK_THERMAL_ALPHA, POST_GAIN, DRIVE, NZ_U_SIGMA, N_SCALARS
 };
 
 // Packed state offsets (STATE_SPEC, 8-row aligned).
@@ -84,7 +99,7 @@ enum StateOffset {
 enum Ctrl {
   C_VOLUME = 0, C_RAIL_SAG = 1, C_DIV_TOP = 2, C_R_LOWER = 3, C_HPF = 4,
   C_LPF = 9, C_A2 = 14, C_A3 = 15, C_THERMAL = 16, C_CHAR = 17,
-  CTRL_ROWS = 19
+  C_NOISE = 18, CTRL_ROWS = 19
 };
 
 constexpr int B1 = 0, FB = 7, OUT = 6;  // preamp nodes
@@ -345,8 +360,48 @@ struct Chain {
     st[ST_TREM_PHASE] = 0.0f;
   }
 
-  // ── twin DK preamp, one oversampled sample ──
+  // ── twin DK preamp, one oversampled sample; NOISE adds the thermal
+  // noise of the main solver (the diff half) ──
+  template <bool NOISE>
   __device__ float preamp_step(float u, float gldr) {
+    float npred[8], npp[2];
+    if constexpr (NOISE) {
+      const float* NS = A + A_PRE_NS;  // (8, 9)
+      const float* NP = A + A_PRE_NP;  // (2, 9)
+      float un[40];
+      for (int k = 0; k < 40; ++k) {
+        const uint32_t lcg =
+            __float_as_uint(st[ST_NZ_LCG + k]) * 1664525u + 1013904223u;
+        st[ST_NZ_LCG + k] = __uint_as_float(lcg);
+        uint32_t h = lcg;
+        h = (h ^ (h >> 16)) * 0x85EBCA6Bu;
+        h = (h ^ (h >> 13)) * 0xC2B2AE35u;
+        h = h ^ (h >> 16);
+        un[k] = __int2float_rn((int)(h >> 1)) * (float)(2.0 / 4294967295.0)
+                - 1.0f;
+      }
+      const float gain = ctrl[C_NOISE];
+      float w[10];
+      for (int r = 0; r < 10; ++r)
+        w[r] = ((((un[r] + un[10 + r]) + un[20 + r]) + un[30 + r])
+                * 0.8660254037844386f) * gain;
+      float i_tz[9];
+      for (int r = 0; r < 9; ++r) {
+        i_tz[r] = w[1 + r] + st[ST_NZ_W + r];  // w[n] + w[n−1]
+        st[ST_NZ_W + r] = w[1 + r];
+      }
+      for (int r = 0; r < 8; ++r) {
+        float acc = NS[r * 9] * i_tz[0];
+        for (int k = 1; k < 9; ++k) acc = acc + NS[r * 9 + k] * i_tz[k];
+        npred[r] = acc;
+      }
+      for (int r = 0; r < 2; ++r) {
+        float acc = NP[r * 9] * i_tz[0];
+        for (int k = 1; k < 9; ++k) acc = acc + NP[r * 9 + k] * i_tz[k];
+        npp[r] = acc;
+      }
+      u = u + w[0] * sc(NZ_U_SIGMA);
+    }
     const float* SA = A + A_PRE_SA;       // (16, 16)
     const float* SAp = A + A_PRE_SA_P;    // (4, 16)
     const float* cols = A + A_PRE_COLS;   // (8, 4)
@@ -392,6 +447,11 @@ struct Chain {
         (half ? pb_df : pb_sh)[r] = __fadd_rn(s, lo);
       }
     }
+    if constexpr (NOISE) {
+      // before tpart: the feedback correction sees the noise through
+      // pb_df[FB] as it sees every other rhs current
+      for (int r = 0; r < 8; ++r) pb_df[r] = pb_df[r] + npred[r];
+    }
 
     const float smk = gldr / (1.0f + sc(PRE_SFBFB) * gldr);
     const float kc00 = sc(PRE_K00) - smk * sc(PRE_NV0S0);
@@ -420,12 +480,16 @@ struct Chain {
     const float p1_sh = (((((sc(PRE_PDC1) + p_sad[1]) + sc(PRE_CFB_P1) * c_fb_sh)
                           + sc(PRE_CB1_P1) * c_b1_sh) + sc(PRE_CE1_P1) * dic[0])
                          + sc(PRE_CE2_P1) * dic[2]) - tpart_sh * sc(PRE_CFB_P1);
-    const float p0_df = ((((p_sad[2] + sc(PRE_CFB_P0) * c_fb_df)
+    float p0_df = ((((p_sad[2] + sc(PRE_CFB_P0) * c_fb_df)
                            + sc(PRE_CB1_P0) * c_b1_df) + sc(PRE_CE1_P0) * dic[1])
                          + sc(PRE_CE2_P0) * dic[3]) - tpart_df * sc(PRE_CFB_P0);
-    const float p1_df = ((((p_sad[3] + sc(PRE_CFB_P1) * c_fb_df)
-                           + sc(PRE_CB1_P1) * c_b1_df) + sc(PRE_CE1_P1) * dic[1])
-                         + sc(PRE_CE2_P1) * dic[3]) - tpart_df * sc(PRE_CFB_P1);
+    float p1_df = ((((p_sad[3] + sc(PRE_CFB_P1) * c_fb_df)
+                     + sc(PRE_CB1_P1) * c_b1_df) + sc(PRE_CE1_P1) * dic[1])
+                   + sc(PRE_CE2_P1) * dic[3]) - tpart_df * sc(PRE_CFB_P1);
+    if constexpr (NOISE) {
+      p0_df = p0_df + npp[0];
+      p1_df = p1_df + npp[1];
+    }
     const float p0[2] = {p0_sh + p0_df, p0_sh};  // [main, shadow]
     const float p1[2] = {p1_sh + p1_df, p1_sh};
 
@@ -674,6 +738,7 @@ struct Chain {
   }
 
   // ── one base-rate sample ──
+  template <bool NOISE>
   __device__ float base_step(float x) {
     const float e = allpass(OS_A0, ST_OS_UA, x);
     const float o = allpass(OS_B0, ST_OS_UB, x);
@@ -683,7 +748,7 @@ struct Chain {
     for (int t_os = 0; t_os < 2; ++t_os) {
       const float frac = (ph + (float)(t_os + 1)) * 0.25f;
       const float gldr = g_prev + frac * (g_cur - g_prev);
-      const float pre_out = preamp_step(t_os ? o : e, gldr);
+      const float pre_out = preamp_step<NOISE>(t_os ? o : e, gldr);
       ys[t_os] = pa_step(pre_out * sc(DRIVE));
     }
     st[ST_TREM_PHASE] = ph + 2.0f;
@@ -726,6 +791,7 @@ struct Chain {
   }
 };
 
+template <bool NOISE>
 __global__ void __launch_bounds__(64)
 mono_chain_kernel(const float* __restrict__ consts,
                   const float* __restrict__ scalars,
@@ -751,7 +817,8 @@ mono_chain_kernel(const float* __restrict__ consts,
 
   for (int i = 0; i < t_len; ++i) {
     if (i % 2 == 0) ch.trem_update();  // SUB_BASE = 2, before base_step
-    out[(size_t)i * streams + s] = ch.base_step(audio[(size_t)i * streams + s]);
+    out[(size_t)i * streams + s] =
+        ch.base_step<NOISE>(audio[(size_t)i * streams + s]);
   }
   for (int r = 0; r < STATE_ROWS; ++r) state_out[r * streams + s] = ch.st[r];
 }
@@ -814,18 +881,45 @@ extern "C" int ow_trem_preroll(const float* consts, int n_consts,
   return (int)cudaGetLastError();
 }
 
-extern "C" int ow_mono_chain(const float* consts, int n_consts,
-                             const float* scalars, int n_scalars,
-                             const float* controls, const float* state_in,
-                             const float* audio, float* out, float* state_out,
-                             int streams, int t_len, cudaStream_t stream) {
+namespace {
+
+template <bool NOISE>
+int launch_mono_chain(const float* consts, int n_consts, const float* scalars,
+                      int n_scalars, const float* controls,
+                      const float* state_in, const float* audio, float* out,
+                      float* state_out, int streams, int t_len,
+                      cudaStream_t stream) {
   if (n_consts != A_TOTAL || n_scalars != N_SCALARS || streams <= 0 ||
       t_len < 0)
     return (int)cudaErrorInvalidValue;
   const int threads = 64;
   const int blocks = (streams + threads - 1) / threads;
-  mono_chain_kernel<<<blocks, threads, 0, stream>>>(
+  mono_chain_kernel<NOISE><<<blocks, threads, 0, stream>>>(
       consts, scalars, controls, state_in, audio, out, state_out, streams,
       t_len);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ow_mono_chain(const float* consts, int n_consts,
+                             const float* scalars, int n_scalars,
+                             const float* controls, const float* state_in,
+                             const float* audio, float* out, float* state_out,
+                             int streams, int t_len, cudaStream_t stream) {
+  return launch_mono_chain<false>(consts, n_consts, scalars, n_scalars,
+                                  controls, state_in, audio, out, state_out,
+                                  streams, t_len, stream);
+}
+
+// K5: the same call with the thermal-noise branch compiled in.
+extern "C" int ow_mono_chain_noise(const float* consts, int n_consts,
+                                   const float* scalars, int n_scalars,
+                                   const float* controls,
+                                   const float* state_in, const float* audio,
+                                   float* out, float* state_out, int streams,
+                                   int t_len, cudaStream_t stream) {
+  return launch_mono_chain<true>(consts, n_consts, scalars, n_scalars,
+                                 controls, state_in, audio, out, state_out,
+                                 streams, t_len, stream);
 }

@@ -2,7 +2,8 @@
 amp → 2× oversampling → speaker, per stream, in float32 deviation form; and
 the tremolo pre-roll (kernel K4), which advances the tremolo alone.
 
-Port of `openwurli_tpu/kernels/mono_chain.py`, noise-off variant. Pieces:
+Port of `openwurli_tpu/kernels/mono_chain.py`: the noise-off variant (K2)
+and the thermal-noise variant (K5, the static `noise` flag). Pieces:
 
   * the host packers `pack_consts` (float64 → the reference's 21 constant
     arrays and ~90 scalars, with all of its self-checks), `init_state`,
@@ -13,7 +14,8 @@ Port of `openwurli_tpu/kernels/mono_chain.py`, noise-off variant. Pieces:
     the reference's, and `render_chain_plain`, a Python loop over base
     samples — the CPU path and the oracle the CUDA kernel is held to;
   * `render`, the wrapper: a CPU tensor goes to the plain version, a CUDA
-    tensor to `csrc/mono_chain.cu`. No fallback;
+    tensor to `csrc/mono_chain.cu` (K2, or K5 with noise=True). No
+    fallback;
   * `trem_preroll` (K4) with `trem_preroll_plain` beside it: the tremolo
     never reads the audio, so its state on a stride grid can be computed
     ahead of the chain. The time-parallel song renderer injects those
@@ -38,6 +40,8 @@ from openwurli_tpu_torch.circuits import gp, mna
 from openwurli_tpu_torch.circuits import power_amp as pamod
 from openwurli_tpu_torch.circuits import speaker as spkmod
 from openwurli_tpu_torch.circuits import tremolo as trmod
+from openwurli_tpu_torch.kernels.voice_bank import (_f32_bits, _lcg,
+                                                    _mul_u32, _u32_bits)
 from openwurli_tpu_torch.ops import allpass
 
 TREM_SUB_OS = 4
@@ -53,10 +57,12 @@ T_TILE = 1024
 
 f32 = np.float32
 
-# Launch counters of `render` (K2): KERNEL_LAUNCHES counts CUDA launches,
-# PLAIN_CALLS counts calls served by the plain version. The PREROLL_ pair
-# counts `trem_preroll` (K4) the same way.
+# Launch counters of `render`: KERNEL_LAUNCHES counts CUDA launches of the
+# noise-off kernel (K2), NOISE_KERNEL_LAUNCHES those of the noise kernel
+# (K5), PLAIN_CALLS the calls served by the plain version. The PREROLL_
+# pair counts `trem_preroll` (K4) the same way.
 KERNEL_LAUNCHES = 0
+NOISE_KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 PREROLL_KERNEL_LAUNCHES = 0
 PREROLL_PLAIN_CALLS = 0
@@ -335,6 +341,7 @@ SCALAR_NAMES = (
     "trem_r18",
     "os_a0", "os_a1", "os_a2", "os_b0", "os_b1", "os_b2",
     "spk_thermal_alpha", "post_gain", "drive",
+    "nz_u_sigma",
 )
 
 
@@ -397,8 +404,8 @@ STATE_SPEC = (
     ("os_ua", 3), ("os_ub", 3), ("os_da", 3), ("os_db", 3), ("os_delay", 1),
     ("spk_hpf", 2), ("spk_lpf", 2), ("spk_thermal", 1),
     ("guard_fires", 1),
-    # Thermal-noise state (noise variant only; inert here): previous draws
-    # and 40 per-stream LCG streams as f32 bit patterns.
+    # Thermal-noise state (read and written by the noise variant only):
+    # previous draws and 40 per-stream LCG streams as f32 bit patterns.
     ("nz_w", 9),
     ("nz_lcg", 40),
 )
@@ -757,13 +764,50 @@ def trem_update(c, sc, st):
     return st
 
 
-def preamp_step(c, sc, st, u_main, gldr):
-    """Twin DK preamp, one oversampled sample (noise off). u_main (1,S).
-    Returns (st, out) with out = main − shadow (1,S)."""
+def _noise_draws(st, gain):
+    """Advance the 40 LCG streams of `nz_lcg` one step and turn them into
+    10 unit-variance draws per stream, scaled by `gain` (1, S) → (lcg rows
+    as f32 bit patterns (40, S), w (10, S)).
+
+    The integer part is exact: LCG step, murmur3 finalizer on the new
+    state (raw LCG streams with shared constants correlate across
+    streams), the top 31 bits as a signed int. Four uniforms in [−1, 1)
+    sum to one Irwin-Hall draw, × sqrt(3)/2 for unit variance."""
+    lcg = _lcg(_u32_bits(st["nz_lcg"]))
+    h = lcg
+    h = _mul_u32(0x85EBCA6B, h ^ (h >> 16))
+    h = _mul_u32(0xC2B2AE35, h ^ (h >> 13))
+    h = h ^ (h >> 16)
+    un = (h >> 1).to(torch.int32).to(torch.float32) \
+        * _K(2.0 / 4294967295.0) - _K(1.0)
+    g4 = (un[0:10] + un[10:20] + un[20:30] + un[30:40]) \
+        * _K(0.8660254037844386)
+    return _f32_bits(lcg), g4 * gain
+
+
+def preamp_step(c, sc, st, u_main, gldr, noise=False):
+    """Twin DK preamp, one oversampled sample. u_main (1,S). Returns
+    (st, out) with out = main − shadow (1,S).
+
+    noise (static): Johnson-Nyquist thermal noise on the main solver (the
+    diff half): per-resistor unit-variance draws scaled by the pack-time
+    σ·S columns `pre_NS` / `pre_NP`, two-draw trapezoidal stamp
+    w[n] + w[n−1]; R1's noise rides the input as its Thévenin voltage.
+    The runtime gain is the `noise` control row; at gain 0.0 every
+    injected term is ±0.0 and the result equals the noise-off step's."""
     B1, OUT, FB = dkp.BASE1, dkp.OUT, dkp.FB
     inv_vt, IS, is_vt = sc["pre_inv_vt"], sc["pre_is"], sc["pre_is_vt"]
     lo, vmax = -1.0, float(sc["pre_vmax"])
     one, zero = _K(1.0), _K(0.0)
+    if noise:
+        st = dict(st)
+        st["nz_lcg"], w = _noise_draws(st, c["noise"])
+        w_i = w[1:10]
+        i_tz = w_i + st["nz_w"]
+        st["nz_w"] = w_i
+        npred = _matvec(c["pre_NS"], i_tz)
+        npp = _matvec(c["pre_NP"], i_tz)
+        u_main = u_main + w[0:1] * sc["nz_u_sigma"]
     d = st["pre_d"]
     gprev = st["pre_gldr"]
     cols = c["pre_cols"]
@@ -796,6 +840,10 @@ def preamp_step(c, sc, st, u_main, gldr):
 
     pb_sh = _pb_comp(sad[0:8], (c_fb_sh, c_b1_sh, dic[0:1], dic[2:3]))
     pb_df = _pb_comp(sad[8:16], (c_fb_df, c_b1_df, dic[1:2], dic[3:4]))
+    if noise:
+        # before tpart: the feedback correction sees the noise through
+        # pb_df[FB] as it sees every other rhs current
+        pb_df = pb_df + npred
 
     smk = gldr / (1.0 + sc["pre_sfbfb"] * gldr)
     kc00 = sc["pre_k00"] - smk * sc["pre_nv0s0"]
@@ -834,6 +882,9 @@ def preamp_step(c, sc, st, u_main, gldr):
              + sc["pre_cfb_p1"] * c_fb_df + sc["pre_cb1_p1"] * c_b1_df
              + sc["pre_ce1_p1"] * dic[1:2] + sc["pre_ce2_p1"] * dic[3:4]
              - tpart_df * sc["pre_cfb_p1"])
+    if noise:
+        p0_df = p0_df + npp[0:1]
+        p1_df = p1_df + npp[1:2]
     p0 = torch.cat([p0_sh + p0_df, p0_sh], dim=0)  # [main, shadow]
     p1 = torch.cat([p1_sh + p1_df, p1_sh], dim=0)
 
@@ -1001,9 +1052,10 @@ _GUARD_ZERO = ("pre_d", "pre_dic", "pre_dj", "pre_dprev", "pa_z", "pa_di",
                "spk_lpf", "spk_thermal", "pa_lastgood")
 
 
-def base_step(c, sc, st, x):
+def base_step(c, sc, st, x, noise=False):
     """One base-rate sample: 2× upsample → 2×(preamp → power amp) →
-    downsample → speaker → NaN guard. x (1,S) → (st, out (1,S))."""
+    downsample → speaker → NaN guard. x (1,S) → (st, out (1,S)). The guard
+    never touches the nz_ rows."""
     st = dict(st)
     os_a = (sc["os_a0"], sc["os_a1"], sc["os_a2"])
     os_b = (sc["os_b0"], sc["os_b1"], sc["os_b2"])
@@ -1015,7 +1067,7 @@ def base_step(c, sc, st, x):
     for t_os, u in enumerate((e, o)):
         frac = (ph + (t_os + 1.0)) * (1.0 / TREM_SUB_OS)
         gldr = g_prev + frac * (g_cur - g_prev)
-        st, pre_out = preamp_step(c, sc, st, u, gldr)
+        st, pre_out = preamp_step(c, sc, st, u, gldr, noise=noise)
         st, y = pa_step(c, sc, st, pre_out * sc["drive"], c["rail_sag"])
         ys.append(y)
     st["trem_phase"] = ph + 2.0
@@ -1056,8 +1108,10 @@ def base_step(c, sc, st, x):
     return st, torch.where(bad, 0.0, out)
 
 
-def render_chain_plain(consts: ChainConsts, controls, state, audio):
-    """Plain-torch K2 on the inputs' device: audio (T, S) → (out, state').
+def render_chain_plain(consts: ChainConsts, controls, state, audio,
+                       noise=False):
+    """Plain-torch K2 (K5 with noise=True) on the inputs' device: audio
+    (T, S) → (out, state').
 
     A Python loop over base samples running the step functions above:
     the tremolo update on every SUB_BASE-th sample (before base_step),
@@ -1071,7 +1125,7 @@ def render_chain_plain(consts: ChainConsts, controls, state, audio):
         for i in range(t_len):
             if i % SUB_BASE == 0:
                 st = trem_update(c, sc, st)
-            st, y = base_step(c, sc, st, audio[i:i + 1])
+            st, y = base_step(c, sc, st, audio[i:i + 1], noise=noise)
             out[i:i + 1] = y
     return out, pack_state(st)
 
@@ -1103,12 +1157,13 @@ def render(base_sr, controls, state, audio, noise=False):
     """Run the chain over audio (T, S) float32 → (out (T, S), state').
 
     controls (CTRL_ROWS, S) from make_controls, state (STATE_ROWS, S) from
-    init_state or a previous call; T a multiple of SUB_BASE. A CPU tensor
-    runs the plain version, a CUDA tensor the CUDA kernel."""
-    global KERNEL_LAUNCHES, PLAIN_CALLS
-    if noise:
-        raise NotImplementedError(
-            "the thermal-noise chain variant (kernel K5) is not ported yet")
+    init_state or a previous call; T a multiple of SUB_BASE. noise selects
+    the thermal-noise variant (K5), whose per-stream gain is the controls'
+    noise row (make_controls noise_level); the noise-off variant (K2)
+    carries the nz_ state rows untouched. A CPU tensor runs the plain
+    version, a CUDA tensor the CUDA kernel."""
+    global KERNEL_LAUNCHES, NOISE_KERNEL_LAUNCHES, PLAIN_CALLS
+    noise = bool(noise)
     t_len, s = audio.shape
     if t_len % SUB_BASE:
         raise ValueError(f"T={t_len} must be a multiple of {SUB_BASE}")
@@ -1121,7 +1176,8 @@ def render(base_sr, controls, state, audio, noise=False):
 
     if audio.device.type == "cpu":
         PLAIN_CALLS += 1
-        return render_chain_plain(consts, controls, state, audio)
+        return render_chain_plain(consts, controls, state, audio,
+                                  noise=noise)
     if audio.device.type != "cuda":
         raise ValueError(f"unsupported device {audio.device}")
 
@@ -1132,13 +1188,17 @@ def render(base_sr, controls, state, audio, noise=False):
     out = torch.empty_like(audio)
     st_out = torch.empty_like(state)
     stream = torch.cuda.current_stream(audio.device).cuda_stream
-    err = lib.ow_mono_chain(
+    entry = lib.ow_mono_chain_noise if noise else lib.ow_mono_chain
+    err = entry(
         flat.data_ptr(), flat.numel(), scal.data_ptr(), scal.numel(),
         controls.data_ptr(), state.data_ptr(), audio.data_ptr(),
         out.data_ptr(), st_out.data_ptr(), s, t_len, stream)
     if err:
         raise RuntimeError(f"mono_chain kernel failed: {_build.error(err)}")
-    KERNEL_LAUNCHES += 1
+    if noise:
+        NOISE_KERNEL_LAUNCHES += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return out, st_out
 
 

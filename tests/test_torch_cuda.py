@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from openwurli_tpu_torch.kernels import mono_chain as mc
+from openwurli_tpu_torch.kernels import probe
 from openwurli_tpu_torch.kernels import voice_bank as vb
 
 SR = 44100.0
@@ -124,3 +125,58 @@ def test_mono_chain_kernel_partial_block_from_injected_state(cuda):
         assert torch.equal(out, ref)
         assert torch.equal(st.view(torch.int32), ref_st.view(torch.int32))
         st0 = st
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def test_mono_chain_noise_kernel_matches_plain(cuda):
+    """K5: per-stream gains 0-30 over a partial second block of threads,
+    output and state (LCG words included) bit for bit, then once more from
+    the carried state; the gain-0 stream equals K2 in its output and in
+    every row but the nz_ ones."""
+    s, t = 72, 64
+    rng = np.random.default_rng(5)
+    audio = torch.from_numpy(
+        (0.03 * rng.standard_normal((2 * t, s))).astype(np.float32)).to(cuda)
+    gains = np.linspace(0.0, 30.0, s)
+    ctrl = mc.make_controls(SR, s, depth=0.5, noise_level=gains, device=cuda)
+    st0 = mc.init_state(SR, s, device=cuda)
+    consts = mc.pack_consts(SR)
+    launches = mc.NOISE_KERNEL_LAUNCHES, mc.KERNEL_LAUNCHES
+    quiet, quiet_st = mc.render(SR, ctrl, st0, audio[:t].contiguous())
+    state = st0
+    for k, a_blk in enumerate((audio[:t].contiguous(),
+                               audio[t:].contiguous())):
+        out, st = mc.render(SR, ctrl, state, a_blk, noise=True)
+        ref, ref_st = mc.render_chain_plain(consts, ctrl, state, a_blk,
+                                            noise=True)
+        assert torch.equal(out, ref)
+        assert torch.equal(_bits(st), _bits(ref_st))
+        if k == 0:
+            a, b = mc._OFFSETS["nz_w"][0], mc._OFFSETS["nz_lcg"][0]
+            assert torch.equal(out[:, 0], quiet[:, 0])
+            assert not torch.equal(out[:, 1:], quiet[:, 1:])
+            assert torch.equal(_bits(st[:a, 0]), _bits(quiet_st[:a, 0]))
+            assert not torch.equal(_bits(st[b:]), _bits(quiet_st[b:]))
+            assert torch.equal(_bits(quiet_st[a:]), _bits(st0[a:]))
+        state = st
+    assert (mc.NOISE_KERNEL_LAUNCHES, mc.KERNEL_LAUNCHES) == \
+        (launches[0] + 2, launches[1] + 1)
+
+
+@pytest.mark.parametrize("name", list(probe.PROBES))
+def test_probe_kernel_matches_plain(cuda, name):
+    """P1: every probe of the list at its own size, a few iterations, at
+    128, 64 and 1 threads per block: the output row and aux bit for bit."""
+    _label, body, sub, lan, depth, mat, _iters = probe.PROBES[name]
+    ref, ref_aux = probe.probe_plain(body, 7, sub, lan, depth, x0=0.37,
+                                     mat=mat, device=cuda)
+    for threads in (128, 64, 1):
+        out, aux = probe.run_probe(body, 7, sub, lan, depth, x0=0.37,
+                                   mat=mat, threads=threads, device=cuda)
+        assert torch.equal(_bits(out), _bits(ref)), threads
+        assert (aux is None) == (ref_aux is None)
+        if aux is not None:
+            assert torch.equal(_bits(aux), _bits(ref_aux)), threads

@@ -108,10 +108,11 @@ def test_render_events_parallel_matches_jax_composition(monkeypatch):
 def test_render_events_parallel_geometry(monkeypatch):
     """Segment length rounds up to tiles; the warm-up rounds to the nearest
     sample, then up to tiles, and is at least one tile."""
-    shapes = []
+    shapes, noise_flags = [], []
 
     def fake(base_sr, controls, state, x, noise=False):
         shapes.append(tuple(x.shape))
+        noise_flags.append(noise)
         return torch.zeros_like(x), state
 
     monkeypatch.setattr(pmc, "render", fake)
@@ -123,11 +124,17 @@ def test_render_events_parallel_geometry(monkeypatch):
     assert shapes == [(32 + 96, 3), (64 + 96, 3), (96 + 128, 2)]
     with pytest.raises(ValueError, match="at least one note"):
         fast.render_events_parallel([], [], [], [], 0.01, SR, device="cpu")
-    with pytest.raises(NotImplementedError, match="K5"):
-        monkeypatch.undo()
-        fast.render_events_parallel(MIDIS, VELS, ONSETS, RELEASES, 64 / SR,
-                                    SR, segments=2, t_tile=T_TILE,
-                                    noise_level=1.0, device="cpu")
+    # noise_level > 0 asks the chain for its thermal-noise variant, with
+    # the level in the controls' noise row of every segment
+    assert noise_flags == [False] * 3
+    seen = []
+    monkeypatch.setattr(pmc, "render", lambda sr, ctrl, st, x, noise=False: (
+        seen.append((noise, ctrl[pmc._CTRL_OFF["noise"][0]].tolist())),
+        (torch.zeros_like(x), st))[1])
+    fast.render_events_parallel(MIDIS, VELS, ONSETS, RELEASES, 64 / SR, SR,
+                                segments=2, warm_seconds=0.0, t_tile=T_TILE,
+                                noise_level=1.5, device="cpu")
+    assert seen == [(True, [1.5, 1.5])]
 
 
 def test_render_midi_file_end_to_end(tmp_path):

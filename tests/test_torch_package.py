@@ -27,7 +27,9 @@ REPO = os.path.dirname(PKG_DIR)
 def test_imports_without_jax():
     code = ("import sys, openwurli_tpu_torch, openwurli_tpu_torch.fast, "
             "openwurli_tpu_torch.convert, openwurli_tpu_torch.io.midi_file, "
-            "openwurli_tpu_torch.io.wav\n"
+            "openwurli_tpu_torch.io.wav, openwurli_tpu_torch.fast_engine, "
+            "openwurli_tpu_torch.host, openwurli_tpu_torch.stream_host, "
+            "openwurli_tpu_torch.kernels.probe\n"
             "from openwurli_tpu_torch import fast\n"
             "for name in ('schedule_events', 'render_events', "
             "'render_events_parallel', 'render_midi_file', "
@@ -47,10 +49,14 @@ def test_imports_without_jax():
 
 
 def _package_files():
+    """The package's modules, the card script and the port's two tools."""
     for root, _dirs, files in os.walk(PKG_DIR):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tools", "torch_probe.py")
+    yield os.path.join(REPO, "tools", "torch_interactive_rtf.py")
 
 
 def test_no_file_imports_jax_or_the_reference():
@@ -90,6 +96,16 @@ def test_cuda_wrappers_raise_without_cuda():
     with pytest.raises((RuntimeError, AssertionError)):
         mc.trem_preroll(44100.0, mc.make_controls(44100.0, 1,
                                                   device="cuda"), 2, 8)
+    # the interactive entry points default to the card as well
+    from openwurli_tpu_torch import fast_engine, host, stream_host
+    with pytest.raises((RuntimeError, AssertionError)):
+        fast_engine.FastEngine(44100.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        host.FastWurliPlugin(44100.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        stream_host.StreamHost(engine="fast")
+    with pytest.raises((RuntimeError, AssertionError)):
+        stream_host.play_midi("none.mid", None, engine="fast")
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():
@@ -109,8 +125,12 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
     ctrl = mc.make_controls(44100.0, 2)
     st = mc.init_state(44100.0, 2)
     audio = torch.zeros((4, 2))
-    with pytest.raises(NotImplementedError, match="K5"):
-        mc.render(44100.0, ctrl, st, audio, noise=True)
+    # the thermal-noise variant (K5) runs: its plain version on the CPU
+    out, st_n = mc.render(44100.0, ctrl, st, audio, noise=True)
+    assert out.shape == (4, 2) and st_n.shape == st.shape
+    with pytest.raises(ValueError, match="unsupported device"):
+        mc.render(44100.0, ctrl.to("meta"), st.to("meta"),
+                  audio.to("meta"), noise=True)
     with pytest.raises(ValueError):
         mc.render(44100.0, ctrl, st, torch.zeros((3, 2)))
     with pytest.raises(ValueError):
@@ -144,7 +164,7 @@ def test_build_signatures_cover_every_entry_point():
             found[name] = len(args.split(","))
     assert set(found) == set(_build._SIGNATURES) == {
         "ow_voice_bank", "ow_voice_bank_events", "ow_mono_chain",
-        "ow_trem_preroll"}
+        "ow_mono_chain_noise", "ow_trem_preroll", "ow_probe"}
     for name, n_args in found.items():
         assert len(_build._SIGNATURES[name]) == n_args, name
 
@@ -173,6 +193,8 @@ def test_cuda_layouts_match_python():
     scal = _cu_enum("Sc")
     assert scal[-1] == "N_SCALARS"
     assert [s.lower() for s in scal[:-1]] == list(mc.SCALAR_NAMES)
+    # appended last: no index of the earlier kernels' scalars moved
+    assert mc.SCALAR_NAMES[-2:] == ("drive", "nz_u_sigma")
 
     consts = mc.pack_consts(44100.0)
     offs = dict(e.split(" = ") for e in _cu_enum("ArrayOffset"))
@@ -187,13 +209,18 @@ def test_cuda_layouts_match_python():
         assert int(st["ST_" + name.upper()]) == a, name
     assert int(st["STATE_ROWS"]) == mc.STATE_ROWS
 
+    # every entry of STATE_SPEC has its name in the enum, and no other
+    assert sorted(st) == sorted(["ST_" + n.upper() for n, _ in mc.STATE_SPEC]
+                                + ["STATE_ROWS"])
+
+    # every entry of CTRL_SPEC likewise (thermal_coeff is C_THERMAL)
     ctrl = dict(e.split(" = ") for e in _cu_enum("Ctrl"))
-    for name, key in (("volume", "C_VOLUME"), ("rail_sag", "C_RAIL_SAG"),
-                      ("div_top", "C_DIV_TOP"), ("r_lower", "C_R_LOWER"),
-                      ("hpf", "C_HPF"), ("lpf", "C_LPF"), ("a2", "C_A2"),
-                      ("a3", "C_A3"), ("thermal_coeff", "C_THERMAL"),
-                      ("char", "C_CHAR")):
+    keys = {name: "C_" + name.upper() for name, _ in mc.CTRL_SPEC}
+    keys["thermal_coeff"] = "C_THERMAL"
+    for name, key in keys.items():
         assert int(ctrl[key]) == mc._CTRL_OFF[name][0], name
+    assert int(ctrl["C_NOISE"]) == 18
+    assert sorted(ctrl) == sorted(list(keys.values()) + ["CTRL_ROWS"])
     assert int(ctrl["CTRL_ROWS"]) == mc.CTRL_ROWS
 
     with open(os.path.join(PKG_DIR, "csrc", "mono_chain.cu")) as f:
@@ -223,3 +250,19 @@ def test_convert_round_trips_bit_rows():
     assert st.shape == (mc.STATE_ROWS, 3)
     with pytest.raises(ValueError):
         convert.state_from_numpy(np.zeros((7, 3)))
+
+
+def test_probe_bodies_match_cuda():
+    """The probe kernel's body indices are kernels/probe.py BODIES."""
+    from openwurli_tpu_torch.kernels import probe
+
+    with open(os.path.join(PKG_DIR, "csrc", "probe.cu")) as f:
+        src = f.read()
+    body = re.search(r"enum Body \{(.*?)\};", src, re.S).group(1)
+    names = [x.strip().lower() for x in body.replace("\n", " ").split(",")]
+    assert names == list(probe.BODIES) + ["n_bodies"]
+    for name, val in (("MAX_SUB", probe.MAX_SUB), ("MAX_M", probe.MAX_M),
+                      ("OUT_LANES", probe.OUT_LANES)):
+        assert re.search(r"%s = %d;" % (name, val), src), name
+    assert "GE_N = %d, GE_W = %d;" % (probe.GE_N, probe.GE_W) in src
+    assert "probe.cu" in _build.SOURCES
