@@ -477,7 +477,7 @@ def main():
           f"kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms", flush=True)
 
     # ── phase 3: K2 on the card against its plain version on the card ──
-    s_n, t_n = 8, 256
+    s_n, t_n = 8, 128
     tt = np.arange(t_n) / SR
     levels = np.linspace(0.02, 0.1, s_n)
     env = np.minimum(np.arange(t_n) / 200.0, 1.0)
@@ -590,8 +590,8 @@ def main():
     # ── phase 6: each kernel against its plain version at the main path's
     # shapes, on the main path's own inputs: K1 at 8192 lanes over the
     # whole render (its tile, so its renorm timing, follows the width), K2
-    # at 128 streams (two blocks) on the first 512 samples of the lane sum.
-    # Both must agree bit for bit. ──
+    # at 128 streams (32 blocks of 4 warps) on the first 256 samples of the
+    # lane sum. Both must agree bit for bit. ──
     k1_main_ms = cuda_ms(lambda: vb.render_voice_bank(params, t_pad,
                                                       steady=steady))
     k1_main_plain_ms, p_voices = host_ms(lambda: vb.render_voice_bank_plain(
@@ -601,7 +601,7 @@ def main():
           f"K1 at {streams * 64} lanes x {t_pad}: max abs err "
           f"{k1_main_err:.3e} against the plain version; differing "
           f"{first_diff(voices, p_voices)}")
-    t_cmp = 512
+    t_cmp = 256
     k2_cmp = [compare_chain(mc, ((SR, ctrl, st0, audio), {}), t_cmp,
                             "render_grid's lane sum from init_state")]
     k2_main_ms, k2_main_plain_ms = k2_cmp[0]["ms"], k2_cmp[0]["plain_ms"]
@@ -885,13 +885,13 @@ def main():
           f"{k4_main_ms * 1e3 / ((n_seg - 1) * seg_len // 2):.2f} us per update "
           f"[{card}]", flush=True)
 
-    # K2 on the song's own call: 120 streams (a full block of 64 threads
-    # and a partial one) from the state with the captures injected, over
-    # the first 512 samples of the segment windows.
+    # K2 on the song's own call: 120 streams (30 blocks of 4 warps) from
+    # the state with the captures injected, over
+    # the first 256 samples of the segment windows.
     song_call, = timer.calls["K2"]
     check(song_call[0][3].shape == (warm + seg_len, n_seg),
           "the song's chain call")
-    k2_cmp.append(compare_chain(mc, song_call, 512,
+    k2_cmp.append(compare_chain(mc, song_call, 256,
                                 "render_events_parallel's segment windows "
                                 "from the state with K4's captures"))
     check(k2_cmp[-1]["peak_in"] > 1e-3, "the song's windows start silent")
@@ -1205,6 +1205,85 @@ def main():
           + first_diff(p1_out, p1_ref))
     p1_bound = bound(4 + 4 * 128, p1_iters * 20 * 2 * 8 * 128)
 
+    # ── phase 18: K2 and K5 (one warp per stream) against their plain
+    # versions bit for bit, output and state, at the widths that stress the
+    # block geometry: 1 stream, 33 (a ragged last block) and 1024, 64
+    # samples each; 8 streams of which stream 2 takes the NaN guard (a NaN
+    # in its speaker state) and the power amp's reset path (an inf in its
+    # audio), the other 7 bit-identical to their run without them. Then µs
+    # per base sample at 1, 8, 128 and 1024 streams x 2048, and the
+    # tremolo's share of it (K4's time per update, one thread running the
+    # device function every lane of K2 runs, over two base samples). ──
+    t_p18 = time.perf_counter()
+    consts = mc.pack_consts(SR)
+
+    def lanes_inputs(s_n, t_n, seed):
+        rng = np.random.default_rng(seed)
+        audio = torch.from_numpy((0.05 * rng.standard_normal((t_n, s_n)))
+                                 .astype(np.float32)).to(dev)
+        ctrl = mc.make_controls(SR, s_n, volume=0.5,
+                                depth=np.linspace(0.0, 1.0, s_n),
+                                character=np.tile([0.0, 1.0], s_n)[:s_n],
+                                noise_level=np.linspace(0.0, 30.0, s_n),
+                                device=dev)
+        return ctrl, mc.init_state(SR, s_n, device=dev), audio
+
+    lanes_cmp = []
+    for s_n in (1, 33, 1024):
+        ctrl, st0, audio = lanes_inputs(s_n, 64, s_n)
+        for noise in (False, True):
+            lanes_cmp.append(compare_chain(
+                mc, ((SR, ctrl, st0, audio), {"noise": noise}), 64,
+                f"{s_n} streams x 64 from init_state"))
+    ctrl, st0, audio = lanes_inputs(8, 64, 8)
+    st_g, a_g = st0.clone(), audio.clone()
+    st_g[mc._OFFSETS["spk_lpf"][0], 2] = float("nan")
+    a_g[32, 2] = float("inf")
+    za, zb = mc._OFFSETS["pa_z"]
+    others = [0, 1, 3, 4, 5, 6, 7]
+    for noise in (False, True):
+        ref, ref_st = mc.render(SR, ctrl, st0, audio, noise=noise)
+        out, st = mc.render(SR, ctrl, st_g, a_g, noise=noise)
+        p_out, p_st = mc.render_chain_plain(consts, ctrl, st_g, a_g,
+                                            noise=noise)
+        what = ("K5" if noise else "K2") + " guard and reset stream"
+        check(bits_equal(out, p_out) and bits_equal(st, p_st),
+              f"{what}: output {first_diff(out, p_out)}, state "
+              f"{first_diff(st.view(torch.int32), p_st.view(torch.int32))}")
+        check(st[g0].tolist() == [0.0, 0.0, 1.0] + [0.0] * 5
+              and out[0, 2].item() == 0.0
+              and torch.isfinite(out).all().item(),
+              f"{what}: guard_fires {st[g0].tolist()}")
+        check(st[za:zb, 2].abs().max().item() == 0.0
+              and ref_st[za:zb, 2].abs().max().item() > 0.0,
+              f"{what}: the power amp did not reset")
+        check(bits_equal(out[:, others], ref[:, others])
+              and bits_equal(st[:, others], ref_st[:, others]),
+              f"{what}: the other streams moved")
+    k4_us_update = k4_main_ms * 1e3 / ((n_seg - 1) * seg_len // 2)
+    us_per_sample = {False: {}, True: {}}
+    for s_n in (1, 8, 128, 1024):
+        ctrl, st0, audio = lanes_inputs(s_n, 2048, 100 + s_n)
+        for noise in (False, True):
+            us_per_sample[noise][s_n] = cuda_ms(lambda: mc.render(
+                SR, ctrl, st0, audio, noise=noise)) * 1e3 / 2048
+    trem_share = {noise: {s_n: (k4_us_update / 2) / us
+                          for s_n, us in per.items()}
+                  for noise, per in us_per_sample.items()}
+    print("phase 18 K2 and K5, one warp per stream: 1, 33 and 1024 streams "
+          "x 64 bit-identical to the plain versions (output and state); 8 "
+          "streams with the NaN guard and the power amp's reset on stream 2 "
+          "bit-identical, guard_fires 1, the other 7 streams unchanged; us "
+          "per base sample at 1 / 8 / 128 / 1024 streams x 2048: K2 "
+          + " / ".join(f"{v:.2f}" for v in us_per_sample[False].values())
+          + ", K5 " + " / ".join(f"{v:.2f}" for v in us_per_sample[True]
+                                 .values())
+          + f"; tremolo {k4_us_update / 2:.3f} us per base sample (K4 "
+          f"{k4_us_update:.3f} us per update) = "
+          + " / ".join(f"{100 * v:.1f}" for v in trem_share[False].values())
+          + f" % of K2's sample [{card}] "
+          f"({time.perf_counter() - t_p18:.0f} s)", flush=True)
+
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
 
@@ -1220,14 +1299,18 @@ def main():
                 # no single PyTorch call computes any of these recurrences
                 "library_ms": None, **more}
 
+    lanes_k2 = [c for c in lanes_cmp if c["inputs"].startswith("K2")]
+    lanes_k5 = [c for c in lanes_cmp if c["inputs"].startswith("K5")]
     kernels = [
         entry("voice_bank", "voice_bank.cu", "voice_bank.py:767",
               f"{streams * 64} lanes x {t_pad}", k1_main_err, k1_main_ms,
               k1_main_plain_ms, k1_bound),
         entry("mono_chain", "mono_chain.cu", "mono_chain.py:1710",
               f"{streams} streams x {t_cmp}",
-              max(c["max_abs_err"] for c in k2_cmp), k2_main_ms,
-              k2_main_plain_ms, k2_bound, compared=k2_cmp,
+              max(c["max_abs_err"] for c in k2_cmp + lanes_k2), k2_main_ms,
+              k2_main_plain_ms, k2_bound, compared=k2_cmp + lanes_k2,
+              us_per_sample_x2048=us_per_sample[False],
+              tremolo_share=trem_share[False],
               main_path_ms={"render_grid 128 streams x 44032": k2_grid_ms,
                             f"render_events_parallel {n_seg} streams x "
                             f"{warm + seg_len}": stage_ms["K2"],
@@ -1250,8 +1333,10 @@ def main():
                             k4_main_ms}),
         entry("mono_chain_noise", "mono_chain.cu", "mono_chain.py:1710",
               f"{streams} streams x {t_k5}",
-              max(c["max_abs_err"] for c in k5_cmp), k5_ms, k5_plain_ms,
-              k5_bound, compared=k5_cmp,
+              max(c["max_abs_err"] for c in k5_cmp + lanes_k5), k5_ms,
+              k5_plain_ms, k5_bound, compared=k5_cmp + lanes_k5,
+              us_per_sample_x2048=us_per_sample[True],
+              tremolo_share=trem_share[True],
               main_path_ms={"FastEngine block, 1 stream x 1024": k5_blk_ms,
                             "FastEngine warm-up, 1 stream x 26624":
                             ses8["warm_ms"]}),

@@ -1,31 +1,77 @@
 // Mono analog chain (kernel K2) for Hopper: tremolo → twin DK preamp →
-// Class-AB power amp → 2× oversampling → speaker, one thread per stream.
+// Class-AB power amp → 2× oversampling → speaker, one warp per stream.
 //
 // Replaces: openwurli_tpu/kernels/mono_chain.py, `_make_kernel` (`kernel`)
 // as launched by `_render_tpu_jit` / `render_tpu`, noise=False.
 //
-// What bounds it on this card: a stream is one long serial recurrence
-// (per base sample: a tremolo update every 2nd sample, then two
+// What bounds it on this card: a stream is one long serial recurrence.
+// Per base sample: a tremolo update every 2nd sample, then two
 // oversampled preamp + power-amp solves, each power-amp solve 8 Newton
-// iterations with a 10×10 elimination), so time is the per-thread
-// latency of a few thousand dependent f32 operations per sample times the
-// sample count; the card fills only with many streams. Device memory
-// traffic is negligible (one f32 in and one out per sample and stream).
+// iterations with a 10×10 elimination; about 65800 f32 operations, nine
+// tenths of them in the power amp. Device memory traffic is negligible
+// (one f32 in and one out per sample and stream), and the card's issue
+// rate is far away: time is the length of the chain of dependent
+// operations per sample times the sample count, whatever the width until
+// the warps of many streams fill the SMs' issue slots. Walked in order by
+// one thread, that chain is every operation of the sample.
 //
-// What the design does about it: the 21 constant arrays (13 KB) are staged
-// in shared memory once per block, the ~70 scalars sit in shared memory
-// too, and each thread keeps its stream's 328-row state in registers /
-// local memory for the whole call (read once, written once, in the
-// reference's packed layout). The arithmetic follows the plain torch
-// version (`openwurli_tpu_torch/kernels/mono_chain.py`) op for op, with
-// sums in index order and no FMA contraction (built with -fmad=false):
-// the compensated TwoSum/Dekker pb accumulation needs unfused, correctly
-// rounded adds and multiplies, and matching rounding keeps this kernel
-// within the f32 noise of its plain twin on a chain whose free trajectory
-// amplifies ulp-level differences. The preamp's pump-scale node-row update
-// is accumulated in double and rounded once (the accuracy the reference
-// gets from FMA contraction there). Guards keep select semantics: NaNs
-// propagate through min/max/clamp as they do in torch.
+// What the design does about it: one warp computes one stream, and the
+// operations that do not depend on one another go to separate lanes, so
+// the dependent chain per sample is the critical path of each solve, not
+// its operation count. That path is now mostly the power amp's Newton
+// iterations: per iteration the transistors' exps, a 16-term residual row,
+// ten elimination steps (each a shuffle of the pivot, an IEEE division and
+// an update), ten back-substitution steps and the relegated rows; then
+// the replicated tremolo (about a twentieth of a sample's time) and the
+// preamp. A block holds kWarps warps = kWarps streams; the warps are
+// independent, so kWarps only sets how many blocks cover the streams.
+//  * Power amp: the 37 history rows on 32 lanes (lanes 0-4 take a second
+//    row); the 8 Gummel-Poon transistors and the 16 residual rows on lanes
+//    0-15 (lanes 16-31 mirror them); the 10×10 elimination with lane
+//    (row i, column group cg) = i + 10·cg owning rows i of columns
+//    4cg..4cg+3 (the right-hand side is column 10, group 2), the pivot and
+//    each update's operands broadcast by shuffles, the back-substitution on
+//    the right-hand side's lanes, every solution element on every lane;
+//    the 6 relegated rows and the clamp / pnjlim on the lanes that own
+//    their rows.
+//  * Preamp: the 16 SA rows and 4 SAp rows on lanes 0-19; the 16
+//    compensated pb rows (8 rows × 2 halves) and the 16 double-precision
+//    node rows on lanes 0-15, row r on lane r; the twin 2×2 Newton and the
+//    scalar algebra replicated on every lane.
+//  * Thermal noise (K5): lane l owns LCG word l, lanes 0-7 also word
+//    32 + l; the 10 draws are summed on lanes 0-9 in the plain order, the
+//    two-draw stamp on lanes 1-9, the (8, 9) and (2, 9) noise rows on
+//    lanes 8-17.
+//  * The tremolo (it never reads the audio), allpasses, speaker, rails,
+//    guards and scalar algebra are short or serial: every lane runs them
+//    on the same inputs and gets the same bits, with no divergence.
+// Each value is computed by one lane with the operations, and in the
+// order, of the plain torch version (`openwurli_tpu_torch/kernels/
+// mono_chain.py`): dot products are summed within one lane in index order
+// (no tree reductions), the elimination updates every row of the remaining
+// columns (rows at and above the pivot with a zero multiplier, whose
+// 0·inf = NaN the plain version shares), and max-reductions are butterfly
+// shuffles (a max does not depend on its order; with a NaN anywhere every
+// order gives NaN, so the comparisons on it stay uniform across the warp).
+// No FMA contraction (built with -fmad=false): the compensated
+// TwoSum/Dekker pb accumulation needs unfused, correctly rounded adds and
+// multiplies, and matching rounding keeps this kernel bit-identical to its
+// plain twin on a chain whose free trajectory amplifies ulp-level
+// differences. The preamp's pump-scale node rows are accumulated in double
+// and rounded once. Guards keep select semantics: NaNs propagate through
+// min/max/clamp as they do in torch. No tensor cores: the chain is f32
+// summed in index order, and TF32 would be a different chain.
+//
+// State: each lane keeps the rows it owns in registers (the power amp's
+// node voltages, the noise words) and every lane a copy of the replicated
+// rows; the vectors that all lanes read (the PA history x = [z, di], the
+// preamp's d, the Newton iterate's currents and conductances) sit in a
+// small per-warp area of shared memory, written by their owners between
+// __syncwarp()s. The packed (STATE_ROWS, S) layout is read once and written
+// once. Constants are staged in shared memory once per block; the
+// matrices that lanes read row-wise with a stride of 16 (pre_SA / pre_SA_p,
+// pa_K, pa_K_act, pa_K_rel) also as transposed copies, free of bank
+// conflicts.
 //
 // Thermal-noise variant (kernel K5), `mono_chain_kernel<true>`. Replaces the
 // same `_make_kernel` launched with noise=True: `preamp_step`'s noise
@@ -34,12 +80,10 @@
 // 31 bits into a uniform and sums four into one of 10 unit-variance draws;
 // the draws, scaled by the `noise` control row, enter the main solver's
 // right-hand side through the pack-time columns pre_NS / pre_NP as the
-// two-draw stamp w[n] + w[n−1], and draw 0 rides the input. About 400
-// integer and 300 float operations beside the step's ~16000, so what bounds
-// K2 bounds K5. It is the same template as K2 with every addition under
-// `if constexpr (NOISE)`: the noise-off instantiation is the code it was
-// before, and carries the nz_ rows untouched. One thread owns its stream's
-// 40 words in native uint32_t; sums run in the plain version's order.
+// two-draw stamp w[n] + w[n−1], and draw 0 rides the input. It is the same
+// template as K2 with every addition under `if constexpr (NOISE)`; the
+// noise-off instantiation carries the nz_ rows untouched. LCG words pass
+// only through loads, stores, shuffles and __float_as_uint.
 //
 // Tremolo pre-roll (kernel K4), `trem_preroll_kernel` at the end of this
 // file. Replaces: openwurli_tpu/kernels/mono_chain.py, `_make_preroll_kernel`
@@ -48,8 +92,8 @@
 // one serial recurrence (each update needs the one before), so one thread
 // walks it and its time is that thread's arithmetic latency per update
 // times the number of updates; the bytes (19 floats per capture) are
-// nothing beside it. The thread calls `Chain::trem_update`, the device
-// function K2 calls, so the captures are K2's own tremolo states.
+// nothing beside it. The thread calls `trem_update`, the device function
+// every lane of K2 calls, so the captures are K2's own tremolo states.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -106,8 +150,27 @@ constexpr int B1 = 0, FB = 7, OUT = 6;  // preamp nodes
 constexpr int N_GP = 13;                 // Gummel-Poon parameter columns
 constexpr int N_PRE_ITERS = 5, N_PA_ITERS = 8, N_TREM_ITERS = 3;
 constexpr int N_ACT = 10, N_REL = 6;
-__constant__ int kPaActive[N_ACT] = {0, 1, 2, 3, 4, 5, 6, 7, 10, 12};
-__constant__ int kPaReleg[N_REL] = {8, 9, 11, 13, 14, 15};
+constexpr int kPaActive[N_ACT] = {0, 1, 2, 3, 4, 5, 6, 7, 10, 12};
+constexpr int kPaReleg[N_REL] = {8, 9, 11, 13, 14, 15};
+// The two port lists as functions the device code can call with a
+// lane-dependent index (and fold with a constant one).
+__host__ __device__ constexpr int pa_active(int jj) {
+  return jj < 8 ? jj : (jj == 8 ? 10 : 12);
+}
+__host__ __device__ constexpr int pa_releg(int rr) {
+  return rr < 2 ? 8 + rr : (rr == 2 ? 11 : 10 + rr);
+}
+constexpr bool ports_match() {
+  for (int jj = 0; jj < N_ACT; ++jj)
+    if (pa_active(jj) != kPaActive[jj]) return false;
+  for (int rr = 0; rr < N_REL; ++rr)
+    if (pa_releg(rr) != kPaReleg[rr]) return false;
+  return true;
+}
+static_assert(ports_match(), "pa_active / pa_releg differ from the lists");
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int kWarps = 4;  // streams (warps) per block
 
 // torch semantics: min/max/clamp propagate NaN.
 __device__ __forceinline__ float nmax(float a, float b) {
@@ -143,9 +206,10 @@ __device__ __forceinline__ void limexp_d(float x, float& val, float& dval) {
 }
 
 // Currents and derivatives of one BJT (NPN convention).
-__device__ void gp_derivs(const Gp& p, float vbe, float vbc, float& ib,
-                          float& ic, float& gbb, float& gbc, float& gcb,
-                          float& gcc) {
+__device__ __forceinline__ void gp_derivs(const Gp& p, float vbe, float vbc,
+                                          float& ib, float& ic, float& gbb,
+                                          float& gbc, float& gcb,
+                                          float& gcc) {
   float ef, def_, er, der, el, dle, ec, dlc;
   limexp_d(vbe * p.inv_nfvt, ef, def_);
   limexp_d(vbc * p.inv_nrvt, er, der);
@@ -184,8 +248,8 @@ __device__ void gp_derivs(const Gp& p, float vbe, float vbc, float& ib,
   gcc = dict_bc - dibc_bc;
 }
 
-__device__ void gp_currents(const Gp& p, float vbe, float vbc, float& ib,
-                            float& ic) {
+__device__ __forceinline__ void gp_currents(const Gp& p, float vbe,
+                                            float vbc, float& ib, float& ic) {
   float ef, er, el, ec, unused;
   limexp_d(vbe * p.inv_nfvt, ef, unused);
   limexp_d(vbc * p.inv_nrvt, er, unused);
@@ -269,188 +333,275 @@ __device__ __forceinline__ float prod_err(float a_hi, float a_lo, float b_hi,
       __fmul_rn(a_lo, b_lo));
 }
 
-struct Chain {
-  const float* A;  // constant arrays (shared memory)
-  const float* K;  // scalars (shared memory)
-  float ctrl[CTRL_ROWS];
-  float st[STATE_ROWS];
+// The tremolo-owned rows, in the pre-roll's capture order (K4 writes them
+// out in this order; K2 keeps a copy on every lane).
+constexpr int PREROLL_ROWS = 19;
+constexpr int kPrerollSpans[7][2] = {
+    {ST_TREM_Z, 7},      {ST_TREM_DI, 4},       {ST_TREM_VNL, 4},
+    {ST_TREM_ENV, 1},    {ST_GLDR_CUR, 1},      {ST_GLDR_UPD_PREV, 1},
+    {ST_TREM_PHASE, 1}};
+constexpr int T_Z = 0, T_DI = 7, T_VNL = 11, T_ENV = 15, T_GLDR_CUR = 16,
+              T_GLDR_UPD_PREV = 17, T_PHASE = 18;
+// packed state row of capture row k
+__host__ __device__ constexpr int trem_row(int k) {
+  return k < T_DI      ? ST_TREM_Z + k
+       : k < T_VNL     ? ST_TREM_DI + (k - T_DI)
+       : k < T_ENV     ? ST_TREM_VNL + (k - T_VNL)
+       : k == T_ENV    ? ST_TREM_ENV
+       : k == T_GLDR_CUR ? ST_GLDR_CUR
+       : k == T_GLDR_UPD_PREV ? ST_GLDR_UPD_PREV
+                       : ST_TREM_PHASE;
+}
+constexpr bool spans_match() {
+  int col = 0;
+  for (const auto& sp : kPrerollSpans)
+    for (int r = 0; r < sp[1]; ++r)
+      if (trem_row(col++) != sp[0] + r) return false;
+  return col == PREROLL_ROWS;
+}
+static_assert(spans_match(), "trem_row differs from kPrerollSpans");
 
-  __device__ float sc(int i) const { return K[i]; }
+struct TremState {
+  float v[PREROLL_ROWS];
+};
 
-  // ── tremolo: one subsampled update of the tremolo-owned rows ──
-  __device__ void trem_update() {
-    const float* P = A + A_TREM_P;      // (11, 11)
-    const float* Km = A + A_TREM_K;     // (4, 4)
-    const float* cols = A + A_TREM_COLS;  // (7, 9)
-    Gp gp[2] = {load_gp(A + A_TREM_GP), load_gp(A + A_TREM_GP + N_GP)};
-    float x11[11];
-    for (int k = 0; k < 7; ++k) x11[k] = st[ST_TREM_Z + k];
-    for (int k = 0; k < 4; ++k) x11[7 + k] = st[ST_TREM_DI + k];
-    float big[11];
-    for (int r = 0; r < 11; ++r) {
-      float acc = P[r * 11] * x11[0];
-      for (int k = 1; k < 11; ++k) acc = acc + P[r * 11 + k] * x11[k];
-      big[r] = acc;
-    }
-    float vnl[4];
-    for (int r = 0; r < 4; ++r) vnl[r] = st[ST_TREM_VNL + r];
-    for (int it = 0; it < N_TREM_ITERS; ++it) {
-      float ib[2], ic[2], gbb[2], gbc[2], gcb[2], gcc[2];
-      for (int b = 0; b < 2; ++b)
-        gp_derivs(gp[b], vnl[b], vnl[2 + b], ib[b], ic[b], gbb[b], gbc[b],
-                  gcb[b], gcc[b]);
-      const float i_abs[4] = {ib[0], ib[1], ic[0], ic[1]};
-      float di[4];
-      for (int k = 0; k < 4; ++k) di[k] = i_abs[k] - cols[k * 9 + 1];
-      float blk[5][4];
-      for (int r = 0; r < 4; ++r) {
-        float mv = Km[r * 4] * di[0];
-        for (int k = 1; k < 4; ++k) mv = mv + Km[r * 4 + k] * di[k];
-        blk[4][r] = (((vnl[r] - cols[r * 9 + 2]) - big[7 + r])
-                     - cols[r * 9 + 0]) - mv;
-      }
-      for (int j = 0; j < 4; ++j) {
-        const int b = j % 2;
-        const float g1 = j < 2 ? gbb[b] : gbc[b];
-        const float g2 = j < 2 ? gcb[b] : gcc[b];
-        for (int i = 0; i < 4; ++i)
-          blk[j][i] = (A[A_EYE4 + i * 4 + j] - Km[i * 4 + b] * g1)
-                      - Km[i * 4 + b + 2] * g2;
-      }
-      float dv[4];
-      ge_solve<4>(blk, dv);
-      for (int r = 0; r < 4; ++r) {
-        const float d = nclamp(dv[r], -0.5f, 0.5f);
-        vnl[r] = pnjlim(vnl[r], vnl[r] - d, cols[r * 9 + 7], cols[r * 9 + 8]);
-      }
-    }
-    float ib[2], ic[2];
-    for (int b = 0; b < 2; ++b) gp_currents(gp[b], vnl[b], vnl[2 + b], ib[b],
-                                            ic[b]);
-    const float i_abs[4] = {ib[0], ib[1], ic[0], ic[1]};
-    float di_new[4];
-    for (int k = 0; k < 4; ++k) di_new[k] = i_abs[k] - cols[k * 9 + 1];
-    float rs = cols[0 * 9 + 3] * di_new[0];
-    for (int k = 1; k < 4; ++k) rs = rs + cols[k * 9 + 3] * di_new[k];
-    const int oi = (int)sc(TREM_OUT_IDX);
-    const float v_out = (sc(TREM_VDC_OUT) + big[oi]) + rs;
-
-    const float env = st[ST_TREM_ENV];
-    const float led = nclamp((sc(TREM_VMAX) - v_out) / sc(TREM_VSPAN), 0.0f,
-                             1.0f);
-    const float coeff = led > env ? sc(TREM_ATT) : sc(TREM_REL);
-    const float env_new = led + coeff * (env - led);
-    const float drv = nclamp(env_new, 0.0f, 1.0f);
-    const float pw = expf(sc(TREM_GAMMA) * logf(nmax(drv, 1e-30f)));
-    const float r_ldr = drv < 1e-6f
-                            ? sc(TREM_RMAX)
-                            : expf(sc(TREM_LN_RMAX) + sc(TREM_LN_SPAN) * pw);
-    const float branch = sc(TREM_R18) + r_ldr;
-    const float r_low = ctrl[C_R_LOWER];
-    const float low = r_low > 0.0f ? (r_low * branch) / (r_low + branch)
-                                   : 0.0f;
-    const float gldr = 1.0f / nmax(ctrl[C_DIV_TOP] + low, 1000.0f);
-
-    for (int k = 0; k < 7; ++k) st[ST_TREM_Z + k] = big[k];
-    for (int k = 0; k < 4; ++k) st[ST_TREM_DI + k] = di_new[k];
-    for (int k = 0; k < 4; ++k) st[ST_TREM_VNL + k] = vnl[k];
-    st[ST_TREM_ENV] = env_new;
-    st[ST_GLDR_UPD_PREV] = st[ST_GLDR_CUR];
-    st[ST_GLDR_CUR] = gldr;
-    st[ST_TREM_PHASE] = 0.0f;
+// ── tremolo: one subsampled update of the tremolo-owned rows ──
+__device__ void trem_update(const float* A, const float* K, float r_low,
+                            float div_top, TremState& t) {
+  const float* P = A + A_TREM_P;      // (11, 11)
+  const float* Km = A + A_TREM_K;     // (4, 4)
+  const float* cols = A + A_TREM_COLS;  // (7, 9)
+  Gp gp[2] = {load_gp(A + A_TREM_GP), load_gp(A + A_TREM_GP + N_GP)};
+  float x11[11];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) x11[k] = t.v[T_Z + k];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x11[7 + k] = t.v[T_DI + k];
+  float big[11];
+#pragma unroll
+  for (int r = 0; r < 11; ++r) {
+    float acc = P[r * 11] * x11[0];
+#pragma unroll
+    for (int k = 1; k < 11; ++k) acc = acc + P[r * 11 + k] * x11[k];
+    big[r] = acc;
   }
+  float vnl[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) vnl[r] = t.v[T_VNL + r];
+  // left rolled: unrolled, the three iterations cost K2 and K4 time
+  for (int it = 0; it < N_TREM_ITERS; ++it) {
+    float ib[2], ic[2], gbb[2], gbc[2], gcb[2], gcc[2];
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      gp_derivs(gp[b], vnl[b], vnl[2 + b], ib[b], ic[b], gbb[b], gbc[b],
+                gcb[b], gcc[b]);
+    const float i_abs[4] = {ib[0], ib[1], ic[0], ic[1]};
+    float di[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) di[k] = i_abs[k] - cols[k * 9 + 1];
+    float blk[5][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float mv = Km[r * 4] * di[0];
+#pragma unroll
+      for (int k = 1; k < 4; ++k) mv = mv + Km[r * 4 + k] * di[k];
+      blk[4][r] = (((vnl[r] - cols[r * 9 + 2]) - big[7 + r])
+                   - cols[r * 9 + 0]) - mv;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int b = j % 2;
+      const float g1 = j < 2 ? gbb[b] : gbc[b];
+      const float g2 = j < 2 ? gcb[b] : gcc[b];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        blk[j][i] = (A[A_EYE4 + i * 4 + j] - Km[i * 4 + b] * g1)
+                    - Km[i * 4 + b + 2] * g2;
+    }
+    float dv[4];
+    ge_solve<4>(blk, dv);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float d = nclamp(dv[r], -0.5f, 0.5f);
+      vnl[r] = pnjlim(vnl[r], vnl[r] - d, cols[r * 9 + 7], cols[r * 9 + 8]);
+    }
+  }
+  float ib[2], ic[2];
+#pragma unroll
+  for (int b = 0; b < 2; ++b) gp_currents(gp[b], vnl[b], vnl[2 + b], ib[b],
+                                          ic[b]);
+  const float i_abs[4] = {ib[0], ib[1], ic[0], ic[1]};
+  float di_new[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) di_new[k] = i_abs[k] - cols[k * 9 + 1];
+  float rs = cols[0 * 9 + 3] * di_new[0];
+#pragma unroll
+  for (int k = 1; k < 4; ++k) rs = rs + cols[k * 9 + 3] * di_new[k];
+  // big[oi] at a runtime row, as a select chain: the array stays in
+  // registers
+  const int oi = (int)K[TREM_OUT_IDX];
+  float big_oi = big[0];
+#pragma unroll
+  for (int k = 1; k < 11; ++k) big_oi = k == oi ? big[k] : big_oi;
+  const float v_out = (K[TREM_VDC_OUT] + big_oi) + rs;
+
+  const float env = t.v[T_ENV];
+  const float led = nclamp((K[TREM_VMAX] - v_out) / K[TREM_VSPAN], 0.0f,
+                           1.0f);
+  const float coeff = led > env ? K[TREM_ATT] : K[TREM_REL];
+  const float env_new = led + coeff * (env - led);
+  const float drv = nclamp(env_new, 0.0f, 1.0f);
+  const float pw = expf(K[TREM_GAMMA] * logf(nmax(drv, 1e-30f)));
+  const float r_ldr = drv < 1e-6f
+                          ? K[TREM_RMAX]
+                          : expf(K[TREM_LN_RMAX] + K[TREM_LN_SPAN] * pw);
+  const float branch = K[TREM_R18] + r_ldr;
+  const float low = r_low > 0.0f ? (r_low * branch) / (r_low + branch)
+                                 : 0.0f;
+  const float gldr = 1.0f / nmax(div_top + low, 1000.0f);
+
+#pragma unroll
+  for (int k = 0; k < 7; ++k) t.v[T_Z + k] = big[k];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) t.v[T_DI + k] = di_new[k];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) t.v[T_VNL + k] = vnl[k];
+  t.v[T_ENV] = env_new;
+  t.v[T_GLDR_UPD_PREV] = t.v[T_GLDR_CUR];
+  t.v[T_GLDR_CUR] = gldr;
+  t.v[T_PHASE] = 0.0f;
+}
+
+// One warp's rows in shared memory: the vectors that every lane reads.
+struct Scratch {
+  float ctrl[CTRL_ROWS];
+  float x37[37];   // the PA history vector: pa_z (21), then pa_di (16)
+  float d[16];     // pre_d
+  float di[16];    // PA Newton: i_abs − i_dc of the current iterate
+  float g[4][8];   // PA Newton: dib/dvbe, dib/dvbc, dic/dvbe, dic/dvbc
+};
+
+// Constants in shared memory, one copy per block.
+struct Tables {
+  const float* A;    // the packed constant arrays
+  const float* K;    // the scalars
+  const float* saT;  // [pre_SA; pre_SA_p] transposed: saT[k·20 + r]
+  const float* kT;   // pa_K transposed: kT[k·16 + r]
+  const float* kaT;  // pa_K_act transposed: kaT[k·10 + i]
+  const float* krT;  // pa_K_rel transposed: krT[k·6 + r]
+};
+
+__device__ __forceinline__ float bcast(float v, int src) {
+  return __shfl_sync(FULL, v, src);
+}
+
+// max over 16 rows held by lanes 0-15 (and mirrored on lanes 16-31), on
+// every lane
+__device__ __forceinline__ float max16(float v) {
+#pragma unroll
+  for (int o = 8; o; o >>= 1) v = nmax(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float lcg_uniform(uint32_t& word) {
+  const uint32_t lcg = word * 1664525u + 1013904223u;
+  word = lcg;
+  uint32_t h = lcg;
+  h = (h ^ (h >> 16)) * 0x85EBCA6Bu;
+  h = (h ^ (h >> 13)) * 0xC2B2AE35u;
+  h = h ^ (h >> 16);
+  return __int2float_rn((int)(h >> 1)) * (float)(2.0 / 4294967295.0) - 1.0f;
+}
+
+struct Chain {
+  Tables T;
+  Scratch* w;
+  int lane, r16;       // r16: the 16-row index (lanes 16-31 mirror 0-15)
+  int gi, gcg;         // elimination: row and column group of this lane
+  int rel_rr;          // relegated row of r16, or -1
+  TremState tr;
+  // replicated rows
+  float pre_vnl[4], pre_dic[4], pre_dj[2], pre_dprev[2], pre_gldr;
+  float rails[4], lastgood;
+  float os_ua[3], os_ub[3], os_da[3], os_db[3], os_delay;
+  float spk_hpf[2], spk_lpf[2], spk_thermal, guard;
+  // rows this lane owns
+  float vnl, vnl_prev;        // pa_vnl / pa_vnl_prev row r16
+  uint32_t lcg_a, lcg_b;      // nz_lcg words lane and 32 + lane (lanes 0-7)
+  float nz_w;                 // nz_w row lane − 1 (lanes 1-9)
+
+  __device__ float sc(int i) const { return T.K[i]; }
 
   // ── twin DK preamp, one oversampled sample; NOISE adds the thermal
   // noise of the main solver (the diff half) ──
   template <bool NOISE>
   __device__ float preamp_step(float u, float gldr) {
-    float npred[8], npp[2];
+    const float* A = T.A;
+    float npv = 0.0f;  // lanes 8-17: row lane − 8 of [NS; NP] · i_tz
     if constexpr (NOISE) {
-      const float* NS = A + A_PRE_NS;  // (8, 9)
-      const float* NP = A + A_PRE_NP;  // (2, 9)
-      float un[40];
-      for (int k = 0; k < 40; ++k) {
-        const uint32_t lcg =
-            __float_as_uint(st[ST_NZ_LCG + k]) * 1664525u + 1013904223u;
-        st[ST_NZ_LCG + k] = __uint_as_float(lcg);
-        uint32_t h = lcg;
-        h = (h ^ (h >> 16)) * 0x85EBCA6Bu;
-        h = (h ^ (h >> 13)) * 0xC2B2AE35u;
-        h = h ^ (h >> 16);
-        un[k] = __int2float_rn((int)(h >> 1)) * (float)(2.0 / 4294967295.0)
-                - 1.0f;
-      }
-      const float gain = ctrl[C_NOISE];
-      float w[10];
-      for (int r = 0; r < 10; ++r)
-        w[r] = ((((un[r] + un[10 + r]) + un[20 + r]) + un[30 + r])
-                * 0.8660254037844386f) * gain;
+      const float ua = lcg_uniform(lcg_a);  // un[lane]
+      const float ub = lcg_uniform(lcg_b);  // un[32 + lane], lanes 0-7
+      const float t1 = bcast(ua, (lane + 10) & 31);
+      const float t2 = bcast(ua, (lane + 20) & 31);
+      const float t3a = bcast(ua, (lane + 30) & 31);
+      const float t3b = bcast(ub, (lane + 30) & 31);
+      // draw r on lane r (0-9): ((un[r] + un[10+r]) + un[20+r]) + un[30+r]
+      const float wd = ((((ua + t1) + t2) + (lane < 2 ? t3a : t3b))
+                        * 0.8660254037844386f) * w->ctrl[C_NOISE];
+      const float itz = wd + nz_w;  // i_tz[lane − 1] = w[n] + w[n−1]
+      nz_w = wd;
       float i_tz[9];
-      for (int r = 0; r < 9; ++r) {
-        i_tz[r] = w[1 + r] + st[ST_NZ_W + r];  // w[n] + w[n−1]
-        st[ST_NZ_W + r] = w[1 + r];
-      }
-      for (int r = 0; r < 8; ++r) {
-        float acc = NS[r * 9] * i_tz[0];
-        for (int k = 1; k < 9; ++k) acc = acc + NS[r * 9 + k] * i_tz[k];
-        npred[r] = acc;
-      }
-      for (int r = 0; r < 2; ++r) {
-        float acc = NP[r * 9] * i_tz[0];
-        for (int k = 1; k < 9; ++k) acc = acc + NP[r * 9 + k] * i_tz[k];
-        npp[r] = acc;
-      }
-      u = u + w[0] * sc(NZ_U_SIGMA);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) i_tz[k] = bcast(itz, k + 1);
+      // pre_NS (8, 9) and pre_NP (2, 9) are consecutive in the buffer
+      const float* ns = A + A_PRE_NS + min((lane - 8) & 15, 9) * 9;
+      float acc = ns[0] * i_tz[0];
+#pragma unroll
+      for (int k = 1; k < 9; ++k) acc = acc + ns[k] * i_tz[k];
+      npv = acc;
+      u = u + bcast(wd, 0) * sc(NZ_U_SIGMA);
     }
-    const float* SA = A + A_PRE_SA;       // (16, 16)
-    const float* SAp = A + A_PRE_SA_P;    // (4, 16)
     const float* cols = A + A_PRE_COLS;   // (8, 4)
     const float* chi = A + A_PRE_COLS_HI;
     const float* clo = A + A_PRE_COLS_LO;
-    float d[16];
-    for (int k = 0; k < 16; ++k) d[k] = st[ST_PRE_D + k];
-    const float gprev = st[ST_PRE_GLDR];
-    const float dj0 = st[ST_PRE_DJ], dj1 = st[ST_PRE_DJ + 1];
-    const float dpv0 = st[ST_PRE_DPREV], dpv1 = st[ST_PRE_DPREV + 1];
-    float dic[4];
-    for (int k = 0; k < 4; ++k) dic[k] = st[ST_PRE_DIC + k];
+    const float* d = w->d;
+    // lanes 0-15: SA row lane; lanes 16-19: SAp row lane − 16
+    const int prow = lane < 20 ? lane : lane - 20;
+    float sad = T.saT[prow] * d[0];
+#pragma unroll
+    for (int k = 1; k < 16; ++k) sad = sad + T.saT[k * 20 + prow] * d[k];
 
-    float sad[16];
-    for (int r = 0; r < 16; ++r) {
-      float acc = SA[r * 16] * d[0];
-      for (int k = 1; k < 16; ++k) acc = acc + SA[r * 16 + k] * d[k];
-      sad[r] = acc;
-    }
-    const float c_fb_sh = -(gprev * d[FB] + (gprev - sc(PRE_G0)) * sc(PRE_VDCFB));
+    const float gprev = pre_gldr;
+    const float dj0 = pre_dj[0], dj1 = pre_dj[1];
+    const float dpv0 = pre_dprev[0], dpv1 = pre_dprev[1];
+    const float c_fb_sh =
+        -(gprev * d[FB] + (gprev - sc(PRE_G0)) * sc(PRE_VDCFB));
     const float c_b1_sh = dj0 + dpv0;
     const float c_fb_df = (-gprev) * d[8 + FB];
     const float c_b1_df = (sc(PRE_GCIN) * u + dj1) + dpv1;
 
-    // Compensated pb accumulation (TwoSum cascade + Dekker products).
-    float pb_sh[8], pb_df[8];
-    const float cf_sh[4] = {c_fb_sh, c_b1_sh, dic[0], dic[2]};
-    const float cf_df[4] = {c_fb_df, c_b1_df, dic[1], dic[3]};
-    for (int half = 0; half < 2; ++half) {
-      const float* cf = half ? cf_df : cf_sh;
-      float bhi[4], blo[4];
-      for (int j = 0; j < 4; ++j) split12(cf[j], bhi[j], blo[j]);
-      for (int r = 0; r < 8; ++r) {
-        float s = sad[half * 8 + r], lo = 0.0f;
-        for (int j = 0; j < 4; ++j) {
-          const float p = __fmul_rn(cols[r * 4 + j], cf[j]);
-          const float e = prod_err(chi[r * 4 + j], clo[r * 4 + j], bhi[j],
-                                   blo[j], p);
-          float e2;
-          two_sum(s, p, s, e2);
-          lo = j == 0 ? __fadd_rn(e, e2) : __fadd_rn(lo, __fadd_rn(e, e2));
-        }
-        (half ? pb_df : pb_sh)[r] = __fadd_rn(s, lo);
-      }
+    // Compensated pb accumulation (TwoSum cascade + Dekker products): row
+    // rr of half `half` on lane r16 = 8·half + rr.
+    const int half = r16 >> 3, rr = r16 & 7;
+    const float cf[4] = {half ? c_fb_df : c_fb_sh, half ? c_b1_df : c_b1_sh,
+                         half ? pre_dic[1] : pre_dic[0],
+                         half ? pre_dic[3] : pre_dic[2]};
+    float s = sad, lo = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float bhi, blo;
+      split12(cf[j], bhi, blo);
+      const float p = __fmul_rn(cols[rr * 4 + j], cf[j]);
+      const float e = prod_err(chi[rr * 4 + j], clo[rr * 4 + j], bhi, blo, p);
+      float e2;
+      two_sum(s, p, s, e2);
+      lo = j == 0 ? __fadd_rn(e, e2) : __fadd_rn(lo, __fadd_rn(e, e2));
     }
+    float pb = __fadd_rn(s, lo);
     if constexpr (NOISE) {
       // before tpart: the feedback correction sees the noise through
       // pb_df[FB] as it sees every other rhs current
-      for (int r = 0; r < 8; ++r) pb_df[r] = pb_df[r] + npred[r];
+      pb = half ? pb + npv : pb;
     }
 
     const float smk = gldr / (1.0f + sc(PRE_SFBFB) * gldr);
@@ -458,46 +609,42 @@ struct Chain {
     const float kc01 = sc(PRE_K01) - smk * sc(PRE_NV0S1);
     const float kc10 = sc(PRE_K10) - smk * sc(PRE_NV1S0);
     const float kc11 = sc(PRE_K11) - smk * sc(PRE_NV1S1);
-    const float tpart_sh = smk * pb_sh[FB] + (smk - sc(PRE_SMK0)) * sc(PRE_VPBDCFB);
-    const float tpart_df = smk * pb_df[FB];
+    const float tpart_sh = smk * bcast(pb, FB)
+                           + (smk - sc(PRE_SMK0)) * sc(PRE_VPBDCFB);
+    const float tpart_df = smk * bcast(pb, 8 + FB);
     // Pump-scale node rows: accumulated in double from the float terms
     // (products exact) and rounded once, as in the plain version.
-    double pred_sh[8], pred_df[8];
-    for (int r = 0; r < 8; ++r) {
-      const double cfb = cols[r * 4];
-      pred_sh[r] = (double)pb_sh[r] - (double)tpart_sh * cfb;
-      pred_df[r] = (double)pb_df[r] - (double)tpart_df * cfb;
-    }
+    const double cfb = cols[rr * 4];
+    const double pred = (double)pb - (double)(half ? tpart_df : tpart_sh) * cfb;
     float p_sad[4];
-    for (int r = 0; r < 4; ++r) {
-      float acc = SAp[r * 16] * d[0];
-      for (int k = 1; k < 16; ++k) acc = acc + SAp[r * 16 + k] * d[k];
-      p_sad[r] = acc;
-    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p_sad[r] = bcast(sad, 16 + r);
     const float p0_sh = (((((sc(PRE_PDC0) + p_sad[0]) + sc(PRE_CFB_P0) * c_fb_sh)
-                          + sc(PRE_CB1_P0) * c_b1_sh) + sc(PRE_CE1_P0) * dic[0])
-                         + sc(PRE_CE2_P0) * dic[2]) - tpart_sh * sc(PRE_CFB_P0);
+                          + sc(PRE_CB1_P0) * c_b1_sh) + sc(PRE_CE1_P0) * pre_dic[0])
+                         + sc(PRE_CE2_P0) * pre_dic[2]) - tpart_sh * sc(PRE_CFB_P0);
     const float p1_sh = (((((sc(PRE_PDC1) + p_sad[1]) + sc(PRE_CFB_P1) * c_fb_sh)
-                          + sc(PRE_CB1_P1) * c_b1_sh) + sc(PRE_CE1_P1) * dic[0])
-                         + sc(PRE_CE2_P1) * dic[2]) - tpart_sh * sc(PRE_CFB_P1);
+                          + sc(PRE_CB1_P1) * c_b1_sh) + sc(PRE_CE1_P1) * pre_dic[0])
+                         + sc(PRE_CE2_P1) * pre_dic[2]) - tpart_sh * sc(PRE_CFB_P1);
     float p0_df = ((((p_sad[2] + sc(PRE_CFB_P0) * c_fb_df)
-                           + sc(PRE_CB1_P0) * c_b1_df) + sc(PRE_CE1_P0) * dic[1])
-                         + sc(PRE_CE2_P0) * dic[3]) - tpart_df * sc(PRE_CFB_P0);
+                           + sc(PRE_CB1_P0) * c_b1_df) + sc(PRE_CE1_P0) * pre_dic[1])
+                         + sc(PRE_CE2_P0) * pre_dic[3]) - tpart_df * sc(PRE_CFB_P0);
     float p1_df = ((((p_sad[3] + sc(PRE_CFB_P1) * c_fb_df)
-                     + sc(PRE_CB1_P1) * c_b1_df) + sc(PRE_CE1_P1) * dic[1])
-                   + sc(PRE_CE2_P1) * dic[3]) - tpart_df * sc(PRE_CFB_P1);
+                     + sc(PRE_CB1_P1) * c_b1_df) + sc(PRE_CE1_P1) * pre_dic[1])
+                   + sc(PRE_CE2_P1) * pre_dic[3]) - tpart_df * sc(PRE_CFB_P1);
     if constexpr (NOISE) {
-      p0_df = p0_df + npp[0];
-      p1_df = p1_df + npp[1];
+      p0_df = p0_df + bcast(npv, 16);
+      p1_df = p1_df + bcast(npv, 17);
     }
     const float p0[2] = {p0_sh + p0_df, p0_sh};  // [main, shadow]
     const float p1[2] = {p1_sh + p1_df, p1_sh};
 
     const float inv_vt = sc(PRE_INV_VT), IS = sc(PRE_IS), is_vt = sc(PRE_IS_VT);
     const float vmax = sc(PRE_VMAX);
-    float vnl0[2] = {st[ST_PRE_VNL], st[ST_PRE_VNL + 1]};
-    float vnl1[2] = {st[ST_PRE_VNL + 2], st[ST_PRE_VNL + 3]};
+    float vnl0[2] = {pre_vnl[0], pre_vnl[1]};
+    float vnl1[2] = {pre_vnl[2], pre_vnl[3]};
+#pragma unroll
     for (int it = 0; it < N_PRE_ITERS; ++it) {
+#pragma unroll
       for (int t = 0; t < 2; ++t) {
         const float e0 = expf(nclamp(vnl0[t], -1.0f, vmax) * inv_vt);
         const float e1 = expf(nclamp(vnl1[t], -1.0f, vmax) * inv_vt);
@@ -519,6 +666,7 @@ struct Chain {
       }
     }
     float icn0[2], icn1[2];
+#pragma unroll
     for (int t = 0; t < 2; ++t) {
       icn0[t] = IS * (expf(nclamp(vnl0[t], -1.0f, vmax) * inv_vt) - 1.0f);
       icn1[t] = IS * (expf(nclamp(vnl1[t], -1.0f, vmax) * inv_vt) - 1.0f);
@@ -528,171 +676,230 @@ struct Chain {
     const float q_sh = smk * (sc(PRE_SFBNI0) * i0_sh + sc(PRE_SFBNI1) * i1_sh)
                        - sc(PRE_Q0);
     const float q_df = smk * (sc(PRE_SFBNI0) * di0 + sc(PRE_SFBNI1) * di1);
-    float dn_sh[8], dn_df[8];
     const double a0 = i0_sh - sc(PRE_IDC0), a1 = i1_sh - sc(PRE_IDC1);
-    for (int r = 0; r < 8; ++r) {
-      const double cfb = cols[r * 4], ce1 = cols[r * 4 + 2],
-                   ce2 = cols[r * 4 + 3];
-      dn_sh[r] = (float)(((pred_sh[r] + ce1 * a0) + ce2 * a1)
-                         - (double)q_sh * cfb);
-      dn_df[r] = (float)(((pred_df[r] + ce1 * (double)di0) + ce2 * (double)di1)
-                         - (double)q_df * cfb);
-    }
-    const float dj_sh = sc(PRE_GC1PC) * dn_sh[B1] - sc(PRE_CCIN) * dj0;
-    const float dj_df = sc(PRE_GC1PC) * (dn_df[B1] - u) - sc(PRE_CCIN) * dj1;
-    for (int r = 0; r < 8; ++r) {
-      st[ST_PRE_D + r] = dn_sh[r];
-      st[ST_PRE_D + 8 + r] = dn_df[r];
-    }
-    st[ST_PRE_VNL] = vnl0[0];
-    st[ST_PRE_VNL + 1] = vnl0[1];
-    st[ST_PRE_VNL + 2] = vnl1[0];
-    st[ST_PRE_VNL + 3] = vnl1[1];
-    st[ST_PRE_DIC] = i0_sh - sc(PRE_IDC0);
-    st[ST_PRE_DIC + 1] = di0;
-    st[ST_PRE_DIC + 2] = i1_sh - sc(PRE_IDC1);
-    st[ST_PRE_DIC + 3] = di1;
-    st[ST_PRE_DJ] = dj_sh;
-    st[ST_PRE_DJ + 1] = dj_df;
-    st[ST_PRE_DPREV] = dj0;
-    st[ST_PRE_DPREV + 1] = sc(PRE_GCIN) * u + dj1;
-    st[ST_PRE_GLDR] = gldr;
-    return dn_df[OUT];
+    const double ce1 = cols[rr * 4 + 2], ce2 = cols[rr * 4 + 3];
+    const float dn_sh = (float)(((pred + ce1 * a0) + ce2 * a1)
+                                - (double)q_sh * cfb);
+    const float dn_df = (float)(((pred + ce1 * (double)di0)
+                                 + ce2 * (double)di1) - (double)q_df * cfb);
+    const float dn = half ? dn_df : dn_sh;
+    const float dj_sh = sc(PRE_GC1PC) * bcast(dn, B1) - sc(PRE_CCIN) * dj0;
+    const float dj_df = sc(PRE_GC1PC) * (bcast(dn, 8 + B1) - u)
+                        - sc(PRE_CCIN) * dj1;
+    const float out = bcast(dn, 8 + OUT);
+    __syncwarp();  // every lane has read d
+    if (lane < 16) w->d[lane] = dn;
+    __syncwarp();
+    pre_vnl[0] = vnl0[0];
+    pre_vnl[1] = vnl0[1];
+    pre_vnl[2] = vnl1[0];
+    pre_vnl[3] = vnl1[1];
+    pre_dic[0] = i0_sh - sc(PRE_IDC0);
+    pre_dic[1] = di0;
+    pre_dic[2] = i1_sh - sc(PRE_IDC1);
+    pre_dic[3] = di1;
+    pre_dj[0] = dj_sh;
+    pre_dj[1] = dj_df;
+    pre_dprev[0] = dj0;
+    pre_dprev[1] = sc(PRE_GCIN) * u + dj1;
+    pre_gldr = gldr;
+    return out;
   }
 
-  // Newton residual f = (v − vnl_dc) − p_dev − corr0 − K·(i − i_dc).
-  __device__ void pa_resid(const float* v, const float* i_abs,
-                           const float* p_dev, float* f) const {
-    const float* Km = A + A_PA_K;
-    const float* nv = A + A_PA_NVCOLS;  // (16, 10)
-    float di[16];
-    for (int k = 0; k < 16; ++k) di[k] = i_abs[k] - nv[k * 10 + 4];
-    for (int r = 0; r < 16; ++r) {
-      float mv = Km[r * 16] * di[0];
-      for (int k = 1; k < 16; ++k) mv = mv + Km[r * 16 + k] * di[k];
-      f[r] = (((v[r] - nv[r * 10 + 5]) - p_dev[r]) - nv[r * 10 + 3]) - mv;
-    }
+  // i_abs row r16 at node voltages v (row r16 on this lane): transistor
+  // r16 mod 8, its base current on lanes 0-7, its collector current on
+  // lanes 8-15 (and their mirrors)
+  __device__ float pa_current(float v) const {
+    const int b = r16 & 7;
+    float ib, ic;
+    gp_currents(load_gp(T.A + A_PA_GP + b * N_GP), bcast(v, b),
+                bcast(v, b + 8), ib, ic);
+    return r16 < 8 ? ib : ic;
   }
 
-  __device__ void pa_currents(const float* v, float* i_abs) const {
-    for (int b = 0; b < 8; ++b)
-      gp_currents(load_gp(A + A_PA_GP + b * N_GP), v[b], v[8 + b], i_abs[b],
-                  i_abs[8 + b]);
+  // Newton residual row r16: f = (v − vnl_dc) − p_dev − corr0 − K·di,
+  // with di = i − i_dc already in w->di
+  __device__ float pa_resid(float v, float p_dev) const {
+    const float* nv = T.A + A_PA_NVCOLS;  // (16, 10)
+    const float* di = w->di;
+    float mv = T.kT[r16] * di[0];
+#pragma unroll
+    for (int k = 1; k < 16; ++k) mv = mv + T.kT[k * 16 + r16] * di[k];
+    return (((v - nv[r16 * 10 + 5]) - p_dev) - nv[r16 * 10 + 3]) - mv;
+  }
+
+  // publish di = i_abs − i_dc for pa_resid / the output row sum
+  __device__ void put_di(float i_abs) {
+    __syncwarp();  // every lane has read the previous di
+    if (lane < 16) w->di[lane] = i_abs - T.A[A_PA_NVCOLS + lane * 10 + 4];
+    __syncwarp();
   }
 
   // ── power amp, one oversampled sample ──
   __device__ float pa_step(float x) {
+    const float* A = T.A;
     const float* nv = A + A_PA_NVCOLS;
     const float* P = A + A_PA_P;
     const float* pcols = A + A_PA_COLS;
-    const float rail_sag = ctrl[C_RAIL_SAG];
-    const float rails[4] = {st[ST_PA_RAILS], st[ST_PA_RAILS + 1],
-                            st[ST_PA_RAILS + 2], st[ST_PA_RAILS + 3]};
+    const float rail_sag = w->ctrl[C_RAIL_SAG];
     const float off_p = (rails[0] - sc(PA_RAIL_BIAS)) * rail_sag;
     const float off_n = (rails[1] - sc(PA_RAIL_BIAS)) * rail_sag;
-    float x37[37];
-    for (int k = 0; k < 21; ++k) x37[k] = st[ST_PA_Z + k];
-    for (int k = 0; k < 16; ++k) x37[21 + k] = st[ST_PA_DI + k];
-    float z_new[21], p_dev[16];
-    for (int r = 0; r < 37; ++r) {
-      float acc = P[r * 37] * x37[0];
-      for (int k = 1; k < 37; ++k) acc = acc + P[r * 37 + k] * x37[k];
-      if (r < 21)
-        z_new[r] = ((acc + pcols[r * 3] * x) + pcols[r * 3 + 1] * off_p)
-                   + pcols[r * 3 + 2] * off_n;
-      else
-        p_dev[r - 21] = ((acc + nv[(r - 21) * 10] * x)
-                         + nv[(r - 21) * 10 + 1] * off_p)
-                        + nv[(r - 21) * 10 + 2] * off_n;
+    // history rows: row lane on every lane, row 32 + lane on lanes 0-4
+    const float* x37 = w->x37;
+    const int row2 = 32 + (lane < 5 ? lane : 0);
+    float acc1 = P[lane * 37] * x37[0], acc2 = P[row2 * 37] * x37[0];
+#pragma unroll
+    for (int k = 1; k < 37; ++k) {
+      acc1 = acc1 + P[lane * 37 + k] * x37[k];
+      acc2 = acc2 + P[row2 * 37 + k] * x37[k];
     }
+    // rows 0-20: z_new on lanes 0-20; rows 21-36: p_dev[0-10] on lanes
+    // 21-31, p_dev[11-15] on lanes 0-4 (second row)
+    const int zr = lane < 21 ? lane : 0;
+    const float z_new = ((acc1 + pcols[zr * 3] * x) + pcols[zr * 3 + 1] * off_p)
+                        + pcols[zr * 3 + 2] * off_n;
+    const int p1r = lane >= 21 ? lane - 21 : 0, p2r = row2 - 21;
+    const float pd1 = ((acc1 + nv[p1r * 10] * x) + nv[p1r * 10 + 1] * off_p)
+                      + nv[p1r * 10 + 2] * off_n;
+    const float pd2 = ((acc2 + nv[p2r * 10] * x) + nv[p2r * 10 + 1] * off_p)
+                      + nv[p2r * 10 + 2] * off_n;
+    const float p_dev = bcast(lane >= 21 ? pd1 : pd2,
+                              r16 <= 10 ? r16 + 21 : r16 - 11);
 
-    float vnl_old[16], ws[16], vnl[16];
-    for (int r = 0; r < 16; ++r) {
-      vnl_old[r] = st[ST_PA_VNL + r];
-      const float wc = r < 8 ? 0.02f : 2.0f;
-      const float w = vnl_old[r] + nclamp(vnl_old[r] - st[ST_PA_VNL_PREV + r],
-                                          -wc, wc);
-      ws[r] = pnjlim(vnl_old[r], w, nv[r * 10 + 8], nv[r * 10 + 9]);
-      vnl[r] = ws[r];
-    }
+    const float vnl_old = vnl;
+    const float wc = r16 < 8 ? 0.02f : 2.0f;
+    const float wv = vnl_old + nclamp(vnl_old - vnl_prev, -wc, wc);
+    const float ws = pnjlim(vnl_old, wv, nv[r16 * 10 + 8], nv[r16 * 10 + 9]);
+    float v = ws;
+
+    // elimination roles: lane gi + 10·gcg holds rows gi of columns
+    // 4·gcg .. 4·gcg + 3 of [A | rhs] (column N_ACT is the rhs)
+    int jport[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      jport[m] = pa_active(min(4 * gcg + m, N_ACT - 1));
+    const int iport = pa_active(gi);
+    const float* Ka = T.kaT;
+    const float* Kr = T.krT;
+    const int rr = rel_rr < 0 ? 0 : rel_rr;
 
     float fn0 = 0.0f;
     for (int it = 0; it < N_PA_ITERS; ++it) {
-      float i_abs[16], g[4][8];  // g: dib/dvbe, dib/dvbc, dic/dvbe, dic/dvbc
-      for (int b = 0; b < 8; ++b)
-        gp_derivs(load_gp(A + A_PA_GP + b * N_GP), vnl[b], vnl[8 + b],
-                  i_abs[b], i_abs[8 + b], g[0][b], g[1][b], g[2][b], g[3][b]);
-      float f[16];
-      pa_resid(vnl, i_abs, p_dev, f);
-      float fn = fabsf(f[0]);
-      for (int r = 1; r < 16; ++r) fn = nmax(fn, fabsf(f[r]));
+      const int b = r16 & 7;
+      float ib, ic, gbb, gbc, gcb, gcc;
+      gp_derivs(load_gp(A + A_PA_GP + b * N_GP), bcast(v, b), bcast(v, b + 8),
+                ib, ic, gbb, gbc, gcb, gcc);
+      __syncwarp();  // every lane has read the previous g
+      if (lane < 8) {
+        w->g[0][lane] = gbb;
+        w->g[1][lane] = gbc;
+        w->g[2][lane] = gcb;
+        w->g[3][lane] = gcc;
+      }
+      put_di(r16 < 8 ? ib : ic);
+      const float f = pa_resid(v, p_dev);
+      const float fn = max16(fabsf(f));
       if (it == 0) fn0 = fn;
 
       // Reduced block system: active ports pivot, relegated ride along.
-      const float* Ka = A + A_PA_K_ACT;   // (10, 16)
-      const float* Kr = A + A_PA_K_REL;   // (6, 16)
-      float blk[N_ACT + 1][N_ACT], crel[N_ACT][N_REL];
+      float c[4];
+      const float rhs_f = bcast(f, iport);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int jj = 4 * gcg + m, j = jport[m], jb = j % 8;
+        const float g1 = j < 8 ? w->g[0][jb] : w->g[1][jb];
+        const float g2 = j < 8 ? w->g[2][jb] : w->g[3][jb];
+        const float a = (A[A_PA_EYE_ACT + gi * N_ACT + min(jj, N_ACT - 1)]
+                         - Ka[jb * N_ACT + gi] * g1)
+                        - Ka[(jb + 8) * N_ACT + gi] * g2;
+        c[m] = jj < N_ACT ? a : (jj == N_ACT ? rhs_f : 0.0f);
+      }
+      float crel[N_ACT];
+#pragma unroll
       for (int jj = 0; jj < N_ACT; ++jj) {
-        const int j = kPaActive[jj], b = j % 8;
-        const float g1 = j < 8 ? g[0][b] : g[1][b];
-        const float g2 = j < 8 ? g[2][b] : g[3][b];
-        for (int ii = 0; ii < N_ACT; ++ii)
-          blk[jj][ii] = (A[A_PA_EYE_ACT + ii * N_ACT + jj]
-                         - Ka[ii * 16 + b] * g1) - Ka[ii * 16 + b + 8] * g2;
-        for (int rr = 0; rr < N_REL; ++rr)
-          crel[jj][rr] = (-Kr[rr * 16 + b]) * g1 - Kr[rr * 16 + b + 8] * g2;
+        const int j = pa_active(jj), jb = j % 8;
+        const float g1 = j < 8 ? w->g[0][jb] : w->g[1][jb];
+        const float g2 = j < 8 ? w->g[2][jb] : w->g[3][jb];
+        crel[jj] = (-Kr[jb * N_REL + rr]) * g1 - Kr[(jb + 8) * N_REL + rr] * g2;
       }
-      for (int ii = 0; ii < N_ACT; ++ii) blk[N_ACT][ii] = f[kPaActive[ii]];
-      float x_act[N_ACT];
-      ge_solve<N_ACT>(blk, x_act);
-      float dv[16];
-      for (int rr = 0; rr < N_REL; ++rr) {
-        float acc = f[kPaReleg[rr]];
-        for (int jj = 0; jj < N_ACT; ++jj) acc = acc - crel[jj][rr] * x_act[jj];
-        dv[kPaReleg[rr]] = acc;
+      // elimination without pivoting, every row of the remaining columns
+      float invs[N_ACT];
+#pragma unroll
+      for (int k = 0; k < N_ACT; ++k) {
+        const int gk = k / 4, mk = k % 4;
+        const float piv = bcast(c[mk], k + 10 * gk);
+        const float colk = bcast(c[mk], gi + 10 * gk);
+        float rk[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) rk[m] = bcast(c[m], (k + 10 * gcg) & 31);
+        const float inv = 1.0f / (fabsf(piv) > 1e-30f ? piv : 1e-30f);
+        invs[k] = inv;
+        const float below = (gi > k ? colk : 0.0f) * inv;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (4 * gcg + m > k) c[m] = c[m] - below * rk[m];
       }
-      for (int ii = 0; ii < N_ACT; ++ii) dv[kPaActive[ii]] = x_act[ii];
-      for (int r = 0; r < 16; ++r) {
-        const float cl = nv[r * 10 + 7];
-        float d = nclamp(dv[r], -cl, cl);
-        d = fn < 1e-4f ? 0.0f : d;
-        vnl[r] = pnjlim(vnl[r], vnl[r] - d, nv[r * 10 + 8], nv[r * 10 + 9]);
+      // back-substitution on the rhs lanes (column N_ACT: group 2, slot 2)
+      float ucol[N_ACT];
+#pragma unroll
+      for (int k = 1; k < N_ACT; ++k)
+        ucol[k] = bcast(c[k % 4], gi + 10 * (k / 4));
+      float rhs = c[2];
+      float xa[N_ACT];
+#pragma unroll
+      for (int k = N_ACT - 1; k >= 0; --k) {
+        const float xk = bcast(rhs, k + 20) * invs[k];
+        xa[k] = xk;
+        if (k) rhs = rhs - (gi < k ? ucol[k] : 0.0f) * xk;
       }
+      float dv = f;  // relegated: f − C·x_act, in jj order
+#pragma unroll
+      for (int jj = 0; jj < N_ACT; ++jj) dv = dv - crel[jj] * xa[jj];
+      if (rel_rr < 0) {
+#pragma unroll
+        for (int jj = 0; jj < N_ACT; ++jj)
+          if (pa_active(jj) == r16) dv = xa[jj];
+      }
+      const float cl = nv[r16 * 10 + 7];
+      float d = nclamp(dv, -cl, cl);
+      d = fn < 1e-4f ? 0.0f : d;
+      v = pnjlim(v, v - d, nv[r16 * 10 + 8], nv[r16 * 10 + 9]);
     }
 
-    float i_abs[16], f[16];
-    pa_currents(vnl, i_abs);
-    pa_resid(vnl, i_abs, p_dev, f);
-    float fn_final = fabsf(f[0]);
-    for (int r = 1; r < 16; ++r) fn_final = nmax(fn_final, fabsf(f[r]));
+    float i_abs = pa_current(v);
+    put_di(i_abs);
+    const float fn_final = max16(fabsf(pa_resid(v, p_dev)));
     // Explosion reset: keep the warm start when NR ended farther away.
     const bool exploded = fn_final > nmax(4.0f * fn0, 1.0f);
     if (exploded) {
-      for (int r = 0; r < 16; ++r) vnl[r] = ws[r];
-      pa_currents(ws, i_abs);
+      v = ws;
+      i_abs = pa_current(ws);
     }
-    float di_new[16];
-    for (int k = 0; k < 16; ++k) di_new[k] = i_abs[k] - nv[k * 10 + 4];
-    float rs = nv[0 * 10 + 6] * di_new[0];
-    for (int k = 1; k < 16; ++k) rs = rs + nv[k * 10 + 6] * di_new[k];
+    const float di_new = i_abs - nv[r16 * 10 + 4];
+    put_di(i_abs);
+    float rs = nv[0 * 10 + 6] * w->di[0];
+#pragma unroll
+    for (int k = 1; k < 16; ++k) rs = rs + nv[k * 10 + 6] * w->di[k];
     const int oi = (int)sc(PA_OUT_IDX);
-    const float raw = sc(PA_VDC_OUT) + (z_new[oi] + rs);
+    const float raw = sc(PA_VDC_OUT) + (bcast(z_new, oi) + rs);
     const float result = raw * sc(PA_INV_HEADROOM);
 
     // Divergence guard: hold on NR failure, reset + hold when insane.
     const bool nr_failed = fn_final > 0.5f || exploded;
-    float zmax = fabsf(z_new[0]);
-    for (int r = 1; r < 21; ++r) zmax = nmax(zmax, fabsf(z_new[r]));
+    float zmax = lane < 21 ? fabsf(z_new) : 0.0f;
+#pragma unroll
+    for (int o = 16; o; o >>= 1)
+      zmax = nmax(zmax, __shfl_xor_sync(FULL, zmax, o));
     const bool reset = zmax > 100.0f || !isfinite(result);
     const bool bad = reset || nr_failed;
-    for (int r = 0; r < 21; ++r) st[ST_PA_Z + r] = reset ? 0.0f : z_new[r];
-    for (int r = 0; r < 16; ++r) {
-      st[ST_PA_DI + r] = reset ? 0.0f : di_new[r];
-      st[ST_PA_VNL + r] = reset ? nv[r * 10 + 5] : vnl[r];
-      st[ST_PA_VNL_PREV + r] = reset ? nv[r * 10 + 5] : vnl_old[r];
-    }
-    const float out = bad ? st[ST_PA_LASTGOOD] : nclamp(result, -1.0f, 1.0f);
-    st[ST_PA_LASTGOOD] = out;
+    __syncwarp();  // every lane has read x37 and di
+    if (lane < 21) w->x37[lane] = reset ? 0.0f : z_new;
+    if (lane < 16) w->x37[21 + lane] = reset ? 0.0f : di_new;
+    __syncwarp();
+    vnl = reset ? nv[r16 * 10 + 5] : v;
+    vnl_prev = reset ? nv[r16 * 10 + 5] : vnl_old;
+    const float out = bad ? lastgood : nclamp(result, -1.0f, 1.0f);
+    lastgood = out;
 
     // Rail dynamics from the raw output voltage.
     const float i_pos = nmax(raw * sc(PA_INV_LOAD), 0.0f);
@@ -709,90 +916,102 @@ struct Chain {
     const float init_rails[4] = {sc(PA_RAIL_BIAS), sc(PA_RAIL_BIAS), 0.0f,
                                  0.0f};
     const bool sag_on = rail_sag > 0.5f;
+#pragma unroll
     for (int k = 0; k < 4; ++k)
-      st[ST_PA_RAILS + k] = sag_on ? (bad ? init_rails[k] : new_rails[k])
-                                   : rails[k];
+      rails[k] = sag_on ? (bad ? init_rails[k] : new_rails[k]) : rails[k];
     return out;
   }
 
-  __device__ float allpass(int coeff0, int state_off, float x) {
+  __device__ float allpass(int coeff0, float (&s)[3], float x) {
     float y = x;
+#pragma unroll
     for (int i = 0; i < 3; ++i) {
       const float a = sc(coeff0 + i);
-      const float o = a * y + st[state_off + i];
-      st[state_off + i] = y - a * o;
+      const float o = a * y + s[i];
+      s[i] = y - a * o;
       y = o;
     }
     return y;
   }
 
-  __device__ float bq(int rows, int state_off, float xin) {
+  __device__ float bq(int rows, float (&s)[2], float xin) {
+    const float* ctrl = w->ctrl;
     const float b0 = ctrl[rows], b1 = ctrl[rows + 1], b2 = ctrl[rows + 2];
     const float a1 = ctrl[rows + 3], a2 = ctrl[rows + 4];
-    const float y = b0 * xin + st[state_off];
-    const float z1 = (b1 * xin - a1 * y) + st[state_off + 1];
+    const float y = b0 * xin + s[0];
+    const float z1 = (b1 * xin - a1 * y) + s[1];
     const float z2 = b2 * xin - a2 * y;
-    st[state_off] = z1;
-    st[state_off + 1] = z2;
+    s[0] = z1;
+    s[1] = z2;
     return y;
   }
 
   // ── one base-rate sample ──
   template <bool NOISE>
   __device__ float base_step(float x) {
-    const float e = allpass(OS_A0, ST_OS_UA, x);
-    const float o = allpass(OS_B0, ST_OS_UB, x);
-    const float g_cur = st[ST_GLDR_CUR], g_prev = st[ST_GLDR_UPD_PREV];
-    const float ph = st[ST_TREM_PHASE];
+    const float e = allpass(OS_A0, os_ua, x);
+    const float o = allpass(OS_B0, os_ub, x);
+    const float g_cur = tr.v[T_GLDR_CUR], g_prev = tr.v[T_GLDR_UPD_PREV];
+    const float ph = tr.v[T_PHASE];
     float ys[2];
+#pragma unroll
     for (int t_os = 0; t_os < 2; ++t_os) {
       const float frac = (ph + (float)(t_os + 1)) * 0.25f;
       const float gldr = g_prev + frac * (g_cur - g_prev);
       const float pre_out = preamp_step<NOISE>(t_os ? o : e, gldr);
       ys[t_os] = pa_step(pre_out * sc(DRIVE));
     }
-    st[ST_TREM_PHASE] = ph + 2.0f;
-    const float a = allpass(OS_A0, ST_OS_DA, ys[0]);
-    const float b = allpass(OS_B0, ST_OS_DB, ys[1]);
-    const float amp_out = (a + st[ST_OS_DELAY]) * 0.5f;
-    st[ST_OS_DELAY] = b;
+    tr.v[T_PHASE] = ph + 2.0f;
+    const float a = allpass(OS_A0, os_da, ys[0]);
+    const float b = allpass(OS_B0, os_db, ys[1]);
+    const float amp_out = (a + os_delay) * 0.5f;
+    os_delay = b;
 
+    const float* ctrl = w->ctrl;
     const float a2 = ctrl[C_A2], a3 = ctrl[C_A3];
     const float x2 = amp_out * amp_out;
     const float shaped = ((amp_out + a2 * x2) + (a3 * x2) * amp_out)
                          / ((1.0f + a2) + a3);
     const float limited = ctrl[C_CHAR] < 0.001f ? shaped : tanhf(shaped);
-    const float th = st[ST_SPK_THERMAL];
-    const float thermal = th + (x2 - th) * sc(SPK_THERMAL_ALPHA);
+    const float thermal =
+        spk_thermal + (x2 - spk_thermal) * sc(SPK_THERMAL_ALPHA);
     const float tgain = 1.0f / (1.0f + ctrl[C_THERMAL] * sqrtf(thermal));
-    st[ST_SPK_THERMAL] = thermal;
-    const float filt = bq(C_HPF, ST_SPK_HPF, limited * tgain);
-    const float spk_out = bq(C_LPF, ST_SPK_LPF, filt);
+    spk_thermal = thermal;
+    const float filt = bq(C_HPF, spk_hpf, limited * tgain);
+    const float spk_out = bq(C_LPF, spk_lpf, filt);
     const float out = (spk_out * sc(POST_GAIN)) * ctrl[C_VOLUME];
 
-    // Final NaN guard: reset the chain, output silence.
+    // Final NaN guard: reset the chain, output silence. `out` is the same
+    // on every lane, so the whole warp takes this branch or none does.
     if (!isfinite(out)) {
-      const int zero_spans[][2] = {
-          {ST_PRE_D, 16}, {ST_PRE_DIC, 4}, {ST_PRE_DJ, 2}, {ST_PRE_DPREV, 2},
-          {ST_PA_Z, 21}, {ST_PA_DI, 16}, {ST_OS_UA, 3}, {ST_OS_UB, 3},
-          {ST_OS_DA, 3}, {ST_OS_DB, 3}, {ST_OS_DELAY, 1}, {ST_SPK_HPF, 2},
-          {ST_SPK_LPF, 2}, {ST_SPK_THERMAL, 1}, {ST_PA_LASTGOOD, 1}};
-      for (const auto& zs : zero_spans)
-        for (int k = 0; k < zs[1]; ++k) st[zs[0] + k] = 0.0f;
-      st[ST_PRE_VNL] = st[ST_PRE_VNL + 1] = sc(PRE_VNL_DC0);
-      st[ST_PRE_VNL + 2] = st[ST_PRE_VNL + 3] = sc(PRE_VNL_DC1);
-      for (int r = 0; r < 16; ++r)
-        st[ST_PA_VNL + r] = st[ST_PA_VNL_PREV + r] = A[A_PA_NVCOLS + r * 10 + 5];
-      st[ST_GUARD_FIRES] = st[ST_GUARD_FIRES] + 1.0f;
+      const float* nv = T.A + A_PA_NVCOLS;
+      __syncwarp();
+      if (lane < 16) w->d[lane] = 0.0f;
+      for (int k = lane; k < 37; k += 32) w->x37[k] = 0.0f;  // pa_z, pa_di
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pre_dic[k] = 0.0f;
+      pre_dj[0] = pre_dj[1] = pre_dprev[0] = pre_dprev[1] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        os_ua[k] = os_ub[k] = os_da[k] = os_db[k] = 0.0f;
+      os_delay = 0.0f;
+      spk_hpf[0] = spk_hpf[1] = spk_lpf[0] = spk_lpf[1] = 0.0f;
+      spk_thermal = 0.0f;
+      lastgood = 0.0f;
+      pre_vnl[0] = pre_vnl[1] = sc(PRE_VNL_DC0);
+      pre_vnl[2] = pre_vnl[3] = sc(PRE_VNL_DC1);
+      vnl = vnl_prev = nv[r16 * 10 + 5];
+      guard = guard + 1.0f;
       return 0.0f;
     }
-    st[ST_GUARD_FIRES] = st[ST_GUARD_FIRES] + 0.0f;
+    guard = guard + 0.0f;  // −0 → +0, as the plain version's add of 0
     return out;
   }
 };
 
 template <bool NOISE>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(kWarps * 32)
 mono_chain_kernel(const float* __restrict__ consts,
                   const float* __restrict__ scalars,
                   const float* __restrict__ controls,
@@ -801,39 +1020,148 @@ mono_chain_kernel(const float* __restrict__ consts,
                   float* __restrict__ state_out, int streams, int t_len) {
   __shared__ float s_consts[A_TOTAL];
   __shared__ float s_scalars[N_SCALARS];
+  __shared__ float s_saT[16 * 20], s_kT[16 * 16], s_kaT[16 * N_ACT],
+      s_krT[16 * N_REL];
+  __shared__ Scratch s_warp[kWarps];
   for (int i = threadIdx.x; i < A_TOTAL; i += blockDim.x)
     s_consts[i] = consts[i];
   for (int i = threadIdx.x; i < N_SCALARS; i += blockDim.x)
     s_scalars[i] = scalars[i];
+  for (int i = threadIdx.x; i < 16 * 20; i += blockDim.x) {
+    const int k = i / 20, r = i % 20;
+    s_saT[i] = r < 16 ? consts[A_PRE_SA + r * 16 + k]
+                      : consts[A_PRE_SA_P + (r - 16) * 16 + k];
+  }
+  for (int i = threadIdx.x; i < 16 * 16; i += blockDim.x)
+    s_kT[i] = consts[A_PA_K + (i % 16) * 16 + i / 16];
+  for (int i = threadIdx.x; i < 16 * N_ACT; i += blockDim.x)
+    s_kaT[i] = consts[A_PA_K_ACT + (i % N_ACT) * 16 + i / N_ACT];
+  for (int i = threadIdx.x; i < 16 * N_REL; i += blockDim.x)
+    s_krT[i] = consts[A_PA_K_REL + (i % N_REL) * 16 + i / N_REL];
   __syncthreads();
 
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= streams) return;
-  Chain ch;
-  ch.A = s_consts;
-  ch.K = s_scalars;
-  for (int r = 0; r < CTRL_ROWS; ++r) ch.ctrl[r] = controls[r * streams + s];
-  for (int r = 0; r < STATE_ROWS; ++r) ch.st[r] = state_in[r * streams + s];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarps + warp;
+  if (s >= streams) return;  // the whole warp: no warp-level sync follows
+  const auto in = [&](int row) { return state_in[(size_t)row * streams + s]; };
 
-  for (int i = 0; i < t_len; ++i) {
-    if (i % 2 == 0) ch.trem_update();  // SUB_BASE = 2, before base_step
-    out[(size_t)i * streams + s] =
-        ch.base_step<NOISE>(audio[(size_t)i * streams + s]);
+  Chain ch;
+  ch.T = {s_consts, s_scalars, s_saT, s_kT, s_kaT, s_krT};
+  ch.w = &s_warp[warp];
+  ch.lane = lane;
+  ch.r16 = lane & 15;
+  ch.gi = lane < 30 ? lane % 10 : lane - 30;
+  ch.gcg = lane < 30 ? lane / 10 : 3;
+  ch.rel_rr = -1;
+#pragma unroll
+  for (int rr = 0; rr < N_REL; ++rr)
+    if (pa_releg(rr) == ch.r16) ch.rel_rr = rr;
+
+  // rows this kernel does not write (padding, and K2's nz_ rows) pass
+  // through: copy the whole column, then overwrite the written rows
+  for (int r = lane; r < STATE_ROWS; r += 32)
+    state_out[(size_t)r * streams + s] = in(r);
+  if (lane < CTRL_ROWS) ch.w->ctrl[lane] = controls[lane * streams + s];
+  if (lane < 16) ch.w->d[lane] = in(ST_PRE_D + lane);
+  for (int k = lane; k < 37; k += 32)
+    ch.w->x37[k] = in(k < 21 ? ST_PA_Z + k : ST_PA_DI + (k - 21));
+#pragma unroll
+  for (int k = 0; k < PREROLL_ROWS; ++k) ch.tr.v[k] = in(trem_row(k));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    ch.pre_vnl[k] = in(ST_PRE_VNL + k);
+    ch.pre_dic[k] = in(ST_PRE_DIC + k);
+    ch.rails[k] = in(ST_PA_RAILS + k);
   }
-  for (int r = 0; r < STATE_ROWS; ++r) state_out[r * streams + s] = ch.st[r];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    ch.pre_dj[k] = in(ST_PRE_DJ + k);
+    ch.pre_dprev[k] = in(ST_PRE_DPREV + k);
+    ch.spk_hpf[k] = in(ST_SPK_HPF + k);
+    ch.spk_lpf[k] = in(ST_SPK_LPF + k);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ch.os_ua[k] = in(ST_OS_UA + k);
+    ch.os_ub[k] = in(ST_OS_UB + k);
+    ch.os_da[k] = in(ST_OS_DA + k);
+    ch.os_db[k] = in(ST_OS_DB + k);
+  }
+  ch.pre_gldr = in(ST_PRE_GLDR);
+  ch.lastgood = in(ST_PA_LASTGOOD);
+  ch.os_delay = in(ST_OS_DELAY);
+  ch.spk_thermal = in(ST_SPK_THERMAL);
+  ch.guard = in(ST_GUARD_FIRES);
+  ch.vnl = in(ST_PA_VNL + ch.r16);
+  ch.vnl_prev = in(ST_PA_VNL_PREV + ch.r16);
+  ch.lcg_a = ch.lcg_b = 0u;
+  ch.nz_w = 0.0f;
+  if constexpr (NOISE) {
+    ch.lcg_a = __float_as_uint(in(ST_NZ_LCG + lane));
+    ch.lcg_b = __float_as_uint(in(ST_NZ_LCG + 32 + (lane & 7)));
+    ch.nz_w = in(ST_NZ_W + (lane >= 1 && lane <= 9 ? lane - 1 : 0));
+  }
+  __syncwarp();
+
+  const float r_low = ch.w->ctrl[C_R_LOWER], div_top = ch.w->ctrl[C_DIV_TOP];
+  for (int i = 0; i < t_len; ++i) {
+    if (i % 2 == 0)  // SUB_BASE = 2, before base_step
+      trem_update(s_consts, s_scalars, r_low, div_top, ch.tr);
+    const float y = ch.base_step<NOISE>(audio[(size_t)i * streams + s]);
+    if (lane == 0) out[(size_t)i * streams + s] = y;
+  }
+
+  __syncwarp();  // the pass-through copy is done before the rows it covers
+  const auto put = [&](int row, float v) {
+    state_out[(size_t)row * streams + s] = v;
+  };
+  if (lane < 16) {
+    put(ST_PRE_D + lane, ch.w->d[lane]);
+    put(ST_PA_VNL + lane, ch.vnl);
+    put(ST_PA_VNL_PREV + lane, ch.vnl_prev);
+  }
+  for (int k = lane; k < 37; k += 32)
+    put(k < 21 ? ST_PA_Z + k : ST_PA_DI + (k - 21), ch.w->x37[k]);
+  if constexpr (NOISE) {
+    put(ST_NZ_LCG + lane, __uint_as_float(ch.lcg_a));
+    if (lane < 8) put(ST_NZ_LCG + 32 + lane, __uint_as_float(ch.lcg_b));
+    if (lane >= 1 && lane <= 9) put(ST_NZ_W + lane - 1, ch.nz_w);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < PREROLL_ROWS; ++k) put(trem_row(k), ch.tr.v[k]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      put(ST_PRE_VNL + k, ch.pre_vnl[k]);
+      put(ST_PRE_DIC + k, ch.pre_dic[k]);
+      put(ST_PA_RAILS + k, ch.rails[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      put(ST_PRE_DJ + k, ch.pre_dj[k]);
+      put(ST_PRE_DPREV + k, ch.pre_dprev[k]);
+      put(ST_SPK_HPF + k, ch.spk_hpf[k]);
+      put(ST_SPK_LPF + k, ch.spk_lpf[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      put(ST_OS_UA + k, ch.os_ua[k]);
+      put(ST_OS_UB + k, ch.os_ub[k]);
+      put(ST_OS_DA + k, ch.os_da[k]);
+      put(ST_OS_DB + k, ch.os_db[k]);
+    }
+    put(ST_PRE_GLDR, ch.pre_gldr);
+    put(ST_PA_LASTGOOD, ch.lastgood);
+    put(ST_OS_DELAY, ch.os_delay);
+    put(ST_SPK_THERMAL, ch.spk_thermal);
+    put(ST_GUARD_FIRES, ch.guard);
+  }
 }
 
 // K4: thread 0 walks n_captures intervals of steps_per_capture tremolo
 // updates; caps[k] is the state entering interval k (before its first
-// update), in the order trem_z, trem_di, trem_vnl, trem_env, gldr_cur,
-// gldr_upd_prev, trem_phase.
-constexpr int PREROLL_ROWS = 19;
-__constant__ int kPrerollSpans[7][2] = {
-    {ST_TREM_Z, 7},      {ST_TREM_DI, 4},       {ST_TREM_VNL, 4},
-    {ST_TREM_ENV, 1},    {ST_GLDR_CUR, 1},      {ST_GLDR_UPD_PREV, 1},
-    {ST_TREM_PHASE, 1}};
-
-__global__ void __launch_bounds__(64)
+// update), in kPrerollSpans order.
+__global__ void __launch_bounds__(32)
 trem_preroll_kernel(const float* __restrict__ consts,
                     const float* __restrict__ scalars,
                     const float* __restrict__ controls,
@@ -849,19 +1177,17 @@ trem_preroll_kernel(const float* __restrict__ consts,
   __syncthreads();
   if (threadIdx.x != 0) return;
 
-  Chain ch;
-  ch.A = s_consts;
-  ch.K = s_scalars;
-  for (int r = 0; r < CTRL_ROWS; ++r) ch.ctrl[r] = controls[r];
-  for (int r = 0; r < STATE_ROWS; ++r) ch.st[r] = state_in[r];
+  TremState tr;
+#pragma unroll
+  for (int k = 0; k < PREROLL_ROWS; ++k) tr.v[k] = state_in[trem_row(k)];
+  const float r_low = controls[C_R_LOWER], div_top = controls[C_DIV_TOP];
   for (int k = 0; k < n_captures; ++k) {
-    int col = 0;
-    for (int sp = 0; sp < 7; ++sp)
-      for (int r = 0; r < kPrerollSpans[sp][1]; ++r)
-        caps[k * PREROLL_ROWS + col++] = ch.st[kPrerollSpans[sp][0] + r];
+#pragma unroll
+    for (int r = 0; r < PREROLL_ROWS; ++r) caps[k * PREROLL_ROWS + r] = tr.v[r];
     // the updates after the last capture would reach no output
     if (k + 1 < n_captures)
-      for (int i = 0; i < steps_per_capture; ++i) ch.trem_update();
+      for (int i = 0; i < steps_per_capture; ++i)
+        trem_update(s_consts, s_scalars, r_low, div_top, tr);
   }
 }
 
@@ -875,7 +1201,7 @@ extern "C" int ow_trem_preroll(const float* consts, int n_consts,
   if (n_consts != A_TOTAL || n_scalars != N_SCALARS || n_captures <= 0 ||
       steps_per_capture <= 0)
     return (int)cudaErrorInvalidValue;
-  trem_preroll_kernel<<<1, 64, 0, stream>>>(consts, scalars, controls,
+  trem_preroll_kernel<<<1, 32, 0, stream>>>(consts, scalars, controls,
                                             state_in, caps, n_captures,
                                             steps_per_capture);
   return (int)cudaGetLastError();
@@ -892,9 +1218,8 @@ int launch_mono_chain(const float* consts, int n_consts, const float* scalars,
   if (n_consts != A_TOTAL || n_scalars != N_SCALARS || streams <= 0 ||
       t_len < 0)
     return (int)cudaErrorInvalidValue;
-  const int threads = 64;
-  const int blocks = (streams + threads - 1) / threads;
-  mono_chain_kernel<NOISE><<<blocks, threads, 0, stream>>>(
+  const int blocks = (streams + kWarps - 1) / kWarps;
+  mono_chain_kernel<NOISE><<<blocks, kWarps * 32, 0, stream>>>(
       consts, scalars, controls, state_in, audio, out, state_out, streams,
       t_len);
   return (int)cudaGetLastError();

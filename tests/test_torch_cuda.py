@@ -105,10 +105,10 @@ def test_trem_preroll_kernel_matches_plain_and_chain(cuda):
 
 
 def test_mono_chain_kernel_partial_block_from_injected_state(cuda):
-    """K2 as the time-parallel renderer calls it: more streams than one
-    block of 64 threads and fewer than two, each stream starting from the
-    pre-roll's captured tremolo rows; then once more from the carried
-    state. Output and state bit for bit."""
+    """K2 as the time-parallel renderer calls it: 72 streams (18 blocks of
+    4 warps), each stream starting from the pre-roll's captured tremolo
+    rows; then once more from the carried state. Output and state bit for
+    bit."""
     s, t = 72, 64
     rng = np.random.default_rng(3)
     audio = torch.from_numpy(
@@ -164,6 +164,53 @@ def test_mono_chain_noise_kernel_matches_plain(cuda):
         state = st
     assert (mc.NOISE_KERNEL_LAUNCHES, mc.KERNEL_LAUNCHES) == \
         (launches[0] + 2, launches[1] + 1)
+
+
+def _lanes_inputs(s, t, seed, cuda):
+    rng = np.random.default_rng(seed)
+    audio = torch.from_numpy(
+        (0.05 * rng.standard_normal((t, s))).astype(np.float32)).to(cuda)
+    ctrl = mc.make_controls(SR, s, depth=np.linspace(0, 1, s),
+                            character=np.tile([0.0, 1.0], s)[:s],
+                            noise_level=np.linspace(0.0, 30.0, s),
+                            device=cuda)
+    return ctrl, mc.init_state(SR, s, device=cuda), audio
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["K2", "K5"])
+@pytest.mark.parametrize("s,t", [(1, 64), (33, 64), (1024, 16)])
+def test_mono_chain_warp_geometry_matches_plain(cuda, noise, s, t):
+    """One warp per stream: one stream, a ragged last block of warps, and
+    1024 streams, output and state bit for bit."""
+    ctrl, st0, audio = _lanes_inputs(s, t, s, cuda)
+    out, st = mc.render(SR, ctrl, st0, audio, noise=noise)
+    ref, ref_st = mc.render_chain_plain(mc.pack_consts(SR), ctrl, st0,
+                                        audio, noise=noise)
+    assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(st), _bits(ref_st))
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["K2", "K5"])
+def test_mono_chain_guard_stream_matches_plain(cuda, noise):
+    """Stream 2 of 8 fires the NaN guard (a NaN in its speaker state) and
+    takes the power amp's reset path (an inf in its audio): bit for bit
+    equal to the plain version, and the other streams equal their run
+    without it."""
+    ctrl, st0, audio = _lanes_inputs(8, 64, 8, cuda)
+    st_g, a_g = st0.clone(), audio.clone()
+    st_g[mc._OFFSETS["spk_lpf"][0], 2] = float("nan")
+    a_g[32, 2] = float("inf")
+    out, st = mc.render(SR, ctrl, st_g, a_g, noise=noise)
+    ref, ref_st = mc.render_chain_plain(mc.pack_consts(SR), ctrl, st_g,
+                                        a_g, noise=noise)
+    assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(st), _bits(ref_st))
+    assert st[mc._OFFSETS["guard_fires"][0]].tolist() == \
+        [0.0, 0.0, 1.0] + [0.0] * 5
+    base, base_st = mc.render(SR, ctrl, st0, audio, noise=noise)
+    keep = [0, 1, 3, 4, 5, 6, 7]
+    assert torch.equal(_bits(out[:, keep]), _bits(base[:, keep]))
+    assert torch.equal(_bits(st[:, keep]), _bits(base_st[:, keep]))
 
 
 @pytest.mark.parametrize("name", list(probe.PROBES))
