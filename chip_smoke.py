@@ -111,13 +111,15 @@ VB_OPS_ONSET = 6                                  # per sample before steady
 VB_OPS_NOISE = 22                                 # per sample before steady
 
 # float32 operations of csrc/mono_chain.cu per stream, from its loop
-# extents: one tremolo update; one oversampled preamp step; one
-# oversampled power-amp step.
+# extents: one tremolo update (the LDR tail included, as K2 runs it; K4
+# runs the tail only in an interval's last two updates); one oversampled
+# preamp step; one oversampled power-amp step.
 GP_DERIVS_OPS, GP_CURRENTS_OPS = 70, 35
+TREM_TAIL_OPS = 12  # log, 2 exp, the divider's parallel, 1/max(...)
 TREM_UPDATE_OPS = (11 * 11 * 2
                    + 3 * (2 * GP_DERIVS_OPS + 4 * 4 * 2 + 4 * 4 + 4 * 4 * 4
                           + 100 + 4 * 8)
-                   + 2 * GP_CURRENTS_OPS + 25)
+                   + 2 * GP_CURRENTS_OPS + 13 + TREM_TAIL_OPS)
 PREAMP_STEP_OPS = (16 * 16 * 2 + 2 * 8 * 4 * 20 + 4 * 16 * 2 + 5 * 2 * 40
                    + 16 * 8 + 60)
 PA_STEP_OPS = (37 * 37 * 2 + 37 * 6
@@ -163,10 +165,28 @@ def chain_bound(streams, samples, noise=False):
 
 
 def preroll_bound(n_captures, stride):
-    """Bound of one pre-roll call: no update follows the last capture."""
+    """Bound of one pre-roll call: no update follows the last capture, and
+    a capture reads the LDR tail of its interval's last two updates."""
     n_bytes = 4 * (3312 + 68 + 19 + 328 + n_captures * 19)
-    return bound(n_bytes,
-                 (n_captures - 1) * (stride // 2) * TREM_UPDATE_OPS)
+    steps = stride // 2
+    return bound(n_bytes, (n_captures - 1) * (
+        steps * (TREM_UPDATE_OPS - TREM_TAIL_OPS)
+        + min(steps, 2) * TREM_TAIL_OPS))
+
+
+def ptxas_lines(log):
+    """{entry function: (registers, stack bytes, spill stores, spill
+    loads)} from nvcc's -Xptxas -v output."""
+    found, name = {}, None
+    for line in (log or "").splitlines():
+        words = line.replace(",", " ").split()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "stack frame" in line:
+            found[name] = [None, int(words[0]), int(words[4]), int(words[8])]
+        elif name and "Used" in words and name in found:
+            found[name][0] = int(words[words.index("Used") + 1])
+    return {k: tuple(v) for k, v in found.items()}
 
 
 class StageTimer:
@@ -443,6 +463,21 @@ def main():
         if ("Compiling entry function" in line or "stack frame" in line
                 or "Used " in line):
             print("phase 1 " + " ".join(line.split()), flush=True)
+    ptxas = {}
+    for fn, regs in ptxas_lines(_build.BUILD_LOG).items():
+        for key, name in (("trem_preroll_kernel", "K4"),
+                          ("mono_chain_kernelILb0E", "K2"),
+                          ("mono_chain_kernelILb1E", "K5")):
+            if key in fn:
+                ptxas[name] = dict(zip(("registers", "stack", "spill_stores",
+                                        "spill_loads"), regs))
+    if ptxas:
+        print("phase 1 chain kernels' ptxas: " + "; ".join(
+            f"{k} {v['registers']} registers, {v['stack']} bytes stack, "
+            f"{v['spill_stores']} / {v['spill_loads']} bytes spilled"
+            for k, v in sorted(ptxas.items())), flush=True)
+        check(ptxas["K4"]["stack"] == ptxas["K4"]["spill_stores"] == 0,
+              f"K4 uses stack or spills: {ptxas['K4']}")
 
     # ── phase 2: K1 on the card against its plain version on the card ──
     notes = np.repeat(np.arange(36, 100), 4).astype(np.float64)
@@ -660,18 +695,41 @@ def main():
           "bit-identical to its plain version (output and state), "
           "pre-onset samples 0.0, trivial schedule equals K1", flush=True)
 
-    # ── phase 8: K4 (tremolo pre-roll) against its plain version at a small
-    # stride, bit for bit ──
+    # ── phase 8: K4 (tremolo pre-roll) against its plain version, bit for
+    # bit: one and two updates per interval (the LDR tail in every update;
+    # with one, gldr_upd_prev from the interval before) and 32 (the tail
+    # only in the last two), at depths 0, 0.7 and 1, character 0 and 1,
+    # 1 and 5 captures; from init_state, and from a state with the
+    # tremolo's node voltages at 0 (its first updates take pnjlim's
+    # limited branch on some rows) ──
+    t_p8 = time.perf_counter()
+    k4_cases = 0
+    kicked = mc.init_state(SR, 1, device=dev)
+    kicked[slice(*mc._OFFSETS["trem_vnl"])] = 0.0
+    for st8 in (mc.init_state(SR, 1, device=dev), kicked):
+        for stride in (mc.SUB_BASE, 2 * mc.SUB_BASE, 64):
+            for depth in (0.0, 0.7, 1.0):
+                for char in (0.0, 1.0):
+                    c8 = mc.make_controls(SR, 1, volume=0.5, depth=depth,
+                                          character=char, device=dev)
+                    for n_cap in (1, 5):
+                        _, caps = mc.trem_preroll(SR, c8, n_cap, stride,
+                                                  state_flat=st8)
+                        p_caps = mc.trem_preroll_plain(
+                            mc.pack_consts(SR), c8, st8, n_cap, stride)
+                        check(bits_equal(caps, p_caps),
+                              f"K4 {n_cap} captures x stride {stride}, depth "
+                              f"{depth}, character {char}: "
+                              f"{first_diff(caps, p_caps)}")
+                        k4_cases += 1
     ctrl1 = mc.make_controls(SR, 1, volume=0.5, depth=0.5, character=0.0,
                              device=dev)
-    rows, caps = mc.trem_preroll(SR, ctrl1, 4, 64)
-    torch.cuda.synchronize()
-    p_caps = mc.trem_preroll_plain(mc.pack_consts(SR), ctrl1,
-                                   mc.init_state(SR, 1, device=dev), 4, 64)
-    check(bits_equal(caps, p_caps),
-          f"K4 4 captures x 64: {first_diff(caps, p_caps)}")
-    print("phase 8 K4: 4 captures x stride 64 bit-identical to its plain "
-          "version", flush=True)
+    rows = mc.preroll_rows()
+    print(f"phase 8 K4: {k4_cases} cases (strides {mc.SUB_BASE}, "
+          f"{2 * mc.SUB_BASE}, 64 x depths 0, 0.7, 1 x character 0, 1 x 1 "
+          "and 5 captures x init_state and a state with the tremolo's node "
+          "voltages at 0) bit-identical to its plain version "
+          f"({time.perf_counter() - t_p8:.0f} s)", flush=True)
 
     # ── phase 9: the serial path, fast.render_events: three notes (one per
     # damper register) with releases, block-streamed in 0.25 s blocks
@@ -873,17 +931,19 @@ def main():
         check(differ == [phase_row] and k2_rows[phase_row].item() == 4.0,
               f"K4 capture {k} vs K2's state: rows {differ} differ")
     k4_bound = preroll_bound(2, seg_len)
+    k4_us_update = k4_ms * 1e3 / (seg_len // 2)
 
     print(f"phase 11 song-path shapes: K3 128 lanes x {t_pre} (min_release "
           f"{min_rel:.0f}) bit-identical, then 2048 more from its carried "
           f"state bit-identical (output and state), kernel {k3_pre_ms:.2f} "
           f"ms, plain {k3_plain_ms:.1f} ms, whole voice window {t_voice}: "
           f"{k3_main_ms:.1f} ms; K4 stride {seg_len}: first interval "
-          f"bit-identical to its plain version, kernel {k4_ms:.1f} ms, "
-          f"plain {k4_plain_ms:.1f} ms, captures 1-3 equal K2's carried "
-          f"tremolo rows; all {n_seg} captures {k4_main_ms:.1f} ms = "
-          f"{k4_main_ms * 1e3 / ((n_seg - 1) * seg_len // 2):.2f} us per update "
-          f"[{card}]", flush=True)
+          f"bit-identical to its plain version, kernel {k4_ms:.1f} ms = "
+          f"{k4_us_update:.3f} us per update, plain {k4_plain_ms:.1f} ms, "
+          f"captures 1-3 equal K2's carried tremolo rows; all {n_seg} "
+          f"captures {k4_main_ms:.1f} ms = "
+          f"{k4_main_ms * 1e3 / ((n_seg - 1) * seg_len // 2):.3f} us per "
+          f"update [{card}]", flush=True)
 
     # K2 on the song's own call: 120 streams (30 blocks of 4 warps) from
     # the state with the captures injected, over
@@ -1211,9 +1271,7 @@ def main():
     # samples each; 8 streams of which stream 2 takes the NaN guard (a NaN
     # in its speaker state) and the power amp's reset path (an inf in its
     # audio), the other 7 bit-identical to their run without them. Then µs
-    # per base sample at 1, 8, 128 and 1024 streams x 2048, and the
-    # tremolo's share of it (K4's time per update, one thread running the
-    # device function every lane of K2 runs, over two base samples). ──
+    # per base sample at 1, 8, 128 and 1024 streams x 2048. ──
     t_p18 = time.perf_counter()
     consts = mc.pack_consts(SR)
 
@@ -1260,16 +1318,12 @@ def main():
         check(bits_equal(out[:, others], ref[:, others])
               and bits_equal(st[:, others], ref_st[:, others]),
               f"{what}: the other streams moved")
-    k4_us_update = k4_main_ms * 1e3 / ((n_seg - 1) * seg_len // 2)
     us_per_sample = {False: {}, True: {}}
     for s_n in (1, 8, 128, 1024):
         ctrl, st0, audio = lanes_inputs(s_n, 2048, 100 + s_n)
         for noise in (False, True):
             us_per_sample[noise][s_n] = cuda_ms(lambda: mc.render(
                 SR, ctrl, st0, audio, noise=noise)) * 1e3 / 2048
-    trem_share = {noise: {s_n: (k4_us_update / 2) / us
-                          for s_n, us in per.items()}
-                  for noise, per in us_per_sample.items()}
     print("phase 18 K2 and K5, one warp per stream: 1, 33 and 1024 streams "
           "x 64 bit-identical to the plain versions (output and state); 8 "
           "streams with the NaN guard and the power amp's reset on stream 2 "
@@ -1278,10 +1332,7 @@ def main():
           + " / ".join(f"{v:.2f}" for v in us_per_sample[False].values())
           + ", K5 " + " / ".join(f"{v:.2f}" for v in us_per_sample[True]
                                  .values())
-          + f"; tremolo {k4_us_update / 2:.3f} us per base sample (K4 "
-          f"{k4_us_update:.3f} us per update) = "
-          + " / ".join(f"{100 * v:.1f}" for v in trem_share[False].values())
-          + f" % of K2's sample [{card}] "
+          + f" [{card}] "
           f"({time.perf_counter() - t_p18:.0f} s)", flush=True)
 
     def by_path(name):
@@ -1310,7 +1361,6 @@ def main():
               max(c["max_abs_err"] for c in k2_cmp + lanes_k2), k2_main_ms,
               k2_main_plain_ms, k2_bound, compared=k2_cmp + lanes_k2,
               us_per_sample_x2048=us_per_sample[False],
-              tremolo_share=trem_share[False],
               main_path_ms={"render_grid 128 streams x 44032": k2_grid_ms,
                             f"render_events_parallel {n_seg} streams x "
                             f"{warm + seg_len}": stage_ms["K2"],
@@ -1328,15 +1378,16 @@ def main():
                             "bound_by": k3_eng_bound[1]}),
         entry("trem_preroll", "mono_chain.cu", "mono_chain.py:964",
               f"2 captures x stride {seg_len}", k4_err, k4_ms, k4_plain_ms,
-              k4_bound,
+              k4_bound, us_per_update=k4_us_update,
+              ptxas=ptxas.get("K4"),
               main_path_ms={f"{n_seg} captures x stride {seg_len}":
-                            k4_main_ms}),
+                            k4_main_ms,
+                            "render_events_parallel stage": stage_ms["K4"]}),
         entry("mono_chain_noise", "mono_chain.cu", "mono_chain.py:1710",
               f"{streams} streams x {t_k5}",
               max(c["max_abs_err"] for c in k5_cmp + lanes_k5), k5_ms,
               k5_plain_ms, k5_bound, compared=k5_cmp + lanes_k5,
               us_per_sample_x2048=us_per_sample[True],
-              tremolo_share=trem_share[True],
               main_path_ms={"FastEngine block, 1 stream x 1024": k5_blk_ms,
                             "FastEngine warm-up, 1 stream x 26624":
                             ses8["warm_ms"]}),

@@ -89,11 +89,16 @@
 // file. Replaces: openwurli_tpu/kernels/mono_chain.py, `_make_preroll_kernel`
 // as launched by `_trem_preroll_jit` / `trem_preroll`. It advances only the
 // tremolo-owned rows and writes them out once per capture interval. It is
-// one serial recurrence (each update needs the one before), so one thread
-// walks it and its time is that thread's arithmetic latency per update
-// times the number of updates; the bytes (19 floats per capture) are
-// nothing beside it. The thread calls `trem_update`, the device function
-// every lane of K2 calls, so the captures are K2's own tremolo states.
+// one serial recurrence (each update needs the one before), so its time is
+// the critical path of one update times the number of updates; the bytes
+// (19 floats per capture) are nothing beside it. One warp computes each
+// update (`TremWarp`): the history matvec's rows, the two transistors, the
+// residual rows, the Jacobian's elements and the clamp / pnjlim rows on
+// their own lanes, the 4×4 elimination on every lane from broadcast
+// inputs, every constant in the registers of the lanes that use it. The
+// LDR tail, which nothing in the recurrence reads, runs only where a
+// capture reads it. Each value has `trem_update`'s operations in its order,
+// so the captures are K2's own tremolo states, bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -365,7 +370,34 @@ struct TremState {
   float v[PREROLL_ROWS];
 };
 
-// ── tremolo: one subsampled update of the tremolo-owned rows ──
+// The tremolo's envelope: the LED drive from the oscillator's output
+// voltage, one attack/release step.
+__device__ __forceinline__ float trem_env(const float* K, float v_out,
+                                          float env) {
+  const float led = nclamp((K[TREM_VMAX] - v_out) / K[TREM_VSPAN], 0.0f,
+                           1.0f);
+  const float coeff = led > env ? K[TREM_ATT] : K[TREM_REL];
+  return led + coeff * (env - led);
+}
+
+// The LDR tail: the divider's conductance gldr from the new envelope.
+// Nothing in the tremolo's recurrence reads it; the chain reads the last
+// two.
+__device__ __forceinline__ float trem_gldr(const float* K, float env_new,
+                                           float r_low, float div_top) {
+  const float drv = nclamp(env_new, 0.0f, 1.0f);
+  const float pw = expf(K[TREM_GAMMA] * logf(nmax(drv, 1e-30f)));
+  const float r_ldr = drv < 1e-6f
+                          ? K[TREM_RMAX]
+                          : expf(K[TREM_LN_RMAX] + K[TREM_LN_SPAN] * pw);
+  const float branch = K[TREM_R18] + r_ldr;
+  const float low = r_low > 0.0f ? (r_low * branch) / (r_low + branch)
+                                 : 0.0f;
+  return 1.0f / nmax(div_top + low, 1000.0f);
+}
+
+// ── tremolo: one subsampled update of the tremolo-owned rows (K2 and K5
+// run it on every lane) ──
 __device__ void trem_update(const float* A, const float* K, float r_low,
                             float div_top, TremState& t) {
   const float* P = A + A_TREM_P;      // (11, 11)
@@ -388,7 +420,7 @@ __device__ void trem_update(const float* A, const float* K, float r_low,
   float vnl[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) vnl[r] = t.v[T_VNL + r];
-  // left rolled: unrolled, the three iterations cost K2 and K4 time
+  // left rolled: unrolled, the three iterations cost K2 time
   for (int it = 0; it < N_TREM_ITERS; ++it) {
     float ib[2], ic[2], gbb[2], gbc[2], gcb[2], gcc[2];
 #pragma unroll
@@ -445,20 +477,8 @@ __device__ void trem_update(const float* A, const float* K, float r_low,
   for (int k = 1; k < 11; ++k) big_oi = k == oi ? big[k] : big_oi;
   const float v_out = (K[TREM_VDC_OUT] + big_oi) + rs;
 
-  const float env = t.v[T_ENV];
-  const float led = nclamp((K[TREM_VMAX] - v_out) / K[TREM_VSPAN], 0.0f,
-                           1.0f);
-  const float coeff = led > env ? K[TREM_ATT] : K[TREM_REL];
-  const float env_new = led + coeff * (env - led);
-  const float drv = nclamp(env_new, 0.0f, 1.0f);
-  const float pw = expf(K[TREM_GAMMA] * logf(nmax(drv, 1e-30f)));
-  const float r_ldr = drv < 1e-6f
-                          ? K[TREM_RMAX]
-                          : expf(K[TREM_LN_RMAX] + K[TREM_LN_SPAN] * pw);
-  const float branch = K[TREM_R18] + r_ldr;
-  const float low = r_low > 0.0f ? (r_low * branch) / (r_low + branch)
-                                 : 0.0f;
-  const float gldr = 1.0f / nmax(div_top + low, 1000.0f);
+  const float env_new = trem_env(K, v_out, t.v[T_ENV]);
+  const float gldr = trem_gldr(K, env_new, r_low, div_top);
 
 #pragma unroll
   for (int k = 0; k < 7; ++k) t.v[T_Z + k] = big[k];
@@ -1158,9 +1178,144 @@ mono_chain_kernel(const float* __restrict__ consts,
   }
 }
 
-// K4: thread 0 walks n_captures intervals of steps_per_capture tremolo
+// pnjlim on a warp: the limited value (a division and a log1p) is
+// computed only when the row of some lane takes it. The same value as
+// pnjlim's; the tremolo's rows rarely take it, and in K4 it was the
+// longest step of each Newton iteration.
+__device__ __forceinline__ float pnjlim_warp(float v_old, float v_new,
+                                             float nvt, float vcrit) {
+  const float delta = v_new - v_old;
+  const bool take = v_new > vcrit && delta > 2.0f * nvt;
+  if (!__any_sync(FULL, take)) return v_new;
+  const float lim = v_old + nvt * log1pf(nmax(delta, 0.0f) / nvt);
+  return take ? nmax(lim, nmin(v_new, vcrit)) : v_new;
+}
+
+// K4's update on one warp: trem_update's values, each computed by the
+// lanes named here with trem_update's operations in its order; the other
+// lanes get it by a shuffle. Lane l owns
+//  * row r = l & 3 of the Newton unknowns vnl: its residual row, its clamp
+//    and pnjlim (lane l ^ 2 holds the row that completes its transistor);
+//  * transistor b = l & 1 (vbe = vnl[b], vbc = vnl[2 + b]): gp_derivs in
+//    each Newton iteration and the final gp_currents;
+//  * Jacobian element (i, j) = (l >> 2 & 3, l & 3) on lanes 0-15: column
+//    j's transistor j % 2 is the lane's own;
+//  * row l % 11 of the history matvec P·[z; di].
+// The 4×4 elimination, rs, v_out and the envelope run on every lane from
+// the same broadcast inputs, so every lane holds the same bits of them.
+// Each lane keeps the constants of its rows in registers.
+struct TremWarp {
+  int r, b;
+  Gp gp;
+  float prow[11];             // row l % 11 of trem_P
+  float km_r[4];              // row r of trem_K
+  float corr0, vnl_dc, nvt, vcrit;  // trem_cols row r: columns 0, 2, 7, 8
+  float i_dc[4], sni[4];      // trem_cols columns 1 and 3
+  float eye, ka, kb;          // the Jacobian element's eye4 and trem_K
+  // state
+  float x[11];                // [z; di], every lane
+  float v;                    // vnl row r
+  float env;
+
+  __device__ void load(const float* A, int lane) {
+    const float* cols = A + A_TREM_COLS;  // (7, 9)
+    const float* Km = A + A_TREM_K;       // (4, 4)
+    r = lane & 3;
+    b = lane & 1;
+    gp = load_gp(A + A_TREM_GP + b * N_GP);
+    const int h = lane % 11;
+#pragma unroll
+    for (int k = 0; k < 11; ++k) prow[k] = A[A_TREM_P + h * 11 + k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      km_r[k] = Km[r * 4 + k];
+      i_dc[k] = cols[k * 9 + 1];
+      sni[k] = cols[k * 9 + 3];
+    }
+    corr0 = cols[r * 9];
+    vnl_dc = cols[r * 9 + 2];
+    nvt = cols[r * 9 + 7];
+    vcrit = cols[r * 9 + 8];
+    const int i = (lane >> 2) & 3, j = lane & 3;
+    eye = A[A_EYE4 + i * 4 + j];
+    ka = Km[i * 4 + b];
+    kb = Km[i * 4 + b + 2];
+  }
+
+  // [ib[0], ib[1], ic[0], ic[1]] − i_dc from this lane's transistor and
+  // its partner's (lane ^ 1)
+  __device__ void currents_dc(float ib, float ic, float (&di)[4]) const {
+    const float ib_o = __shfl_xor_sync(FULL, ib, 1);
+    const float ic_o = __shfl_xor_sync(FULL, ic, 1);
+    const float i_abs[4] = {b ? ib_o : ib, b ? ib : ib_o, b ? ic_o : ic,
+                            b ? ic : ic_o};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) di[k] = i_abs[k] - i_dc[k];
+  }
+
+  // one update of z, di, vnl and env (the LDR tail is the caller's)
+  __device__ void update(const float* K, int oi) {
+    float acc = prow[0] * x[0];
+#pragma unroll
+    for (int k = 1; k < 11; ++k) acc = acc + prow[k] * x[k];
+    const float p_dev = __shfl_sync(FULL, acc, 7 + r);
+    const float big_oi = __shfl_sync(FULL, acc, oi);
+    float z[7];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) z[k] = __shfl_sync(FULL, acc, k);
+    const bool jlow = r < 2;  // the Jacobian element's column j = r
+#pragma unroll
+    for (int it = 0; it < N_TREM_ITERS; ++it) {
+      const float vo = __shfl_xor_sync(FULL, v, 2);
+      float ib, ic, gbb, gbc, gcb, gcc;
+      gp_derivs(gp, r < 2 ? v : vo, r < 2 ? vo : v, ib, ic, gbb, gbc, gcb,
+                gcc);
+      float di[4];
+      currents_dc(ib, ic, di);
+      float mv = km_r[0] * di[0];
+#pragma unroll
+      for (int k = 1; k < 4; ++k) mv = mv + km_r[k] * di[k];
+      const float f = (((v - vnl_dc) - p_dev) - corr0) - mv;
+      const float jel = (eye - ka * (jlow ? gbb : gbc))
+                        - kb * (jlow ? gcb : gcc);
+      float blk[5][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          blk[j][i] = __shfl_sync(FULL, jel, j + 4 * i);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) blk[4][i] = __shfl_sync(FULL, f, i);
+      float dv[4];
+      ge_solve<4>(blk, dv);
+      const float dvr = r == 0 ? dv[0] : r == 1 ? dv[1] : r == 2 ? dv[2]
+                                                                 : dv[3];
+      const float d = nclamp(dvr, -0.5f, 0.5f);
+      v = pnjlim_warp(v, v - d, nvt, vcrit);
+    }
+    const float vo = __shfl_xor_sync(FULL, v, 2);
+    float ib, ic;
+    gp_currents(gp, r < 2 ? v : vo, r < 2 ? vo : v, ib, ic);
+    float di_new[4];
+    currents_dc(ib, ic, di_new);
+    float rs = sni[0] * di_new[0];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) rs = rs + sni[k] * di_new[k];
+    const float v_out = (K[TREM_VDC_OUT] + big_oi) + rs;
+    env = trem_env(K, v_out, env);
+#pragma unroll
+    for (int k = 0; k < 7; ++k) x[k] = z[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[7 + k] = di_new[k];
+  }
+};
+
+// K4: one warp walks n_captures intervals of steps_per_capture tremolo
 // updates; caps[k] is the state entering interval k (before its first
-// update), in kPrerollSpans order.
+// update), in kPrerollSpans order. The LDR tail runs only in an interval's
+// last two updates: the capture after it reads gldr_cur and gldr_upd_prev,
+// and nothing else reads them (with one update per interval,
+// gldr_upd_prev is the previous interval's last gldr).
 __global__ void __launch_bounds__(32)
 trem_preroll_kernel(const float* __restrict__ consts,
                     const float* __restrict__ scalars,
@@ -1168,26 +1323,52 @@ trem_preroll_kernel(const float* __restrict__ consts,
                     const float* __restrict__ state_in,
                     float* __restrict__ caps, int n_captures,
                     int steps_per_capture) {
-  __shared__ float s_consts[A_TOTAL];
   __shared__ float s_scalars[N_SCALARS];
-  for (int i = threadIdx.x; i < A_TOTAL; i += blockDim.x)
-    s_consts[i] = consts[i];
-  for (int i = threadIdx.x; i < N_SCALARS; i += blockDim.x)
-    s_scalars[i] = scalars[i];
-  __syncthreads();
-  if (threadIdx.x != 0) return;
+  const int lane = threadIdx.x;
+  for (int i = lane; i < N_SCALARS; i += 32) s_scalars[i] = scalars[i];
+  __syncwarp();
+  const float* K = s_scalars;
+  // trem_update's big[oi]: row oi for oi in 1..10, else row 0
+  const int oi_raw = (int)K[TREM_OUT_IDX];
+  const int oi = oi_raw >= 1 && oi_raw <= 10 ? oi_raw : 0;
 
-  TremState tr;
+  TremWarp tw;
+  tw.load(consts, lane);
 #pragma unroll
-  for (int k = 0; k < PREROLL_ROWS; ++k) tr.v[k] = state_in[trem_row(k)];
+  for (int k = 0; k < 7; ++k) tw.x[k] = state_in[ST_TREM_Z + k];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) tw.x[7 + k] = state_in[ST_TREM_DI + k];
+  tw.v = state_in[ST_TREM_VNL + tw.r];
+  tw.env = state_in[ST_TREM_ENV];
+  float g_cur = state_in[ST_GLDR_CUR], g_prev = state_in[ST_GLDR_UPD_PREV];
+  float phase = state_in[ST_TREM_PHASE];
   const float r_low = controls[C_R_LOWER], div_top = controls[C_DIV_TOP];
+  const int n = steps_per_capture;
   for (int k = 0; k < n_captures; ++k) {
+    float vnl[4];
 #pragma unroll
-    for (int r = 0; r < PREROLL_ROWS; ++r) caps[k * PREROLL_ROWS + r] = tr.v[r];
+    for (int q = 0; q < 4; ++q) vnl[q] = __shfl_sync(FULL, tw.v, q);
+    if (lane == 0) {
+      float* cap = caps + k * PREROLL_ROWS;
+#pragma unroll
+      for (int q = 0; q < 11; ++q) cap[T_Z + q] = tw.x[q];  // z, then di
+#pragma unroll
+      for (int q = 0; q < 4; ++q) cap[T_VNL + q] = vnl[q];
+      cap[T_ENV] = tw.env;
+      cap[T_GLDR_CUR] = g_cur;
+      cap[T_GLDR_UPD_PREV] = g_prev;
+      cap[T_PHASE] = phase;
+    }
     // the updates after the last capture would reach no output
-    if (k + 1 < n_captures)
-      for (int i = 0; i < steps_per_capture; ++i)
-        trem_update(s_consts, s_scalars, r_low, div_top, tr);
+    if (k + 1 == n_captures) break;
+    for (int i = 0; i < n; ++i) {
+      tw.update(K, oi);
+      if (i >= n - 2) {
+        g_prev = g_cur;
+        g_cur = trem_gldr(K, tw.env, r_low, div_top);
+      }
+    }
+    phase = 0.0f;
   }
 }
 

@@ -19,8 +19,9 @@ and the thermal-noise variant (K5, the static `noise` flag). Pieces:
   * `trem_preroll` (K4) with `trem_preroll_plain` beside it: the tremolo
     never reads the audio, so its state on a stride grid can be computed
     ahead of the chain. The time-parallel song renderer injects those
-    captures into its segments' initial states. The CUDA kernel runs the
-    same device function as K2's tremolo update.
+    captures into its segments' initial states. The CUDA kernel computes
+    K2's tremolo update with its operations spread over one warp's lanes,
+    bit for bit the same.
 
 Only the reduced 10-port power-amp solve (`PA_ACTIVE` / `PA_RELEG`) is
 ported: the reference's dense 16-port branch never runs in production.

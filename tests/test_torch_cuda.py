@@ -104,6 +104,34 @@ def test_trem_preroll_kernel_matches_plain_and_chain(cuda):
                 assert torch.equal(st[a:b, 0], caps[k, ca:cb]), (k, name)
 
 
+@pytest.mark.parametrize("n_captures", [1, 5])
+@pytest.mark.parametrize("stride", [mc.SUB_BASE, 2 * mc.SUB_BASE, 64])
+def test_trem_preroll_kernel_bits_at_strides_and_depths(cuda, stride,
+                                                        n_captures):
+    """The warp K4 against its plain version, bit for bit as int32: one
+    and two updates per interval (the LDR tail runs in every update, and
+    gldr_upd_prev comes from the previous interval with one), a longer
+    interval (the tail skipped but for the last two), depths 0, 0.7 and
+    1, character 0 and 1; from init_state, and from a state with the
+    tremolo's node voltages at 0, whose first updates take pnjlim's
+    limited branch on some rows."""
+    consts = mc.pack_consts(SR)
+    kicked = mc.init_state(SR, 1, device=cuda)
+    a, b = mc._OFFSETS["trem_vnl"]
+    kicked[a:b] = 0.0
+    for st in (mc.init_state(SR, 1, device=cuda), kicked):
+        for depth in (0.0, 0.7, 1.0):
+            for char in (0.0, 1.0):
+                ctrl = mc.make_controls(SR, 1, depth=depth, character=char,
+                                        device=cuda)
+                _rows, caps = mc.trem_preroll(SR, ctrl, n_captures, stride,
+                                              state_flat=st)
+                ref = mc.trem_preroll_plain(consts, ctrl, st, n_captures,
+                                            stride)
+                assert torch.equal(caps.view(torch.int32),
+                                   ref.view(torch.int32)), (depth, char)
+
+
 def test_mono_chain_kernel_partial_block_from_injected_state(cuda):
     """K2 as the time-parallel renderer calls it: 72 streams (18 blocks of
     4 warps), each stream starting from the pre-roll's captured tremolo

@@ -49,7 +49,7 @@ def test_imports_without_jax():
 
 
 def _package_files():
-    """The package's modules, the card script and the port's two tools."""
+    """The package's modules, the card script and the port's tools."""
     for root, _dirs, files in os.walk(PKG_DIR):
         for f in files:
             if f.endswith(".py"):
@@ -57,6 +57,7 @@ def _package_files():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "torch_probe.py")
     yield os.path.join(REPO, "tools", "torch_interactive_rtf.py")
+    yield os.path.join(REPO, "tools", "torch_k4_breakdown.py")
 
 
 def test_no_file_imports_jax_or_the_reference():
