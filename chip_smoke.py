@@ -20,6 +20,10 @@ each with the launch counts set to 0 just before it and read just after:
     `stream_host.StreamHost`'s NDJSON commands;
   * `tools/torch_probe.py`: the probe kernel (P1) over its list of probes.
 
+K1 and K3 (eight threads per voice lane) are also held to their plain
+versions at a ragged lane count, with non-finite parameters in some lanes
+and with the pickup driven past its knee, and K1 is timed across widths.
+
 Each kernel is held bit for bit to its plain version at the shapes those
 paths give it, on the calls' own arguments, which the script records
 while it drives the path (the plain versions over a prefix where the
@@ -102,13 +106,17 @@ PEAK_BYTES_S = 3.35e12
 
 # float32 operations per voice lane, read off csrc/voice_bank.cu (an add,
 # a multiply, a division or a transcendental counts as one; selects,
-# integer work and conversions count as none).
+# integer work and conversions count as none). What a lane's data needs:
+# the damper's ramp terms only in groups that touch the lane's ramp, the
+# onset row and the attack noise only on the lane's own samples inside
+# its ramp and its burst.
 VB_OPS_REFRESH = 7 * (11 + 7 * 10 + 6 * 4 + 7)  # jitter + powers, per 16
 VB_OPS_FAST_GROUP = 7 * (2 + 2 + 7 * 4 + 2 + 8)  # P/Q, 8 mode sums, env, R^8
-VB_OPS_LEGACY_GROUP = 8 * (3 + 7 * 14) + 7 * 8   # damper sub-steps, R^8
+VB_OPS_LEGACY_GROUP = 8 * (3 + 7 * 10) + 7 * 8   # damper sub-steps, R^8
+VB_OPS_RAMP_GROUP = 8 * (1 + 7 * 3)    # + the ramp's division, inst, exp
 VB_OPS_PICKUP = 20                                # per sample
-VB_OPS_ONSET = 6                                  # per sample before steady
-VB_OPS_NOISE = 22                                 # per sample before steady
+VB_OPS_ONSET = 6                                  # per sample in the ramp
+VB_OPS_NOISE = 22                                 # per sample in the burst
 
 # float32 operations of csrc/mono_chain.cu per stream, from its loop
 # extents: one tremolo update (the LDR tail included, as K2 runs it; K4
@@ -138,20 +146,51 @@ def bound(n_bytes, n_ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def voice_bank_bound(lanes, samples, n0, steady, min_release=None):
+def voice_bank_bound(params, samples, n0, steady, min_release=None):
     """Bound of one voice-bank call: params and state read once, output
     and state written once; operations of this call's groups (warm-phase
-    groups before `steady`, legacy groups past `min_release`)."""
+    rows before `steady`, legacy groups past `min_release`) as each lane's
+    schedule needs them."""
+    from openwurli_tpu_torch.kernels import voice_bank as vb
+
+    p = params.detach().cpu().numpy()
+
+    def row(r, i):  # one float row in float64 (some rows hold bit patterns)
+        return p[r, i].astype(np.float64)
+
+    lanes = p.shape[-1]
     n_bytes = 4 * lanes * (13 * 8 + 2 * 48 + samples)
     groups = np.arange(n0, n0 + samples, 8)
-    legacy = 0 if min_release is None or min_release >= 0.5e12 \
-        else int((groups + 8 > min_release).sum())
-    ops = (samples // 16 * VB_OPS_REFRESH
-           + (len(groups) - legacy) * VB_OPS_FAST_GROUP
-           + legacy * VB_OPS_LEGACY_GROUP + samples * VB_OPS_PICKUP
-           + 8 * int((groups < steady[0]).sum()) * VB_OPS_ONSET
-           + 8 * int((groups < steady[1]).sum()) * VB_OPS_NOISE)
-    return bound(n_bytes, lanes * ops)
+    events = min_release is not None
+    onset = row(vb.ROW_EVT, vb.EVT_ONSET_F) if events else np.zeros(lanes)
+
+    def count(lo, hi):  # integers in [lo, hi) within the call, per lane
+        return np.clip(np.minimum(hi, n0 + samples)
+                       - np.maximum(lo, n0), 0, None).sum()
+
+    def warm_end(limit):  # first sample of the first group past `limit`
+        return n0 + 8 * int((groups < limit).sum())
+
+    legacy = np.zeros(len(groups), bool)
+    if events and min_release < 0.5e12:
+        legacy = groups + 8 > min_release
+    g = groups[legacy][:, None]
+    release = row(vb.ROW_EVT, vb.EVT_RELEASE_F)
+    ramp_groups = int(((g + 7 - release + 1 >= 1)
+                       & (g - release + 1 <= row(vb.ROW_EVT, vb.EVT_RAMP)))
+                      .sum())
+    ops = (samples // 16 * VB_OPS_REFRESH * lanes
+           + int((~legacy).sum()) * VB_OPS_FAST_GROUP * lanes
+           + int(legacy.sum()) * VB_OPS_LEGACY_GROUP * lanes
+           + ramp_groups * VB_OPS_RAMP_GROUP
+           + samples * VB_OPS_PICKUP * lanes
+           + count(onset, np.minimum(warm_end(steady[0]),
+                                     onset + row(vb.ROW_SCAL, 0)))
+           * VB_OPS_ONSET
+           + count(onset, np.minimum(warm_end(steady[1]),
+                                     onset + row(vb.ROW_NOISE, 2)))
+           * VB_OPS_NOISE)
+    return bound(n_bytes, ops)
 
 
 def chain_bound(streams, samples, noise=False):
@@ -465,19 +504,22 @@ def main():
             print("phase 1 " + " ".join(line.split()), flush=True)
     ptxas = {}
     for fn, regs in ptxas_lines(_build.BUILD_LOG).items():
-        for key, name in (("trem_preroll_kernel", "K4"),
+        for key, name in (("voice_bank_kernelILb0E", "K1"),
+                          ("voice_bank_kernelILb1E", "K3"),
+                          ("trem_preroll_kernel", "K4"),
                           ("mono_chain_kernelILb0E", "K2"),
                           ("mono_chain_kernelILb1E", "K5")):
             if key in fn:
                 ptxas[name] = dict(zip(("registers", "stack", "spill_stores",
                                         "spill_loads"), regs))
     if ptxas:
-        print("phase 1 chain kernels' ptxas: " + "; ".join(
+        print("phase 1 kernels' ptxas: " + "; ".join(
             f"{k} {v['registers']} registers, {v['stack']} bytes stack, "
             f"{v['spill_stores']} / {v['spill_loads']} bytes spilled"
             for k, v in sorted(ptxas.items())), flush=True)
-        check(ptxas["K4"]["stack"] == ptxas["K4"]["spill_stores"] == 0,
-              f"K4 uses stack or spills: {ptxas['K4']}")
+        for name in ("K1", "K3", "K4"):
+            check(ptxas[name]["stack"] == ptxas[name]["spill_stores"] == 0,
+                  f"{name} uses stack or spills: {ptxas[name]}")
 
     # ── phase 2: K1 on the card against its plain version on the card ──
     notes = np.repeat(np.arange(36, 100), 4).astype(np.float64)
@@ -496,20 +538,14 @@ def main():
         params, 4096, steady=steady, return_state=True))
     k1_ms = cuda_ms(lambda: vb.render_voice_bank(params, 4096,
                                                  steady=steady), reps=5)
-    ko, po = k1_out.cpu().numpy(), p_out.cpu().numpy()
-    peak = np.abs(po[:, :n_act]).max(0)
-    k1_err = np.abs(ko - po).max()
-    k1_db = 20 * np.log10(np.maximum(np.abs(ko - po)[:, :n_act].max(0),
-                                     1e-30) / peak)
-    check((k1_db <= -80.0).all(), f"K1 worst voice {k1_db.max():.1f} dB")
-    check(torch.equal(k1_st[40:48].view(torch.int32),
-                      p_st[40:48].view(torch.int32)),
-          "K1 LCG state rows differ from the plain version")
-    check(np.abs(ko[:, n_act:]).max() == 0.0,
-          'np.abs(ko[:, n_act:]).max() == 0.0')
-    print(f"phase 2 K1: 384 lanes x 4096, worst voice {k1_db.max():.1f} dB, "
-          f"max abs err {k1_err:.3e}, LCG rows bit-identical, "
-          f"kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms", flush=True)
+    check(torch.equal(k1_out, p_out) and bits_equal(k1_st, p_st),
+          f"K1 384 lanes x 4096: output {first_diff(k1_out, p_out)}, state "
+          f"{first_diff(k1_st.view(torch.int32), p_st.view(torch.int32))}")
+    check(k1_out[:, n_act:].abs().max().item() == 0.0,
+          "K1 padding lanes sound")
+    print(f"phase 2 K1: 384 lanes x 4096 bit-identical to its plain version "
+          f"(output and state), kernel {k1_ms:.3f} ms, plain "
+          f"{k1_plain_ms:.1f} ms", flush=True)
 
     # ── phase 3: K2 on the card against its plain version on the card ──
     s_n, t_n = 8, 128
@@ -613,6 +649,7 @@ def main():
                          device=dev),
         mc.init_state(SR, streams, device=dev)))
     steady = vb.steady_limits(params)
+    grid_params = params              # phase 19 sweeps K1's width on these
     k1_grid_ms, voices = host_ms(lambda: vb.render_voice_bank(
         params, t_pad, steady=steady))
     sum_ms, audio = host_ms(lambda: voices.reshape(t_pad, streams, 64)
@@ -628,7 +665,7 @@ def main():
     # at 128 streams (32 blocks of 4 warps) on the first 256 samples of the
     # lane sum. Both must agree bit for bit. ──
     k1_main_ms = cuda_ms(lambda: vb.render_voice_bank(params, t_pad,
-                                                      steady=steady))
+                                                      steady=steady), reps=5)
     k1_main_plain_ms, p_voices = host_ms(lambda: vb.render_voice_bank_plain(
         params, t_pad, steady=steady))
     k1_main_err = float((voices - p_voices).abs().max())
@@ -646,7 +683,7 @@ def main():
           f"bit-identical (output and state), kernel {k2_main_ms:.1f} ms, "
           f"plain {k2_main_plain_ms:.1f} ms [{card}]", flush=True)
 
-    k1_bound = voice_bank_bound(streams * 64, t_pad, 0, steady)
+    k1_bound = voice_bank_bound(params, t_pad, 0, steady)
     k2_bound = chain_bound(streams, t_cmp)
     grid_chain = (ctrl, st0, audio)   # phase 12 compares K5 on these
 
@@ -906,7 +943,7 @@ def main():
         return_state=True, events=True)
     check(torch.equal(w_out, pw_out) and bits_equal(w_st, pw_st),
           f"K3 carried window at {t_pre}: {first_diff(w_out, pw_out)}")
-    k3_bound = voice_bank_bound(128, t_pre, 0, s_steady, min_rel)
+    k3_bound = voice_bank_bound(sp, t_pre, 0, s_steady, min_rel)
 
     k4_main_ms, (_, caps) = host_ms(
         lambda: mc.trem_preroll(SR, ctrl1, n_seg, seg_len))
@@ -1103,8 +1140,8 @@ def main():
           f"{k3_eng_plain_ms:.0f} ms, K2 kernel {k2_cmp[-1]['ms']:.1f} ms, "
           f"plain {k2_cmp[-1]['plain_ms']:.0f} ms) [{card}] "
           f"({time.perf_counter() - t_p14:.0f} s)", flush=True)
-    k3_eng_bound = voice_bank_bound(128, 1024, blk_i * 1024, (3e38, 3e38),
-                                    0.0)
+    k3_eng_bound = voice_bank_bound(args[0], 1024, blk_i * 1024,
+                                    (3e38, 3e38), 0.0)
 
     # ── phase 15: noise through the entry point. An engine built with
     # noise=True and disabled before its warm-up renders the session
@@ -1335,6 +1372,89 @@ def main():
           + f" [{card}] "
           f"({time.perf_counter() - t_p18:.0f} s)", flush=True)
 
+    # ── phase 19: K1 and K3 (eight threads per voice lane, four lanes per
+    # warp) against their plain versions bit for bit, output and state as
+    # int32: 133 lanes (a multiple of neither 4 nor 32) over 2048 samples
+    # across min_release and a renorm, then 2048 more from the carried
+    # state; 64 lanes with NaN and inf parameters in two lanes (every other
+    # lane, their warp-mates included, bit-identical, and the two lanes
+    # non-finite where the plain version is); 64 lanes with the pickup
+    # driven past its knee in every other lane. Then K1 timed at 128, 1024,
+    # 8192 and 65536 lanes x 4096 on the headline grid's voices. ──
+    t_p19 = time.perf_counter()
+    rng = np.random.default_rng(19)
+
+    def ragged_params(lanes, events):
+        sched = {}
+        if events:
+            sched = {"onsets": 16 * rng.integers(0, 64, lanes),
+                     "releases": rng.uniform(600.0, 1800.0, lanes)}
+        p, _ = vb.make_kernel_params(rng.integers(36, 100, lanes)
+                                     .astype(np.float64),
+                                     rng.uniform(0.3, 1.0, lanes), SR,
+                                     lanes=lanes, device=dev, **sched)
+        return p
+
+    def held(p, n, events, state=None, n0=0):
+        kw = dict(steady=vb.steady_limits(p), state=state, n0=n0,
+                  return_state=True, events=events)
+        out, st = vb.render_voice_bank(p, n, **kw)
+        ref, ref_st = vb.render_voice_bank_plain(p, n, **kw)
+        return out, st, ref, ref_st
+
+    lanes_err = 0.0
+    for events in (False, True):
+        name = "K3" if events else "K1"
+        p19 = ragged_params(133, events)
+        st19 = None
+        for n0 in (0, 2048):
+            out, st19, ref, ref_st = held(p19, 2048, events, st19, n0)
+            lanes_err = max(lanes_err, float((out - ref).abs().max()))
+            check(torch.equal(out, ref) and bits_equal(st19, ref_st),
+                  f"{name} 133 lanes from {n0}: output {first_diff(out, ref)}"
+                  f", state {first_diff(st19.view(torch.int32), ref_st.view(torch.int32))}")
+        sat = ragged_params(64, events)
+        sat[vb.ROW_SCAL, 6, ::2] *= 60.0
+        out, st, ref, ref_st = held(sat, 2048, events)
+        check(torch.equal(out, ref) and bits_equal(st, ref_st),
+              f"{name} saturated pickup: {first_diff(out, ref)}")
+    bad = ragged_params(64, True)
+    bad[vb.ROW_COSM1, 0, 5] = float("nan")
+    bad[vb.ROW_AMP, 3, 10] = float("inf")
+    out, st, ref, ref_st = held(bad, 2048, True)
+    keep = [v for v in range(64) if v not in (5, 10)]
+    check(torch.equal(out[:, keep], ref[:, keep])
+          and bits_equal(st[:, keep], ref_st[:, keep]),
+          f"K3 with NaN and inf lanes: the other lanes differ: "
+          f"{first_diff(out[:, keep], ref[:, keep])}")
+    for v in (5, 10):
+        fin = torch.isfinite(ref[:, v])
+        check(not fin.all().item()
+              and torch.equal(torch.isnan(out[:, v]), torch.isnan(ref[:, v]))
+              and torch.equal(out[fin, v], ref[fin, v]),
+              f"K3 non-finite lane {v} differs from the plain version")
+    sweep = {}
+    for lanes in (128, 1024, 8192, 65536):
+        p = (grid_params[..., :lanes] if lanes <= grid_params.shape[-1]
+             else grid_params.repeat(1, 1, lanes // grid_params.shape[-1]))
+        p = p.contiguous()
+        st_p = vb.steady_limits(p)
+        ms = cuda_ms(lambda: vb.render_voice_bank(p, 4096, steady=st_p),
+                     reps=3)
+        sweep[lanes] = {"ms": ms, "us_per_group": ms * 1e3 / 512,
+                        "ns_per_lane_sample": ms * 1e6 / (lanes * 4096)}
+    print("phase 19 K1 and K3, eight threads per lane: 133 lanes x (2048 + "
+          "2048 carried) bit-identical (output and state); 64 lanes with the "
+          "pickup past its knee in every other lane bit-identical; K3 with "
+          "NaN and inf parameters in lanes 5 and 10: the other 62 lanes "
+          "bit-identical, the two non-finite where the plain version is; K1 "
+          "x 4096 at 128 / 1024 / 8192 / 65536 lanes: "
+          + " / ".join(f"{v['ms']:.3f}" for v in sweep.values())
+          + " ms = " + " / ".join(f"{v['us_per_group']:.3f}"
+                                  for v in sweep.values())
+          + f" us per group [{card}] ({time.perf_counter() - t_p19:.0f} s)",
+          flush=True)
+
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
 
@@ -1354,12 +1474,16 @@ def main():
     lanes_k5 = [c for c in lanes_cmp if c["inputs"].startswith("K5")]
     kernels = [
         entry("voice_bank", "voice_bank.cu", "voice_bank.py:767",
-              f"{streams * 64} lanes x {t_pad}", k1_main_err, k1_main_ms,
-              k1_main_plain_ms, k1_bound),
+              f"{streams * 64} lanes x {t_pad}", max(k1_main_err, lanes_err),
+              k1_main_ms, k1_main_plain_ms, k1_bound, ptxas=ptxas.get("K1"),
+              width_sweep_x4096=sweep,
+              main_path_ms={"render_grid stage, 8192 lanes x 44032":
+                            k1_grid_ms}),
         entry("mono_chain", "mono_chain.cu", "mono_chain.py:1710",
               f"{streams} streams x {t_cmp}",
               max(c["max_abs_err"] for c in k2_cmp + lanes_k2), k2_main_ms,
-              k2_main_plain_ms, k2_bound, compared=k2_cmp + lanes_k2,
+              k2_main_plain_ms, k2_bound, ptxas=ptxas.get("K2"),
+              compared=k2_cmp + lanes_k2,
               us_per_sample_x2048=us_per_sample[False],
               main_path_ms={"render_grid 128 streams x 44032": k2_grid_ms,
                             f"render_events_parallel {n_seg} streams x "
@@ -1370,7 +1494,9 @@ def main():
         entry("voice_bank_events", "voice_bank.cu", "voice_bank.py:767",
               f"128 lanes x {t_pre}", max(k3_err, k3_ev_err), k3_pre_ms,
               k3_plain_ms, k3_bound,
+              ptxas=ptxas.get("K3"),
               main_path_ms={f"128 lanes x {t_voice}": k3_main_ms,
+                            "render_events_parallel stage": stage_ms["K3"],
                             "FastEngine block, 128 lanes x 1024": k3_eng_ms},
               engine_block={"max_abs_err": k3_eng_err,
                             "plain_ms": k3_eng_plain_ms,
@@ -1386,7 +1512,8 @@ def main():
         entry("mono_chain_noise", "mono_chain.cu", "mono_chain.py:1710",
               f"{streams} streams x {t_k5}",
               max(c["max_abs_err"] for c in k5_cmp + lanes_k5), k5_ms,
-              k5_plain_ms, k5_bound, compared=k5_cmp + lanes_k5,
+              k5_plain_ms, k5_bound, ptxas=ptxas.get("K5"),
+              compared=k5_cmp + lanes_k5,
               us_per_sample_x2048=us_per_sample[True],
               main_path_ms={"FastEngine block, 1 stream x 1024": k5_blk_ms,
                             "FastEngine warm-up, 1 stream x 26624":
