@@ -18,8 +18,19 @@ each with the launch counts set to 0 just before it and read just after:
     through K3 and K2, once more with thermal noise compiled in (K5, at
     gain 0 and at level 8), and the same engine behind
     `stream_host.StreamHost`'s NDJSON commands;
-  * `tools/torch_probe.py`: the probe kernel (P1) over its list of probes.
+  * `tools/torch_probe.py`: the probe kernel (P1) over its list of probes;
+  * `render_grid` at a 32 kHz base rate, whose 64 kHz tremolo state is not
+    in the package data and is settled on the card by E3;
+  * the f64 engine: `engine.Engine(44100)` warmed up, a scripted session
+    (a chord, sustain, 65 notes with a steal, a pedal lift) and the
+    reference's 1 s peak-invariant chord, through E1 (voice slots) and E2
+    (the f64 chain); `host.WurliPlugin.process` with events; and
+    `stream_host.StreamHost(engine="f64")`.
 
+E3 is held to its plain version over 512 steps and its full 2 s settle at
+88.2 and 96 kHz to the package data; E1 and E2 to theirs with NaN and inf
+voice slots, live steal fades, a tremolo BE replay, a power-amp Newton
+failure and NaN guard #2, and on one chunk of the engine session.
 K1 and K3 (eight threads per voice lane) are also held to their plain
 versions at a ragged lane count, with non-finite parameters in some lanes
 and with the pickup driven past its knee, and K1 is timed across widths.
@@ -52,6 +63,12 @@ TONAL_TOL_DB = [1.0, 1.0, 1.0, 1.5, 3.0, 10.0]
 # 1.0135) over its first 11264 samples, rendered by the JAX package's
 # voice kernel (interpret mode) and `render_cpu` on a CPU: 1.3724635.
 REF_PEAK_127 = 1.3724635
+# Gate of E3's full 2 s tremolo settle against data/tremolo_settled.npz
+# (volts, on v and v_nl): twice the JAX package's own spread there, its
+# settle at 88.2 kHz from its start and from that start moved by 1 ulp
+# differing from the npz by 1.99e-7 V and 8.2e-8 V on an x86-64 CPU
+# (tests/test_torch_settle.py).
+E3_SETTLE_GATE = 4.0e-7
 
 
 def check(cond, what):
@@ -262,8 +279,11 @@ class StageTimer:
 
 
 def reset_counts(vb, mc):
+    from openwurli_tpu_torch.kernels import engine as ek
     from openwurli_tpu_torch.kernels import probe
 
+    ek.VOICES_LAUNCHES = ek.CHAIN_LAUNCHES = ek.SETTLE_LAUNCHES = 0
+    ek.VOICES_PLAIN_CALLS = ek.CHAIN_PLAIN_CALLS = ek.SETTLE_PLAIN_CALLS = 0
     vb.KERNEL_LAUNCHES = vb.PLAIN_CALLS = 0
     for name in vb.LAUNCHES_BY_KERNEL:
         vb.LAUNCHES_BY_KERNEL[name] = 0
@@ -275,14 +295,20 @@ def reset_counts(vb, mc):
 def read_counts(vb, mc):
     """Kernel launches by kernel name since reset_counts, and the calls
     that any plain version served."""
+    from openwurli_tpu_torch.kernels import engine as ek
     from openwurli_tpu_torch.kernels import probe
 
     return {**vb.LAUNCHES_BY_KERNEL, "mono_chain": mc.KERNEL_LAUNCHES,
             "mono_chain_noise": mc.NOISE_KERNEL_LAUNCHES,
             "trem_preroll": mc.PREROLL_KERNEL_LAUNCHES,
             "probe": probe.KERNEL_LAUNCHES,
+            "engine_voices": ek.VOICES_LAUNCHES,
+            "engine_chain": ek.CHAIN_LAUNCHES,
+            "tremolo_settle": ek.SETTLE_LAUNCHES,
             "plain": vb.PLAIN_CALLS + mc.PLAIN_CALLS
-            + mc.PREROLL_PLAIN_CALLS + probe.PLAIN_CALLS}
+            + mc.PREROLL_PLAIN_CALLS + probe.PLAIN_CALLS
+            + ek.VOICES_PLAIN_CALLS + ek.CHAIN_PLAIN_CALLS
+            + ek.SETTLE_PLAIN_CALLS}
 
 
 def bits_equal(a, b):
@@ -470,6 +496,392 @@ def harmonics_db(seg, f0, sr, n=6, span_hz=5.0, steps=21):
     f0r = cands[np.argmax(mags(cands))]
     amps = mags(f0r * np.arange(1, n + 1))
     return 20 * np.log10(np.maximum(amps, 1e-12))
+
+
+# ── the f64 engine (phases 20-22): bounds, comparisons, the recorder ──
+
+# The card's published float64 peak outside the tensor cores (NVIDIA H100
+# SXM data sheet, 34 TFLOP/s); the engine kernels compute in float64.
+PEAK_F64_FLOPS = 34e12
+LIBM_OPS = 20  # one f64 exp / log1p / cos / pow / tanh counted as 20
+# float64 operations read off csrc/engine.cu, libm calls as LIBM_OPS:
+# one voice slot's sample (reed damper, onset, rotation of 7 modes, output,
+# the noise biquad, the pickup, the gates and its share of the slot sum),
+# the jitter draws every 16th sample and the chunk-end cleanup
+E1_OPS_SLOT_SAMPLE = 7 * 14 + 7 * 4 + 12 + 12 + 14 + 6 + 3 * LIBM_OPS
+E1_OPS_JITTER = 7 * 6
+# the chain's fixed work per base sample outside its Newton solves: the
+# smoothers, the oversampler's four branches, two tremolo tails and LDR
+# conductances, the speaker and the post gain (a coefficient design, when
+# the character moves, counts separately)
+E2_OPS_SAMPLE = 9 + 48 + 2 * (30 + 2 + 2 * LIBM_OPS) + 25 + LIBM_OPS + 2
+E2_OPS_DESIGN = 30 + 4 * LIBM_OPS
+PREAMP_OPS_STEP = 2 * (64 * 2 + 12 + 64 * 2 + 16 + 8 * 5 + 2 * LIBM_OPS) + 8
+PREAMP_OPS_PASS = 2 * (2 * (6 + LIBM_OPS) + 28)
+
+
+def mna_ops(n, m, nb, solves, iterations):
+    """float64 operations of the mna steps that ran `solves` Newton calls
+    (one per integration, the BE replays included) with `iterations`
+    eliminations: per call the history, the linear solve, the port
+    projection, the node update and the ladder's checks; per current
+    evaluation (one per iteration, one more per call) the GP currents
+    (4 limexp each), K·i and the residual; per iteration the derivatives,
+    the Jacobian, the f32 elimination and the junction limit."""
+    per_call = 4 * n * n + 6 * n * m + 12 * n + 5
+    per_eval = nb * (20 + 4 * LIBM_OPS) + 2 * m * m + 3 * m
+    per_iter = (nb * (40 + 4 * LIBM_OPS) + 4 * m * m + 2 * m ** 3 // 3
+                + m * m + m * (8 + LIBM_OPS))
+    return (solves * (per_call + per_eval)
+            + iterations * (per_eval + per_iter))
+
+
+def bound64(n_bytes, n_ops):
+    """bound() with the card's float64 peak."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F64_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def same_bits(a, b):
+    """Equal bit patterns (f64 / i64 / f32), any NaN equal to any NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(na, nb):
+            return False
+        view = torch.int64 if a.dtype == torch.float64 else torch.int32
+        return torch.equal(a[~na].contiguous().view(view),
+                           b[~nb].contiguous().view(view))
+    return torch.equal(a, b)
+
+
+class EngineRecorder:
+    """Wraps the engine kernels' wrappers so that every call's inputs are
+    kept as clones taken before the call (the wrappers update the state
+    tensors in place)."""
+
+    def __init__(self, ek):
+        self.ek, self.voices, self.chain = ek, [], []
+        self._v, self._c = ek.render_voices, ek.render_chain
+
+        def voices(*args, **kw):
+            self.voices.append(tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args))
+            return self._v(*args, **kw)
+
+        def chain(cp, mono, state, sag):
+            self.chain.append((cp, mono.clone(), state.clone(), sag))
+            return self._c(cp, mono, state, sag)
+
+        ek.render_voices, ek.render_chain = voices, chain
+
+    def restore(self):
+        self.ek.render_voices, self.ek.render_chain = self._v, self._c
+
+
+def compare_voices(ek, call, what):
+    """E1 against its plain version on one recorded call's inputs: mono
+    and the updated state bit for bit; → numbers for the kernels line."""
+    vpar, vst, vsti, eng_i, n, fade_len, sr = call
+    ins = [x.clone() for x in (vpar, vst, vsti, eng_i)]
+    mono = ek.render_voices(*ins, n, fade_len, sr)
+    pins = [x.clone() for x in (vpar, vst, vsti, eng_i)]
+    plain_ms, p_mono = host_ms(lambda: ek.voices_plain(*pins, n, fade_len,
+                                                       sr))
+    names = ("mono", "vst", "vsti", "eng_i")
+    for name, a, b in zip(names, (mono, *ins[1:]), (p_mono, *pins[1:])):
+        check(same_bits(a, b), f"E1 {what}: {name} differs from the plain "
+              f"version: {first_diff(a, b)}")
+    ms = cuda_ms(lambda: ek.render_voices(
+        *[x.clone() for x in (vpar, vst, vsti, eng_i)], n, fade_len, sr),
+        reps=3)
+    n_bytes = (vpar.numel() + 2 * (vst.numel() + vsti.numel()
+                                   + eng_i.numel()) + n) * 8
+    ops = n * ek.SLOTS * E1_OPS_SLOT_SAMPLE + (n // 16) * ek.SLOTS \
+        * E1_OPS_JITTER
+    return {"shape": f"{ek.SLOTS} slots x {n}", "inputs": f"E1 {what}",
+            "max_abs_err": float((mono - p_mono).abs().nan_to_num().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops)}
+
+
+def compare_chain_f64(ek, call, what):
+    """E2 against its plain version on one recorded call's inputs: output
+    and chain state bit for bit; the plain run's Newton counts give the
+    operations this chunk needed (for the bound)."""
+    from openwurli_tpu_torch.circuits import dk_preamp, mna
+
+    cp, mono, state, sag = call
+    st = state.clone()
+    out = ek.render_chain(cp, mono, st, sag)
+    p_st = state.clone()
+    n0 = dict(mna.NEWTON_COUNTS)
+    passes0 = dk_preamp.NEWTON_PASSES[0]
+    plain_ms, p_out = host_ms(lambda: ek.chain_plain(cp, mono, p_st, sag))
+    count = {k: mna.NEWTON_COUNTS[k] - n0.get(k, 0)
+             for k in mna.NEWTON_COUNTS}
+    passes = dk_preamp.NEWTON_PASSES[0] - passes0
+    check(same_bits(out, p_out) and same_bits(st, p_st),
+          f"E2 {what}: output {first_diff(out, p_out)}, state "
+          f"{first_diff(st, p_st)} against the plain version")
+    ms = cuda_ms(lambda: ek.render_chain(cp, mono, state.clone(), sag),
+                 reps=2)
+    n = mono.shape[0]
+    a, _ = ek.CHAIN_OFF["sm_char"]
+    rem = float(state[a + ek.SM_REM])
+    designs = 1 + min(int(rem), n)
+    steps = n * (2 if cp.oversample else 1)
+    ops = (n * E2_OPS_SAMPLE + designs * E2_OPS_DESIGN
+           + steps * PREAMP_OPS_STEP + passes * PREAMP_OPS_PASS
+           + mna_ops(ek.N_T, ek.M_T, ek.NB_T, count.get((4, "solves"), 0),
+                     count.get((4, "iterations"), 0))
+           + mna_ops(ek.N_PA, ek.M_PA, ek.NB_PA,
+                     count.get((16, "solves"), 0),
+                     count.get((16, "iterations"), 0)))
+    n_bytes = cp.flat.size * 8 + n * 12 + 2 * ek.CHAIN_ROWS * 8
+    return {"shape": f"1 engine x {n}", "inputs": f"E2 {what}",
+            "max_abs_err": float((out - p_out).abs().nan_to_num().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
+            "newton": {"tremolo": [count.get((4, "solves"), 0),
+                                   count.get((4, "iterations"), 0)],
+                       "power_amp": [count.get((16, "solves"), 0),
+                                     count.get((16, "iterations"), 0)],
+                       "preamp_passes": passes},
+            "us_per_base_sample": ms * 1e3 / n}
+
+
+def engine_phases(dev, card, launches, vb, mc, fast):
+    """Phases 20-22: E3 (the tremolo settle), E1 and E2 against their
+    plain versions, and the f64 engine driven through its entry points.
+    Adds its paths' launch counts to `launches`; → the three kernels'
+    measurements."""
+    from openwurli_tpu_torch import host, stream_host
+    from openwurli_tpu_torch.circuits import mna
+    from openwurli_tpu_torch.circuits import tremolo as trm
+    from openwurli_tpu_torch.engine import Engine
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    # ── phase 20: E3 against its plain version, the full settle against
+    # the package data, and render_grid at a base rate the data lacks ──
+    t_p = time.perf_counter()
+    sr_os = 2 * SR
+    st0 = ek.osc_flat(trm.perturbed_start(trm.make_params(sr_os), dev))
+    a = ek.settle(sr_os, st0.clone(), 512)
+    b = st0.clone()
+    n0 = dict(mna.NEWTON_COUNTS)
+    e3_plain_ms, _ = host_ms(lambda: ek.settle_plain(sr_os, b, 512))
+    e3_count = [mna.NEWTON_COUNTS[4, k] - n0.get((4, k), 0)
+                for k in ("solves", "iterations")]
+    check(same_bits(a, b), f"E3 512 steps: {first_diff(a, b)}")
+    e3_err = float((a - b).abs().max())
+    e3_ms = cuda_ms(lambda: ek.settle(sr_os, st0.clone(), 512), reps=3)
+    e3_bound = bound64((ek.solver_block_size(ek.N_T, ek.M_T, ek.NB_T)
+                        + 2 * ek.OSC_ROWS) * 8,
+                       mna_ops(ek.N_T, ek.M_T, ek.NB_T, *e3_count))
+    full = {}
+    with np.load(trm.SETTLED_PATH) as z:
+        for sr in (88200.0, 96000.0):
+            start = trm.perturbed_start(trm.make_params(sr), dev)
+            n_steps = trm.settle_steps(sr)
+            ms, st = host_ms(lambda: ek.tremolo_settle(sr, start, n_steps))
+            key = f"sr{int(sr)}"
+            dv = float(np.abs(st.v.cpu().numpy() - z[key + "_v"]).max())
+            dvnl = float(np.abs(st.v_nl.cpu().numpy()
+                                - z[key + "_vnl"]).max())
+            check(max(dv, dvnl) <= E3_SETTLE_GATE,
+                  f"E3 settle at {sr:g} Hz: {dv:.3g} / {dvnl:.3g} V from "
+                  f"the npz (gate {E3_SETTLE_GATE:g})")
+            full[key] = {"steps": n_steps, "ms": ms, "dv": dv, "dv_nl": dvnl}
+    # the path: render_grid at a 32 kHz base rate, whose 64 kHz tremolo
+    # state is not in the package data and is settled on the card
+    sr32 = 32000.0
+    reset_counts(vb, mc)
+    g32_ms, g32 = host_ms(lambda: fast.render_grid(
+        np.array([[48.0, 55.0, 60.0, 64.0], [60.0, 67.0, 72.0, 76.0]]),
+        0.8, 0.5, sr32, device=dev))
+    path = "render_grid at 32 kHz (tremolo settled by E3)"
+    launches[path] = counts = read_counts(vb, mc)
+    check(counts["tremolo_settle"] == 1 and counts["voice_bank"] >= 1
+          and counts["mono_chain"] >= 1 and counts["plain"] == 0, counts)
+    g = g32.cpu().numpy()
+    check(np.isfinite(g).all() and (np.abs(g).max(0) > 1e-3).all(),
+          f"render_grid at 32 kHz: finite and audible, peaks "
+          f"{np.abs(g).max(0)}")
+    print(f"phase 20 E3: 512 steps at 88.2 kHz bit-identical to its plain "
+          f"version, kernel {e3_ms:.3f} ms, plain {e3_plain_ms:.1f} ms; full "
+          f"settles " + ", ".join(
+              f"{k}: {v['steps']} steps {v['ms']:.0f} ms, {v['dv']:.3g} V "
+              f"from the npz" for k, v in full.items())
+          + f" (gate {E3_SETTLE_GATE:g} V); render_grid at 32 kHz "
+          f"{g.shape[1]} streams x {g.shape[0]} in {g32_ms:.0f} ms "
+          f"(settle included), launches {counts} [{card}] "
+          f"({time.perf_counter() - t_p:.0f} s)", flush=True)
+
+    # ── phase 21: E1 and E2 against their plain versions, with NaN and inf
+    # voice slots, live steal fades, a BE replay and guard #2 ──
+    t_p = time.perf_counter()
+    eng = Engine(SR, device=dev)
+    for k, note in enumerate((41, 48, 55, 60, 64, 67, 72, 79, 84, 93)):
+        eng.note_on(note, 0.35 + 0.06 * k)
+    eng.note_off(60)
+    eng.set_sustain(True)
+    eng.note_off(64)
+    eng.render(2048)                 # some history for the voices
+    for note in range(33, 97):       # fills the bank; steals with fades
+        eng.note_on(note, 0.5)
+    eng.vst[ek.S_S, 5] = float("nan")
+    eng.vst[ek.S_ENV + 2, 9] = float("inf")
+    eng.vst[ek.S_S, ek.MAX_VOICES + 7] = float("nan")
+    fades = eng.eng_i[ek.MAX_VOICES:ek.SLOTS]
+    check(int((fades > 0).sum()) > 0, "phase 21 has live steal fades")
+    call = (eng.vpar, eng.vst, eng.vsti, eng.eng_i, 256, eng.fade_len,
+            eng.sample_rate)
+    e1_cmp = [compare_voices(ek, tuple(x.clone() if torch.is_tensor(x)
+                                       else x for x in call),
+                             "128 slots x 256, NaN/inf slots, steal fades")]
+    mono = ek.render_voices(*call)
+    eng.render(4096 - 256)           # a warmed chain
+    kick = eng.chain.clone()
+    kick[ek.CHAIN_OFF["trem_v"][0]] += 70.0  # tremolo rings: BE replay
+    spiked = mono.clone()
+    spiked[40] = 30.0                # the power amp past its Newton budget
+    e2_cmp = [compare_chain_f64(ek, (eng.params, spiked, kick, True),
+                                "256 from a warmed state, tremolo kicked, "
+                                "input spike")]
+    diag = kick.clone()
+    ek.render_chain(eng.params, spiked, diag, True)
+    a, b = ek.CHAIN_OFF["trem_diag"]
+    trem_diag = diag[a:b].tolist()
+    check(trem_diag[4] > 0 and trem_diag[1] > 0,
+          f"the kick reached the BE replay: tremolo diag {trem_diag}")
+    nan_state = eng.chain.clone()
+    nan_state[ek.CHAIN_OFF["spk"][0]] = float("nan")
+    e2_cmp.append(compare_chain_f64(
+        ek, (eng.params, mono, nan_state, True),
+        "256, NaN in the speaker state (guard #2)"))
+    g2 = nan_state.clone()
+    out2 = ek.render_chain(eng.params, mono, g2, True)
+    check(float(out2[0]) == 0.0 and torch.isfinite(g2).all().item(),
+          "guard #2 fired and reset the chain")
+    e2_us = {}
+    for sag in (True,):
+        st = eng.chain.clone()
+        m2 = torch.zeros(2048, dtype=torch.float64, device=dev)
+        e2_us["2048 base samples"] = cuda_ms(
+            lambda: ek.render_chain(eng.params, m2, st, sag)) * 1e3 / 2048
+    e1_us = {n: cuda_ms(lambda: ek.render_voices(
+        *[x.clone() for x in call[:4]], n, eng.fade_len, eng.sample_rate),
+        reps=2) * 1e3 for n in (256, 2048, 16384)}
+    print(f"phase 21 E1 and E2 bit-identical to their plain versions: "
+          + "; ".join(f"{c['inputs']} kernel {c['ms']:.3f} ms plain "
+                      f"{c['plain_ms']:.0f} ms" for c in e1_cmp + e2_cmp)
+          + f"; tremolo diag after the kick {trem_diag}; E2 "
+          f"{e2_us['2048 base samples']:.1f} us per base sample; E1 per "
+          f"chunk (us) {e1_us} [{card}] ({time.perf_counter() - t_p:.0f} s)",
+          flush=True)
+
+    # ── phase 22: the engine driven through its entry points ──
+    t_p = time.perf_counter()
+    reset_counts(vb, mc)
+    rec = EngineRecorder(ek)
+    try:
+        eng = Engine(SR, device=dev)
+        warm_ms, _ = host_ms(eng.warm_up)
+        outs = []
+        for n in (60, 64, 67):
+            eng.note_on(n, 0.9)
+        outs.append(eng.render(4096))
+        eng.set_sustain(True)
+        eng.note_off(64)
+        for note in range(33, 97):
+            eng.note_on(note, 0.7)
+        eng.note_on(90, 1.0)                     # the 65th: steals
+        check(eng.has_steal_voice_for(90), "phase 22 steals a voice")
+        outs.append(eng.render(4096))
+        eng.note_off(60)
+        eng.set_sustain(False)                   # pedal lift
+        for note in range(33, 97):
+            eng.note_off(note)
+        outs.append(eng.render(4096))
+        audio = torch.cat(outs).cpu().numpy()
+        check(np.isfinite(audio).all() and np.abs(audio).max() > 0,
+              "session output finite and sounding")
+        pa_diag = eng.power_amp_diag()
+        check(all(v == 0 for v in pa_diag.values()),
+              f"power_amp_diag {pa_diag}")
+        check(eng.nan_guard_fires() == 0, "no NaN guard fired")
+        # tests/test_engine.py's peak invariant: the loudest documented
+        # chord at volume 1, tremolo depth 1, MLP on; a 1 s render
+        inv = Engine(SR, device=dev)
+        inv.set_volume(1.0)
+        inv.set_tremolo_depth(1.0)
+        inv.render(1536)
+        for n in (48, 55, 60, 63, 67, 70):
+            inv.note_on(n, 0.95)
+        sec_ms, sec = host_ms(lambda: inv.render(int(SR)))
+        sec = sec.cpu().numpy()
+        peak = float(np.abs(sec).max())
+        check(np.isfinite(sec).all() and 0.15 < peak <= 1.02,
+              f"engine peak {peak} at volume 1 (the reference's bounds "
+              "0.15 < peak <= 1.0 + 0.02)")
+        check(all(v == 0 for v in inv.power_amp_diag().values()),
+              f"power_amp_diag {inv.power_amp_diag()}")
+        launches["Engine session"] = counts = read_counts(vb, mc)
+        check(counts["engine_voices"] > 0 and counts["engine_chain"] > 0
+              and counts["plain"] == 0, counts)
+        # replay the first 256-sample chunk of the 1 s render
+        idx = next(i for i, c in enumerate(rec.chain)
+                   if c[1].shape[0] == 256)
+        e1_cmp.append(compare_voices(ek, rec.voices[idx],
+                                     "Engine session chunk (256)"))
+        e2_cmp.append(compare_chain_f64(ek, rec.chain[idx],
+                                        "Engine session chunk (256)"))
+    finally:
+        rec.restore()
+    rtf = 1000.0 / sec_ms
+    # the plugin, with events at in-block offsets
+    reset_counts(vb, mc)
+    plug = host.WurliPlugin(SR, device=dev)
+    blocks = [plug.process(512, [host.MidiEvent(100, "note_on", 60, 0.8),
+                                 host.MidiEvent(300, "note_on", 64, 0.7)]),
+              plug.process(512, [host.MidiEvent(0, "cc", cc=64, value=127),
+                                 host.MidiEvent(200, "note_off", 60)]),
+              plug.process(512)]
+    launches["WurliPlugin.process"] = counts = read_counts(vb, mc)
+    pcm = np.concatenate(blocks)
+    check(pcm.shape == (1536, 2) and np.isfinite(pcm).all()
+          and np.abs(pcm).max() > 0 and counts["engine_chain"] >= 4
+          and counts["plain"] == 0, f"WurliPlugin {counts}")
+    # the transport over it
+    reset_counts(vb, mc)
+    h = stream_host.StreamHost(SR, block=512, engine="f64", device=dev)
+    buf = __import__("io").BytesIO()
+    h.serve(['{"cmd": "param", "name": "volume", "value": 0.8}\n',
+             json.dumps({"cmd": "events", "events": [
+                 {"offset": 10, "kind": "note_on", "note": 57,
+                  "velocity": 0.9}]}) + "\n",
+             '{"cmd": "render", "blocks": 3}\n', '{"cmd": "quit"}\n'],
+            buf, err=__import__("io").StringIO())
+    launches["StreamHost(engine='f64')"] = counts = read_counts(vb, mc)
+    pcm = np.frombuffer(buf.getvalue(), dtype=np.float32)
+    check(pcm.size == 3 * 512 * 2 and np.isfinite(pcm).all()
+          and np.abs(pcm).max() > 0 and counts["engine_chain"] >= 3
+          and counts["plain"] == 0, f"StreamHost f64 {counts}")
+    print(f"phase 22 Engine(44100): warm_up {warm_ms / 1e3:.2f} s "
+          f"({int(SR * 0.6)} samples), session of 3 x 4096 (chord, 65 "
+          f"notes with a steal, pedal lift) then 1 s in "
+          f"{sec_ms / 1e3:.2f} s = {rtf:.3f}x realtime, peak {peak:.4f}, "
+          f"power_amp_diag all 0; chunk replays bit-identical; "
+          f"WurliPlugin 3 blocks of 512 and StreamHost(engine='f64') 3 "
+          f"blocks: launches {counts} [{card}] "
+          f"({time.perf_counter() - t_p:.0f} s)", flush=True)
+    return {"E1": {"cmp": e1_cmp, "us_per_chunk": e1_us},
+            "E2": {"cmp": e2_cmp, "us_per_base_sample": e2_us,
+                   "warm_up_ms": warm_ms, "one_second_ms": sec_ms,
+                   "realtime_factor": rtf},
+            "E3": {"ms": e3_ms, "plain_ms": e3_plain_ms, "bound": e3_bound,
+                   "max_abs_err": e3_err, "full_settle": full}}
 
 
 def main():
@@ -1197,13 +1609,9 @@ def main():
     t_p16 = time.perf_counter()
     import io
 
-    for bad in ({}, {"engine": "f64"}):
-        try:
-            stream_host.StreamHost(SR, **bad)
-        except NotImplementedError:
-            continue
-        raise RuntimeError('chip_smoke check failed: engine="f64" did not '
-                           "raise")
+    # the default engine is the f64 one (driven in phase 22)
+    check(type(stream_host.StreamHost(SR).plugin).__name__ == "WurliPlugin",
+          "StreamHost's default engine is the f64 WurliPlugin")
     reset_counts(vb, mc)
     sh = stream_host.StreamHost(SR, engine="fast")
     pcm = io.BytesIO()
@@ -1455,6 +1863,8 @@ def main():
           + f" us per group [{card}] ({time.perf_counter() - t_p19:.0f} s)",
           flush=True)
 
+    eng_k = engine_phases(dev, card, launches, vb, mc, fast)
+
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
 
@@ -1523,6 +1933,26 @@ def main():
               float((p1_out - p1_ref).abs().max()), p1_ms, p1_plain_ms,
               p1_bound, per_iter_us=probe_rows),
     ]
+    # the f64 engine's kernels: no Pallas kernel stands behind them
+    for name, key, replaces, more in (
+            ("engine_voices", "E1", "openwurli_tpu/engine.py:452",
+             {"us_per_chunk": eng_k["E1"]["us_per_chunk"]}),
+            ("engine_chain", "E2", "openwurli_tpu/engine.py:452",
+             {k: v for k, v in eng_k["E2"].items() if k != "cmp"})):
+        cmps = eng_k[key]["cmp"]
+        main = cmps[-1]  # the engine session's own chunk
+        kernels.append(entry(
+            name, "engine.cu", replaces, main["shape"],
+            max(c["max_abs_err"] for c in cmps), main["ms"],
+            main["plain_ms"], main["bound"],
+            compared=[{k: v for k, v in c.items() if k != "bound"}
+                      | {"bound_ms": c["bound"][0]} for c in cmps], **more))
+    e3 = eng_k["E3"]
+    kernels.append(entry(
+        "tremolo_settle", "engine.cu", "openwurli_tpu/circuits/tremolo.py:160",
+        "512 steps at 88.2 kHz", e3["max_abs_err"], e3["ms"],
+        e3["plain_ms"], e3["bound"],
+        full_settle=e3["full_settle"]))
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} was never launched on "
               "a driven path")

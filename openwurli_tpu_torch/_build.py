@@ -1,9 +1,10 @@
 """Builds and loads the port's CUDA kernels (csrc/*.cu) on first use.
 
-`nvcc` compiles every source under csrc/ into one shared library with a
-plain C interface, build/openwurli_tpu_torch/libowkernels.so next to the
-package, rebuilt whenever a source's content hash changes; the library is
-loaded with ctypes and its entry points get explicit argtypes. Nothing
+`nvcc` compiles every source under csrc/ to an object file, one process
+per source, all started together, and links them into one shared library
+with a plain C interface, build/openwurli_tpu_torch/libowkernels.so next to
+the package, rebuilt whenever a source's content hash changes; the library
+is loaded with ctypes and its entry points get explicit argtypes. Nothing
 here runs at import time: the first CUDA call of a kernel wrapper calls
 `library()`.
 """
@@ -23,14 +24,13 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "openwurli_tpu_torch")
 LIB_NAME = "libowkernels.so"
-SOURCES = ("voice_bank.cu", "mono_chain.cu", "probe.cu")
+SOURCES = ("voice_bank.cu", "mono_chain.cu", "probe.cu", "engine.cu")
 # -fmad=false: no FMA contraction anywhere, so the kernels round like their
 # plain torch twins (and the compensated sums in mono_chain.cu stay exact).
-# --threads 0: the sources compile side by side, one thread per core.
 # -Xptxas -v: registers, stack and spills of each kernel go to the log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "--threads", "0", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -40,6 +40,7 @@ BUILD_LOG = None      # its output: ptxas' registers, stack and spills
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     # params, state_in, out, state_out, lanes, total, t_tile, n0,
     # steady0, steady1, stream
@@ -56,6 +57,12 @@ _SIGNATURES = {
     "ow_trem_preroll": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
     # body, x, mat, iters, depth, sub, lanes, threads, out, aux, stream
     "ow_probe": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # vpar, vst, vsti, eng_i, mono, n, fade_len, sample_rate, stream
+    "ow_engine_voices": (_P, _P, _P, _P, _P, _I, _D, _D, _P),
+    # consts, n_consts, mono, chain, out, n, rail_sag, stream
+    "ow_engine_chain": (_P, _I, _P, _P, _P, _I, _I, _P),
+    # consts, n_consts, state, n_steps, stream
+    "ow_tremolo_settle": (_P, _I, _P, _I, _P),
 }
 
 
@@ -86,15 +93,37 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = f"{tmp}.{name}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+               os.path.join(CSRC_DIR, name)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, out)
+    if failed is None:
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = (proc.returncode, cmd, logs[-1])
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BUILD_LOG}")
+    BUILD_LOG = "".join(logs)
+    if failed is not None:
+        code, cmd, out = failed
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, lib_path)
     link = os.path.join(BUILD_DIR, LIB_NAME)
     if os.path.lexists(link):

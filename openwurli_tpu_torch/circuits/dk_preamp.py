@@ -1,10 +1,13 @@
 """DK-method preamp (Wurlitzer 200A, schematic #203720-S-3): circuit
-constants and the fixed solver matrices at a given (oversampled) rate.
+constants, the fixed solver matrices at a given (oversampled) rate, and
+the twin (main, shadow) trapezoidal step.
 
-Port of the pack-time half of `openwurli_tpu/circuits/dk_preamp.py`
-(float64 NumPy). The Johnson-Nyquist constants that the chain packer takes
-from the reference's melange preamp module live here too. The per-sample
-step runs inside the mono-chain kernel.
+Port of `openwurli_tpu/circuits/dk_preamp.py`: the matrices in float64
+NumPy, the step (6-iteration Newton on the 2×2 Vbe kernel, R_ldr by a
+Sherman-Morrison correction) in float64 torch, repeated op for op by the
+f64 engine's chain kernel E2. The Johnson-Nyquist constants that the
+chain packer takes from the reference's melange preamp module live here
+too.
 """
 
 from __future__ import annotations
@@ -12,6 +15,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from openwurli_tpu_torch.ops import exact
 
 VCC = 15.0
 R1 = 22_000.0      # input series R (with Cin)
@@ -40,6 +46,10 @@ BASE1, EMIT1, COLL1, EMIT2, EMIT2B, COLL2, OUT, FB = range(8)
 N = 8
 
 R_LDR_INIT = 1_000_000.0
+NR_ITERS = 6
+# Newton passes of the plain step (each evaluates both rows), read by
+# chip_smoke.py to count a replayed chunk's operations.
+NEWTON_PASSES = [0]
 
 # Thermal noise (reference gen_preamp T_ROOM_K), used by the noise stamps.
 K_BOLTZMANN = 1.380649e-23
@@ -194,3 +204,125 @@ def make_params(sample_rate) -> PreampParams:
                          s_fb_row[EMIT2] - s_fb_row[COLL2]]),
         g_cin=g_cin, c_cin=c_cin, gc_1pc=g_cin * (1.0 + c_cin),
         v_dc=v_dc, v_nl_dc=v_nl_dc, i_nl_dc=_bjt_ic_np(v_nl_dc))
+
+
+# ───────────────────────── per-sample step (torch) ─────────────────────────
+
+
+class PreampState(NamedTuple):
+    """Main and shadow stacked on axis 0: v (2, 8), i_nl / v_nl (2, 2),
+    j_cin / cin_rhs_prev (2,); g_ldr_prev 0-d, shared by the twin."""
+
+    v: torch.Tensor
+    i_nl: torch.Tensor
+    v_nl: torch.Tensor
+    j_cin: torch.Tensor
+    cin_rhs_prev: torch.Tensor
+    g_ldr_prev: torch.Tensor
+
+
+def step_tensors(params: PreampParams, device="cpu") -> dict:
+    """The step's constants as float64 tensors on `device`."""
+    s_base = params.s_base
+    c = {k: torch.as_tensor(np.asarray(v, np.float64), device=device)
+         for k, v in params._asdict().items()}
+    c["ni_col0"] = torch.as_tensor(s_base[:, EMIT1] - s_base[:, COLL1],
+                                   device=device)
+    c["ni_col1"] = torch.as_tensor(s_base[:, EMIT2] - s_base[:, COLL2],
+                                   device=device)
+    c["k_outer"] = torch.as_tensor(
+        np.asarray(params.nv_sfb)[:, None] * np.asarray(params.sfb_ni)[None],
+        device=device)
+    c["j_cin_dc"] = c["g_cin"] * c["v_dc"][BASE1]
+    return c
+
+
+def init_state(params: PreampParams, device="cpu") -> PreampState:
+    """Main and shadow both at the DC operating point."""
+    c = step_tensors(params, device)
+    j = c["j_cin_dc"].expand(2).clone()
+    return PreampState(v=c["v_dc"].expand(2, N).clone(),
+                       i_nl=c["i_nl_dc"].expand(2, 2).clone(),
+                       v_nl=c["v_nl_dc"].expand(2, 2).clone(),
+                       j_cin=j, cin_rhs_prev=j.clone(),
+                       g_ldr_prev=torch.tensor(1.0 / R_LDR_INIT,
+                                               dtype=torch.float64,
+                                               device=device))
+
+
+def ldr_conductance(r_ldr_path):
+    """Clamp the shunt at 1 kΩ, return its conductance."""
+    return 1.0 / exact.maximum(r_ldr_path, 1000.0)
+
+
+def _bjt_ic_gm(vbe):
+    e = torch.exp(exact.div(exact.clip(vbe, -1.0, VBE_MAX), VT))
+    return IS * (e - 1.0), (IS / VT) * e
+
+
+def step(c: dict, state: PreampState, g_ldr, x):
+    """One trapezoidal DK step of the twin (main, shadow) pair; c from
+    step_tensors. Returns (state, main − shadow)."""
+    u = torch.stack([x, torch.zeros_like(x)])
+    # 1. history + sources
+    rhs = torch.stack([exact.matvec(c["a_neg_base"], state.v[r])
+                       for r in range(2)])
+    rhs[:, FB] = rhs[:, FB] + (-state.g_ldr_prev) * state.v[:, FB]
+    cin_rhs_now = c["g_cin"] * u + state.j_cin
+    rhs[:, BASE1] = rhs[:, BASE1] + (cin_rhs_now + state.cin_rhs_prev)
+    rhs[:, EMIT1] = rhs[:, EMIT1] + state.i_nl[:, 0]
+    rhs[:, COLL1] = rhs[:, COLL1] + (-state.i_nl[:, 0])
+    rhs[:, EMIT2] = rhs[:, EMIT2] + state.i_nl[:, 1]
+    rhs[:, COLL2] = rhs[:, COLL2] + (-state.i_nl[:, 1])
+    rhs = rhs + c["two_w"]
+    # 2-3. predictor, Sherman-Morrison correction for R_ldr
+    v_pred_base = torch.stack([exact.matvec(c["s_base"], rhs[r])
+                               for r in range(2)])
+    sm_k = g_ldr / (1.0 + c["s_fb_fb"] * g_ldr)
+    v_pred = v_pred_base - (sm_k * v_pred_base[:, FB])[:, None] * \
+        c["s_fb_col"]
+    # 4-5. NL port voltages, corrected kernel, masked Newton
+    p0 = v_pred[:, BASE1] - v_pred[:, EMIT1]
+    p1 = v_pred[:, COLL1] - v_pred[:, EMIT2]
+    k_corr = c["k"] - sm_k * c["k_outer"]
+    k00, k01, k10, k11 = (k_corr[0, 0], k_corr[0, 1], k_corr[1, 0],
+                          k_corr[1, 1])
+    v0, v1 = state.v_nl[:, 0], state.v_nl[:, 1]
+    for _ in range(NR_ITERS):
+        NEWTON_PASSES[0] += 1
+        ic0, gm0 = _bjt_ic_gm(v0)
+        ic1, gm1 = _bjt_ic_gm(v1)
+        f0 = v0 - p0 - k00 * ic0 - k01 * ic1
+        f1 = v1 - p1 - k10 * ic0 - k11 * ic1
+        converged = (torch.abs(f0) < 1e-9) & (torch.abs(f1) < 1e-9)
+        if bool(converged.all()):
+            break  # the remaining masked iterations change nothing
+        j00 = 1.0 - k00 * gm0
+        j01 = -k01 * gm1
+        j10 = -k10 * gm0
+        j11 = 1.0 - k11 * gm1
+        det = j00 * j11 - j01 * j10
+        big = torch.abs(det) > 1e-30
+        ok = ~converged & big
+        inv_det = torch.where(big, 1.0 / det, 0.0)
+        dv0 = inv_det * (j11 * f0 - j01 * f1)
+        dv1 = inv_det * (j00 * f1 - j10 * f0)
+        v0 = v0 - torch.where(ok, dv0, 0.0)
+        v1 = v1 - torch.where(ok, dv1, 0.0)
+    # 6-7. final currents, node update
+    ic0, ic1 = _bjt_ic_gm(v0)[0], _bjt_ic_gm(v1)[0]
+    s_ni = ic0[:, None] * c["ni_col0"] + ic1[:, None] * c["ni_col1"]
+    dot = c["sfb_ni"][0] * ic0 + c["sfb_ni"][1] * ic1
+    v_new = v_pred + s_ni - (sm_k * dot)[:, None] * c["s_fb_col"]
+    # 8. Cin-R1 companion
+    j_cin = -c["gc_1pc"] * (u - v_new[:, BASE1]) - c["c_cin"] * state.j_cin
+    out = v_new[0, OUT] - v_new[1, OUT]
+    bad = ~torch.isfinite(out)
+    jdc = c["j_cin_dc"]
+    return PreampState(
+        v=torch.where(bad, c["v_dc"], v_new),
+        i_nl=torch.where(bad, c["i_nl_dc"], torch.stack([ic0, ic1], 1)),
+        v_nl=torch.where(bad, c["v_nl_dc"], torch.stack([v0, v1], 1)),
+        j_cin=torch.where(bad, jdc, j_cin),
+        cin_rhs_prev=torch.where(bad, jdc, cin_rhs_now),
+        g_ldr_prev=g_ldr), torch.where(bad, 0.0, out)

@@ -4,7 +4,13 @@ Port of `openwurli_tpu/circuits/gp.py`: `pack_bjt_params` (NumPy) and the
 packed evaluation used by the mono chain's step functions, where the BJTs
 of one circuit evaluate as (n_bjt, S) tensor ops with per-BJT constants in
 (n_bjt, 1) columns. The arithmetic is dtype-generic: float32 in the chain,
-float64 in the DC operating-point solve.
+float64 in the DC operating-point solve and the f64 engine.
+
+For the f64 engine's Newton steps (`mna.make_step`), as in the reference:
+the currents come from `mna.bjt_currents`' arithmetic (divisions by n·vt,
+`device_current_fn`), the Jacobian from the closed-form derivatives
+(`device_derivs_fn`, `analytic_device_jacobian_fn`). Both are per-device
+block functions: a BJT's currents depend only on its own two ports.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ import functools
 
 import numpy as np
 import torch
+
+from openwurli_tpu_torch.ops import exact
 
 _XC = 40.0
 _EXC = float(np.exp(_XC))
@@ -127,3 +135,116 @@ def bjt_currents_packed(p, vbe, vbc):
     ibe = i_f * p["inv_bf"] + p["ise"] * (el - one)
     ibc = i_r * p["inv_br"] + p["isc"] * (ec - one)
     return ibe + ibc, ict - ibc
+
+
+# ── f64 engine: the reference's mna-form currents and block derivatives ──
+
+CURRENT_NAMES = (
+    "is_", "nf_vt", "nr_vt", "inv_vaf", "inv_var", "inv_ikf", "inv_ikr",
+    "bf", "br", "ise", "ne_vt", "isc", "nc_vt",
+)
+
+
+def pack_current_params(models):
+    """models → (n_bjt, 13) float64 in CURRENT_NAMES order (the divisors
+    and inverses exactly as `mna.bjt_currents` forms them)."""
+    return np.asarray([[
+        m.is_, m.nf * m.vt, m.nr * m.vt, _inv_or_zero(m.vaf),
+        _inv_or_zero(m.var), _inv_or_zero(m.ikf), _inv_or_zero(m.ikr),
+        m.bf, m.br, m.ise, m.ne * m.vt, m.isc, m.nc * m.vt,
+    ] for m in models], dtype=np.float64).reshape(len(models), 13)
+
+
+def limexp(x):
+    """exp, linear past x = 40 (the SPICE Newton safeguard)."""
+    return torch.where(x < _XC, torch.exp(exact.minimum(x, _XC)),
+                       _EXC * (1.0 + (x - _XC)))
+
+
+def bjt_currents(p, vbe, vbc):
+    """DC Gummel-Poon (ib, ic), NPN convention; p maps CURRENT_NAMES to
+    per-BJT tensors broadcastable against vbe/vbc."""
+    i_f = p["is_"] * (limexp(vbe / p["nf_vt"]) - 1.0)
+    i_r = p["is_"] * (limexp(vbc / p["nr_vt"]) - 1.0)
+    q1 = 1.0 / exact.maximum(1.0 - vbc * p["inv_vaf"] - vbe * p["inv_var"],
+                             1e-4)
+    q2 = i_f * p["inv_ikf"] + i_r * p["inv_ikr"]
+    qb = q1 * 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * exact.maximum(q2, 0.0)))
+    ict = (i_f - i_r) / qb
+    ibe = i_f / p["bf"] + p["ise"] * (limexp(vbe / p["ne_vt"]) - 1.0)
+    ibc = i_r / p["br"] + p["isc"] * (limexp(vbc / p["nc_vt"]) - 1.0)
+    return ibe + ibc, ict - ibc
+
+
+def _netlist_columns(netlist, device):
+    n_bjt = len(netlist.bjts)
+    models = [b[4] for b in netlist.bjts]
+    cur = torch.from_numpy(pack_current_params(models)).to(device)
+    der = torch.from_numpy(pack_bjt_params(models, np.float64)).to(device)
+    diodes = [(d[3].is_, d[3].n * d[3].vt) for d in netlist.diodes]
+    return (n_bjt, {k: cur[:, i] for i, k in enumerate(CURRENT_NAMES)},
+            {k: der[:, i] for i, k in enumerate(PARAM_NAMES)}, diodes)
+
+
+def device_current_fn(netlist, device="cpu"):
+    """f(v_nl (M,) float64) → i_nl (M,): [ib, ic] per BJT, then diodes."""
+    n_bjt, cur, _, diodes = _netlist_columns(netlist, device)
+
+    def fn(v_nl):
+        ib, ic = bjt_currents(cur, v_nl[0:2 * n_bjt:2], v_nl[1:2 * n_bjt:2])
+        parts = [torch.stack([ib, ic], dim=1).reshape(-1)]
+        for k, (is_, nvt) in enumerate(diodes):
+            vd = v_nl[2 * n_bjt + k:2 * n_bjt + k + 1]
+            parts.append(is_ * (limexp(vd / nvt) - 1.0))
+        return torch.cat(parts)
+
+    return fn
+
+
+def device_derivs_fn(netlist, device="cpu"):
+    """f(v_nl) → (top, bot), each (M,): the two entries of Jacobian column
+    k inside its device block, dI[r0]/dV[k] and dI[r0+1]/dV[k] with r0 the
+    block's first port (a diode column has top = its conductance and
+    bot = 0)."""
+    n_bjt, _, der, diodes = _netlist_columns(netlist, device)
+
+    def fn(v_nl):
+        _, _, dib_be, dib_bc, dic_be, dic_bc = bjt_currents_derivs_packed(
+            der, v_nl[0:2 * n_bjt:2], v_nl[1:2 * n_bjt:2])
+        top = [torch.stack([dib_be, dib_bc], dim=1).reshape(-1)]
+        bot = [torch.stack([dic_be, dic_bc], dim=1).reshape(-1)]
+        for k, (is_, nvt) in enumerate(diodes):
+            vd = v_nl[2 * n_bjt + k:2 * n_bjt + k + 1]
+            _, dval = _limexp_d(vd / nvt)
+            top.append(is_ * dval / nvt)
+            bot.append(torch.zeros_like(vd))
+        return torch.cat(top), torch.cat(bot)
+
+    return fn
+
+
+def block_rows(netlist):
+    """r0 per port: the first port of its device block (NumPy int)."""
+    n_bjt = len(netlist.bjts)
+    m = 2 * n_bjt + len(netlist.diodes)
+    return np.asarray([2 * (k // 2) if k < 2 * n_bjt else k
+                       for k in range(m)])
+
+
+def analytic_device_jacobian_fn(netlist, device="cpu"):
+    """dI/dV_nl as a dense block-diagonal (M, M) float64 tensor."""
+    derivs = device_derivs_fn(netlist, device)
+    r0 = torch.from_numpy(block_rows(netlist)).to(device)
+    n_bjt = len(netlist.bjts)
+
+    def jac(v_nl):
+        top, bot = derivs(v_nl)
+        m = top.shape[0]
+        out = torch.zeros((m, m), dtype=torch.float64, device=v_nl.device)
+        cols = torch.arange(m, device=v_nl.device)
+        out[r0, cols] = top
+        bjt = cols < 2 * n_bjt
+        out[r0[bjt] + 1, cols[bjt]] = bot[bjt]
+        return out
+
+    return jac

@@ -1,14 +1,20 @@
-"""Generic MNA circuit assembly and DC operating point (pack time).
+"""Generic MNA circuit solver: netlist → per-sample DK step.
 
-Port of the pack-time half of `openwurli_tpu/circuits/mna.py`: netlist →
-fixed MNA matrices (float64 NumPy), the source-stepped Newton DC solve
-(float64 torch on the CPU, closed-form Gummel-Poon Jacobian), the solver
-matrices for a sample rate and integrator, and SPICE junction limits.
-The per-sample f64 step (`make_step`) is not ported yet.
+Port of `openwurli_tpu/circuits/mna.py`. At pack time: netlist → fixed MNA
+matrices (float64 NumPy), the source-stepped Newton DC solve (float64
+torch on the CPU, closed-form Gummel-Poon Jacobian), the solver matrices
+for a sample rate and integrator with their backward-Euler variant, and
+SPICE junction limits. Per sample (`make_step`, float64 torch): the
+trapezoidal or backward-Euler companion step with masked Newton on the
+M-dimensional kernel, an f32 unpivoted elimination per iteration
+(`ge_solve_f32`), and the robustness ladder with its `SolverDiag`
+counters. The f64 engine kernels (`csrc/engine.cu`) repeat the step op
+for op.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import NamedTuple
 
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 
 from openwurli_tpu_torch.circuits import gp
+from openwurli_tpu_torch.ops import exact
 
 VT_300K = 0.02585126075417566  # kT/q at 300.15 K
 
@@ -223,12 +230,43 @@ class SolverParams(NamedTuple):
     i_dc: np.ndarray     # (M,)
     v_nl_dc: np.ndarray  # (M,)
     trap_i_hist: float   # 1.0 trapezoidal (rhs += N_i i_prev), 0.0 BE
+    # Backward-Euler variant (== primary when integrator="be"): the
+    # dissipative integrator failed samples are replayed with, and held
+    # for FALLBACK_COOLDOWN samples.
+    s_be: np.ndarray
+    a_hist_be: np.ndarray
+    s_ni_be: np.ndarray
+    k_be: np.ndarray
+    w_scale_be: np.ndarray
+
+
+class SolverDiag(NamedTuple):
+    """Robustness counters (int32 0-d tensors)."""
+
+    cooldown: object   # BE-fallback samples remaining
+    nr_fail: object    # Newton non-convergence / ringing / non-finite
+    nan_reset: object  # NaN → DC-OP resets
+    damp: object       # voltage-damping net hits
+    be_steps: object   # samples integrated with BE
 
 
 class SolverState(NamedTuple):
-    v: np.ndarray
-    i_nl: np.ndarray
-    v_nl: np.ndarray
+    v: object        # (n,)
+    i_nl: object     # (M,)
+    v_nl: object     # (M,) Newton warm start
+    nr_resid: object = 0.0  # last solve's final Newton residual [V]
+    diag: object = None
+
+
+# Work done by the plain steps' Newton loops, by port count M: "solves"
+# (Newton calls) and "iterations" (f32 eliminations). chip_smoke.py reads
+# it to count the operations a replayed chunk needed.
+NEWTON_COUNTS = collections.Counter()
+
+FALLBACK_COOLDOWN = 64   # samples of BE after a failure
+RINGING_VOLTS = 55.0     # node swing that counts as a failure
+DAMP_VOLTS = 30.0        # per-sample node-delta damping net
+FAIL_RESID = 1e-3        # Newton residual that counts as a failure [V]
 
 
 def dc_solve(netlist: Netlist, n_iter=300, clamp=0.1, source_steps=8):
@@ -288,9 +326,13 @@ def make_solver_params(netlist: Netlist, sample_rate,
         raise ValueError(integrator)
     s = np.linalg.inv(a)
     v_dc, i_dc, v_nl_dc = dc_solve(netlist)
+    s_be = np.linalg.inv(g + (1.0 / t) * c_mat)
     return SolverParams(s=s, a_hist=a_hist, n_v=n_v, n_i=n_i, s_ni=s @ n_i,
                         k=n_v @ s @ n_i, w=w, w_scale=w_scale, v_dc=v_dc,
-                        i_dc=i_dc, v_nl_dc=v_nl_dc, trap_i_hist=trap_i)
+                        i_dc=i_dc, v_nl_dc=v_nl_dc, trap_i_hist=trap_i,
+                        s_be=s_be, a_hist_be=(1.0 / t) * c_mat,
+                        s_ni_be=s_be @ n_i, k_be=n_v @ s_be @ n_i,
+                        w_scale_be=np.ones(a.shape[0]))
 
 
 def junction_limits(netlist: Netlist):
@@ -306,3 +348,183 @@ def junction_limits(netlist: Netlist):
         nvt.append(v)
         vcrit.append(v * np.log(v / (np.sqrt(2.0) * model.is_)))
     return np.asarray(nvt), np.asarray(vcrit)
+
+
+# ───────────────────────── per-sample step (torch) ─────────────────────────
+
+
+def init_diag(device="cpu") -> SolverDiag:
+    z = torch.zeros((), dtype=torch.int32, device=device)
+    return SolverDiag(z, z, z, z, z)
+
+
+def init_state(params: SolverParams, device="cpu") -> SolverState:
+    """The DC operating point, as float64 tensors on `device`."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float64), device=device)
+
+    return SolverState(v=t(params.v_dc), i_nl=t(params.i_dc),
+                       v_nl=t(params.v_nl_dc), nr_resid=t(0.0),
+                       diag=init_diag(device))
+
+
+def pnjlim(v_old, v_new, nvt, vcrit):
+    """SPICE junction limiting: a forward step past vcrit by more than
+    2·nvt is log-compressed to v_old + nvt·ln(1 + δ/nvt)."""
+    delta = v_new - v_old
+    lim = v_old + nvt * torch.log1p(exact.maximum(delta, 0.0) / nvt)
+    apply = (v_new > vcrit) & (delta > 2.0 * nvt)
+    return torch.where(apply, lim, v_new)
+
+
+def ge_solve_numpy(a, b):
+    """Unpivoted Gaussian elimination in float32 (NumPy): a (m, m), b (m,)
+    float32 → x (m,) float32.
+
+    Pivot guard |p| > 1e-30 (else 1e-30, also for a NaN pivot), the pivot
+    row scaled by the f32 reciprocal, every update c − a·b rounded once
+    from float64 (the product of two floats is exact there), as XLA's
+    contracted multiply-adds round it; back substitution row by row, each
+    row's terms in increasing column order. Only IEEE basic operations:
+    any IEEE device rounds them alike, and `csrc/engine.cu` writes them
+    the same way. Columns left of the running pivot are never read again,
+    so they are not updated (the reference updates them, to no effect on
+    x)."""
+    m = a.shape[0]
+    aug = np.concatenate([a, b[:, None]], axis=1).astype(np.float32)
+    tiny = np.float32(1e-30)
+    with np.errstate(all="ignore"):
+        for k in range(m):
+            piv = aug[k, k]
+            inv = np.float32(1.0) / (piv if abs(piv) > tiny else tiny)
+            row = aug[k, k + 1:] * inv
+            aug[k, k + 1:] = row
+            if k + 1 < m:
+                aug[k + 1:, k + 1:] = (
+                    aug[k + 1:, k + 1:].astype(np.float64)
+                    - aug[k + 1:, k:k + 1].astype(np.float64)
+                    * row.astype(np.float64)).astype(np.float32)
+        x = np.zeros(m, dtype=np.float32)
+        for i in range(m - 1, -1, -1):
+            acc = aug[i, m]
+            for j in range(i + 1, m):
+                acc = np.float32(np.float64(acc) - np.float64(aug[i, j])
+                                 * np.float64(x[j]))
+            x[i] = acc
+    return x
+
+
+def ge_solve_f32(a, b):
+    """The reference's f32 elimination for a float64 Newton step: a (m, m),
+    b (m,) float64 tensors → x (m,) float64 on their device. Computed on
+    the host by `ge_solve_numpy` (basic IEEE operations only)."""
+    x = ge_solve_numpy(a.detach().cpu().numpy().astype(np.float32),
+                       b.detach().cpu().numpy().astype(np.float32))
+    return torch.from_numpy(x.astype(np.float64)).to(a.device)
+
+
+def solver_tensors(params: SolverParams, device="cpu") -> dict:
+    return {k: torch.as_tensor(np.asarray(v, np.float64), device=device)
+            for k, v in params._asdict().items()}
+
+
+def make_step(netlist: Netlist, params: SolverParams, nr_iters,
+              nr_tol=1e-9, device="cpu"):
+    """The per-sample step of this netlist on `device`:
+    step(state, w_extra (n,)) → (state, v (n,)).
+
+    Newton runs up to `nr_iters` masked iterations; the loop ends once the
+    residual has converged (the remaining masked iterations would change
+    nothing). The robustness ladder: trapezoidal primary → failure
+    (residual > 1e-3, ringing > 55 V, non-finite) → backward-Euler replay
+    of the sample and a 64-sample BE hold → the 30 V damping net → NaN
+    reset to the DC operating point, each counted in SolverDiag."""
+    c = solver_tensors(params, device)
+    dev_fn = gp.device_current_fn(netlist, device)
+    derivs = gp.device_derivs_fn(netlist, device)
+    r0 = torch.from_numpy(gp.block_rows(netlist)).to(device)
+    m = int(params.k.shape[0])
+    bjt_cols = torch.arange(m, device=device) < 2 * len(netlist.bjts)
+    eye = torch.eye(m, dtype=torch.float64, device=device)
+    nvt_np, vcrit_np = junction_limits(netlist)
+    nvt = torch.from_numpy(nvt_np).to(device)
+    vcrit = torch.from_numpy(vcrit_np).to(device)
+    n_nodes = netlist.n_nodes
+    trap_primary = float(params.trap_i_hist) != 0.0
+
+    def kj_cols(k_eff):
+        """K's two block-row columns per Jacobian column (zero second
+        column for a diode)."""
+        k1 = torch.where(bjt_cols, k_eff[:, (r0 + 1).clamp(max=m - 1)], 0.0)
+        return k_eff[:, r0], k1
+
+    mats = {False: (c["a_hist"], c["s"], c["s_ni"], c["k"], c["w_scale"],
+                    c["trap_i_hist"]),
+            True: (c["a_hist_be"], c["s_be"], c["s_ni_be"], c["k_be"],
+                   c["w_scale_be"], 0.0)}
+    cols = {be: kj_cols(mats[be][3]) for be in (False, True)}
+
+    def nr_solve(p, v_nl, k_eff, k0, k1):
+        """→ (v_nl, its currents, the final residual)."""
+        NEWTON_COUNTS[m, "solves"] += 1
+        for _ in range(nr_iters):
+            i_nl = dev_fn(v_nl)
+            f = v_nl - p - exact.matvec(k_eff, i_nl)
+            if bool(exact.max_abs(f) < nr_tol):
+                return v_nl, i_nl, exact.max_abs(f)
+            NEWTON_COUNTS[m, "iterations"] += 1
+            top, bot = derivs(v_nl)
+            jac = eye - (k0 * top + k1 * bot)
+            dv = exact.clip(ge_solve_f32(jac, f), -2.0, 2.0)
+            v_nl = pnjlim(v_nl, v_nl - dv, nvt, vcrit)
+        i_nl = dev_fn(v_nl)
+        f = v_nl - p - exact.matvec(k_eff, i_nl)
+        return v_nl, i_nl, exact.max_abs(f)
+
+    def solve_once(state, w_extra, be):
+        a_hist, s_mat, s_ni, k_eff, w_sc, trap_i = mats[be]
+        rhs = exact.matvec(a_hist, state.v) + w_sc * c["w"] + w_extra
+        rhs = rhs + trap_i * exact.matvec(c["n_i"], state.i_nl)
+        v_lin = exact.matvec(s_mat, rhs)
+        p = exact.matvec(c["n_v"], v_lin)
+        v_nl, i_new, resid = nr_solve(p, state.v_nl, k_eff, *cols[be])
+        return v_lin + exact.matvec(s_ni, i_new), i_new, v_nl, resid
+
+    def failed(v, resid):
+        ring = exact.max_abs(v[:n_nodes]) > RINGING_VOLTS
+        nonfin = ~torch.all(torch.isfinite(v))
+        return (resid > FAIL_RESID) | ring | nonfin
+
+    def step(state: SolverState, w_extra):
+        dg = state.diag
+        v, i_new, v_nl, resid = solve_once(state, w_extra, be=False)
+        need_be = (failed(v, resid) | (dg.cooldown > 0)) if trap_primary \
+            else torch.zeros((), dtype=torch.bool, device=v.device)
+        if bool(need_be):
+            v, i_new, v_nl, resid = solve_once(state, w_extra, be=True)
+        fail = failed(v, resid)
+
+        dv = v - state.v
+        dv_max = exact.max_abs(dv)
+        damp_hit = torch.isfinite(dv_max) & (dv_max > DAMP_VOLTS)
+        # (a Python number over a tensor would multiply by its reciprocal)
+        scale = torch.where(damp_hit, torch.full_like(dv_max, DAMP_VOLTS)
+                            / exact.maximum(dv_max, 1e-30), 1.0)
+        v = state.v + dv * scale
+
+        bad = ~torch.all(torch.isfinite(v))
+        v = torch.where(bad, c["v_dc"], v)
+        i_new = torch.where(bad, c["i_dc"], i_new)
+        v_nl = torch.where(bad, c["v_nl_dc"], v_nl)
+        one = torch.ones((), dtype=torch.int32, device=v.device)
+        diag = SolverDiag(
+            cooldown=torch.where(fail, FALLBACK_COOLDOWN * one,
+                                 torch.clamp(dg.cooldown - 1, min=0)),
+            nr_fail=dg.nr_fail + fail.to(torch.int32),
+            nan_reset=dg.nan_reset + bad.to(torch.int32),
+            damp=dg.damp + damp_hit.to(torch.int32),
+            be_steps=dg.be_steps + need_be.to(torch.int32))
+        return SolverState(v=v, i_nl=i_new, v_nl=v_nl, nr_resid=resid,
+                           diag=diag), v
+
+    return step

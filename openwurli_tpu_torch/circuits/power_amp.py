@@ -1,8 +1,12 @@
 """Wurlitzer 200A Class AB power amplifier: netlist, rail-dynamics
-constants and solver matrices (backward Euler).
+constants and solver matrices (backward Euler), and the per-sample step.
 
-Port of the pack-time half of `openwurli_tpu/circuits/power_amp.py`; the
-per-sample Newton solve runs inside the mono-chain kernel.
+Port of `openwurli_tpu/circuits/power_amp.py` (the circuit model; the
+behavioral model is not ported). The step (float64 torch, repeated op for
+op by the f64 engine's chain kernel E2) pushes the previous sample's rail
+offsets into the source vector, solves with 16 masked Newton iterations,
+applies the two-tier divergence guard, and updates the rails after the
+solve from the raw output.
 """
 
 from __future__ import annotations
@@ -11,8 +15,12 @@ import functools
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from openwurli_tpu_torch.circuits import mna
+from openwurli_tpu_torch.ops import exact
+
+NR_ITERS = 16
 
 HEADROOM = 22.0
 RAIL_V_OPEN = 24.5
@@ -119,3 +127,104 @@ def make_params(sample_rate) -> PowerAmpParams:
         alpha_attack=e(RAIL_TAU_ATTACK),
         alpha_release=e(RAIL_TAU_RELEASE),
         alpha_i_avg=e(RAIL_TAU_I_AVG))
+
+
+
+class RailState(NamedTuple):
+    """Behavioral rail-sag state (0-d float64 tensors)."""
+
+    v_rail_pos: torch.Tensor
+    v_rail_neg: torch.Tensor
+    i_avg_pos: torch.Tensor
+    i_avg_neg: torch.Tensor
+
+
+class PowerAmpState(NamedTuple):
+    circuit: mna.SolverState
+    rails: RailState
+    last_good: torch.Tensor
+
+
+def init_rails(device="cpu") -> RailState:
+    b = torch.tensor(RAIL_DC_BIAS, dtype=torch.float64, device=device)
+    z = torch.zeros((), dtype=torch.float64, device=device)
+    return RailState(b, b, z, z)
+
+
+def init_state(params: PowerAmpParams, device="cpu") -> PowerAmpState:
+    return PowerAmpState(
+        circuit=mna.init_state(params.solver, device),
+        rails=init_rails(device),
+        last_good=torch.zeros((), dtype=torch.float64, device=device))
+
+
+def rails_step(params: PowerAmpParams, rails: RailState, v_out) -> RailState:
+    """Current envelope (30 ms) → load-line target → asymmetric
+    attack/release."""
+    i_pos = exact.maximum(v_out / SPEAKER_LOAD_OHMS, 0.0)
+    i_neg = exact.maximum(-v_out / SPEAKER_LOAD_OHMS, 0.0)
+    i_avg_pos = rails.i_avg_pos + params.alpha_i_avg * (i_pos
+                                                        - rails.i_avg_pos)
+    i_avg_neg = rails.i_avg_neg + params.alpha_i_avg * (i_neg
+                                                        - rails.i_avg_neg)
+    target_pos = RAIL_V_OPEN - i_avg_pos * RAIL_R_EFF
+    target_neg = RAIL_V_OPEN - i_avg_neg * RAIL_R_EFF
+    att = torch.full_like(target_pos, params.alpha_attack)
+    a_p = torch.where(target_pos < rails.v_rail_pos, att,
+                      params.alpha_release)
+    a_n = torch.where(target_neg < rails.v_rail_neg, att,
+                      params.alpha_release)
+    return RailState(
+        v_rail_pos=rails.v_rail_pos + a_p * (target_pos - rails.v_rail_pos),
+        v_rail_neg=rails.v_rail_neg + a_n * (target_neg - rails.v_rail_neg),
+        i_avg_pos=i_avg_pos, i_avg_neg=i_avg_neg)
+
+
+_STEP_FNS = {}
+
+
+def circuit_step_fn(params: PowerAmpParams, device):
+    """The circuit's mna step for these params on `device`, cached."""
+    key = (id(params), str(torch.device(device)))
+    hit = _STEP_FNS.get(key)
+    if hit is None or hit[0] is not params:
+        hit = (params, mna.make_step(build_netlist(), params.solver,
+                                     nr_iters=NR_ITERS, device=device))
+        _STEP_FNS[key] = hit
+    return hit[1]
+
+
+def step(params: PowerAmpParams, state: PowerAmpState, x, rail_sag=True):
+    """One circuit sample; x a 0-d float64 tensor of input volts →
+    (state, out ∈ [-1, 1])."""
+    sag_f = 1.0 if rail_sag else 0.0
+    w_extra = torch.zeros_like(state.circuit.v)
+    w_extra[params.v1_row] = (state.rails.v_rail_pos - RAIL_DC_BIAS) * sag_f
+    w_extra[params.v2_row] = (state.rails.v_rail_neg - RAIL_DC_BIAS) * sag_f
+    w_extra[params.input_row] = x
+    circuit, v = circuit_step_fn(params, x.device)(state.circuit, w_extra)
+    raw = v[params.out_idx]
+    result = exact.div(raw, HEADROOM)
+
+    # Divergence guard, two tiers: insane (non-finite, |v| > 100 V) →
+    # reset the solver to its DC point and hold the last good output;
+    # Newton non-convergence → hold the output but keep the solver state.
+    nr_failed = circuit.nr_resid > 1e-3
+    insane = torch.any(~torch.isfinite(circuit.v)
+                       | (torch.abs(circuit.v) > 100.0))
+    reset = ~torch.isfinite(result) | insane
+    bad = reset | nr_failed
+    clean = mna.init_state(params.solver, x.device)
+    circuit = circuit._replace(
+        v=torch.where(reset, clean.v, circuit.v),
+        i_nl=torch.where(reset, clean.i_nl, circuit.i_nl),
+        v_nl=torch.where(reset, clean.v_nl, circuit.v_nl))
+    clamped = exact.clip(result, -1.0, 1.0)
+    out = torch.where(bad, state.last_good, clamped)
+    if rail_sag:
+        stepped = rails_step(params, state.rails, raw)
+        rails = RailState(*[torch.where(bad, ini, new) for new, ini in
+                            zip(stepped, init_rails(x.device))])
+    else:
+        rails = state.rails
+    return PowerAmpState(circuit=circuit, rails=rails, last_good=out), out

@@ -1,15 +1,20 @@
-"""Speaker cabinet coefficients for a "character" setting.
+"""Wurlitzer 200A speaker cabinet: Hammerstein nonlinearity, tanh Xmax
+limit, thermal compression, HPF/LPF, morphed by a "character" setting.
 
-Port of `openwurli_tpu/circuits/speaker.py::coeffs_for_character`
-(float64 NumPy); the Hammerstein/thermal/biquad step runs inside the
-mono-chain kernel.
+Port of `openwurli_tpu/circuits/speaker.py`: `coeffs_for_character` in
+float64 NumPy (the mono-chain packer) and in torch (`coeffs_t`, the f64
+engine's per-sample redesign), and the step on torch tensors, repeated op
+for op by the f64 engine's chain kernel E2.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import NamedTuple
 
-from openwurli_tpu_torch.ops import biquad
+import numpy as np
+import torch
+
+from openwurli_tpu_torch.ops import biquad, exact
 
 HPF_AUTHENTIC_HZ = 30.0
 HPF_Q = 0.75
@@ -34,3 +39,59 @@ def coeffs_for_character(character, sample_rate):
         "thermal_coeff": 2.0 * c,
         "character": c,
     }
+
+
+
+class SpeakerParams(NamedTuple):
+    sample_rate: float
+    thermal_alpha: float
+
+
+class SpeakerState(NamedTuple):
+    hpf: biquad.BiquadState
+    lpf: biquad.BiquadState
+    thermal_state: torch.Tensor
+
+
+def make_params(sample_rate) -> SpeakerParams:
+    sr = float(sample_rate)
+    return SpeakerParams(sample_rate=sr, thermal_alpha=1.0 / (THERMAL_TAU
+                                                              * sr))
+
+
+def init_state(device="cpu") -> SpeakerState:
+    return SpeakerState(biquad.init_state(device=device),
+                        biquad.init_state(device=device),
+                        torch.zeros((), dtype=torch.float64, device=device))
+
+
+def coeffs_t(character, sample_rate):
+    """coeffs_for_character on a 0-d float64 tensor, in torch ops."""
+    c = exact.clip(character, 0.0, 1.0)
+    hpf_hz = HPF_BYPASS_HZ * torch.pow(
+        torch.full_like(c, HPF_AUTHENTIC_HZ / HPF_BYPASS_HZ), c)
+    lpf_hz = LPF_BYPASS_HZ * torch.pow(
+        torch.full_like(c, LPF_AUTHENTIC_HZ / LPF_BYPASS_HZ), c)
+    return {
+        "hpf": biquad.design_t("highpass", hpf_hz, HPF_Q, sample_rate),
+        "lpf": biquad.design_t("lowpass", lpf_hz, LPF_Q, sample_rate),
+        "a2": 0.2 * c, "a3": 0.6 * c, "thermal_coeff": 2.0 * c,
+        "character": c,
+    }
+
+
+def step(params: SpeakerParams, state: SpeakerState, coeffs, x):
+    """One sample: waveshape → Xmax tanh → thermal → HPF → LPF."""
+    a2, a3 = coeffs["a2"], coeffs["a3"]
+    x2 = x * x
+    shaped = (x + a2 * x2 + a3 * x2 * x) / (1.0 + a2 + a3)
+    limited = torch.where(coeffs["character"] < 0.001, shaped,
+                          torch.tanh(shaped))
+    thermal = state.thermal_state + (x2 - state.thermal_state) * \
+        params.thermal_alpha
+    thermal_gain = 1.0 / (1.0 + coeffs["thermal_coeff"] * torch.sqrt(
+        thermal))
+    hpf, filtered = biquad.step(coeffs["hpf"], state.hpf,
+                                limited * thermal_gain)
+    lpf, out = biquad.step(coeffs["lpf"], state.lpf, filtered)
+    return SpeakerState(hpf, lpf, thermal), out

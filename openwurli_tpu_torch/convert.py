@@ -126,3 +126,94 @@ def fast_engine_from_numpy(sample_rate, midis, vels, onsets, releases,
                              f"({vb.STATE_ROWS}, {LANES})")
         eng._vstate = st
     return eng
+
+
+# ── the f64 engine: the reference's state pytrees, as NumPy leaves ──
+
+
+def solver_params_from_numpy(sp):
+    """A reference `mna.SolverParams` (NumPy leaves) → the port's."""
+    from openwurli_tpu_torch.circuits import mna
+
+    return mna.SolverParams(**{
+        k: (float(np.asarray(getattr(sp, k))) if k == "trap_i_hist"
+            else np.asarray(getattr(sp, k), np.float64))
+        for k in mna.SolverParams._fields})
+
+
+def solver_state_from_numpy(st, device="cpu"):
+    """A reference `mna.SolverState` → the port's, float64 / int32
+    tensors."""
+    from openwurli_tpu_torch.circuits import mna
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float64), device=device)
+
+    return mna.SolverState(
+        v=t(st.v), i_nl=t(st.i_nl), v_nl=t(st.v_nl), nr_resid=t(st.nr_resid),
+        diag=mna.SolverDiag(*[torch.tensor(np.asarray(d, np.int32),
+                                           device=device)
+                              for d in st.diag]))
+
+
+def chain_state_from_numpy(st, device="cpu"):
+    """The chain and smoother parts of a reference `EngineState` → the
+    port's packed (CHAIN_ROWS,) float64 chain state."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float64), device=device)
+
+    def sm(s):
+        return t([s.current, s.target, s.step, s.remaining])
+
+    tr, pa = st.trem, st.pa
+    return ek.pack_chain(ek.ChainState(
+        os=ek.allpass.OversamplerState(*[t(x) for x in st.os]),
+        trem=ek.tremolo.TremoloState(
+            osc=solver_state_from_numpy(tr.osc, device),
+            ldr_envelope=t(tr.ldr_envelope), r_ldr=t(tr.r_ldr)),
+        pre=ek.dk_preamp.PreampState(*[t(x) for x in st.pre]),
+        pa=ek.power_amp.PowerAmpState(
+            circuit=solver_state_from_numpy(pa.circuit, device),
+            rails=ek.power_amp.RailState(*[t(x) for x in pa.rails]),
+            last_good=t(pa.last_good)),
+        spk=ek.speaker.SpeakerState(
+            ek.biquad.BiquadState(t(st.spk.hpf.z1), t(st.spk.hpf.z2)),
+            ek.biquad.BiquadState(t(st.spk.lpf.z1), t(st.spk.lpf.z2)),
+            t(st.spk.thermal_state)),
+        volume=sm(st.volume), depth=sm(st.trem_depth), char=sm(st.spk_char)))
+
+
+def engine_from_numpy(sample_rate, st, device="cpu"):
+    """A port `engine.Engine` in the state of a reference `Engine`: `st` is
+    its `EngineState` with NumPy leaves (`jax.tree.map(np.asarray,
+    eng.state)`), read by field name. Voices, steal bank, gates, notes,
+    ages, chain, smoothers, flags and counters are all carried over."""
+    from openwurli_tpu_torch.engine import Engine
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    eng = Engine(sample_rate, device=device)
+    main = ek.pack_voice_columns(st.vparams, st.vstate)
+    steal = ek.pack_voice_columns(st.sparams, st.sstate)
+    for name, a, b in zip(("vpar", "vst", "vsti"), main, steal):
+        getattr(eng, name).copy_(torch.from_numpy(
+            np.concatenate([a, b], axis=1)).to(device))
+    eng_i = np.concatenate([np.asarray(st.slot_state, np.int64),
+                            np.asarray(st.steal_fade, np.int64),
+                            [int(np.asarray(st.nan_guard_fires))]])
+    eng.eng_i.copy_(torch.from_numpy(eng_i).to(device))
+    eng._slots, eng._slots_stale = eng_i.copy(), False
+    eng.midi_note = np.asarray(st.midi_note, np.int64).copy()
+    eng.age = np.asarray(st.age, np.int64).copy()
+    eng.age_counter = int(np.asarray(st.age_counter))
+    eng.chain.copy_(chain_state_from_numpy(st, device))
+    eng._targets = {"volume": float(np.asarray(st.volume.target)),
+                    "depth": float(np.asarray(st.trem_depth.target)),
+                    "char": float(np.asarray(st.spk_char.target))}
+    eng.sustain_held = bool(np.asarray(st.sustain_held))
+    eng.mlp_enabled = bool(np.asarray(st.mlp_enabled))
+    eng.rail_sag = bool(np.asarray(st.rail_sag))
+    eng.noise_enabled = bool(np.asarray(st.noise_enabled))
+    eng.noise_gain = float(np.asarray(st.noise_gain))
+    return eng

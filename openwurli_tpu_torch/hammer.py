@@ -1,14 +1,19 @@
-"""Hammer model at note-on: Gaussian dwell filter, onset ramp time and the
-attack-noise burst parameters. Port of the pack-time half of
-`openwurli_tpu/hammer.py` (the noise step runs inside the voice kernel)."""
+"""Hammer model: Gaussian dwell filter, onset ramp time and the
+attack-noise burst. Port of `openwurli_tpu/hammer.py`: note-on in NumPy
+float64, the per-sample `noise_step` on torch tensors (repeated op for op
+by the f64 engine's voice kernel E1)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
+from openwurli_tpu_torch import prng
 from openwurli_tpu_torch.ops import biquad
+
+NOISE_FADE_IN_SAMPLES = 16
 
 
 def dwell_time(velocity, fundamental_hz):
@@ -42,7 +47,9 @@ class NoiseParams(NamedTuple):
 class NoiseState(NamedTuple):
     amplitude: np.ndarray
     remaining: np.ndarray  # int32
-    rng_state: np.ndarray  # uint32
+    fade_in_remaining: np.ndarray  # int32
+    bpf: biquad.BiquadState
+    rng_state: np.ndarray  # u32 word
 
 
 def make_noise(velocity, fundamental_hz, sample_rate, seed):
@@ -56,6 +63,34 @@ def make_noise(velocity, fundamental_hz, sample_rate, seed):
     state = NoiseState(
         amplitude=0.025 * v * v,
         remaining=np.full(v.shape, int(0.015 * sample_rate), dtype=np.int32),
+        fade_in_remaining=np.full(v.shape, NOISE_FADE_IN_SAMPLES,
+                                  dtype=np.int32),
+        bpf=biquad.BiquadState(np.zeros(v.shape), np.zeros(v.shape)),
         rng_state=np.broadcast_to(np.asarray(seed).astype(np.uint32),
                                   v.shape))
     return params, state
+
+
+def noise_step(params: NoiseParams, state: NoiseState):
+    """One attack-noise sample for all voices (torch), masked once the
+    burst is over; raised-cosine 16-sample fade-in."""
+    active = state.remaining > 0
+    fade = state.fade_in_remaining
+    in_fade = fade > 0
+    t = (NOISE_FADE_IN_SAMPLES - fade).to(torch.float64) / \
+        NOISE_FADE_IN_SAMPLES
+    env = torch.where(in_fade, 0.5 * (1.0 - torch.cos(np.pi * t)), 1.0)
+    rng, noise = prng.lcg_signed_unit(state.rng_state)
+    bpf_state, filtered = biquad.step(params.bpf, state.bpf, noise)
+    out = torch.where(active, state.amplitude * env * filtered, 0.0)
+    return NoiseState(
+        amplitude=torch.where(active,
+                              state.amplitude * params.decay_per_sample,
+                              state.amplitude),
+        remaining=torch.clamp(state.remaining - active.to(
+            state.remaining.dtype), min=0),
+        fade_in_remaining=torch.where(active & in_fade, fade - 1, fade),
+        bpf=biquad.BiquadState(
+            z1=torch.where(active, bpf_state.z1, state.bpf.z1),
+            z2=torch.where(active, bpf_state.z2, state.bpf.z2)),
+        rng_state=torch.where(active, rng, state.rng_state)), out

@@ -14,7 +14,9 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
+from openwurli_tpu_torch.engine import Engine
 from openwurli_tpu_torch.fast_engine import FastEngine
 
 
@@ -40,6 +42,62 @@ class MidiEvent:
     velocity: float = 0.0
     cc: int = 0
     value: int = 0
+
+
+class WurliPlugin:
+    """Block processor over the f64 engine, with the reference plugin's
+    semantics: events split the block at their sample offsets."""
+
+    CLAP_ID = "com.openwurli-tpu.wurlitzer-200a"
+
+    def __init__(self, sample_rate: float = 44100.0, device="cuda"):
+        self.engine = Engine(sample_rate, device=device)
+        self.params = WurliParams()
+
+    def set_sample_rate(self, sr: float):
+        self.engine.set_sample_rate(sr)
+
+    def reset(self):
+        self.engine.reset()
+
+    def _sync_params(self):
+        e = self.engine
+        e.set_volume(self.params.volume)
+        e.set_tremolo_depth(self.params.tremolo_depth)
+        e.set_speaker_character(self.params.speaker_character)
+        e.set_mlp_enabled(self.params.mlp_corrections)
+        e.set_noise_enabled(self.params.authentic_noise)
+        e.set_noise_gain(self.params.noise_level)
+
+    def _dispatch(self, ev: MidiEvent):
+        if ev.kind == "note_on":
+            if ev.velocity > 0:
+                self.engine.note_on(ev.note, ev.velocity)
+            else:
+                self.engine.note_off(ev.note)
+        elif ev.kind == "note_off":
+            self.engine.note_off(ev.note)
+        elif ev.kind == "cc" and ev.cc == 64:
+            self.engine.set_sustain(ev.value >= 64)
+
+    def process(self, num_samples: int,
+                events: Sequence[MidiEvent] = ()) -> np.ndarray:
+        """Render one block with sample-accurate event splitting →
+        (num_samples, 2) float32."""
+        self._sync_params()
+        chunks = []
+        cursor = 0
+        for ev in sorted(events, key=lambda e: e.sample_offset):
+            off = min(max(int(ev.sample_offset), cursor), num_samples)
+            if off > cursor:
+                chunks.append(self.engine.render(off - cursor))
+                cursor = off
+            self._dispatch(ev)
+        if cursor < num_samples:
+            chunks.append(self.engine.render(num_samples - cursor))
+        mono = (torch.cat(chunks).cpu().numpy() if chunks
+                else np.zeros(0, dtype=np.float32))
+        return np.repeat(mono[:, None], 2, axis=1)
 
 
 class FastWurliPlugin:

@@ -85,9 +85,11 @@ def _perm_be_bc(n_bjt):
 
 
 @functools.lru_cache(maxsize=None)
-def pack_consts(base_sr: float) -> ChainConsts:
+def pack_consts(base_sr: float, device_type: str = "cuda") -> ChainConsts:
     """Every constant of the chain at base rate `base_sr`, float64 math,
-    packed to float32 arrays and Python scalars (cached per rate)."""
+    packed to float32 arrays and Python scalars (cached per rate). A rate
+    whose settled tremolo state is not in the package data has it computed
+    on `device_type` (tremolo.settled_osc_state)."""
     os_sr = 2.0 * float(base_sr)
     A = {}
     S = {}
@@ -266,7 +268,7 @@ def pack_consts(base_sr: float) -> ChainConsts:
         raise AssertionError("tremolo DC linear-carry check failed")
     p_dc_t = nv_t @ v_lin_dc_t
     # settled limit-cycle state → deviation-carry form
-    st0 = trmod.settled_osc_state(os_sr)
+    st0 = trmod.settled_osc_state(os_sr, device_type)
     d0 = st0.v - v_dc_t
     di0 = st0.i_nl[perm_t] - i_dc_t
     z0 = d0 - sni_t @ di0
@@ -451,7 +453,7 @@ def unpack_controls(rows):
 
 def init_state(base_sr: float, n_streams: int, device="cpu"):
     """(STATE_ROWS, S) float32 tensor: deviation zeros + absolute rows."""
-    c = pack_consts(float(base_sr))
+    c = pack_consts(float(base_sr), torch.device(device).type)
     sc = c.scalars
     flat = np.zeros((STATE_ROWS, n_streams), dtype=f32)
 
@@ -1173,7 +1175,7 @@ def render(base_sr, controls, state, audio, noise=False):
     _check("state", state, (STATE_ROWS, s))
     if not (audio.device == controls.device == state.device):
         raise ValueError("audio, controls and state must be on one device")
-    consts = pack_consts(float(base_sr))
+    consts = pack_consts(float(base_sr), audio.device.type)
 
     if audio.device.type == "cpu":
         PLAIN_CALLS += 1
@@ -1275,7 +1277,7 @@ def trem_preroll(base_sr, controls, n_captures, capture_stride,
         raise ValueError("controls and state_flat must be on one device")
     ctrl1 = controls[:, :1].contiguous()
     state1 = state_flat[:, :1].contiguous()
-    consts = pack_consts(float(base_sr))
+    consts = pack_consts(float(base_sr), dev.type)
 
     if dev.type == "cpu":
         PREROLL_PLAIN_CALLS += 1

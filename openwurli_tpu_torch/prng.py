@@ -1,9 +1,13 @@
 """Bit-exact integer PRNGs: the reed-jitter / attack-noise LCG and the
-Box-Muller note-on draws. Port of `openwurli_tpu/prng.py` (uint32 NumPy)."""
+Box-Muller note-on draws. Port of `openwurli_tpu/prng.py`: uint32 NumPy at
+note-on, int64 torch tensors holding u32 words in the per-sample steps."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from openwurli_tpu_torch.ops import exact
 
 _U32 = np.uint32
 LCG_MUL = 1664525
@@ -38,3 +42,30 @@ def box_muller_draws(seed, n):
         r = np.sqrt(-2.0 * np.log(np.maximum(u1, 1e-30)))
         draws.append(r * np.cos(TAU * u2))
     return state, np.stack(draws, axis=-1)
+
+
+# ── torch step draws: u32 words carried in int64, masked to 32 bits ──
+
+U32_MASK = 0xFFFFFFFF
+SQRT_3 = 1.7320508080  # the reference truncates at this precision
+
+
+def lcg_next_i64(state):
+    """One LCG step on int64 tensors holding u32 words (no overflow: the
+    product is below 2^53)."""
+    return (state * LCG_MUL + LCG_ADD) & U32_MASK
+
+
+def lcg_uniform_scaled(state):
+    """(new_state, noise): uniform(-√3, √3), unit variance (reed jitter)."""
+    s = lcg_next_i64(state)
+    u = exact.div((s >> 1).to(torch.float64), _HALF_U32_MAX)
+    return s, (u * 2.0 - 1.0) * SQRT_3
+
+
+def lcg_signed_unit(state):
+    """(new_state, noise): the word as i32 / i32::MAX ∈ (-1, 1] (hammer
+    attack noise)."""
+    s = lcg_next_i64(state)
+    signed = torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.float64)
+    return s, exact.div(signed, 2147483647.0)

@@ -1,5 +1,6 @@
 """Block-streaming host, the port of `openwurli_tpu/stream_host.py`: a
-pipe protocol over `host.FastWurliPlugin`.
+pipe protocol over `host.WurliPlugin` (the f64 engine, the default) or
+`host.FastWurliPlugin` (`engine="fast"`).
 
   * **serve mode** (`--serve`): newline-delimited JSON commands on stdin,
     raw interleaved stereo float32 PCM on stdout (pipe into `aplay -f
@@ -18,10 +19,7 @@ pipe protocol over `host.FastWurliPlugin`.
 
     python -m openwurli_tpu_torch.stream_host --engine fast --midi f.mid -o out.wav
 
-`engine="f64"`, the scan engine, is the default as in the reference and is
-not ported yet (slice 4 of the port): it raises, and nothing falls back to
-the fast engine. The engine runs on `device`, the card unless the caller
-asks for the CPU.
+The engine runs on `device`, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -33,7 +31,7 @@ import time
 
 import numpy as np
 
-from openwurli_tpu_torch.host import FastWurliPlugin, MidiEvent
+from openwurli_tpu_torch.host import FastWurliPlugin, MidiEvent, WurliPlugin
 
 
 def _make_plugin(sample_rate, engine, lookahead=0, device="cuda"):
@@ -42,9 +40,7 @@ def _make_plugin(sample_rate, engine, lookahead=0, device="cuda"):
         p.precompile()
         return p
     if engine == "f64":
-        raise NotImplementedError(
-            'engine="f64" (the float64 scan engine behind WurliPlugin) is '
-            'slice 4 of the port; pass engine="fast"')
+        return WurliPlugin(sample_rate, device=device)
     raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -161,8 +157,8 @@ def main(argv=None):
     p.add_argument("--realtime", action="store_true",
                    help="pace MIDI streaming to wall clock")
     p.add_argument("--engine", choices=("f64", "fast"), default="f64",
-                   help="f64 scan engine (not ported yet: raises) or the "
-                        "fused-kernel FastEngine")
+                   help="f64 engine (E1/E2 kernels) or the fused-kernel "
+                        "FastEngine")
     p.add_argument("--lookahead", type=int, default=1,
                    help="fast engine only: blocks queued ahead of the copy "
                         "being waited on (events land lookahead blocks "

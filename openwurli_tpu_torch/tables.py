@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 
 NUM_MODES = 7
+MIDI_LO = 33  # A1
+MIDI_HI = 96  # C7
 
 BASE_MODE_AMPLITUDES = np.array(
     [1.0, 0.005, 0.0035, 0.0018, 0.0011, 0.0007, 0.0005], dtype=np.float64)

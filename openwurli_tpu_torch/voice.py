@@ -1,8 +1,8 @@
-"""Single-voice note-on computation: tables → variation → dwell/onset →
-velocity curve → MLP corrections → pickup + output scale.
+"""Single voice: reed + hammer noise + pickup + voicing gain.
 
-Port of the pack-time half of `openwurli_tpu/voice.py`
-(`note_on_params`, `init_state`, `default_note_seed`), float64 NumPy.
+Port of `openwurli_tpu/voice.py`. Note-on (`note_on_params`, `init_state`,
+`default_note_seed`) is float64 NumPy; `note_off`, `step` and `is_silent`
+run on torch tensors (the f64 engine's voice kernel E1 repeats `step`).
 """
 
 from __future__ import annotations
@@ -12,6 +12,9 @@ from typing import NamedTuple
 import numpy as np
 
 from openwurli_tpu_torch import hammer, mlp, pickup, reed, tables, variation
+
+SILENCE_THRESHOLD_DB = -80.0
+RELEASE_TIMEOUT_S = 10.0
 
 
 class VoiceParams(NamedTuple):
@@ -25,7 +28,7 @@ class VoiceParams(NamedTuple):
 class VoiceState(NamedTuple):
     reed: reed.ReedState
     noise: hammer.NoiseState
-    pickup_q: np.ndarray
+    pickup: pickup.PickupState
 
 
 def note_on_params(midi_note, velocity, sample_rate, mlp_enabled=True,
@@ -84,7 +87,7 @@ def init_state(vparams: VoiceParams, detuned_hz, velocity, sample_rate,
                                        detuned_hz, sample_rate, noise_seed)
     return VoiceState(reed=reed.init_state(vparams.reed, noise_seed),
                       noise=noise_state,
-                      pickup_q=pickup.init_state(vparams.midi_note.shape))
+                      pickup=pickup.init_state(vparams.midi_note.shape))
 
 
 def default_note_seed(midi_note):
@@ -92,3 +95,29 @@ def default_note_seed(midi_note):
     with np.errstate(over="ignore"):
         return (np.asarray(np.asarray(midi_note).astype(np.uint32))
                 * np.uint32(2654435761))
+
+
+def note_off(vparams: VoiceParams, state: VoiceState, sample_rate,
+             active=True) -> VoiceState:
+    """Start the progressive damper (masked for batched note-offs)."""
+    return state._replace(reed=reed.start_damper(
+        state.reed, vparams.midi_note, sample_rate, active))
+
+
+def step(vparams: VoiceParams, state: VoiceState):
+    """One sample of the voice chain (torch) → (state, output)."""
+    reed_state, reed_out = reed.step(vparams.reed, state.reed)
+    noise_state, noise_out = hammer.noise_step(vparams.noise, state.noise)
+    pickup_state, out = pickup.step(vparams.pickup, state.pickup,
+                                    reed_out + noise_out)
+    return (VoiceState(reed_state, noise_state, pickup_state),
+            out * vparams.post_pickup_gain)
+
+
+def is_silent(vparams: VoiceParams, state: VoiceState, sample_rate):
+    """Below -80 dB on every mode, or released for more than 10 s."""
+    timed_out = (state.reed.damper_active
+                 & (reed.release_seconds(state.reed, sample_rate)
+                    > RELEASE_TIMEOUT_S))
+    return timed_out | reed.is_silent(vparams.reed, state.reed,
+                                      SILENCE_THRESHOLD_DB)

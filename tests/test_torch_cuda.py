@@ -338,3 +338,75 @@ def test_probe_kernel_matches_plain(cuda, name):
         assert (aux is None) == (ref_aux is None)
         if aux is not None:
             assert torch.equal(_bits(aux), _bits(ref_aux)), threads
+
+
+# ── the f64 engine's kernels (E1, E2, E3) ──
+
+
+def _same_bits(a, b):
+    """Equal bit patterns (NaN equal to NaN)."""
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        view = torch.int64 if a.dtype == torch.float64 else torch.int32
+        return torch.equal(na, nb) and torch.equal(
+            a[~na].contiguous().view(view), b[~nb].contiguous().view(view))
+    return torch.equal(a, b)
+
+
+def _engine(cuda):
+    from openwurli_tpu_torch.engine import Engine
+
+    eng = Engine(SR, device=cuda)
+    for k, note in enumerate((48, 55, 60, 64, 67, 72, 93)):
+        eng.note_on(note, 0.4 + 0.08 * k)
+    eng.note_off(60)
+    return eng
+
+
+def test_engine_voices_kernel_matches_plain(cuda):
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    eng = _engine(cuda)
+    for t in (eng.vpar, eng.vst, eng.vsti):
+        t[:, ek.MAX_VOICES + 2] = t[:, 2]   # a steal slot, fading
+    eng.eng_i[ek.MAX_VOICES + 2] = 150
+    eng.vst[ek.S_S, 4] = float("nan")
+    args = (eng.vpar, eng.vst, eng.vsti, eng.eng_i)
+    a = [x.clone() for x in args]
+    b = [x.clone() for x in args]
+    mono = ek.render_voices(*a, 100, eng.fade_len, eng.sample_rate)
+    ref = ek.voices_plain(*b, 100, eng.fade_len, eng.sample_rate)
+    assert _same_bits(mono, ref)
+    for x, y in zip(a, b):
+        assert _same_bits(x, y)
+    assert int(a[3][ek.EI_FIRES]) == 1
+
+
+@pytest.mark.parametrize("case", ["plain", "kick", "nan"])
+def test_engine_chain_kernel_matches_plain(cuda, case):
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    eng = _engine(cuda)
+    mono = ek.render_voices(eng.vpar, eng.vst, eng.vsti, eng.eng_i, 48,
+                            eng.fade_len, eng.sample_rate)
+    state = eng.chain.clone()
+    if case == "kick":
+        state[ek.CHAIN_OFF["trem_v"][0]] += 70.0  # the tremolo's BE replay
+        mono[7] = 30.0
+    elif case == "nan":
+        state[ek.CHAIN_OFF["spk"][0]] = float("nan")  # guard #2
+    a, b = state.clone(), state.clone()
+    out = ek.render_chain(eng.params, mono, a, True)
+    ref = ek.chain_plain(eng.params, mono, b, True)
+    assert _same_bits(out, ref) and _same_bits(a, b)
+
+
+def test_tremolo_settle_kernel_matches_plain(cuda):
+    from openwurli_tpu_torch.circuits import tremolo
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    sr = 64000.0
+    st = ek.osc_flat(tremolo.perturbed_start(tremolo.make_params(sr), cuda))
+    a = ek.settle(sr, st.clone(), 200)
+    b = ek.settle_plain(sr, st.clone(), 200)
+    assert _same_bits(a, b)

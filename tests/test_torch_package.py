@@ -29,7 +29,9 @@ def test_imports_without_jax():
             "openwurli_tpu_torch.convert, openwurli_tpu_torch.io.midi_file, "
             "openwurli_tpu_torch.io.wav, openwurli_tpu_torch.fast_engine, "
             "openwurli_tpu_torch.host, openwurli_tpu_torch.stream_host, "
-            "openwurli_tpu_torch.kernels.probe\n"
+            "openwurli_tpu_torch.kernels.probe, openwurli_tpu_torch.engine, "
+            "openwurli_tpu_torch.kernels.engine, "
+            "openwurli_tpu_torch.ops.exact\n"
             "from openwurli_tpu_torch import fast\n"
             "for name in ('schedule_events', 'render_events', "
             "'render_events_parallel', 'render_midi_file', "
@@ -107,6 +109,12 @@ def test_cuda_wrappers_raise_without_cuda():
         stream_host.StreamHost(engine="fast")
     with pytest.raises((RuntimeError, AssertionError)):
         stream_host.play_midi("none.mid", None, engine="fast")
+    # and the f64 engine
+    from openwurli_tpu_torch import engine
+    with pytest.raises((RuntimeError, AssertionError)):
+        engine.Engine(44100.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        host.WurliPlugin(44100.0)
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():
@@ -149,8 +157,17 @@ def test_build_needs_nvcc():
 
 
 def test_unknown_tremolo_rate_raises():
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    """A rate missing from the package data is settled on the card by
+    default (kernel E3): without a card that raises, and nothing falls
+    back to the CPU's plain loop."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the settle would succeed")
+    calls = ek.SETTLE_PLAIN_CALLS
+    with pytest.raises((RuntimeError, AssertionError)):
         tremolo.settled_osc_state(22050.0)
+    assert ek.SETTLE_PLAIN_CALLS == calls
 
 
 def test_build_signatures_cover_every_entry_point():
@@ -165,7 +182,8 @@ def test_build_signatures_cover_every_entry_point():
             found[name] = len(args.split(","))
     assert set(found) == set(_build._SIGNATURES) == {
         "ow_voice_bank", "ow_voice_bank_events", "ow_mono_chain",
-        "ow_mono_chain_noise", "ow_trem_preroll", "ow_probe"}
+        "ow_mono_chain_noise", "ow_trem_preroll", "ow_probe",
+        "ow_engine_voices", "ow_engine_chain", "ow_tremolo_settle"}
     for name, n_args in found.items():
         assert len(_build._SIGNATURES[name]) == n_args, name
 
