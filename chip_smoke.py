@@ -25,12 +25,26 @@ each with the launch counts set to 0 just before it and read just after:
     (a chord, sustain, 65 notes with a steal, a pedal lift) and the
     reference's 1 s peak-invariant chord, through E1 (voice slots) and E2
     (the f64 chain); `host.WurliPlugin.process` with events; and
-    `stream_host.StreamHost(engine="f64")`.
+    `stream_host.StreamHost(engine="f64")`;
+  * the DI path: `di.render_di` over the calibration grid (MIDI 33-96 × 8
+    velocities, 2 s at 44.1 kHz) through E4 (voice render) and E5<dk>
+    (the 2×-oversampled DK preamp);
+  * the f64 engine's other models: `host.WurliPlugin(preamp_model=
+    "melange")` with authentic noise on the reference's peak-invariant
+    chord, and `Engine` sessions with the behavioral power amp, through
+    E1 and E2's other three instantiations; and the melange preamp's
+    physics gates (noise RMS against the ngspice anchor, noise gain, gain
+    against the DK preamp) through E5<melange> at 88.2 kHz.
 
 E3 is held to its plain version over 512 steps and its full 2 s settle at
 88.2 and 96 kHz to the package data; E1 and E2 to theirs with NaN and inf
 voice slots, live steal fades, a tremolo BE replay, a power-amp Newton
-failure and NaN guard #2, and on one chunk of the engine session.
+failure and NaN guard #2, and on one chunk of the engine session; E4
+and E5<dk> on `render_di`'s own inputs (all 512 voices, the first 1000
+samples, against `render_di`'s output) and at 133 ragged voices with NaN
+and inf ones, E5<melange> at noise scales 0, 1 and 30, E2's other
+instantiations on a kicked chunk and on 256 samples of the melange
+plugin's chunk.
 K1 and K3 (eight threads per voice lane) are also held to their plain
 versions at a ragged lane count, with non-finite parameters in some lanes
 and with the pickup driven past its knee, and K1 is timed across widths.
@@ -238,7 +252,8 @@ def ptxas_lines(log):
         words = line.replace(",", " ").split()
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name and "stack frame" in line:
+        elif name and "stack frame" in line and name not in found:
+            # the entry's own line; its noinline callees' follow
             found[name] = [None, int(words[0]), int(words[4]), int(words[8])]
         elif name and "Used" in words and name in found:
             found[name][0] = int(words[words.index("Used") + 1])
@@ -282,8 +297,16 @@ def reset_counts(vb, mc):
     from openwurli_tpu_torch.kernels import engine as ek
     from openwurli_tpu_torch.kernels import probe
 
-    ek.VOICES_LAUNCHES = ek.CHAIN_LAUNCHES = ek.SETTLE_LAUNCHES = 0
+    from openwurli_tpu_torch.kernels import render as kr
+
+    ek.VOICES_LAUNCHES = ek.SETTLE_LAUNCHES = 0
     ek.VOICES_PLAIN_CALLS = ek.CHAIN_PLAIN_CALLS = ek.SETTLE_PLAIN_CALLS = 0
+    for key in ek.CHAIN_LAUNCHES_BY_MODELS:
+        ek.CHAIN_LAUNCHES_BY_MODELS[key] = 0
+    kr.VOICE_RENDER_LAUNCHES = kr.VOICE_RENDER_PLAIN_CALLS = 0
+    kr.PREAMP_SCAN_PLAIN_CALLS = 0
+    for key in kr.PREAMP_SCAN_LAUNCHES:
+        kr.PREAMP_SCAN_LAUNCHES[key] = 0
     vb.KERNEL_LAUNCHES = vb.PLAIN_CALLS = 0
     for name in vb.LAUNCHES_BY_KERNEL:
         vb.LAUNCHES_BY_KERNEL[name] = 0
@@ -297,18 +320,26 @@ def read_counts(vb, mc):
     that any plain version served."""
     from openwurli_tpu_torch.kernels import engine as ek
     from openwurli_tpu_torch.kernels import probe
+    from openwurli_tpu_torch.kernels import render as kr
 
+    by_models = ek.CHAIN_LAUNCHES_BY_MODELS
     return {**vb.LAUNCHES_BY_KERNEL, "mono_chain": mc.KERNEL_LAUNCHES,
             "mono_chain_noise": mc.NOISE_KERNEL_LAUNCHES,
             "trem_preroll": mc.PREROLL_KERNEL_LAUNCHES,
             "probe": probe.KERNEL_LAUNCHES,
             "engine_voices": ek.VOICES_LAUNCHES,
-            "engine_chain": ek.CHAIN_LAUNCHES,
+            "engine_chain": by_models["dk", "circuit"],
+            **{f"engine_chain_{p}_{a}": n for (p, a), n in by_models.items()
+               if (p, a) != ("dk", "circuit")},
             "tremolo_settle": ek.SETTLE_LAUNCHES,
+            "voice_render": kr.VOICE_RENDER_LAUNCHES,
+            "preamp_scan_dk": kr.PREAMP_SCAN_LAUNCHES["dk"],
+            "preamp_scan_melange": kr.PREAMP_SCAN_LAUNCHES["melange"],
             "plain": vb.PLAIN_CALLS + mc.PLAIN_CALLS
             + mc.PREROLL_PLAIN_CALLS + probe.PLAIN_CALLS
             + ek.VOICES_PLAIN_CALLS + ek.CHAIN_PLAIN_CALLS
-            + ek.SETTLE_PLAIN_CALLS}
+            + ek.SETTLE_PLAIN_CALLS + kr.VOICE_RENDER_PLAIN_CALLS
+            + kr.PREAMP_SCAN_PLAIN_CALLS}
 
 
 def bits_equal(a, b):
@@ -505,11 +536,68 @@ def harmonics_db(seg, f0, sr, n=6, span_hz=5.0, steps=21):
 PEAK_F64_FLOPS = 34e12
 LIBM_OPS = 20  # one f64 exp / log1p / cos / pow / tanh counted as 20
 # float64 operations read off csrc/engine.cu, libm calls as LIBM_OPS:
-# one voice slot's sample (reed damper, onset, rotation of 7 modes, output,
-# the noise biquad, the pickup, the gates and its share of the slot sum),
-# the jitter draws every 16th sample and the chunk-end cleanup
-E1_OPS_SLOT_SAMPLE = 7 * 14 + 7 * 4 + 12 + 12 + 14 + 6 + 3 * LIBM_OPS
+# one voice slot's sample without its libm calls (reed damper, onset,
+# rotation of 7 modes, output, the noise biquad, the pickup, the gates and
+# its share of the slot sum), the jitter draws every 16th sample; the libm
+# calls are counted where the data needs them (VoiceLibm)
+E1_OPS_SLOT_SAMPLE = 7 * 14 + 7 * 4 + 12 + 12 + 14 + 6
 E1_OPS_JITTER = 7 * 6
+
+
+class VoiceLibm:
+    """While active, counts the libm calls that the plain voice step's
+    data needs, summed over voices and samples: the damper's 7 exps in a
+    voice's release ramp, the onset's cos (and its pow, for a shape
+    neither 1 nor 2) before the ramp ends, the attack noise's fade cos
+    while the burst fades in, the pickup's tanh past its knee. The step
+    functions that `voice.step` calls are wrapped; `calls` is read after
+    the run (one read-back)."""
+
+    def __init__(self):
+        from openwurli_tpu_torch import hammer, pickup, reed
+        self.mods = (reed, hammer, pickup)
+        self.orig = (reed.step, hammer.noise_step, pickup.step)
+        self.total = 0
+
+    def _add(self, mask):
+        self.total = self.total + mask.sum()
+
+    def __enter__(self):
+        reed, hammer, pickup = self.mods
+        r_step, n_step, p_step = self.orig
+
+        def reed_step(params, state):
+            rel = torch.where(state.damper_active,
+                              state.damper_release_count + 1.0,
+                              state.damper_release_count)
+            in_ramp = (state.damper_active & ~state.damper_ramp_done
+                       & ~(rel > state.damper_ramp_samples))
+            self._add(in_ramp * 7)
+            onset = state.n < params.onset_ramp_samples
+            e = params.onset_shape_exp
+            self._add(onset * (1 + ((e > 1.001) & (e < 1.999))))
+            return r_step(params, state)
+
+        def noise_step(params, state):
+            self._add((state.remaining > 0) & (state.fade_in_remaining > 0))
+            return n_step(params, state)
+
+        def pickup_step(params, state, x):
+            self._add(~(torch.abs(x * params.displacement_scale)
+                        < pickup.PICKUP_KNEE_Y))
+            return p_step(params, state, x)
+
+        reed.step, hammer.noise_step, pickup.step = (reed_step, noise_step,
+                                                     pickup_step)
+        return self
+
+    def __exit__(self, *exc):
+        reed, hammer, pickup = self.mods
+        reed.step, hammer.noise_step, pickup.step = self.orig
+
+    @property
+    def calls(self):
+        return int(self.total)
 # the chain's fixed work per base sample outside its Newton solves: the
 # smoothers, the oversampler's four branches, two tremolo tails and LDR
 # conductances, the speaker and the post gain (a coefficient design, when
@@ -534,6 +622,29 @@ def mna_ops(n, m, nb, solves, iterations):
                 + m * m + m * (8 + LIBM_OPS))
     return (solves * (per_call + per_eval)
             + iterations * (per_eval + per_iter))
+
+
+# the melange preamp's float64 work per step outside its Newton
+# iterations (csrc/engine.cu melange_step): ten normals (the erfinv
+# polynomial, its log1p and sqrt), the noise stamp, two rows of history,
+# predictor, Sherman-Morrison and port projection, the corrected kernel,
+# one current evaluation per row and the node update; per residual pass
+# both rows' currents and residuals; per row update its Jacobian, f32
+# elimination and clipped step
+MEL_OPS_STEP = (10 * (50 + 2 * LIBM_OPS + 4) + 130 * 2 + 2 * (
+    169 * 2 + 16 + 65 * 2 + 13 + 169 * 2 + 13 * 3 + 65 * 2) + 50
+                + 2 * (2 * (20 + 4 * LIBM_OPS) + 6 + 65 * 2 + 5 * 2 + 13 * 4))
+MEL_OPS_CHECK = 2 * (2 * (20 + 4 * LIBM_OPS) + 6 + LIBM_OPS + 25 * 2 + 15)
+MEL_OPS_UPDATE = 2 * (40 + 4 * LIBM_OPS) + 25 * 3 + 2 * 125 // 3 + 40
+BEHAVIORAL_OPS = 8 * (30 + 2 * LIBM_OPS) + 6  # 8 Newton iterations
+
+
+def melange_ops(counts):
+    """Operations of the melange steps behind melange_preamp.NEWTON_COUNTS
+    deltas, each twin pair's own Newton work: its steps, its residual
+    passes (both rows) and its row updates."""
+    return (counts["steps"] * MEL_OPS_STEP + counts["checks"] * MEL_OPS_CHECK
+            + counts["updates"] * MEL_OPS_UPDATE)
 
 
 def bound64(n_bytes, n_ops):
@@ -571,9 +682,10 @@ class EngineRecorder:
                                      for a in args))
             return self._v(*args, **kw)
 
-        def chain(cp, mono, state, sag):
-            self.chain.append((cp, mono.clone(), state.clone(), sag))
-            return self._c(cp, mono, state, sag)
+        def chain(cp, mono, state, sag, noise_scale=0.0):
+            self.chain.append((cp, mono.clone(), state.clone(), sag,
+                               noise_scale))
+            return self._c(cp, mono, state, sag, noise_scale)
 
         ek.render_voices, ek.render_chain = voices, chain
 
@@ -588,8 +700,9 @@ def compare_voices(ek, call, what):
     ins = [x.clone() for x in (vpar, vst, vsti, eng_i)]
     mono = ek.render_voices(*ins, n, fade_len, sr)
     pins = [x.clone() for x in (vpar, vst, vsti, eng_i)]
-    plain_ms, p_mono = host_ms(lambda: ek.voices_plain(*pins, n, fade_len,
-                                                       sr))
+    with VoiceLibm() as libm:
+        plain_ms, p_mono = host_ms(lambda: ek.voices_plain(*pins, n,
+                                                           fade_len, sr))
     names = ("mono", "vst", "vsti", "eng_i")
     for name, a, b in zip(names, (mono, *ins[1:]), (p_mono, *pins[1:])):
         check(same_bits(a, b), f"E1 {what}: {name} differs from the plain "
@@ -599,8 +712,8 @@ def compare_voices(ek, call, what):
         reps=3)
     n_bytes = (vpar.numel() + 2 * (vst.numel() + vsti.numel()
                                    + eng_i.numel()) + n) * 8
-    ops = n * ek.SLOTS * E1_OPS_SLOT_SAMPLE + (n // 16) * ek.SLOTS \
-        * E1_OPS_JITTER
+    ops = (n * ek.SLOTS * E1_OPS_SLOT_SAMPLE + (n // 16) * ek.SLOTS
+           * E1_OPS_JITTER + libm.calls * LIBM_OPS)
     return {"shape": f"{ek.SLOTS} slots x {n}", "inputs": f"E1 {what}",
             "max_abs_err": float((mono - p_mono).abs().nan_to_num().max()),
             "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops)}
@@ -610,30 +723,38 @@ def compare_chain_f64(ek, call, what):
     """E2 against its plain version on one recorded call's inputs: output
     and chain state bit for bit; the plain run's Newton counts give the
     operations this chunk needed (for the bound)."""
-    from openwurli_tpu_torch.circuits import dk_preamp, mna
+    from openwurli_tpu_torch.circuits import dk_preamp, melange_preamp, mna
 
-    cp, mono, state, sag = call
+    cp, mono, state, sag = call[:4]
+    scale = call[4] if len(call) > 4 else 0.0
     st = state.clone()
-    out = ek.render_chain(cp, mono, st, sag)
+    out = ek.render_chain(cp, mono, st, sag, scale)
     p_st = state.clone()
     n0 = dict(mna.NEWTON_COUNTS)
     passes0 = dk_preamp.NEWTON_PASSES[0]
-    plain_ms, p_out = host_ms(lambda: ek.chain_plain(cp, mono, p_st, sag))
+    mel0 = dict(melange_preamp.NEWTON_COUNTS)
+    plain_ms, p_out = host_ms(lambda: ek.chain_plain(cp, mono, p_st, sag,
+                                                     scale))
     count = {k: mna.NEWTON_COUNTS[k] - n0.get(k, 0)
              for k in mna.NEWTON_COUNTS}
     passes = dk_preamp.NEWTON_PASSES[0] - passes0
+    mel = {k: melange_preamp.NEWTON_COUNTS[k] - mel0[k] for k in mel0}
     check(same_bits(out, p_out) and same_bits(st, p_st),
           f"E2 {what}: output {first_diff(out, p_out)}, state "
           f"{first_diff(st, p_st)} against the plain version")
-    ms = cuda_ms(lambda: ek.render_chain(cp, mono, state.clone(), sag),
-                 reps=2)
+    ms = cuda_ms(lambda: ek.render_chain(cp, mono, state.clone(), sag,
+                                         scale), reps=2)
     n = mono.shape[0]
     a, _ = ek.CHAIN_OFF["sm_char"]
     rem = float(state[a + ek.SM_REM])
     designs = 1 + min(int(rem), n)
     steps = n * (2 if cp.oversample else 1)
+    melange = cp.preamp_model == "melange"
     ops = (n * E2_OPS_SAMPLE + designs * E2_OPS_DESIGN
-           + steps * PREAMP_OPS_STEP + passes * PREAMP_OPS_PASS
+           + (0 if melange else steps * PREAMP_OPS_STEP)
+           + passes * PREAMP_OPS_PASS
+           + melange_ops(mel)
+           + (steps * BEHAVIORAL_OPS if cp.pa_model == "behavioral" else 0)
            + mna_ops(ek.N_T, ek.M_T, ek.NB_T, count.get((4, "solves"), 0),
                      count.get((4, "iterations"), 0))
            + mna_ops(ek.N_PA, ek.M_PA, ek.NB_PA,
@@ -641,6 +762,7 @@ def compare_chain_f64(ek, call, what):
                      count.get((16, "iterations"), 0)))
     n_bytes = cp.flat.size * 8 + n * 12 + 2 * ek.CHAIN_ROWS * 8
     return {"shape": f"1 engine x {n}", "inputs": f"E2 {what}",
+            "models": [cp.preamp_model, cp.pa_model],
             "max_abs_err": float((out - p_out).abs().nan_to_num().max()),
             "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
             "newton": {"tremolo": [count.get((4, "solves"), 0),
@@ -884,6 +1006,376 @@ def engine_phases(dev, card, launches, vb, mc, fast):
                    "max_abs_err": e3_err, "full_settle": full}}
 
 
+# ── the render paths and the engine's other models (phases 23-25) ──
+
+# float64 operations of csrc/engine.cu: one voice's sample in E4 (E1's
+# without the gates and the slot sum; its libm calls counted from the
+# data, VoiceLibm), one E5<dk> sample's oversampler (four branches of
+# three sections)
+E4_OPS_SAMPLE = 7 * 14 + 7 * 4 + 12 + 14
+E5_OS_OPS = 4 * 3 * 4 + 2
+
+
+def compare_voice_render(kr, cols, n, what):
+    """E4 against its plain version on packed voice columns: output and
+    end state bit for bit; the plain run gives the libm calls the data
+    needed (for the bound). → (numbers, kernel output)."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    a = [c.clone() for c in cols]
+    out = kr.voice_render(*a, n)
+    b = [c.clone() for c in cols]
+    with VoiceLibm() as libm:
+        plain_ms, ref = host_ms(lambda: kr.voice_render_plain(*b, n))
+    check(same_bits(out, ref) and all(same_bits(x, y) for x, y in zip(a, b)),
+          f"E4 {what}: {first_diff(out, ref)}")
+    ms = cuda_ms(lambda: kr.voice_render(*[c.clone() for c in cols], n),
+                 reps=3)
+    g = cols[0].shape[1]
+    n0 = cols[2][ek.I_N]
+    jitter = int(((n0 + n + 15) // 16 - (n0 + 15) // 16).sum())  # nn % 16 == 0
+    n_bytes = (cols[0].numel() + 2 * (cols[1].numel() + cols[2].numel())
+               + n * g) * 8
+    ops = n * g * E4_OPS_SAMPLE + jitter * E1_OPS_JITTER \
+        + libm.calls * LIBM_OPS
+    return {"shape": f"{g} voices x {n}", "inputs": f"E4 {what}",
+            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
+            "libm_calls": libm.calls,
+            "max_abs_err": float((out - ref).abs().nan_to_num().max())}, out
+
+
+def compare_preamp_scan(kr, kind, sr, x, state, g_ldr, what, scale=None):
+    """E5<kind> against its plain version on one scan's inputs: output and
+    state bit for bit; the plain run's Newton counts, each stream's own,
+    give the operations the data needed (for the bound). → (numbers,
+    kernel output)."""
+    from openwurli_tpu_torch.circuits import dk_preamp, melange_preamp
+
+    a, b = state.clone(), state.clone()
+    out = kr.preamp_scan(kind, sr, x, a, g_ldr, scale)
+    passes0 = dk_preamp.NEWTON_PASSES[0]
+    mel0 = dict(melange_preamp.NEWTON_COUNTS)
+    plain_ms, ref = host_ms(lambda: kr.preamp_scan_plain(kind, sr, x, b,
+                                                         g_ldr, scale))
+    passes = dk_preamp.NEWTON_PASSES[0] - passes0
+    mel = {k: melange_preamp.NEWTON_COUNTS[k] - mel0[k] for k in mel0}
+    check(same_bits(out, ref) and same_bits(a, b),
+          f"E5<{kind}> {what}: {first_diff(out, ref)}, state "
+          f"{first_diff(a, b)}")
+    ms = cuda_ms(lambda: kr.preamp_scan(kind, sr, x, state.clone(), g_ldr,
+                                        scale), reps=3)
+    n, g = x.shape
+    n_bytes = (2 * x.numel() + 2 * state.numel() + g_ldr.numel()
+               + (0 if scale is None else scale.numel())
+               + kr.preamp_consts(kind, float(sr)).size) * 8
+    if kind == "dk":
+        ops = (n * g * (E5_OS_OPS + 2 * PREAMP_OPS_STEP)
+               + passes * PREAMP_OPS_PASS)
+        newton = {"stream_passes": passes}
+    else:
+        ops = melange_ops(mel)
+        newton = mel
+    return {"shape": f"{g} streams x {n}", "inputs": f"E5<{kind}> {what}",
+            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
+            "newton": newton,
+            "max_abs_err": float((out - ref).abs().nan_to_num().max())}, out
+
+
+def zero_cross_hz(x, sr):
+    """f0 from the rising zero crossings of x (mean removed), each placed
+    by linear interpolation between its two samples."""
+    x = x - x.mean()
+    i = np.flatnonzero((x[:-1] < 0.0) & (x[1:] >= 0.0))
+    t = i + x[i] / (x[i] - x[i + 1])
+    return (len(t) - 1) / ((t[-1] - t[0]) / sr)
+
+
+def model_phases(dev, card, launches, vb, mc, ptxas):
+    """Phases 23-25: E4, E5 and E2's other instantiations against their
+    plain versions; the DI path at the calibration grid's full width; the
+    melange preamp's physics gates through E5<melange>, and the melange
+    plugin. Adds its paths' launch counts to `launches`; → the kernels'
+    measurements."""
+    from openwurli_tpu_torch import di, host, voice
+    from openwurli_tpu_torch.circuits import dk_preamp, melange_preamp
+    from openwurli_tpu_torch.engine import Engine
+    from openwurli_tpu_torch.kernels import engine as ek
+    from openwurli_tpu_torch.kernels import render as kr
+
+    # ── phase 23: the kernels against their plain versions, bit for bit ──
+    t_p = time.perf_counter()
+    g_v = 133
+    rng = np.random.default_rng(23)
+    m = rng.integers(33, 97, g_v).astype(np.float64)
+    v = rng.uniform(0.05, 1.0, g_v)
+    vp, det = voice.note_on_params(m, v, SR, mlp_enabled=True)
+    vs = voice.init_state(vp, det, v, SR, voice.default_note_seed(m))
+    cols = kr.voice_columns(vp, vs, dev)
+    cols[0][ek.P_AMP + 2, 7] = float("nan")
+    cols[1][ek.S_C, 50] = float("inf")
+    n4 = 1100
+    e4, out4 = compare_voice_render(kr, cols, n4,
+                                    f"{g_v} ragged voices, NaN and inf")
+
+    n5 = 600
+    x5 = out4[:n5].clone()
+    x5[100:, 9] = float("inf")
+    os_sr = 2 * SR
+    g5 = torch.full((g_v,), 1e-6, dtype=torch.float64, device=dev)
+    g5[::5] = 1.0 / 19_000.0
+    e5dk, _ = compare_preamp_scan(
+        kr, "dk", os_sr, x5, kr.init_dk_state(os_sr, g_v, dev), g5,
+        f"{g_v} ragged streams, NaN and inf voices, two g")
+
+    sr_m = 88200.0
+    t = torch.arange(160, dtype=torch.float64, device=dev)
+    xm = 0.002 * torch.sin(t[:, None] * torch.tensor(
+        [0.01, 0.05, 0.03, 0.07, 0.02, 0.04], dtype=torch.float64,
+        device=dev))
+    xm[40, 5] = float("nan")
+    gm = torch.tensor([1e-6, 1e-5, 1.0 / 19e3, 1e-6, 1e-5, 1.0 / 19e3],
+                      dtype=torch.float64, device=dev)
+    scm = torch.tensor([0.0, 1.0, 30.0, 30.0, 1.0, 0.0], dtype=torch.float64,
+                       device=dev)
+    e5mel, _ = compare_preamp_scan(
+        kr, "melange", sr_m, xm, kr.init_melange_state(sr_m, 6, dev), gm,
+        "noise scales 0, 1 and 30, a NaN input", scm)
+
+    # E2's new instantiations on one 64-sample chunk each, from a warmed
+    # chain, with the tremolo kicked (its BE replay) and an input spike
+    e2_cmp = []
+    for models in (("melange", "circuit"), ("dk", "behavioral"),
+                   ("melange", "behavioral")):
+        eng = Engine(SR, device=dev, preamp_model=models[0],
+                     pa_model=models[1])
+        for k, note in enumerate((48, 55, 60, 64, 67, 72, 93)):
+            eng.note_on(note, 0.4 + 0.08 * k)
+        eng.render(512)
+        mono = ek.render_voices(eng.vpar, eng.vst, eng.vsti, eng.eng_i, 64,
+                                eng.fade_len, eng.sample_rate).clone()
+        kick = eng.chain.clone()
+        kick[ek.CHAIN_OFF["trem_v"][0]] += 70.0
+        mono[40] = 30.0
+        e2_cmp.append(compare_chain_f64(
+            ek, (eng.params, mono, kick, True, 30.0),
+            f"<{models[0]}, {models[1]}> 64 from a warmed state, tremolo "
+            "kicked, input spike, noise scale 30"))
+    names = ("E1", "E3", "E4", "E5<dk>", "E5<melange>", "E2<dk, circuit>",
+             "E2<melange, circuit>", "E2<dk, behavioral>",
+             "E2<melange, behavioral>")
+    print("phase 23 ptxas: " + "; ".join(
+        f"{k} {ptxas[k]['registers']} registers, {ptxas[k]['stack']} bytes "
+        f"stack, {ptxas[k]['spill_stores']} / {ptxas[k]['spill_loads']} "
+        f"bytes spilled" for k in names if k in ptxas), flush=True)
+    for k in ("E1", "E3", "E4"):
+        if k in ptxas:
+            check(ptxas[k]["spill_stores"] == 0, f"{k} spills: {ptxas[k]}")
+    print("phase 23 bit-identical to their plain versions: "
+          + "; ".join(f"{c['inputs']} {c['shape']} kernel {c['ms']:.3f} ms "
+                      f"plain {c['plain_ms']:.0f} ms"
+                      for c in (e4, e5dk, e5mel)) + "; "
+          + "; ".join(f"E2{c['models']} kernel {c['ms']:.3f} ms plain "
+                      f"{c['plain_ms']:.0f} ms" for c in e2_cmp)
+          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+
+    # ── phase 24: the DI path at the calibration grid's full width ──
+    t_p = time.perf_counter()
+    midis = np.arange(33, 97, dtype=np.float64)
+    vels = (np.arange(8) + 0.5) / 8
+    mg, vg = (a.ravel() for a in np.meshgrid(midis, vels, indexing="ij"))
+    dur = 2.0
+    reset_counts(vb, mc)
+    di_ms, grid = host_ms(lambda: di.render_di(mg, vg, dur, SR,
+                                               mlp_enabled=False,
+                                               device=dev))
+    launches["render_di 512 voices x 2 s"] = counts = read_counts(vb, mc)
+    check(counts["voice_render"] == 1 and counts["preamp_scan_dk"] == 1
+          and counts["plain"] == 0, f"render_di launches {counts}")
+    n = int(dur * SR)
+    check(grid.shape == (n, 512) and np.isfinite(grid).all(),
+          f"render_di grid {grid.shape} finite")
+    col69 = int(np.flatnonzero((mg == 69.0) & (vg == vels[-1]))[0])
+    f0 = zero_cross_hz(grid[int(0.5 * SR):, col69], SR)
+    cents = 1200 * np.log2(f0 / 440.0)
+    check(abs(cents) < 1.0, f"note 69 f0 {f0:.4f} Hz, {cents:.3f} cents")
+    # the stages, timed apart: note-on and packing on the host, E4, E5
+    pack_ms, packed = host_ms(lambda: kr.voice_columns(*(
+        lambda pd: (pd[0], voice.init_state(
+            pd[0], pd[1], vg, SR, voice.default_note_seed(mg))))(
+                voice.note_on_params(mg, vg, SR, mlp_enabled=False)), dev))
+    cols = [c.clone() for c in packed]
+    e4_grid_ms, audio = host_ms(lambda: kr.voice_render(*packed, n))
+    st_g = kr.init_dk_state(2 * SR, 512, dev)
+    g_g = torch.full((512,), 1e-6, dtype=torch.float64, device=dev)
+    e5_grid_ms, _ = host_ms(lambda: kr.preamp_scan("dk", 2 * SR, audio,
+                                                   st_g.clone(), g_g))
+    di_stages = {"host packing": pack_ms, "E4": e4_grid_ms,
+                 "E5<dk>": e5_grid_ms}
+    # both kernels against their plain versions on these inputs, all 512
+    # columns over the first n_p samples, and render_di's own output
+    # prefix against the plain chain's
+    n_p = 1000
+    e4_main, a_p = compare_voice_render(
+        kr, cols, n_p, f"render_di's 512 voices, first {n_p}")
+    e5_main, y_p = compare_preamp_scan(
+        kr, "dk", 2 * SR, a_p, st_g, g_g,
+        f"render_di's 512 streams, first {n_p}")
+    check(same_bits(a_p, audio[:n_p]) and same_bits(
+        y_p, torch.from_numpy(grid[:n_p]).to(dev)),
+          "render_di's first samples differ from the plain chain's")
+    print(f"phase 24 render_di 64 notes x 8 velocities x {dur} s at "
+          f"{SR:g} Hz (512 x {n}, {grid.nbytes / 1e6:.0f} MB): "
+          f"{di_ms / 1e3:.2f} s = {512 * dur / (di_ms / 1e3):.1f} voice "
+          f"seconds per second; stages (ms) {di_stages}; finite; note 69 f0 "
+          f"{f0:.4f} Hz ({cents:+.3f} cents); launches {counts}; its first "
+          f"{n_p} samples bit-identical to the plain chain's (E4 kernel "
+          f"{e4_main['ms']:.3f} ms plain {e4_main['plain_ms']:.0f} ms, E5<dk> "
+          f"kernel {e5_main['ms']:.3f} ms plain {e5_main['plain_ms']:.0f} ms)"
+          f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+    del grid, audio
+
+    # ── phase 25: the melange preamp's physics gates through E5<melange>
+    # at 88.2 kHz (tests/test_melange_preamp.py at full length), then the
+    # melange plugin ──
+    t_p = time.perf_counter()
+    n_s = int(sr_m * 1.2)
+    tt = torch.arange(n_s, dtype=torch.float64, device=dev) / sr_m
+    sine = 0.001 * torch.sin(2 * np.pi * 1000.0 * tt)
+    zero = torch.zeros_like(sine)
+    # streams: sine at 1 MΩ, 19 kΩ and 12 kΩ (no noise); silence at
+    # 100 kΩ (noise 1x), at 1 MΩ (noise 1x and 4x)
+    xs = torch.stack([sine, sine, sine, zero, zero, zero], dim=1)
+    r = [1e6, 19e3, 12e3, 1e5, 1e6, 1e6]
+    gs = torch.tensor([1.0 / max(x, 1000.0) for x in r], dtype=torch.float64,
+                      device=dev)
+    sc = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 4.0], dtype=torch.float64,
+                      device=dev)
+    reset_counts(vb, mc)
+    gate_ms, ym = host_ms(lambda: kr.preamp_scan(
+        "melange", sr_m, xs, kr.init_melange_state(sr_m, 6, dev), gs, sc))
+    ym = ym.cpu().numpy()
+
+    def gain(y, settle=1.0):
+        seg = y[int(sr_m * settle):]
+        return (seg.max() - seg.min()) / 2 / 0.001
+
+    def rms(y):
+        return float(np.sqrt(((y - y.mean()) ** 2).mean()))
+
+    g_mel = {r_: 20 * np.log10(gain(ym[:, k])) for k, r_ in
+             ((0, 1e6), (1, 19e3), (2, 12e3))}
+    n1 = int(sr_m * 1.0)
+    noise_rms = rms(ym[n1 // 3:n1, 3])
+    n02 = int(sr_m * 0.2)
+    ratio = rms(ym[n02 // 2:n02, 5]) / rms(ym[n02 // 2:n02, 4])
+    # the DK preamp's gain at the same points: E5<dk>'s steps run at twice
+    # its 44.1 kHz input's rate, the allpass flat at 1 kHz
+    n_dk = int(SR * 1.2)
+    tdk = torch.arange(n_dk, dtype=torch.float64, device=dev) / SR
+    sdk = (0.001 * torch.sin(2 * np.pi * 1000.0 * tdk))[:, None].repeat(
+        1, 2).contiguous()
+    ydk = kr.preamp_scan("dk", sr_m, sdk, kr.init_dk_state(sr_m, 2, dev),
+                         torch.tensor([1e-6, 1.0 / 19e3], dtype=torch.float64,
+                                      device=dev)).cpu().numpy()
+    launches["melange physics gates (E5 scans)"] = counts = read_counts(vb,
+                                                                        mc)
+    g_dk = {1e6: 20 * np.log10((ydk[int(SR):, 0].max()
+                                - ydk[int(SR):, 0].min()) / 2 / 0.001),
+            19e3: 20 * np.log10((ydk[int(SR):, 1].max()
+                                 - ydk[int(SR):, 1].min()) / 2 / 0.001)}
+    check(8.08e-6 * 0.65 < noise_rms < 8.08e-6 * 1.35,
+          f"melange noise RMS {noise_rms:.4g} V at 100 kΩ (8.08 µV ± 35 %)")
+    check(3.0 < ratio < 5.3, f"noise gain 4x → RMS ratio {ratio:.3f}")
+    for r_ in (1e6, 19e3):
+        check(abs(g_mel[r_] - g_dk[r_]) < 2.0,
+              f"gain at {r_:g} Ω: melange {g_mel[r_]:.2f} dB, DK "
+              f"{g_dk[r_]:.2f} dB")
+    check(g_mel[19e3] > g_mel[1e6] + 20 * np.log10(1.2),
+          "gain rises with the tremolo")
+    check(abs(g_mel[12e3] - 15.0) < 2.5, f"12 kΩ gain {g_mel[12e3]:.2f} dB "
+          "vs the ngspice deck's 15 dB")
+    print(f"phase 25 melange gates through E5<melange> (6 streams x {n_s} "
+          f"at 88.2 kHz, {gate_ms / 1e3:.2f} s): noise RMS at 100 kΩ "
+          f"{noise_rms * 1e6:.3f} µV (ngspice 8.08 µV ± 35 %), noise 4x "
+          f"ratio {ratio:.3f} (3.0-5.3), gain dB melange / DK: 1 MΩ "
+          f"{g_mel[1e6]:.2f} / {g_dk[1e6]:.2f}, 19 kΩ {g_mel[19e3]:.2f} / "
+          f"{g_dk[19e3]:.2f}, 12 kΩ {g_mel[12e3]:.2f} (deck 15 ± 2.5); "
+          f"launches {counts} [{card}]", flush=True)
+
+    # the melange plugin with authentic noise, and the behavioral power
+    # amp's two instantiations through Engine sessions
+    rec = EngineRecorder(ek)
+    try:
+        reset_counts(vb, mc)
+        plug = host.WurliPlugin(SR, preamp_model="melange", device=dev)
+        plug.params.authentic_noise = True
+        plug.params.volume = 1.0
+        plug.params.tremolo_depth = 1.0
+        warm_ms, _ = host_ms(plug.engine.warm_up)
+        plug.process(1536)
+        ev = [host.MidiEvent(0, "note_on", n_, 0.95)
+              for n_ in (48, 55, 60, 63, 67, 70)]
+        sec_ms, sec = host_ms(lambda: plug.process(int(SR), ev))
+        peak = float(np.abs(sec).max())
+        check(np.isfinite(sec).all() and 0.15 < peak <= 1.0,
+              f"melange plugin peak {peak} at volume 1 (0.15 < peak <= 1)")
+        check(plug.engine.noise_enabled and plug.engine.nan_guard_fires() == 0
+              and all(v_ == 0 for v_ in plug.engine.power_amp_diag()
+                      .values()), "melange plugin: noise on, no guard, "
+              f"power_amp_diag {plug.engine.power_amp_diag()}")
+        launches["WurliPlugin(preamp_model='melange')"] = counts = \
+            read_counts(vb, mc)
+        check(counts["engine_chain_melange_circuit"] > 0
+              and counts["plain"] == 0, f"melange plugin {counts}")
+        # replay the first 256 samples of the last 2048-sample chunk of
+        # the 1 s render (the chord sounding)
+        idx = max(i for i, c in enumerate(rec.chain)
+                  if c[1].shape[0] == 2048)
+        cp_, mono_, st_, sag_, sc_ = rec.chain[idx]
+        e2_cmp.append(compare_chain_f64(
+            ek, (cp_, mono_[:256].contiguous(), st_, sag_, sc_),
+            "<melange, circuit> melange plugin chunk (first 256)"))
+        beh = {}
+        for models in (("dk", "behavioral"), ("melange", "behavioral")):
+            reset_counts(vb, mc)
+            eng = Engine(SR, device=dev, preamp_model=models[0],
+                         pa_model=models[1])
+            for n_ in (48, 55, 60, 63, 67, 70):
+                eng.note_on(n_, 0.95)
+            eng.set_noise_enabled(True)
+            b_ms, out = host_ms(lambda: eng.render(4096))
+            out = out.cpu().numpy()
+            check(np.isfinite(out).all() and np.abs(out).max() > 0,
+                  f"Engine{models} finite and sounding")
+            key = f"Engine(preamp_model='{models[0]}', pa_model='behavioral')"
+            launches[key] = counts = read_counts(vb, mc)
+            name = f"engine_chain_{models[0]}_behavioral"
+            check(counts[name] > 0 and counts["plain"] == 0, counts)
+            beh[key] = {"ms_4096": b_ms, "peak": float(np.abs(out).max())}
+    finally:
+        rec.restore()
+    rtf = 1000.0 / sec_ms
+    print(f"phase 25 WurliPlugin(44100, preamp_model='melange') with "
+          f"authentic noise: warm_up {warm_ms / 1e3:.2f} s ({int(SR * 0.6)} "
+          f"samples), the chord's 1 s block in {sec_ms / 1e3:.2f} s = "
+          f"{rtf:.3f}x realtime, peak {peak:.4f}; chunk replay "
+          f"bit-identical; behavioral sessions (4096 samples): "
+          + ", ".join(f"{k} {v['ms_4096']:.0f} ms peak {v['peak']:.4f}"
+                      for k, v in beh.items())
+          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+    return {"E4": {**e4_main, "compared": [e4_main, e4],
+                   "main_path_ms": {"render_di 512 x 88200": e4_grid_ms}},
+            "E5<dk>": {**e5_main, "compared": [e5_main, e5dk],
+                       "main_path_ms": {"render_di 512 x 88200":
+                                        e5_grid_ms}},
+            "E5<melange>": {**e5mel, "main_path_ms": {
+                f"physics gates 6 x {n_s}": gate_ms}},
+            "E2": e2_cmp, "di_stages_ms": di_stages, "di_ms": di_ms,
+            "melange_plugin": {"warm_up_ms": warm_ms, "one_second_ms": sec_ms,
+                               "realtime_factor": rtf, "peak": peak},
+            "behavioral": beh}
+
+
 def main():
     # ── phase 0: the card and the precision settings ──
     if not torch.cuda.is_available():
@@ -920,7 +1412,19 @@ def main():
                           ("voice_bank_kernelILb1E", "K3"),
                           ("trem_preroll_kernel", "K4"),
                           ("mono_chain_kernelILb0E", "K2"),
-                          ("mono_chain_kernelILb1E", "K5")):
+                          ("mono_chain_kernelILb1E", "K5"),
+                          ("engine_voices_kernel", "E1"),
+                          ("engine_chain_kernelILi0ELi0E", "E2<dk, circuit>"),
+                          ("engine_chain_kernelILi1ELi0E",
+                           "E2<melange, circuit>"),
+                          ("engine_chain_kernelILi0ELi1E",
+                           "E2<dk, behavioral>"),
+                          ("engine_chain_kernelILi1ELi1E",
+                           "E2<melange, behavioral>"),
+                          ("tremolo_settle_kernel", "E3"),
+                          ("voice_render_kernel", "E4"),
+                          ("preamp_scan_kernelILi0E", "E5<dk>"),
+                          ("preamp_scan_kernelILi1E", "E5<melange>")):
             if key in fn:
                 ptxas[name] = dict(zip(("registers", "stack", "spill_stores",
                                         "spill_loads"), regs))
@@ -928,7 +1432,8 @@ def main():
         print("phase 1 kernels' ptxas: " + "; ".join(
             f"{k} {v['registers']} registers, {v['stack']} bytes stack, "
             f"{v['spill_stores']} / {v['spill_loads']} bytes spilled"
-            for k, v in sorted(ptxas.items())), flush=True)
+            for k, v in sorted(ptxas.items()) if k.startswith("K")),
+            flush=True)
         for name in ("K1", "K3", "K4"):
             check(ptxas[name]["stack"] == ptxas[name]["spill_stores"] == 0,
                   f"{name} uses stack or spills: {ptxas[name]}")
@@ -1864,6 +2369,7 @@ def main():
           flush=True)
 
     eng_k = engine_phases(dev, card, launches, vb, mc, fast)
+    mod_k = model_phases(dev, card, launches, vb, mc, ptxas)
 
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
@@ -1953,6 +2459,39 @@ def main():
         "512 steps at 88.2 kHz", e3["max_abs_err"], e3["ms"],
         e3["plain_ms"], e3["bound"],
         full_settle=e3["full_settle"]))
+    # E2's other instantiations (the DK / circuit one is engine_chain)
+    for models in (("melange", "circuit"), ("dk", "behavioral"),
+                   ("melange", "behavioral")):
+        cmps = [c for c in mod_k["E2"] if c["models"] == list(models)]
+        main = cmps[-1]
+        kernels.append(entry(
+            f"engine_chain_{models[0]}_{models[1]}", "engine.cu",
+            "openwurli_tpu/engine.py:452", main["shape"],
+            max(c["max_abs_err"] for c in cmps), main["ms"],
+            main["plain_ms"], main["bound"], ptxas=ptxas.get(
+                f"E2<{models[0]}, {models[1]}>"),
+            compared=[{k: v for k, v in c.items() if k != "bound"}
+                      | {"bound_ms": c["bound"][0]} for c in cmps]))
+    for name, key, replaces in (
+            ("voice_render", "E4", "openwurli_tpu/voice.py:140"),
+            ("preamp_scan_dk", "E5<dk>", "openwurli_tpu/di.py:29"),
+            ("preamp_scan_melange", "E5<melange>",
+             "openwurli_tpu/circuits/melange_preamp.py:177")):
+        k = mod_k[key]
+        cmps = k.get("compared", [k])
+        kernels.append(entry(
+            name, "engine.cu", replaces, k["shape"],
+            max(c["max_abs_err"] for c in cmps), k["ms"], k["plain_ms"],
+            k["bound"], ptxas=ptxas.get(key),
+            compared=[{k_: v for k_, v in c.items()
+                       if k_ not in ("bound", "compared", "main_path_ms")}
+                      | {"bound_ms": c["bound"][0]} for c in cmps],
+            main_path_ms=k["main_path_ms"]))
+    kernels[-3]["di_stages_ms"] = mod_k["di_stages_ms"]
+    for k in kernels:
+        if k["name"] == "engine_chain":
+            k["melange_plugin"] = mod_k["melange_plugin"]
+            k["behavioral_sessions"] = mod_k["behavioral"]
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} was never launched on "
               "a driven path")

@@ -59,10 +59,16 @@ _SIGNATURES = {
     "ow_probe": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # vpar, vst, vsti, eng_i, mono, n, fade_len, sample_rate, stream
     "ow_engine_voices": (_P, _P, _P, _P, _P, _I, _D, _D, _P),
-    # consts, n_consts, mono, chain, out, n, rail_sag, stream
-    "ow_engine_chain": (_P, _I, _P, _P, _P, _I, _I, _P),
+    # consts, n_consts, mono, chain, out, n, rail_sag, pre_model, pa_model,
+    # noise_scale, stream
+    "ow_engine_chain": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _D, _P),
     # consts, n_consts, state, n_steps, stream
     "ow_tremolo_settle": (_P, _I, _P, _I, _P),
+    # vpar, vst, vsti, out, voices, n, stream
+    "ow_voice_render": (_P, _P, _P, _P, _I, _I, _P),
+    # kind, consts, n_consts, x, state, g_ldr, noise_scale, out, n,
+    # streams, stream
+    "ow_preamp_scan": (_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 

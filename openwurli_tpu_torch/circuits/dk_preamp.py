@@ -47,8 +47,10 @@ N = 8
 
 R_LDR_INIT = 1_000_000.0
 NR_ITERS = 6
-# Newton passes of the plain step (each evaluates both rows), read by
-# chip_smoke.py to count a replayed chunk's operations.
+# Newton passes of the plain step (each evaluates both rows), each twin
+# pair's own passes summed over the batch (a pair stops once both its rows
+# have converged); read by chip_smoke.py to count a scan's or a replayed
+# chunk's operations.
 NEWTON_PASSES = [0]
 
 # Thermal noise (reference gen_preamp T_ROOM_K), used by the noise stamps.
@@ -262,34 +264,37 @@ def _bjt_ic_gm(vbe):
 
 def step(c: dict, state: PreampState, g_ldr, x):
     """One trapezoidal DK step of the twin (main, shadow) pair; c from
-    step_tensors. Returns (state, main − shadow)."""
+    step_tensors. Batched over axes after the twin axis: x and g_ldr
+    (...,), v (2, ..., 8), i_nl / v_nl (2, ..., 2), j_cin / cin_rhs_prev
+    (2, ...). Returns (state, main − shadow)."""
     u = torch.stack([x, torch.zeros_like(x)])
     # 1. history + sources
     rhs = torch.stack([exact.matvec(c["a_neg_base"], state.v[r])
                        for r in range(2)])
-    rhs[:, FB] = rhs[:, FB] + (-state.g_ldr_prev) * state.v[:, FB]
+    rhs[..., FB] = rhs[..., FB] + (-state.g_ldr_prev) * state.v[..., FB]
     cin_rhs_now = c["g_cin"] * u + state.j_cin
-    rhs[:, BASE1] = rhs[:, BASE1] + (cin_rhs_now + state.cin_rhs_prev)
-    rhs[:, EMIT1] = rhs[:, EMIT1] + state.i_nl[:, 0]
-    rhs[:, COLL1] = rhs[:, COLL1] + (-state.i_nl[:, 0])
-    rhs[:, EMIT2] = rhs[:, EMIT2] + state.i_nl[:, 1]
-    rhs[:, COLL2] = rhs[:, COLL2] + (-state.i_nl[:, 1])
+    rhs[..., BASE1] = rhs[..., BASE1] + (cin_rhs_now + state.cin_rhs_prev)
+    rhs[..., EMIT1] = rhs[..., EMIT1] + state.i_nl[..., 0]
+    rhs[..., COLL1] = rhs[..., COLL1] + (-state.i_nl[..., 0])
+    rhs[..., EMIT2] = rhs[..., EMIT2] + state.i_nl[..., 1]
+    rhs[..., COLL2] = rhs[..., COLL2] + (-state.i_nl[..., 1])
     rhs = rhs + c["two_w"]
     # 2-3. predictor, Sherman-Morrison correction for R_ldr
     v_pred_base = torch.stack([exact.matvec(c["s_base"], rhs[r])
                                for r in range(2)])
     sm_k = g_ldr / (1.0 + c["s_fb_fb"] * g_ldr)
-    v_pred = v_pred_base - (sm_k * v_pred_base[:, FB])[:, None] * \
+    v_pred = v_pred_base - (sm_k * v_pred_base[..., FB])[..., None] * \
         c["s_fb_col"]
     # 4-5. NL port voltages, corrected kernel, masked Newton
-    p0 = v_pred[:, BASE1] - v_pred[:, EMIT1]
-    p1 = v_pred[:, COLL1] - v_pred[:, EMIT2]
-    k_corr = c["k"] - sm_k * c["k_outer"]
-    k00, k01, k10, k11 = (k_corr[0, 0], k_corr[0, 1], k_corr[1, 0],
-                          k_corr[1, 1])
-    v0, v1 = state.v_nl[:, 0], state.v_nl[:, 1]
+    p0 = v_pred[..., BASE1] - v_pred[..., EMIT1]
+    p1 = v_pred[..., COLL1] - v_pred[..., EMIT2]
+    k_corr = c["k"] - sm_k[..., None, None] * c["k_outer"]
+    k00, k01, k10, k11 = (k_corr[..., 0, 0], k_corr[..., 0, 1],
+                          k_corr[..., 1, 0], k_corr[..., 1, 1])
+    v0, v1 = state.v_nl[..., 0], state.v_nl[..., 1]
+    streams = p0[0].numel()  # twin pairs still iterating
     for _ in range(NR_ITERS):
-        NEWTON_PASSES[0] += 1
+        NEWTON_PASSES[0] += streams
         ic0, gm0 = _bjt_ic_gm(v0)
         ic1, gm1 = _bjt_ic_gm(v1)
         f0 = v0 - p0 - k00 * ic0 - k01 * ic1
@@ -297,6 +302,7 @@ def step(c: dict, state: PreampState, g_ldr, x):
         converged = (torch.abs(f0) < 1e-9) & (torch.abs(f1) < 1e-9)
         if bool(converged.all()):
             break  # the remaining masked iterations change nothing
+        streams = int((~converged.all(0)).sum())
         j00 = 1.0 - k00 * gm0
         j01 = -k01 * gm1
         j10 = -k10 * gm0
@@ -311,18 +317,20 @@ def step(c: dict, state: PreampState, g_ldr, x):
         v1 = v1 - torch.where(ok, dv1, 0.0)
     # 6-7. final currents, node update
     ic0, ic1 = _bjt_ic_gm(v0)[0], _bjt_ic_gm(v1)[0]
-    s_ni = ic0[:, None] * c["ni_col0"] + ic1[:, None] * c["ni_col1"]
+    s_ni = ic0[..., None] * c["ni_col0"] + ic1[..., None] * c["ni_col1"]
     dot = c["sfb_ni"][0] * ic0 + c["sfb_ni"][1] * ic1
-    v_new = v_pred + s_ni - (sm_k * dot)[:, None] * c["s_fb_col"]
+    v_new = v_pred + s_ni - (sm_k * dot)[..., None] * c["s_fb_col"]
     # 8. Cin-R1 companion
-    j_cin = -c["gc_1pc"] * (u - v_new[:, BASE1]) - c["c_cin"] * state.j_cin
-    out = v_new[0, OUT] - v_new[1, OUT]
+    j_cin = -c["gc_1pc"] * (u - v_new[..., BASE1]) - c["c_cin"] * \
+        state.j_cin
+    out = v_new[0, ..., OUT] - v_new[1, ..., OUT]
     bad = ~torch.isfinite(out)
     jdc = c["j_cin_dc"]
+    b1 = bad[..., None]
     return PreampState(
-        v=torch.where(bad, c["v_dc"], v_new),
-        i_nl=torch.where(bad, c["i_nl_dc"], torch.stack([ic0, ic1], 1)),
-        v_nl=torch.where(bad, c["v_nl_dc"], torch.stack([v0, v1], 1)),
+        v=torch.where(b1, c["v_dc"], v_new),
+        i_nl=torch.where(b1, c["i_nl_dc"], torch.stack([ic0, ic1], -1)),
+        v_nl=torch.where(b1, c["v_nl_dc"], torch.stack([v0, v1], -1)),
         j_cin=torch.where(bad, jdc, j_cin),
         cin_rhs_prev=torch.where(bad, jdc, cin_rhs_now),
         g_ldr_prev=g_ldr), torch.where(bad, 0.0, out)

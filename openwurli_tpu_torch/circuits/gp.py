@@ -187,38 +187,40 @@ def _netlist_columns(netlist, device):
 
 
 def device_current_fn(netlist, device="cpu"):
-    """f(v_nl (M,) float64) → i_nl (M,): [ib, ic] per BJT, then diodes."""
+    """f(v_nl (..., M) float64) → i_nl (..., M): [ib, ic] per BJT, then
+    diodes."""
     n_bjt, cur, _, diodes = _netlist_columns(netlist, device)
 
     def fn(v_nl):
-        ib, ic = bjt_currents(cur, v_nl[0:2 * n_bjt:2], v_nl[1:2 * n_bjt:2])
-        parts = [torch.stack([ib, ic], dim=1).reshape(-1)]
+        ib, ic = bjt_currents(cur, v_nl[..., 0:2 * n_bjt:2],
+                              v_nl[..., 1:2 * n_bjt:2])
+        parts = [torch.stack([ib, ic], dim=-1).flatten(-2)]
         for k, (is_, nvt) in enumerate(diodes):
-            vd = v_nl[2 * n_bjt + k:2 * n_bjt + k + 1]
-            parts.append(is_ * (limexp(vd / nvt) - 1.0))
-        return torch.cat(parts)
+            vd = v_nl[..., 2 * n_bjt + k:2 * n_bjt + k + 1]
+            parts.append(is_ * (limexp(exact.div(vd, nvt)) - 1.0))
+        return torch.cat(parts, dim=-1)
 
     return fn
 
 
 def device_derivs_fn(netlist, device="cpu"):
-    """f(v_nl) → (top, bot), each (M,): the two entries of Jacobian column
-    k inside its device block, dI[r0]/dV[k] and dI[r0+1]/dV[k] with r0 the
-    block's first port (a diode column has top = its conductance and
-    bot = 0)."""
+    """f(v_nl (..., M)) → (top, bot), each (..., M): the two entries of
+    Jacobian column k inside its device block, dI[r0]/dV[k] and
+    dI[r0+1]/dV[k] with r0 the block's first port (a diode column has
+    top = its conductance and bot = 0)."""
     n_bjt, _, der, diodes = _netlist_columns(netlist, device)
 
     def fn(v_nl):
         _, _, dib_be, dib_bc, dic_be, dic_bc = bjt_currents_derivs_packed(
-            der, v_nl[0:2 * n_bjt:2], v_nl[1:2 * n_bjt:2])
-        top = [torch.stack([dib_be, dib_bc], dim=1).reshape(-1)]
-        bot = [torch.stack([dic_be, dic_bc], dim=1).reshape(-1)]
+            der, v_nl[..., 0:2 * n_bjt:2], v_nl[..., 1:2 * n_bjt:2])
+        top = [torch.stack([dib_be, dib_bc], dim=-1).flatten(-2)]
+        bot = [torch.stack([dic_be, dic_bc], dim=-1).flatten(-2)]
         for k, (is_, nvt) in enumerate(diodes):
-            vd = v_nl[2 * n_bjt + k:2 * n_bjt + k + 1]
-            _, dval = _limexp_d(vd / nvt)
-            top.append(is_ * dval / nvt)
+            vd = v_nl[..., 2 * n_bjt + k:2 * n_bjt + k + 1]
+            _, dval = _limexp_d(exact.div(vd, nvt))
+            top.append(exact.div(is_ * dval, nvt))
             bot.append(torch.zeros_like(vd))
-        return torch.cat(top), torch.cat(bot)
+        return torch.cat(top, dim=-1), torch.cat(bot, dim=-1)
 
     return fn
 

@@ -214,6 +214,28 @@ class Netlist:
 
         return fn
 
+    def device_current_fn(self, device="cpu"):
+        """f(v_nl (..., M) float64) → i_nl (..., M): [ib, ic] per BJT, then
+        one current per diode (gp.device_current_fn)."""
+        return gp.device_current_fn(self, device)
+
+    def device_jacobian_fn(self, device="cpu"):
+        """f(v_nl (M,)) → dI/dV_nl (M, M), block-diagonal: 2×2 per BJT,
+        1×1 per diode (gp.analytic_device_jacobian_fn)."""
+        return gp.analytic_device_jacobian_fn(self, device)
+
+
+def bjt_currents(model: BjtModel, vbe, vbc):
+    """DC Gummel-Poon (ib, ic) of one BJT model at port voltages (vbe,
+    vbc), NPN convention (float64 tensors)."""
+    p = torch.from_numpy(gp.pack_current_params([model])[0]).to(vbe.device)
+    return gp.bjt_currents(dict(zip(gp.CURRENT_NAMES, p)), vbe, vbc)
+
+
+def diode_current(model: DiodeModel, vd):
+    """Junction diode current at vd (float64 tensor)."""
+    return model.is_ * (gp.limexp(exact.div(vd, model.n * model.vt)) - 1.0)
+
 
 class SolverParams(NamedTuple):
     """Fixed per-sample-rate solver matrices (float64 NumPy)."""
@@ -301,9 +323,11 @@ def dc_solve(netlist: Netlist, n_iter=300, clamp=0.1, source_steps=8):
     return s_dc @ (w + n_i @ i_nl), i_nl, v_nl
 
 
-def make_solver_params(netlist: Netlist, sample_rate,
-                       integrator="trap") -> SolverParams:
-    """Assemble the fixed matrices for one rate + integrator."""
+def make_solver_params(netlist: Netlist, sample_rate, integrator="trap",
+                       dc=None) -> SolverParams:
+    """Assemble the fixed matrices for one rate + integrator. `dc`, the
+    operating point (v_dc, i_dc, v_nl_dc), defaults to this netlist's own
+    `dc_solve`."""
     asm = netlist.assemble()
     g, c_mat, w = asm["g"], asm["c"], asm["w"]
     n_v, n_i = asm["n_v"], asm["n_i"]
@@ -325,7 +349,7 @@ def make_solver_params(netlist: Netlist, sample_rate,
     else:
         raise ValueError(integrator)
     s = np.linalg.inv(a)
-    v_dc, i_dc, v_nl_dc = dc_solve(netlist)
+    v_dc, i_dc, v_nl_dc = dc_solve(netlist) if dc is None else dc
     s_be = np.linalg.inv(g + (1.0 / t) * c_mat)
     return SolverParams(s=s, a_hist=a_hist, n_v=n_v, n_i=n_i, s_ni=s @ n_i,
                         k=n_v @ s @ n_i, w=w, w_scale=w_scale, v_dc=v_dc,
@@ -378,46 +402,49 @@ def pnjlim(v_old, v_new, nvt, vcrit):
 
 
 def ge_solve_numpy(a, b):
-    """Unpivoted Gaussian elimination in float32 (NumPy): a (m, m), b (m,)
-    float32 → x (m,) float32.
+    """Unpivoted Gaussian elimination in float32 (NumPy): a (..., m, m), b
+    (..., m) float32 → x (..., m) float32, each system on its own.
 
     Pivot guard |p| > 1e-30 (else 1e-30, also for a NaN pivot), the pivot
     row scaled by the f32 reciprocal, every update c − a·b rounded once
     from float64 (the product of two floats is exact there), as XLA's
     contracted multiply-adds round it; back substitution row by row, each
-    row's terms in increasing column order. Only IEEE basic operations:
-    any IEEE device rounds them alike, and `csrc/engine.cu` writes them
-    the same way. Columns left of the running pivot are never read again,
-    so they are not updated (the reference updates them, to no effect on
-    x)."""
-    m = a.shape[0]
-    aug = np.concatenate([a, b[:, None]], axis=1).astype(np.float32)
+    row's terms in increasing column order. Only IEEE basic operations,
+    elementwise over the batch: any IEEE device rounds them alike, and
+    `csrc/engine.cu` writes them the same way. Columns left of the running
+    pivot are never read again, so they are not updated (the reference
+    updates them, to no effect on x)."""
+    m = a.shape[-1]
+    aug = np.concatenate([a, b[..., None]], axis=-1).astype(np.float32)
     tiny = np.float32(1e-30)
     with np.errstate(all="ignore"):
         for k in range(m):
-            piv = aug[k, k]
-            inv = np.float32(1.0) / (piv if abs(piv) > tiny else tiny)
-            row = aug[k, k + 1:] * inv
-            aug[k, k + 1:] = row
+            piv = aug[..., k, k]
+            inv = np.float32(1.0) / np.where(np.abs(piv) > tiny, piv, tiny)
+            row = aug[..., k, k + 1:] * inv[..., None]
+            aug[..., k, k + 1:] = row
             if k + 1 < m:
-                aug[k + 1:, k + 1:] = (
-                    aug[k + 1:, k + 1:].astype(np.float64)
-                    - aug[k + 1:, k:k + 1].astype(np.float64)
-                    * row.astype(np.float64)).astype(np.float32)
-        x = np.zeros(m, dtype=np.float32)
+                aug[..., k + 1:, k + 1:] = (
+                    aug[..., k + 1:, k + 1:].astype(np.float64)
+                    - aug[..., k + 1:, k:k + 1].astype(np.float64)
+                    * row[..., None, :].astype(np.float64)).astype(
+                        np.float32)
+        x = np.zeros(aug.shape[:-1], dtype=np.float32)
         for i in range(m - 1, -1, -1):
-            acc = aug[i, m]
+            acc = aug[..., i, m]
             for j in range(i + 1, m):
-                acc = np.float32(np.float64(acc) - np.float64(aug[i, j])
-                                 * np.float64(x[j]))
-            x[i] = acc
+                acc = (acc.astype(np.float64) - aug[..., i, j].astype(
+                    np.float64) * x[..., j].astype(np.float64)).astype(
+                        np.float32)
+            x[..., i] = acc
     return x
 
 
 def ge_solve_f32(a, b):
-    """The reference's f32 elimination for a float64 Newton step: a (m, m),
-    b (m,) float64 tensors → x (m,) float64 on their device. Computed on
-    the host by `ge_solve_numpy` (basic IEEE operations only)."""
+    """The reference's f32 elimination for a float64 Newton step: a (..., m,
+    m), b (..., m) float64 tensors → x (..., m) float64 on their device.
+    Computed on the host by `ge_solve_numpy` (basic IEEE operations
+    only)."""
     x = ge_solve_numpy(a.detach().cpu().numpy().astype(np.float32),
                        b.detach().cpu().numpy().astype(np.float32))
     return torch.from_numpy(x.astype(np.float64)).to(a.device)

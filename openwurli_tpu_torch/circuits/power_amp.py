@@ -1,8 +1,8 @@
 """Wurlitzer 200A Class AB power amplifier: netlist, rail-dynamics
 constants and solver matrices (backward Euler), and the per-sample step.
 
-Port of `openwurli_tpu/circuits/power_amp.py` (the circuit model; the
-behavioral model is not ported). The step (float64 torch, repeated op for
+Port of `openwurli_tpu/circuits/power_amp.py`: the circuit model and
+the behavioral closed-loop model (`behavioral_process`). The step (float64 torch, repeated op for
 op by the f64 engine's chain kernel E2) pushes the previous sample's rail
 offsets into the source vector, solves with 16 masked Newton iterations,
 applies the two-tier divergence guard, and updates the rails after the
@@ -228,3 +228,37 @@ def step(params: PowerAmpParams, state: PowerAmpState, x, rail_sag=True):
     else:
         rails = state.rails
     return PowerAmpState(circuit=circuit, rails=rails, last_good=out), out
+
+
+# ── behavioral closed-loop model (the reference's legacy power amp) ──
+
+OPEN_LOOP_GAIN = 19_000.0
+FEEDBACK_BETA = 220.0 / (220.0 + 15_000.0)
+CROSSOVER_VT = 0.013
+QUIESCENT_GAIN = 0.1
+BEHAVIORAL_NR_ITER = 8
+
+
+def behavioral_process(x):
+    """Memoryless closed-loop solve of y = f(A(x − βy)), f the crossover
+    gain blend and a tanh rail clip: 8 fixed Newton iterations from the
+    clipped linear estimate (float64 tensor in, output normalised to ±1).
+    csrc/engine.cu `behavioral` repeats it op for op."""
+    clg = OPEN_LOOP_GAIN / (1.0 + OPEN_LOOP_GAIN * FEEDBACK_BETA)
+    y = exact.clip(x * clg, -HEADROOM + 1e-6, HEADROOM - 1e-6)
+    vt_sq = CROSSOVER_VT * CROSSOVER_VT
+    q = QUIESCENT_GAIN
+    for _ in range(BEHAVIORAL_NR_ITER):
+        v = OPEN_LOOP_GAIN * (x - FEEDBACK_BETA * y)
+        exp_term = torch.exp(-v * v / torch.full_like(v, vt_sq))
+        cross_gain = q + (1.0 - q) * (1.0 - exp_term)
+        v_cross = v * cross_gain
+        dcross_dv = cross_gain + v * (1.0 - q) * (
+            2.0 * v / torch.full_like(v, vt_sq)) * exp_term
+        tanh_val = torch.tanh(exact.div(v_cross, HEADROOM))
+        f_val = HEADROOM * tanh_val
+        f_deriv = (1.0 - tanh_val * tanh_val) * dcross_dv
+        residual = y - f_val
+        jacobian = 1.0 + OPEN_LOOP_GAIN * FEEDBACK_BETA * f_deriv
+        y = y - residual / jacobian
+    return exact.div(y, HEADROOM)

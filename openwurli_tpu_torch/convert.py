@@ -156,9 +156,43 @@ def solver_state_from_numpy(st, device="cpu"):
                               for d in st.diag]))
 
 
-def chain_state_from_numpy(st, device="cpu"):
-    """The chain and smoother parts of a reference `EngineState` → the
-    port's packed (CHAIN_ROWS,) float64 chain state."""
+def melange_params_from_numpy(mp):
+    """A reference `MelangePreampParams` (NumPy leaves) → the port's."""
+    from openwurli_tpu_torch.circuits import melange_preamp
+
+    fields = {k: np.asarray(getattr(mp, k), np.float64)
+              for k in ("s_fb_col", "nv_sfb", "sfb_ni", "noise_inject",
+                        "noise_sigma")}
+    return melange_preamp.MelangePreampParams(
+        solver=solver_params_from_numpy(mp.solver), fb_idx=int(mp.fb_idx),
+        out_idx=int(mp.out_idx), input_row=int(mp.input_row),
+        sample_rate=float(mp.sample_rate),
+        s_fb_fb=float(np.asarray(mp.s_fb_fb)), **fields)
+
+
+def melange_state_from_numpy(st, device="cpu"):
+    """A reference `MelangePreampState` → the port's: float64 tensors, the
+    noise key's u32 words as int64."""
+    from openwurli_tpu_torch.circuits import melange_preamp
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float64), device=device)
+
+    return melange_preamp.MelangePreampState(
+        v=t(st.v), i_nl=t(st.i_nl), v_nl=t(st.v_nl),
+        g_ldr_prev=t(st.g_ldr_prev),
+        noise_key=torch.tensor(np.asarray(st.noise_key).astype(np.int64),
+                               device=device),
+        noise_w_prev=t(st.noise_w_prev))
+
+
+def chain_state_from_numpy(sample_rate, st, device="cpu", preamp_model="dk",
+                           pa_model="circuit"):
+    """The chain and smoother parts of a reference `EngineState` at base
+    rate `sample_rate` → the port's packed (CHAIN_ROWS,) float64 chain
+    state. The reference's preamp state fills the DK preamp's rows, or on
+    a melange engine the melange rows; the other preamp's rows hold what
+    the port's engine of these models starts with."""
     from openwurli_tpu_torch.kernels import engine as ek
 
     def t(x):
@@ -168,12 +202,19 @@ def chain_state_from_numpy(st, device="cpu"):
         return t([s.current, s.target, s.step, s.remaining])
 
     tr, pa = st.trem, st.pa
+    cp = ek.chain_params(float(sample_rate), preamp_model, pa_model)
+    if preamp_model == "melange":
+        pre = ek.dk_preamp.init_state(cp.preamp, device)
+        mel = melange_state_from_numpy(st.pre, device)
+    else:
+        pre = ek.dk_preamp.PreampState(*[t(x) for x in st.pre])
+        mel = ek.init_melange_rows(cp, device)
     return ek.pack_chain(ek.ChainState(
         os=ek.allpass.OversamplerState(*[t(x) for x in st.os]),
         trem=ek.tremolo.TremoloState(
             osc=solver_state_from_numpy(tr.osc, device),
             ldr_envelope=t(tr.ldr_envelope), r_ldr=t(tr.r_ldr)),
-        pre=ek.dk_preamp.PreampState(*[t(x) for x in st.pre]),
+        pre=pre, mel=mel,
         pa=ek.power_amp.PowerAmpState(
             circuit=solver_state_from_numpy(pa.circuit, device),
             rails=ek.power_amp.RailState(*[t(x) for x in pa.rails]),
@@ -185,15 +226,19 @@ def chain_state_from_numpy(st, device="cpu"):
         volume=sm(st.volume), depth=sm(st.trem_depth), char=sm(st.spk_char)))
 
 
-def engine_from_numpy(sample_rate, st, device="cpu"):
-    """A port `engine.Engine` in the state of a reference `Engine`: `st` is
-    its `EngineState` with NumPy leaves (`jax.tree.map(np.asarray,
-    eng.state)`), read by field name. Voices, steal bank, gates, notes,
-    ages, chain, smoothers, flags and counters are all carried over."""
+def engine_from_numpy(sample_rate, st, device="cpu", preamp_model="dk",
+                      pa_model="circuit"):
+    """A port `engine.Engine` in the state of a reference `Engine` built
+    with the same models: `st` is its `EngineState` with NumPy leaves
+    (`jax.tree.map(np.asarray, eng.state)`), read by field name. Voices,
+    steal bank, gates, notes, ages, chain (the melange preamp's twin
+    state and noise key included), smoothers, flags and counters are all
+    carried over."""
     from openwurli_tpu_torch.engine import Engine
     from openwurli_tpu_torch.kernels import engine as ek
 
-    eng = Engine(sample_rate, device=device)
+    eng = Engine(sample_rate, device=device, preamp_model=preamp_model,
+                 pa_model=pa_model)
     main = ek.pack_voice_columns(st.vparams, st.vstate)
     steal = ek.pack_voice_columns(st.sparams, st.sstate)
     for name, a, b in zip(("vpar", "vst", "vsti"), main, steal):
@@ -207,7 +252,8 @@ def engine_from_numpy(sample_rate, st, device="cpu"):
     eng.midi_note = np.asarray(st.midi_note, np.int64).copy()
     eng.age = np.asarray(st.age, np.int64).copy()
     eng.age_counter = int(np.asarray(st.age_counter))
-    eng.chain.copy_(chain_state_from_numpy(st, device))
+    eng.chain.copy_(chain_state_from_numpy(sample_rate, st, device,
+                                           preamp_model, pa_model))
     eng._targets = {"volume": float(np.asarray(st.volume.target)),
                     "depth": float(np.asarray(st.trem_depth.target)),
                     "char": float(np.asarray(st.spk_char.target))}

@@ -1,16 +1,26 @@
-// The f64 engine's kernels (openwurli_tpu_torch/kernels/engine.py):
+// The f64 kernels of the engine (openwurli_tpu_torch/kernels/engine.py)
+// and of the offline render paths (openwurli_tpu_torch/kernels/render.py):
 //
-//   E1 engine_voices   the 64 main + 64 steal voice slots over one chunk
-//   E2 engine_chain    the mono chain over that chunk
-//   E3 tremolo_settle  the tremolo oscillator's step, n times
+//   E1 engine_voices      the 64 main + 64 steal voice slots over one chunk
+//   E2 engine_chain       the mono chain over that chunk, a template over
+//                         the preamp (DK or melange) and the power amp
+//                         (circuit or behavioral)
+//   E3 tremolo_settle     the tremolo oscillator's step, n times
+//   E4 voice_render       G voices over n samples (voice.render)
+//   E5 preamp_scan        G preamp streams over n samples: the DI path's
+//                         2x-oversampled DK preamp, or the melange preamp
 //
-// Replaces: the reference's jitted lax.scan of its float64 engine
-// (openwurli_tpu/engine.py:452 `_render`) and of its tremolo settle
-// (openwurli_tpu/circuits/tremolo.py:160); neither is a Pallas kernel.
+// Replaces: the reference's jitted lax.scans of its float64 engine
+// (openwurli_tpu/engine.py:452 `_render`), of its tremolo settle
+// (openwurli_tpu/circuits/tremolo.py:160), of voice.render
+// (openwurli_tpu/voice.py:140), of di.preamp_di (openwurli_tpu/di.py:29)
+// and of the melange preamp's step
+// (openwurli_tpu/circuits/melange_preamp.py:177); none is a Pallas kernel.
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
-// slot by one thread (a block of 128), E2 and E3 are one thread walking
-// the chain's data-dependent Newton solves sample by sample. The bytes are
+// slot by one thread (a block of 128), E4 and E5 each voice or stream by
+// one thread, E2 and E3 are one thread walking the chain's data-dependent
+// Newton solves sample by sample. The bytes are
 // a few hundred per sample and the operations some 10^4-10^5 f64 per base
 // sample, far from the card's rates; what bounds the time is the length of
 // the dependent chain of f64 operations and libm calls per sample. The
@@ -22,7 +32,9 @@
 // -fmad=false, sums in the plain version's index order, every max/min/clip
 // a select that keeps NaN (jmax/jmin below, exact.maximum in the plain
 // version), and the f32 Newton elimination with each update rounded once
-// from double (mna.ge_solve_numpy).
+// from double (mna.ge_solve_numpy). The melange preamp's noise is JAX's
+// threefry2x32 stream (integer, exact) through XLA's erfinv polynomial,
+// written op for op in prng.normal_f64.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,14 +72,38 @@ enum ChainOffset {
   CH_PRE_CINPREV = 62, CH_PRE_GPREV = 64, CH_PA_V = 65, CH_PA_I = 86,
   CH_PA_VNL = 102, CH_PA_RESID = 118, CH_PA_DIAG = 119, CH_PA_RAILS = 124,
   CH_PA_LAST = 128, CH_SPK = 129, CH_SM_VOLUME = 134, CH_SM_DEPTH = 138,
-  CH_SM_CHAR = 142, CHAIN_ROWS = 146
+  CH_SM_CHAR = 142, CH_MEL_V = 146, CH_MEL_I = 172, CH_MEL_VNL = 182,
+  CH_MEL_GPREV = 192, CH_MEL_KEY = 193, CH_MEL_WPREV = 195, CHAIN_ROWS = 205
 };
+// the DK preamp's rows, relative to CH_PRE_V (the chain's and E5's)
+enum PreState {
+  PS_V = 0, PS_I = 16, PS_VNL = 20, PS_JCIN = 24, PS_CINPREV = 26,
+  PS_GPREV = 28, PS_ROWS = 29
+};
+// the melange preamp's rows, relative to CH_MEL_V (the chain's and E5's)
+enum MelState {
+  MS_V = 0, MS_I = 26, MS_VNL = 36, MS_GPREV = 46, MS_KEY = 47,
+  MS_WPREV = 49, MS_ROWS = 59
+};
+static_assert(CH_PRE_GPREV - CH_PRE_V == PS_GPREV, "DK preamp rows");
+static_assert(CHAIN_ROWS - CH_MEL_V == MS_ROWS, "melange rows");
+constexpr int OS_ROWS = 13;  // the oversampler's rows, from CH_OS_UP_A
 
 // chain constants (kernels/engine.py chain_params): block offsets, then
 // the preamp block and the misc scalars
 enum ConstOffset {
   C_TREM = 0, C_PA = 440, C_PRE = 4420, C_MISC = 4607, C_TOTAL = 4623
 };
+constexpr int C_MEL = C_TOTAL;  // a melange engine's melange block
+// the melange preamp's constants (kernels/engine.py MEL_SPEC)
+enum MelOffset {
+  ML_A_HIST = 0, ML_S = 169, ML_N_V = 338, ML_N_I = 403, ML_S_NI = 468,
+  ML_K = 533, ML_WS_W = 558, ML_V_DC = 571, ML_I_DC = 584, ML_V_NL_DC = 589,
+  ML_S_FB_COL = 594, ML_S_FB_FB = 607, ML_K_OUTER = 608, ML_SFB_NI = 633,
+  ML_INJECT = 638, ML_SIGMA = 768, ML_CUR = 778, ML_DER = 804,
+  ML_DIODE = 830, ML_IDX = 832, ML_SIZE = 835
+};
+enum Models { PRE_DK = 0, PRE_MELANGE = 1, PA_CIRCUIT = 0, PA_BEHAVIORAL = 1 };
 enum PreOffset {
   PR_A_NEG = 0, PR_S_BASE = 64, PR_TWO_W = 128, PR_K = 136, PR_K_OUTER = 140,
   PR_S_FB_COL = 144, PR_NI_COL0 = 152, PR_NI_COL1 = 160, PR_SFB_NI = 168,
@@ -117,10 +153,185 @@ __device__ __forceinline__ void matvec(const double* a, const double* x,
   }
 }
 
-// ═════════════════════════════ E1: voices ═════════════════════════════
+// ═══════════════════════ E1 and E4: voices ═══════════════════════
 
 __device__ __forceinline__ long long lcg(long long s) {
   return (s * 1664525LL + 1013904223LL) & 0xFFFFFFFFLL;
+}
+
+// one voice's note-on constants and state (the vpar / vst / vsti rows)
+struct Voice {
+  double cos_inc[NM], sin_inc[NM], phase_inc[NM], amp[NM], decay[NM];
+  double s[NM], c[NM], env[NM], drift[NM], drate[NM], dmult[NM];
+  double ramp_n, ramp_inc, shape, revert, diffusion, ndecay;
+  double b0, b1, b2, a1, a2, beta, ds, gain;
+  double dramp, dcount, namp, z1, z2, q;
+  long long jst, nn, nrem, nfade, nrng;
+  bool dact, ddone;
+};
+
+// column j of the packed voice rows, `stride` columns per row
+__device__ __forceinline__ void voice_load(Voice& v, const double* vpar,
+                                           const double* vst,
+                                           const long long* vsti,
+                                           int stride, int j) {
+#define PAR(r) vpar[(size_t)(r) * stride + j]
+#define ST(r) vst[(size_t)(r) * stride + j]
+#define STI(r) vsti[(size_t)(r) * stride + j]
+  for (int k = 0; k < NM; ++k) {
+    v.cos_inc[k] = PAR(P_COS + k);
+    v.sin_inc[k] = PAR(P_SIN + k);
+    v.phase_inc[k] = PAR(P_PHASE + k);
+    v.amp[k] = PAR(P_AMP + k);
+    v.decay[k] = PAR(P_DECAY + k);
+    v.s[k] = ST(S_S + k);
+    v.c[k] = ST(S_C + k);
+    v.env[k] = ST(S_ENV + k);
+    v.drift[k] = ST(S_DRIFT + k);
+    v.drate[k] = ST(S_DRATE + k);
+    v.dmult[k] = ST(S_DMULT + k);
+  }
+  v.ramp_n = PAR(P_RAMP_N);
+  v.ramp_inc = PAR(P_RAMP_INC);
+  v.shape = PAR(P_SHAPE);
+  v.revert = PAR(P_REVERT);
+  v.diffusion = PAR(P_DIFF);
+  v.ndecay = PAR(P_NDECAY);
+  v.b0 = PAR(P_BPF);
+  v.b1 = PAR(P_BPF + 1);
+  v.b2 = PAR(P_BPF + 2);
+  v.a1 = PAR(P_BPF + 3);
+  v.a2 = PAR(P_BPF + 4);
+  v.beta = PAR(P_BETA);
+  v.ds = PAR(P_DS);
+  v.gain = PAR(P_GAIN);
+  v.dramp = ST(S_DRAMP);
+  v.dcount = ST(S_DCOUNT);
+  v.namp = ST(S_NAMP);
+  v.z1 = ST(S_Z1);
+  v.z2 = ST(S_Z2);
+  v.q = ST(S_Q);
+  v.jst = STI(I_JST);
+  v.nn = STI(I_N);
+  v.nrem = STI(I_NREM);
+  v.nfade = STI(I_NFADE);
+  v.nrng = STI(I_NRNG);
+  v.dact = STI(I_DACT) != 0;
+  v.ddone = STI(I_DDONE) != 0;
+}
+
+// the state rows a sample moves (the damper's constants do not move)
+__device__ __forceinline__ void voice_store(const Voice& v, double* vst,
+                                            long long* vsti, int stride,
+                                            int j) {
+  for (int k = 0; k < NM; ++k) {
+    ST(S_S + k) = v.s[k];
+    ST(S_C + k) = v.c[k];
+    ST(S_ENV + k) = v.env[k];
+    ST(S_DRIFT + k) = v.drift[k];
+  }
+  ST(S_DCOUNT) = v.dcount;
+  ST(S_NAMP) = v.namp;
+  ST(S_Z1) = v.z1;
+  ST(S_Z2) = v.z2;
+  ST(S_Q) = v.q;
+  STI(I_JST) = v.jst;
+  STI(I_N) = v.nn;
+  STI(I_DDONE) = v.ddone ? 1 : 0;
+  STI(I_NREM) = v.nrem;
+  STI(I_NFADE) = v.nfade;
+  STI(I_NRNG) = v.nrng;
+#undef PAR
+#undef ST
+#undef STI
+}
+
+// voice.step: reed → attack noise → pickup → post-pickup gain; returns
+// the voice's output sample
+__device__ __forceinline__ double voice_sample(Voice& v) {
+  // ── reed.step: damper → onset → jitter → output/rotation → renorm
+  const double rel = v.dact ? v.dcount + 1.0 : v.dcount;
+  const bool past = rel > v.dramp;
+  const bool in_ramp = v.dact && !v.ddone && !past;
+  const bool done2 = v.ddone || (v.dact && past);
+  const double ratio = rel / jmax(v.dramp, 1e-30);
+  for (int k = 0; k < NM; ++k) {
+    const double inst = v.drate[k] * ratio;
+    v.env[k] = v.env[k] * (in_ramp ? exp(-inst) : 1.0);
+    v.env[k] = v.env[k] * ((v.dact && done2) ? v.dmult[k] : 1.0);
+  }
+  const double cosine = 0.5 * (1.0 - cos((double)v.nn * v.ramp_inc));
+  double shaped;
+  if (v.shape <= 1.001) shaped = cosine;
+  else if (v.shape >= 1.999) shaped = cosine * cosine;
+  else shaped = pow(jmax(cosine, 0.0), v.shape);
+  const double onset = ((double)v.nn < v.ramp_n) ? shaped : 1.0;
+  if ((v.nn & 15) == 0) {
+    long long js = v.jst;
+    for (int k = 0; k < NM; ++k) {
+      js = lcg(js);
+      const double u = (double)(js >> 1) / 2147483647.5;
+      const double nz = (u * 2.0 - 1.0) * 1.7320508080;
+      v.drift[k] = v.revert * v.drift[k] + v.diffusion * nz;
+    }
+    v.jst = js;
+  }
+  double reed_out = 0.0;
+  for (int k = 0; k < NM; ++k) {
+    const double term = v.amp[k] * v.s[k] * onset * v.env[k];
+    reed_out = (k == 0) ? term : reed_out + term;
+  }
+  const bool renorm = ((v.nn & 1023) == 0) && v.nn > 0;
+  for (int k = 0; k < NM; ++k) {
+    const double dp = v.drift[k] * v.phase_inc[k];
+    const double ci = v.cos_inc[k] - dp * v.sin_inc[k];
+    const double si = v.sin_inc[k] + dp * v.cos_inc[k];
+    const double s_new = v.s[k] * ci + v.c[k] * si;
+    const double c_new = v.c[k] * ci - v.s[k] * si;
+    v.env[k] = v.env[k] * v.decay[k];
+    const double scale =
+        renorm ? 1.0 / sqrt(s_new * s_new + c_new * c_new) : 1.0;
+    v.s[k] = s_new * scale;
+    v.c[k] = c_new * scale;
+  }
+  v.nn += 1;
+  v.dcount = rel;
+  v.ddone = done2;
+
+  // ── hammer.noise_step
+  const bool active = v.nrem > 0;
+  const bool in_fade = v.nfade > 0;
+  const double tf = (double)(16 - v.nfade) / 16.0;
+  const double nenv = in_fade ? 0.5 * (1.0 - cos(M_PI * tf)) : 1.0;
+  const long long r = lcg(v.nrng);
+  const double noise =
+      (double)(r >= 2147483648LL ? r - 4294967296LL : r) / 2147483647.0;
+  const double y = v.b0 * noise + v.z1;
+  const double nz1 = v.b1 * noise - v.a1 * y + v.z2;
+  const double nz2 = v.b2 * noise - v.a2 * y;
+  const double noise_out = active ? v.namp * nenv * y : 0.0;
+  if (active) {
+    v.namp = v.namp * v.ndecay;
+    v.nrem = v.nrem - 1;
+    if (in_fade) v.nfade = v.nfade - 1;
+    v.z1 = nz1;
+    v.z2 = nz2;
+    v.nrng = r;
+  }
+
+  // ── pickup.step
+  const double yy = (reed_out + noise_out) * v.ds;
+  const double ay = fabs(yy);
+  const double rng = 0.98 - 0.94;
+  double ys = yy;
+  if (!(ay < 0.94)) {
+    const double sat = 0.94 + rng * tanh((ay - 0.94) / rng);
+    ys = yy >= 0.0 ? sat : -sat;
+  }
+  const double omy = 1.0 - ys;
+  const double alpha = v.beta * omy;
+  v.q = (v.q * (1.0 - alpha) + 2.0 * v.beta) / (1.0 + alpha);
+  return (v.q * omy - 1.0) * 1.8375 * v.gain;
 }
 
 __global__ void __launch_bounds__(SLOTS, 1)
@@ -132,35 +343,8 @@ engine_voices_kernel(const double* __restrict__ vpar, double* vst,
   __shared__ unsigned long long fires;
   const int j = threadIdx.x;
   const bool main_slot = j < MAXV;
-#define PAR(r) vpar[(r) * SLOTS + j]
-#define ST(r) vst[(r) * SLOTS + j]
-#define STI(r) vsti[(r) * SLOTS + j]
-  double cos_inc[NM], sin_inc[NM], phase_inc[NM], amp[NM], decay[NM];
-  double s[NM], c[NM], env[NM], drift[NM], drate[NM], dmult[NM];
-  for (int k = 0; k < NM; ++k) {
-    cos_inc[k] = PAR(P_COS + k);
-    sin_inc[k] = PAR(P_SIN + k);
-    phase_inc[k] = PAR(P_PHASE + k);
-    amp[k] = PAR(P_AMP + k);
-    decay[k] = PAR(P_DECAY + k);
-    s[k] = ST(S_S + k);
-    c[k] = ST(S_C + k);
-    env[k] = ST(S_ENV + k);
-    drift[k] = ST(S_DRIFT + k);
-    drate[k] = ST(S_DRATE + k);
-    dmult[k] = ST(S_DMULT + k);
-  }
-  const double ramp_n = PAR(P_RAMP_N), ramp_inc = PAR(P_RAMP_INC);
-  const double shape = PAR(P_SHAPE), revert = PAR(P_REVERT);
-  const double diffusion = PAR(P_DIFF), ndecay = PAR(P_NDECAY);
-  const double b0 = PAR(P_BPF), b1 = PAR(P_BPF + 1), b2 = PAR(P_BPF + 2);
-  const double a1 = PAR(P_BPF + 3), a2 = PAR(P_BPF + 4);
-  const double beta = PAR(P_BETA), ds = PAR(P_DS), gain = PAR(P_GAIN);
-  double dramp = ST(S_DRAMP), dcount = ST(S_DCOUNT), namp = ST(S_NAMP);
-  double z1 = ST(S_Z1), z2 = ST(S_Z2), q = ST(S_Q);
-  long long jst = STI(I_JST), nn = STI(I_N), nrem = STI(I_NREM);
-  long long nfade = STI(I_NFADE), nrng = STI(I_NRNG);
-  bool dact = STI(I_DACT) != 0, ddone = STI(I_DDONE) != 0;
+  Voice v;
+  voice_load(v, vpar, vst, vsti, SLOTS, j);
   long long gate = eng_i[j];  // slot state (main) or steal fade (steal)
   if (j == 0) fires = 0;
 
@@ -169,97 +353,14 @@ engine_voices_kernel(const double* __restrict__ vpar, double* vst,
     if (j < TILE) bad_tile[j] = 0;
     __syncthreads();
     for (int tt = 0; tt < tn; ++tt) {
-      // ── reed.step: damper → onset → jitter → output/rotation → renorm
-      const double rel = dact ? dcount + 1.0 : dcount;
-      const bool past = rel > dramp;
-      const bool in_ramp = dact && !ddone && !past;
-      const bool done2 = ddone || (dact && past);
-      const double ratio = rel / jmax(dramp, 1e-30);
-      for (int k = 0; k < NM; ++k) {
-        const double inst = drate[k] * ratio;
-        env[k] = env[k] * (in_ramp ? exp(-inst) : 1.0);
-        env[k] = env[k] * ((dact && done2) ? dmult[k] : 1.0);
-      }
-      const double cosine = 0.5 * (1.0 - cos((double)nn * ramp_inc));
-      double shaped;
-      if (shape <= 1.001) shaped = cosine;
-      else if (shape >= 1.999) shaped = cosine * cosine;
-      else shaped = pow(jmax(cosine, 0.0), shape);
-      const double onset = ((double)nn < ramp_n) ? shaped : 1.0;
-      if ((nn & 15) == 0) {
-        long long js = jst;
-        for (int k = 0; k < NM; ++k) {
-          js = lcg(js);
-          const double u = (double)(js >> 1) / 2147483647.5;
-          const double nz = (u * 2.0 - 1.0) * 1.7320508080;
-          drift[k] = revert * drift[k] + diffusion * nz;
-        }
-        jst = js;
-      }
-      double reed_out = 0.0;
-      for (int k = 0; k < NM; ++k) {
-        const double term = amp[k] * s[k] * onset * env[k];
-        reed_out = (k == 0) ? term : reed_out + term;
-      }
-      const bool renorm = ((nn & 1023) == 0) && nn > 0;
-      for (int k = 0; k < NM; ++k) {
-        const double dp = drift[k] * phase_inc[k];
-        const double ci = cos_inc[k] - dp * sin_inc[k];
-        const double si = sin_inc[k] + dp * cos_inc[k];
-        const double s_new = s[k] * ci + c[k] * si;
-        const double c_new = c[k] * ci - s[k] * si;
-        env[k] = env[k] * decay[k];
-        const double scale =
-            renorm ? 1.0 / sqrt(s_new * s_new + c_new * c_new) : 1.0;
-        s[k] = s_new * scale;
-        c[k] = c_new * scale;
-      }
-      nn += 1;
-      dcount = rel;
-      ddone = done2;
-
-      // ── hammer.noise_step
-      const bool active = nrem > 0;
-      const bool in_fade = nfade > 0;
-      const double tf = (double)(16 - nfade) / 16.0;
-      const double nenv = in_fade ? 0.5 * (1.0 - cos(M_PI * tf)) : 1.0;
-      const long long r = lcg(nrng);
-      const double noise =
-          (double)(r >= 2147483648LL ? r - 4294967296LL : r) / 2147483647.0;
-      const double y = b0 * noise + z1;
-      const double nz1 = b1 * noise - a1 * y + z2;
-      const double nz2 = b2 * noise - a2 * y;
-      const double noise_out = active ? namp * nenv * y : 0.0;
-      if (active) {
-        namp = namp * ndecay;
-        nrem = nrem - 1;
-        if (in_fade) nfade = nfade - 1;
-        z1 = nz1;
-        z2 = nz2;
-        nrng = r;
-      }
-
-      // ── pickup.step
-      const double yy = (reed_out + noise_out) * ds;
-      const double ay = fabs(yy);
-      const double rng = 0.98 - 0.94;
-      double ys = yy;
-      if (!(ay < 0.94)) {
-        const double sat = 0.94 + rng * tanh((ay - 0.94) / rng);
-        ys = yy >= 0.0 ? sat : -sat;
-      }
-      const double omy = 1.0 - ys;
-      const double alpha = beta * omy;
-      q = (q * (1.0 - alpha) + 2.0 * beta) / (1.0 + alpha);
-      const double out = (q * omy - 1.0) * 1.8375 * gain;
-
+      const double out = voice_sample(v);
       // ── gates and NaN guard #1
       double g;
       bool bad;
       if (main_slot) {
-        const double v = gate != 0 ? out : 0.0;
-        bad = !finite(v);
-        g = bad ? 0.0 : v;
+        const double x = gate != 0 ? out : 0.0;
+        bad = !finite(x);
+        g = bad ? 0.0 : x;
         if (bad) gate = 0;
       } else {
         const double gn = (double)gate / fade_len;
@@ -287,35 +388,32 @@ engine_voices_kernel(const double* __restrict__ vpar, double* vst,
 
   // chunk-end cleanup: a silent main voice goes FREE
   if (main_slot && gate != 0) {
-    const double rel_s = dact ? dcount / sample_rate : 0.0;
-    bool silent = dact && rel_s > 10.0;
+    const double rel_s = v.dact ? v.dcount / sample_rate : 0.0;
+    bool silent = v.dact && rel_s > 10.0;
     bool quiet = true;
-    for (int k = 0; k < NM; ++k) quiet = quiet && fabs(amp[k] * env[k]) <= 1e-4;
+    for (int k = 0; k < NM; ++k)
+      quiet = quiet && fabs(v.amp[k] * v.env[k]) <= 1e-4;
     if (silent || quiet) gate = 0;
   }
-  for (int k = 0; k < NM; ++k) {
-    ST(S_S + k) = s[k];
-    ST(S_C + k) = c[k];
-    ST(S_ENV + k) = env[k];
-    ST(S_DRIFT + k) = drift[k];
-  }
-  ST(S_DCOUNT) = dcount;
-  ST(S_NAMP) = namp;
-  ST(S_Z1) = z1;
-  ST(S_Z2) = z2;
-  ST(S_Q) = q;
-  STI(I_JST) = jst;
-  STI(I_N) = nn;
-  STI(I_DDONE) = ddone ? 1 : 0;
-  STI(I_NREM) = nrem;
-  STI(I_NFADE) = nfade;
-  STI(I_NRNG) = nrng;
+  voice_store(v, vst, vsti, SLOTS, j);
   eng_i[j] = gate;
   __syncthreads();
   if (j == 0) eng_i[EI_FIRES] += (long long)fires;
-#undef PAR
-#undef ST
-#undef STI
+}
+
+// E4: a thread per voice; out (n, G) time major, so that a warp's voices
+// store one coalesced row per sample
+constexpr int E4_BLOCK = 32;
+
+__global__ void __launch_bounds__(E4_BLOCK)
+voice_render_kernel(const double* __restrict__ vpar, double* vst,
+                    long long* vsti, double* out, int g, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= g) return;
+  Voice v;
+  voice_load(v, vpar, vst, vsti, g, j);
+  for (int t = 0; t < n; ++t) out[(size_t)t * g + j] = voice_sample(v);
+  voice_store(v, vst, vsti, g, j);
 }
 
 // ═══════════════════════ the generic mna step ═══════════════════════
@@ -615,15 +713,16 @@ __device__ __forceinline__ void bjt_ic_gm(double vbe, double* ic,
 
 enum { B1 = 0, E1 = 1, C1 = 2, E2 = 3, C2 = 5, OUTN = 6, FB = 7 };
 
-// dk_preamp.step on the chain state; returns main − shadow
-__device__ __noinline__ double preamp_step(const double* pc, double* ch, double g,
+// dk_preamp.step on the DK preamp's rows `ps` (PreState); returns
+// main − shadow
+__device__ __noinline__ double preamp_step(const double* pc, double* ps, double g,
                               double x) {
-  double* v = ch + CH_PRE_V;       // (2, 8)
-  double* inl = ch + CH_PRE_I;     // (2, 2)
-  double* vnl = ch + CH_PRE_VNL;   // (2, 2)
-  double* jcin = ch + CH_PRE_JCIN;
-  double* cinprev = ch + CH_PRE_CINPREV;
-  const double gprev = ch[CH_PRE_GPREV];
+  double* v = ps + PS_V;       // (2, 8)
+  double* inl = ps + PS_I;     // (2, 2)
+  double* vnl = ps + PS_VNL;   // (2, 2)
+  double* jcin = ps + PS_JCIN;
+  double* cinprev = ps + PS_CINPREV;
+  const double gprev = ps[PS_GPREV];
   const double u[2] = {x, 0.0};
   double v_pred[2][8], cin_now[2];
   const double sm_k = g / (1.0 + pc[PR_S_FB_FB] * g);
@@ -705,21 +804,247 @@ __device__ __noinline__ double preamp_step(const double* pc, double* ch, double 
     jcin[r] = bad ? jdc : jc[r];
     cinprev[r] = bad ? jdc : cin_now[r];
   }
-  ch[CH_PRE_GPREV] = g;
+  ps[PS_GPREV] = g;
   return bad ? 0.0 : out;
 }
 
-__device__ void init_preamp(const double* pc, double* ch) {
+__device__ void init_preamp(const double* pc, double* ps) {
   for (int r = 0; r < 2; ++r) {
-    for (int n = 0; n < 8; ++n) ch[CH_PRE_V + 8 * r + n] = pc[PR_V_DC + n];
+    for (int n = 0; n < 8; ++n) ps[PS_V + 8 * r + n] = pc[PR_V_DC + n];
     for (int k = 0; k < 2; ++k) {
-      ch[CH_PRE_I + 2 * r + k] = pc[PR_I_NL_DC + k];
-      ch[CH_PRE_VNL + 2 * r + k] = pc[PR_V_NL_DC + k];
+      ps[PS_I + 2 * r + k] = pc[PR_I_NL_DC + k];
+      ps[PS_VNL + 2 * r + k] = pc[PR_V_NL_DC + k];
     }
-    ch[CH_PRE_JCIN + r] = pc[PR_J_CIN_DC];
-    ch[CH_PRE_CINPREV + r] = pc[PR_J_CIN_DC];
+    ps[PS_JCIN + r] = pc[PR_J_CIN_DC];
+    ps[PS_CINPREV + r] = pc[PR_J_CIN_DC];
   }
-  ch[CH_PRE_GPREV] = 1.0 / 1000000.0;
+  ps[PS_GPREV] = 1.0 / 1000000.0;
+}
+
+// ═══════════════════════ the melange preamp ═══════════════════════
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// Threefry-2x32, 20 rounds (prng.threefry2x32)
+__device__ __noinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t c1,
+                                      uint32_t c2, uint32_t* o1,
+                                      uint32_t* o2) {
+  const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0 = c1 + ks[0], x1 = c2 + ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x0 = x0 + x1;
+      x1 = x0 ^ rotl32(x1, rot[i % 2][r]);
+    }
+    x0 = x0 + ks[(i + 1) % 3];
+    x1 = x1 + ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  *o1 = x0;
+  *o2 = x1;
+}
+
+// XLA's float64 erf_inv (prng.erfinv): coefficients from the highest
+// power, for w < 6.25, w < 16 and w >= 16
+__constant__ double kErfinvLt625[23] = {
+    -3.64441206401782e-21, -1.6850591381820166e-19, 1.28584807152564e-18,
+    1.1157877678025181e-17, -1.333171662854621e-16, 2.0972767875968562e-17,
+    6.637638134358324e-15, -4.054566272975207e-14, -8.151934197605472e-14,
+    2.6335093153082323e-12, -1.2975133253453532e-11, -5.415412054294628e-11,
+    1.0512122733215323e-09, -4.112633980346984e-09, -2.9070369957882005e-08,
+    4.2347877827932404e-07, -1.3654692000834679e-06, -1.3882523362786469e-05,
+    0.00018673420803405714, -0.000740702534166267, -0.0060336708714301491,
+    0.24015818242558962, 1.6536545626831027};
+__constant__ double kErfinvLt16[19] = {
+    2.2137376921775787e-09, 9.075656193888539e-08, -2.7517406297064545e-07,
+    1.8239629214389228e-08, 1.5027403968909828e-06, -4.013867526981546e-06,
+    2.9234449089955446e-06, 1.2475304481671779e-05, -4.7318229009055734e-05,
+    6.828485145957318e-05, 2.4031110387097894e-05, -0.0003550375203628475,
+    0.0009532893797373805, -0.0016882755560235047, 0.002491442096107851,
+    -0.003751208507569241, 0.005370914553590064, 1.0052589676941592,
+    3.0838856104922208};
+__constant__ double kErfinvGt16[17] = {
+    -2.7109920616438573e-11, -2.555641816996525e-10, 1.5076572693500548e-09,
+    -3.789465440126737e-09, 7.61570120807834e-09, -1.496002662714924e-08,
+    2.914795345090108e-08, -6.771199775845234e-08, 2.2900482228026655e-07,
+    -9.9298272942317e-07, 4.526062597223154e-06, -1.968177810553167e-05,
+    7.599527703001776e-05, -0.00021503011930044477, -0.00013871931833623122,
+    1.0103004648645344, 4.849906401408584};
+
+__device__ __noinline__ double erfinv_xla(double x) {
+  const double w = -log1p(x * -x);
+  const bool lt625 = w < 6.25, lt16 = w < 16.0;
+  const double sqrt_w = sqrt(w);
+  const double t = lt625 ? w + -3.125 : sqrt_w - (lt16 ? 3.25 : 5.0);
+  const double* c = lt625 ? kErfinvLt625 : (lt16 ? kErfinvLt16 : kErfinvGt16);
+  const int terms = lt625 ? 23 : (lt16 ? 19 : 17);
+  double p = c[0];
+#pragma unroll 1
+  for (int i = 1; i < terms; ++i) p = i < 19 ? c[i] + p * t : p * t + c[i];
+  return fabs(x) == 1.0 ? x * INFINITY : p * x;
+}
+
+// jax.random.normal(sub, (10,), float64)[i]: 64 random bits (the hash of
+// the counts (0, i)), their top 52 as a uniform on [nextafter(-1, 0), 1),
+// then sqrt(2) erfinv
+__device__ __forceinline__ double normal_draw(uint32_t s1, uint32_t s2,
+                                              uint32_t i) {
+  constexpr double lo = -0x1.fffffffffffffp-1;  // nextafter(-1, 0)
+  uint32_t b1, b2;
+  threefry(s1, s2, 0u, i, &b1, &b2);
+  const unsigned long long mant =
+      ((unsigned long long)b1 << 20) | (unsigned long long)(b2 >> 12);
+  const double floats = (double)mant * 0x1p-52;
+  const double u = jmax(floats * 2.0 + lo, lo);
+  return 1.4142135623730951 * erfinv_xla(u);
+}
+
+// the 2N5089s' Gummel-Poon currents and the 1N4148's
+__device__ __forceinline__ void mel_currents(const double* mc,
+                                             const double* vnl, double* i) {
+  currents<5, 2>(mc + ML_CUR, vnl, i);
+  i[4] = mc[ML_DIODE] * (limexp(vnl[4] / mc[ML_DIODE + 1]) - 1.0);
+}
+
+// I − K_corr dI/dV (melange_preamp.newton_jacobian)
+__device__ __noinline__ void mel_jacobian(const double* mc, const double* kc,
+                                          const double* vnl, double* jac) {
+  double top[5], bot[5];
+  derivs<5, 2>(mc + ML_DER, vnl, top, bot);
+  double val, dval;
+  limexp_d(vnl[4] / mc[ML_DIODE + 1], &val, &dval);
+  const double g_d = mc[ML_DIODE] * dval / mc[ML_DIODE + 1];
+  for (int r = 0; r < 5; ++r) {
+    for (int k = 0; k < 4; ++k) {
+      const int r0 = 2 * (k / 2);
+      jac[r * 5 + k] = (r == k ? 1.0 : 0.0) -
+                       (kc[r * 5 + r0] * top[k] + kc[r * 5 + r0 + 1] * bot[k]);
+    }
+    jac[r * 5 + 4] = (r == 4 ? 1.0 : 0.0) - kc[r * 5 + 4] * g_d;
+  }
+}
+
+// melange_preamp.step on the melange rows `ms` (MelState); returns
+// main − shadow. `scale` is noise_enabled · noise_gain.
+__device__ __noinline__ double melange_step(const double* mc, double* ms,
+                                            double g, double x,
+                                            double scale) {
+  constexpr int N = 13, M = 5, NR = 10;
+  const int fb = (int)mc[ML_IDX], outn = (int)mc[ML_IDX + 1];
+  const int row_in = (int)mc[ML_IDX + 2];
+  // the key advances on every step; the noise enters the main row only
+  const uint32_t k1 = (uint32_t)ms[MS_KEY], k2 = (uint32_t)ms[MS_KEY + 1];
+  uint32_t n1, n2, s1, s2;
+  threefry(k1, k2, 0u, 0u, &n1, &n2);
+  threefry(k1, k2, 0u, 1u, &s1, &s2);
+  double w_new[NR], i_r[NR], i_noise[N];
+#pragma unroll 1
+  for (int r = 0; r < NR; ++r) {
+    w_new[r] = normal_draw(s1, s2, (uint32_t)r) * mc[ML_SIGMA + r] * scale;
+    i_r[r] = w_new[r] + ms[MS_WPREV + r];
+  }
+  matvec(mc + ML_INJECT, i_r, i_noise, N, NR);
+  const double gprev = ms[MS_GPREV];
+  const double sm_k = g / (1.0 + mc[ML_S_FB_FB] * g);
+  double v_pred[2][N], p[2][M];
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+    const double* v = ms + MS_V + N * r;
+    double rhs[N], t[N], vpb[N];
+    matvec(mc + ML_A_HIST, v, rhs, N, N);
+    rhs[fb] = rhs[fb] + (-gprev) * v[fb];
+#pragma unroll 1
+    for (int n = 0; n < N; ++n) rhs[n] = rhs[n] + mc[ML_WS_W + n];
+    rhs[row_in] = rhs[row_in] + (r == 0 ? x : 0.0);
+    matvec(mc + ML_N_I, ms + MS_I + M * r, t, N, M);
+#pragma unroll 1
+    for (int n = 0; n < N; ++n) rhs[n] = rhs[n] + t[n];
+#pragma unroll 1
+    for (int n = 0; n < N; ++n) rhs[n] = rhs[n] + (r == 0 ? i_noise[n] : 0.0);
+    matvec(mc + ML_S, rhs, vpb, N, N);
+#pragma unroll 1
+    for (int n = 0; n < N; ++n)
+      v_pred[r][n] = vpb[n] - (sm_k * vpb[fb]) * mc[ML_S_FB_COL + n];
+    matvec(mc + ML_N_V, v_pred[r], p[r], M, N);
+  }
+  double kc[M * M];
+#pragma unroll 1
+  for (int k = 0; k < M * M; ++k)
+    kc[k] = mc[ML_K + k] - sm_k * mc[ML_K_OUTER + k];
+  double vnl[2][M], f[2][M];
+  for (int r = 0; r < 2; ++r)
+    for (int m = 0; m < M; ++m) vnl[r][m] = ms[MS_VNL + M * r + m];
+  // at most 12 Newton iterations; a converged row stays put, and the loop
+  // ends once both have (the rest would change nothing)
+#pragma unroll 1
+  for (int it = 0; it < 12; ++it) {
+    bool conv[2];
+    for (int r = 0; r < 2; ++r) {
+      double i[M], ki[M];
+      mel_currents(mc, vnl[r], i);
+      matvec(kc, i, ki, M, M);
+      for (int m = 0; m < M; ++m) f[r][m] = vnl[r][m] - p[r][m] - ki[m];
+      conv[r] = max_abs(f[r], M) < 1e-9;
+    }
+    if (conv[0] && conv[1]) break;
+#pragma unroll 1
+    for (int r = 0; r < 2; ++r) {
+      if (conv[r]) continue;
+      double jac[M * M], dv[M];
+      mel_jacobian(mc, kc, vnl[r], jac);
+      ge_solve_f32<M>(jac, f[r], dv);
+      for (int m = 0; m < M; ++m)
+        vnl[r][m] = vnl[r][m] - jclip(dv[m], -0.5, 0.5);
+    }
+  }
+  double v_new[2][N], i_new[2][M];
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+    double s_ni[N], dot;
+    mel_currents(mc, vnl[r], i_new[r]);
+    matvec(mc + ML_S_NI, i_new[r], s_ni, N, M);
+    matvec(mc + ML_SFB_NI, i_new[r], &dot, 1, M);
+#pragma unroll 1
+    for (int n = 0; n < N; ++n)
+      v_new[r][n] =
+          v_pred[r][n] + s_ni[n] - (sm_k * dot) * mc[ML_S_FB_COL + n];
+  }
+  const double out = v_new[0][outn] - v_new[1][outn];
+  const bool bad = !finite(out);
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll 1
+    for (int n = 0; n < N; ++n)
+      ms[MS_V + N * r + n] = bad ? mc[ML_V_DC + n] : v_new[r][n];
+    for (int m = 0; m < M; ++m) {
+      ms[MS_I + M * r + m] = bad ? mc[ML_I_DC + m] : i_new[r][m];
+      ms[MS_VNL + M * r + m] = bad ? mc[ML_V_NL_DC + m] : vnl[r][m];
+    }
+  }
+  ms[MS_GPREV] = g;
+  ms[MS_KEY] = (double)n1;
+  ms[MS_KEY + 1] = (double)n2;
+  for (int r = 0; r < NR; ++r) ms[MS_WPREV + r] = w_new[r];
+  return bad ? 0.0 : out;
+}
+
+// the melange rows at the DC point, the key at PRNGKey(0x5EED)
+__device__ void init_melange(const double* mc, double* ms) {
+  for (int r = 0; r < 2; ++r) {
+    for (int n = 0; n < 13; ++n) ms[MS_V + 13 * r + n] = mc[ML_V_DC + n];
+    for (int m = 0; m < 5; ++m) {
+      ms[MS_I + 5 * r + m] = mc[ML_I_DC + m];
+      ms[MS_VNL + 5 * r + m] = mc[ML_V_NL_DC + m];
+    }
+  }
+  ms[MS_GPREV] = 1.0 / 1000000.0;
+  ms[MS_KEY] = 0.0;
+  ms[MS_KEY + 1] = 24301.0;  // 0x5EED
+  for (int r = 0; r < 10; ++r) ms[MS_WPREV + r] = 0.0;
 }
 
 __device__ void init_power_amp(const double* pa, double* ch) {
@@ -825,6 +1150,33 @@ __device__ __noinline__ double power_amp_step(const double* c, const double* mis
   return out;
 }
 
+// power_amp.behavioral_process: 8 Newton iterations on
+// y = f(A(x − βy)), memoryless; output normalised to ±1
+__device__ __noinline__ double behavioral(double x) {
+  constexpr double A = 19000.0;
+  constexpr double beta = 220.0 / (220.0 + 15000.0);
+  constexpr double vt_sq = 0.013 * 0.013;
+  constexpr double q = 0.1;
+  const double clg = A / (1.0 + A * beta);
+  double y = jclip(x * clg, -22.0 + 1e-6, 22.0 - 1e-6);
+#pragma unroll 1
+  for (int it = 0; it < 8; ++it) {
+    const double v = A * (x - beta * y);
+    const double exp_term = exp(-v * v / vt_sq);
+    const double cross_gain = q + (1.0 - q) * (1.0 - exp_term);
+    const double v_cross = v * cross_gain;
+    const double dcross_dv =
+        cross_gain + v * (1.0 - q) * (2.0 * v / vt_sq) * exp_term;
+    const double tanh_val = tanh(v_cross / 22.0);
+    const double f_val = 22.0 * tanh_val;
+    const double f_deriv = (1.0 - tanh_val * tanh_val) * dcross_dv;
+    const double residual = y - f_val;
+    const double jacobian = 1.0 + A * beta * f_deriv;
+    y = y - residual / jacobian;
+  }
+  return y / 22.0;
+}
+
 struct Biquad { double b0, b1, b2, a1, a2; };
 
 __device__ __noinline__ Biquad design(bool lowpass, double hz, double q, double sr) {
@@ -853,39 +1205,56 @@ __device__ __forceinline__ double biquad(const Biquad& k, double* z,
   return y;
 }
 
+// one oversampled step of the nonlinear chain: tremolo → LDR → preamp
+// (DK or melange) → power amp (circuit or behavioral)
+template <int PRE, int PA>
+__device__ __forceinline__ double nonlinear_step(const double* c,
+                                                 const double* misc,
+                                                 double* ch, double depth,
+                                                 double u, bool sag,
+                                                 double noise_scale) {
+  const double shunt = tremolo_step(c, misc, ch, depth);
+  const double g = 1.0 / jmax(shunt, 1000.0);
+  double pre;
+  if constexpr (PRE == PRE_DK)
+    pre = preamp_step(c + C_PRE, ch + CH_PRE_V, g, u);
+  else
+    pre = melange_step(c + C_MEL, ch + CH_MEL_V, g, u, noise_scale);
+  const double drive = 0.25;  // tables.FIXED_CIRCUIT_DRIVE
+  if constexpr (PA == PA_CIRCUIT)
+    return power_amp_step(c, misc, ch, pre * drive, sag);
+  else
+    return behavioral(pre * drive);
+}
+
 // the whole chain of one base sample (engine.py's render body after the
 // voice sum); returns the f64 output before the cast
+template <int PRE, int PA>
 __device__ __noinline__ double chain_sample(const double* c, double* ch, double mono,
-                               bool sag, double* last_char, Biquad* hpf,
+                               bool sag, double noise_scale,
+                               double* last_char, Biquad* hpf,
                                Biquad* lpf, double* spk_k) {
   const double* misc = c + C_MISC;
-  const double* pc = c + C_PRE;
   const double depth = smoother_next(ch + CH_SM_DEPTH);
   const double vol = smoother_next(ch + CH_SM_VOLUME);
   const double chr = smoother_next(ch + CH_SM_CHAR);
   double amp_out;
-  const double drive = 0.25;  // tables.FIXED_CIRCUIT_DRIVE
   if (misc[M_OVERSAMPLE] != 0.0) {
     const double e = branch_step(kBranchA, ch + CH_OS_UP_A, mono);
     const double o = branch_step(kBranchB, ch + CH_OS_UP_B, mono);
     double y[2];
     const double us[2] = {e, o};
 #pragma unroll 1
-    for (int h = 0; h < 2; ++h) {
-      const double shunt = tremolo_step(c, misc, ch, depth);
-      const double g = 1.0 / jmax(shunt, 1000.0);
-      const double pre = preamp_step(pc, ch, g, us[h]);
-      y[h] = power_amp_step(c, misc, ch, pre * drive, sag);
-    }
+    for (int h = 0; h < 2; ++h)
+      y[h] = nonlinear_step<PRE, PA>(c, misc, ch, depth, us[h], sag,
+                                     noise_scale);
     const double a = branch_step(kBranchA, ch + CH_OS_DOWN_A, y[0]);
     const double b = branch_step(kBranchB, ch + CH_OS_DOWN_B, y[1]);
     amp_out = (a + ch[CH_OS_DELAY]) * 0.5;
     ch[CH_OS_DELAY] = b;
   } else {
-    const double shunt = tremolo_step(c, misc, ch, depth);
-    const double g = 1.0 / jmax(shunt, 1000.0);
-    const double pre = preamp_step(pc, ch, g, mono);
-    amp_out = power_amp_step(c, misc, ch, pre * drive, sag);
+    amp_out = nonlinear_step<PRE, PA>(c, misc, ch, depth, mono, sag,
+                                      noise_scale);
   }
   // speaker: coefficients redesigned only when the character moved
   if (__double_as_longlong(chr) != __double_as_longlong(*last_char)) {
@@ -912,9 +1281,13 @@ __device__ __noinline__ double chain_sample(const double* c, double* ch, double 
   const double y = biquad(*lpf, spk + 2, filtered);
   const double out = y * misc[M_POST_GAIN] * vol;
   if (!finite(out)) {
-    // NaN guard #2: preamp, oversampler, power amp and speaker reset
-    for (int k = 0; k < 13; ++k) ch[CH_OS_UP_A + k] = 0.0;
-    init_preamp(pc, ch);
+    // NaN guard #2: preamp (the melange one's noise key and draws
+    // included), oversampler, power amp and speaker reset
+    for (int k = 0; k < OS_ROWS; ++k) ch[CH_OS_UP_A + k] = 0.0;
+    if constexpr (PRE == PRE_DK)
+      init_preamp(c + C_PRE, ch + CH_PRE_V);
+    else
+      init_melange(c + C_MEL, ch + CH_MEL_V);
     init_power_amp(c + C_PA, ch);
     for (int k = 0; k < 5; ++k) spk[k] = 0.0;
     return 0.0;
@@ -922,18 +1295,20 @@ __device__ __noinline__ double chain_sample(const double* c, double* ch, double 
   return out;
 }
 
+template <int PRE, int PA>
 __global__ void engine_chain_kernel(const double* __restrict__ c,
                                     const double* __restrict__ mono,
                                     double* chain, float* out, int n,
-                                    int sag) {
+                                    int sag, double noise_scale) {
   double ch[CHAIN_ROWS];
   for (int k = 0; k < CHAIN_ROWS; ++k) ch[k] = chain[k];
   double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
   Biquad hpf, lpf;
   double spk_k[4];
   for (int t = 0; t < n; ++t)
-    out[t] = (float)chain_sample(c, ch, mono[t], sag != 0, &last_char, &hpf,
-                                 &lpf, spk_k);
+    out[t] = (float)chain_sample<PRE, PA>(c, ch, mono[t], sag != 0,
+                                          noise_scale, &last_char, &hpf,
+                                          &lpf, spk_k);
   for (int k = 0; k < CHAIN_ROWS; ++k) chain[k] = ch[k];
 }
 
@@ -951,6 +1326,46 @@ __global__ void tremolo_settle_kernel(const double* __restrict__ c,
   for (int k = 0; k < OSC_ROWS; ++k) state[k] = s[k];
 }
 
+// ═══════════════════════════ E5: preamp scan ═══════════════════════════
+
+// a thread per stream, columns of the (rows, G) state; x and out (n, G)
+// time major
+constexpr int E5_BLOCK = 32;
+
+template <int PRE>
+__global__ void __launch_bounds__(E5_BLOCK)
+preamp_scan_kernel(const double* __restrict__ c, const double* __restrict__ x,
+                   double* state, const double* __restrict__ g_ldr,
+                   const double* __restrict__ noise_scale, double* out, int n,
+                   int g) {
+  constexpr int ROWS = PRE == PRE_DK ? OS_ROWS + PS_ROWS : MS_ROWS;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= g) return;
+  double s[ROWS];
+  for (int k = 0; k < ROWS; ++k) s[k] = state[(size_t)k * g + j];
+  const double gl = g_ldr[j];
+  const double scale = PRE == PRE_MELANGE ? noise_scale[j] : 0.0;
+  for (int t = 0; t < n; ++t) {
+    const double xt = x[(size_t)t * g + j];
+    double y;
+    if constexpr (PRE == PRE_DK) {
+      // di.preamp_di: allpass up, the twin DK step twice, allpass down
+      const double e = branch_step(kBranchA, s + 0, xt);
+      const double o = branch_step(kBranchB, s + 3, xt);
+      const double y0 = preamp_step(c, s + OS_ROWS, gl, e);
+      const double y1 = preamp_step(c, s + OS_ROWS, gl, o);
+      const double a = branch_step(kBranchA, s + 6, y0);
+      const double b = branch_step(kBranchB, s + 9, y1);
+      y = (a + s[12]) * 0.5;
+      s[12] = b;
+    } else {
+      y = melange_step(c, s, gl, xt, scale);
+    }
+    out[(size_t)t * g + j] = y;
+  }
+  for (int k = 0; k < ROWS; ++k) state[(size_t)k * g + j] = s[k];
+}
+
 }  // namespace
 
 extern "C" int ow_engine_voices(const double* vpar, double* vst,
@@ -963,12 +1378,56 @@ extern "C" int ow_engine_voices(const double* vpar, double* vst,
   return (int)cudaGetLastError();
 }
 
+extern "C" int ow_voice_render(const double* vpar, double* vst,
+                               long long* vsti, double* out, int g, int n,
+                               cudaStream_t stream) {
+  if (g < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (g == 0) return 0;
+  voice_render_kernel<<<(g + E4_BLOCK - 1) / E4_BLOCK, E4_BLOCK, 0, stream>>>(
+      vpar, vst, vsti, out, g, n);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int ow_engine_chain(const double* consts, int n_consts,
                                const double* mono, double* chain, float* out,
-                               int n, int rail_sag, cudaStream_t stream) {
-  if (n_consts != C_TOTAL || n < 0) return (int)cudaErrorInvalidValue;
-  engine_chain_kernel<<<1, 1, 0, stream>>>(consts, mono, chain, out, n,
-                                           rail_sag);
+                               int n, int rail_sag, int pre_model,
+                               int pa_model, double noise_scale,
+                               cudaStream_t stream) {
+  const int want = C_TOTAL + (pre_model == PRE_MELANGE ? ML_SIZE : 0);
+  if (n_consts != want || n < 0 || pre_model < 0 || pre_model > 1 ||
+      pa_model < 0 || pa_model > 1)
+    return (int)cudaErrorInvalidValue;
+  if (pre_model == PRE_DK && pa_model == PA_CIRCUIT)
+    engine_chain_kernel<PRE_DK, PA_CIRCUIT><<<1, 1, 0, stream>>>(
+        consts, mono, chain, out, n, rail_sag, noise_scale);
+  else if (pre_model == PRE_DK)
+    engine_chain_kernel<PRE_DK, PA_BEHAVIORAL><<<1, 1, 0, stream>>>(
+        consts, mono, chain, out, n, rail_sag, noise_scale);
+  else if (pa_model == PA_CIRCUIT)
+    engine_chain_kernel<PRE_MELANGE, PA_CIRCUIT><<<1, 1, 0, stream>>>(
+        consts, mono, chain, out, n, rail_sag, noise_scale);
+  else
+    engine_chain_kernel<PRE_MELANGE, PA_BEHAVIORAL><<<1, 1, 0, stream>>>(
+        consts, mono, chain, out, n, rail_sag, noise_scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ow_preamp_scan(int kind, const double* consts, int n_consts,
+                              const double* x, double* state,
+                              const double* g_ldr, const double* noise_scale,
+                              double* out, int n, int g,
+                              cudaStream_t stream) {
+  if (n < 0 || g < 0 || kind < 0 || kind > 1 ||
+      n_consts != (kind == PRE_DK ? PR_J_CIN_DC + 1 : ML_SIZE))
+    return (int)cudaErrorInvalidValue;
+  if (g == 0) return 0;
+  const int blocks = (g + E5_BLOCK - 1) / E5_BLOCK;
+  if (kind == PRE_DK)
+    preamp_scan_kernel<PRE_DK><<<blocks, E5_BLOCK, 0, stream>>>(
+        consts, x, state, g_ldr, noise_scale, out, n, g);
+  else
+    preamp_scan_kernel<PRE_MELANGE><<<blocks, E5_BLOCK, 0, stream>>>(
+        consts, x, state, g_ldr, noise_scale, out, n, g);
   return (int)cudaGetLastError();
 }
 

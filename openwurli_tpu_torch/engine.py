@@ -1,5 +1,7 @@
-"""The float64 polyphonic engine, the port of `openwurli_tpu/engine.py`
-(its default configuration: the DK preamp and the circuit power amp).
+"""The float64 polyphonic engine, the port of `openwurli_tpu/engine.py`,
+in each of its configurations: the DK preamp or the 12-node melange
+preamp (with its authentic thermal noise), and the circuit power amp or
+the behavioral one.
 
 64 voice slots plus a bank of 64 "steal" slots that render a stolen voice
 under a 5 ms linear fade; the sustain state machine; 5 ms linear
@@ -10,8 +12,9 @@ before the oversampler and at the output; the 0.6 s warm-up.
 (16384, 2048, 256, then the remainder). A chunk is two launches: E1 runs
 the voice slots over the chunk and ends with the voice cleanup (silent
 voices go FREE), E2 runs the chain over E1's mono sum
-(`kernels/engine.py`). The chunking decides when a slot goes FREE, so it
-is the reference's.
+(`kernels/engine.py`), the instantiation of E2 for the engine's two
+models. The chunking decides when a slot goes FREE, so it is the
+reference's.
 
 State: the voice slots, their gates and the chain live in packed tensors
 on the engine's device, updated in place. The host keeps the slots' notes
@@ -45,10 +48,20 @@ class Engine:
 
     CHUNK_LADDER = (16384, 2048, 256)
 
-    def __init__(self, sample_rate: float, device="cuda"):
+    def __init__(self, sample_rate: float, device="cuda",
+                 preamp_model: str = "dk", pa_model: str = "circuit"):
+        """preamp_model: "dk" (the 8-node DK preamp) or "melange" (the
+        12-node preamp with the protection diode and thermal noise);
+        pa_model: "circuit" (the 8-BJT solver) or "behavioral" (the
+        closed-loop model)."""
+        assert preamp_model in ("dk", "melange"), preamp_model
+        assert pa_model in ("circuit", "behavioral"), pa_model
         self.sample_rate = float(sample_rate)
         self.device = torch.device(device)
-        self.params = ek.chain_params(self.sample_rate)
+        self.preamp_model = preamp_model
+        self.pa_model = pa_model
+        self.params = ek.chain_params(self.sample_rate, preamp_model,
+                                      pa_model)
         self.oversample = self.params.oversample
         self.os_sample_rate = self.params.os_sample_rate
         self.ramp_samples = max(int(self.sample_rate * SMOOTH_S), 1)
@@ -211,8 +224,8 @@ class Engine:
         self.rail_sag = bool(on)
 
     def set_noise_enabled(self, on: bool):
-        """Stored only: thermal noise belongs to the melange preamp, which
-        this engine's DK preamp does not model (as in the reference)."""
+        """Authentic circuit noise: active on the melange preamp only (the
+        DK preamp has no noise model, as in the reference)."""
         self.noise_enabled = bool(on)
 
     def set_noise_gain(self, gain: float):
@@ -224,7 +237,9 @@ class Engine:
         mono = ek.render_voices(self.vpar, self.vst, self.vsti, self.eng_i,
                                 n, self.fade_len, self.sample_rate)
         self._slots_stale = True
-        return ek.render_chain(self.params, mono, self.chain, self.rail_sag)
+        noise_scale = (1.0 if self.noise_enabled else 0.0) * self.noise_gain
+        return ek.render_chain(self.params, mono, self.chain, self.rail_sag,
+                               noise_scale)
 
     def render(self, num_samples: int) -> torch.Tensor:
         """num_samples mono float32 samples through the full chain, as a
@@ -253,13 +268,15 @@ class Engine:
         self.render(int(self.sample_rate * WARM_UP_S))
 
     def set_sample_rate(self, sr: float):
-        """Rebuild the chain at a new rate (targets and flags kept)."""
+        """Rebuild the chain at a new rate (models, targets and flags
+        kept)."""
         keep = (self.mlp_enabled, self.rail_sag, self.noise_enabled,
                 self.noise_gain)
         targets = dict(self._targets)
         sm = {k: self.chain[slice(*ek.CHAIN_OFF["sm_" + k])].clone()
               for k in targets}
-        self.__init__(sr, device=self.device)
+        self.__init__(sr, device=self.device,
+                      preamp_model=self.preamp_model, pa_model=self.pa_model)
         self.mlp_enabled, self.rail_sag, self.noise_enabled, \
             self.noise_gain = keep
         self._targets = targets

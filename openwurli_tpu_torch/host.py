@@ -5,7 +5,9 @@ with in-block sample offsets, and `FastWurliPlugin`, a block-based
 sustain, mono → stereo fan-out) over `fast_engine.FastEngine`. Consumable
 from any Python host: offline renderers, an audio bridge, test harnesses.
 
-The f64 `WurliPlugin` over the scan engine is not ported yet.
+`WurliPlugin` is the same surface over the f64 `engine.Engine`, with
+the reference's choice of preamp (the melange preamp carries the
+"Authentic Noise" and "Noise Level" parameters).
 """
 
 from __future__ import annotations
@@ -50,8 +52,10 @@ class WurliPlugin:
 
     CLAP_ID = "com.openwurli-tpu.wurlitzer-200a"
 
-    def __init__(self, sample_rate: float = 44100.0, device="cuda"):
-        self.engine = Engine(sample_rate, device=device)
+    def __init__(self, sample_rate: float = 44100.0,
+                 preamp_model: str = "dk", device="cuda"):
+        self.engine = Engine(sample_rate, device=device,
+                             preamp_model=preamp_model)
         self.params = WurliParams()
 
     def set_sample_rate(self, sr: float):

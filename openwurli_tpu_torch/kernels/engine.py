@@ -12,11 +12,13 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
     NaN guard #1) and the chunk-end cleanup; writes each sample's mono
     sum. The voice bank never reads the chain, so E1 runs a whole chunk
     before E2.
-  * **E2 `engine_chain`**: the chain over the chunk's mono input: the
-    three smoothers, 2× allpass oversampling, per oversampled step the
-    tremolo → LDR → twin DK preamp → power amp, downsampling, the
-    speaker with its per-sample coefficient design, post gain and volume,
-    NaN guard #2, the f32 cast.
+  * **E2 `engine_chain<PRE, PA>`**: the chain over the chunk's mono
+    input: the three smoothers, 2× allpass oversampling, per oversampled
+    step the tremolo → LDR → preamp (the twin DK preamp, or the 12-node
+    melange preamp with its thermal noise) → power amp (the circuit, or
+    the memoryless behavioral model), downsampling, the speaker with its
+    per-sample coefficient design, post gain and volume, NaN guard #2, the
+    f32 cast. The two model choices are template arguments.
   * **E3 `tremolo_settle`**: the tremolo oscillator's mna step alone, n
     times.
 
@@ -39,7 +41,8 @@ import numpy as np
 import torch
 
 from openwurli_tpu_torch import hammer, pickup, reed, tables, voice
-from openwurli_tpu_torch.circuits import dk_preamp, gp, mna, power_amp
+from openwurli_tpu_torch.circuits import dk_preamp, gp, melange_preamp, mna
+from openwurli_tpu_torch.circuits import power_amp
 from openwurli_tpu_torch.circuits import speaker, tremolo
 from openwurli_tpu_torch.ops import allpass, biquad, exact
 
@@ -81,6 +84,12 @@ CHAIN_SPEC = (
     ("pa_diag", N_DIAG), ("pa_rails", 4), ("pa_last", 1),
     ("spk", 5),
     ("sm_volume", 4), ("sm_depth", 4), ("sm_char", 4),
+    # the melange preamp (used by engines built with it; appended, so that
+    # no earlier row moved): twin v, i_nl, v_nl, g_ldr_prev, the noise
+    # key's two u32 words (exact in float64), the previous draws
+    ("mel_v", 2 * melange_preamp.N), ("mel_i", 2 * melange_preamp.M),
+    ("mel_vnl", 2 * melange_preamp.M), ("mel_gprev", 1), ("mel_key", 2),
+    ("mel_wprev", melange_preamp.N_RES),
 )
 CHAIN_OFF = {}
 _o = 0
@@ -90,11 +99,16 @@ for _n, _k in CHAIN_SPEC:
 CHAIN_ROWS = _o
 OSC_ROWS = N_T + 2 * M_T + 1 + N_DIAG  # E3's state: trem_v .. trem_diag
 SM_CUR, SM_TARGET, SM_STEP, SM_REM = range(4)
+PREAMP_MODELS = ("dk", "melange")
+PA_MODELS = ("circuit", "behavioral")
 
 # Launch counters: *_LAUNCHES count CUDA launches, *_PLAIN_CALLS the calls
 # served by the plain version.
-VOICES_LAUNCHES = CHAIN_LAUNCHES = SETTLE_LAUNCHES = 0
+VOICES_LAUNCHES = SETTLE_LAUNCHES = 0
 VOICES_PLAIN_CALLS = CHAIN_PLAIN_CALLS = SETTLE_PLAIN_CALLS = 0
+# E2's launches by instantiation (preamp_model, pa_model)
+CHAIN_LAUNCHES_BY_MODELS = {(p, a): 0 for p in ("dk", "melange")
+                            for a in ("circuit", "behavioral")}
 
 
 # ─────────────────────────── voice bank packing ───────────────────────────
@@ -255,8 +269,9 @@ def _cols(tree, cols):
 
 
 class ChainParams(NamedTuple):
-    """One sample rate's chain: the step functions' params, and the flat
-    float64 constant buffer the kernels read (`flat`, NumPy)."""
+    """One sample rate's chain with its two model choices: the step
+    functions' params, and the flat float64 constant buffer the kernels
+    read (`flat`, NumPy; the melange block last, melange engines only)."""
 
     sample_rate: float
     os_sample_rate: float
@@ -267,6 +282,9 @@ class ChainParams(NamedTuple):
     speaker: speaker.SpeakerParams
     flat: np.ndarray
     offsets: dict
+    preamp_model: str = "dk"
+    pa_model: str = "circuit"
+    melange: melange_preamp.MelangePreampParams = None
 
 
 def solver_block(netlist, params: mna.SolverParams) -> np.ndarray:
@@ -295,6 +313,41 @@ def solver_block_size(n, m, nb):
     return 4 + 4 * n * n + 4 * n * m + 2 * m * m + 4 * n + 4 * m + 26 * nb
 
 
+_NM, _MM = melange_preamp.N, melange_preamp.M
+MEL_SPEC = (("a_hist", _NM * _NM), ("s", _NM * _NM), ("n_v", _MM * _NM),
+            ("n_i", _NM * _MM), ("s_ni", _NM * _MM), ("k", _MM * _MM),
+            ("ws_w", _NM), ("v_dc", _NM), ("i_dc", _MM), ("v_nl_dc", _MM),
+            ("s_fb_col", _NM), ("s_fb_fb", 1), ("k_outer", _MM * _MM),
+            ("sfb_ni", _MM), ("inject", _NM * melange_preamp.N_RES),
+            ("sigma", melange_preamp.N_RES), ("cur", 26), ("der", 26),
+            ("diode", 2), ("idx", 3))
+
+
+def melange_block(params: melange_preamp.MelangePreampParams) -> np.ndarray:
+    """The melange step's constants in MEL_SPEC order (MelOffset in
+    csrc/engine.cu), row-major: the step_tensors, each BJT's 13 current
+    (gp.CURRENT_NAMES) and 13 derivative (gp.PARAM_NAMES) params, the
+    diode's (is_, n·vt), and the node indices (fb, out, input row)."""
+    c = melange_preamp.step_tensors(params)
+    nl = melange_preamp.build_netlist()
+    models = [b[4] for b in nl.bjts]
+    (_, _, _, diode), = nl.diodes
+    parts = {k: c[k].numpy() for k, _ in MEL_SPEC
+             if k not in ("cur", "der", "diode", "idx")}
+    parts.update(cur=gp.pack_current_params(models),
+                 der=gp.pack_bjt_params(models, np.float64),
+                 diode=np.array([diode.is_, diode.n * diode.vt]),
+                 idx=np.array([c["fb"], c["out"], c["input_row"]],
+                              np.float64))
+    out = []
+    for name, size in MEL_SPEC:
+        a = np.asarray(parts[name], np.float64).reshape(-1)
+        if a.size != size:
+            raise AssertionError(f"melange block {name}: {a.size} != {size}")
+        out.append(a)
+    return np.concatenate(out)
+
+
 PRE_SPEC = (("a_neg_base", 64), ("s_base", 64), ("two_w", 8), ("k", 4),
             ("k_outer", 4), ("s_fb_col", 8), ("ni_col0", 8), ("ni_col1", 8),
             ("sfb_ni", 2), ("v_dc", 8), ("v_nl_dc", 2), ("i_nl_dc", 2),
@@ -306,8 +359,15 @@ MISC_NAMES = ("trem_out", "trem_att", "trem_rel", "pa_out", "pa_v1",
 
 
 @functools.lru_cache(maxsize=None)
-def chain_params(sample_rate: float) -> ChainParams:
-    """The chain's params at base rate `sample_rate` (cached)."""
+def chain_params(sample_rate: float, preamp_model: str = "dk",
+                 pa_model: str = "circuit") -> ChainParams:
+    """The chain's params at base rate `sample_rate` with its preamp
+    ("dk" or "melange") and power amp ("circuit" or "behavioral")
+    (cached)."""
+    if preamp_model not in PREAMP_MODELS:
+        raise ValueError(f"preamp_model {preamp_model!r}")
+    if pa_model not in PA_MODELS:
+        raise ValueError(f"pa_model {pa_model!r}")
     sr = float(sample_rate)
     oversample = sr < 88_200.0
     os_sr = 2.0 * sr if oversample else sr
@@ -332,16 +392,26 @@ def chain_params(sample_rate: float) -> ChainParams:
     for name, arr in blocks:
         offsets[name] = off
         off += arr.size
+    mel = None
+    if preamp_model == "melange":
+        mel = melange_preamp.make_params(os_sr)
+        offsets["mel"] = off
+        blocks.append(("mel", melange_block(mel)))
     if blocks[0][1].size != solver_block_size(N_T, M_T, NB_T) or \
             blocks[1][1].size != solver_block_size(N_PA, M_PA, NB_PA):
         raise AssertionError("netlist dimensions differ from the kernels'")
     return ChainParams(sr, os_sr, oversample, tp, pp, ap, sp,
-                       np.concatenate([a for _, a in blocks]), offsets)
+                       np.concatenate([a for _, a in blocks]), offsets,
+                       preamp_model, pa_model, mel)
 
 
 @functools.lru_cache(maxsize=None)
-def _flat_on(sample_rate: float, device: str):
-    return torch.from_numpy(chain_params(sample_rate).flat).to(device)
+def _flat_on(cp_key, device: str):
+    return torch.from_numpy(chain_params(*cp_key).flat).to(device)
+
+
+def _cp_key(cp: ChainParams):
+    return (cp.sample_rate, cp.preamp_model, cp.pa_model)
 
 
 # ───────────────────────── chain state packing ─────────────────────────
@@ -356,6 +426,7 @@ class ChainState(NamedTuple):
     volume: torch.Tensor     # (4,) smoother: current, target, step, rem
     depth: torch.Tensor
     char: torch.Tensor
+    mel: melange_preamp.MelangePreampState  # key words as int64
 
 
 def _seg(flat, name):
@@ -391,7 +462,12 @@ def unpack_chain(flat) -> ChainState:
             last_good=g["pa_last"][0]),
         spk=speaker.SpeakerState(biquad.BiquadState(spk[0], spk[1]),
                                  biquad.BiquadState(spk[2], spk[3]), spk[4]),
-        volume=g["sm_volume"], depth=g["sm_depth"], char=g["sm_char"])
+        volume=g["sm_volume"], depth=g["sm_depth"], char=g["sm_char"],
+        mel=melange_preamp.MelangePreampState(
+            v=g["mel_v"].view(2, _NM), i_nl=g["mel_i"].view(2, _MM),
+            v_nl=g["mel_vnl"].view(2, _MM), g_ldr_prev=g["mel_gprev"][0],
+            noise_key=g["mel_key"].to(torch.int64),
+            noise_w_prev=g["mel_wprev"]))
 
 
 def pack_chain(st: ChainState, out=None):
@@ -402,7 +478,7 @@ def pack_chain(st: ChainState, out=None):
     def diag(d):
         return torch.stack([f(x)[0] for x in d])
 
-    o, t, p, a, s = st.os, st.trem, st.pre, st.pa, st.spk
+    o, t, p, a, s, m = st.os, st.trem, st.pre, st.pa, st.spk, st.mel
     parts = [o.up_a, o.up_b, o.down_a, o.down_b, o.down_delay,
              t.osc.v, t.osc.i_nl, t.osc.v_nl, t.osc.nr_resid,
              diag(t.osc.diag), t.ldr_envelope, t.r_ldr,
@@ -410,7 +486,8 @@ def pack_chain(st: ChainState, out=None):
              a.circuit.v, a.circuit.i_nl, a.circuit.v_nl, a.circuit.nr_resid,
              diag(a.circuit.diag), *a.rails, a.last_good,
              s.hpf.z1, s.hpf.z2, s.lpf.z1, s.lpf.z2, s.thermal_state,
-             st.volume, st.depth, st.char]
+             st.volume, st.depth, st.char, m.v, m.i_nl, m.v_nl, m.g_ldr_prev,
+             m.noise_key, m.noise_w_prev]
     flat = torch.cat([f(x) for x in parts])
     if flat.numel() != CHAIN_ROWS:
         raise AssertionError(f"chain state has {flat.numel()} rows")
@@ -425,12 +502,28 @@ def smoother(value, device="cpu"):
                         device=device)
 
 
+def init_melange_rows(cp: ChainParams, device="cpu"):
+    """The melange rows' reset state: the preamp's DC point and its noise
+    key at PRNGKey(0x5EED) on a melange engine, zeros (unused) on a DK
+    engine."""
+    if cp.melange is not None:
+        return melange_preamp.init_state(cp.melange, device=device)
+
+    def z(*shape, dtype=torch.float64):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return melange_preamp.MelangePreampState(
+        z(2, _NM), z(2, _MM), z(2, _MM), z(), z(2, dtype=torch.int64),
+        z(melange_preamp.N_RES))
+
+
 def init_chain_parts(cp: ChainParams, device="cpu"):
     """The chain's reset state (guard #2's targets) and the tremolo's."""
     return dict(os=allpass.init_state(device=device),
                 pre=dk_preamp.init_state(cp.preamp, device),
                 pa=power_amp.init_state(cp.power_amp, device),
-                spk=speaker.init_state(device))
+                spk=speaker.init_state(device),
+                mel=init_melange_rows(cp, device))
 
 
 def init_chain(cp: ChainParams, device="cpu", volume=0.5, depth=0.5,
@@ -453,23 +546,36 @@ def smoother_next(s):
     return torch.stack([nxt, target, step, rem]), nxt
 
 
-def chain_plain(cp: ChainParams, mono, flat, rail_sag: bool):
+def chain_plain(cp: ChainParams, mono, flat, rail_sag: bool,
+                noise_scale: float = 0.0):
     """Plain E2 on the tensors' device: mono (T,) float64 → out (T,)
-    float32; `flat` (CHAIN_ROWS,) is updated in place."""
+    float32; `flat` (CHAIN_ROWS,) is updated in place. `noise_scale` is
+    the melange preamp's noise_enabled · noise_gain."""
     dev = mono.device
     st = unpack_chain(flat)
-    pre_c = dk_preamp.step_tensors(cp.preamp, dev)
+    melange = cp.preamp_model == "melange"
+    pre_c = (melange_preamp.step_tensors(cp.melange, dev) if melange
+             else dk_preamp.step_tensors(cp.preamp, dev))
     inits = init_chain_parts(cp, dev)
-    os_, trem, pre, pa, spk = st.os, st.trem, st.pre, st.pa, st.spk
+    os_, trem, pa, spk = st.os, st.trem, st.pa, st.spk
+    pre = st.mel if melange else st.pre
     vol_s, dep_s, chr_s = st.volume, st.depth, st.char
     out = torch.empty(mono.shape[0], dtype=torch.float32, device=dev)
     drive = tables.FIXED_CIRCUIT_DRIVE
+    scale = torch.tensor(float(noise_scale), dtype=torch.float64, device=dev)
 
     def nonlinear(trem, pre, pa, u, depth):
         trem, shunt = tremolo.step(cp.tremolo, trem, depth)
-        pre, pre_out = dk_preamp.step(pre_c, pre,
-                                      dk_preamp.ldr_conductance(shunt), u)
-        pa, y = power_amp.step(cp.power_amp, pa, pre_out * drive, rail_sag)
+        g = dk_preamp.ldr_conductance(shunt)
+        if melange:
+            pre, pre_out = melange_preamp.step(pre_c, pre, g, u, scale)
+        else:
+            pre, pre_out = dk_preamp.step(pre_c, pre, g, u)
+        if cp.pa_model == "circuit":
+            pa, y = power_amp.step(cp.power_amp, pa, pre_out * drive,
+                                   rail_sag)
+        else:
+            y = power_amp.behavioral_process(pre_out * drive)
         return trem, pre, pa, y
 
     with torch.inference_mode():
@@ -489,14 +595,16 @@ def chain_plain(cp: ChainParams, mono, flat, rail_sag: bool):
             spk, shaped = speaker.step(cp.speaker, spk, coeffs, amp_out)
             y = shaped * tables.POST_SPEAKER_GAIN * user_vol
             if not bool(torch.isfinite(y)):
-                # NaN guard #2: reset preamp, oversampler, power amp and
-                # speaker (not the tremolo), emit silence
-                os_, pre, pa, spk = (inits["os"], inits["pre"], inits["pa"],
-                                     inits["spk"])
+                # NaN guard #2: reset preamp (the melange one's noise key
+                # and draws included), oversampler, power amp and speaker
+                # (not the tremolo), emit silence
+                os_, pa, spk = inits["os"], inits["pa"], inits["spk"]
+                pre = inits["mel"] if melange else inits["pre"]
                 y = torch.zeros_like(y)
             out[t] = y.to(torch.float32)
-        pack_chain(ChainState(os_, trem, pre, pa, spk, vol_s, dep_s, chr_s),
-                   out=flat)
+        pack_chain(ChainState(
+            os_, trem, st.pre if melange else pre, pa, spk, vol_s, dep_s,
+            chr_s, pre if melange else st.mel), out=flat)
     return out
 
 
@@ -595,10 +703,13 @@ def render_voices(vpar, vst, vsti, eng_i, num_samples: int, fade_len: float,
     return mono
 
 
-def render_chain(cp: ChainParams, mono, chain, rail_sag: bool):
+def render_chain(cp: ChainParams, mono, chain, rail_sag: bool,
+                 noise_scale: float = 0.0):
     """E2: the chain over mono (T,) float64 → out (T,) float32; `chain`
-    (CHAIN_ROWS,) float64 is updated in place."""
-    global CHAIN_LAUNCHES, CHAIN_PLAIN_CALLS
+    (CHAIN_ROWS,) float64 is updated in place. The instantiation is
+    `cp`'s (preamp_model, pa_model); `noise_scale` (noise_enabled ·
+    noise_gain) acts on the melange preamp only."""
+    global CHAIN_PLAIN_CALLS
     n = mono.shape[0]
     _check("mono", mono, (n,), torch.float64)
     _check("chain", chain, (CHAIN_ROWS,), torch.float64)
@@ -607,16 +718,19 @@ def render_chain(cp: ChainParams, mono, chain, rail_sag: bool):
         raise ValueError("mono and chain must be on one device")
     if dev.type == "cpu":
         CHAIN_PLAIN_CALLS += 1
-        return chain_plain(cp, mono, chain, bool(rail_sag))
+        return chain_plain(cp, mono, chain, bool(rail_sag),
+                           float(noise_scale))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    flat = _flat_on(cp.sample_rate, str(dev))
+    flat = _flat_on(_cp_key(cp), str(dev))
     out = torch.empty(n, dtype=torch.float32, device=dev)
     _lib_call("engine_chain", lambda lib: lib.ow_engine_chain,
               flat.data_ptr(), flat.numel(), mono.data_ptr(),
               chain.data_ptr(), out.data_ptr(), n, int(bool(rail_sag)),
+              PREAMP_MODELS.index(cp.preamp_model),
+              PA_MODELS.index(cp.pa_model), ctypes.c_double(noise_scale),
               device=dev)
-    CHAIN_LAUNCHES += 1
+    CHAIN_LAUNCHES_BY_MODELS[cp.preamp_model, cp.pa_model] += 1
     return out
 
 

@@ -42,9 +42,10 @@ def max_abs(x):
 
 
 def matvec(a, x):
-    """a (r, c) @ x (c,) → (r,), the products summed over c in index
-    order starting from the first product."""
-    terms = (a * x).unbind(-1)
+    """a (..., r, c) @ x (..., c) → (..., r), the products summed over c
+    in index order starting from the first product (batch axes
+    broadcast)."""
+    terms = (a * x.unsqueeze(-2)).unbind(-1)
     acc = terms[0]
     for t in terms[1:]:
         acc = acc + t

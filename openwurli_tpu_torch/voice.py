@@ -3,6 +3,9 @@
 Port of `openwurli_tpu/voice.py`. Note-on (`note_on_params`, `init_state`,
 `default_note_seed`) is float64 NumPy; `note_off`, `step` and `is_silent`
 run on torch tensors (the f64 engine's voice kernel E1 repeats `step`).
+`render` and `render_note` run whole batches of voices over a render's
+samples through kernel E4 (`kernels/render.py`) on the card, or its
+plain loop of `step` on the CPU.
 """
 
 from __future__ import annotations
@@ -121,3 +124,41 @@ def is_silent(vparams: VoiceParams, state: VoiceState, sample_rate):
                     > RELEASE_TIMEOUT_S))
     return timed_out | reed.is_silent(vparams.reed, state.reed,
                                       SILENCE_THRESHOLD_DB)
+
+
+def render(vparams: VoiceParams, state: VoiceState, num_samples: int,
+           device="cuda"):
+    """Render num_samples of the voices in (vparams, state) (NumPy, batch
+    shape (...)) on `device` → (state', out (num_samples, ...) float64),
+    state' the voices' end VoiceState, tensors of batch shape (...) on
+    `device`."""
+    from openwurli_tpu_torch.kernels import engine as ek
+    from openwurli_tpu_torch.kernels import render as kr
+
+    batch = np.shape(vparams.midi_note)
+    vpar, vst, vsti = kr.voice_columns(vparams, state, device)
+    out = kr.voice_render(vpar, vst, vsti, int(num_samples))
+
+    def unbatch(tree):
+        if isinstance(tree, tuple):
+            return type(tree)(*[unbatch(x) for x in tree])
+        return tree.reshape(batch + tree.shape[1:]).clone()
+
+    end = unbatch(ek.unpack_voices(vpar, vst, vsti)[1])
+    return end, out.reshape((int(num_samples),) + batch)
+
+
+def render_note(midi_note, velocity, duration_secs, sample_rate,
+                displacement_scale=None, mlp_enabled=False, device="cuda"):
+    """Offline single or batched note render: midi_note and velocity
+    broadcast together, each voice seeded with `default_note_seed`; n =
+    int(duration_secs · sample_rate) samples. Returns (n, ...batch)
+    float64 on `device`."""
+    vparams, detuned = note_on_params(
+        midi_note, velocity, sample_rate, mlp_enabled=mlp_enabled,
+        displacement_scale=displacement_scale)
+    state = init_state(vparams, detuned, velocity, sample_rate,
+                       default_note_seed(midi_note))
+    n = int(duration_secs * sample_rate)
+    _, out = render(vparams, state, n, device=device)
+    return out

@@ -410,3 +410,108 @@ def test_tremolo_settle_kernel_matches_plain(cuda):
     a = ek.settle(sr, st.clone(), 200)
     b = ek.settle_plain(sr, st.clone(), 200)
     assert _same_bits(a, b)
+
+
+# ── the render paths' kernels (E4, E5) and E2's other instantiations ──
+
+
+def _ragged_voices(cuda, g=133):
+    """g voices over the calibration grid's range, one with a NaN mode
+    amplitude and one with an inf quadrature, in packed columns."""
+    from openwurli_tpu_torch import voice
+    from openwurli_tpu_torch.kernels import engine as ek
+    from openwurli_tpu_torch.kernels import render as kr
+
+    rng = np.random.default_rng(8)
+    m = rng.integers(33, 97, g).astype(np.float64)
+    v = rng.uniform(0.05, 1.0, g)
+    vp, det = voice.note_on_params(m, v, SR, mlp_enabled=True)
+    vs = voice.init_state(vp, det, v, SR, voice.default_note_seed(m))
+    vpar, vst, vsti = kr.voice_columns(vp, vs, cuda)
+    vpar[ek.P_AMP + 2, 7] = float("nan")
+    vst[ek.S_C, 50] = float("inf")
+    return vpar, vst, vsti
+
+
+def test_voice_render_kernel_matches_plain(cuda):
+    from openwurli_tpu_torch.kernels import render as kr
+
+    cols = _ragged_voices(cuda)
+    a = [c.clone() for c in cols]
+    b = [c.clone() for c in cols]
+    out = kr.voice_render(*a, 1100)       # past the renorm at n = 1024
+    ref = kr.voice_render_plain(*b, 1100)
+    assert out.shape == (1100, 133)
+    assert not torch.isfinite(out[:, 7]).all()
+    assert _same_bits(out, ref)
+    for x, y in zip(a, b):
+        assert _same_bits(x, y)
+
+
+def test_preamp_scan_dk_kernel_matches_plain(cuda):
+    from openwurli_tpu_torch.kernels import render as kr
+
+    cols = _ragged_voices(cuda)
+    x = kr.voice_render(*[c.clone() for c in cols], 600)
+    x[100:, 9] = float("inf")            # a stream that resets to DC
+    os_sr = 2 * SR
+    st = kr.init_dk_state(os_sr, 133, cuda)
+    g = torch.full((133,), 1e-6, dtype=torch.float64, device=cuda)
+    g[::5] = 1.0 / 19_000.0
+    a, b = st.clone(), st.clone()
+    out = kr.preamp_scan("dk", os_sr, x, a, g)
+    ref = kr.preamp_scan_plain("dk", os_sr, x, b, g)
+    assert _same_bits(out, ref) and _same_bits(a, b)
+    # the inf stream's preamp went back to its DC point (the oversampler's
+    # branches carry the inf, as in the reference)
+    assert torch.isfinite(a[kr.DK_ROWS - 29:]).all()
+    assert torch.isfinite(out[:100]).all()
+
+
+def test_preamp_scan_melange_kernel_matches_plain(cuda):
+    from openwurli_tpu_torch.kernels import render as kr
+
+    sr = 88200.0
+    t = torch.arange(160, dtype=torch.float64, device=cuda)
+    x = 0.002 * torch.sin(t[:, None] * torch.tensor(
+        [0.01, 0.05, 0.03, 0.07, 0.02, 0.04], dtype=torch.float64,
+        device=cuda))
+    x[40, 5] = float("nan")                # the twin resets to DC
+    st = kr.init_melange_state(sr, 6, cuda)
+    g = torch.tensor([1e-6, 1e-5, 1.0 / 19e3, 1e-6, 1e-5, 1.0 / 19e3],
+                     dtype=torch.float64, device=cuda)
+    scale = torch.tensor([0.0, 1.0, 30.0, 30.0, 1.0, 0.0],
+                         dtype=torch.float64, device=cuda)
+    a, b = st.clone(), st.clone()
+    out = kr.preamp_scan("melange", sr, x, a, g, scale)
+    ref = kr.preamp_scan_plain("melange", sr, x, b, g, scale)
+    assert _same_bits(out, ref) and _same_bits(a, b)
+    assert float(out[40, 5]) == 0.0 and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("models", [("melange", "circuit"),
+                                    ("dk", "behavioral"),
+                                    ("melange", "behavioral")])
+@pytest.mark.parametrize("case", ["kick", "nan"])
+def test_engine_chain_models_match_plain(cuda, models, case):
+    from openwurli_tpu_torch.engine import Engine
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    eng = Engine(SR, device=cuda, preamp_model=models[0],
+                 pa_model=models[1])
+    for k, note in enumerate((48, 55, 60, 64, 67, 72, 93)):
+        eng.note_on(note, 0.4 + 0.08 * k)
+    mono = ek.render_voices(eng.vpar, eng.vst, eng.vsti, eng.eng_i, 48,
+                            eng.fade_len, eng.sample_rate)
+    state = eng.chain.clone()
+    if case == "kick":
+        state[ek.CHAIN_OFF["trem_v"][0]] += 70.0  # the tremolo's BE replay
+        mono[7] = 30.0                              # an input spike
+    else:
+        state[ek.CHAIN_OFF["spk"][0]] = float("nan")  # guard #2
+    a, b = state.clone(), state.clone()
+    out = ek.render_chain(eng.params, mono, a, True, 30.0)
+    ref = ek.chain_plain(eng.params, mono, b, True, 30.0)
+    assert _same_bits(out, ref) and _same_bits(a, b)
+    if case == "nan":
+        assert float(out[0]) == 0.0

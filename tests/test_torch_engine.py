@@ -290,6 +290,47 @@ def test_engine_cuda_layouts_match_python():
     assert ek.EI_FIRES == _cu_enum(src, "EngI")["EI_FIRES"]
 
 
+def test_model_layouts_match_cuda():
+    """csrc/engine.cu's melange, DK-preamp and E5 layouts against the
+    Python packers (kernels/engine.py, kernels/render.py)."""
+    import os
+
+    from openwurli_tpu_torch.circuits import melange_preamp
+    from openwurli_tpu_torch.kernels import engine as ek
+    from openwurli_tpu_torch.kernels import render as kr
+
+    with open(os.path.join(os.path.dirname(ek.__file__), "..", "csrc",
+                           "engine.cu")) as f:
+        src = f.read()
+    mel, off = _cu_enum(src, "MelOffset"), 0
+    for name, size in ek.MEL_SPEC:
+        assert mel.pop("ML_" + name.upper()) == off, name
+        off += size
+    assert mel == {"ML_SIZE": off}
+    cp = ek.chain_params(SR, "melange", "behavioral")
+    assert cp.offsets["mel"] == _cu_enum(src, "ConstOffset")["C_TOTAL"]
+    assert cp.flat.size == cp.offsets["mel"] + off
+    assert ek.melange_block(melange_preamp.make_params(88200.0)).size == off
+    ms = _cu_enum(src, "MelState")
+    base = ek.CHAIN_OFF["mel_v"][0]
+    for name in ("v", "i", "vnl", "gprev", "key", "wprev"):
+        assert ms["MS_" + name.upper()] == ek.CHAIN_OFF["mel_" + name][0] \
+            - base, name
+    assert ms["MS_ROWS"] == kr.MEL_STATE_ROWS
+    ps = _cu_enum(src, "PreState")
+    base = ek.CHAIN_OFF["pre_v"][0]
+    for name in ("v", "i", "vnl", "jcin", "cinprev", "gprev"):
+        assert ps["PS_" + name.upper()] == ek.CHAIN_OFF["pre_" + name][0] \
+            - base, name
+    assert 13 + ps["PS_ROWS"] == kr.DK_ROWS
+    assert [n for n, _ in kr.DK_SPEC] == [
+        n for n, _ in ek.CHAIN_SPEC[:5]] + [
+        n for n, _ in ek.CHAIN_SPEC if n.startswith("pre_")]
+    models = _cu_enum(src, "Models")
+    assert [models["PRE_" + m.upper()] for m in ek.PREAMP_MODELS] == [0, 1]
+    assert [models["PA_" + m.upper()] for m in ek.PA_MODELS] == [0, 1]
+
+
 def test_engine_wrappers_reject_bad_inputs(eng):
     from openwurli_tpu_torch.kernels import engine as ek
 

@@ -31,7 +31,11 @@ def test_imports_without_jax():
             "openwurli_tpu_torch.host, openwurli_tpu_torch.stream_host, "
             "openwurli_tpu_torch.kernels.probe, openwurli_tpu_torch.engine, "
             "openwurli_tpu_torch.kernels.engine, "
-            "openwurli_tpu_torch.ops.exact\n"
+            "openwurli_tpu_torch.ops.exact, openwurli_tpu_torch.di, "
+            "openwurli_tpu_torch.kernels.render, "
+            "openwurli_tpu_torch.circuits.melange_preamp, "
+            "openwurli_tpu_torch.circuits.power_amp, "
+            "openwurli_tpu_torch.prng\n"
             "from openwurli_tpu_torch import fast\n"
             "for name in ('schedule_events', 'render_events', "
             "'render_events_parallel', 'render_midi_file', "
@@ -115,6 +119,20 @@ def test_cuda_wrappers_raise_without_cuda():
         engine.Engine(44100.0)
     with pytest.raises((RuntimeError, AssertionError)):
         host.WurliPlugin(44100.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        engine.Engine(44100.0, preamp_model="melange", pa_model="behavioral")
+    with pytest.raises((RuntimeError, AssertionError)):
+        host.WurliPlugin(44100.0, preamp_model="melange")
+    # and the DI render path
+    from openwurli_tpu_torch import di, voice
+    with pytest.raises((RuntimeError, AssertionError)):
+        voice.render_note(60.0, 0.8, 0.01, 44100.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        di.render_di([60.0], [0.8], 0.01, 44100.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        di.preamp_di(np.zeros(8), 44100.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        di.preamp_di(torch.zeros(8, dtype=torch.float64), 44100.0)
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():
@@ -183,7 +201,8 @@ def test_build_signatures_cover_every_entry_point():
     assert set(found) == set(_build._SIGNATURES) == {
         "ow_voice_bank", "ow_voice_bank_events", "ow_mono_chain",
         "ow_mono_chain_noise", "ow_trem_preroll", "ow_probe",
-        "ow_engine_voices", "ow_engine_chain", "ow_tremolo_settle"}
+        "ow_engine_voices", "ow_engine_chain", "ow_tremolo_settle",
+        "ow_voice_render", "ow_preamp_scan"}
     for name, n_args in found.items():
         assert len(_build._SIGNATURES[name]) == n_args, name
 
