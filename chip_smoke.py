@@ -34,7 +34,14 @@ each with the launch counts set to 0 just before it and read just after:
     chord, and `Engine` sessions with the behavioral power amp, through
     E1 and E2's other three instantiations; and the melange preamp's
     physics gates (noise RMS against the ngspice anchor, noise gain, gain
-    against the DK preamp) through E5<melange> at 88.2 kHz.
+    against the DK preamp) through E5<melange> at 88.2 kHz;
+  * the calibration pipeline: `calib.calibrate.run_calibrate` over all 64
+    keys × 8 velocities (0.5 s) through E4<tap> (reed and pickup taps),
+    E5<dk> and E6 (power amp and speaker), timed by stage; the 7-stage
+    `calib.pipeline.main` through stage 6 on a three-note recording
+    rendered by the port (stage 4 through E4 and E5<dk>); the onset
+    extractors on the fixture mixture; and the alias-audit sweep through
+    the f64 engine (E1, E2), against its golden baseline.
 
 E3 is held to its plain version over 512 steps and its full 2 s settle at
 88.2 and 96 kHz to the package data; E1 and E2 to theirs with NaN and inf
@@ -44,7 +51,9 @@ and E5<dk> on `render_di`'s own inputs (all 512 voices, the first 1000
 samples, against `render_di`'s output) and at 133 ragged voices with NaN
 and inf ones, E5<melange> at noise scales 0, 1 and 30, E2's other
 instantiations on a kicked chunk and on 256 samples of the melange
-plugin's chunk.
+plugin's chunk; E4<tap> and E6 on `run_calibrate`'s own inputs (all 512
+streams, the first 1000 and 256 samples) and on 133 ragged streams with
+NaN and inf columns.
 K1 and K3 (eight threads per voice lane) are also held to their plain
 versions at a ragged lane count, with non-finite parameters in some lanes
 and with the pickup driven past its knee, and K1 is timed across widths.
@@ -305,6 +314,8 @@ def reset_counts(vb, mc):
         ek.CHAIN_LAUNCHES_BY_MODELS[key] = 0
     kr.VOICE_RENDER_LAUNCHES = kr.VOICE_RENDER_PLAIN_CALLS = 0
     kr.PREAMP_SCAN_PLAIN_CALLS = 0
+    kr.VOICE_TAP_LAUNCHES = kr.VOICE_TAP_PLAIN_CALLS = 0
+    kr.PA_SPEAKER_LAUNCHES = kr.PA_SPEAKER_PLAIN_CALLS = 0
     for key in kr.PREAMP_SCAN_LAUNCHES:
         kr.PREAMP_SCAN_LAUNCHES[key] = 0
     vb.KERNEL_LAUNCHES = vb.PLAIN_CALLS = 0
@@ -335,11 +346,14 @@ def read_counts(vb, mc):
             "voice_render": kr.VOICE_RENDER_LAUNCHES,
             "preamp_scan_dk": kr.PREAMP_SCAN_LAUNCHES["dk"],
             "preamp_scan_melange": kr.PREAMP_SCAN_LAUNCHES["melange"],
+            "voice_render_tap": kr.VOICE_TAP_LAUNCHES,
+            "pa_speaker_scan": kr.PA_SPEAKER_LAUNCHES,
             "plain": vb.PLAIN_CALLS + mc.PLAIN_CALLS
             + mc.PREROLL_PLAIN_CALLS + probe.PLAIN_CALLS
             + ek.VOICES_PLAIN_CALLS + ek.CHAIN_PLAIN_CALLS
             + ek.SETTLE_PLAIN_CALLS + kr.VOICE_RENDER_PLAIN_CALLS
-            + kr.PREAMP_SCAN_PLAIN_CALLS}
+            + kr.PREAMP_SCAN_PLAIN_CALLS + kr.VOICE_TAP_PLAIN_CALLS
+            + kr.PA_SPEAKER_PLAIN_CALLS}
 
 
 def bits_equal(a, b):
@@ -1160,14 +1174,15 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
             ek, (eng.params, mono, kick, True, 30.0),
             f"<{models[0]}, {models[1]}> 64 from a warmed state, tremolo "
             "kicked, input spike, noise scale 30"))
-    names = ("E1", "E3", "E4", "E5<dk>", "E5<melange>", "E2<dk, circuit>",
+    names = ("E1", "E3", "E4", "E4<tap>", "E5<dk>", "E5<melange>", "E6",
+             "E2<dk, circuit>",
              "E2<melange, circuit>", "E2<dk, behavioral>",
              "E2<melange, behavioral>")
     print("phase 23 ptxas: " + "; ".join(
         f"{k} {ptxas[k]['registers']} registers, {ptxas[k]['stack']} bytes "
         f"stack, {ptxas[k]['spill_stores']} / {ptxas[k]['spill_loads']} "
         f"bytes spilled" for k in names if k in ptxas), flush=True)
-    for k in ("E1", "E3", "E4"):
+    for k in ("E1", "E3", "E4", "E4<tap>"):
         if k in ptxas:
             check(ptxas[k]["spill_stores"] == 0, f"{k} spills: {ptxas[k]}")
     print("phase 23 bit-identical to their plain versions: "
@@ -1376,6 +1391,362 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
             "behavioral": beh}
 
 
+# ── the calibration pipeline (phase 26) ──
+
+# float64 operations of csrc/engine.cu: one E4<tap> sample (E4's without
+# the attack noise's biquad; libm calls counted from the data,
+# VoiceLibm); one E6 sample outside the power amp's Newton solves (volume²,
+# the sources and the two-tier guard, the rails, the speaker with its tanh,
+# the post-speaker gain), its one speaker design per stream
+E4_TAP_OPS_SAMPLE = 7 * 14 + 7 * 4 + 14
+E6_OPS_SAMPLE = 2 + 21 + 40 + 25 + LIBM_OPS + 1
+# BASELINE.json config 4: all 64 keys (MIDI 33-96) × 8 velocities, the
+# calibrate CLI's defaults 40, 80 and 127 among them
+CALIB_NOTES = tuple(range(33, 97))
+CALIB_VELOCITIES = (1, 20, 40, 60, 80, 100, 120, 127)
+# the golden alias-audit baseline and the Rust reference's own values
+# (tests/test_alias_audit_regression.py)
+ALIAS_BASELINE = "tests/baselines/alias_audit_v0_1_0.json"
+ALIAS_STEP_UP_TOL_DB, ALIAS_HF_TOL_DB = 1.5, 2.0
+ALIAS_RUST = {72: (7.951, -52.647), 84: (8.183, -47.809),
+              91: (6.862, -39.164)}
+ALIAS_RUST_HF_TOL_DB = 8.0
+# the onset extractors on tests/test_onset_model.py's 4-note fixture
+# mixture, as the JAX package scores them on a CPU: the spectral path 1
+# hit and 6 spurious; the network finds nothing, the shipped weights
+# lacking the format-3 tag (both packages' load_params() return None)
+ONSET_EVENTS = ((0.4, 48, 0.0), (1.6, 67, -6.0), (2.9, 48, -12.0),
+                (4.1, 67, 0.0))
+ONSET_SPECTRAL_REF = (1, 6)
+# The alias sweep shrinks to note 84 when it would end past SCRIPT_LIMIT_S
+# (the script must end within 1200 s); a note takes ALIAS_NOTE_S (45-49 s
+# measured on an NVIDIA H100 80GB HBM3 at 700 W: 67686 loud samples
+# through E2).
+SCRIPT_LIMIT_S = 1000.0
+ALIAS_NOTE_S = 50.0
+T_START = time.perf_counter()
+
+
+def compare_voice_tap(kr, cols, n, what):
+    """E4<tap> against its plain version on packed columns: both outputs
+    and the end state bit for bit; the plain run's libm calls give the
+    bound. → (numbers, kernel outputs)."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    a = [c.clone() for c in cols]
+    out, reed = kr.voice_tap(*a, n)
+    b = [c.clone() for c in cols]
+    with VoiceLibm() as libm:
+        plain_ms, (ref, ref_reed) = host_ms(
+            lambda: kr.voice_tap_plain(*b, n))
+    check(same_bits(out, ref) and same_bits(reed, ref_reed)
+          and all(same_bits(x, y) for x, y in zip(a, b)),
+          f"E4<tap> {what}: {first_diff(out, ref)}, reed "
+          f"{first_diff(reed, ref_reed)}")
+    ms = cuda_ms(lambda: kr.voice_tap(*[c.clone() for c in cols], n),
+                 reps=3)
+    g = cols[0].shape[1]
+    n0 = cols[2][ek.I_N]
+    jitter = int(((n0 + n + 15) // 16 - (n0 + 15) // 16).sum())
+    n_bytes = (cols[0].numel() + 2 * (cols[1].numel() + cols[2].numel())
+               + 2 * n * g) * 8
+    ops = n * g * E4_TAP_OPS_SAMPLE + jitter * E1_OPS_JITTER \
+        + libm.calls * LIBM_OPS
+    err = max(float((out - ref).abs().nan_to_num().max()),
+              float((reed - ref_reed).abs().nan_to_num().max()))
+    return {"shape": f"{g} streams x {n}", "inputs": f"E4<tap> {what}",
+            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
+            "libm_calls": libm.calls, "max_abs_err": err}, (out, reed)
+
+
+def compare_pa_speaker(kr, x, state, volume, character, what):
+    """E6 against its plain version on one scan's inputs: output and state
+    bit for bit; the plain run's power-amp Newton counts, each stream's
+    own, give the bound. → numbers."""
+    from openwurli_tpu_torch.circuits import mna
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    sr = 44100.0
+    a, b = state.clone(), state.clone()
+    out = kr.pa_speaker_scan(sr, x, a, volume, character)
+    n0 = dict(mna.NEWTON_COUNTS)
+    plain_ms, ref = host_ms(lambda: kr.pa_speaker_scan_plain(
+        sr, x, b, volume, character))
+    count = {k: mna.NEWTON_COUNTS[k] - n0.get(k, 0)
+             for k in mna.NEWTON_COUNTS}
+    check(same_bits(out, ref) and same_bits(a, b),
+          f"E6 {what}: {first_diff(out, ref)}, state {first_diff(a, b)}")
+    ms = cuda_ms(lambda: kr.pa_speaker_scan(sr, x, state.clone(), volume,
+                                            character), reps=2)
+    n, g = x.shape
+    n_bytes = (2 * x.numel() + 2 * state.numel()
+               + kr.pa_speaker_consts(sr).size) * 8
+    solves = count.get((16, "solves"), 0)
+    iters = count.get((16, "iterations"), 0)
+    ops = (n * g * E6_OPS_SAMPLE + g * E2_OPS_DESIGN
+           + mna_ops(ek.N_PA, ek.M_PA, ek.NB_PA, solves, iters))
+    return {"shape": f"{g} streams x {n}", "inputs": f"E6 {what}",
+            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
+            "newton": {"power_amp": [solves, iters]},
+            "us_per_sample": ms * 1e3 / n,
+            "max_abs_err": float((out - ref).abs().nan_to_num().max())}
+
+
+def onset_score(found):
+    """(hits, spurious) as tests/test_onset_model.py scores them."""
+    used, hits = set(), 0
+    for onset_s, midi, _ in ONSET_EVENTS:
+        ok = [i for i, f in enumerate(found)
+              if i not in used and abs(f["onset_s"] - onset_s) < 0.1
+              and abs(f["midi_note"] - midi) <= 1]
+        if ok:
+            used.add(ok[0])
+            hits += 1
+    return hits, len(found) - len(used)
+
+
+def calib_phases(dev, card, launches, vb, mc):
+    """Phase 26: the calibration pipeline. E4<tap> and E6 against their
+    plain versions; run_calibrate at BASELINE config 4, timed by stage;
+    the pipeline's stages 1-6 through `main` (BASELINE config 5); the
+    onset extractors on the fixture mixture; the alias-audit sweep.
+    Adds its paths' launch counts to `launches`; → the kernels'
+    measurements."""
+    import contextlib
+    import io
+    import os
+    import re
+    import shutil
+
+    from openwurli_tpu_torch import di, tables, voice
+    from openwurli_tpu_torch.calib import (alias_audit, calibrate, notes,
+                                           onset_model, pipeline)
+    from openwurli_tpu_torch.io import wav
+    from openwurli_tpu_torch.kernels import engine as ek
+    from openwurli_tpu_torch.kernels import render as kr
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_p = time.perf_counter()
+    # ── run_calibrate at config 4, its calls recorded (inputs cloned) ──
+    rec = {}
+    timer = StageTimer()
+    timer.wrap(calibrate, "pack_taps", "host packing")
+    timer.wrap(kr, "voice_tap", "E4<tap>")
+    timer.wrap(kr, "preamp_scan", "E5<dk>")
+    timer.wrap(kr, "pa_speaker_scan", "E6")
+    tap_fn, e6_fn = kr.voice_tap, kr.pa_speaker_scan
+
+    def tap_rec(*cols_n):
+        rec["tap"] = [c.clone() for c in cols_n[:3]]
+        return tap_fn(*cols_n)
+
+    def e6_rec(sr, x, state, volume, character):
+        rec["e6"] = (x, state.clone(), volume, character)
+        return e6_fn(sr, x, state, volume, character)
+
+    kr.voice_tap, kr.pa_speaker_scan = tap_rec, e6_rec
+    reset_counts(vb, mc)
+    try:
+        cal_ms, rows = host_ms(lambda: calibrate.run_calibrate(
+            CALIB_NOTES, CALIB_VELOCITIES, device=dev))
+    finally:
+        kr.voice_tap, kr.pa_speaker_scan = tap_fn, e6_fn
+        timer.restore()
+    launches["run_calibrate 64 x 8 x 0.5 s"] = counts = read_counts(vb, mc)
+    check(counts["voice_render_tap"] == 1 and counts["preamp_scan_dk"] == 1
+          and counts["pa_speaker_scan"] == 1 and counts["plain"] == 0,
+          f"run_calibrate launches {counts}")
+    grid = (len(CALIB_NOTES), len(CALIB_VELOCITIES))
+    for k, v in rows.items():
+        check(v.shape == grid and np.isfinite(v).all(),
+              f"run_calibrate column {k}: shape {v.shape}, finite")
+    stages = dict(timer.ms)
+    stages["metrics and glue"] = cal_ms - sum(stages.values())
+    i60 = CALIB_NOTES.index(60)
+    shown = [CALIB_VELOCITIES.index(v) for v in (40, 80, 127)]
+    print(f"phase 26 run_calibrate {grid[0]} notes x {grid[1]} velocities "
+          f"x {calibrate.DURATION_S} s ({grid[0] * grid[1]} streams x "
+          f"{int(calibrate.DURATION_S * calibrate.BASE_SR)}): "
+          f"{cal_ms / 1e3:.3f} s; stages (ms) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+          + f"; every column finite; launches {counts} [{card}]",
+          flush=True)
+    for j in shown:
+        r = {k: float(v[i60, j]) for k, v in rows.items()}
+        print("phase 26 calibrate row " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.items()), flush=True)
+
+    # ── E4<tap> and E6 against their plain versions: on run_calibrate's
+    # own inputs at full width (a prefix), and on 133 ragged streams with
+    # a NaN and an inf column ──
+    n_tap = 1000
+    tap_main, (t2_p, _) = compare_voice_tap(
+        kr, rec["tap"], n_tap, f"run_calibrate's 512 streams, first {n_tap}")
+    x6, st6, vol6, chr6 = rec["e6"]
+    n_e6 = 256
+    e6_main = compare_pa_speaker(
+        kr, x6[:n_e6].contiguous(), st6, vol6, chr6,
+        f"run_calibrate's 512 streams, first {n_e6}")
+    rng = np.random.default_rng(26)
+    g_r = 133
+    gm = rng.integers(33, 97, g_r).astype(np.float64)
+    gv = rng.integers(1, 128, g_r) / 127.0
+    taps = calibrate.pack_taps(gm, gv, tables.CalibrationConfig(), dev)
+    cols = [c.clone() for c in taps.cols]
+    cols[0][ek.P_AMP + 1, 5] = float("nan")
+    cols[1][ek.S_S + 2, 77] = float("inf")
+    cols[0][ek.P_DS, 9] *= 40.0            # the pickup past its knee
+    tap_r, (t2_r, _) = compare_voice_tap(
+        kr, cols, 1100, f"{g_r} ragged streams, NaN and inf columns")
+    x_r = di.preamp_di(t2_r[:, :] * taps.out_scale, calibrate.BASE_SR,
+                       device=dev)[-160:].contiguous()
+    x_r[:, 5] = float("nan")
+    x_r[20:, 77] = float("inf")
+    x_r[:, 31] *= 400.0                    # driven into the rails
+    e6_r = compare_pa_speaker(
+        kr, x_r, kr.init_pa_speaker_state(calibrate.BASE_SR, g_r, dev), 0.4,
+        1.0, f"{g_r} ragged streams, NaN and inf columns, rails")
+    print("phase 26 E4<tap> and E6 bit-identical to their plain versions: "
+          + "; ".join(f"{c['inputs']} {c['shape']} kernel {c['ms']:.3f} ms "
+                      f"plain {c['plain_ms']:.0f} ms"
+                      for c in (tap_main, tap_r, e6_main, e6_r))
+          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+
+    # ── the pipeline, stages 1-6 through main, on the three-note
+    # recording of tests/test_calib_pipeline.py:84-122 (rendered here by
+    # the port on the card) ──
+    t_p = time.perf_counter()
+    work = os.path.join(repo, "build", "chip_smoke_calib")
+    shutil.rmtree(work, ignore_errors=True)
+    rec_dir, data_dir = os.path.join(work, "recordings"), \
+        os.path.join(work, "ml_data")
+    os.makedirs(rec_dir)
+    sr = 44100.0
+    takes = [(60, 0.8), (67, 0.7), (72, 0.9)]
+    chunks = [np.zeros(int(0.3 * sr))]
+    for midi, vel in takes:
+        a = voice.render_note(midi, vel, 1.2, sr, device=dev).cpu().numpy()
+        chunks += [a / max(np.abs(a).max(), 1e-12) * 0.5,
+                   np.zeros(int(0.4 * sr))]
+    wav.write_wav(os.path.join(rec_dir, "test.wav"), np.concatenate(chunks),
+                  sr, bits=24)
+    reset_counts(vb, mc)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pipe_ms, _ = host_ms(lambda: pipeline.main(
+            ["--input-dir", rec_dir, "--data-dir", data_dir,
+             "--through-stage", "6", "--epochs", "50", "--model-seconds",
+             "1.2", "--device", dev]))
+    launches["pipeline stages 1-6"] = counts = read_counts(vb, mc)
+    log = buf.getvalue()
+    stage_s = dict(zip([f"stage {k}" for k in range(1, 7)],
+                       [float(x) for x in re.findall(r"\(([\d.]+)s\)",
+                                                     log)]))
+    found = json.load(open(os.path.join(data_dir, "notes.json")))
+    midis = sorted({n_["midi_note"] for n_ in found})
+    check(len(found) >= 3 and all(any(abs(m - midi) <= 1 for m in midis)
+                                  for midi, _ in takes),
+          f"pipeline notes: {midis}")
+    with np.load(os.path.join(data_dir, "training_data.npz")) as z:
+        check(z["inputs"].shape[1] == 2 and z["targets"].shape[1] == 11
+              and z["mask"].any(), "pipeline training data")
+        n_obs = z["inputs"].shape[0]
+    with np.load(os.path.join(data_dir, "model_weights.npz")) as z:
+        check(z["w1"].shape == (16, 2) and all(np.isfinite(z[k]).all()
+                                               for k in z.files),
+              "pipeline weights")
+    check(counts["voice_render"] == 1 and counts["preamp_scan_dk"] == 1
+          and counts["plain"] == 0, f"pipeline launches {counts}")
+    print(f"phase 26 pipeline stages 1-6 on a 3-note recording: "
+          f"{pipe_ms / 1e3:.2f} s; per stage (s) {stage_s}; notes {midis}; "
+          f"{n_obs} observations; weights finite; launches {counts} "
+          f"[{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+    # ── the onset extractors on the 4-note fixture mixture
+    # (tests/test_onset_model.py:79-128) ──
+    with np.load(os.path.join(repo, "tests", "baselines",
+                              "onset_test_clips.npz")) as z:
+        clips = {48: z["note48"], 67: z["note67"]}
+        sr_f = float(z["sr"])
+    mix = np.zeros(int(6.0 * sr_f))
+    for onset_s, midi, gain_db in ONSET_EVENTS:
+        seg = clips[midi].astype(np.float64).copy()
+        n_f = int(0.05 * sr_f)
+        seg[-n_f:] *= np.linspace(1.0, 0.0, n_f)
+        i0 = int(onset_s * sr_f)
+        k = min(len(seg), len(mix) - i0)
+        mix[i0:i0 + k] += 10.0 ** (gain_db / 20.0) * seg[:k]
+    mix += 1e-5 * np.random.default_rng(0).normal(size=len(mix))
+    weights = onset_model.load_params()
+    nn = onset_score(notes.extract_notes(mix, sr_f, min_duration=0.15,
+                                         method="nn", device=dev))
+    spectral = onset_score(notes.extract_notes(mix, sr_f, min_duration=0.15,
+                                               method="spectral",
+                                               device=dev))
+    check(spectral == ONSET_SPECTRAL_REF,
+          f"spectral onsets {spectral} vs the reference's "
+          f"{ONSET_SPECTRAL_REF}")
+    check(weights is not None or nn == (0, 0),
+          f"the network found notes without weights: {nn}")
+    if weights is not None:  # the JAX test's assertions
+        check(nn[0] >= max(spectral[0], 4) and nn[1] <= spectral[1],
+              f"NN {nn} vs spectral {spectral}")
+    print(f"phase 26 onsets on the 4-note fixture mixture (hits of 4, "
+          f"spurious): spectral {spectral} (reference {ONSET_SPECTRAL_REF}),"
+          f" network {nn} "
+          + ("(shipped weights lack the format-3 tag: none loaded)"
+             if weights is None else "") + f" [{card}]", flush=True)
+
+    # ── the alias-audit sweep, circuit power amp ──
+    t_p = time.perf_counter()
+    baseline = json.load(open(os.path.join(repo, ALIAS_BASELINE)))
+    elapsed = time.perf_counter() - T_START
+    sweep = alias_audit.STIMULUS_NOTES
+    if elapsed + ALIAS_NOTE_S * len(sweep) > SCRIPT_LIMIT_S:
+        sweep = (84,)
+    reset_counts(vb, mc)
+    alias = {}
+    for note in sweep:
+        ms, r = host_ms(lambda: alias_audit.run_with_note(note, device=dev))
+        b = baseline[str(note)]
+        rust_step, rust_hf = ALIAS_RUST[note]
+        check(r.max_step_up_db <= b["max_step_up_db"] + ALIAS_STEP_UP_TOL_DB
+              and r.hf_band_dbc <= b["hf_band_dbc"] + ALIAS_HF_TOL_DB,
+              f"alias note {note}: step-up {r.max_step_up_db:.3f} (golden "
+              f"{b['max_step_up_db']:.3f}), hf {r.hf_band_dbc:.3f} (golden "
+              f"{b['hf_band_dbc']:.3f})")
+        check(r.max_step_up_db <= rust_step + ALIAS_STEP_UP_TOL_DB
+              and r.hf_band_dbc <= rust_hf + ALIAS_RUST_HF_TOL_DB,
+              f"alias note {note} against the Rust reference")
+        alias[note] = {"ms": ms, "max_step_up_db": r.max_step_up_db,
+                       "hf_band_dbc": r.hf_band_dbc, "f0_hz": r.f0_hz,
+                       "golden": [b["max_step_up_db"], b["hf_band_dbc"]]}
+    launches["alias_audit sweep"] = counts = read_counts(vb, mc)
+    check(counts["engine_chain"] > 0 and counts["plain"] == 0,
+          f"alias sweep launches {counts}")
+    print(f"phase 26 alias sweep (circuit power amp, v=120, "
+          f"{'all three notes' if len(sweep) == 3 else 'note 84 alone'}; "
+          f"{elapsed:.0f} s into the script): "
+          + "; ".join(f"{k}: step-up {v['max_step_up_db']:.3f} dB "
+                      f"(golden {v['golden'][0]:.3f}), hf "
+                      f"{v['hf_band_dbc']:.3f} dBc (golden "
+                      f"{v['golden'][1]:.3f}), {v['ms'] / 1e3:.1f} s"
+                      for k, v in alias.items())
+          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+    return {"E4<tap>": {**tap_main, "compared": [tap_main, tap_r],
+                        "main_path_ms": {"run_calibrate 512 x 22050":
+                                         stages["E4<tap>"]}},
+            "E6": {**e6_main, "compared": [e6_main, e6_r],
+                   "main_path_ms": {"run_calibrate 512 x 22050":
+                                    stages["E6"]}},
+            "calibrate": {"ms": cal_ms, "stages_ms": stages},
+            "pipeline": {"ms": pipe_ms, "stages_s": stage_s},
+            "onsets": {"spectral": spectral, "network": nn,
+                       "weights": weights is not None},
+            "alias": alias}
+
+
 def main():
     # ── phase 0: the card and the precision settings ──
     if not torch.cuda.is_available():
@@ -1388,6 +1759,24 @@ def main():
           'torch.backends.cuda.matmul.allow_tf32 is False')
     check(torch.get_float32_matmul_precision() == "highest",
           'torch.get_float32_matmul_precision() == "highest"')
+    # the onset network's convolutions run with cuDNN's TF32 off (on by
+    # default in PyTorch), checked inside its forward on the card
+    import torch.nn.functional as F
+    from openwurli_tpu_torch.calib import onset_model
+    seen = []
+    conv2d = F.conv2d
+
+    def conv_probe(*a, **k):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*a, **k)
+
+    F.conv2d = conv_probe
+    try:
+        onset_model.predict(onset_model.init_params(0),
+                            np.zeros(8192), 44100.0, device="cuda")
+    finally:
+        F.conv2d = conv2d
+    check(seen == [False, False], f"onset model cudnn.allow_tf32 {seen}")
 
     from openwurli_tpu_torch import _build, fast
     from openwurli_tpu_torch.kernels import mono_chain as mc
@@ -1422,7 +1811,9 @@ def main():
                           ("engine_chain_kernelILi1ELi1E",
                            "E2<melange, behavioral>"),
                           ("tremolo_settle_kernel", "E3"),
-                          ("voice_render_kernel", "E4"),
+                          ("voice_render_kernelILb0E", "E4"),
+                          ("voice_render_kernelILb1E", "E4<tap>"),
+                          ("pa_speaker_scan_kernel", "E6"),
                           ("preamp_scan_kernelILi0E", "E5<dk>"),
                           ("preamp_scan_kernelILi1E", "E5<melange>")):
             if key in fn:
@@ -2370,6 +2761,7 @@ def main():
 
     eng_k = engine_phases(dev, card, launches, vb, mc, fast)
     mod_k = model_phases(dev, card, launches, vb, mc, ptxas)
+    cal_k = calib_phases(dev, card, launches, vb, mc)
 
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
@@ -2488,6 +2880,21 @@ def main():
                       | {"bound_ms": c["bound"][0]} for c in cmps],
             main_path_ms=k["main_path_ms"]))
     kernels[-3]["di_stages_ms"] = mod_k["di_stages_ms"]
+    for name, key, replaces, more in (
+            ("voice_render_tap", "E4<tap>",
+             "openwurli_tpu/calib/calibrate.py:80", {}),
+            ("pa_speaker_scan", "E6", "openwurli_tpu/calib/calibrate.py:123",
+             {"calibrate": cal_k["calibrate"], "pipeline": cal_k["pipeline"],
+              "onsets": cal_k["onsets"], "alias": cal_k["alias"]})):
+        k = cal_k[key]
+        kernels.append(entry(
+            name, "engine.cu", replaces, k["shape"],
+            max(c["max_abs_err"] for c in k["compared"]), k["ms"],
+            k["plain_ms"], k["bound"], ptxas=ptxas.get(key),
+            compared=[{k_: v for k_, v in c.items()
+                       if k_ not in ("bound", "compared", "main_path_ms")}
+                      | {"bound_ms": c["bound"][0]} for c in k["compared"]],
+            main_path_ms=k["main_path_ms"], **more))
     for k in kernels:
         if k["name"] == "engine_chain":
             k["melange_plugin"] = mod_k["melange_plugin"]

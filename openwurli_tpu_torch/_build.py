@@ -66,6 +66,10 @@ _SIGNATURES = {
     "ow_tremolo_settle": (_P, _I, _P, _I, _P),
     # vpar, vst, vsti, out, voices, n, stream
     "ow_voice_render": (_P, _P, _P, _P, _I, _I, _P),
+    # vpar, vst, vsti, out, reed, voices, n, stream
+    "ow_voice_render_tap": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # consts, n_consts, x, state, out, n, streams, volume, character, stream
+    "ow_pa_speaker_scan": (_P, _I, _P, _P, _P, _I, _I, _D, _D, _P),
     # kind, consts, n_consts, x, state, g_ldr, noise_scale, out, n,
     # streams, stream
     "ow_preamp_scan": (_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),

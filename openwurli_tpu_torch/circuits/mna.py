@@ -458,11 +458,12 @@ def solver_tensors(params: SolverParams, device="cpu") -> dict:
 def make_step(netlist: Netlist, params: SolverParams, nr_iters,
               nr_tol=1e-9, device="cpu"):
     """The per-sample step of this netlist on `device`:
-    step(state, w_extra (n,)) → (state, v (n,)).
+    step(state, w_extra (..., n)) → (state, v (..., n)), the state's
+    tensors of batch shape (...) ((), one circuit, in the engine).
 
-    Newton runs up to `nr_iters` masked iterations; the loop ends once the
-    residual has converged (the remaining masked iterations would change
-    nothing). The robustness ladder: trapezoidal primary → failure
+    Newton runs up to `nr_iters` masked iterations; each circuit of the
+    batch leaves the loop once its residual has converged (the remaining
+    masked iterations would change nothing), as a kernel thread does. The robustness ladder: trapezoidal primary → failure
     (residual > 1e-3, ringing > 55 V, non-finite) → backward-Euler replay
     of the sample and a 64-sample BE hold → the 30 V damping net → NaN
     reset to the DC operating point, each counted in SolverDiag."""
@@ -491,44 +492,62 @@ def make_step(netlist: Netlist, params: SolverParams, nr_iters,
                    c["w_scale_be"], 0.0)}
     cols = {be: kj_cols(mats[be][3]) for be in (False, True)}
 
-    def nr_solve(p, v_nl, k_eff, k0, k1):
-        """→ (v_nl, its currents, the final residual)."""
-        NEWTON_COUNTS[m, "solves"] += 1
+    def nr_solve(p, v_nl, k_eff, k0, k1, live):
+        """→ (v_nl, its currents, the final residual); a circuit keeps
+        the values of the iteration where it converged. `live` (batch
+        bool) marks the circuits that run this solve (the others are
+        computed and discarded by the caller, and not counted)."""
+        NEWTON_COUNTS[m, "solves"] += int(live.sum())
+        done = ~live
+        i_out = resid = None
         for _ in range(nr_iters):
             i_nl = dev_fn(v_nl)
             f = v_nl - p - exact.matvec(k_eff, i_nl)
-            if bool(exact.max_abs(f) < nr_tol):
-                return v_nl, i_nl, exact.max_abs(f)
-            NEWTON_COUNTS[m, "iterations"] += 1
+            r = exact.max_abs(f)
+            conv = (r < nr_tol) & ~done
+            i_out = i_nl if i_out is None else torch.where(
+                conv[..., None], i_nl, i_out)
+            resid = r if resid is None else torch.where(conv, r, resid)
+            done = done | conv
+            if bool(torch.all(done)):
+                return v_nl, i_out, resid
+            NEWTON_COUNTS[m, "iterations"] += int((~done).sum())
             top, bot = derivs(v_nl)
-            jac = eye - (k0 * top + k1 * bot)
+            jac = eye - (k0 * top[..., None, :] + k1 * bot[..., None, :])
             dv = exact.clip(ge_solve_f32(jac, f), -2.0, 2.0)
-            v_nl = pnjlim(v_nl, v_nl - dv, nvt, vcrit)
+            v_nl = torch.where(done[..., None], v_nl,
+                               pnjlim(v_nl, v_nl - dv, nvt, vcrit))
         i_nl = dev_fn(v_nl)
         f = v_nl - p - exact.matvec(k_eff, i_nl)
-        return v_nl, i_nl, exact.max_abs(f)
+        return (v_nl, torch.where(done[..., None], i_out, i_nl),
+                torch.where(done, resid, exact.max_abs(f)))
 
-    def solve_once(state, w_extra, be):
+    def solve_once(state, w_extra, be, live):
         a_hist, s_mat, s_ni, k_eff, w_sc, trap_i = mats[be]
         rhs = exact.matvec(a_hist, state.v) + w_sc * c["w"] + w_extra
         rhs = rhs + trap_i * exact.matvec(c["n_i"], state.i_nl)
         v_lin = exact.matvec(s_mat, rhs)
         p = exact.matvec(c["n_v"], v_lin)
-        v_nl, i_new, resid = nr_solve(p, state.v_nl, k_eff, *cols[be])
+        v_nl, i_new, resid = nr_solve(p, state.v_nl, k_eff, *cols[be], live)
         return v_lin + exact.matvec(s_ni, i_new), i_new, v_nl, resid
 
     def failed(v, resid):
-        ring = exact.max_abs(v[:n_nodes]) > RINGING_VOLTS
-        nonfin = ~torch.all(torch.isfinite(v))
+        ring = exact.max_abs(v[..., :n_nodes]) > RINGING_VOLTS
+        nonfin = ~torch.all(torch.isfinite(v), dim=-1)
         return (resid > FAIL_RESID) | ring | nonfin
 
     def step(state: SolverState, w_extra):
         dg = state.diag
-        v, i_new, v_nl, resid = solve_once(state, w_extra, be=False)
+        every = torch.ones(state.v.shape[:-1], dtype=torch.bool,
+                           device=state.v.device)
+        v, i_new, v_nl, resid = solve_once(state, w_extra, False, every)
         need_be = (failed(v, resid) | (dg.cooldown > 0)) if trap_primary \
-            else torch.zeros((), dtype=torch.bool, device=v.device)
-        if bool(need_be):
-            v, i_new, v_nl, resid = solve_once(state, w_extra, be=True)
+            else ~every
+        if bool(torch.any(need_be)):
+            be = solve_once(state, w_extra, True, need_be)
+            v, i_new, v_nl = [torch.where(need_be[..., None], x, y) for x, y
+                              in zip(be[:3], (v, i_new, v_nl))]
+            resid = torch.where(need_be, be[3], resid)
         fail = failed(v, resid)
 
         dv = v - state.v
@@ -537,12 +556,12 @@ def make_step(netlist: Netlist, params: SolverParams, nr_iters,
         # (a Python number over a tensor would multiply by its reciprocal)
         scale = torch.where(damp_hit, torch.full_like(dv_max, DAMP_VOLTS)
                             / exact.maximum(dv_max, 1e-30), 1.0)
-        v = state.v + dv * scale
+        v = state.v + dv * scale[..., None]
 
-        bad = ~torch.all(torch.isfinite(v))
-        v = torch.where(bad, c["v_dc"], v)
-        i_new = torch.where(bad, c["i_dc"], i_new)
-        v_nl = torch.where(bad, c["v_nl_dc"], v_nl)
+        bad = ~torch.all(torch.isfinite(v), dim=-1)
+        v = torch.where(bad[..., None], c["v_dc"], v)
+        i_new = torch.where(bad[..., None], c["i_dc"], i_new)
+        v_nl = torch.where(bad[..., None], c["v_nl_dc"], v_nl)
         one = torch.ones((), dtype=torch.int32, device=v.device)
         diag = SolverDiag(
             cooldown=torch.where(fail, FALLBACK_COOLDOWN * one,

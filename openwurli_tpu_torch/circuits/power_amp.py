@@ -195,15 +195,18 @@ def circuit_step_fn(params: PowerAmpParams, device):
 
 
 def step(params: PowerAmpParams, state: PowerAmpState, x, rail_sag=True):
-    """One circuit sample; x a 0-d float64 tensor of input volts →
-    (state, out ∈ [-1, 1])."""
+    """One circuit sample; x a float64 tensor of input volts, batch shape
+    (...) as the state's ((), one circuit, in the engine) → (state, out ∈
+    [-1, 1])."""
     sag_f = 1.0 if rail_sag else 0.0
     w_extra = torch.zeros_like(state.circuit.v)
-    w_extra[params.v1_row] = (state.rails.v_rail_pos - RAIL_DC_BIAS) * sag_f
-    w_extra[params.v2_row] = (state.rails.v_rail_neg - RAIL_DC_BIAS) * sag_f
-    w_extra[params.input_row] = x
+    w_extra[..., params.v1_row] = (state.rails.v_rail_pos
+                                   - RAIL_DC_BIAS) * sag_f
+    w_extra[..., params.v2_row] = (state.rails.v_rail_neg
+                                   - RAIL_DC_BIAS) * sag_f
+    w_extra[..., params.input_row] = x
     circuit, v = circuit_step_fn(params, x.device)(state.circuit, w_extra)
-    raw = v[params.out_idx]
+    raw = v[..., params.out_idx]
     result = exact.div(raw, HEADROOM)
 
     # Divergence guard, two tiers: insane (non-finite, |v| > 100 V) →
@@ -211,14 +214,15 @@ def step(params: PowerAmpParams, state: PowerAmpState, x, rail_sag=True):
     # Newton non-convergence → hold the output but keep the solver state.
     nr_failed = circuit.nr_resid > 1e-3
     insane = torch.any(~torch.isfinite(circuit.v)
-                       | (torch.abs(circuit.v) > 100.0))
+                       | (torch.abs(circuit.v) > 100.0), dim=-1)
     reset = ~torch.isfinite(result) | insane
     bad = reset | nr_failed
     clean = mna.init_state(params.solver, x.device)
+    r = reset[..., None]
     circuit = circuit._replace(
-        v=torch.where(reset, clean.v, circuit.v),
-        i_nl=torch.where(reset, clean.i_nl, circuit.i_nl),
-        v_nl=torch.where(reset, clean.v_nl, circuit.v_nl))
+        v=torch.where(r, clean.v, circuit.v),
+        i_nl=torch.where(r, clean.i_nl, circuit.i_nl),
+        v_nl=torch.where(r, clean.v_nl, circuit.v_nl))
     clamped = exact.clip(result, -1.0, 1.0)
     out = torch.where(bad, state.last_good, clamped)
     if rail_sag:

@@ -263,3 +263,37 @@ def engine_from_numpy(sample_rate, st, device="cpu", preamp_model="dk",
     eng.noise_enabled = bool(np.asarray(st.noise_enabled))
     eng.noise_gain = float(np.asarray(st.noise_gain))
     return eng
+
+
+# ── the calibration pipeline's parameters ──
+
+
+def onset_params_from_numpy(params: dict, device="cpu") -> dict:
+    """The reference onset model's params (NumPy dict, `fmt` included) →
+    the port's dict of tensors on `device` (float32, `fmt` int32)."""
+    from openwurli_tpu_torch.calib import onset_model
+
+    return onset_model.params_to({k: np.asarray(v)
+                                  for k, v in params.items()}, device)
+
+
+def mlp_weights_from_numpy(weights, device="cpu") -> mlp.MlpWeights:
+    """The reference's MlpWeights (any arrays, e.g. `calib.train`'s
+    initial weights) → MlpWeights of float64 tensors on `device`."""
+    return mlp.MlpWeights(*[
+        torch.from_numpy(np.array(getattr(weights, k), np.float64)).to(
+            device) for k in mlp.MlpWeights._fields])
+
+
+def train_batch_from_numpy(batch, device="cpu"):
+    """The reference's TrainBatch (any arrays) → the port's, tensors on
+    `device` (float64; the mask bool)."""
+    from openwurli_tpu_torch.calib import train
+
+    def t(x, dtype):
+        return torch.from_numpy(np.array(x, dtype)).to(device)
+
+    return train.TrainBatch(inputs=t(batch.inputs, np.float64),
+                            targets=t(batch.targets, np.float64),
+                            mask=t(batch.mask, bool),
+                            weights=t(batch.weights, np.float64))

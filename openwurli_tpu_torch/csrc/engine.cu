@@ -6,20 +6,26 @@
 //                         the preamp (DK or melange) and the power amp
 //                         (circuit or behavioral)
 //   E3 tremolo_settle     the tremolo oscillator's step, n times
-//   E4 voice_render       G voices over n samples (voice.render)
+//   E4 voice_render       G voices over n samples (voice.render); with
+//                         TAP, the reed alone into the pickup, the reed's
+//                         output kept (calibrate.run_calibrate's T1, T2)
 //   E5 preamp_scan        G preamp streams over n samples: the DI path's
 //                         2x-oversampled DK preamp, or the melange preamp
+//   E6 pa_speaker_scan    G streams over n samples: volume², the power amp
+//                         with rail sag, the speaker, the post-speaker gain
+//                         (calibrate.run_calibrate's T5)
 //
 // Replaces: the reference's jitted lax.scans of its float64 engine
 // (openwurli_tpu/engine.py:452 `_render`), of its tremolo settle
 // (openwurli_tpu/circuits/tremolo.py:160), of voice.render
-// (openwurli_tpu/voice.py:140), of di.preamp_di (openwurli_tpu/di.py:29)
-// and of the melange preamp's step
-// (openwurli_tpu/circuits/melange_preamp.py:177); none is a Pallas kernel.
+// (openwurli_tpu/voice.py:140), of di.preamp_di (openwurli_tpu/di.py:29),
+// of the melange preamp's step
+// (openwurli_tpu/circuits/melange_preamp.py:177) and of run_calibrate's tap
+// scans (openwurli_tpu/calib/calibrate.py:80-138); none is a Pallas kernel.
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
-// slot by one thread (a block of 128), E4 and E5 each voice or stream by
-// one thread, E2 and E3 are one thread walking the chain's data-dependent
+// slot by one thread (a block of 128), E4, E5 and E6 each voice or stream
+// by one thread, E2 and E3 are one thread walking the chain's data-dependent
 // Newton solves sample by sample. The bytes are
 // a few hundred per sample and the operations some 10^4-10^5 f64 per base
 // sample, far from the card's rates; what bounds the time is the length of
@@ -246,9 +252,37 @@ __device__ __forceinline__ void voice_store(const Voice& v, double* vst,
 #undef STI
 }
 
+// hammer.noise_step; returns the noise sample
+__device__ __forceinline__ double noise_sample(Voice& v) {
+  const bool active = v.nrem > 0;
+  const bool in_fade = v.nfade > 0;
+  const double tf = (double)(16 - v.nfade) / 16.0;
+  const double nenv = in_fade ? 0.5 * (1.0 - cos(M_PI * tf)) : 1.0;
+  const long long r = lcg(v.nrng);
+  const double noise =
+      (double)(r >= 2147483648LL ? r - 4294967296LL : r) / 2147483647.0;
+  const double y = v.b0 * noise + v.z1;
+  const double nz1 = v.b1 * noise - v.a1 * y + v.z2;
+  const double nz2 = v.b2 * noise - v.a2 * y;
+  const double noise_out = active ? v.namp * nenv * y : 0.0;
+  if (active) {
+    v.namp = v.namp * v.ndecay;
+    v.nrem = v.nrem - 1;
+    if (in_fade) v.nfade = v.nfade - 1;
+    v.z1 = nz1;
+    v.z2 = nz2;
+    v.nrng = r;
+  }
+  return noise_out;
+}
+
 // voice.step: reed → attack noise → pickup → post-pickup gain; returns
-// the voice's output sample
-__device__ __forceinline__ double voice_sample(Voice& v) {
+// the voice's output sample. With TAP (run_calibrate's T1 and T2): the
+// reed alone into the pickup, without the attack noise (not even a zero
+// added) and without the post-pickup gain; the reed's sample goes to
+// *reed_tap.
+template <bool TAP>
+__device__ __forceinline__ double voice_sample(Voice& v, double* reed_tap) {
   // ── reed.step: damper → onset → jitter → output/rotation → renorm
   const double rel = v.dact ? v.dcount + 1.0 : v.dcount;
   const bool past = rel > v.dramp;
@@ -298,29 +332,15 @@ __device__ __forceinline__ double voice_sample(Voice& v) {
   v.dcount = rel;
   v.ddone = done2;
 
-  // ── hammer.noise_step
-  const bool active = v.nrem > 0;
-  const bool in_fade = v.nfade > 0;
-  const double tf = (double)(16 - v.nfade) / 16.0;
-  const double nenv = in_fade ? 0.5 * (1.0 - cos(M_PI * tf)) : 1.0;
-  const long long r = lcg(v.nrng);
-  const double noise =
-      (double)(r >= 2147483648LL ? r - 4294967296LL : r) / 2147483647.0;
-  const double y = v.b0 * noise + v.z1;
-  const double nz1 = v.b1 * noise - v.a1 * y + v.z2;
-  const double nz2 = v.b2 * noise - v.a2 * y;
-  const double noise_out = active ? v.namp * nenv * y : 0.0;
-  if (active) {
-    v.namp = v.namp * v.ndecay;
-    v.nrem = v.nrem - 1;
-    if (in_fade) v.nfade = v.nfade - 1;
-    v.z1 = nz1;
-    v.z2 = nz2;
-    v.nrng = r;
+  // ── hammer.noise_step, then pickup.step
+  double yy;
+  if constexpr (TAP) {
+    *reed_tap = reed_out;
+    yy = reed_out * v.ds;
+  } else {
+    const double noise_out = noise_sample(v);
+    yy = (reed_out + noise_out) * v.ds;
   }
-
-  // ── pickup.step
-  const double yy = (reed_out + noise_out) * v.ds;
   const double ay = fabs(yy);
   const double rng = 0.98 - 0.94;
   double ys = yy;
@@ -331,6 +351,7 @@ __device__ __forceinline__ double voice_sample(Voice& v) {
   const double omy = 1.0 - ys;
   const double alpha = v.beta * omy;
   v.q = (v.q * (1.0 - alpha) + 2.0 * v.beta) / (1.0 + alpha);
+  if constexpr (TAP) return (v.q * omy - 1.0) * 1.8375;
   return (v.q * omy - 1.0) * 1.8375 * v.gain;
 }
 
@@ -353,7 +374,7 @@ engine_voices_kernel(const double* __restrict__ vpar, double* vst,
     if (j < TILE) bad_tile[j] = 0;
     __syncthreads();
     for (int tt = 0; tt < tn; ++tt) {
-      const double out = voice_sample(v);
+      const double out = voice_sample<false>(v, nullptr);
       // ── gates and NaN guard #1
       double g;
       bool bad;
@@ -402,17 +423,24 @@ engine_voices_kernel(const double* __restrict__ vpar, double* vst,
 }
 
 // E4: a thread per voice; out (n, G) time major, so that a warp's voices
-// store one coalesced row per sample
+// store one coalesced row per sample. With TAP, reed (n, G) gets the
+// reed's samples.
 constexpr int E4_BLOCK = 32;
 
+template <bool TAP>
 __global__ void __launch_bounds__(E4_BLOCK)
 voice_render_kernel(const double* __restrict__ vpar, double* vst,
-                    long long* vsti, double* out, int g, int n) {
+                    long long* vsti, double* out, double* reed, int g,
+                    int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= g) return;
   Voice v;
   voice_load(v, vpar, vst, vsti, g, j);
-  for (int t = 0; t < n; ++t) out[(size_t)t * g + j] = voice_sample(v);
+  for (int t = 0; t < n; ++t) {
+    double r;
+    out[(size_t)t * g + j] = voice_sample<TAP>(v, &r);
+    if constexpr (TAP) reed[(size_t)t * g + j] = r;
+  }
   voice_store(v, vst, vsti, g, j);
 }
 
@@ -1205,6 +1233,38 @@ __device__ __forceinline__ double biquad(const Biquad& k, double* z,
   return y;
 }
 
+// speaker.coeffs_for_character: the filters and the polynomial of one
+// character at rate sr
+struct Speaker {
+  Biquad hpf, lpf;
+  double a2, a3, thermal_coeff, character;
+};
+
+__device__ __noinline__ void speaker_design(double chr, double sr,
+                                            Speaker* k) {
+  const double cc = jclip(chr, 0.0, 1.0);
+  k->hpf = design(false, 20.0 * pow(30.0 / 20.0, cc), 0.75, sr);
+  k->lpf = design(true, 20000.0 * pow(5500.0 / 20000.0, cc), 0.707, sr);
+  k->a2 = 0.2 * cc;
+  k->a3 = 0.6 * cc;
+  k->thermal_coeff = 2.0 * cc;
+  k->character = cc;
+}
+
+// speaker.step on its 5 rows (hpf z1 z2, lpf z1 z2, thermal); alpha the
+// thermal smoother's coefficient
+__device__ __forceinline__ double speaker_step(const Speaker& k, double* spk,
+                                               double x, double alpha) {
+  const double x2 = x * x;
+  const double shaped = (x + k.a2 * x2 + k.a3 * x2 * x) / (1.0 + k.a2 + k.a3);
+  const double limited = k.character < 0.001 ? shaped : tanh(shaped);
+  const double thermal = spk[4] + (x2 - spk[4]) * alpha;
+  spk[4] = thermal;
+  const double tg = 1.0 / (1.0 + k.thermal_coeff * sqrt(thermal));
+  const double filtered = biquad(k.hpf, spk, limited * tg);
+  return biquad(k.lpf, spk + 2, filtered);
+}
+
 // one oversampled step of the nonlinear chain: tremolo → LDR → preamp
 // (DK or melange) → power amp (circuit or behavioral)
 template <int PRE, int PA>
@@ -1232,8 +1292,7 @@ __device__ __forceinline__ double nonlinear_step(const double* c,
 template <int PRE, int PA>
 __device__ __noinline__ double chain_sample(const double* c, double* ch, double mono,
                                bool sag, double noise_scale,
-                               double* last_char, Biquad* hpf,
-                               Biquad* lpf, double* spk_k) {
+                               double* last_char, Speaker* spk_k) {
   const double* misc = c + C_MISC;
   const double depth = smoother_next(ch + CH_SM_DEPTH);
   const double vol = smoother_next(ch + CH_SM_VOLUME);
@@ -1259,26 +1318,10 @@ __device__ __noinline__ double chain_sample(const double* c, double* ch, double 
   // speaker: coefficients redesigned only when the character moved
   if (__double_as_longlong(chr) != __double_as_longlong(*last_char)) {
     *last_char = chr;
-    const double cc = jclip(chr, 0.0, 1.0);
-    const double sr = misc[M_SPK_SR];
-    *hpf = design(false, 20.0 * pow(30.0 / 20.0, cc), 0.75, sr);
-    *lpf = design(true, 20000.0 * pow(5500.0 / 20000.0, cc), 0.707, sr);
-    spk_k[0] = 0.2 * cc;
-    spk_k[1] = 0.6 * cc;
-    spk_k[2] = 2.0 * cc;
-    spk_k[3] = cc;
+    speaker_design(chr, misc[M_SPK_SR], spk_k);
   }
   double* spk = ch + CH_SPK;
-  const double a2 = spk_k[0], a3 = spk_k[1];
-  const double x2 = amp_out * amp_out;
-  const double shaped =
-      (amp_out + a2 * x2 + a3 * x2 * amp_out) / (1.0 + a2 + a3);
-  const double limited = spk_k[3] < 0.001 ? shaped : tanh(shaped);
-  const double thermal = spk[4] + (x2 - spk[4]) * misc[M_SPK_ALPHA];
-  spk[4] = thermal;
-  const double tg = 1.0 / (1.0 + spk_k[2] * sqrt(thermal));
-  const double filtered = biquad(*hpf, spk, limited * tg);
-  const double y = biquad(*lpf, spk + 2, filtered);
+  const double y = speaker_step(*spk_k, spk, amp_out, misc[M_SPK_ALPHA]);
   const double out = y * misc[M_POST_GAIN] * vol;
   if (!finite(out)) {
     // NaN guard #2: preamp (the melange one's noise key and draws
@@ -1303,12 +1346,10 @@ __global__ void engine_chain_kernel(const double* __restrict__ c,
   double ch[CHAIN_ROWS];
   for (int k = 0; k < CHAIN_ROWS; ++k) ch[k] = chain[k];
   double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
-  Biquad hpf, lpf;
-  double spk_k[4];
+  Speaker spk_k;
   for (int t = 0; t < n; ++t)
     out[t] = (float)chain_sample<PRE, PA>(c, ch, mono[t], sag != 0,
-                                          noise_scale, &last_char, &hpf,
-                                          &lpf, spk_k);
+                                          noise_scale, &last_char, &spk_k);
   for (int k = 0; k < CHAIN_ROWS; ++k) chain[k] = ch[k];
 }
 
@@ -1366,6 +1407,38 @@ preamp_scan_kernel(const double* __restrict__ c, const double* __restrict__ x,
   for (int k = 0; k < ROWS; ++k) state[(size_t)k * g + j] = s[k];
 }
 
+// ═══════════════════════ E6: power amp and speaker ═══════════════════════
+
+// run_calibrate's T5, a thread per stream: x · volume · volume → the power
+// amp (the chain's step, rail sag on) → the speaker (its filters designed
+// once, from `character`) → × POST_SPEAKER_GAIN. No smoothers, no NaN
+// guard, no volume after the speaker. The constants have the chain's
+// layout (C_PA, C_MISC; the tremolo and preamp blocks unused); the state
+// (E6_ROWS, G) holds the chain's rows CH_PA_V .. CH_SPK + 4 of each stream.
+constexpr int E6_BLOCK = 32;
+constexpr int E6_ROWS = CH_SPK + 5 - CH_PA_V;
+
+__global__ void __launch_bounds__(E6_BLOCK)
+pa_speaker_scan_kernel(const double* __restrict__ c,
+                       const double* __restrict__ x, double* state,
+                       double* out, int n, int g, double volume,
+                       double character) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= g) return;
+  double ch[CHAIN_ROWS];  // only the power amp's and the speaker's rows
+  for (int k = 0; k < E6_ROWS; ++k) ch[CH_PA_V + k] = state[(size_t)k * g + j];
+  const double* misc = c + C_MISC;
+  Speaker spk;
+  speaker_design(character, misc[M_SPK_SR], &spk);
+  for (int t = 0; t < n; ++t) {
+    const double xt = x[(size_t)t * g + j] * volume * volume;
+    const double y = power_amp_step(c, misc, ch, xt, true);
+    const double z = speaker_step(spk, ch + CH_SPK, y, misc[M_SPK_ALPHA]);
+    out[(size_t)t * g + j] = z * misc[M_POST_GAIN];
+  }
+  for (int k = 0; k < E6_ROWS; ++k) state[(size_t)k * g + j] = ch[CH_PA_V + k];
+}
+
 }  // namespace
 
 extern "C" int ow_engine_voices(const double* vpar, double* vst,
@@ -1383,8 +1456,34 @@ extern "C" int ow_voice_render(const double* vpar, double* vst,
                                cudaStream_t stream) {
   if (g < 0 || n < 0) return (int)cudaErrorInvalidValue;
   if (g == 0) return 0;
-  voice_render_kernel<<<(g + E4_BLOCK - 1) / E4_BLOCK, E4_BLOCK, 0, stream>>>(
-      vpar, vst, vsti, out, g, n);
+  voice_render_kernel<false>
+      <<<(g + E4_BLOCK - 1) / E4_BLOCK, E4_BLOCK, 0, stream>>>(
+          vpar, vst, vsti, out, nullptr, g, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ow_voice_render_tap(const double* vpar, double* vst,
+                                   long long* vsti, double* out,
+                                   double* reed, int g, int n,
+                                   cudaStream_t stream) {
+  if (g < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (g == 0) return 0;
+  voice_render_kernel<true>
+      <<<(g + E4_BLOCK - 1) / E4_BLOCK, E4_BLOCK, 0, stream>>>(
+          vpar, vst, vsti, out, reed, g, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ow_pa_speaker_scan(const double* consts, int n_consts,
+                                  const double* x, double* state,
+                                  double* out, int n, int g, double volume,
+                                  double character, cudaStream_t stream) {
+  if (n_consts != C_TOTAL || n < 0 || g < 0)
+    return (int)cudaErrorInvalidValue;
+  if (g == 0) return 0;
+  pa_speaker_scan_kernel<<<(g + E6_BLOCK - 1) / E6_BLOCK, E6_BLOCK, 0,
+                           stream>>>(consts, x, state, out, n, g, volume,
+                                     character);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
-"""The offline render paths' kernels: E4 (voice render) and E5 (preamp
-scan), both in `csrc/engine.cu`.
+"""The offline render paths' kernels: E4 (voice render), E5 (preamp
+scan) and E6 (power amp and speaker scan), all in `csrc/engine.cu`.
 
-The reference renders notes and the DI chain as jitted `lax.scan`s
-(`openwurli_tpu/voice.py:140` `render`, `openwurli_tpu/di.py:29`
-`preamp_di`), not as Pallas kernels. In eager PyTorch one sample of
+The reference renders notes, the DI chain and the calibration sweep's
+taps as jitted `lax.scan`s (`openwurli_tpu/voice.py:140` `render`,
+`openwurli_tpu/di.py:29` `preamp_di`, `openwurli_tpu/calib/calibrate.py:
+80-138`), not as Pallas kernels. In eager PyTorch one sample of
 either scan is some hundreds of small ops, so on the card the sample
 loops are kernels:
 
@@ -11,7 +12,10 @@ loops are kernels:
     reed → attack noise → pickup → post-pickup gain step that E1 runs for
     the engine's slots (the same device function). Output (n, G), time
     major, so that a warp's 32 voices store one coalesced row per sample;
-    the voices' state is updated in place.
+    the voices' state is updated in place. **E4<tap>** (`voice_tap`) is
+    `run_calibrate`'s T1 and T2: the reed alone into the pickup (no attack
+    noise, no post-pickup gain), with the reed's samples as a second
+    (n, G) output.
   * **E5 `preamp_scan<PRE>`**: G streams, a thread each, over n samples
     of (n, G) float64 input:
       - `dk`: `di.preamp_di`'s chain: the 2× allpass up step, the twin DK
@@ -19,17 +23,24 @@ loops are kernels:
         allpass down step;
       - `melange`: one melange preamp step per sample at the stream's LDR
         conductance and noise scale (noise_enabled · noise_gain).
+  * **E6 `pa_speaker_scan`**: G streams, a thread each, over n samples:
+    `run_calibrate`'s T5, x · volume² → the power amp (E2's step, rail
+    sag on, at the input's rate) → the speaker (filters designed once from
+    the character) → × POST_SPEAKER_GAIN.
 
 Each has a plain version here, a loop of the ported steps (`voice.step`;
-`allpass` and `dk_preamp.step`; `melange_preamp.step`, batched over the
-streams), that the CPU runs and the kernel is held to bit for bit on the
+`reed.step` and `pickup.step`; `allpass` and `dk_preamp.step`;
+`melange_preamp.step`; `power_amp.step` and `speaker.step`, batched over
+the streams), that the CPU runs and the kernel is held to bit for bit on the
 card. State layouts, one column per voice or stream:
 
   * voices: `kernels/engine.py`'s vpar (NPAR, G), vst (NST, G), vsti
     (NSTI, G);
   * `dk` streams (DK_ROWS, G): the oversampler (13 rows) then the DK
     preamp (29 rows), in the f64 chain's order (CHAIN_SPEC);
-  * `melange` streams (MEL_STATE_ROWS, G): the chain's melange rows.
+  * `melange` streams (MEL_STATE_ROWS, G): the chain's melange rows;
+  * E6 streams (PA_SPEAKER_ROWS, G): the chain's power-amp and speaker
+    rows (CHAIN_SPEC `pa_v` .. `spk`).
 
 A CPU tensor runs the plain version, a CUDA tensor the kernel; nothing
 falls back.
@@ -43,10 +54,11 @@ import functools
 import numpy as np
 import torch
 
-from openwurli_tpu_torch import voice
-from openwurli_tpu_torch.circuits import dk_preamp, melange_preamp
+from openwurli_tpu_torch import hammer, pickup, reed, tables, voice
+from openwurli_tpu_torch.circuits import dk_preamp, mna, melange_preamp
+from openwurli_tpu_torch.circuits import power_amp, speaker
 from openwurli_tpu_torch.kernels import engine as ek
-from openwurli_tpu_torch.ops import allpass
+from openwurli_tpu_torch.ops import allpass, biquad
 
 DK_SPEC = (("os_up_a", 3), ("os_up_b", 3), ("os_down_a", 3),
            ("os_down_b", 3), ("os_delay", 1), ("pre_v", 16), ("pre_i", 4),
@@ -54,12 +66,15 @@ DK_SPEC = (("os_up_a", 3), ("os_up_b", 3), ("os_down_a", 3),
            ("pre_gprev", 1))
 DK_ROWS = sum(k for _, k in DK_SPEC)
 MEL_STATE_ROWS = ek.CHAIN_OFF["mel_wprev"][1] - ek.CHAIN_OFF["mel_v"][0]
+PA_SPEAKER_ROWS = ek.CHAIN_OFF["spk"][1] - ek.CHAIN_OFF["pa_v"][0]
 
 # Launch counters: *_LAUNCHES count CUDA launches, *_PLAIN_CALLS the calls
 # served by the plain version.
 VOICE_RENDER_LAUNCHES = VOICE_RENDER_PLAIN_CALLS = 0
 PREAMP_SCAN_LAUNCHES = {"dk": 0, "melange": 0}
 PREAMP_SCAN_PLAIN_CALLS = 0
+VOICE_TAP_LAUNCHES = VOICE_TAP_PLAIN_CALLS = 0
+PA_SPEAKER_LAUNCHES = PA_SPEAKER_PLAIN_CALLS = 0
 
 
 # ───────────────────────────── E4: voices ─────────────────────────────
@@ -96,10 +111,8 @@ def voice_render_plain(vpar, vst, vsti, num_samples: int):
     return out
 
 
-def voice_render(vpar, vst, vsti, num_samples: int):
-    """E4: G voices over num_samples → (num_samples, G) float64; vst and
-    vsti (the voices' state) are updated in place."""
-    global VOICE_RENDER_LAUNCHES, VOICE_RENDER_PLAIN_CALLS
+def _check_voices(vpar, vst, vsti, num_samples):
+    """→ (voices, samples, device) after checking the packed columns."""
     g = vpar.shape[1] if vpar.dim() == 2 else -1
     ek._check("vpar", vpar, (ek.NPAR, g), torch.float64)
     ek._check("vst", vst, (ek.NST, g), torch.float64)
@@ -110,17 +123,84 @@ def voice_render(vpar, vst, vsti, num_samples: int):
     n = int(num_samples)
     if n < 0:
         raise ValueError(f"num_samples {n} < 0")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return g, n, dev
+
+
+def voice_render(vpar, vst, vsti, num_samples: int):
+    """E4: G voices over num_samples → (num_samples, G) float64; vst and
+    vsti (the voices' state) are updated in place."""
+    global VOICE_RENDER_LAUNCHES, VOICE_RENDER_PLAIN_CALLS
+    g, n, dev = _check_voices(vpar, vst, vsti, num_samples)
     if dev.type == "cpu":
         VOICE_RENDER_PLAIN_CALLS += 1
         return voice_render_plain(vpar, vst, vsti, n)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     out = torch.empty((n, g), dtype=torch.float64, device=dev)
     ek._lib_call("voice_render", lambda lib: lib.ow_voice_render,
                  vpar.data_ptr(), vst.data_ptr(), vsti.data_ptr(),
                  out.data_ptr(), g, n, device=dev)
     VOICE_RENDER_LAUNCHES += 1
     return out
+
+
+# ─────────────────────── E4<tap>: calibrate's T1, T2 ───────────────────────
+
+
+def tap_columns(reed_params: reed.ReedParams, reed_state: reed.ReedState,
+                pickup_params: pickup.PickupParams, device="cpu"):
+    """run_calibrate's reeds and pickups (NumPy, batch (G,)) → E4's packed
+    (vpar, vst, vsti) on `device`: the attack noise's rows zero (E4<tap>
+    never reads them), the post-pickup gain 1 (never applied)."""
+    batch = np.shape(reed_params.onset_ramp_samples)
+    z = np.zeros(batch)
+    zi = np.zeros(batch, np.int64)
+    vp = voice.VoiceParams(
+        reed=reed_params,
+        noise=hammer.NoiseParams(z, biquad.BiquadCoeffs(z, z, z, z, z)),
+        pickup=pickup_params, post_pickup_gain=np.ones(batch),
+        midi_note=z)
+    vs = voice.VoiceState(
+        reed=reed_state,
+        noise=hammer.NoiseState(z, zi, zi, biquad.BiquadState(z, z), zi),
+        pickup=pickup.init_state(batch))
+    return voice_columns(vp, vs, device)
+
+
+def voice_tap_plain(vpar, vst, vsti, num_samples: int):
+    """Plain E4<tap> on the tensors' device → (out, reed), each
+    (num_samples, G) float64: the reed step, then the pickup step on its
+    output; vst and vsti are updated in place (the noise rows untouched)."""
+    params, state = ek.unpack_voices(vpar, vst, vsti)
+    g = vpar.shape[1]
+    out = torch.empty((num_samples, g), dtype=torch.float64,
+                      device=vpar.device)
+    reed_out = torch.empty_like(out)
+    rs, ps = state.reed, state.pickup
+    with torch.inference_mode():
+        for t in range(num_samples):
+            rs, reed_out[t] = reed.step(params.reed, rs)
+            ps, out[t] = pickup.step(params.pickup, ps, reed_out[t])
+        ek.write_voice_state(vst, vsti, state._replace(reed=rs, pickup=ps))
+    return out, reed_out
+
+
+def voice_tap(vpar, vst, vsti, num_samples: int):
+    """E4<tap>: G reeds, each into its pickup, over num_samples → (out,
+    reed), each (num_samples, G) float64: the pickup's output and the
+    reed's; vst and vsti are updated in place."""
+    global VOICE_TAP_LAUNCHES, VOICE_TAP_PLAIN_CALLS
+    g, n, dev = _check_voices(vpar, vst, vsti, num_samples)
+    if dev.type == "cpu":
+        VOICE_TAP_PLAIN_CALLS += 1
+        return voice_tap_plain(vpar, vst, vsti, n)
+    out = torch.empty((n, g), dtype=torch.float64, device=dev)
+    reed_out = torch.empty_like(out)
+    ek._lib_call("voice_render_tap", lambda lib: lib.ow_voice_render_tap,
+                 vpar.data_ptr(), vst.data_ptr(), vsti.data_ptr(),
+                 out.data_ptr(), reed_out.data_ptr(), g, n, device=dev)
+    VOICE_TAP_LAUNCHES += 1
+    return out, reed_out
 
 
 # ───────────────────────────── E5: preamp ─────────────────────────────
@@ -289,4 +369,144 @@ def preamp_scan(kind: str, sample_rate: float, x, state, g_ldr,
                  noise_scale.data_ptr() if kind == "melange" else None,
                  out.data_ptr(), n, g, device=dev)
     PREAMP_SCAN_LAUNCHES[kind] += 1
+    return out
+
+
+# ─────────────── E6: calibrate's T5 (power amp, speaker) ───────────────
+
+
+@functools.lru_cache(maxsize=None)
+def pa_speaker_consts(sample_rate: float) -> np.ndarray:
+    """E6's constants: the f64 chain's layout (csrc/engine.cu ConstOffset)
+    with the power amp built at `sample_rate` itself (the chain builds it
+    at its oversampled rate), the speaker's rate and thermal coefficient
+    and the post-speaker gain in the misc block; the tremolo and preamp
+    blocks, which E6 never reads, zero."""
+    ap = power_amp.make_params(sample_rate)
+    sp = speaker.make_params(sample_rate)
+    at_pa = ek.solver_block_size(ek.N_T, ek.M_T, ek.NB_T)
+    pa = ek.solver_block(power_amp.build_netlist(), ap.solver)
+    at_misc = at_pa + pa.size + sum(k for _, k in ek.PRE_SPEC)
+    flat = np.zeros(at_misc + len(ek.MISC_NAMES))
+    flat[at_pa:at_pa + pa.size] = pa
+    misc = dict(pa_out=ap.out_idx, pa_v1=ap.v1_row, pa_v2=ap.v2_row,
+                pa_in=ap.input_row, pa_att=ap.alpha_attack,
+                pa_rel=ap.alpha_release, pa_iavg=ap.alpha_i_avg,
+                spk_sr=sp.sample_rate, spk_alpha=sp.thermal_alpha,
+                post_gain=tables.POST_SPEAKER_GAIN)
+    for k, name in enumerate(ek.MISC_NAMES):
+        flat[at_misc + k] = misc.get(name, 0.0)
+    return flat
+
+
+@functools.lru_cache(maxsize=None)
+def _pa_consts_on(sample_rate, device):
+    return torch.from_numpy(pa_speaker_consts(sample_rate)).to(device)
+
+
+def _pa_rows_spec():
+    a = ek.CHAIN_OFF["pa_v"][0]
+    return {n: (o0 - a, o1 - a) for n, (o0, o1) in ek.CHAIN_OFF.items()
+            if a <= o0 < ek.CHAIN_OFF["spk"][1]}
+
+
+def init_pa_speaker_state(sample_rate: float, streams: int, device="cpu"):
+    """(PA_SPEAKER_ROWS, streams): the power amp (at `sample_rate`) at its
+    DC point with the rails at rest, the speaker at rest."""
+    st = power_amp.init_state(power_amp.make_params(sample_rate), device)
+    spk = speaker.init_state(device)
+    col = pa_speaker_rows(st, spk)
+    return col[:, None].repeat(1, int(streams)).contiguous()
+
+
+def pa_speaker_rows(pa: power_amp.PowerAmpState, spk: speaker.SpeakerState):
+    """Power-amp and speaker states (batch (...)) → rows (PA_SPEAKER_ROWS,
+    ...)."""
+    c = pa.circuit
+    batch = c.v.shape[:-1]
+
+    def col(x):
+        return torch.as_tensor(x, device=c.v.device).to(
+            torch.float64).expand(batch)[..., None]
+
+    parts = [c.v, c.i_nl, c.v_nl, col(c.nr_resid),
+             *[col(d) for d in c.diag], *[col(r) for r in pa.rails],
+             col(pa.last_good), col(spk.hpf.z1), col(spk.hpf.z2),
+             col(spk.lpf.z1), col(spk.lpf.z2), col(spk.thermal_state)]
+    return torch.cat([x.expand(batch + x.shape[-1:]) for x in parts],
+                     dim=-1).movedim(-1, 0)
+
+
+def pa_speaker_unrows(rows):
+    """Rows (PA_SPEAKER_ROWS, ...) → (PowerAmpState, SpeakerState), copies,
+    the solver counters as int32."""
+    x = rows.movedim(0, -1)
+    o = _pa_rows_spec()
+
+    def seg(name):
+        a, b = o[name]
+        return x[..., a:b].clone()
+
+    diag = seg("pa_diag")
+    spk = seg("spk")
+    pa = power_amp.PowerAmpState(
+        circuit=mna.SolverState(
+            v=seg("pa_v"), i_nl=seg("pa_i"), v_nl=seg("pa_vnl"),
+            nr_resid=seg("pa_resid")[..., 0],
+            diag=mna.SolverDiag(*[diag[..., k].to(torch.int32)
+                                  for k in range(ek.N_DIAG)])),
+        rails=power_amp.RailState(*seg("pa_rails").unbind(-1)),
+        last_good=seg("pa_last")[..., 0])
+    return pa, speaker.SpeakerState(
+        biquad.BiquadState(spk[..., 0], spk[..., 1]),
+        biquad.BiquadState(spk[..., 2], spk[..., 3]), spk[..., 4])
+
+
+def pa_speaker_scan_plain(sample_rate, x, state, volume, character):
+    """Plain E6 on the tensors' device: x (n, G) float64 → out (n, G);
+    `state` is updated in place."""
+    dev = x.device
+    ap = power_amp.make_params(sample_rate)
+    sp = speaker.make_params(sample_rate)
+    coeffs = speaker.coeffs_t(torch.tensor(float(character),
+                                           dtype=torch.float64, device=dev),
+                              sample_rate)
+    pa, spk = pa_speaker_unrows(state)
+    out = torch.empty_like(x)
+    with torch.inference_mode():
+        for t in range(x.shape[0]):
+            pa, y = power_amp.step(ap, pa, x[t] * volume * volume,
+                                   rail_sag=True)
+            spk, z = speaker.step(sp, spk, coeffs, y)
+            out[t] = z * tables.POST_SPEAKER_GAIN
+        state.copy_(pa_speaker_rows(pa, spk))
+    return out
+
+
+def pa_speaker_scan(sample_rate: float, x, state, volume: float,
+                    character: float):
+    """E6: G streams over x (n, G) float64 at `sample_rate` (the power
+    amp's and the speaker's rate) → out (n, G) float64; `state`
+    (PA_SPEAKER_ROWS, G) is updated in place."""
+    global PA_SPEAKER_LAUNCHES, PA_SPEAKER_PLAIN_CALLS
+    n, g = (x.shape if x.dim() == 2 else (-1, -1))
+    ek._check("x", x, (n, g), torch.float64)
+    ek._check("state", state, (PA_SPEAKER_ROWS, g), torch.float64)
+    dev = x.device
+    if state.device != dev:
+        raise ValueError("x and state must be on one device")
+    if dev.type == "cpu":
+        PA_SPEAKER_PLAIN_CALLS += 1
+        return pa_speaker_scan_plain(float(sample_rate), x, state,
+                                     float(volume), float(character))
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    consts = _pa_consts_on(float(sample_rate), str(dev))
+    out = torch.empty_like(x)
+    ek._lib_call("pa_speaker_scan", lambda lib: lib.ow_pa_speaker_scan,
+                 consts.data_ptr(), consts.numel(), x.data_ptr(),
+                 state.data_ptr(), out.data_ptr(), n, g,
+                 ctypes.c_double(volume), ctypes.c_double(character),
+                 device=dev)
+    PA_SPEAKER_LAUNCHES += 1
     return out

@@ -515,3 +515,61 @@ def test_engine_chain_models_match_plain(cuda, models, case):
     assert _same_bits(out, ref) and _same_bits(a, b)
     if case == "nan":
         assert float(out[0]) == 0.0
+
+
+# ── the calibration sweep's kernels (E4<tap>, E6) ──
+
+
+def _calibrate_taps(cuda, notes=(33.0, 45.0, 60.0, 72.0, 84.0, 96.0),
+                    vels=(1.0, 64.0, 127.0)):
+    """run_calibrate's own host packing for a notes × velocities grid."""
+    from openwurli_tpu_torch import tables
+    from openwurli_tpu_torch.calib import calibrate
+
+    g, v = (a.ravel() for a in np.meshgrid(
+        np.asarray(notes), np.asarray(vels) / 127.0, indexing="ij"))
+    return calibrate.pack_taps(g, v, tables.CalibrationConfig(), cuda)
+
+
+def test_voice_tap_kernel_matches_plain(cuda):
+    from openwurli_tpu_torch.kernels import engine as ek
+    from openwurli_tpu_torch.kernels import render as kr
+
+    cols = list(_calibrate_taps(cuda).cols)
+    g = cols[0].shape[1]
+    cols[0][ek.P_DS, 3] *= 40.0              # the pickup past its knee
+    cols[0][ek.P_AMP + 1, 5] = float("nan")
+    cols[1][ek.S_S + 2, 7] = float("inf")
+    a = [c.clone() for c in cols]
+    b = [c.clone() for c in cols]
+    out, reed = kr.voice_tap(*a, 1100)       # past the renorm at n = 1024
+    ref, ref_reed = kr.voice_tap_plain(*b, 1100)
+    assert out.shape == reed.shape == (1100, g)
+    assert not torch.isfinite(out[:, 5]).all()
+    assert _same_bits(out, ref) and _same_bits(reed, ref_reed)
+    for x, y in zip(a, b):
+        assert _same_bits(x, y)
+    # the noise rows are never read or written
+    assert _same_bits(a[1][ek.S_NAMP:ek.S_Z2 + 1], cols[1][ek.S_NAMP:
+                                                           ek.S_Z2 + 1])
+
+
+def test_pa_speaker_scan_kernel_matches_plain(cuda):
+    from openwurli_tpu_torch import di
+    from openwurli_tpu_torch.kernels import render as kr
+
+    taps = _calibrate_taps(cuda)
+    t2, _ = kr.voice_tap(*taps.cols, 600)
+    x = di.preamp_di(t2 * taps.out_scale, SR, device=cuda)[-96:]
+    x = x.contiguous()
+    x[10:, 4] = float("nan")                 # the power amp resets to DC
+    x[20, 9] = float("inf")
+    x[:, 11] *= 400.0                        # driven into its rails
+    g = x.shape[1]
+    for character in (1.0, 0.0):
+        st = kr.init_pa_speaker_state(SR, g, cuda)
+        a, b = st.clone(), st.clone()
+        out = kr.pa_speaker_scan(SR, x, a, 0.4, character)
+        ref = kr.pa_speaker_scan_plain(SR, x, b, 0.4, character)
+        assert _same_bits(out, ref) and _same_bits(a, b)
+        assert torch.isfinite(out).all()

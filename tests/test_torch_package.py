@@ -35,7 +35,16 @@ def test_imports_without_jax():
             "openwurli_tpu_torch.kernels.render, "
             "openwurli_tpu_torch.circuits.melange_preamp, "
             "openwurli_tpu_torch.circuits.power_amp, "
-            "openwurli_tpu_torch.prng\n"
+            "openwurli_tpu_torch.prng, "
+            "openwurli_tpu_torch.calib.goertzel, "
+            "openwurli_tpu_torch.calib.harmonics, "
+            "openwurli_tpu_torch.calib.notes, "
+            "openwurli_tpu_torch.calib.onset_model, "
+            "openwurli_tpu_torch.calib.train, "
+            "openwurli_tpu_torch.calib.residuals, "
+            "openwurli_tpu_torch.calib.alias_audit, "
+            "openwurli_tpu_torch.calib.calibrate, "
+            "openwurli_tpu_torch.calib.pipeline\n"
             "from openwurli_tpu_torch import fast\n"
             "for name in ('schedule_events', 'render_events', "
             "'render_events_parallel', 'render_midi_file', "
@@ -85,7 +94,7 @@ def test_no_file_imports_jax_or_the_reference():
     assert not offenders, offenders
 
 
-def test_cuda_wrappers_raise_without_cuda():
+def test_cuda_wrappers_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises((RuntimeError, AssertionError)):
@@ -133,6 +142,26 @@ def test_cuda_wrappers_raise_without_cuda():
         di.preamp_di(np.zeros(8), 44100.0)
     with pytest.raises((RuntimeError, AssertionError)):
         di.preamp_di(torch.zeros(8, dtype=torch.float64), 44100.0)
+    # and the calibration pipeline
+    from openwurli_tpu_torch.calib import (alias_audit, calibrate, goertzel,
+                                           harmonics, onset_model, pipeline)
+    with pytest.raises((RuntimeError, AssertionError)):
+        calibrate.run_calibrate([60], [100])
+    with pytest.raises((RuntimeError, AssertionError)):
+        goertzel.dft_magnitude(np.zeros(64), [440.0], 44100.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        harmonics.measure_interharmonic_snr(np.zeros(44100), 44100.0, 440.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        alias_audit.analyze(np.zeros(22050), 44100.0, 440.0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        onset_model.predict(onset_model.init_params(0), np.zeros(8192),
+                            44100.0)
+    np.savez(tmp_path / "training_data.npz", inputs=np.zeros((2, 2)),
+             targets=np.zeros((2, 11)), mask=np.ones((2, 11), bool),
+             weights=np.ones(2))
+    with pytest.raises((RuntimeError, AssertionError)):
+        pipeline.main(["--from-stage", "6", "--through-stage", "6",
+                       "--data-dir", str(tmp_path)])
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():
@@ -202,7 +231,8 @@ def test_build_signatures_cover_every_entry_point():
         "ow_voice_bank", "ow_voice_bank_events", "ow_mono_chain",
         "ow_mono_chain_noise", "ow_trem_preroll", "ow_probe",
         "ow_engine_voices", "ow_engine_chain", "ow_tremolo_settle",
-        "ow_voice_render", "ow_preamp_scan"}
+        "ow_voice_render", "ow_preamp_scan", "ow_voice_render_tap",
+        "ow_pa_speaker_scan"}
     for name, n_args in found.items():
         assert len(_build._SIGNATURES[name]) == n_args, name
 
