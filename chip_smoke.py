@@ -39,9 +39,16 @@ each with the launch counts set to 0 just before it and read just after:
     keys × 8 velocities (0.5 s) through E4<tap> (reed and pickup taps),
     E5<dk> and E6 (power amp and speaker), timed by stage; the 7-stage
     `calib.pipeline.main` through stage 6 on a three-note recording
-    rendered by the port (stage 4 through E4 and E5<dk>); the onset
-    extractors on the fixture mixture; and the alias-audit sweep through
-    the f64 engine (E1, E2), against its golden baseline.
+    rendered by the port (stage 4 through E4 and E5<dk>); and the onset
+    extractors on the fixture mixture;
+  * the CLI: every one of `openwurli_tpu_torch.cli`'s 21 subcommands
+    through `cli.main(["--device", "cuda", ...])`, each timed and its
+    output checked (WAV specs and signal, printed rows, CSV schemas, the
+    intermod worst note): the preamp and pump measurements through E7
+    (the DK preamp at the input's rate), the renders through E4, E5<dk>,
+    K1-K5 and E1/E2, the calibration subcommands through E4<tap>, E5<dk>
+    and E6; and the alias-audit sweep through `alias-audit --note N -o`
+    (the f64 engine, E1 and E2), against its golden baseline.
 
 E3 is held to its plain version over 512 steps and its full 2 s settle at
 88.2 and 96 kHz to the package data; E1 and E2 to theirs with NaN and inf
@@ -53,7 +60,9 @@ and inf ones, E5<melange> at noise scales 0, 1 and 30, E2's other
 instantiations on a kicked chunk and on 256 samples of the melange
 plugin's chunk; E4<tap> and E6 on `run_calibrate`'s own inputs (all 512
 streams, the first 1000 and 256 samples) and on 133 ragged streams with
-NaN and inf columns.
+NaN and inf columns; E7 on the CLI's `sweep` (25 streams) and
+`pump-sinusoid` (a resistance per sample) calls, the first 1000 steps, and
+on 133 ragged streams with NaN and inf inputs, both taps.
 K1 and K3 (eight threads per voice lane) are also held to their plain
 versions at a ragged lane count, with non-finite parameters in some lanes
 and with the pickup driven past its knee, and K1 is timed across widths.
@@ -316,8 +325,10 @@ def reset_counts(vb, mc):
     kr.PREAMP_SCAN_PLAIN_CALLS = 0
     kr.VOICE_TAP_LAUNCHES = kr.VOICE_TAP_PLAIN_CALLS = 0
     kr.PA_SPEAKER_LAUNCHES = kr.PA_SPEAKER_PLAIN_CALLS = 0
-    for key in kr.PREAMP_SCAN_LAUNCHES:
-        kr.PREAMP_SCAN_LAUNCHES[key] = 0
+    kr.DK_SCAN_PLAIN_CALLS = 0
+    for counter in (kr.PREAMP_SCAN_LAUNCHES, kr.DK_SCAN_LAUNCHES):
+        for key in counter:
+            counter[key] = 0
     vb.KERNEL_LAUNCHES = vb.PLAIN_CALLS = 0
     for name in vb.LAUNCHES_BY_KERNEL:
         vb.LAUNCHES_BY_KERNEL[name] = 0
@@ -348,12 +359,13 @@ def read_counts(vb, mc):
             "preamp_scan_melange": kr.PREAMP_SCAN_LAUNCHES["melange"],
             "voice_render_tap": kr.VOICE_TAP_LAUNCHES,
             "pa_speaker_scan": kr.PA_SPEAKER_LAUNCHES,
+            "dk_scan": sum(kr.DK_SCAN_LAUNCHES.values()),
             "plain": vb.PLAIN_CALLS + mc.PLAIN_CALLS
             + mc.PREROLL_PLAIN_CALLS + probe.PLAIN_CALLS
             + ek.VOICES_PLAIN_CALLS + ek.CHAIN_PLAIN_CALLS
             + ek.SETTLE_PLAIN_CALLS + kr.VOICE_RENDER_PLAIN_CALLS
             + kr.PREAMP_SCAN_PLAIN_CALLS + kr.VOICE_TAP_PLAIN_CALLS
-            + kr.PA_SPEAKER_PLAIN_CALLS}
+            + kr.PA_SPEAKER_PLAIN_CALLS + kr.DK_SCAN_PLAIN_CALLS}
 
 
 def bits_equal(a, b):
@@ -1509,9 +1521,8 @@ def calib_phases(dev, card, launches, vb, mc):
     """Phase 26: the calibration pipeline. E4<tap> and E6 against their
     plain versions; run_calibrate at BASELINE config 4, timed by stage;
     the pipeline's stages 1-6 through `main` (BASELINE config 5); the
-    onset extractors on the fixture mixture; the alias-audit sweep.
-    Adds its paths' launch counts to `launches`; → the kernels'
-    measurements."""
+    onset extractors on the fixture mixture. Adds its paths' launch counts
+    to `launches`; → the kernels' measurements."""
     import contextlib
     import io
     import os
@@ -1698,42 +1709,6 @@ def calib_phases(dev, card, launches, vb, mc):
           + ("(shipped weights lack the format-3 tag: none loaded)"
              if weights is None else "") + f" [{card}]", flush=True)
 
-    # ── the alias-audit sweep, circuit power amp ──
-    t_p = time.perf_counter()
-    baseline = json.load(open(os.path.join(repo, ALIAS_BASELINE)))
-    elapsed = time.perf_counter() - T_START
-    sweep = alias_audit.STIMULUS_NOTES
-    if elapsed + ALIAS_NOTE_S * len(sweep) > SCRIPT_LIMIT_S:
-        sweep = (84,)
-    reset_counts(vb, mc)
-    alias = {}
-    for note in sweep:
-        ms, r = host_ms(lambda: alias_audit.run_with_note(note, device=dev))
-        b = baseline[str(note)]
-        rust_step, rust_hf = ALIAS_RUST[note]
-        check(r.max_step_up_db <= b["max_step_up_db"] + ALIAS_STEP_UP_TOL_DB
-              and r.hf_band_dbc <= b["hf_band_dbc"] + ALIAS_HF_TOL_DB,
-              f"alias note {note}: step-up {r.max_step_up_db:.3f} (golden "
-              f"{b['max_step_up_db']:.3f}), hf {r.hf_band_dbc:.3f} (golden "
-              f"{b['hf_band_dbc']:.3f})")
-        check(r.max_step_up_db <= rust_step + ALIAS_STEP_UP_TOL_DB
-              and r.hf_band_dbc <= rust_hf + ALIAS_RUST_HF_TOL_DB,
-              f"alias note {note} against the Rust reference")
-        alias[note] = {"ms": ms, "max_step_up_db": r.max_step_up_db,
-                       "hf_band_dbc": r.hf_band_dbc, "f0_hz": r.f0_hz,
-                       "golden": [b["max_step_up_db"], b["hf_band_dbc"]]}
-    launches["alias_audit sweep"] = counts = read_counts(vb, mc)
-    check(counts["engine_chain"] > 0 and counts["plain"] == 0,
-          f"alias sweep launches {counts}")
-    print(f"phase 26 alias sweep (circuit power amp, v=120, "
-          f"{'all three notes' if len(sweep) == 3 else 'note 84 alone'}; "
-          f"{elapsed:.0f} s into the script): "
-          + "; ".join(f"{k}: step-up {v['max_step_up_db']:.3f} dB "
-                      f"(golden {v['golden'][0]:.3f}), hf "
-                      f"{v['hf_band_dbc']:.3f} dBc (golden "
-                      f"{v['golden'][1]:.3f}), {v['ms'] / 1e3:.1f} s"
-                      for k, v in alias.items())
-          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
     return {"E4<tap>": {**tap_main, "compared": [tap_main, tap_r],
                         "main_path_ms": {"run_calibrate 512 x 22050":
                                          stages["E4<tap>"]}},
@@ -1743,8 +1718,380 @@ def calib_phases(dev, card, launches, vb, mc):
             "calibrate": {"ms": cal_ms, "stages_ms": stages},
             "pipeline": {"ms": pipe_ms, "stages_s": stage_s},
             "onsets": {"spectral": spectral, "network": nn,
-                       "weights": weights is not None},
-            "alias": alias}
+                       "weights": weights is not None}}
+
+
+# ── the CLI (phase 27) ──
+
+# float64 operations of one E7 step beyond the twin DK step's own
+# (PREAMP_OPS_STEP): the sample's LDR conductance, one division
+E7_OPS_SAMPLE = PREAMP_OPS_STEP + 1
+# `intermod-audit`'s last line (stderr), as the JAX package's CLI prints it
+# on a CPU; tests/test_torch_cli.py holds the port's text to the reference's
+INTERMOD_WORST = "# worst: MIDI 38 max_risk 0.00338"
+# render-midi's song: (onset s, release s, midi, velocity) and a pedal
+# held from 0.15 s to 0.35 s
+CLI_SONG = ((0.0, 0.2, 60, 100), (0.05, 0.3, 64, 90), (0.1, 0.4, 67, 80))
+CLI_PEDAL = (0.15, 0.35)
+
+
+def write_smf(path, notes, pedal, tpq=480):
+    """A format-0 SMF at 120 bpm (960 ticks per second): note-ons and
+    note-offs of `notes`, CC64 down and up at `pedal`."""
+    import struct
+
+    ev = [(on, 0x90, m, v) for on, _, m, v in notes]
+    ev += [(off, 0x80, m, 0) for _, off, m, _ in notes]
+    ev += [(pedal[0], 0xB0, 64, 127), (pedal[1], 0xB0, 64, 0)]
+    track, last = bytearray(), 0
+    for t, status, d1, d2 in sorted(ev):
+        tick = int(round(t * 2 * tpq))
+        delta, last = tick - last, tick
+        var = [delta & 0x7F]
+        delta >>= 7
+        while delta:
+            var.append((delta & 0x7F) | 0x80)
+            delta >>= 7
+        track += bytes(reversed(var)) + bytes([status, d1, d2])
+    track += bytes([0x00, 0xFF, 0x2F, 0x00])
+    with open(path, "wb") as f:
+        f.write(b"MThd" + struct.pack(">IHHH", 6, 0, 1, tpq))
+        f.write(b"MTrk" + struct.pack(">I", len(track)) + bytes(track))
+
+
+def wav_spec(path):
+    """(sample rate, bits, channels, frames, samples) of a PCM WAV written
+    by io.wav.write_wav."""
+    import struct
+
+    from openwurli_tpu_torch.io import wav
+
+    with open(path, "rb") as f:
+        head = f.read(44)
+    _tag, ch, sr, _rate, _block, bits = struct.unpack("<HHIIHH", head[20:36])
+    x, sr_read = wav.read_wav(path)
+    check(sr_read == sr, f"{path}: sample rate")
+    return sr, bits, ch, len(x), x
+
+
+def compare_dk_scan(kr, sr, x, r, state, tap, what):
+    """E7 against its plain version on one scan's inputs: output and state
+    bit for bit; the plain run's Newton passes, each stream's own, give
+    the operations the data needed (for the bound). → numbers."""
+    from openwurli_tpu_torch.circuits import dk_preamp
+
+    a, b = state.clone(), state.clone()
+    out = kr.dk_scan(sr, x, r, a, tap)
+    passes0 = dk_preamp.NEWTON_PASSES[0]
+    plain_ms, ref = host_ms(lambda: kr.dk_scan_plain(sr, x, r, b, tap))
+    passes = dk_preamp.NEWTON_PASSES[0] - passes0
+    check(same_bits(out, ref) and same_bits(a, b),
+          f"E7<{tap}> {what}: {first_diff(out, ref)}, state "
+          f"{first_diff(a, b)}")
+    ms = cuda_ms(lambda: kr.dk_scan(sr, x, r, state.clone(), tap), reps=3)
+    n, g = x.shape
+    n_bytes = (3 * x.numel() + 2 * state.numel()
+               + kr.preamp_consts("dk", float(sr)).size) * 8
+    ops = n * g * E7_OPS_SAMPLE + passes * PREAMP_OPS_PASS
+    return {"shape": f"{g} streams x {n}", "inputs": f"E7<{tap}> {what}",
+            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
+            "newton": {"stream_passes": passes},
+            "us_per_step": ms * 1e3 / n,
+            "max_abs_err": float((out - ref).abs().nan_to_num().max())}
+
+
+def cli_phases(dev, card, launches, vb, mc, ptxas):
+    """Phase 27: every subcommand of the port's CLI through `cli.main` on
+    the card, each timed, its output checked and its launches counted;
+    the alias-audit sweep through `alias-audit --note N -o`; E7 against
+    its plain version on the calls' own inputs and on ragged streams with
+    NaN and inf inputs. Adds the CLI's launch counts to `launches`; → the
+    measurements."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from openwurli_tpu_torch import cli, voice
+    from openwurli_tpu_torch.calib import alias_audit
+    from openwurli_tpu_torch.kernels import render as kr
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(repo, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def path(name):
+        return os.path.join(work, name)
+
+    song = path("song.mid")
+    write_smf(song, CLI_SONG, CLI_PEDAL)
+    runs = [
+        ("gain", []), ("sweep", []), ("harmonics", []),
+        ("tremolo-sweep", []),
+        ("render", ["-o", path("render.wav")]),
+        ("reed-render", ["-o", path("reed_a.wav")]),
+        ("reed-render", ["-o", path("reed_b.wav")]),
+        ("reed-render", ["-v", "40", "--duration", "0.5",
+                         "-o", path("reed_v40.wav")]),
+        ("render-poly", ["--duration", "0.25", "--fast",
+                         "-o", path("poly_fast.wav")]),
+        ("render-poly", ["--duration", "0.25", "-o", path("poly.wav")]),
+        ("render-midi", [song, "--tail", "0.25", "--fast",
+                         "-o", path("midi_fast.wav")]),
+        ("render-midi", [song, "--tail", "0.25", "--fast", "--serial",
+                         "-o", path("midi_serial.wav")]),
+        ("render-midi", [song, "--tail", "0.25", "-o", path("midi.wav")]),
+        ("intermod-audit", []), ("bark-audit", []),
+        ("calibrate", ["-o", path("calibrate.csv")]),
+        ("sensitivity", ["--ds-grid", "0.85", "-o", path("sens.csv")]),
+        ("centroid-track", []), ("overshoot", []),
+        ("pump-trace", []), ("pump-sweep", []), ("pump-step", []),
+        ("pump-sinusoid", []), ("pump-spike", []),
+        ("bench-reed", ["--duration", "0.25"]),
+    ]
+    # E7's calls, their inputs kept (the state cloned before the call)
+    rec = {}
+    scan_fn = kr.dk_scan
+    current = [None]
+
+    def scan_rec(sr, x, r, state, tap):
+        rec.setdefault(current[0], []).append((sr, x, r, state.clone(), tap))
+        return scan_fn(sr, x, r, state, tap)
+
+    timer = StageTimer()
+    kr.dk_scan = scan_rec
+    timer.wrap(kr, "dk_scan", "E7")
+    t_p = time.perf_counter()
+    out, per_cmd = {}, []
+    reset_counts(vb, mc)
+    try:
+        for name, extra in runs:
+            current[0] = name
+            before = read_counts(vb, mc)
+            so, se = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(so), \
+                    contextlib.redirect_stderr(se):
+                ms, _ = host_ms(lambda: cli.main(["--device", dev, name,
+                                                  *extra]))
+            after = read_counts(vb, mc)
+            diff = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+            check(diff.get("plain", 0) == 0, f"cli {name}: plain calls")
+            flags = [a for a in extra if a in ("--fast", "--serial")]
+            first = (so.getvalue().strip().splitlines() or [""])[0]
+            per_cmd.append({"cmd": " ".join([name, *flags]), "ms": ms,
+                            "launches": diff, "first_line": first})
+            out.setdefault(name, []).append((so.getvalue(), se.getvalue(),
+                                             diff))
+    finally:
+        kr.dk_scan = scan_fn
+        timer.restore()
+    cli_ms = (time.perf_counter() - t_p) * 1e3
+
+    def lines(name, k=0):
+        return out[name][k][0].strip().splitlines()
+
+    def rows(name, k=0):
+        got = [line.split(",") for line in lines(name, k)[1:]]
+        check(all(np.isfinite([float(v) for v in r]).all() for r in got),
+              f"cli {name}: finite rows")
+        return np.array(got, dtype=np.float64)
+
+    def launched(name, *kernels, k=0):
+        diff = out[name][k][2]
+        check(all(diff.get(kn, 0) >= 1 for kn in kernels),
+              f"cli {name} launches {diff}, wanted {kernels}")
+
+    # ── the outputs ──
+    gain = lines("gain")[0]
+    check(gain.startswith("Gain @ 1000 Hz, R_ldr=1000000 Ω:"), gain)
+    for name, n_rows in (("sweep", 25), ("tremolo-sweep", 13),
+                         ("pump-sweep", 13), ("pump-spike", 41)):
+        r = rows(name)
+        check(r.shape == (n_rows, 2), f"cli {name}: {r.shape}")
+    check(lines("sweep")[0] == "freq_hz,gain_db", "sweep header")
+    trem = rows("tremolo-sweep")
+    check(np.allclose(trem[:, 0], np.round(np.geomspace(8e3, 1e6, 13)))
+          and np.all(np.diff(trem[:, 1]) <= 0.0)
+          and trem[0, 1] > trem[-1, 1] + 10.0,
+          f"tremolo-sweep: the gain falls as R_ldr rises: {trem}")
+    harm = lines("harmonics")
+    check(len(harm) == 6 and harm[0].startswith("H1: ")
+          and harm[-1].startswith("THD (H2-H5): "), f"harmonics {harm}")
+    for name in ("gain", "sweep", "harmonics", "tremolo-sweep"):
+        launched(name, "dk_scan")
+    for name in ("pump-trace", "pump-step"):
+        r = rows(name)
+        check(r.shape[1] == 2 and len(r) >= 2000, f"cli {name} {r.shape}")
+        launched(name, "dk_scan")
+    for name in ("pump-sweep", "pump-sinusoid", "pump-spike"):
+        launched(name, "dk_scan")
+    check(lines("pump-sinusoid")[0].startswith(
+        "pump pp under 5.5 Hz log-R modulation: "), "pump-sinusoid")
+    # WAVs: spec, sample counts, signal
+    spec = {}
+    for f, frames in (("render.wav", 88200), ("reed_a.wav", 88200),
+                      ("reed_b.wav", 88200), ("reed_v40.wav", 22050),
+                      ("poly_fast.wav", 11025), ("poly.wav", 11025)):
+        sr, bits, ch, n, x = wav_spec(path(f))
+        check((sr, bits, ch, n) == (44100, 24, 1, frames)
+              and np.abs(x).max() > 1e-3, f"{f}: {(sr, bits, ch, n)}")
+        spec[f] = x
+    check(np.array_equal(spec["reed_a.wav"], spec["reed_b.wav"]),
+          "reed-render twice: bit-identical")
+    both = voice.render_note(np.array([60.0, 60.0]),
+                             np.array([40 / 127, 120 / 127]), 0.15, SR,
+                             device=dev).abs().amax(0)
+    check(float(both[1]) > float(both[0]), "velocity ordering")
+    song_s = max(off for _, off, _, _ in CLI_SONG) + 0.25
+    for f in ("midi_fast.wav", "midi_serial.wav", "midi.wav"):
+        sr, bits, ch, n, x = wav_spec(path(f))
+        check((sr, bits, ch) == (44100, 24, 1)
+              and abs(n - song_s * SR) <= 2048 and np.abs(x).max() > 1e-3,
+              f"{f}: {(sr, bits, ch, n)}")
+    launched("render", "voice_render", "preamp_scan_dk")
+    launched("centroid-track", "voice_render", "preamp_scan_dk")
+    launched("overshoot", "voice_render", "preamp_scan_dk")
+    launched("reed-render", "voice_render")
+    launched("bench-reed", "voice_render")
+    launched("render-poly", "voice_bank", "mono_chain")
+    launched("render-poly", "engine_voices", "engine_chain", k=1)
+    launched("render-midi", "voice_bank_events", "trem_preroll",
+             "mono_chain")
+    launched("render-midi", "voice_bank_events", "mono_chain", k=1)
+    launched("render-midi", "engine_voices", "engine_chain", k=2)
+    for name in ("bark-audit", "calibrate", "sensitivity"):
+        launched(name, "voice_render_tap", "preamp_scan_dk",
+                 "pa_speaker_scan")
+    check(len(rows("centroid-track")) == 40, "centroid-track rows")
+    check(lines("overshoot")[0].startswith("note 60: 0-10ms peak"),
+          "overshoot")
+    bark = lines("bark-audit")
+    check(len(bark) == 4 and bark[0].startswith("t2 H2/H1: "), f"{bark}")
+    with open(path("calibrate.csv")) as f:
+        cal = f.read().strip().splitlines()
+    header = cal[0].split(",")
+    check(header[:3] == ["midi", "note_name", "velocity"]
+          and len(header) == 21 and len(cal) == 1 + 13 * 3
+          and "t5_rms_db" in header and "tanh_compression_db" in header,
+          "calibrate CSV schema")
+    check(cal[1].split(",")[:3] == ["36", "C2", "40"], "calibrate row")
+    check(all(np.isfinite([float(v) for v in line.split(",")[3:]]).all()
+              for line in cal[1:]), "calibrate CSV finite")
+    with open(path("sens.csv")) as f:
+        sens = f.read().strip().splitlines()
+    check(len(sens) == 11 and sens[1].startswith("0.85,36,80,"),
+          f"sensitivity CSV {sens[:2]}")
+    intermod = out["intermod-audit"][0]
+    check(len(intermod[0].splitlines()) == 65
+          and intermod[1].strip() == INTERMOD_WORST,
+          f"intermod-audit: {intermod[1].strip()!r}")
+    check(not out["intermod-audit"][0][2], "intermod-audit launches")
+    bench = lines("bench-reed")[0]
+    check(bench.startswith("64 voices × 0.25s at 44100 Hz: ")
+          and bench.endswith("x realtime"), bench)
+
+    # ── the alias-audit sweep (circuit power amp) through the CLI ──
+    t_a = time.perf_counter()
+    baseline = json.load(open(os.path.join(repo, ALIAS_BASELINE)))
+    elapsed = time.perf_counter() - T_START
+    sweep = alias_audit.STIMULUS_NOTES
+    if elapsed + ALIAS_NOTE_S * len(sweep) > SCRIPT_LIMIT_S:
+        sweep = (84,)
+    alias = {}
+    for note in sweep:
+        before = read_counts(vb, mc)
+        so = io.StringIO()
+        with contextlib.redirect_stdout(so):
+            ms, _ = host_ms(lambda: cli.main(
+                ["--device", dev, "alias-audit", "--note", str(note), "-o",
+                 path(f"alias_{note}.json")]))
+        after = read_counts(vb, mc)
+        diff = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+        check(diff.get("engine_chain", 0) > 0 and "plain" not in diff,
+              f"alias-audit --note {note} launches {diff}")
+        per_cmd.append({"cmd": f"alias-audit --note {note}", "ms": ms,
+                        "launches": diff})
+        (r,) = json.load(open(path(f"alias_{note}.json")))
+        b = baseline[str(note)]
+        rust_step, rust_hf = ALIAS_RUST[note]
+        check(r["note"] == note and r["velocity"]
+              == alias_audit.STIMULUS_VELOCITY
+              and len(r["harmonic_dbc"]) == alias_audit.NUM_HARMONICS,
+              f"alias note {note} report")
+        check(r["max_step_up_db"] <= b["max_step_up_db"]
+              + ALIAS_STEP_UP_TOL_DB
+              and r["hf_band_dbc"] <= b["hf_band_dbc"] + ALIAS_HF_TOL_DB,
+              f"alias note {note}: step-up {r['max_step_up_db']:.3f} "
+              f"(golden {b['max_step_up_db']:.3f}), hf "
+              f"{r['hf_band_dbc']:.3f} (golden {b['hf_band_dbc']:.3f})")
+        check(r["max_step_up_db"] <= rust_step + ALIAS_STEP_UP_TOL_DB
+              and r["hf_band_dbc"] <= rust_hf + ALIAS_RUST_HF_TOL_DB,
+              f"alias note {note} against the Rust reference")
+        alias[note] = {"ms": ms, "max_step_up_db": r["max_step_up_db"],
+                       "hf_band_dbc": r["hf_band_dbc"], "f0_hz": r["f0_hz"],
+                       "golden": [b["max_step_up_db"], b["hf_band_dbc"]]}
+    launches["cli 21 subcommands"] = counts = read_counts(vb, mc)
+    check(counts["plain"] == 0 and counts["dk_scan"] == 9,
+          f"cli launches {counts}")
+    which = "all three notes" if len(sweep) == 3 else "note 84 alone"
+    for c in per_cmd:
+        print(f"phase 27 cli {c['cmd']}: {c['ms'] / 1e3:.3f} s, launches "
+              f"{c['launches']}; {c.get('first_line', '')!r}", flush=True)
+    print(f"phase 27 cli: {len(runs)} runs of 21 subcommands in "
+          f"{cli_ms / 1e3:.1f} s (E7 {timer.ms['E7']:.1f} ms of it) + "
+          f"alias-audit {which} ({elapsed:.0f} s into the script): "
+          + "; ".join(f"{k}: step-up {v['max_step_up_db']:.3f} dB "
+                      f"(golden {v['golden'][0]:.3f}), hf "
+                      f"{v['hf_band_dbc']:.3f} dBc (golden "
+                      f"{v['golden'][1]:.3f}), {v['ms'] / 1e3:.1f} s"
+                      for k, v in alias.items())
+          + f"; every output checked; launches {counts} [{card}] "
+          f"({time.perf_counter() - t_a:.0f} s)", flush=True)
+
+    # ── E7 against its plain version: on sweep's and pump-sinusoid's
+    # own inputs (the first 1000 steps), and on 133 ragged streams with
+    # NaN and inf inputs and a NaN resistance ──
+    t_p = time.perf_counter()
+    n_cmp = 1000
+    cmps = []
+    for name in ("sweep", "pump-sinusoid"):
+        (sr, x, r, st, tap), = rec[name]
+        cmps.append(compare_dk_scan(
+            kr, sr, x[:n_cmp].contiguous(), r[:n_cmp].contiguous(), st, tap,
+            f"{name}'s {x.shape[1]} stream(s), first {n_cmp}"))
+    rng = np.random.default_rng(27)
+    n_r, g_r = 700, 133
+    t = np.arange(n_r)[:, None]
+    x = rng.uniform(1e-4, 5e-3, g_r) * np.sin(rng.uniform(0.001, 0.5, g_r)
+                                              * t)
+    r = np.exp(rng.uniform(np.log(500.0), np.log(2e6), (n_r, g_r)))
+    x[n_r // 3, 5] = np.nan
+    x[n_r // 2:, 77] = np.inf
+    r[n_r // 4, 31] = np.nan
+    x, r = (torch.as_tensor(a, device=dev) for a in (x, r))
+    for tap in kr.DK_TAPS:
+        cmps.append(compare_dk_scan(
+            kr, 88200.0, x, r, kr.init_dk_scan_state(88200.0, g_r, dev), tap,
+            f"{g_r} ragged streams, NaN and inf"))
+    e7_ptxas = {k: v for k, v in ptxas.items() if k.startswith("E7")}
+    print("phase 27 E7 ptxas: " + "; ".join(
+        f"{k} {v['registers']} registers, {v['stack']} bytes stack, "
+        f"{v['spill_stores']} / {v['spill_loads']} bytes spilled"
+        for k, v in sorted(e7_ptxas.items())), flush=True)
+    print("phase 27 E7 bit-identical to its plain version: "
+          + "; ".join(f"{c['inputs']} {c['shape']} kernel {c['ms']:.3f} ms "
+                      f"({c['us_per_step']:.2f} us per step) plain "
+                      f"{c['plain_ms']:.0f} ms bound {c['bound'][0]:.4f} ms"
+                      for c in cmps)
+          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    main_cmp = cmps[0]
+    return {"E7": {**main_cmp, "compared": cmps, "ptxas": e7_ptxas,
+                   "main_path_ms": {"cli E7 calls": timer.ms["E7"]}},
+            "cli": per_cmd, "alias": alias}
 
 
 def main():
@@ -1815,7 +2162,9 @@ def main():
                           ("voice_render_kernelILb1E", "E4<tap>"),
                           ("pa_speaker_scan_kernel", "E6"),
                           ("preamp_scan_kernelILi0E", "E5<dk>"),
-                          ("preamp_scan_kernelILi1E", "E5<melange>")):
+                          ("preamp_scan_kernelILi1E", "E5<melange>"),
+                          ("dk_scan_kernelILi0E", "E7<diff>"),
+                          ("dk_scan_kernelILi1E", "E7<shadow>")):
             if key in fn:
                 ptxas[name] = dict(zip(("registers", "stack", "spill_stores",
                                         "spill_loads"), regs))
@@ -2762,6 +3111,7 @@ def main():
     eng_k = engine_phases(dev, card, launches, vb, mc, fast)
     mod_k = model_phases(dev, card, launches, vb, mc, ptxas)
     cal_k = calib_phases(dev, card, launches, vb, mc)
+    cli_k = cli_phases(dev, card, launches, vb, mc, ptxas)
 
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
@@ -2885,7 +3235,7 @@ def main():
              "openwurli_tpu/calib/calibrate.py:80", {}),
             ("pa_speaker_scan", "E6", "openwurli_tpu/calib/calibrate.py:123",
              {"calibrate": cal_k["calibrate"], "pipeline": cal_k["pipeline"],
-              "onsets": cal_k["onsets"], "alias": cal_k["alias"]})):
+              "onsets": cal_k["onsets"]})):
         k = cal_k[key]
         kernels.append(entry(
             name, "engine.cu", replaces, k["shape"],
@@ -2895,10 +3245,20 @@ def main():
                        if k_ not in ("bound", "compared", "main_path_ms")}
                       | {"bound_ms": c["bound"][0]} for c in k["compared"]],
             main_path_ms=k["main_path_ms"], **more))
+    e7 = cli_k["E7"]
+    kernels.append(entry(
+        "dk_scan", "engine.cu", "openwurli_tpu/cli.py:34", e7["shape"],
+        max(c["max_abs_err"] for c in e7["compared"]), e7["ms"],
+        e7["plain_ms"], e7["bound"], ptxas=e7["ptxas"],
+        also_replaces=["openwurli_tpu/cli.py:87", "openwurli_tpu/cli.py:388"],
+        compared=[{k_: v for k_, v in c.items() if k_ != "bound"}
+                  | {"bound_ms": c["bound"][0]} for c in e7["compared"]],
+        main_path_ms=e7["main_path_ms"], cli=cli_k["cli"]))
     for k in kernels:
         if k["name"] == "engine_chain":
             k["melange_plugin"] = mod_k["melange_plugin"]
             k["behavioral_sessions"] = mod_k["behavioral"]
+            k["alias"] = cli_k["alias"]
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} was never launched on "
               "a driven path")

@@ -73,6 +73,8 @@ _SIGNATURES = {
     # kind, consts, n_consts, x, state, g_ldr, noise_scale, out, n,
     # streams, stream
     "ow_preamp_scan": (_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    # tap, consts, n_consts, x, r_ldr, state, out, n, streams, stream
+    "ow_dk_scan": (_I, _P, _I, _P, _P, _P, _P, _I, _I, _P),
 }
 
 

@@ -14,6 +14,10 @@
 //   E6 pa_speaker_scan    G streams over n samples: volume², the power amp
 //                         with rail sag, the speaker, the post-speaker gain
 //                         (calibrate.run_calibrate's T5)
+//   E7 dk_scan            G streams over n samples of the twin DK preamp
+//                         at the input's rate, each sample at its own LDR
+//                         resistance: the CLI's gain, harmonics and pump
+//                         measurements
 //
 // Replaces: the reference's jitted lax.scans of its float64 engine
 // (openwurli_tpu/engine.py:452 `_render`), of its tremolo settle
@@ -21,10 +25,12 @@
 // (openwurli_tpu/voice.py:140), of di.preamp_di (openwurli_tpu/di.py:29),
 // of the melange preamp's step
 // (openwurli_tpu/circuits/melange_preamp.py:177) and of run_calibrate's tap
-// scans (openwurli_tpu/calib/calibrate.py:80-138); none is a Pallas kernel.
+// scans (openwurli_tpu/calib/calibrate.py:80-138) and of the CLI's DK
+// measurement scans (openwurli_tpu/cli.py:34-63, :87-118, :388-417); none
+// is a Pallas kernel.
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
-// slot by one thread (a block of 128), E4, E5 and E6 each voice or stream
+// slot by one thread (a block of 128), E4-E7 each voice or stream
 // by one thread, E2 and E3 are one thread walking the chain's data-dependent
 // Newton solves sample by sample. The bytes are
 // a few hundred per sample and the operations some 10^4-10^5 f64 per base
@@ -1407,6 +1413,37 @@ preamp_scan_kernel(const double* __restrict__ c, const double* __restrict__ x,
   for (int k = 0; k < ROWS; ++k) state[(size_t)k * g + j] = s[k];
 }
 
+// ═══════════════════════ E7: the DK measurement scan ═══════════════════════
+
+// The CLI's preamp and pump measurements: the twin DK preamp stepped once
+// per sample at the input's own rate (no oversampler), a thread per
+// stream, x, r_ldr and out (n, G) time major, the state (PS_ROWS, G).
+// Each sample's LDR conductance is 1 / max(r, 1 kOhm) of that sample's
+// resistance (dk_preamp.ldr_conductance). TAP selects what each sample
+// writes: DK_TAP_DIFF the step's main - shadow, DK_TAP_SHADOW the shadow's
+// OUT node after the step (after the step's reset to the DC point, when
+// its output went non-finite).
+constexpr int E7_BLOCK = 32;
+enum DkTap { DK_TAP_DIFF = 0, DK_TAP_SHADOW = 1 };
+
+template <int TAP>
+__global__ void __launch_bounds__(E7_BLOCK)
+dk_scan_kernel(const double* __restrict__ c, const double* __restrict__ x,
+               const double* __restrict__ r_ldr, double* state, double* out,
+               int n, int g) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= g) return;
+  double s[PS_ROWS];
+  for (int k = 0; k < PS_ROWS; ++k) s[k] = state[(size_t)k * g + j];
+  for (int t = 0; t < n; ++t) {
+    const size_t at = (size_t)t * g + j;
+    const double gl = 1.0 / jmax(r_ldr[at], 1000.0);
+    const double y = preamp_step(c, s, gl, x[at]);
+    out[at] = TAP == DK_TAP_DIFF ? y : s[PS_V + 8 + OUTN];
+  }
+  for (int k = 0; k < PS_ROWS; ++k) state[(size_t)k * g + j] = s[k];
+}
+
 // ═══════════════════════ E6: power amp and speaker ═══════════════════════
 
 // run_calibrate's T5, a thread per stream: x · volume · volume → the power
@@ -1527,6 +1564,23 @@ extern "C" int ow_preamp_scan(int kind, const double* consts, int n_consts,
   else
     preamp_scan_kernel<PRE_MELANGE><<<blocks, E5_BLOCK, 0, stream>>>(
         consts, x, state, g_ldr, noise_scale, out, n, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ow_dk_scan(int tap, const double* consts, int n_consts,
+                          const double* x, const double* r_ldr,
+                          double* state, double* out, int n, int g,
+                          cudaStream_t stream) {
+  if (n < 0 || g < 0 || tap < 0 || tap > 1 || n_consts != PR_J_CIN_DC + 1)
+    return (int)cudaErrorInvalidValue;
+  if (g == 0) return 0;
+  const int blocks = (g + E7_BLOCK - 1) / E7_BLOCK;
+  if (tap == DK_TAP_DIFF)
+    dk_scan_kernel<DK_TAP_DIFF><<<blocks, E7_BLOCK, 0, stream>>>(
+        consts, x, r_ldr, state, out, n, g);
+  else
+    dk_scan_kernel<DK_TAP_SHADOW><<<blocks, E7_BLOCK, 0, stream>>>(
+        consts, x, r_ldr, state, out, n, g);
   return (int)cudaGetLastError();
 }
 

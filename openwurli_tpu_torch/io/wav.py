@@ -1,7 +1,8 @@
-"""WAV I/O (16/24-bit PCM + float32), pure NumPy.
+"""WAV I/O (16/24-bit PCM + float32).
 
-Copy of `openwurli_tpu/io/wav.py` without its optional native decoder:
-`read_wav_mono` always takes the NumPy reader.
+Copy of `openwurli_tpu/io/wav.py`: `read_wav_mono` takes the native C++
+decoder (`openwurli_tpu_torch.native`) when it is built, the pure-NumPy
+reader otherwise.
 """
 
 from __future__ import annotations
@@ -12,7 +13,13 @@ import numpy as np
 
 
 def read_wav_mono(path):
-    """(mono float64 array, sample_rate); channels are averaged."""
+    """(mono float64 array, sample_rate); channels are averaged. The
+    native decoder when it is built."""
+    from openwurli_tpu_torch import native
+
+    res = native.decode_wav(path)
+    if res is not None:
+        return res
     x, sr = read_wav(path)
     if x.ndim > 1:
         x = x.mean(axis=1)

@@ -1,10 +1,13 @@
 """The offline render paths' kernels: E4 (voice render), E5 (preamp
-scan) and E6 (power amp and speaker scan), all in `csrc/engine.cu`.
+scan), E6 (power amp and speaker scan) and E7 (the DK measurement scan),
+all in `csrc/engine.cu`.
 
 The reference renders notes, the DI chain and the calibration sweep's
 taps as jitted `lax.scan`s (`openwurli_tpu/voice.py:140` `render`,
 `openwurli_tpu/di.py:29` `preamp_di`, `openwurli_tpu/calib/calibrate.py:
-80-138`), not as Pallas kernels. In eager PyTorch one sample of
+80-138`), and its CLI steps the DK preamp for its gain and pump
+measurements the same way (`openwurli_tpu/cli.py:34-63`, `:87-118`,
+`:388-417`), not as Pallas kernels. In eager PyTorch one sample of
 either scan is some hundreds of small ops, so on the card the sample
 loops are kernels:
 
@@ -27,6 +30,12 @@ loops are kernels:
     `run_calibrate`'s T5, x · volume² → the power amp (E2's step, rail
     sag on, at the input's rate) → the speaker (filters designed once from
     the character) → × POST_SPEAKER_GAIN.
+  * **E7 `dk_scan`**: G streams, a thread each, over n samples: the twin
+    DK preamp stepped once per sample at the input's own rate (no
+    oversampler), each sample at its own LDR resistance; each sample
+    writes main − shadow (`tap="diff"`: the CLI's gain, sweep, harmonics
+    and tremolo-sweep) or the shadow's OUT node after the step
+    (`tap="shadow"`: its pump measurements).
 
 Each has a plain version here, a loop of the ported steps (`voice.step`;
 `reed.step` and `pickup.step`; `allpass` and `dk_preamp.step`;
@@ -37,7 +46,8 @@ card. State layouts, one column per voice or stream:
   * voices: `kernels/engine.py`'s vpar (NPAR, G), vst (NST, G), vsti
     (NSTI, G);
   * `dk` streams (DK_ROWS, G): the oversampler (13 rows) then the DK
-    preamp (29 rows), in the f64 chain's order (CHAIN_SPEC);
+    preamp (29 rows), in the f64 chain's order (CHAIN_SPEC); E7's streams
+    (PRE_ROWS, G) are the DK preamp's rows alone;
   * `melange` streams (MEL_STATE_ROWS, G): the chain's melange rows;
   * E6 streams (PA_SPEAKER_ROWS, G): the chain's power-amp and speaker
     rows (CHAIN_SPEC `pa_v` .. `spk`).
@@ -65,6 +75,8 @@ DK_SPEC = (("os_up_a", 3), ("os_up_b", 3), ("os_down_a", 3),
            ("pre_vnl", 4), ("pre_jcin", 2), ("pre_cinprev", 2),
            ("pre_gprev", 1))
 DK_ROWS = sum(k for _, k in DK_SPEC)
+OS_ROWS = 13            # DK_SPEC's oversampler rows, then the preamp's
+PRE_ROWS = DK_ROWS - OS_ROWS
 MEL_STATE_ROWS = ek.CHAIN_OFF["mel_wprev"][1] - ek.CHAIN_OFF["mel_v"][0]
 PA_SPEAKER_ROWS = ek.CHAIN_OFF["spk"][1] - ek.CHAIN_OFF["pa_v"][0]
 
@@ -75,6 +87,9 @@ PREAMP_SCAN_LAUNCHES = {"dk": 0, "melange": 0}
 PREAMP_SCAN_PLAIN_CALLS = 0
 VOICE_TAP_LAUNCHES = VOICE_TAP_PLAIN_CALLS = 0
 PA_SPEAKER_LAUNCHES = PA_SPEAKER_PLAIN_CALLS = 0
+DK_SCAN_LAUNCHES = {"diff": 0, "shadow": 0}
+DK_SCAN_PLAIN_CALLS = 0
+DK_TAPS = ("diff", "shadow")  # csrc/engine.cu DkTap
 
 
 # ───────────────────────────── E4: voices ─────────────────────────────
@@ -268,35 +283,49 @@ def melange_unrows(rows) -> melange_preamp.MelangePreampState:
         noise_w_prev=x[..., a + 3:].clone())
 
 
-def _dk_unrows(rows):
-    """(DK_ROWS, G) → (OversamplerState, PreampState), twin axis first in
-    the preamp state (v (2, G, 8))."""
+def _dk_segments(rows, spec):
     seg, o = {}, 0
-    for name, k in DK_SPEC:
+    for name, k in spec:
         seg[name] = rows[o:o + k].T.clone()
         o += k
-    os_ = allpass.OversamplerState(seg["os_up_a"], seg["os_up_b"],
-                                   seg["os_down_a"], seg["os_down_b"],
-                                   seg["os_delay"][:, 0])
+    return seg
+
+
+def _pre_unrows(rows):
+    """(PRE_ROWS, G) → PreampState, twin axis first (v (2, G, 8))."""
+    seg = _dk_segments(rows, DK_SPEC[5:])
     g = rows.shape[1]
-    pre = dk_preamp.PreampState(
+    return dk_preamp.PreampState(
         v=seg["pre_v"].reshape(g, 2, 8).movedim(1, 0),
         i_nl=seg["pre_i"].reshape(g, 2, 2).movedim(1, 0),
         v_nl=seg["pre_vnl"].reshape(g, 2, 2).movedim(1, 0),
         j_cin=seg["pre_jcin"].T, cin_rhs_prev=seg["pre_cinprev"].T,
         g_ldr_prev=seg["pre_gprev"][:, 0])
-    return os_, pre
+
+
+def _pre_cols(pre, g):
+    """PreampState (batch (G,)) → columns (G, PRE_ROWS)."""
+    return torch.cat([pre.v.movedim(0, 1).reshape(g, 16),
+                      pre.i_nl.movedim(0, 1).reshape(g, 4),
+                      pre.v_nl.movedim(0, 1).reshape(g, 4), pre.j_cin.T,
+                      pre.cin_rhs_prev.T,
+                      pre.g_ldr_prev.expand(g)[:, None]], dim=1)
+
+
+def _dk_unrows(rows):
+    """(DK_ROWS, G) → (OversamplerState, PreampState), twin axis first in
+    the preamp state (v (2, G, 8))."""
+    seg = _dk_segments(rows[:OS_ROWS], DK_SPEC[:5])
+    os_ = allpass.OversamplerState(seg["os_up_a"], seg["os_up_b"],
+                                   seg["os_down_a"], seg["os_down_b"],
+                                   seg["os_delay"][:, 0])
+    return os_, _pre_unrows(rows[OS_ROWS:])
 
 
 def _dk_rows(os_, pre, out):
     g = out.shape[1]
     cols = [os_.up_a, os_.up_b, os_.down_a, os_.down_b,
-            os_.down_delay[:, None],
-            pre.v.movedim(0, 1).reshape(g, 16),
-            pre.i_nl.movedim(0, 1).reshape(g, 4),
-            pre.v_nl.movedim(0, 1).reshape(g, 4), pre.j_cin.T,
-            pre.cin_rhs_prev.T,
-            pre.g_ldr_prev.expand(g)[:, None]]
+            os_.down_delay[:, None], _pre_cols(pre, g)]
     out.copy_(torch.cat(cols, dim=1).T)
 
 
@@ -369,6 +398,64 @@ def preamp_scan(kind: str, sample_rate: float, x, state, g_ldr,
                  noise_scale.data_ptr() if kind == "melange" else None,
                  out.data_ptr(), n, g, device=dev)
     PREAMP_SCAN_LAUNCHES[kind] += 1
+    return out
+
+
+# ─────────────────── E7: the CLI's DK measurement scan ───────────────────
+
+
+def init_dk_scan_state(sample_rate: float, streams: int, device="cpu"):
+    """(PRE_ROWS, streams): the DK preamp (at `sample_rate`, its step
+    rate) at its DC point."""
+    return init_dk_state(sample_rate, streams, device)[OS_ROWS:].contiguous()
+
+
+def dk_scan_plain(sample_rate, x, r_ldr, state, tap):
+    """Plain E7 on the tensors' device: x and r_ldr (n, G) float64 → out
+    (n, G); `state` is updated in place."""
+    out = torch.empty_like(x)
+    with torch.inference_mode():
+        c = dk_preamp.step_tensors(dk_preamp.make_params(sample_rate),
+                                   x.device)
+        pre = _pre_unrows(state)
+        for t in range(x.shape[0]):
+            pre, y = dk_preamp.step(c, pre,
+                                    dk_preamp.ldr_conductance(r_ldr[t]),
+                                    x[t])
+            out[t] = y if tap == "diff" else pre.v[1, :, dk_preamp.OUT]
+        state.copy_(_pre_cols(pre, x.shape[1]).T)
+    return out
+
+
+def dk_scan(sample_rate: float, x, r_ldr, state, tap: str):
+    """E7: G twin DK preamps stepped once per sample of x (n, G) float64
+    at `sample_rate`, sample t of stream j at LDR resistance r_ldr[t, j]
+    (ohms, clamped at 1 kΩ) → out (n, G) float64: main − shadow (tap
+    "diff") or the shadow's OUT node after the step (tap "shadow");
+    `state` (PRE_ROWS, G) is updated in place."""
+    global DK_SCAN_PLAIN_CALLS
+    if tap not in DK_TAPS:
+        raise ValueError(f"dk_scan tap {tap!r}")
+    f64 = torch.float64
+    n, g = (x.shape if x.dim() == 2 else (-1, -1))
+    ek._check("x", x, (n, g), f64)
+    ek._check("r_ldr", r_ldr, (n, g), f64)
+    ek._check("state", state, (PRE_ROWS, g), f64)
+    dev = x.device
+    if not r_ldr.device == state.device == dev:
+        raise ValueError("the scan's tensors must be on one device")
+    if dev.type == "cpu":
+        DK_SCAN_PLAIN_CALLS += 1
+        return dk_scan_plain(float(sample_rate), x, r_ldr, state, tap)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    consts = _consts_on("dk", float(sample_rate), str(dev))
+    out = torch.empty_like(x)
+    ek._lib_call("dk_scan", lambda lib: lib.ow_dk_scan, DK_TAPS.index(tap),
+                 consts.data_ptr(), consts.numel(), x.data_ptr(),
+                 r_ldr.data_ptr(), state.data_ptr(), out.data_ptr(), n, g,
+                 device=dev)
+    DK_SCAN_LAUNCHES[tap] += 1
     return out
 
 

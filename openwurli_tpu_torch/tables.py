@@ -1,7 +1,8 @@
 """Per-note parameter tables for the 200A reed model (float64 NumPy).
 
-Port of `openwurli_tpu/tables.py` — the subset the note-on packers use.
-Everything is vectorised over MIDI-note arrays.
+Port of `openwurli_tpu/tables.py`: the note-on packers' tables and the
+intermodulation-risk table of the CLI's `intermod-audit`. Everything is
+vectorised over MIDI-note arrays.
 """
 
 from __future__ import annotations
@@ -213,6 +214,62 @@ def output_scale(midi, velocity_norm, cfg: CalibrationConfig = CalibrationConfig
     trim = np.zeros_like(m) if cfg.zero_trim else register_trim_db(m)
     return 10.0 ** ((cfg.target_db + flat_db + voicing_db + trim * v ** 1.3)
                     / 20.0)
+
+
+def perceptual_beat_weight(beat_hz):
+    """Psychoacoustic weighting for audible beating (tables.rs:703-725)."""
+    b = _f64(beat_hz)
+    return np.select(
+        [b < 0.5, b < 2.0, b <= 5.0, b <= 10.0, b <= 40.0],
+        [np.zeros_like(b), 0.5 * (b - 0.5) / 1.5,
+         0.5 + 0.5 * (b - 2.0) / 3.0, np.ones_like(b),
+         0.1 + 0.9 * (40.0 - b) / 30.0],
+        default=0.1)
+
+
+def _dwell_attenuation_ff(fundamental_hz, ratios):
+    """Dwell attenuation at ff (0.75 cycles), normalised to mode 0."""
+    f = _f64(fundamental_hz)
+    t_dwell = np.clip(0.75 / f, 0.0003, 0.020)
+    sigma_sq = 64.0
+    ft = f[..., None] * ratios * t_dwell[..., None]
+    atten = np.exp(-ft * ft / (2.0 * sigma_sq))
+    a0 = atten[..., 0:1]
+    return np.where(a0 > 1e-30, atten / a0, atten)
+
+
+def intermod_risk(midi):
+    """Per-note intermodulation risk (tables.rs:755-801), vectorised: a
+    dict of per-mode values for modes 2-7 and per-note summaries."""
+    m = _f64(midi)
+    f0 = midi_to_freq(m)
+    mu = tip_mass_ratio(m)
+    ratios = mode_ratios(mu)
+    dwell = _dwell_attenuation_ff(f0, ratios)
+    coupling = spatial_coupling_coefficients(mu, reed_length_mm(m))
+
+    r = ratios[..., 1:]
+    nearest = np.round(r)
+    fractional_offset = np.abs(r - nearest)
+    beat_hz = fractional_offset * f0[..., None]
+    effective_amplitude = (BASE_MODE_AMPLITUDES[1:] * coupling[..., 1:]
+                           * dwell[..., 1:])
+    weight = perceptual_beat_weight(beat_hz)
+    risk = effective_amplitude * weight
+    return {
+        "midi": m,
+        "fundamental_hz": f0,
+        "mu": mu,
+        "mode_ratio": r,
+        "nearest_integer": nearest,
+        "fractional_offset": fractional_offset,
+        "beat_hz": beat_hz,
+        "effective_amplitude": effective_amplitude,
+        "perceptual_weight": weight,
+        "risk_score": risk,
+        "max_risk": np.max(risk, axis=-1),
+        "total_risk": np.sum(risk, axis=-1),
+    }
 
 
 def note_params(midi):

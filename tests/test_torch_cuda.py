@@ -573,3 +573,47 @@ def test_pa_speaker_scan_kernel_matches_plain(cuda):
         ref = kr.pa_speaker_scan_plain(SR, x, b, 0.4, character)
         assert _same_bits(out, ref) and _same_bits(a, b)
         assert torch.isfinite(out).all()
+
+
+def _dk_scan_inputs(cuda, n, g, seed):
+    """Sines of a few millivolts on g ragged streams, each sample at its own
+    LDR resistance (log-uniform 500 Ω..2 MΩ, some streams below the 1 kΩ
+    clamp), with NaN and inf inputs and a NaN resistance."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)[:, None]
+    x = rng.uniform(1e-4, 5e-3, g) * np.sin(rng.uniform(0.001, 0.5, g) * t)
+    r = np.exp(rng.uniform(np.log(500.0), np.log(2e6), (n, g)))
+    x[n // 3, 5] = np.nan
+    x[n // 2:, 77 % g] = np.inf
+    r[n // 4, 31 % g] = np.nan
+    return (torch.as_tensor(x, device=cuda), torch.as_tensor(r, device=cuda))
+
+
+@pytest.mark.parametrize("tap", ["diff", "shadow"])
+def test_dk_scan_kernel_matches_plain(cuda, tap):
+    from openwurli_tpu_torch.kernels import render as kr
+
+    sr = 88200.0
+    x, r = _dk_scan_inputs(cuda, 700, 133, 7)
+    st = kr.init_dk_scan_state(sr, 133, cuda)
+    a, b = st.clone(), st.clone()
+    out = kr.dk_scan(sr, x, r, a, tap)
+    ref = kr.dk_scan_plain(sr, x, r, b, tap)
+    assert _same_bits(out, ref) and _same_bits(a, b)
+    assert torch.isfinite(a).all()      # every stream reset to its DC point
+
+
+def test_dk_scan_kernel_from_carried_state(cuda):
+    """Two launches carry the state: the same bits as one."""
+    from openwurli_tpu_torch.kernels import render as kr
+
+    sr = 44100.0
+    x, r = _dk_scan_inputs(cuda, 400, 40, 8)
+    one = kr.init_dk_scan_state(sr, 40, cuda)
+    two = one.clone()
+    whole = kr.dk_scan(sr, x, r, one, "diff")
+    head = kr.dk_scan(sr, x[:150].contiguous(), r[:150].contiguous(), two,
+                      "diff")
+    tail = kr.dk_scan(sr, x[150:].contiguous(), r[150:].contiguous(), two,
+                      "diff")
+    assert _same_bits(whole, torch.cat([head, tail])) and _same_bits(one, two)

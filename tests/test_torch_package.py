@@ -22,6 +22,12 @@ torch.set_num_threads(1)
 
 PKG_DIR = os.path.dirname(openwurli_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
+# the port's tools, each a script under tools/
+TOOLS = ("torch_probe", "torch_interactive_rtf", "torch_k4_breakdown",
+         "torch_vb_breakdown",
+         "torch_strip_pedal", "torch_analyze_pump_dynamics",
+         "torch_h3_analysis", "torch_wurli_compare",
+         "torch_recording_analyzer", "torch_gen_settled_states")
 
 
 def test_imports_without_jax():
@@ -44,7 +50,11 @@ def test_imports_without_jax():
             "openwurli_tpu_torch.calib.residuals, "
             "openwurli_tpu_torch.calib.alias_audit, "
             "openwurli_tpu_torch.calib.calibrate, "
-            "openwurli_tpu_torch.calib.pipeline\n"
+            "openwurli_tpu_torch.calib.pipeline, openwurli_tpu_torch.cli, "
+            "openwurli_tpu_torch.native\n"
+            "import runpy\n"
+            "for tool in TOOLS:\n"
+            "    runpy.run_path(f'tools/{tool}.py')\n"
             "from openwurli_tpu_torch import fast\n"
             "for name in ('schedule_events', 'render_events', "
             "'render_events_parallel', 'render_midi_file', "
@@ -56,6 +66,7 @@ def test_imports_without_jax():
             "or m.startswith('openwurli_tpu.')]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
+    code = f"TOOLS = {TOOLS!r}\n" + code
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -70,9 +81,8 @@ def _package_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "tools", "torch_probe.py")
-    yield os.path.join(REPO, "tools", "torch_interactive_rtf.py")
-    yield os.path.join(REPO, "tools", "torch_k4_breakdown.py")
+    for tool in TOOLS:
+        yield os.path.join(REPO, "tools", f"{tool}.py")
 
 
 def test_no_file_imports_jax_or_the_reference():
@@ -162,6 +172,15 @@ def test_cuda_wrappers_raise_without_cuda(tmp_path):
     with pytest.raises((RuntimeError, AssertionError)):
         pipeline.main(["--from-stage", "6", "--through-stage", "6",
                        "--data-dir", str(tmp_path)])
+    # and the CLI, whose --device defaults to the card
+    from openwurli_tpu_torch import cli
+    from openwurli_tpu_torch.kernels import render as kr
+    for argv in (["gain"], ["pump-spike"], ["reed-render", "--duration",
+                                            "0.01"]):
+        with pytest.raises((RuntimeError, AssertionError)):
+            cli.main(argv)
+    with pytest.raises((RuntimeError, AssertionError)):
+        kr.init_dk_scan_state(88200.0, 2, "cuda")
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():
@@ -232,7 +251,7 @@ def test_build_signatures_cover_every_entry_point():
         "ow_mono_chain_noise", "ow_trem_preroll", "ow_probe",
         "ow_engine_voices", "ow_engine_chain", "ow_tremolo_settle",
         "ow_voice_render", "ow_preamp_scan", "ow_voice_render_tap",
-        "ow_pa_speaker_scan"}
+        "ow_pa_speaker_scan", "ow_dk_scan"}
     for name, n_args in found.items():
         assert len(_build._SIGNATURES[name]) == n_args, name
 
