@@ -48,7 +48,11 @@ each with the launch counts set to 0 just before it and read just after:
     (the DK preamp at the input's rate), the renders through E4, E5<dk>,
     K1-K5 and E1/E2, the calibration subcommands through E4<tap>, E5<dk>
     and E6; and the alias-audit sweep through `alias-audit --note N -o`
-    (the f64 engine, E1 and E2), against its golden baseline.
+    (the f64 engine, E1 and E2), against its golden baseline;
+  * the f64 engine batched: `engine.render_states` over B engine states
+    (E1 a block per engine, E2 a thread per engine): an 8-engine batch,
+    each engine against its own `Engine.render`, and the throughput from
+    the reference perf sweep's broadcast chord at 1-128 engines.
 
 E3 is held to its plain version over 512 steps and its full 2 s settle at
 88.2 and 96 kHz to the package data; E1 and E2 to theirs with NaN and inf
@@ -57,12 +61,15 @@ failure and NaN guard #2, and on one chunk of the engine session; E4
 and E5<dk> on `render_di`'s own inputs (all 512 voices, the first 1000
 samples, against `render_di`'s output) and at 133 ragged voices with NaN
 and inf ones, E5<melange> at noise scales 0, 1 and 30, E2's other
-instantiations on a kicked chunk and on 256 samples of the melange
+instantiations on a kicked chunk and on 128 samples of the melange
 plugin's chunk; E4<tap> and E6 on `run_calibrate`'s own inputs (all 512
-streams, the first 1000 and 256 samples) and on 133 ragged streams with
+streams, the first 1000 and 128 samples) and on 133 ragged streams with
 NaN and inf columns; E7 on the CLI's `sweep` (25 streams) and
 `pump-sinusoid` (a resistance per sample) calls, the first 1000 steps, and
-on 133 ragged streams with NaN and inf inputs, both taps.
+on 133 ragged streams with NaN and inf inputs, both taps; E1 and E2 over
+five distinct engines (rail sag off, a NaN slot, steal fades, guard #2),
+over 128 distinct ones (four E2 blocks) and each other instantiation over
+two (noise on one) against their batched plain versions.
 K1 and K3 (eight threads per voice lane) are also held to their plain
 versions at a ragged lane count, with non-finite parameters in some lanes
 and with the pickup driven past its knee, and K1 is timed across widths.
@@ -101,6 +108,21 @@ REF_PEAK_127 = 1.3724635
 # differing from the npz by 1.99e-7 V and 8.2e-8 V on an x86-64 CPU
 # (tests/test_torch_settle.py).
 E3_SETTLE_GATE = 4.0e-7
+# Depths (samples) of the plain replays that dominate the script's time,
+# cut so that every phase fits the aim (SCRIPT_LIMIT_S): K2 against its
+# plain version on the grid's and render_events' calls (phases 6, 9), K5
+# on the grid's call (phase 12), K2 and K5 on a FastEngine block (phases
+# 14, 15), E2 on phase 21's chunk (the kicked tremolo's BE replay and
+# guard #2 both act within it), on the engine session's and the melange
+# plugin's chunks (phases 22, 25), E6 on run_calibrate's call (phase 26);
+# K2 and K5 from init_state at 1, 33 and 1024 streams (phase 18). Each
+# replay keeps its call's full width.
+K2_REPLAY_N = 128
+LANES_REPLAY_N = 32
+K5_REPLAY_N = 128
+BLOCK_REPLAY_N = 128
+E2_REPLAY_N = 128
+E6_REPLAY_N = 128
 
 
 def check(cond, what):
@@ -697,20 +719,28 @@ def same_bits(a, b):
 class EngineRecorder:
     """Wraps the engine kernels' wrappers so that every call's inputs are
     kept as clones taken before the call (the wrappers update the state
-    tensors in place)."""
+    tensors in place). `Engine.render`'s calls, batches of one engine, are
+    kept in the one-engine form (no engine axis, the flags as Python
+    numbers)."""
 
     def __init__(self, ek):
         self.ek, self.voices, self.chain = ek, [], []
         self._v, self._c = ek.render_voices, ek.render_chain
 
         def voices(*args, **kw):
-            self.voices.append(tuple(a.clone() if torch.is_tensor(a) else a
-                                     for a in args))
+            one = args[0].dim() == 3 and args[0].shape[0] == 1
+            self.voices.append(tuple(
+                (a[0] if one else a).clone() if torch.is_tensor(a) else a
+                for a in args))
             return self._v(*args, **kw)
 
         def chain(cp, mono, state, sag, noise_scale=0.0):
-            self.chain.append((cp, mono.clone(), state.clone(), sag,
-                               noise_scale))
+            if mono.dim() == 2 and mono.shape[0] == 1:
+                self.chain.append((cp, mono[0].clone(), state[0].clone(),
+                                   bool(sag[0]), float(noise_scale[0])))
+            else:
+                self.chain.append((cp, mono.clone(), state.clone(), sag,
+                                   noise_scale))
             return self._c(cp, mono, state, sag, noise_scale)
 
         ek.render_voices, ek.render_chain = voices, chain
@@ -720,9 +750,11 @@ class EngineRecorder:
 
 
 def compare_voices(ek, call, what):
-    """E1 against its plain version on one recorded call's inputs: mono
-    and the updated state bit for bit; → numbers for the kernels line."""
+    """E1 against its plain version on one recorded call's inputs (one
+    engine, or B engines with a leading axis): mono and the updated state
+    bit for bit; → numbers for the kernels line."""
     vpar, vst, vsti, eng_i, n, fade_len, sr = call
+    engines = vpar.shape[0] if vpar.dim() == 3 else 1
     ins = [x.clone() for x in (vpar, vst, vsti, eng_i)]
     mono = ek.render_voices(*ins, n, fade_len, sr)
     pins = [x.clone() for x in (vpar, vst, vsti, eng_i)]
@@ -737,18 +769,23 @@ def compare_voices(ek, call, what):
         *[x.clone() for x in (vpar, vst, vsti, eng_i)], n, fade_len, sr),
         reps=3)
     n_bytes = (vpar.numel() + 2 * (vst.numel() + vsti.numel()
-                                   + eng_i.numel()) + n) * 8
-    ops = (n * ek.SLOTS * E1_OPS_SLOT_SAMPLE + (n // 16) * ek.SLOTS
-           * E1_OPS_JITTER + libm.calls * LIBM_OPS)
-    return {"shape": f"{ek.SLOTS} slots x {n}", "inputs": f"E1 {what}",
+                                   + eng_i.numel()) + engines * n) * 8
+    ops = (engines * (n * ek.SLOTS * E1_OPS_SLOT_SAMPLE + (n // 16)
+                      * ek.SLOTS * E1_OPS_JITTER) + libm.calls * LIBM_OPS)
+    shape = f"{ek.SLOTS} slots x {n}"
+    return {"shape": (f"{engines} engines x {shape}" if vpar.dim() == 3
+                      else shape),
+            "inputs": f"E1 {what}",
             "max_abs_err": float((mono - p_mono).abs().nan_to_num().max()),
             "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops)}
 
 
 def compare_chain_f64(ek, call, what):
-    """E2 against its plain version on one recorded call's inputs: output
-    and chain state bit for bit; the plain run's Newton counts give the
-    operations this chunk needed (for the bound)."""
+    """E2 against its plain version on one recorded call's inputs (one
+    engine, or B engines: mono (B, n), chain (B, CHAIN_ROWS) and the flags
+    as (B,) tensors): output and chain state bit for bit; the plain run's
+    Newton counts, summed over the engines, give the operations this
+    chunk needed (for the bound)."""
     from openwurli_tpu_torch.circuits import dk_preamp, melange_preamp, mna
 
     cp, mono, state, sag = call[:4]
@@ -770,13 +807,14 @@ def compare_chain_f64(ek, call, what):
           f"{first_diff(st, p_st)} against the plain version")
     ms = cuda_ms(lambda: ek.render_chain(cp, mono, state.clone(), sag,
                                          scale), reps=2)
-    n = mono.shape[0]
+    n = mono.shape[-1]
+    b = mono.shape[0] if mono.dim() == 2 else 1
     a, _ = ek.CHAIN_OFF["sm_char"]
-    rem = float(state[a + ek.SM_REM])
-    designs = 1 + min(int(rem), n)
-    steps = n * (2 if cp.oversample else 1)
+    rems = state.reshape(b, ek.CHAIN_ROWS)[:, a + ek.SM_REM].tolist()
+    designs = sum(1 + min(int(rem), n) for rem in rems)
+    steps = b * n * (2 if cp.oversample else 1)
     melange = cp.preamp_model == "melange"
-    ops = (n * E2_OPS_SAMPLE + designs * E2_OPS_DESIGN
+    ops = (b * n * E2_OPS_SAMPLE + designs * E2_OPS_DESIGN
            + (0 if melange else steps * PREAMP_OPS_STEP)
            + passes * PREAMP_OPS_PASS
            + melange_ops(mel)
@@ -786,8 +824,9 @@ def compare_chain_f64(ek, call, what):
            + mna_ops(ek.N_PA, ek.M_PA, ek.NB_PA,
                      count.get((16, "solves"), 0),
                      count.get((16, "iterations"), 0)))
-    n_bytes = cp.flat.size * 8 + n * 12 + 2 * ek.CHAIN_ROWS * 8
-    return {"shape": f"1 engine x {n}", "inputs": f"E2 {what}",
+    n_bytes = cp.flat.size * 8 + b * (n * 12 + 2 * ek.CHAIN_ROWS * 8)
+    return {"shape": f"{b} engine{'s' if b > 1 else ''} x {n}",
+            "inputs": f"E2 {what}",
             "models": [cp.preamp_model, cp.pa_model],
             "max_abs_err": float((out - p_out).abs().nan_to_num().max()),
             "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
@@ -888,15 +927,15 @@ def engine_phases(dev, card, launches, vb, mc, fast):
     e1_cmp = [compare_voices(ek, tuple(x.clone() if torch.is_tensor(x)
                                        else x for x in call),
                              "128 slots x 256, NaN/inf slots, steal fades")]
-    mono = ek.render_voices(*call)
+    mono = ek.render_voices(*call)[:E2_REPLAY_N].contiguous()
     eng.render(4096 - 256)           # a warmed chain
     kick = eng.chain.clone()
     kick[ek.CHAIN_OFF["trem_v"][0]] += 70.0  # tremolo rings: BE replay
     spiked = mono.clone()
     spiked[40] = 30.0                # the power amp past its Newton budget
     e2_cmp = [compare_chain_f64(ek, (eng.params, spiked, kick, True),
-                                "256 from a warmed state, tremolo kicked, "
-                                "input spike")]
+                                f"{E2_REPLAY_N} from a warmed state, "
+                                "tremolo kicked, input spike")]
     diag = kick.clone()
     ek.render_chain(eng.params, spiked, diag, True)
     a, b = ek.CHAIN_OFF["trem_diag"]
@@ -907,7 +946,7 @@ def engine_phases(dev, card, launches, vb, mc, fast):
     nan_state[ek.CHAIN_OFF["spk"][0]] = float("nan")
     e2_cmp.append(compare_chain_f64(
         ek, (eng.params, mono, nan_state, True),
-        "256, NaN in the speaker state (guard #2)"))
+        f"{E2_REPLAY_N}, NaN in the speaker state (guard #2)"))
     g2 = nan_state.clone()
     out2 = ek.render_chain(eng.params, mono, g2, True)
     check(float(out2[0]) == 0.0 and torch.isfinite(g2).all().item(),
@@ -980,11 +1019,13 @@ def engine_phases(dev, card, launches, vb, mc, fast):
               and counts["plain"] == 0, counts)
         # replay the first 256-sample chunk of the 1 s render
         idx = next(i for i, c in enumerate(rec.chain)
-                   if c[1].shape[0] == 256)
+                   if c[1].shape[-1] == 256)
         e1_cmp.append(compare_voices(ek, rec.voices[idx],
                                      "Engine session chunk (256)"))
-        e2_cmp.append(compare_chain_f64(ek, rec.chain[idx],
-                                        "Engine session chunk (256)"))
+        cp_, mono_, st_, sag_, sc_ = rec.chain[idx]
+        e2_cmp.append(compare_chain_f64(
+            ek, (cp_, mono_[:E2_REPLAY_N].contiguous(), st_, sag_, sc_),
+            f"Engine session chunk (first {E2_REPLAY_N} of 256)"))
     finally:
         rec.restore()
     rtf = 1000.0 / sec_ms
@@ -1360,8 +1401,9 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
                   if c[1].shape[0] == 2048)
         cp_, mono_, st_, sag_, sc_ = rec.chain[idx]
         e2_cmp.append(compare_chain_f64(
-            ek, (cp_, mono_[:256].contiguous(), st_, sag_, sc_),
-            "<melange, circuit> melange plugin chunk (first 256)"))
+            ek, (cp_, mono_[:E2_REPLAY_N].contiguous(), st_, sag_, sc_),
+            f"<melange, circuit> melange plugin chunk (first "
+            f"{E2_REPLAY_N})"))
         beh = {}
         for models in (("dk", "behavioral"), ("melange", "behavioral")):
             reset_counts(vb, mc)
@@ -1594,7 +1636,7 @@ def calib_phases(dev, card, launches, vb, mc):
     tap_main, (t2_p, _) = compare_voice_tap(
         kr, rec["tap"], n_tap, f"run_calibrate's 512 streams, first {n_tap}")
     x6, st6, vol6, chr6 = rec["e6"]
-    n_e6 = 256
+    n_e6 = E6_REPLAY_N
     e6_main = compare_pa_speaker(
         kr, x6[:n_e6].contiguous(), st6, vol6, chr6,
         f"run_calibrate's 512 streams, first {n_e6}")
@@ -1997,7 +2039,7 @@ def cli_phases(dev, card, launches, vb, mc, ptxas):
     baseline = json.load(open(os.path.join(repo, ALIAS_BASELINE)))
     elapsed = time.perf_counter() - T_START
     sweep = alias_audit.STIMULUS_NOTES
-    if elapsed + ALIAS_NOTE_S * len(sweep) > SCRIPT_LIMIT_S:
+    if elapsed + ALIAS_NOTE_S * len(sweep) + AFTER_ALIAS_S > SCRIPT_LIMIT_S:
         sweep = (84,)
     alias = {}
     for note in sweep:
@@ -2092,6 +2134,245 @@ def cli_phases(dev, card, launches, vb, mc, ptxas):
     return {"E7": {**main_cmp, "compared": cmps, "ptxas": e7_ptxas,
                    "main_path_ms": {"cli E7 calls": timer.ms["E7"]}},
             "cli": per_cmd, "alias": alias}
+
+
+# ── the f64 engine batched over B engines (phase 28) ──
+
+# The seconds the script needs after the alias sweep: E7 against its plain
+# version and phase 28 (17 s and 67 s measured on an NVIDIA H100 80GB HBM3
+# at 700 W; each prints its own time). The sweep shrinks to leave them.
+AFTER_ALIAS_S = 90.0
+# the reference perf sweep's chord (tools/perf_sweep.py)
+SWEEP_CHORD = (48, 55, 60, 63, 67, 70)
+# (a)'s batches: (models, engines, samples); each engine's history before
+# them; (c)'s widths and samples per call
+BATCH_CASES = ((("dk", "circuit"), 5, 256), (("dk", "behavioral"), 2, 32),
+               (("melange", "circuit"), 2, 32),
+               (("melange", "behavioral"), 2, 32))
+BATCH_HISTORY = 512
+BATCH_SWEEP = ((1, 8, 32, 128), 2048)
+# (a)'s wide case: the 8 kinds of batch_engine, WIDE_COPIES copies each
+# (128 engines: 4 E2 blocks of 32, 128 E1 blocks), copy j WIDE_STEP · j
+# samples further on (the steal fades, 220 samples, live in every copy)
+WIDE_COPIES, WIDE_STEP, WIDE_N = 16, 8, 256
+
+
+def batch_engine(dev, k, models=("dk", "circuit")):
+    """Engine k of phase 28's distinct engines: its own chord and
+    velocities, 512 samples of history; then k % 8 == 1 has rail sag off,
+    2 a NaN main slot, 3 a live steal fade (the bank filled, two steals),
+    4 a NaN speaker state (guard #2), 5 noise on at gain 3 (acts on the
+    melange preamp), 6 its volume and character ramping, 7 a sustained
+    release."""
+    from openwurli_tpu_torch.engine import Engine
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    e = Engine(SR, device=dev, preamp_model=models[0], pa_model=models[1])
+    root = 36 + 5 * (k % 8)
+    for i, step in enumerate((0, 7, 12, 16, 19)[:2 + k % 4]):
+        e.note_on(root + step, 0.35 + 0.1 * i + 0.03 * (k % 5))
+    e.render(BATCH_HISTORY)
+    kind = k % 8
+    if kind == 1:
+        e.set_rail_sag(False)
+    elif kind == 2:
+        e.vst[ek.S_S, 1] = float("nan")
+    elif kind == 3:
+        for note in range(33, 33 + ek.MAX_VOICES):
+            e.note_on(note, 0.5)
+    elif kind == 4:
+        e.chain[ek.CHAIN_OFF["spk"][0]] = float("nan")
+    elif kind == 5:
+        e.set_noise_enabled(True)
+        e.set_noise_gain(3.0)
+    elif kind == 6:
+        e.set_volume(0.9)
+        e.set_speaker_character(0.7)
+    elif kind == 7:
+        e.set_sustain(True)
+        e.note_off(root)
+    return e
+
+
+def batch_guards(ek, cp, st, vin, mono):
+    """Phase 28 (a)'s guards on a batch of batch_engine kinds (engine e of
+    kind e % 8): E1 (its updated inputs `vin`) fired guard #1 once in
+    each kind-2 engine (the NaN slot) and nowhere else; E2 fires guard #2
+    in each kind-4 engine (the NaN speaker state: a silent first sample)
+    and leaves a finite state; every engine sounds."""
+    out = st.chain.clone()
+    o = ek.render_chain(cp, mono, out, st.rail_sag, st.noise_scale)
+    fires = (vin[3][:, ek.EI_FIRES] - st.eng_i[:, ek.EI_FIRES]).tolist()
+    kind = [e % 8 for e in range(st.batch)]
+    check(fires == [int(k == 2) for k in kind]
+          and all(float(o[e, 0]) == 0.0 for e, k in enumerate(kind)
+                  if k == 4)
+          and torch.isfinite(out).all().item()
+          and (o.abs().amax(1) > 0).all().item(),
+          f"phase 28 (a): guard #1 in the kind-2 engines alone ({fires}), "
+          f"guard #2 in the kind-4 engines alone, every engine sounding "
+          f"({st.batch} engines)")
+
+
+def batch_phases(dev, card, launches, vb, mc):
+    """Phase 28: E1 (a block per engine) and E2 (a thread per engine) over
+    B distinct engines against their batched plain versions in all four
+    instantiations; each engine of a batch against its own Engine.render;
+    render_states' throughput from the broadcast chord. Adds its paths'
+    launch counts to `launches`; → the batched measurements."""
+    from openwurli_tpu_torch import engine as pe
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    t_p = time.perf_counter()
+    # (a) five distinct <dk, circuit> engines x 256, and two of each other
+    # instantiation x 32, against the batched plain versions
+    e1_cmp, e2_cmp = [], []
+    for models, b, n in BATCH_CASES:
+        kinds = range(5) if b == 5 else (0, 5)  # 5: noise on, gain 3
+        engines = [batch_engine(dev, k, models) for k in kinds]
+        st = pe.stack_states([e.state for e in engines])
+        if b == 5:
+            check(bool((st.eng_i[3, ek.MAX_VOICES:ek.SLOTS] > 0).any())
+                  and not bool(st.rail_sag[1])
+                  and not bool(torch.isfinite(st.chain[4]).all()),
+                  "phase 28 (a): steal fades, rail sag off, guard #2 state")
+        tag = f"{b} engines x {n}, <{models[0]}, {models[1]}>"
+        e1_cmp.append(compare_voices(
+            ek, (st.vpar, st.vst, st.vsti, st.eng_i, n, engines[0].fade_len,
+                 SR), f"{tag}, distinct engines"))
+        vin = [x.clone() for x in st[:4]]
+        mono = ek.render_voices(*vin, n, engines[0].fade_len, SR)
+        c = compare_chain_f64(
+            ek, (engines[0].params, mono, st.chain, st.rail_sag,
+                 st.noise_scale), f"{tag}, distinct engines ("
+            + ("rail sag off, a NaN slot, steal fades, guard #2)" if b == 5
+               else "noise scale 3 on one)"))
+        e2_cmp.append(c)
+        if b == 5:
+            batch_guards(ek, engines[0].params, st, vin, mono)
+
+    # the wide case: 128 distinct engines, kinds 2 and 4 keeping their NaN
+    # slot and NaN speaker state in every copy
+    kinds = [batch_engine(dev, k) for k in range(8)]
+    eight = pe.stack_states([e.state for e in kinds])
+    held = eight.eng_i[2, 1].clone()
+    copies = []
+    for _ in range(WIDE_COPIES):
+        copies.append(pe.EngineState(*[x.clone() for x in eight]))
+        pe.render_states(kinds[0], eight, WIDE_STEP)
+    wide = pe.stack_states(copies)
+    b = wide.batch
+    kind = torch.arange(b, device=dev) % 8
+    wide.vst[kind == 2, ek.S_S, 1] = float("nan")
+    wide.eng_i[kind == 2, 1] = held
+    wide.chain[kind == 4, ek.CHAIN_OFF["spk"][0]] = float("nan")
+    rows = [torch.unique(x.reshape(b, -1).view(torch.int64), dim=0).shape[0]
+            for x in (wide.vst, wide.chain)]
+    check(rows == [b, b] and int((~wide.rail_sag).sum()) == WIDE_COPIES
+          and int((wide.noise_scale > 0).sum()) == WIDE_COPIES,
+          f"phase 28 (a): {b} distinct engines (distinct voice and chain "
+          f"rows {rows}), {WIDE_COPIES} of them with rail sag off and "
+          "noise on")
+    tag = (f"{b} engines x {WIDE_N}, <dk, circuit>, distinct engines "
+           f"({WIDE_COPIES} of each of 8 kinds")
+    e1_cmp.append(compare_voices(
+        ek, (wide.vpar, wide.vst, wide.vsti, wide.eng_i, WIDE_N,
+             kinds[0].fade_len, SR), tag + ")"))
+    vin = [x.clone() for x in wide[:4]]
+    mono = ek.render_voices(*vin, WIDE_N, kinds[0].fade_len, SR)
+    e2_cmp.append(compare_chain_f64(
+        ek, (kinds[0].params, mono, wide.chain, wide.rail_sag,
+             wide.noise_scale), tag + ": rail sag off, NaN slots, steal "
+        "fades, guard #2, noise, ramps, releases)"))
+    batch_guards(ek, kinds[0].params, wide, vin, mono)
+    print("phase 28 (a) E1 and E2 over distinct engines bit-identical to "
+          "their batched plain versions (output and state): "
+          + "; ".join(f"{c['inputs']} kernel {c['ms']:.3f} ms plain "
+                      f"{c['plain_ms']:.0f} ms" for c in e1_cmp + e2_cmp)
+          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+
+    # (b) each engine of an 8-engine batch against its own Engine.render,
+    # 1024 samples in Engine.render's chunks (4 x 256)
+    t_b = time.perf_counter()
+    engines = [batch_engine(dev, k) for k in range(8)]
+    st = pe.stack_states([e.state for e in engines])
+    reset_counts(vb, mc)
+    outs = []
+    batch_ms, _ = host_ms(lambda: [outs.append(pe.render_states(
+        engines[0], st, 256)[1]) for _ in range(4)])
+    path = "render_states, 8 engines x 4 chunks of 256"
+    launches[path] = counts = read_counts(vb, mc)
+    check(counts["engine_voices"] == 4 and counts["engine_chain"] == 4
+          and counts["plain"] == 0, counts)
+    out = torch.cat(outs, 1)
+    one_ms, ones = host_ms(lambda: [e.render(1024) for e in engines])
+    for k, e in enumerate(engines):
+        check(same_bits(out[k], ones[k])
+              and all(same_bits(getattr(st, name)[k], getattr(e, name))
+                      for name in ("vst", "vsti", "eng_i", "chain")),
+              f"engine {k} of the batch differs from its own render: "
+              f"{first_diff(out[k], ones[k])}")
+    check(torch.isfinite(out).all().item()
+          and (out.abs().amax(1) > 0).all().item(),
+          "the 8-engine batch finite and sounding")
+    print(f"phase 28 (b) 8 distinct engines x 1024 (4 chunks of 256): each "
+          f"row bit-identical to its own Engine.render (output and state); "
+          f"the batch {batch_ms:.0f} ms, the 8 engines one at a time "
+          f"{one_ms:.0f} ms; launches {counts} [{card}] "
+          f"({time.perf_counter() - t_b:.0f} s)", flush=True)
+
+    # (c) throughput: render_states from the broadcast chord, and from the
+    # 8 distinct engines above repeated to 32
+    t_c = time.perf_counter()
+    chord = pe.Engine(SR, device=dev)
+    for note in SWEEP_CHORD:
+        chord.note_on(note, 0.95)
+    base = chord.state
+    widths, n = BATCH_SWEEP
+    sweep = {}
+    reset_counts(vb, mc)
+    for b in widths:
+        wide = pe.broadcast_state(base, b)
+        ms, out = host_ms(lambda: pe.render_states(chord, wide, n)[1])
+        check(torch.isfinite(out).all().item()
+              and torch.equal(out, out[:1].expand_as(out)),
+              f"broadcast chord at {b}: rows finite and equal")
+        sweep[f"{b} broadcast"] = ms
+    eight = pe.stack_states([e.state for e in engines])
+    mixed = pe.stack_states([eight] * 4)
+    sweep["32 of 8 distinct"], (_, m_out) = host_ms(
+        lambda: pe.render_states(chord, mixed, n))
+    path = f"render_states sweep, {widths} engines x {n}"
+    launches[path] = counts = read_counts(vb, mc)
+    check(counts["engine_voices"] == counts["engine_chain"]
+          == len(widths) + 1 and counts["plain"] == 0, counts)
+    # the 32 of 8: each row equals its kind's row of an 8-engine call on
+    # the same states, output and state
+    _, e_out = pe.render_states(chord, eight, n)
+    for k in range(len(m_out)):
+        check(same_bits(m_out[k], e_out[k % 8])
+              and all(same_bits(getattr(mixed, f)[k],
+                                getattr(eight, f)[k % 8])
+                      for f in ("vst", "vsti", "eng_i", "chain")),
+              f"32 of 8 distinct: engine {k} differs from its kind's row of "
+              f"the 8-engine call: {first_diff(m_out[k], e_out[k % 8])}")
+    check(torch.isfinite(m_out).all().item()
+          and (m_out.abs().amax(1) > 0).all().item(),
+          "32 of 8 distinct: rows finite and sounding")
+    rows = {k: {"ms": ms, "us_per_base_sample": ms * 1e3 / n,
+                "aggregate_rtf": int(k.split()[0]) * n / SR / (ms / 1e3)}
+            for k, ms in sweep.items()}
+    print("phase 28 (c) render_states x 2048 (engines: ms, us per base "
+          "sample, aggregate realtime): " + "; ".join(
+              f"{k} {v['ms']:.1f} ms {v['us_per_base_sample']:.1f} us "
+              f"{v['aggregate_rtf']:.4f}x" for k, v in rows.items())
+          + f"; launches {counts} [{card}] "
+          f"({time.perf_counter() - t_p:.0f} s for phase 28)", flush=True)
+    return {"E1": e1_cmp, "E2": e2_cmp,
+            "batch_vs_one": {"engines": 8, "samples": 1024,
+                             "batch_ms": batch_ms, "one_at_a_time_ms":
+                             one_ms},
+            "sweep_x2048": rows}
 
 
 def main():
@@ -2319,8 +2600,8 @@ def main():
     # ── phase 6: each kernel against its plain version at the main path's
     # shapes, on the main path's own inputs: K1 at 8192 lanes over the
     # whole render (its tile, so its renorm timing, follows the width), K2
-    # at 128 streams (32 blocks of 4 warps) on the first 256 samples of the
-    # lane sum. Both must agree bit for bit. ──
+    # at 128 streams (32 blocks of 4 warps) on the first K2_REPLAY_N
+    # samples of the lane sum. Both must agree bit for bit. ──
     k1_main_ms = cuda_ms(lambda: vb.render_voice_bank(params, t_pad,
                                                       steady=steady), reps=5)
     k1_main_plain_ms, p_voices = host_ms(lambda: vb.render_voice_bank_plain(
@@ -2330,7 +2611,7 @@ def main():
           f"K1 at {streams * 64} lanes x {t_pad}: max abs err "
           f"{k1_main_err:.3e} against the plain version; differing "
           f"{first_diff(voices, p_voices)}")
-    t_cmp = 256
+    t_cmp = K2_REPLAY_N
     k2_cmp = [compare_chain(mc, ((SR, ctrl, st0, audio), {}), t_cmp,
                             "render_grid's lane sum from init_state")]
     k2_main_ms, k2_main_plain_ms = k2_cmp[0]["ms"], k2_cmp[0]["plain_ms"]
@@ -2463,7 +2744,8 @@ def main():
     # Both kernels against their plain versions on this path's own calls,
     # bit for bit. K3: blocks 1 and 2 whole (128 lanes x 10240 from the
     # carried state; block 1 crosses min_release, block 2 holds the other
-    # two releases). K2: the first 256 samples of block 1 at one stream,
+    # two releases). K2: the first K2_REPLAY_N samples of block 1 at one
+    # stream,
     # from the state carried through the warm-up and block 0.
     k3_ev_err = 0.0
     for b in (1, 2):
@@ -2478,7 +2760,7 @@ def main():
               f"{first_diff(e_out, pe_out)}, state "
               f"{first_diff(e_st.view(torch.int32), pe_st.view(torch.int32))}")
     check(len(ev_log.calls["K2"]) == 6, "render_events chain calls")
-    k2_cmp.append(compare_chain(mc, ev_log.calls["K2"][2], 256,
+    k2_cmp.append(compare_chain(mc, ev_log.calls["K2"][2], K2_REPLAY_N,
                                 "render_events block 1 from its carried "
                                 "state"))
     check(k2_cmp[-1]["peak_in"] > 1e-3, "block 1 of render_events is silent")
@@ -2655,15 +2937,15 @@ def main():
           f"[{card}]", flush=True)
 
     # ── phase 12: K5 (the chain with thermal noise) against its plain
-    # version, bit for bit (output and state as int32), on the first 256
-    # samples of phase 5's lane sum at 128 streams: at noise_level 1.0,
+    # version, bit for bit (output and state as int32), on the first
+    # K5_REPLAY_N samples of phase 5's lane sum at 128 streams: at noise_level 1.0,
     # again at per-stream gains 0-30; then K5 at gain 0 against K2 on the
     # same call: equal output and non-nz_ rows, nz_lcg advanced. ──
     t_p12 = time.perf_counter()
     from openwurli_tpu_torch.kernels import probe
 
     _g_ctrl, g_st0, g_audio = grid_chain
-    t_k5 = 256
+    t_k5 = K5_REPLAY_N
     k5_cmp = []
     for what, level in (("noise_level 1.0", 1.0),
                         ("per-stream gains 0-30",
@@ -2764,7 +3046,7 @@ def main():
     check(np.abs(ses["audio"][:48]).max() < 0.05 * peak,
           "the session sounds before its first onset")
     # one engine block against the plain versions on its recorded
-    # arguments: K3 whole, the chain on its first 256 samples
+    # arguments: K3 whole, the chain on its first BLOCK_REPLAY_N samples
     blk_i = 4
     args, kw = ses["calls"]["K3"][blk_i]
     check(kw["n0"] == blk_i * 1024 and kw["events"] and kw["steady"] is None
@@ -2778,7 +3060,8 @@ def main():
     check(torch.equal(e_out, pe_out) and bits_equal(e_st, pe_st),
           f"K3 engine block {blk_i}: output {first_diff(e_out, pe_out)}, "
           f"state {first_diff(e_st.view(torch.int32), pe_st.view(torch.int32))}")
-    k2_cmp.append(compare_chain(mc, ses["calls"]["chain"][blk_i], 256,
+    k2_cmp.append(compare_chain(mc, ses["calls"]["chain"][blk_i],
+                                BLOCK_REPLAY_N,
                                 f"FastEngine block {blk_i} from its carried "
                                 "state"))
     check(k2_cmp[-1]["peak_in"] > 1e-3, "the engine's block 4 is silent")
@@ -2792,7 +3075,8 @@ def main():
           f"realtime; precompile {ses['precompile_ms'] / 1e3:.2f} s of "
           f"which the 26624-sample warm-up {ses['warm_ms'] / 1e3:.2f} s; "
           f"one block's kernels: K3 {k3_eng_ms:.3f} ms, K2 {k2_blk_ms:.1f} "
-          f"ms; block {blk_i} replayed: K3 whole and K2 on 256 samples "
+          f"ms; block {blk_i} replayed: K3 whole and K2 on "
+          f"{BLOCK_REPLAY_N} samples "
           f"bit-identical to the plain versions (K3 plain "
           f"{k3_eng_plain_ms:.0f} ms, K2 kernel {k2_cmp[-1]['ms']:.1f} ms, "
           f"plain {k2_cmp[-1]['plain_ms']:.0f} ms) [{card}] "
@@ -2829,7 +3113,8 @@ def main():
     loop8 = session_block_loop(vb, mc, eng8, ses8["warm_state"], noise=True)
     check(np.array_equal(ses8["audio"].view(np.int32), loop8.view(np.int32)),
           "the noisy session differs from its block loop")
-    k5_cmp.append(compare_chain(mc, ses8["calls"]["chain"][blk_i], 256,
+    k5_cmp.append(compare_chain(mc, ses8["calls"]["chain"][blk_i],
+                                BLOCK_REPLAY_N,
                                 f"FastEngine block {blk_i} at noise level 8 "
                                 "from its carried state"))
     check(ses8["calls"]["chain"][blk_i][1] == {"noise": True},
@@ -2844,7 +3129,8 @@ def main():
           f"session is finite, equals its own block loop bit for bit and "
           f"differs from the quiet one by RMS {np.sqrt((nd ** 2).mean()):.3e}"
           f" (peak {np.abs(nd).max():.3e}), launches {counts8}; block "
-          f"{blk_i}'s K5 call on 256 samples bit-identical to the plain "
+          f"{blk_i}'s K5 call on {BLOCK_REPLAY_N} samples bit-identical "
+          "to the plain "
           f"version, one block's K5 {k5_blk_ms:.1f} ms; per-block wall p50 "
           f"{st8['p50_ms']:.1f} ms, warm-up {ses8['warm_ms'] / 1e3:.2f} s "
           f"[{card}] ({time.perf_counter() - t_p15:.0f} s)", flush=True)
@@ -2957,8 +3243,8 @@ def main():
 
     # ── phase 18: K2 and K5 (one warp per stream) against their plain
     # versions bit for bit, output and state, at the widths that stress the
-    # block geometry: 1 stream, 33 (a ragged last block) and 1024, 64
-    # samples each; 8 streams of which stream 2 takes the NaN guard (a NaN
+    # block geometry: 1 stream, 33 (a ragged last block) and 1024,
+    # LANES_REPLAY_N samples each; 8 streams (64 samples) of which stream 2 takes the NaN guard (a NaN
     # in its speaker state) and the power amp's reset path (an inf in its
     # audio), the other 7 bit-identical to their run without them. Then µs
     # per base sample at 1, 8, 128 and 1024 streams x 2048. ──
@@ -2978,11 +3264,12 @@ def main():
 
     lanes_cmp = []
     for s_n in (1, 33, 1024):
-        ctrl, st0, audio = lanes_inputs(s_n, 64, s_n)
+        ctrl, st0, audio = lanes_inputs(s_n, LANES_REPLAY_N, s_n)
         for noise in (False, True):
             lanes_cmp.append(compare_chain(
-                mc, ((SR, ctrl, st0, audio), {"noise": noise}), 64,
-                f"{s_n} streams x 64 from init_state"))
+                mc, ((SR, ctrl, st0, audio), {"noise": noise}),
+                LANES_REPLAY_N,
+                f"{s_n} streams x {LANES_REPLAY_N} from init_state"))
     ctrl, st0, audio = lanes_inputs(8, 64, 8)
     st_g, a_g = st0.clone(), audio.clone()
     st_g[mc._OFFSETS["spk_lpf"][0], 2] = float("nan")
@@ -3015,7 +3302,8 @@ def main():
             us_per_sample[noise][s_n] = cuda_ms(lambda: mc.render(
                 SR, ctrl, st0, audio, noise=noise)) * 1e3 / 2048
     print("phase 18 K2 and K5, one warp per stream: 1, 33 and 1024 streams "
-          "x 64 bit-identical to the plain versions (output and state); 8 "
+          f"x {LANES_REPLAY_N} bit-identical to the plain versions (output "
+          "and state); 8 "
           "streams with the NaN guard and the power amp's reset on stream 2 "
           "bit-identical, guard_fires 1, the other 7 streams unchanged; us "
           "per base sample at 1 / 8 / 128 / 1024 streams x 2048: K2 "
@@ -3112,6 +3400,7 @@ def main():
     mod_k = model_phases(dev, card, launches, vb, mc, ptxas)
     cal_k = calib_phases(dev, card, launches, vb, mc)
     cli_k = cli_phases(dev, card, launches, vb, mc, ptxas)
+    bat_k = batch_phases(dev, card, launches, vb, mc)
 
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
@@ -3254,14 +3543,29 @@ def main():
         compared=[{k_: v for k_, v in c.items() if k_ != "bound"}
                   | {"bound_ms": c["bound"][0]} for c in e7["compared"]],
         main_path_ms=e7["main_path_ms"], cli=cli_k["cli"]))
+    def batched(cmps):
+        return [{k_: v for k_, v in c.items() if k_ != "bound"}
+                | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+                for c in cmps]
+
     for k in kernels:
         if k["name"] == "engine_chain":
             k["melange_plugin"] = mod_k["melange_plugin"]
             k["behavioral_sessions"] = mod_k["behavioral"]
             k["alias"] = cli_k["alias"]
+            k["batch_vs_one"] = bat_k["batch_vs_one"]
+            k["batch_sweep_x2048"] = bat_k["sweep_x2048"]
+        if k["name"] == "engine_voices":
+            k["batched"] = batched(bat_k["E1"])
+        if k["name"].startswith("engine_chain"):
+            models = k["name"].split("_")[2:] or ["dk", "circuit"]
+            k["batched"] = batched([c for c in bat_k["E2"]
+                                    if c["models"] == list(models)])
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} was never launched on "
               "a driven path")
+    print(f"chip_smoke total {time.perf_counter() - T_START:.1f} s (aim "
+          f"{SCRIPT_LIMIT_S:.0f} s) [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,11 +57,12 @@ _SIGNATURES = {
     "ow_trem_preroll": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _P),
     # body, x, mat, iters, depth, sub, lanes, threads, out, aux, stream
     "ow_probe": (_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    # vpar, vst, vsti, eng_i, mono, n, fade_len, sample_rate, stream
-    "ow_engine_voices": (_P, _P, _P, _P, _P, _I, _D, _D, _P),
-    # consts, n_consts, mono, chain, out, n, rail_sag, pre_model, pa_model,
-    # noise_scale, stream
-    "ow_engine_chain": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _D, _P),
+    # vpar, vst, vsti, eng_i, mono, n, engines, fade_len, sample_rate,
+    # stream
+    "ow_engine_voices": (_P, _P, _P, _P, _P, _I, _I, _D, _D, _P),
+    # consts, n_consts, mono, chain, out, n, engines, rail_sag (bool per
+    # engine), pre_model, pa_model, noise_scale (float64 per engine), stream
+    "ow_engine_chain": (_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P),
     # consts, n_consts, state, n_steps, stream
     "ow_tremolo_settle": (_P, _I, _P, _I, _P),
     # vpar, vst, vsti, out, voices, n, stream

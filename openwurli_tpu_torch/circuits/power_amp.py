@@ -197,8 +197,10 @@ def circuit_step_fn(params: PowerAmpParams, device):
 def step(params: PowerAmpParams, state: PowerAmpState, x, rail_sag=True):
     """One circuit sample; x a float64 tensor of input volts, batch shape
     (...) as the state's ((), one circuit, in the engine) → (state, out ∈
-    [-1, 1])."""
-    sag_f = 1.0 if rail_sag else 0.0
+    [-1, 1]). rail_sag: a bool, or a bool tensor that broadcasts over the
+    batch (one flag per circuit)."""
+    sag = torch.as_tensor(rail_sag, dtype=torch.bool, device=x.device)
+    sag_f = sag.to(torch.float64)
     w_extra = torch.zeros_like(state.circuit.v)
     w_extra[..., params.v1_row] = (state.rails.v_rail_pos
                                    - RAIL_DC_BIAS) * sag_f
@@ -225,12 +227,10 @@ def step(params: PowerAmpParams, state: PowerAmpState, x, rail_sag=True):
         v_nl=torch.where(r, clean.v_nl, circuit.v_nl))
     clamped = exact.clip(result, -1.0, 1.0)
     out = torch.where(bad, state.last_good, clamped)
-    if rail_sag:
-        stepped = rails_step(params, state.rails, raw)
-        rails = RailState(*[torch.where(bad, ini, new) for new, ini in
-                            zip(stepped, init_rails(x.device))])
-    else:
-        rails = state.rails
+    stepped = rails_step(params, state.rails, raw)
+    rails = RailState(*[torch.where(sag, torch.where(bad, ini, new), cur)
+                        for new, ini, cur in zip(stepped, init_rails(x.device),
+                                                 state.rails)])
     return PowerAmpState(circuit=circuit, rails=rails, last_good=out), out
 
 

@@ -110,7 +110,7 @@ def osc_step(params: TremoloParams, osc: mna.SolverState):
     """One oscillator sample → (osc, LED drive in [0, 1])."""
     step_fn = osc_step_fn(params, osc.v.device)
     osc, v = step_fn(osc, torch.zeros_like(osc.v))
-    led = exact.clip(exact.div(V_OUT_MAX - v[params.out_idx],
+    led = exact.clip(exact.div(V_OUT_MAX - v[..., params.out_idx],
                                V_OUT_MAX - V_OUT_MIN), 0.0, 1.0)
     return osc, led
 

@@ -226,6 +226,24 @@ def chain_state_from_numpy(sample_rate, st, device="cpu", preamp_model="dk",
         volume=sm(st.volume), depth=sm(st.trem_depth), char=sm(st.spk_char)))
 
 
+def _engine_tensors(sample_rate, st, device, preamp_model, pa_model):
+    """One reference `EngineState` (NumPy leaves, read by field name) →
+    the port's (vpar, vst, vsti, eng_i, chain) tensors on `device`."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    main = ek.pack_voice_columns(st.vparams, st.vstate)
+    steal = ek.pack_voice_columns(st.sparams, st.sstate)
+    vpar, vst, vsti = (torch.from_numpy(np.concatenate([a, b], axis=1))
+                       .to(device) for a, b in zip(main, steal))
+    eng_i = torch.from_numpy(np.concatenate([
+        np.asarray(st.slot_state, np.int64),
+        np.asarray(st.steal_fade, np.int64),
+        [int(np.asarray(st.nan_guard_fires))]])).to(device)
+    chain = chain_state_from_numpy(sample_rate, st, device, preamp_model,
+                                   pa_model)
+    return vpar, vst, vsti, eng_i, chain
+
+
 def engine_from_numpy(sample_rate, st, device="cpu", preamp_model="dk",
                       pa_model="circuit"):
     """A port `engine.Engine` in the state of a reference `Engine` built
@@ -235,25 +253,17 @@ def engine_from_numpy(sample_rate, st, device="cpu", preamp_model="dk",
     state and noise key included), smoothers, flags and counters are all
     carried over."""
     from openwurli_tpu_torch.engine import Engine
-    from openwurli_tpu_torch.kernels import engine as ek
 
     eng = Engine(sample_rate, device=device, preamp_model=preamp_model,
                  pa_model=pa_model)
-    main = ek.pack_voice_columns(st.vparams, st.vstate)
-    steal = ek.pack_voice_columns(st.sparams, st.sstate)
-    for name, a, b in zip(("vpar", "vst", "vsti"), main, steal):
-        getattr(eng, name).copy_(torch.from_numpy(
-            np.concatenate([a, b], axis=1)).to(device))
-    eng_i = np.concatenate([np.asarray(st.slot_state, np.int64),
-                            np.asarray(st.steal_fade, np.int64),
-                            [int(np.asarray(st.nan_guard_fires))]])
-    eng.eng_i.copy_(torch.from_numpy(eng_i).to(device))
-    eng._slots, eng._slots_stale = eng_i.copy(), False
+    for name, x in zip(("vpar", "vst", "vsti", "eng_i", "chain"),
+                       _engine_tensors(sample_rate, st, device,
+                                       preamp_model, pa_model)):
+        getattr(eng, name).copy_(x)
+    eng._slots, eng._slots_stale = eng.eng_i.cpu().numpy().copy(), False
     eng.midi_note = np.asarray(st.midi_note, np.int64).copy()
     eng.age = np.asarray(st.age, np.int64).copy()
     eng.age_counter = int(np.asarray(st.age_counter))
-    eng.chain.copy_(chain_state_from_numpy(sample_rate, st, device,
-                                           preamp_model, pa_model))
     eng._targets = {"volume": float(np.asarray(st.volume.target)),
                     "depth": float(np.asarray(st.trem_depth.target)),
                     "char": float(np.asarray(st.spk_char.target))}
@@ -263,6 +273,36 @@ def engine_from_numpy(sample_rate, st, device="cpu", preamp_model="dk",
     eng.noise_enabled = bool(np.asarray(st.noise_enabled))
     eng.noise_gain = float(np.asarray(st.noise_gain))
     return eng
+
+
+def _engine_at(tree, b):
+    """Engine b of a stacked reference EngineState (NumPy leaves)."""
+    if isinstance(tree, tuple):
+        return type(tree)(*[_engine_at(x, b) for x in tree])
+    return np.asarray(tree)[b]
+
+
+def engine_states_from_numpy(sample_rate, st, device="cpu",
+                             preamp_model="dk", pa_model="circuit"):
+    """A stacked reference `EngineState` (NumPy leaves with a leading B,
+    e.g. `jax.tree.map(np.asarray, stacked)` of what `jax.vmap` renders)
+    → the port's `engine.EngineState` of B engines on `device`, each
+    engine's fields mapped as `engine_from_numpy` maps them, its own
+    rail_sag and noise_enabled · noise_gain included. The notes, ages and
+    the sustain pedal are host bookkeeping and stay behind."""
+    from openwurli_tpu_torch.engine import EngineState
+
+    b = np.asarray(st.rail_sag).shape[0]
+    engines = [_engine_at(st, k) for k in range(b)]
+    parts = [_engine_tensors(sample_rate, e, device, preamp_model, pa_model)
+             for e in engines]
+    return EngineState(
+        *[torch.stack(xs) for xs in zip(*parts)],
+        rail_sag=torch.tensor([bool(e.rail_sag) for e in engines],
+                              device=device),
+        noise_scale=torch.tensor(
+            [(1.0 if bool(e.noise_enabled) else 0.0) * float(e.noise_gain)
+             for e in engines], dtype=torch.float64, device=device))
 
 
 # ── the calibration pipeline's parameters ──

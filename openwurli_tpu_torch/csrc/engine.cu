@@ -1,10 +1,12 @@
 // The f64 kernels of the engine (openwurli_tpu_torch/kernels/engine.py)
 // and of the offline render paths (openwurli_tpu_torch/kernels/render.py):
 //
-//   E1 engine_voices      the 64 main + 64 steal voice slots over one chunk
-//   E2 engine_chain       the mono chain over that chunk, a template over
-//                         the preamp (DK or melange) and the power amp
-//                         (circuit or behavioral)
+//   E1 engine_voices      the 64 main + 64 steal voice slots over one chunk,
+//                         of B engines (a block per engine)
+//   E2 engine_chain       the mono chain over that chunk, of B engines (a
+//                         thread per engine), a template over the preamp
+//                         (DK or melange) and the power amp (circuit or
+//                         behavioral)
 //   E3 tremolo_settle     the tremolo oscillator's step, n times
 //   E4 voice_render       G voices over n samples (voice.render); with
 //                         TAP, the reed alone into the pickup, the reed's
@@ -30,9 +32,9 @@
 // is a Pallas kernel.
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
-// slot by one thread (a block of 128), E4-E7 each voice or stream
-// by one thread, E2 and E3 are one thread walking the chain's data-dependent
-// Newton solves sample by sample. The bytes are
+// slot by one thread (a block of 128 per engine), E4-E7 each voice or
+// stream by one thread, E2 each engine's chain and E3 the tremolo by one
+// thread walking the data-dependent Newton solves sample by sample. The bytes are
 // a few hundred per sample and the operations some 10^4-10^5 f64 per base
 // sample, far from the card's rates; what bounds the time is the length of
 // the dependent chain of f64 operations and libm calls per sample. The
@@ -361,6 +363,9 @@ __device__ __forceinline__ double voice_sample(Voice& v, double* reed_tap) {
   return (v.q * omy - 1.0) * 1.8375 * v.gain;
 }
 
+// E1: block b runs engine b's 128 slots, a thread per slot; the engine's
+// tensors are rows b of vpar (B, NPAR, SLOTS), vst, vsti, eng_i (B, ENG_I)
+// and mono (B, n).
 __global__ void __launch_bounds__(SLOTS, 1)
 engine_voices_kernel(const double* __restrict__ vpar, double* vst,
                      long long* vsti, long long* eng_i, double* mono, int n,
@@ -368,6 +373,12 @@ engine_voices_kernel(const double* __restrict__ vpar, double* vst,
   __shared__ double tile[TILE][SLOTS];
   __shared__ int bad_tile[TILE];
   __shared__ unsigned long long fires;
+  const size_t e = blockIdx.x;
+  vpar += e * NPAR * SLOTS;
+  vst += e * NST * SLOTS;
+  vsti += e * NSTI * SLOTS;
+  eng_i += e * ENG_I;
+  mono += e * (size_t)n;
   const int j = threadIdx.x;
   const bool main_slot = j < MAXV;
   Voice v;
@@ -1344,19 +1355,40 @@ __device__ __noinline__ double chain_sample(const double* c, double* ch, double 
   return out;
 }
 
+// E2: a thread per engine, blocks of E2_BLOCK. Thread e runs engine e's
+// chain: row e of chain (B, CHAIN_ROWS), mono (B, n) and out (B, n), its
+// own flags sag[e] and noise_scale[e], its own speaker coefficients; the
+// constants are shared. Each row is one thread's alone, so the layout is
+// engine-major as render_states returns it; a thread reads one mono word
+// and writes one output word per sample, against some 10^4-10^5 float64
+// operations of the sample's chain. Across each chain_sample call (not
+// inlined) the loop keeps only e and t: the row offsets come again from
+// the kernel's parameters and the flags from memory each sample (the
+// flags' pointers are not __restrict__, so the loads stay in the loop),
+// which keeps the live values, and so the spills, of a kernel that took
+// one engine's flags as parameters.
+constexpr int E2_BLOCK = 32;
+
 template <int PRE, int PA>
 __global__ void engine_chain_kernel(const double* __restrict__ c,
                                     const double* __restrict__ mono,
-                                    double* chain, float* out, int n,
-                                    int sag, double noise_scale) {
+                                    double* chain, float* out, int n, int b,
+                                    const unsigned char* sag,
+                                    const double* noise_scale) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= b) return;
   double ch[CHAIN_ROWS];
-  for (int k = 0; k < CHAIN_ROWS; ++k) ch[k] = chain[k];
+  for (int k = 0; k < CHAIN_ROWS; ++k)
+    ch[k] = chain[(size_t)e * CHAIN_ROWS + k];
   double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
   Speaker spk_k;
-  for (int t = 0; t < n; ++t)
-    out[t] = (float)chain_sample<PRE, PA>(c, ch, mono[t], sag != 0,
-                                          noise_scale, &last_char, &spk_k);
-  for (int k = 0; k < CHAIN_ROWS; ++k) chain[k] = ch[k];
+  for (int t = 0; t < n; ++t) {
+    const size_t i = (size_t)e * n + t;
+    out[i] = (float)chain_sample<PRE, PA>(c, ch, mono[i], sag[e] != 0,
+                                          noise_scale[e], &last_char, &spk_k);
+  }
+  for (int k = 0; k < CHAIN_ROWS; ++k)
+    chain[(size_t)e * CHAIN_ROWS + k] = ch[k];
 }
 
 // ═════════════════════════════ E3: settle ═════════════════════════════
@@ -1480,10 +1512,11 @@ pa_speaker_scan_kernel(const double* __restrict__ c,
 
 extern "C" int ow_engine_voices(const double* vpar, double* vst,
                                 long long* vsti, long long* eng_i,
-                                double* mono, int n, double fade_len,
+                                double* mono, int n, int b, double fade_len,
                                 double sample_rate, cudaStream_t stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  engine_voices_kernel<<<1, SLOTS, 0, stream>>>(vpar, vst, vsti, eng_i, mono,
+  if (n < 0 || b < 0) return (int)cudaErrorInvalidValue;
+  if (b == 0) return 0;
+  engine_voices_kernel<<<b, SLOTS, 0, stream>>>(vpar, vst, vsti, eng_i, mono,
                                                 n, fade_len, sample_rate);
   return (int)cudaGetLastError();
 }
@@ -1526,25 +1559,32 @@ extern "C" int ow_pa_speaker_scan(const double* consts, int n_consts,
 
 extern "C" int ow_engine_chain(const double* consts, int n_consts,
                                const double* mono, double* chain, float* out,
-                               int n, int rail_sag, int pre_model,
-                               int pa_model, double noise_scale,
+                               int n, int b, const unsigned char* rail_sag,
+                               int pre_model, int pa_model,
+                               const double* noise_scale,
                                cudaStream_t stream) {
   const int want = C_TOTAL + (pre_model == PRE_MELANGE ? ML_SIZE : 0);
-  if (n_consts != want || n < 0 || pre_model < 0 || pre_model > 1 ||
-      pa_model < 0 || pa_model > 1)
+  if (n_consts != want || n < 0 || b < 0 || pre_model < 0 ||
+      pre_model > 1 || pa_model < 0 || pa_model > 1)
     return (int)cudaErrorInvalidValue;
+  if (b == 0) return 0;
+  const int blocks = (b + E2_BLOCK - 1) / E2_BLOCK;
+  const int threads = b < E2_BLOCK ? b : E2_BLOCK;
   if (pre_model == PRE_DK && pa_model == PA_CIRCUIT)
-    engine_chain_kernel<PRE_DK, PA_CIRCUIT><<<1, 1, 0, stream>>>(
-        consts, mono, chain, out, n, rail_sag, noise_scale);
+    engine_chain_kernel<PRE_DK, PA_CIRCUIT><<<blocks, threads, 0, stream>>>(
+        consts, mono, chain, out, n, b, rail_sag, noise_scale);
   else if (pre_model == PRE_DK)
-    engine_chain_kernel<PRE_DK, PA_BEHAVIORAL><<<1, 1, 0, stream>>>(
-        consts, mono, chain, out, n, rail_sag, noise_scale);
+    engine_chain_kernel<PRE_DK, PA_BEHAVIORAL>
+        <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                         rail_sag, noise_scale);
   else if (pa_model == PA_CIRCUIT)
-    engine_chain_kernel<PRE_MELANGE, PA_CIRCUIT><<<1, 1, 0, stream>>>(
-        consts, mono, chain, out, n, rail_sag, noise_scale);
+    engine_chain_kernel<PRE_MELANGE, PA_CIRCUIT>
+        <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                         rail_sag, noise_scale);
   else
-    engine_chain_kernel<PRE_MELANGE, PA_BEHAVIORAL><<<1, 1, 0, stream>>>(
-        consts, mono, chain, out, n, rail_sag, noise_scale);
+    engine_chain_kernel<PRE_MELANGE, PA_BEHAVIORAL>
+        <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                         rail_sag, noise_scale);
   return (int)cudaGetLastError();
 }
 

@@ -23,11 +23,22 @@ states that one read-back refreshes after a render, when a MIDI call or a
 count needs it: nothing is read back per sample. MIDI calls write the
 affected slot columns on the device.
 
+Batches of engines: `EngineState` holds what one chunk of the reference's
+`_render` reads and writes, for B engines, as device tensors with a
+leading B axis. `render_states(eng, states, n)` renders one chunk of n
+samples for all of them (E1 a block per engine, E2 a thread per engine),
+the counterpart of `jax.vmap(lambda s: engine._render(eng, s, n))`;
+`Engine.render` is its B = 1 call. `Engine.state` gets and sets one
+engine's `EngineState`; `stack_states` and `broadcast_state` build
+batches.
+
 Runs on `device`, the card unless the caller asks for the CPU (where the
 kernels' plain versions run).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,6 +52,58 @@ SMOOTH_S = 0.005
 WARM_UP_S = 0.6
 FREE, HELD, SUSTAINED, RELEASING = ek.FREE, ek.HELD, ek.SUSTAINED, \
     ek.RELEASING
+
+
+class EngineState(NamedTuple):
+    """B engines' render state on one device: what a chunk of the
+    reference's `_render` reads and writes (its `EngineState` less the host
+    bookkeeping: notes, ages, the sustain pedal and the MLP flag, which no
+    render changes)."""
+
+    vpar: torch.Tensor         # (B, NPAR, SLOTS) float64 voice constants
+    vst: torch.Tensor          # (B, NST, SLOTS) float64 voice state
+    vsti: torch.Tensor         # (B, NSTI, SLOTS) int64 voice state
+    eng_i: torch.Tensor        # (B, ENG_I) int64 slot states, fades, fires
+    chain: torch.Tensor        # (B, CHAIN_ROWS) float64 chain and smoothers
+    rail_sag: torch.Tensor     # (B,) bool
+    noise_scale: torch.Tensor  # (B,) float64 noise_enabled · noise_gain
+
+    @property
+    def batch(self) -> int:
+        return self.vpar.shape[0]
+
+
+def stack_states(states) -> EngineState:
+    """Concatenate EngineStates along their engine axis (copies)."""
+    return EngineState(*[torch.cat(xs) for xs in zip(*states)])
+
+
+def broadcast_state(state: EngineState, b: int) -> EngineState:
+    """b copies of a one-engine EngineState, as `jnp.broadcast_to` of
+    every leaf (the melange preamp's noise key included: the copies draw
+    the same noise, as under vmap)."""
+    if state.batch != 1:
+        raise ValueError(f"broadcast_state takes one engine, got "
+                         f"{state.batch}")
+    return EngineState(*[x.expand((int(b),) + x.shape[1:]).clone()
+                         for x in state])
+
+
+def render_states(eng: "Engine", states: EngineState, num_samples: int):
+    """One chunk of num_samples for each of B engines that share `eng`'s
+    sample rate and models: the voice slots (E1), the chunk-end cleanup,
+    the chain (E2) → (states, out (B, num_samples) float32 on the states'
+    device). The reference is `jax.vmap(lambda s: engine._render(eng, s,
+    n))`. The state tensors are updated in place and returned. A CPU
+    state takes the kernels' plain versions, a CUDA state the kernels; any
+    other device raises. B = 0 renders nothing and returns a (0, n)
+    output."""
+    mono = ek.render_voices(states.vpar, states.vst, states.vsti,
+                            states.eng_i, num_samples, eng.fade_len,
+                            eng.sample_rate)
+    out = ek.render_chain(eng.params, mono, states.chain, states.rail_sag,
+                          states.noise_scale)
+    return states, out
 
 
 class Engine:
@@ -71,6 +134,7 @@ class Engine:
         self.rail_sag = True
         self.noise_enabled = False
         self.noise_gain = 1.0
+        self._flag_key = None
         self._init_state({"volume": 0.5, "depth": 0.5, "char": 0.0})
 
     # ── state ──
@@ -231,15 +295,60 @@ class Engine:
     def set_noise_gain(self, gain: float):
         self.noise_gain = float(gain)
 
+    # ── state ──
+
+    def _flags(self):
+        """The flags as one-element device tensors, (rail_sag, noise_scale),
+        made anew only when a flag changed: a render does not wait for a
+        host-to-device copy per chunk."""
+        key = (bool(self.rail_sag), bool(self.noise_enabled),
+               float(self.noise_gain))
+        if key != self._flag_key:
+            self._flag_key = key
+            self._flag_t = (
+                torch.tensor([key[0]], device=self.device),
+                torch.tensor([(1.0 if key[1] else 0.0) * key[2]],
+                             dtype=torch.float64, device=self.device))
+        return self._flag_t
+
+    def _state_views(self) -> EngineState:
+        """This engine as a batch of one: views of its tensors (a render
+        through them updates the engine) and its flags."""
+        return EngineState(
+            *[x.unsqueeze(0) for x in (self.vpar, self.vst, self.vsti,
+                                       self.eng_i, self.chain)],
+            *self._flags())
+
+    @property
+    def state(self) -> EngineState:
+        """A copy of this engine's render state, a batch of one (the
+        counterpart of the reference's `Engine.state`)."""
+        return EngineState(*[x.clone() for x in self._state_views()])
+
+    @state.setter
+    def state(self, st: EngineState):
+        """Take a one-engine EngineState: voices, gates, chain and flags
+        (noise_scale s ≠ 0 becomes noise on at gain s; 0 turns the noise
+        off and keeps the gain). The notes, ages and the sustain pedal stay
+        the engine's."""
+        if st.batch != 1:
+            raise ValueError(f"Engine.state takes one engine, got "
+                             f"{st.batch}")
+        for name in ("vpar", "vst", "vsti", "eng_i", "chain"):
+            getattr(self, name).copy_(getattr(st, name)[0])
+        self.rail_sag = bool(st.rail_sag[0])
+        scale = float(st.noise_scale[0])
+        self.noise_enabled = scale != 0.0
+        if self.noise_enabled:
+            self.noise_gain = scale
+        self._slots_stale = True
+
     # ── rendering ──
 
     def _render_chunk(self, n):
-        mono = ek.render_voices(self.vpar, self.vst, self.vsti, self.eng_i,
-                                n, self.fade_len, self.sample_rate)
+        _, out = render_states(self, self._state_views(), n)
         self._slots_stale = True
-        noise_scale = (1.0 if self.noise_enabled else 0.0) * self.noise_gain
-        return ek.render_chain(self.params, mono, self.chain, self.rail_sag,
-                               noise_scale)
+        return out[0]
 
     def render(self, num_samples: int) -> torch.Tensor:
         """num_samples mono float32 samples through the full chain, as a

@@ -209,9 +209,9 @@ def write_voice_state(vst, vsti, state: voice.VoiceState, cols=slice(None)):
 
 
 def mono_sum(outs):
-    """(T, SLOTS) gated voice outputs → (T,) mono: the main slots summed in
-    slot order, then the steal slots, then the two added."""
-    cols = outs.unbind(1)
+    """(..., SLOTS) gated voice outputs → (...) mono: the main slots summed
+    in slot order, then the steal slots, then the two added."""
+    cols = outs.unbind(-1)
     main, steal = cols[0], cols[MAX_VOICES]
     for k in range(1, MAX_VOICES):
         main = main + cols[k]
@@ -219,42 +219,70 @@ def mono_sum(outs):
     return main + steal
 
 
+def _flat_slots(x):
+    """(B, rows, SLOTS) → (rows, B·SLOTS), engine b's slots in columns
+    b·SLOTS .. b·SLOTS + 127 (a copy)."""
+    return x.transpose(0, 1).reshape(x.shape[1], -1)
+
+
 def voices_plain(vpar, vst, vsti, eng_i, num_samples, fade_len,
                  sample_rate):
-    """Plain E1 on the tensors' device → mono (num_samples,) float64; the
-    state tensors are updated in place."""
-    params, state = unpack_voices(vpar, vst, vsti)
-    slot_state = eng_i[:MAX_VOICES].clone()
-    steal_fade = eng_i[MAX_VOICES:SLOTS].clone()
-    outs = torch.empty((num_samples, SLOTS), dtype=torch.float64,
+    """Plain E1 on the tensors' device. One engine: vpar (NPAR, SLOTS), vst
+    (NST, SLOTS), vsti (NSTI, SLOTS), eng_i (ENG_I,) → mono (num_samples,)
+    float64; B engines: the same with a leading B axis → mono (B,
+    num_samples). The state tensors are updated in place. The B engines'
+    slots step as one batch of B·SLOTS voices, elementwise, and each
+    engine's slot sum runs in slot order, so each engine's row equals its
+    one-engine call."""
+    if vpar.dim() == 2:
+        return voices_plain(*[x.unsqueeze(0) for x in (vpar, vst, vsti,
+                                                       eng_i)],
+                            num_samples, fade_len, sample_rate)[0]
+    b = vpar.shape[0]
+    params, state = unpack_voices(_flat_slots(vpar), _flat_slots(vst),
+                                  _flat_slots(vsti))
+    slot_state = eng_i[:, :MAX_VOICES].clone()
+    steal_fade = eng_i[:, MAX_VOICES:SLOTS].clone()
+    outs = torch.empty((num_samples, b, SLOTS), dtype=torch.float64,
                        device=vpar.device)
-    bad_any = torch.empty(num_samples, dtype=torch.bool, device=vpar.device)
+    bad_any = torch.empty((num_samples, b), dtype=torch.bool,
+                          device=vpar.device)
     with torch.inference_mode():
         for t in range(num_samples):
             state, out = voice.step(params, state)
-            v_out = torch.where(slot_state != FREE, out[:MAX_VOICES], 0.0)
+            out = out.view(b, SLOTS)
+            v_out = torch.where(slot_state != FREE, out[:, :MAX_VOICES], 0.0)
             gain = exact.div(steal_fade.to(torch.float64), fade_len)
-            s_out = torch.where(steal_fade > 0, out[MAX_VOICES:] * gain, 0.0)
+            s_out = torch.where(steal_fade > 0, out[:, MAX_VOICES:] * gain,
+                                0.0)
             steal_fade = torch.clamp(steal_fade - 1, min=0)
             v_bad = ~torch.isfinite(v_out)
             s_bad = ~torch.isfinite(s_out)
-            bad_any[t] = torch.any(v_bad) | torch.any(s_bad)
-            outs[t, :MAX_VOICES] = torch.where(v_bad, 0.0, v_out)
-            outs[t, MAX_VOICES:] = torch.where(s_bad, 0.0, s_out)
+            bad_any[t] = torch.any(v_bad, -1) | torch.any(s_bad, -1)
+            outs[t, :, :MAX_VOICES] = torch.where(v_bad, 0.0, v_out)
+            outs[t, :, MAX_VOICES:] = torch.where(s_bad, 0.0, s_out)
             slot_state = torch.where(v_bad, FREE, slot_state)
             steal_fade = torch.where(s_bad, 0, steal_fade)
-        mono = mono_sum(outs)
+        mono = mono_sum(outs).T.contiguous()
         # chunk-end cleanup: silent main voices go FREE
-        main = slice(0, MAX_VOICES)
+        main = (torch.arange(b, device=vpar.device)[:, None] * SLOTS
+                + torch.arange(MAX_VOICES, device=vpar.device)).reshape(-1)
         silent = voice.is_silent(
             voice.VoiceParams(*[_cols(x, main) for x in params]),
-            voice.VoiceState(*[_cols(x, main) for x in state]), sample_rate)
+            voice.VoiceState(*[_cols(x, main) for x in state]),
+            sample_rate).view(b, MAX_VOICES)
         slot_state = torch.where((slot_state != FREE) & silent, FREE,
                                  slot_state)
-        write_voice_state(vst, vsti, state)
-        eng_i[:MAX_VOICES] = slot_state
-        eng_i[MAX_VOICES:SLOTS] = steal_fade
-        eng_i[EI_FIRES] += bad_any.sum()
+        flat_st = torch.empty((NST, b * SLOTS), dtype=torch.float64,
+                              device=vpar.device)
+        flat_sti = torch.empty((NSTI, b * SLOTS), dtype=torch.int64,
+                               device=vpar.device)
+        write_voice_state(flat_st, flat_sti, state)
+        vst.copy_(flat_st.view(NST, b, SLOTS).transpose(0, 1))
+        vsti.copy_(flat_sti.view(NSTI, b, SLOTS).transpose(0, 1))
+        eng_i[:, :MAX_VOICES] = slot_state
+        eng_i[:, MAX_VOICES:SLOTS] = steal_fade
+        eng_i[:, EI_FIRES] += bad_any.sum(0)
     return mono
 
 
@@ -431,52 +459,65 @@ class ChainState(NamedTuple):
 
 def _seg(flat, name):
     a, b = CHAIN_OFF[name]
-    return flat[a:b]
+    return flat[..., a:b]
 
 
 def _diag(x):
-    return mna.SolverDiag(*[x[k].to(torch.int32) for k in range(N_DIAG)])
+    return mna.SolverDiag(*[x[..., k].to(torch.int32) for k in range(N_DIAG)])
 
 
 def unpack_chain(flat) -> ChainState:
-    """(CHAIN_ROWS,) float64 → ChainState of tensors (copies)."""
+    """(..., CHAIN_ROWS) float64 → ChainState of tensors (copies) with the
+    batch shape (...) first; the DK preamp's twin axis follows it."""
     g = {n: _seg(flat, n).clone() for n, _ in CHAIN_SPEC}
+    batch = tuple(flat.shape[:-1])
     rails = g["pa_rails"]
     spk = g["spk"]
+
+    def one(x):
+        return x[..., 0]
+
     return ChainState(
         os=allpass.OversamplerState(g["os_up_a"], g["os_up_b"],
                                     g["os_down_a"], g["os_down_b"],
-                                    g["os_delay"][0]),
+                                    one(g["os_delay"])),
         trem=tremolo.TremoloState(
             osc=mna.SolverState(g["trem_v"], g["trem_i"], g["trem_vnl"],
-                                g["trem_resid"][0], _diag(g["trem_diag"])),
-            ldr_envelope=g["trem_env"][0], r_ldr=g["trem_rldr"][0]),
+                                one(g["trem_resid"]), _diag(g["trem_diag"])),
+            ldr_envelope=one(g["trem_env"]), r_ldr=one(g["trem_rldr"])),
         pre=dk_preamp.PreampState(
-            v=g["pre_v"].view(2, 8), i_nl=g["pre_i"].view(2, 2),
-            v_nl=g["pre_vnl"].view(2, 2), j_cin=g["pre_jcin"],
-            cin_rhs_prev=g["pre_cinprev"], g_ldr_prev=g["pre_gprev"][0]),
+            v=g["pre_v"].view(batch + (2, 8)),
+            i_nl=g["pre_i"].view(batch + (2, 2)),
+            v_nl=g["pre_vnl"].view(batch + (2, 2)), j_cin=g["pre_jcin"],
+            cin_rhs_prev=g["pre_cinprev"], g_ldr_prev=one(g["pre_gprev"])),
         pa=power_amp.PowerAmpState(
             circuit=mna.SolverState(g["pa_v"], g["pa_i"], g["pa_vnl"],
-                                    g["pa_resid"][0], _diag(g["pa_diag"])),
-            rails=power_amp.RailState(*rails.unbind(0)),
-            last_good=g["pa_last"][0]),
-        spk=speaker.SpeakerState(biquad.BiquadState(spk[0], spk[1]),
-                                 biquad.BiquadState(spk[2], spk[3]), spk[4]),
+                                    one(g["pa_resid"]), _diag(g["pa_diag"])),
+            rails=power_amp.RailState(*rails.unbind(-1)),
+            last_good=one(g["pa_last"])),
+        spk=speaker.SpeakerState(
+            biquad.BiquadState(one(spk), spk[..., 1]),
+            biquad.BiquadState(spk[..., 2], spk[..., 3]), spk[..., 4]),
         volume=g["sm_volume"], depth=g["sm_depth"], char=g["sm_char"],
         mel=melange_preamp.MelangePreampState(
-            v=g["mel_v"].view(2, _NM), i_nl=g["mel_i"].view(2, _MM),
-            v_nl=g["mel_vnl"].view(2, _MM), g_ldr_prev=g["mel_gprev"][0],
+            v=g["mel_v"].view(batch + (2, _NM)),
+            i_nl=g["mel_i"].view(batch + (2, _MM)),
+            v_nl=g["mel_vnl"].view(batch + (2, _MM)),
+            g_ldr_prev=one(g["mel_gprev"]),
             noise_key=g["mel_key"].to(torch.int64),
             noise_w_prev=g["mel_wprev"]))
 
 
 def pack_chain(st: ChainState, out=None):
-    """ChainState → (CHAIN_ROWS,) float64 (into `out` when given)."""
+    """ChainState (batch shape (...) first, as unpack_chain gives it) →
+    (..., CHAIN_ROWS) float64 (into `out` when given)."""
+    batch = tuple(torch.as_tensor(st.volume).shape[:-1])
+
     def f(x):
-        return torch.as_tensor(x).to(torch.float64).reshape(-1)
+        return torch.as_tensor(x).to(torch.float64).reshape(batch + (-1,))
 
     def diag(d):
-        return torch.stack([f(x)[0] for x in d])
+        return torch.stack([f(x)[..., 0] for x in d], -1)
 
     o, t, p, a, s, m = st.os, st.trem, st.pre, st.pa, st.spk, st.mel
     parts = [o.up_a, o.up_b, o.down_a, o.down_b, o.down_delay,
@@ -488,9 +529,9 @@ def pack_chain(st: ChainState, out=None):
              s.hpf.z1, s.hpf.z2, s.lpf.z1, s.lpf.z2, s.thermal_state,
              st.volume, st.depth, st.char, m.v, m.i_nl, m.v_nl, m.g_ldr_prev,
              m.noise_key, m.noise_w_prev]
-    flat = torch.cat([f(x) for x in parts])
-    if flat.numel() != CHAIN_ROWS:
-        raise AssertionError(f"chain state has {flat.numel()} rows")
+    flat = torch.cat([f(x) for x in parts], -1)
+    if flat.shape[-1] != CHAIN_ROWS:
+        raise AssertionError(f"chain state has {flat.shape[-1]} rows")
     if out is None:
         return flat
     out.copy_(flat)
@@ -537,21 +578,56 @@ def init_chain(cp: ChainParams, device="cpu", volume=0.5, depth=0.5,
 
 
 def smoother_next(s):
-    """(4,) smoother → (smoother', value)."""
-    cur, target, step, rem = s.unbind(0)
+    """(..., 4) smoother → (smoother', value)."""
+    cur, target, step, rem = s.unbind(-1)
     active = rem > 0
     nxt = torch.where(active, cur + step, cur)
     rem = torch.where(active, rem - 1.0, rem)
     nxt = torch.where(active & (rem == 0.0), target, nxt)
-    return torch.stack([nxt, target, step, rem]), nxt
+    return torch.stack([nxt, target, step, rem], -1), nxt
 
 
-def chain_plain(cp: ChainParams, mono, flat, rail_sag: bool,
-                noise_scale: float = 0.0):
-    """Plain E2 on the tensors' device: mono (T,) float64 → out (T,)
-    float32; `flat` (CHAIN_ROWS,) is updated in place. `noise_scale` is
-    the melange preamp's noise_enabled · noise_gain."""
+def _twin_first(pre: dk_preamp.PreampState, axis):
+    """The DK preamp's state between the chain's layout (engines first,
+    the twin axis after them) and dk_preamp.step's (twin axis first):
+    axis 0 moves the twin axis to the front, -1 moves it back."""
+    src, dst = (-2, 0) if axis == 0 else (0, -2)
+    j_src, j_dst = (-1, 0) if axis == 0 else (0, -1)
+    return pre._replace(v=pre.v.movedim(src, dst),
+                        i_nl=pre.i_nl.movedim(src, dst),
+                        v_nl=pre.v_nl.movedim(src, dst),
+                        j_cin=pre.j_cin.movedim(j_src, j_dst),
+                        cin_rhs_prev=pre.cin_rhs_prev.movedim(j_src, j_dst))
+
+
+def _where_engines(bad, ini, cur):
+    """Per engine (bad (B,)), `ini` (one engine's state, broadcast) where
+    bad, `cur` elsewhere, over a NamedTuple tree."""
+    if isinstance(cur, tuple):
+        return type(cur)(*[_where_engines(bad, i, c)
+                           for i, c in zip(ini, cur)])
+    return torch.where(bad.view((-1,) + (1,) * (cur.dim() - 1)), ini, cur)
+
+
+def chain_plain(cp: ChainParams, mono, flat, rail_sag, noise_scale=0.0):
+    """Plain E2 on the tensors' device. One engine: mono (T,) float64,
+    `flat` (CHAIN_ROWS,), rail_sag a bool, noise_scale a float → out (T,)
+    float32; B engines: mono (B, T), flat (B, CHAIN_ROWS), rail_sag (B,)
+    bool and noise_scale (B,) float64 tensors → out (B, T). `flat` is
+    updated in place; `noise_scale` is the melange preamp's noise_enabled
+    · noise_gain. The engines run as one batch, elementwise, each leaving
+    its Newton loops on its own and taking NaN guard #2 on its own, as a
+    kernel thread does, so each engine's row equals its one-engine call.
+    (On the CPU, torch vectorises `pow` over longer tensors, from 16
+    elements on with AVX-512, and rounds it there otherwise than one at a
+    time: the tremolo's and the speaker's `pow` over that many engines
+    may differ from one engine's in the last place.)"""
     dev = mono.device
+    if mono.dim() == 1:
+        return chain_plain(cp, mono[None], flat[None],
+                           torch.tensor([bool(rail_sag)], device=dev),
+                           torch.tensor([float(noise_scale)],
+                                        dtype=torch.float64, device=dev))[0]
     st = unpack_chain(flat)
     melange = cp.preamp_model == "melange"
     pre_c = (melange_preamp.step_tensors(cp.melange, dev) if melange
@@ -559,18 +635,19 @@ def chain_plain(cp: ChainParams, mono, flat, rail_sag: bool,
     inits = init_chain_parts(cp, dev)
     os_, trem, pa, spk = st.os, st.trem, st.pa, st.spk
     pre = st.mel if melange else st.pre
+    pre_init = inits["mel"] if melange else inits["pre"]
     vol_s, dep_s, chr_s = st.volume, st.depth, st.char
-    out = torch.empty(mono.shape[0], dtype=torch.float32, device=dev)
+    out = torch.empty(mono.shape, dtype=torch.float32, device=dev)
     drive = tables.FIXED_CIRCUIT_DRIVE
-    scale = torch.tensor(float(noise_scale), dtype=torch.float64, device=dev)
 
     def nonlinear(trem, pre, pa, u, depth):
         trem, shunt = tremolo.step(cp.tremolo, trem, depth)
         g = dk_preamp.ldr_conductance(shunt)
         if melange:
-            pre, pre_out = melange_preamp.step(pre_c, pre, g, u, scale)
+            pre, pre_out = melange_preamp.step(pre_c, pre, g, u, noise_scale)
         else:
-            pre, pre_out = dk_preamp.step(pre_c, pre, g, u)
+            pre, pre_out = dk_preamp.step(pre_c, _twin_first(pre, 0), g, u)
+            pre = _twin_first(pre, -1)
         if cp.pa_model == "circuit":
             pa, y = power_amp.step(cp.power_amp, pa, pre_out * drive,
                                    rail_sag)
@@ -579,29 +656,30 @@ def chain_plain(cp: ChainParams, mono, flat, rail_sag: bool,
         return trem, pre, pa, y
 
     with torch.inference_mode():
-        for t in range(mono.shape[0]):
+        for t in range(mono.shape[1]):
+            x = mono[:, t]
             dep_s, depth = smoother_next(dep_s)
             vol_s, user_vol = smoother_next(vol_s)
             chr_s, char = smoother_next(chr_s)
             if cp.oversample:
-                os_, (e, o) = allpass.up_step(os_, mono[t])
+                os_, (e, o) = allpass.up_step(os_, x)
                 trem, pre, pa, y0 = nonlinear(trem, pre, pa, e, depth)
                 trem, pre, pa, y1 = nonlinear(trem, pre, pa, o, depth)
                 os_, amp_out = allpass.down_step(os_, y0, y1)
             else:
-                trem, pre, pa, amp_out = nonlinear(trem, pre, pa, mono[t],
-                                                   depth)
+                trem, pre, pa, amp_out = nonlinear(trem, pre, pa, x, depth)
             coeffs = speaker.coeffs_t(char, cp.speaker.sample_rate)
             spk, shaped = speaker.step(cp.speaker, spk, coeffs, amp_out)
             y = shaped * tables.POST_SPEAKER_GAIN * user_vol
-            if not bool(torch.isfinite(y)):
-                # NaN guard #2: reset preamp (the melange one's noise key
-                # and draws included), oversampler, power amp and speaker
-                # (not the tremolo), emit silence
-                os_, pa, spk = inits["os"], inits["pa"], inits["spk"]
-                pre = inits["mel"] if melange else inits["pre"]
-                y = torch.zeros_like(y)
-            out[t] = y.to(torch.float32)
+            # NaN guard #2, per engine: reset preamp (the melange one's
+            # noise key and draws included), oversampler, power amp and
+            # speaker (not the tremolo), emit silence
+            bad = ~torch.isfinite(y)
+            os_ = _where_engines(bad, inits["os"], os_)
+            pa = _where_engines(bad, inits["pa"], pa)
+            spk = _where_engines(bad, inits["spk"], spk)
+            pre = _where_engines(bad, pre_init, pre)
+            out[:, t] = torch.where(bad, 0.0, y).to(torch.float32)
         pack_chain(ChainState(
             os_, trem, st.pre if melange else pre, pa, spk, vol_s, dep_s,
             chr_s, pre if melange else st.mel), out=flat)
@@ -655,6 +733,8 @@ def _trem_block_on(sample_rate: float, device: str):
 
 
 def _check(name, x, shape, dtype):
+    if not torch.is_tensor(x):
+        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
     if x.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
@@ -674,61 +754,84 @@ def _lib_call(name, fn, *args, device):
 
 def render_voices(vpar, vst, vsti, eng_i, num_samples: int, fade_len: float,
                   sample_rate: float):
-    """E1: one chunk of the 128 voice slots → mono (num_samples,) float64;
-    vst, vsti and eng_i are updated in place (the chunk-end cleanup
-    included)."""
+    """E1: one chunk of the 128 voice slots of one engine (vpar (NPAR,
+    SLOTS), vst (NST, SLOTS), vsti (NSTI, SLOTS) int64, eng_i (ENG_I,)
+    int64) → mono (num_samples,) float64, or of B engines (the same with a
+    leading B axis; a block per engine) → mono (B, num_samples). vst, vsti
+    and eng_i are updated in place (the chunk-end cleanup included). B = 0
+    launches nothing and returns a (0, num_samples) tensor."""
     global VOICES_LAUNCHES, VOICES_PLAIN_CALLS
     f64, i64 = torch.float64, torch.int64
-    _check("vpar", vpar, (NPAR, SLOTS), f64)
-    _check("vst", vst, (NST, SLOTS), f64)
-    _check("vsti", vsti, (NSTI, SLOTS), i64)
-    _check("eng_i", eng_i, (ENG_I,), i64)
+    lead = tuple(vpar.shape[:-2]) if vpar.dim() == 3 else ()
+    _check("vpar", vpar, lead + (NPAR, SLOTS), f64)
+    _check("vst", vst, lead + (NST, SLOTS), f64)
+    _check("vsti", vsti, lead + (NSTI, SLOTS), i64)
+    _check("eng_i", eng_i, lead + (ENG_I,), i64)
     dev = vpar.device
     if not (vst.device == vsti.device == eng_i.device == dev):
         raise ValueError("the voice tensors must be on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     n = int(num_samples)
+    if n < 0:
+        raise ValueError(f"num_samples {n} < 0")
+    if lead == (0,):
+        return torch.empty((0, n), dtype=f64, device=dev)
     if dev.type == "cpu":
         VOICES_PLAIN_CALLS += 1
         return voices_plain(vpar, vst, vsti, eng_i, n, float(fade_len),
                             float(sample_rate))
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    mono = torch.empty(n, dtype=f64, device=dev)
+    mono = torch.empty(lead + (n,), dtype=f64, device=dev)
     _lib_call("engine_voices", lambda lib: lib.ow_engine_voices,
               vpar.data_ptr(), vst.data_ptr(), vsti.data_ptr(),
-              eng_i.data_ptr(), mono.data_ptr(), n,
+              eng_i.data_ptr(), mono.data_ptr(), n, lead[0] if lead else 1,
               ctypes.c_double(fade_len), ctypes.c_double(sample_rate),
               device=dev)
     VOICES_LAUNCHES += 1
     return mono
 
 
-def render_chain(cp: ChainParams, mono, chain, rail_sag: bool,
-                 noise_scale: float = 0.0):
-    """E2: the chain over mono (T,) float64 → out (T,) float32; `chain`
-    (CHAIN_ROWS,) float64 is updated in place. The instantiation is
-    `cp`'s (preamp_model, pa_model); `noise_scale` (noise_enabled ·
-    noise_gain) acts on the melange preamp only."""
+def render_chain(cp: ChainParams, mono, chain, rail_sag,
+                 noise_scale=0.0):
+    """E2: the chain of one engine over mono (T,) float64 with `chain`
+    (CHAIN_ROWS,) float64, rail_sag a bool and noise_scale a float → out
+    (T,) float32; or of B engines (a thread per engine) over mono (B, T)
+    with chain (B, CHAIN_ROWS), rail_sag (B,) bool and noise_scale (B,)
+    float64 tensors on the same device → out (B, T). `chain` is updated
+    in place. The instantiation is `cp`'s (preamp_model, pa_model);
+    `noise_scale` (noise_enabled · noise_gain) acts on the melange preamp
+    only. B = 0 launches nothing and returns a (0, T) tensor."""
     global CHAIN_PLAIN_CALLS
-    n = mono.shape[0]
-    _check("mono", mono, (n,), torch.float64)
-    _check("chain", chain, (CHAIN_ROWS,), torch.float64)
     dev = mono.device
-    if chain.device != dev:
-        raise ValueError("mono and chain must be on one device")
+    if mono.dim() == 1:
+        _check("mono", mono, mono.shape, torch.float64)
+        _check("chain", chain, (CHAIN_ROWS,), torch.float64)
+        return render_chain(
+            cp, mono[None], chain[None],
+            torch.tensor([bool(rail_sag)], device=dev),
+            torch.tensor([float(noise_scale)], dtype=torch.float64,
+                         device=dev))[0]
+    b, n = mono.shape if mono.dim() == 2 else (None, None)
+    _check("mono", mono, (b, n), torch.float64)
+    _check("chain", chain, (b, CHAIN_ROWS), torch.float64)
+    _check("rail_sag", rail_sag, (b,), torch.bool)
+    _check("noise_scale", noise_scale, (b,), torch.float64)
+    if not (chain.device == rail_sag.device == noise_scale.device == dev):
+        raise ValueError("mono, chain and the flags must be on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
     if dev.type == "cpu":
         CHAIN_PLAIN_CALLS += 1
-        return chain_plain(cp, mono, chain, bool(rail_sag),
-                           float(noise_scale))
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        return chain_plain(cp, mono, chain, rail_sag, noise_scale)
     flat = _flat_on(_cp_key(cp), str(dev))
-    out = torch.empty(n, dtype=torch.float32, device=dev)
     _lib_call("engine_chain", lambda lib: lib.ow_engine_chain,
               flat.data_ptr(), flat.numel(), mono.data_ptr(),
-              chain.data_ptr(), out.data_ptr(), n, int(bool(rail_sag)),
+              chain.data_ptr(), out.data_ptr(), n, b, rail_sag.data_ptr(),
               PREAMP_MODELS.index(cp.preamp_model),
-              PA_MODELS.index(cp.pa_model), ctypes.c_double(noise_scale),
+              PA_MODELS.index(cp.pa_model), noise_scale.data_ptr(),
               device=dev)
     CHAIN_LAUNCHES_BY_MODELS[cp.preamp_model, cp.pa_model] += 1
     return out

@@ -401,6 +401,44 @@ def test_engine_chain_kernel_matches_plain(cuda, case):
     assert _same_bits(out, ref) and _same_bits(a, b)
 
 
+@pytest.mark.parametrize("models", [("dk", "circuit"), ("melange", "circuit"),
+                                    ("dk", "behavioral"),
+                                    ("melange", "behavioral")],
+                         ids=lambda m: "-".join(m))
+def test_engine_batch_kernels_match_plain_and_one_engine(cuda, models):
+    """E1 (a block per engine) and E2 (a thread per engine) over 3 distinct
+    engines (rail sag off on one, noise on at gain 3 on another, a NaN
+    speaker state on the third) against their batched plain versions,
+    and each engine's row against its own one-engine launch."""
+    from openwurli_tpu_torch import engine as pe
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    engines = []
+    for k in range(3):
+        e = pe.Engine(SR, device=cuda, preamp_model=models[0],
+                      pa_model=models[1])
+        for i, note in enumerate((48 + 5 * k, 55 + 3 * k, 64 + k)):
+            e.note_on(note, 0.4 + 0.15 * i)
+        engines.append(e)
+    engines[0].set_rail_sag(False)
+    engines[1].set_noise_enabled(True)
+    engines[1].set_noise_gain(3.0)
+    engines[2].chain[ek.CHAIN_OFF["spk"][0]] = float("nan")
+    st = pe.stack_states([e.state for e in engines])
+    plain = pe.EngineState(*[x.clone() for x in st])
+    _, out = pe.render_states(engines[0], st, 40)
+    mono = ek.voices_plain(*plain[:4], 40, engines[0].fade_len, SR)
+    ref = ek.chain_plain(engines[0].params, mono, plain.chain,
+                         plain.rail_sag, plain.noise_scale)
+    assert _same_bits(out, ref)
+    for x, y in zip(st, plain):
+        assert _same_bits(x, y)
+    for k, e in enumerate(engines):
+        assert _same_bits(out[k], e.render(40))
+        assert _same_bits(st.chain[k], e.chain)
+    assert float(out[2, 0]) == 0.0
+
+
 def test_tremolo_settle_kernel_matches_plain(cuda):
     from openwurli_tpu_torch.circuits import tremolo
     from openwurli_tpu_torch.kernels import engine as ek

@@ -27,7 +27,8 @@ TOOLS = ("torch_probe", "torch_interactive_rtf", "torch_k4_breakdown",
          "torch_vb_breakdown",
          "torch_strip_pedal", "torch_analyze_pump_dynamics",
          "torch_h3_analysis", "torch_wurli_compare",
-         "torch_recording_analyzer", "torch_gen_settled_states")
+         "torch_recording_analyzer", "torch_gen_settled_states",
+         "torch_perf_sweep", "torch_engine_chunk")
 
 
 def test_imports_without_jax():
@@ -181,6 +182,17 @@ def test_cuda_wrappers_raise_without_cuda(tmp_path):
             cli.main(argv)
     with pytest.raises((RuntimeError, AssertionError)):
         kr.init_dk_scan_state(88200.0, 2, "cuda")
+    # and the batched engine's sweep, whose --device defaults to the card
+    import runpy
+    sweep = runpy.run_path(os.path.join(REPO, "tools",
+                                        "torch_perf_sweep.py"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        sweep["main"](["--streams", "1", "--seconds", "0.001"])
+    chunk = runpy.run_path(os.path.join(REPO, "tools",
+                                        "torch_engine_chunk.py"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        chunk["main"](["--history", "1", "--chord-s", "0.001",
+                       "--warm-up-s", "0.001"])
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():

@@ -20,6 +20,10 @@
   * `torch_gen_settled_states` with SETTLE_SECONDS cut to 0.02 s at an
     uncached rate (64 kHz): the npz it writes against the reference's
     settle there, within 1e-9 of the node swing (tests/test_torch_settle.py).
+  * `torch_perf_sweep` (`engine.render_states`, the plain E1 and E2) at
+    widths 1 and 2 × 88 samples: the reference tool's CSV header and one
+    row per width, the aggregate realtime factor the per-stream one times
+    the width within the print's rounding.
 """
 
 import contextlib
@@ -232,3 +236,36 @@ def test_gen_settled_states_matches_reference(tmp_path, monkeypatch):
     # the package data stays the first source of the settled state
     with np.load(tremolo.SETTLED_PATH) as d:
         assert "sr64000_v" not in d.files
+
+
+def test_perf_sweep_prints_the_reference_csv():
+    out = _run(_tool("torch_perf_sweep").main,
+               ["--streams", "1,2", "--seconds", "0.002", "--reps", "1",
+                "--device", "cpu"])
+    lines = out.strip().splitlines()
+    with open(os.path.join(TOOLS, "perf_sweep.py")) as f:
+        header = '"streams,compile_s,wall_s,per_stream_rtf,aggregate_rtf"'
+        assert header in f.read()
+    assert lines[0] == header.strip('"')
+    rows = [line.split(",") for line in lines[1:]]
+    assert [int(r[0]) for r in rows] == [1, 2]
+    for streams, compile_s, wall, per, agg in rows:
+        assert float(wall) > 0.0 and int(compile_s) >= 0
+        assert len(per.split(".")[1]) == len(agg.split(".")[1]) == 1
+        assert abs(float(agg) - float(per) * int(streams)) \
+            <= 0.05 * (int(streams) + 1)
+
+
+def test_engine_chunk_holds_e1_and_e2_to_their_plain_versions():
+    out = _run(_tool("torch_engine_chunk").main,
+               ["--device", "cpu", "--history", "16", "--chord-s", "0.0065",
+                "--warm-up-s", "0.001", "--reps", "1"])
+    res = json.loads(out.strip().splitlines()[-1])
+    assert res["root"] == os.path.dirname(TOOLS)
+    assert res["chunk"] == 256 and res["chord_samples"] == 286
+    assert res["warm_up_samples"] == 44
+    assert res["e1_bit_identical"] and res["e2_bit_identical"]
+    for key in ("warm_up_ms", "chord_ms", "e1_ms", "e1_plain_ms", "e2_ms",
+                "e2_plain_ms"):
+        assert res[key] > 0.0
+    assert res["e2_us_per_base_sample"] == res["e2_ms"] * 1e3 / 256

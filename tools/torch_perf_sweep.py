@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Throughput sweep of the PyTorch port's f64 engine over batch widths.
+
+Renders B engine states at once (`engine.render_states`: E1 a block per
+engine, E2 a thread per engine) at several widths B and prints a CSV of
+aggregate realtime factors, the counterpart of `tools/perf_sweep.py`:
+
+    python tools/torch_perf_sweep.py --streams 8,32,128 --seconds 0.25
+
+Every width starts from one engine holding the six-note chord (MIDI 48,
+55, 60, 63, 67, 70 at 0.95) broadcast to B engines; each call renders one
+chunk of int(sr · seconds) samples. `compile_s` is the first call (the
+kernels' build, when the process has not built them yet, and the first
+launch); `wall_s` the `--reps` calls after it. The device is synchronised
+before every clock read. `--device cpu` runs the kernels' plain versions.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import torch  # noqa: E402
+
+from openwurli_tpu_torch import engine  # noqa: E402
+
+CHORD = (48, 55, 60, 63, 67, 70)
+VELOCITY = 0.95
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--streams", default="8,32,128")
+    p.add_argument("--seconds", type=float, default=0.25)
+    p.add_argument("--reps", type=int, default=4)
+    p.add_argument("--sr", type=float, default=44100.0)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    eng = engine.Engine(args.sr, device=args.device)
+    for note in CHORD:
+        eng.note_on(note, VELOCITY)
+    base = eng.state
+    block = int(args.sr * args.seconds)
+    dev = eng.device
+
+    print("streams,compile_s,wall_s,per_stream_rtf,aggregate_rtf")
+    for b in [int(x) for x in args.streams.split(",")]:
+        st = engine.broadcast_state(base, b)
+        _sync(dev)
+        t0 = time.time()
+        st, out = engine.render_states(eng, st, block)
+        _sync(dev)
+        compile_s = time.time() - t0
+        t0 = time.time()
+        for _ in range(args.reps):
+            st, out = engine.render_states(eng, st, block)
+        _sync(dev)
+        wall = time.time() - t0
+        rtf = args.reps * b * args.seconds / wall
+        print(f"{b},{compile_s:.0f},{wall:.3f},{rtf/b:.1f},{rtf:.1f}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()
