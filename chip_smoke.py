@@ -49,6 +49,10 @@ each with the launch counts set to 0 just before it and read just after:
     K1-K5 and E1/E2, the calibration subcommands through E4<tap>, E5<dk>
     and E6; and the alias-audit sweep through `alias-audit --note N -o`
     (the f64 engine, E1 and E2), against its golden baseline;
+  * the f64 stage breakdown: `tools/torch_stage_bench.py`'s `main` (the
+    reference's `tools/stage_bench.py` stages: voices through E4, the
+    preamp twin through E7, the tremolo through E8, the power amp through
+    E9), before the alias sweep;
   * the f64 engine batched: `engine.render_states` over B engine states
     (E1 a block per engine, E2 a thread per engine): an 8-engine batch,
     each engine against its own `Engine.render`, and the throughput from
@@ -61,7 +65,7 @@ failure and NaN guard #2, and on one chunk of the engine session; E4
 and E5<dk> on `render_di`'s own inputs (all 512 voices, the first 1000
 samples, against `render_di`'s output) and at 133 ragged voices with NaN
 and inf ones, E5<melange> at noise scales 0, 1 and 30, E2's other
-instantiations on a kicked chunk and on 128 samples of the melange
+instantiations on a kicked chunk and on 64 samples of the melange
 plugin's chunk; E4<tap> and E6 on `run_calibrate`'s own inputs (all 512
 streams, the first 1000 and 128 samples) and on 133 ragged streams with
 NaN and inf columns; E7 on the CLI's `sweep` (25 streams) and
@@ -69,7 +73,9 @@ NaN and inf columns; E7 on the CLI's `sweep` (25 streams) and
 on 133 ragged streams with NaN and inf inputs, both taps; E1 and E2 over
 five distinct engines (rail sag off, a NaN slot, steal fades, guard #2),
 over 128 distinct ones (four E2 blocks) and each other instantiation over
-two (noise on one) against their batched plain versions.
+two (noise on one) against their batched plain versions; E8 on 33
+circuits from seeded starts at three depths (a kicked and a NaN circuit)
+and E9 on 33 streams (a 200 V spike, a NaN and an inf stream).
 K1 and K3 (eight threads per voice lane) are also held to their plain
 versions at a ragged lane count, with non-finite parameters in some lanes
 and with the pickup driven past its knee, and K1 is timed across widths.
@@ -116,12 +122,14 @@ E3_SETTLE_GATE = 4.0e-7
 # guard #2 both act within it), on the engine session's and the melange
 # plugin's chunks (phases 22, 25), E6 on run_calibrate's call (phase 26);
 # K2 and K5 from init_state at 1, 33 and 1024 streams (phase 18). Each
-# replay keeps its call's full width.
-K2_REPLAY_N = 128
+# replay keeps its call's full width. K2, K5, the engine block and E2 went
+# from 128 to 64 samples when phase 29 came in (a slower host had started
+# the alias sweep at 765 s, too late for its three notes).
+K2_REPLAY_N = 64
 LANES_REPLAY_N = 32
-K5_REPLAY_N = 128
-BLOCK_REPLAY_N = 128
-E2_REPLAY_N = 128
+K5_REPLAY_N = 64
+BLOCK_REPLAY_N = 64
+E2_REPLAY_N = 64
 E6_REPLAY_N = 128
 
 
@@ -348,6 +356,8 @@ def reset_counts(vb, mc):
     kr.VOICE_TAP_LAUNCHES = kr.VOICE_TAP_PLAIN_CALLS = 0
     kr.PA_SPEAKER_LAUNCHES = kr.PA_SPEAKER_PLAIN_CALLS = 0
     kr.DK_SCAN_PLAIN_CALLS = 0
+    ek.TREMOLO_SCAN_LAUNCHES = ek.TREMOLO_SCAN_PLAIN_CALLS = 0
+    ek.POWER_AMP_SCAN_LAUNCHES = ek.POWER_AMP_SCAN_PLAIN_CALLS = 0
     for counter in (kr.PREAMP_SCAN_LAUNCHES, kr.DK_SCAN_LAUNCHES):
         for key in counter:
             counter[key] = 0
@@ -382,12 +392,15 @@ def read_counts(vb, mc):
             "voice_render_tap": kr.VOICE_TAP_LAUNCHES,
             "pa_speaker_scan": kr.PA_SPEAKER_LAUNCHES,
             "dk_scan": sum(kr.DK_SCAN_LAUNCHES.values()),
+            "tremolo_scan": ek.TREMOLO_SCAN_LAUNCHES,
+            "power_amp_scan": ek.POWER_AMP_SCAN_LAUNCHES,
             "plain": vb.PLAIN_CALLS + mc.PLAIN_CALLS
             + mc.PREROLL_PLAIN_CALLS + probe.PLAIN_CALLS
             + ek.VOICES_PLAIN_CALLS + ek.CHAIN_PLAIN_CALLS
             + ek.SETTLE_PLAIN_CALLS + kr.VOICE_RENDER_PLAIN_CALLS
             + kr.PREAMP_SCAN_PLAIN_CALLS + kr.VOICE_TAP_PLAIN_CALLS
-            + kr.PA_SPEAKER_PLAIN_CALLS + kr.DK_SCAN_PLAIN_CALLS}
+            + kr.PA_SPEAKER_PLAIN_CALLS + kr.DK_SCAN_PLAIN_CALLS
+            + ek.TREMOLO_SCAN_PLAIN_CALLS + ek.POWER_AMP_SCAN_PLAIN_CALLS}
 
 
 def bits_equal(a, b):
@@ -2136,6 +2149,185 @@ def cli_phases(dev, card, launches, vb, mc, ptxas):
             "cli": per_cmd, "alias": alias}
 
 
+# ── the f64 stage breakdown (phase 29) ──
+
+# float64 operations of csrc/engine.cu outside the Newton solves: one E8
+# step's vactrol and divider (the LED drive, the envelope, its pow and
+# exp, the divider's two parallels); one E9 sample's sources, two-tier
+# guard and rails (E6's sample without volume², speaker and post gain)
+E8_OPS_STEP = 30 + 2 * LIBM_OPS
+E9_OPS_SAMPLE = 21 + 40 + 25
+STAGE_SR = 88200.0
+# E1-E7's ptxas (registers, stack bytes, spill stores, spill loads) as
+# built before E8 and E9 existed (NVIDIA H100 80GB HBM3, the card machine's
+# nvcc): E8 and E9 add callers of E2's tremolo and power-amp steps, and
+# must not move the existing kernels' allocation
+EARLIER_PTXAS = {
+    "E1": (255, 40, 0, 0), "E3": (96, 768, 0, 0), "E4": (240, 40, 0, 0),
+    "E4<tap>": (230, 40, 0, 0), "E5<dk>": (255, 1168, 496, 488),
+    "E5<melange>": (168, 3312, 628, 632), "E6": (168, 7088, 680, 664),
+    "E2<dk, circuit>": (255, 6912, 80, 136),
+    "E2<melange, circuit>": (255, 7152, 128, 176),
+    "E2<dk, behavioral>": (255, 2880, 208, 212),
+    "E2<melange, behavioral>": (255, 3824, 120, 136),
+    "E7<diff>": (255, 960, 404, 368), "E7<shadow>": (255, 960, 404, 368)}
+STAGE_NAMES = ("voices", "preamp twin", "tremolo", "power amp")
+
+
+def compare_tremolo_scan(ek, state, depth, n, what):
+    """E8 against its plain version: output and state bit for bit; the
+    plain run's oscillator Newton counts, each circuit's own, give the
+    bound. → numbers."""
+    from openwurli_tpu_torch.circuits import mna
+
+    a, b = state.clone(), state.clone()
+    out = ek.tremolo_scan(STAGE_SR, a, depth, n)
+    n0 = dict(mna.NEWTON_COUNTS)
+    plain_ms, ref = host_ms(lambda: ek.tremolo_scan_plain(
+        STAGE_SR, b, depth, n))
+    count = {k: mna.NEWTON_COUNTS[k] - n0.get(k, 0)
+             for k in mna.NEWTON_COUNTS}
+    check(same_bits(out, ref) and same_bits(a, b),
+          f"E8 {what}: {first_diff(out, ref)}, state {first_diff(a, b)}")
+    ms = cuda_ms(lambda: ek.tremolo_scan(STAGE_SR, state.clone(), depth, n),
+                 reps=3)
+    g = state.shape[1]
+    n_bytes = (2 * state.numel() + depth.numel() + n * g
+               + ek.scan_consts(STAGE_SR, "tremolo").size) * 8
+    solves = count.get((ek.M_T, "solves"), 0)
+    iters = count.get((ek.M_T, "iterations"), 0)
+    ops = n * g * E8_OPS_STEP + mna_ops(ek.N_T, ek.M_T, ek.NB_T, solves,
+                                         iters)
+    return {"shape": f"{g} circuits x {n}", "inputs": f"E8 {what}",
+            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
+            "newton": {"tremolo": [solves, iters]},
+            "us_per_step": ms * 1e3 / n,
+            "max_abs_err": float((out - ref).abs().nan_to_num().max())}
+
+
+def compare_power_amp_scan(ek, x, state, what):
+    """E9 against its plain version: output and state bit for bit; the
+    plain run's power-amp Newton counts, each stream's own, give the
+    bound. → numbers."""
+    from openwurli_tpu_torch.circuits import mna
+
+    a, b = state.clone(), state.clone()
+    out = ek.power_amp_scan(STAGE_SR, x, a)
+    n0 = dict(mna.NEWTON_COUNTS)
+    plain_ms, ref = host_ms(lambda: ek.power_amp_scan_plain(
+        STAGE_SR, x, b))
+    count = {k: mna.NEWTON_COUNTS[k] - n0.get(k, 0)
+             for k in mna.NEWTON_COUNTS}
+    check(same_bits(out, ref) and same_bits(a, b),
+          f"E9 {what}: {first_diff(out, ref)}, state {first_diff(a, b)}")
+    ms = cuda_ms(lambda: ek.power_amp_scan(STAGE_SR, x, state.clone()),
+                 reps=3)
+    n, g = x.shape
+    n_bytes = (2 * x.numel() + 2 * state.numel()
+               + ek.scan_consts(STAGE_SR, "power_amp").size) * 8
+    solves = count.get((ek.M_PA, "solves"), 0)
+    iters = count.get((ek.M_PA, "iterations"), 0)
+    ops = n * g * E9_OPS_SAMPLE + mna_ops(ek.N_PA, ek.M_PA, ek.NB_PA,
+                                          solves, iters)
+    return {"shape": f"{g} streams x {n}", "inputs": f"E9 {what}",
+            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
+            "newton": {"power_amp": [solves, iters]},
+            "us_per_sample": ms * 1e3 / n,
+            "max_abs_err": float((out - ref).abs().nan_to_num().max())}
+
+
+def stage_phases(dev, card, launches, vb, mc, ptxas):
+    """Phase 29: E8 and E9 against their plain versions (33 circuits or
+    streams: seeded starts, three depths, a kicked and a NaN circuit; a
+    spike, a NaN and an inf stream), their ptxas and E1-E7's against
+    EARLIER_PTXAS, and `tools/torch_stage_bench.py`'s `main` as the path.
+    Adds the path's launch counts to `launches`; → the measurements."""
+    import contextlib
+    import io
+    import os
+    import runpy
+
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    t_p = time.perf_counter()
+    g, n8, n9 = 33, 64, 32
+    rng = np.random.default_rng(29)
+    st = ek.init_tremolo_scan_state(STAGE_SR, g, dev)
+    st[:ek.N_T] += torch.as_tensor(rng.uniform(-0.05, 0.05, (ek.N_T, g)),
+                                   device=dev)
+    trem0 = ek.CHAIN_OFF["trem_v"][0]
+    st[ek.CHAIN_OFF["trem_env"][0] - trem0] = torch.as_tensor(
+        rng.uniform(0.0, 0.8, g), device=dev)
+    st[0, 5] += 70.0                  # kicked: a Newton failure, BE replay
+    st[2, g // 2] = float("nan")      # the oscillator's NaN reset
+    depth = torch.tensor([(0.0, 0.5, 1.0)[j % 3] for j in range(g)],
+                         dtype=torch.float64, device=dev)
+    e8 = compare_tremolo_scan(ek, st, depth, n8,
+                              f"{g} circuits, seeded starts, depths 0 / "
+                              "0.5 / 1, a kicked and a NaN circuit")
+    t = np.arange(n9)[:, None]
+    x = rng.uniform(0.02, 2.0, g) * np.sin(2 * np.pi * 1000 * t / STAGE_SR)
+    x[:, 0] = 0.05 * np.sin(2 * np.pi * 1000 * t[:, 0] / STAGE_SR)
+    x[n9 // 3, 1] = 200.0             # the guard's reset, the rails' reset
+    x[n9 // 4, 2] = np.nan
+    x[n9 // 2:, 3] = np.inf
+    e9 = compare_power_amp_scan(
+        ek, torch.as_tensor(x, device=dev),
+        ek.init_power_amp_scan_state(STAGE_SR, g, dev),
+        f"{g} streams, the bench's sine and seeded levels to 2 V, a 200 V "
+        "spike, a NaN and an inf stream")
+    stage_ptxas = {k: ptxas[k] for k in ("E8", "E9") if k in ptxas}
+    check(len(stage_ptxas) == 2 or not ptxas, "E8, E9 not in the build log")
+    moved = {k: (tuple(ptxas[k].values()), v)
+             for k, v in EARLIER_PTXAS.items()
+             if k in ptxas and tuple(ptxas[k].values()) != v}
+    check(not moved, f"E1-E7's ptxas moved from EARLIER_PTXAS: {moved}")
+    print("phase 29 ptxas: " + "; ".join(
+        f"{k} {v['registers']} registers, {v['stack']} bytes stack, "
+        f"{v['spill_stores']} / {v['spill_loads']} bytes spilled"
+        for k, v in sorted(stage_ptxas.items()))
+        + (f"; E1-E7 ({len(EARLIER_PTXAS)} entries) as before E8 and E9"
+           if ptxas else "; no build log (library already built)"),
+        flush=True)
+
+    # the path: the stage benchmark's main at a short depth
+    tool = runpy.run_path(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools", "torch_stage_bench.py"))
+    argv = ["--batch", "32", "--samples", "256", "--reps", "2"]
+    reset_counts(vb, mc)
+    so = io.StringIO()
+    with contextlib.redirect_stdout(so):
+        bench_ms, _ = host_ms(lambda: tool["main"](argv))
+    launches["stage bench"] = counts = read_counts(vb, mc)
+    lines = so.getvalue().strip().splitlines()
+    check(lines[0] == "batch=32 samples=256 (us per sample, best of 2)"
+          and len(lines) == 5, f"stage bench header {lines[:1]}")
+    us = {}
+    for line, name in zip(lines[1:], STAGE_NAMES):
+        words = line.split()
+        check(line.startswith(f"  {name:12s} ") and words[-1] == "us/sample"
+              and np.isfinite(float(words[-2])) and float(words[-2]) > 0,
+              f"stage bench line {line!r}")
+        us[name] = float(words[-2])
+    check(counts["plain"] == 0 and all(
+        counts[k] == 3 for k in ("voice_render", "dk_scan", "tremolo_scan",
+                                 "power_amp_scan")),
+          f"stage bench launches {counts}")
+    print(f"phase 29 E8 and E9 bit-identical to their plain versions: "
+          + "; ".join(f"{c['inputs']} {c['shape']} kernel {c['ms']:.3f} ms "
+                      f"plain {c['plain_ms']:.0f} ms bound "
+                      f"{c['bound'][0]:.5f} ms" for c in (e8, e9))
+          + f"; tools/torch_stage_bench.py {' '.join(argv)}: "
+          + ", ".join(f"{k} {v} us" for k, v in us.items())
+          + f" ({bench_ms / 1e3:.1f} s), launches {counts} [{card}] "
+          f"({time.perf_counter() - t_p:.0f} s)", flush=True)
+    return {"E8": {**e8, "ptxas": ptxas.get("E8"),
+                   "stage_bench_us": us["tremolo"]},
+            "E9": {**e9, "ptxas": ptxas.get("E9"),
+                   "stage_bench_us": us["power amp"]},
+            "stage_bench_us": us}
+
+
 # ── the f64 engine batched over B engines (phase 28) ──
 
 # The seconds the script needs after the alias sweep: E7 against its plain
@@ -2445,7 +2637,9 @@ def main():
                           ("preamp_scan_kernelILi0E", "E5<dk>"),
                           ("preamp_scan_kernelILi1E", "E5<melange>"),
                           ("dk_scan_kernelILi0E", "E7<diff>"),
-                          ("dk_scan_kernelILi1E", "E7<shadow>")):
+                          ("dk_scan_kernelILi1E", "E7<shadow>"),
+                          ("tremolo_scan_kernel", "E8"),
+                          ("power_amp_scan_kernel", "E9")):
             if key in fn:
                 ptxas[name] = dict(zip(("registers", "stack", "spill_stores",
                                         "spill_loads"), regs))
@@ -3399,6 +3593,7 @@ def main():
     eng_k = engine_phases(dev, card, launches, vb, mc, fast)
     mod_k = model_phases(dev, card, launches, vb, mc, ptxas)
     cal_k = calib_phases(dev, card, launches, vb, mc)
+    stg_k = stage_phases(dev, card, launches, vb, mc, ptxas)
     cli_k = cli_phases(dev, card, launches, vb, mc, ptxas)
     bat_k = batch_phases(dev, card, launches, vb, mc)
 
@@ -3543,6 +3738,21 @@ def main():
         compared=[{k_: v for k_, v in c.items() if k_ != "bound"}
                   | {"bound_ms": c["bound"][0]} for c in e7["compared"]],
         main_path_ms=e7["main_path_ms"], cli=cli_k["cli"]))
+    for name, key, replaces, scan in (
+            ("tremolo_scan", "E8", "openwurli_tpu/circuits/tremolo.py:207",
+             "tools/stage_bench.py:82"),
+            ("power_amp_scan", "E9",
+             "openwurli_tpu/circuits/power_amp.py:210",
+             "tools/stage_bench.py:83")):
+        k = stg_k[key]
+        kernels.append(entry(
+            name, "engine.cu", replaces, k["shape"], k["max_abs_err"],
+            k["ms"], k["plain_ms"], k["bound"], ptxas=k["ptxas"],
+            also_replaces=[scan], newton=k["newton"],
+            main_path_ms={"tools/torch_stage_bench.py, 32 streams x 256":
+                          k["stage_bench_us"] * 256 / 1e3},
+            stage_bench_us=stg_k["stage_bench_us"]))
+
     def batched(cmps):
         return [{k_: v for k_, v in c.items() if k_ != "bound"}
                 | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}

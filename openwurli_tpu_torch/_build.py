@@ -76,6 +76,10 @@ _SIGNATURES = {
     "ow_preamp_scan": (_I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
     # tap, consts, n_consts, x, r_ldr, state, out, n, streams, stream
     "ow_dk_scan": (_I, _P, _I, _P, _P, _P, _P, _I, _I, _P),
+    # consts, n_consts, state, depth, out, n, circuits, stream
+    "ow_tremolo_scan": (_P, _I, _P, _P, _P, _I, _I, _P),
+    # consts, n_consts, x, state, out, n, streams, stream
+    "ow_power_amp_scan": (_P, _I, _P, _P, _P, _I, _I, _P),
 }
 
 

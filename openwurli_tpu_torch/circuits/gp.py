@@ -155,6 +155,14 @@ def pack_current_params(models):
     ] for m in models], dtype=np.float64).reshape(len(models), 13)
 
 
+def diode_current_deriv(model, vd):
+    """Junction diode current and conductance at vd (float64 tensor):
+    (is·(limexp(vd/(n·vt)) − 1), is·limexp'(vd/(n·vt))/(n·vt))."""
+    nvt = model.n * model.vt
+    val, dval = _limexp_d(exact.div(vd, nvt))
+    return model.is_ * (val - 1.0), exact.div(model.is_ * dval, nvt)
+
+
 def limexp(x):
     """exp, linear past x = 40 (the SPICE Newton safeguard)."""
     return torch.where(x < _XC, torch.exp(exact.minimum(x, _XC)),

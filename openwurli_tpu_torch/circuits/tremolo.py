@@ -187,15 +187,21 @@ def settled_osc_state(sample_rate, device="cuda") -> mna.SolverState:
     return _settled(float(sample_rate), torch.device(device).type)
 
 
-def init_state(sample_rate, device="cpu") -> TremoloState:
-    """Settled oscillator (fresh counters) and a dark LDR, on `device`."""
+def init_state(sample_rate, batch_shape=(), device="cpu") -> TremoloState:
+    """Settled oscillator (fresh counters) and a dark LDR, broadcast over
+    the batch dims `batch_shape` (copies), on `device`."""
     osc = settled_osc_state(sample_rate, device)
+    batch = tuple(batch_shape)
 
     def t(x):
-        return torch.as_tensor(np.asarray(x, np.float64), device=device)
+        x = np.asarray(x, np.float64)
+        return torch.as_tensor(np.broadcast_to(x, batch + x.shape).copy(),
+                               device=device)
 
+    diag = mna.SolverDiag(*[torch.zeros(batch, dtype=torch.int32,
+                                        device=device)
+                            for _ in mna.SolverDiag._fields])
     return TremoloState(
         osc=mna.SolverState(v=t(osc.v), i_nl=t(osc.i_nl), v_nl=t(osc.v_nl),
-                            nr_resid=t(osc.nr_resid),
-                            diag=mna.init_diag(device)),
+                            nr_resid=t(osc.nr_resid), diag=diag),
         ldr_envelope=t(0.0), r_ldr=t(R_LDR_MAX))

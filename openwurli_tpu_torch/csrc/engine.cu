@@ -20,6 +20,12 @@
 //                         at the input's rate, each sample at its own LDR
 //                         resistance: the CLI's gain, harmonics and pump
 //                         measurements
+//   E8 tremolo_scan       G tremolo circuits over n steps at the
+//                         tremolo's own rate: the oscillator, the vactrol
+//                         and the divider's shunt at a depth per circuit
+//                         (tools/torch_stage_bench.py's "tremolo")
+//   E9 power_amp_scan     G power-amp streams over n samples at the input's
+//                         rate, rail sag on (the stage bench's "power amp")
 //
 // Replaces: the reference's jitted lax.scans of its float64 engine
 // (openwurli_tpu/engine.py:452 `_render`), of its tremolo settle
@@ -28,12 +34,14 @@
 // of the melange preamp's step
 // (openwurli_tpu/circuits/melange_preamp.py:177) and of run_calibrate's tap
 // scans (openwurli_tpu/calib/calibrate.py:80-138) and of the CLI's DK
-// measurement scans (openwurli_tpu/cli.py:34-63, :87-118, :388-417); none
-// is a Pallas kernel.
+// measurement scans (openwurli_tpu/cli.py:34-63, :87-118, :388-417) and of
+// the stage benchmark's tremolo and power-amp scans
+// (tools/stage_bench.py:82-83); none is a Pallas kernel.
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
 // slot by one thread (a block of 128 per engine), E4-E7 each voice or
-// stream by one thread, E2 each engine's chain and E3 the tremolo by one
+// stream by one thread, E8 and E9 each circuit or stream by one thread,
+// E2 each engine's chain and E3 the tremolo by one
 // thread walking the data-dependent Newton solves sample by sample. The bytes are
 // a few hundred per sample and the operations some 10^4-10^5 f64 per base
 // sample, far from the card's rates; what bounds the time is the length of
@@ -1508,6 +1516,55 @@ pa_speaker_scan_kernel(const double* __restrict__ c,
   for (int k = 0; k < E6_ROWS; ++k) state[(size_t)k * g + j] = ch[CH_PA_V + k];
 }
 
+// ═══════════════════ E8, E9: the stage benchmark's scans ═══════════════════
+
+// The tremolo and the power amp alone, a thread per circuit or stream,
+// through the chain's own steps (tremolo_step, power_amp_step) and its
+// constant layout (C_TREM, C_PA, C_MISC; the preamp block unused), built
+// at the stage's own rate. E8's state (E8_ROWS, G) holds the chain's rows
+// CH_TREM_V .. CH_TREM_RLDR of each circuit, its output (n, G) the shunt
+// impedance after each step at the circuit's depth; E9's state (E9_ROWS, G)
+// the rows CH_PA_V .. CH_PA_LAST, its output (n, G) the power amp's, rail
+// sag on. x and out are time major.
+constexpr int E8_BLOCK = 32;
+constexpr int E8_ROWS = CH_TREM_RLDR + 1 - CH_TREM_V;
+constexpr int E9_BLOCK = 32;
+constexpr int E9_ROWS = CH_PA_LAST + 1 - CH_PA_V;
+
+__global__ void __launch_bounds__(E8_BLOCK)
+tremolo_scan_kernel(const double* __restrict__ c, double* state,
+                    const double* __restrict__ depth, double* out, int n,
+                    int g) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= g) return;
+  double ch[CHAIN_ROWS];  // only the tremolo's rows
+  for (int k = 0; k < E8_ROWS; ++k)
+    ch[CH_TREM_V + k] = state[(size_t)k * g + j];
+  const double* misc = c + C_MISC;
+  const double d = depth[j];
+  for (int t = 0; t < n; ++t)
+    out[(size_t)t * g + j] = tremolo_step(c, misc, ch, d);
+  for (int k = 0; k < E8_ROWS; ++k)
+    state[(size_t)k * g + j] = ch[CH_TREM_V + k];
+}
+
+__global__ void __launch_bounds__(E9_BLOCK)
+power_amp_scan_kernel(const double* __restrict__ c,
+                      const double* __restrict__ x, double* state,
+                      double* out, int n, int g) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= g) return;
+  double ch[CHAIN_ROWS];  // only the power amp's rows
+  for (int k = 0; k < E9_ROWS; ++k)
+    ch[CH_PA_V + k] = state[(size_t)k * g + j];
+  const double* misc = c + C_MISC;
+  for (int t = 0; t < n; ++t)
+    out[(size_t)t * g + j] =
+        power_amp_step(c, misc, ch, x[(size_t)t * g + j], true);
+  for (int k = 0; k < E9_ROWS; ++k)
+    state[(size_t)k * g + j] = ch[CH_PA_V + k];
+}
+
 }  // namespace
 
 extern "C" int ow_engine_voices(const double* vpar, double* vst,
@@ -1630,5 +1687,28 @@ extern "C" int ow_tremolo_settle(const double* consts, int n_consts,
   if (n_consts != SL<7, 4, 2>::SIZE || n_steps < 0)
     return (int)cudaErrorInvalidValue;
   tremolo_settle_kernel<<<1, 1, 0, stream>>>(consts, state, n_steps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ow_tremolo_scan(const double* consts, int n_consts,
+                               double* state, const double* depth,
+                               double* out, int n, int g,
+                               cudaStream_t stream) {
+  if (n_consts != C_TOTAL || n < 0 || g < 0)
+    return (int)cudaErrorInvalidValue;
+  if (g == 0) return 0;
+  tremolo_scan_kernel<<<(g + E8_BLOCK - 1) / E8_BLOCK, E8_BLOCK, 0,
+                        stream>>>(consts, state, depth, out, n, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ow_power_amp_scan(const double* consts, int n_consts,
+                                 const double* x, double* state, double* out,
+                                 int n, int g, cudaStream_t stream) {
+  if (n_consts != C_TOTAL || n < 0 || g < 0)
+    return (int)cudaErrorInvalidValue;
+  if (g == 0) return 0;
+  power_amp_scan_kernel<<<(g + E9_BLOCK - 1) / E9_BLOCK, E9_BLOCK, 0,
+                          stream>>>(consts, x, state, out, n, g);
   return (int)cudaGetLastError();
 }

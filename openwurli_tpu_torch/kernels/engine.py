@@ -1,5 +1,6 @@
 """The f64 engine's kernels: E1 (voice bank), E2 (mono chain), E3
-(tremolo settle scan).
+(tremolo settle scan), and the stage benchmark's E8 (tremolo scan) and E9
+(power-amp scan).
 
 The reference runs its float64 engine as one jitted `lax.scan` per chunk
 (`openwurli_tpu/engine.py:452` `_render`) and settles the tremolo with
@@ -20,6 +21,14 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
     per-sample coefficient design, post gain and volume, NaN guard #2, the
     f32 cast. The two model choices are template arguments.
   * **E3 `tremolo_settle`**: the tremolo oscillator's mna step alone, n
+    times.
+  * **E8 `tremolo_scan`**: G tremolo circuits, a thread each, over n
+    steps at the tremolo's own rate (`tremolo.step`: oscillator, vactrol,
+    the divider's shunt at the circuit's depth), E2's tremolo step.
+  * **E9 `power_amp_scan`**: G streams, a thread each, over n samples of
+    `power_amp.step` with rail sag on at the input's rate, E2's power-amp
+    step alone. E8 and E9 replace the reference's per-stage scans
+    (`tools/stage_bench.py:82-83`), which `tools/torch_stage_bench.py`
     times.
 
 Each has a plain version here, built from the ported step functions
@@ -98,6 +107,8 @@ for _n, _k in CHAIN_SPEC:
     _o += _k
 CHAIN_ROWS = _o
 OSC_ROWS = N_T + 2 * M_T + 1 + N_DIAG  # E3's state: trem_v .. trem_diag
+TREM_ROWS = CHAIN_OFF["trem_rldr"][1] - CHAIN_OFF["trem_v"][0]  # E8's
+PA_ROWS = CHAIN_OFF["pa_last"][1] - CHAIN_OFF["pa_v"][0]        # E9's
 SM_CUR, SM_TARGET, SM_STEP, SM_REM = range(4)
 PREAMP_MODELS = ("dk", "melange")
 PA_MODELS = ("circuit", "behavioral")
@@ -106,6 +117,8 @@ PA_MODELS = ("circuit", "behavioral")
 # served by the plain version.
 VOICES_LAUNCHES = SETTLE_LAUNCHES = 0
 VOICES_PLAIN_CALLS = CHAIN_PLAIN_CALLS = SETTLE_PLAIN_CALLS = 0
+TREMOLO_SCAN_LAUNCHES = TREMOLO_SCAN_PLAIN_CALLS = 0
+POWER_AMP_SCAN_LAUNCHES = POWER_AMP_SCAN_PLAIN_CALLS = 0
 # E2's launches by instantiation (preamp_model, pa_model)
 CHAIN_LAUNCHES_BY_MODELS = {(p, a): 0 for p in ("dk", "melange")
                             for a in ("circuit", "behavioral")}
@@ -572,7 +585,7 @@ def init_chain(cp: ChainParams, device="cpu", volume=0.5, depth=0.5,
     """The engine's initial chain state, packed."""
     parts = init_chain_parts(cp, device)
     return pack_chain(ChainState(
-        trem=tremolo.init_state(cp.os_sample_rate, device),
+        trem=tremolo.init_state(cp.os_sample_rate, device=device),
         volume=smoother(volume, device), depth=smoother(depth, device),
         char=smoother(character, device), **parts))
 
@@ -729,6 +742,155 @@ def _trem_block_on(sample_rate: float, device: str):
             device)
 
 
+# ──────────────── E8, E9: the stage benchmark's scans ────────────────
+
+
+SCAN_STAGES = ("tremolo", "power_amp")
+
+
+@functools.lru_cache(maxsize=None)
+def scan_consts(sample_rate: float, stage: str) -> np.ndarray:
+    """The constants of a one-stage scan: E8's ("tremolo"), E9's and E6's
+    ("power_amp"). The f64 chain's layout (csrc/engine.cu ConstOffset)
+    with that stage's solver block and misc entries built at
+    `sample_rate` itself (the chain builds them at its oversampled rate);
+    every other block and entry, which the scan never reads, zero (so no
+    other circuit's operating point is solved for it)."""
+    at_pa = solver_block_size(N_T, M_T, NB_T)
+    at_misc = (at_pa + solver_block_size(N_PA, M_PA, NB_PA)
+               + sum(k for _, k in PRE_SPEC))
+    flat = np.zeros(at_misc + len(MISC_NAMES))
+    if stage == "tremolo":
+        tp = tremolo.make_params(sample_rate)
+        flat[:at_pa] = solver_block(tremolo.build_netlist(), tp.solver)
+        misc = dict(trem_out=tp.out_idx, trem_att=tp.ldr_attack,
+                    trem_rel=tp.ldr_release, ln_rmax=tremolo._LN_R_MAX,
+                    ln_span=tremolo._LN_MIN_MINUS_MAX)
+    elif stage == "power_amp":
+        ap = power_amp.make_params(sample_rate)
+        pa = solver_block(power_amp.build_netlist(), ap.solver)
+        flat[at_pa:at_pa + pa.size] = pa
+        misc = dict(pa_out=ap.out_idx, pa_v1=ap.v1_row, pa_v2=ap.v2_row,
+                    pa_in=ap.input_row, pa_att=ap.alpha_attack,
+                    pa_rel=ap.alpha_release, pa_iavg=ap.alpha_i_avg)
+    else:
+        raise ValueError(f"scan stage {stage!r}")
+    for k, name in enumerate(MISC_NAMES):
+        flat[at_misc + k] = misc.get(name, 0.0)
+    return flat
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_consts_on(sample_rate, stage, device):
+    return torch.from_numpy(scan_consts(sample_rate, stage)).to(device)
+
+
+def _rows(parts, batch):
+    """Fields of streams with batch shape `batch`, each a value per stream
+    (batch) or a row vector per stream (batch + (k,)) → rows (sum of the
+    widths,) + batch, float64."""
+    dev = parts[0].device
+    cols = []
+    for x in parts:
+        x = torch.as_tensor(x, device=dev).to(torch.float64)
+        if x.dim() <= len(batch):
+            x = x.expand(batch)[..., None]
+        cols.append(x.expand(batch + x.shape[-1:]))
+    return torch.cat(cols, dim=-1).movedim(-1, 0)
+
+
+def _unrows(rows, first):
+    """Rows (k, ...) whose first row is CHAIN_SPEC's `first` → a function
+    giving a named segment as (..., width) copies."""
+    x = rows.movedim(0, -1)
+    a0 = CHAIN_OFF[first][0]
+
+    def seg(name):
+        a, b = CHAIN_OFF[name]
+        return x[..., a - a0:b - a0].clone()
+
+    return seg
+
+
+def tremolo_rows(trem: tremolo.TremoloState):
+    """Tremolo states (batch (...)) → rows (TREM_ROWS, ...)."""
+    o = trem.osc
+    return _rows([o.v, o.i_nl, o.v_nl, o.nr_resid, *o.diag,
+                  trem.ldr_envelope, trem.r_ldr], tuple(o.v.shape[:-1]))
+
+
+def tremolo_unrows(rows) -> tremolo.TremoloState:
+    """Rows (TREM_ROWS, ...) → TremoloState (copies, counters int32)."""
+    seg = _unrows(rows, "trem_v")
+    return tremolo.TremoloState(
+        osc=mna.SolverState(seg("trem_v"), seg("trem_i"), seg("trem_vnl"),
+                            seg("trem_resid")[..., 0],
+                            _diag(seg("trem_diag"))),
+        ldr_envelope=seg("trem_env")[..., 0], r_ldr=seg("trem_rldr")[..., 0])
+
+
+def power_amp_rows(pa: power_amp.PowerAmpState):
+    """Power-amp states (batch (...)) → rows (PA_ROWS, ...)."""
+    c = pa.circuit
+    return _rows([c.v, c.i_nl, c.v_nl, c.nr_resid, *c.diag, *pa.rails,
+                  pa.last_good], tuple(c.v.shape[:-1]))
+
+
+def power_amp_unrows(rows) -> power_amp.PowerAmpState:
+    """Rows (PA_ROWS, ...) → PowerAmpState (copies, counters int32)."""
+    seg = _unrows(rows, "pa_v")
+    return power_amp.PowerAmpState(
+        circuit=mna.SolverState(seg("pa_v"), seg("pa_i"), seg("pa_vnl"),
+                                seg("pa_resid")[..., 0],
+                                _diag(seg("pa_diag"))),
+        rails=power_amp.RailState(*seg("pa_rails").unbind(-1)),
+        last_good=seg("pa_last")[..., 0])
+
+
+def init_tremolo_scan_state(sample_rate: float, circuits: int,
+                            device="cpu"):
+    """(TREM_ROWS, circuits): the tremolo at `sample_rate` settled, its
+    counters fresh, the LDR dark (tremolo.init_state)."""
+    return tremolo_rows(tremolo.init_state(
+        sample_rate, (int(circuits),), device=device)).contiguous()
+
+
+def init_power_amp_scan_state(sample_rate: float, streams: int,
+                              device="cpu"):
+    """(PA_ROWS, streams): the power amp at `sample_rate` at its DC point,
+    the rails at rest."""
+    col = power_amp_rows(power_amp.init_state(
+        power_amp.make_params(sample_rate), device))
+    return col[:, None].repeat(1, int(streams)).contiguous()
+
+
+def tremolo_scan_plain(sample_rate, state, depth, n):
+    """Plain E8 on the tensors' device: n steps of `tremolo.step` over the
+    circuits of `state` (updated in place) at depth (G,) → out (n, G)."""
+    params = tremolo.make_params(sample_rate)
+    trem = tremolo_unrows(state)
+    out = torch.empty((n, state.shape[1]), dtype=torch.float64,
+                      device=state.device)
+    with torch.inference_mode():
+        for t in range(n):
+            trem, out[t] = tremolo.step(params, trem, depth)
+        state.copy_(tremolo_rows(trem))
+    return out
+
+
+def power_amp_scan_plain(sample_rate, x, state):
+    """Plain E9 on the tensors' device: `power_amp.step` with rail sag on
+    over x (n, G) → out (n, G); `state` is updated in place."""
+    params = power_amp.make_params(sample_rate)
+    pa = power_amp_unrows(state)
+    out = torch.empty_like(x)
+    with torch.inference_mode():
+        for t in range(x.shape[0]):
+            pa, out[t] = power_amp.step(params, pa, x[t], rail_sag=True)
+        state.copy_(power_amp_rows(pa))
+    return out
+
+
 # ───────────────────────────── CUDA wrappers ─────────────────────────────
 
 
@@ -860,3 +1022,56 @@ def tremolo_settle(sample_rate: float, osc: mna.SolverState,
                    n_steps: int) -> mna.SolverState:
     """The settle scan from `osc` (tensors on the card or the CPU)."""
     return osc_unflat(settle(sample_rate, osc_flat(osc), n_steps))
+
+
+def tremolo_scan(sample_rate: float, state, depth, n: int):
+    """E8: G tremolo circuits (state (TREM_ROWS, G) float64, updated in
+    place) stepped n times at `sample_rate`, circuit j at depth[j] (G,)
+    float64 → the shunt impedance after each step, (n, G) float64."""
+    global TREMOLO_SCAN_LAUNCHES, TREMOLO_SCAN_PLAIN_CALLS
+    g = state.shape[1] if state.dim() == 2 else -1
+    _check("state", state, (TREM_ROWS, g), torch.float64)
+    _check("depth", depth, (g,), torch.float64)
+    n = int(n)
+    if n < 0:
+        raise ValueError(f"n {n} < 0")
+    dev = state.device
+    if depth.device != dev:
+        raise ValueError("state and depth must be on one device")
+    if dev.type == "cpu":
+        TREMOLO_SCAN_PLAIN_CALLS += 1
+        return tremolo_scan_plain(float(sample_rate), state, depth, n)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    consts = _scan_consts_on(float(sample_rate), "tremolo", str(dev))
+    out = torch.empty((n, g), dtype=torch.float64, device=dev)
+    _lib_call("tremolo_scan", lambda lib: lib.ow_tremolo_scan,
+              consts.data_ptr(), consts.numel(), state.data_ptr(),
+              depth.data_ptr(), out.data_ptr(), n, g, device=dev)
+    TREMOLO_SCAN_LAUNCHES += 1
+    return out
+
+
+def power_amp_scan(sample_rate: float, x, state):
+    """E9: G power-amp streams over x (n, G) float64 at `sample_rate`,
+    rail sag on → out (n, G) float64; `state` (PA_ROWS, G) is updated in
+    place."""
+    global POWER_AMP_SCAN_LAUNCHES, POWER_AMP_SCAN_PLAIN_CALLS
+    n, g = (x.shape if x.dim() == 2 else (-1, -1))
+    _check("x", x, (n, g), torch.float64)
+    _check("state", state, (PA_ROWS, g), torch.float64)
+    dev = x.device
+    if state.device != dev:
+        raise ValueError("x and state must be on one device")
+    if dev.type == "cpu":
+        POWER_AMP_SCAN_PLAIN_CALLS += 1
+        return power_amp_scan_plain(float(sample_rate), x, state)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    consts = _scan_consts_on(float(sample_rate), "power_amp", str(dev))
+    out = torch.empty_like(x)
+    _lib_call("power_amp_scan", lambda lib: lib.ow_power_amp_scan,
+              consts.data_ptr(), consts.numel(), x.data_ptr(),
+              state.data_ptr(), out.data_ptr(), n, g, device=dev)
+    POWER_AMP_SCAN_LAUNCHES += 1
+    return out

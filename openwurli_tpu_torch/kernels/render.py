@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from openwurli_tpu_torch import hammer, pickup, reed, tables, voice
-from openwurli_tpu_torch.circuits import dk_preamp, mna, melange_preamp
+from openwurli_tpu_torch.circuits import dk_preamp, melange_preamp
 from openwurli_tpu_torch.circuits import power_amp, speaker
 from openwurli_tpu_torch.kernels import engine as ek
 from openwurli_tpu_torch.ops import allpass, biquad
@@ -464,37 +464,22 @@ def dk_scan(sample_rate: float, x, r_ldr, state, tap: str):
 
 @functools.lru_cache(maxsize=None)
 def pa_speaker_consts(sample_rate: float) -> np.ndarray:
-    """E6's constants: the f64 chain's layout (csrc/engine.cu ConstOffset)
-    with the power amp built at `sample_rate` itself (the chain builds it
-    at its oversampled rate), the speaker's rate and thermal coefficient
-    and the post-speaker gain in the misc block; the tremolo and preamp
-    blocks, which E6 never reads, zero."""
-    ap = power_amp.make_params(sample_rate)
+    """E6's constants: E9's (`kernels/engine.py` scan_consts, the power
+    amp built at `sample_rate` itself) with the speaker's rate and thermal
+    coefficient and the post-speaker gain in the misc block."""
     sp = speaker.make_params(sample_rate)
-    at_pa = ek.solver_block_size(ek.N_T, ek.M_T, ek.NB_T)
-    pa = ek.solver_block(power_amp.build_netlist(), ap.solver)
-    at_misc = at_pa + pa.size + sum(k for _, k in ek.PRE_SPEC)
-    flat = np.zeros(at_misc + len(ek.MISC_NAMES))
-    flat[at_pa:at_pa + pa.size] = pa
-    misc = dict(pa_out=ap.out_idx, pa_v1=ap.v1_row, pa_v2=ap.v2_row,
-                pa_in=ap.input_row, pa_att=ap.alpha_attack,
-                pa_rel=ap.alpha_release, pa_iavg=ap.alpha_i_avg,
-                spk_sr=sp.sample_rate, spk_alpha=sp.thermal_alpha,
-                post_gain=tables.POST_SPEAKER_GAIN)
-    for k, name in enumerate(ek.MISC_NAMES):
-        flat[at_misc + k] = misc.get(name, 0.0)
+    flat = ek.scan_consts(sample_rate, "power_amp").copy()
+    at_misc = flat.size - len(ek.MISC_NAMES)
+    for name, value in (("spk_sr", sp.sample_rate),
+                        ("spk_alpha", sp.thermal_alpha),
+                        ("post_gain", tables.POST_SPEAKER_GAIN)):
+        flat[at_misc + ek.MISC_NAMES.index(name)] = value
     return flat
 
 
 @functools.lru_cache(maxsize=None)
 def _pa_consts_on(sample_rate, device):
     return torch.from_numpy(pa_speaker_consts(sample_rate)).to(device)
-
-
-def _pa_rows_spec():
-    a = ek.CHAIN_OFF["pa_v"][0]
-    return {n: (o0 - a, o1 - a) for n, (o0, o1) in ek.CHAIN_OFF.items()
-            if a <= o0 < ek.CHAIN_OFF["spk"][1]}
 
 
 def init_pa_speaker_state(sample_rate: float, streams: int, device="cpu"):
@@ -509,44 +494,19 @@ def init_pa_speaker_state(sample_rate: float, streams: int, device="cpu"):
 def pa_speaker_rows(pa: power_amp.PowerAmpState, spk: speaker.SpeakerState):
     """Power-amp and speaker states (batch (...)) → rows (PA_SPEAKER_ROWS,
     ...)."""
-    c = pa.circuit
-    batch = c.v.shape[:-1]
-
-    def col(x):
-        return torch.as_tensor(x, device=c.v.device).to(
-            torch.float64).expand(batch)[..., None]
-
-    parts = [c.v, c.i_nl, c.v_nl, col(c.nr_resid),
-             *[col(d) for d in c.diag], *[col(r) for r in pa.rails],
-             col(pa.last_good), col(spk.hpf.z1), col(spk.hpf.z2),
-             col(spk.lpf.z1), col(spk.lpf.z2), col(spk.thermal_state)]
-    return torch.cat([x.expand(batch + x.shape[-1:]) for x in parts],
-                     dim=-1).movedim(-1, 0)
+    batch = tuple(pa.circuit.v.shape[:-1])
+    return torch.cat([ek.power_amp_rows(pa), ek._rows(
+        [spk.hpf.z1, spk.hpf.z2, spk.lpf.z1, spk.lpf.z2,
+         spk.thermal_state], batch)])
 
 
 def pa_speaker_unrows(rows):
     """Rows (PA_SPEAKER_ROWS, ...) → (PowerAmpState, SpeakerState), copies,
     the solver counters as int32."""
-    x = rows.movedim(0, -1)
-    o = _pa_rows_spec()
-
-    def seg(name):
-        a, b = o[name]
-        return x[..., a:b].clone()
-
-    diag = seg("pa_diag")
-    spk = seg("spk")
-    pa = power_amp.PowerAmpState(
-        circuit=mna.SolverState(
-            v=seg("pa_v"), i_nl=seg("pa_i"), v_nl=seg("pa_vnl"),
-            nr_resid=seg("pa_resid")[..., 0],
-            diag=mna.SolverDiag(*[diag[..., k].to(torch.int32)
-                                  for k in range(ek.N_DIAG)])),
-        rails=power_amp.RailState(*seg("pa_rails").unbind(-1)),
-        last_good=seg("pa_last")[..., 0])
-    return pa, speaker.SpeakerState(
-        biquad.BiquadState(spk[..., 0], spk[..., 1]),
-        biquad.BiquadState(spk[..., 2], spk[..., 3]), spk[..., 4])
+    spk = rows[ek.PA_ROWS:].clone()
+    return ek.power_amp_unrows(rows[:ek.PA_ROWS]), speaker.SpeakerState(
+        biquad.BiquadState(spk[0], spk[1]),
+        biquad.BiquadState(spk[2], spk[3]), spk[4])
 
 
 def pa_speaker_scan_plain(sample_rate, x, state, volume, character):

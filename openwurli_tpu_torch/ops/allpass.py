@@ -1,7 +1,8 @@
 """2× polyphase IIR half-band oversampler: two cascades of three
 first-order allpass sections. Port of `openwurli_tpu/ops/allpass.py`: the
-constants (read by the mono-chain packer) and the per-sample steps of the
-f64 engine on torch tensors."""
+constants (read by the mono-chain packer), the per-sample steps of the
+f64 engine on torch tensors, and the buffer helpers `upsample_2x` /
+`downsample_2x` (time on axis 0)."""
 
 from __future__ import annotations
 
@@ -59,3 +60,24 @@ def down_step(state: OversamplerState, x_even, x_odd):
     down_b, b = _branch_step(BRANCH_B_COEFFS, state.down_b, x_odd)
     y = (a + state.down_delay) * 0.5
     return state._replace(down_a=down_a, down_b=down_b, down_delay=b), y
+
+
+def upsample_2x(state: OversamplerState, xs):
+    """Buffer helper: xs (n, ...) → (state, (2n, ...)), the even and odd
+    samples of each input sample in turn."""
+    out = torch.empty((2 * xs.shape[0],) + tuple(xs.shape[1:]),
+                      dtype=torch.float64, device=xs.device)
+    for t in range(xs.shape[0]):
+        state, (out[2 * t], out[2 * t + 1]) = up_step(state, xs[t])
+    return state, out
+
+
+def downsample_2x(state: OversamplerState, xs):
+    """Buffer helper: xs (2n, ...) → (state, (n, ...)); an odd trailing
+    sample is dropped."""
+    n = xs.shape[0] // 2
+    out = torch.empty((n,) + tuple(xs.shape[1:]), dtype=torch.float64,
+                      device=xs.device)
+    for t in range(n):
+        state, out[t] = down_step(state, xs[2 * t], xs[2 * t + 1])
+    return state, out

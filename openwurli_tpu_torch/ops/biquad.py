@@ -2,8 +2,8 @@
 
 Port of `openwurli_tpu/ops/biquad.py`: the coefficient design in NumPy
 (note-on and pack time) and in torch (`design_t`, the speaker's per-sample
-redesign), and the DF-II-T `step` on torch tensors, which the f64 engine
-kernels repeat op for op.
+redesign), the DF-II-T `step` on torch tensors, which the f64 engine
+kernels repeat op for op, and its buffer helper `process`.
 """
 
 from __future__ import annotations
@@ -74,6 +74,18 @@ def step(coeffs: BiquadCoeffs, state: BiquadState, x):
     z1 = coeffs.b1 * x - coeffs.a1 * y + state.z2
     z2 = coeffs.b2 * x - coeffs.a2 * y
     return BiquadState(z1, z2), y
+
+
+def process(coeffs: BiquadCoeffs, state: BiquadState, xs):
+    """Filter a buffer, time on axis 0 (time, ...batch) → (state, ys);
+    the coefficients (NumPy, as designed, or tensors) go to xs' device."""
+    coeffs = BiquadCoeffs(*[torch.as_tensor(k, dtype=torch.float64,
+                                            device=xs.device)
+                            for k in coeffs])
+    ys = torch.empty_like(xs, dtype=torch.float64)
+    for t in range(xs.shape[0]):
+        state, ys[t] = step(coeffs, state, xs[t])
+    return state, ys
 
 
 def design_t(kind, hz, q, sample_rate):

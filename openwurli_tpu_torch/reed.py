@@ -198,6 +198,15 @@ def step(params: ReedParams, state: ReedState):
         damper_release_count=rel_count, damper_ramp_done=ramp_done), out
 
 
+def render(params: ReedParams, state: ReedState, num_samples: int):
+    """num_samples of `step` → (state, output (num_samples, ...batch))."""
+    out = torch.empty((int(num_samples),) + tuple(state.n.shape),
+                      dtype=torch.float64, device=state.n.device)
+    for t in range(int(num_samples)):
+        state, out[t] = step(params, state)
+    return state, out
+
+
 def is_silent(params: ReedParams, state: ReedState, threshold_db=-80.0):
     thr = 10.0 ** (threshold_db / 20.0)
     return torch.all(torch.abs(params.amplitude * state.envelope) <= thr,

@@ -655,3 +655,84 @@ def test_dk_scan_kernel_from_carried_state(cuda):
     tail = kr.dk_scan(sr, x[150:].contiguous(), r[150:].contiguous(), two,
                       "diff")
     assert _same_bits(whole, torch.cat([head, tail])) and _same_bits(one, two)
+
+
+# ── the stage benchmark's kernels (E8, E9) ──
+
+
+def _tremolo_case(cuda, g=33, seed=29):
+    """g tremolo circuits at 88.2 kHz from distinct seeded starts (node
+    voltages and LDR envelopes), depths 0, 0.5 and 1 in turn, one circuit
+    kicked 70 V off its limit cycle (a Newton failure, the BE replay) and
+    one holding a NaN."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    rng = np.random.default_rng(seed)
+    st = ek.init_tremolo_scan_state(88200.0, g, cuda)
+    st[:ek.N_T] += torch.as_tensor(rng.uniform(-0.05, 0.05, (ek.N_T, g)),
+                                   device=cuda)
+    env = ek.CHAIN_OFF["trem_env"][0] - ek.CHAIN_OFF["trem_v"][0]
+    st[env] = torch.as_tensor(rng.uniform(0.0, 0.8, g), device=cuda)
+    st[0, 5] += 70.0
+    st[2, g // 2] = float("nan")
+    depth = torch.tensor([(0.0, 0.5, 1.0)[j % 3] for j in range(g)],
+                         dtype=torch.float64, device=cuda)
+    return st, depth
+
+
+def _power_amp_case(cuda, n=32, g=33, seed=29):
+    """g streams at 88.2 kHz: the stage bench's 0.05 V, 1 kHz sine at
+    seeded levels up to 2 V, a 200 V spike, a NaN and an inf stream."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)[:, None]
+    x = rng.uniform(0.02, 2.0, g) * np.sin(2 * np.pi * 1000 * t / 88200.0)
+    x[:, 0] = 0.05 * np.sin(2 * np.pi * 1000 * t[:, 0] / 88200.0)
+    x[n // 3, 1] = 200.0
+    x[n // 4, 2] = np.nan
+    x[n // 2:, 3] = np.inf
+    return torch.as_tensor(x, device=cuda)
+
+
+def test_tremolo_scan_kernel_matches_plain(cuda):
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    st, depth = _tremolo_case(cuda)
+    a, b = st.clone(), st.clone()
+    out = ek.tremolo_scan(88200.0, a, depth, 64)
+    ref = ek.tremolo_scan_plain(88200.0, b, depth, 64)
+    assert _same_bits(out, ref) and _same_bits(a, b)
+    diag = ek.CHAIN_OFF["trem_diag"][0] - ek.CHAIN_OFF["trem_v"][0]
+    assert a[diag + 2, 33 // 2] > 0     # the NaN circuit reset (nan_reset)
+    assert a[diag + 4, 5] > 0           # the kicked one replayed in BE
+    assert torch.isfinite(out).all()
+
+
+def test_power_amp_scan_kernel_matches_plain(cuda):
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    x = _power_amp_case(cuda)
+    st = ek.init_power_amp_scan_state(88200.0, x.shape[1], cuda)
+    a, b = st.clone(), st.clone()
+    out = ek.power_amp_scan(88200.0, x, a)
+    ref = ek.power_amp_scan_plain(88200.0, x, b)
+    assert _same_bits(out, ref) and _same_bits(a, b)
+    assert torch.isfinite(out).all() and float(out.abs().max()) <= 1.0
+
+
+def test_stage_scans_from_carried_state(cuda):
+    """Two launches carry the state: the same bits as one."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    st, depth = _tremolo_case(cuda, g=40, seed=30)
+    two = st.clone()
+    whole = ek.tremolo_scan(88200.0, st, depth, 48)
+    head = ek.tremolo_scan(88200.0, two, depth, 20)
+    tail = ek.tremolo_scan(88200.0, two, depth, 28)
+    assert _same_bits(whole, torch.cat([head, tail])) and _same_bits(st, two)
+    x = _power_amp_case(cuda, n=40, g=40, seed=30)
+    one = ek.init_power_amp_scan_state(88200.0, 40, cuda)
+    two = one.clone()
+    whole = ek.power_amp_scan(88200.0, x, one)
+    head = ek.power_amp_scan(88200.0, x[:15].contiguous(), two)
+    tail = ek.power_amp_scan(88200.0, x[15:].contiguous(), two)
+    assert _same_bits(whole, torch.cat([head, tail])) and _same_bits(one, two)

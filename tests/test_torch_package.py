@@ -28,7 +28,8 @@ TOOLS = ("torch_probe", "torch_interactive_rtf", "torch_k4_breakdown",
          "torch_strip_pedal", "torch_analyze_pump_dynamics",
          "torch_h3_analysis", "torch_wurli_compare",
          "torch_recording_analyzer", "torch_gen_settled_states",
-         "torch_perf_sweep", "torch_engine_chunk")
+         "torch_perf_sweep", "torch_engine_chunk", "torch_stage_bench",
+         "torch_export_spice")
 
 
 def test_imports_without_jax():
@@ -193,6 +194,16 @@ def test_cuda_wrappers_raise_without_cuda(tmp_path):
     with pytest.raises((RuntimeError, AssertionError)):
         chunk["main"](["--history", "1", "--chord-s", "0.001",
                        "--warm-up-s", "0.001"])
+    # and the stage benchmark (E8, E9), whose --device defaults to the card
+    from openwurli_tpu_torch.kernels import engine as ek
+    stage = runpy.run_path(os.path.join(REPO, "tools",
+                                        "torch_stage_bench.py"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        stage["main"](["--batch", "1", "--samples", "2", "--reps", "1"])
+    with pytest.raises((RuntimeError, AssertionError)):
+        ek.init_tremolo_scan_state(88200.0, 2, "cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        ek.init_power_amp_scan_state(88200.0, 2, "cuda")
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():
@@ -224,6 +235,20 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
         mc.render(44100.0, ctrl[:, :1].contiguous(), st, audio)
     with pytest.raises(TypeError):
         mc.render(44100.0, ctrl, st, audio.double())
+    # E8 and E9
+    from openwurli_tpu_torch.kernels import engine as ek
+    trem = ek.init_tremolo_scan_state(88200.0, 2)
+    depth = torch.zeros(2, dtype=torch.float64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ek.tremolo_scan(88200.0, trem.to("meta"), depth.to("meta"), 4)
+    with pytest.raises(ValueError, match="one device"):
+        ek.tremolo_scan(88200.0, trem, depth.to("meta"), 4)
+    pa = ek.init_power_amp_scan_state(88200.0, 2)
+    x = torch.zeros((4, 2), dtype=torch.float64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ek.power_amp_scan(88200.0, x.to("meta"), pa.to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        ek.power_amp_scan(88200.0, x, pa.to("meta"))
 
 
 def test_build_needs_nvcc():
@@ -263,7 +288,8 @@ def test_build_signatures_cover_every_entry_point():
         "ow_mono_chain_noise", "ow_trem_preroll", "ow_probe",
         "ow_engine_voices", "ow_engine_chain", "ow_tremolo_settle",
         "ow_voice_render", "ow_preamp_scan", "ow_voice_render_tap",
-        "ow_pa_speaker_scan", "ow_dk_scan"}
+        "ow_pa_speaker_scan", "ow_dk_scan", "ow_tremolo_scan",
+        "ow_power_amp_scan"}
     for name, n_args in found.items():
         assert len(_build._SIGNATURES[name]) == n_args, name
 
