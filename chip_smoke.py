@@ -56,7 +56,18 @@ each with the launch counts set to 0 just before it and read just after:
   * the f64 engine batched: `engine.render_states` over B engine states
     (E1 a block per engine, E2 a thread per engine): an 8-engine batch,
     each engine against its own `Engine.render`, and the throughput from
-    the reference perf sweep's broadcast chord at 1-128 engines.
+    the reference perf sweep's broadcast chord at 1-128 engines;
+  * the multi-device path on one card: `fast.render_grid_sharded` over a
+    one-rank NCCL group at the headline width (K1, K2), bit for bit
+    `render_grid`; `parallel.mesh.sharded_grid_render` over the
+    calibration grid (E4), bit for bit `voice.render`; and
+    `parallel.dryrun.main(1, device="cuda")`, a spawned NCCL rank running
+    the sharded training step and the sharded fused kernels;
+  * `entry.entry()`'s forward step (8 streams × 64 voices, one block of
+    1024 through K1 and K2);
+  * `tools/torch_train_onset_model.py` at its usage line's size (20
+    mixtures, 200 steps): its pool through K1 and K2, the loss, the
+    weights reloaded as format 3, the fixture mixture scored.
 
 E3 is held to its plain version over 512 steps and its full 2 s settle at
 88.2 and 96 kHz to the package data; E1 and E2 to theirs with NaN and inf
@@ -121,7 +132,8 @@ E3_SETTLE_GATE = 4.0e-7
 # 14, 15), E2 on phase 21's chunk (the kicked tremolo's BE replay and
 # guard #2 both act within it), on the engine session's and the melange
 # plugin's chunks (phases 22, 25), E6 on run_calibrate's call (phase 26);
-# K2 and K5 from init_state at 1, 33 and 1024 streams (phase 18). Each
+# K2 and K5 from init_state at 1, 33 and 1024 streams (phase 18), K2 on
+# entry()'s block (phase 32, LANES_REPLAY_N). Each
 # replay keeps its call's full width. K2, K5, the engine block and E2 went
 # from 128 to 64 samples when phase 29 came in (a slower host had started
 # the alias sweep at 765 s, too late for its three notes).
@@ -1559,6 +1571,49 @@ def compare_pa_speaker(kr, x, state, volume, character, what):
             "max_abs_err": float((out - ref).abs().nan_to_num().max())}
 
 
+def fixture_mixture():
+    """tests/test_onset_model.py:100-118: the fixture's two clips at four
+    staggered onsets and gains, with seeded noise → (audio, sr)."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with np.load(os.path.join(repo, "tests", "baselines",
+                              "onset_test_clips.npz")) as z:
+        clips = {48: z["note48"], 67: z["note67"]}
+        sr_f = float(z["sr"])
+    mix = np.zeros(int(6.0 * sr_f))
+    for onset_s, midi, gain_db in ONSET_EVENTS:
+        seg = clips[midi].astype(np.float64).copy()
+        n_f = int(0.05 * sr_f)
+        seg[-n_f:] *= np.linspace(1.0, 0.0, n_f)
+        i0 = int(onset_s * sr_f)
+        k = min(len(seg), len(mix) - i0)
+        mix[i0:i0 + k] += 10.0 ** (gain_db / 20.0) * seg[:k]
+    mix += 1e-5 * np.random.default_rng(0).normal(size=len(mix))
+    return mix, sr_f
+
+
+def fixture_scores(weights_path, device="cuda"):
+    """The fixture mixture scored as tests/test_onset_model.py scores it:
+    {"network": (hits of 4, spurious) of the format-3 weights at
+    weights_path, "spectral": the spectral path's, "wins": the JAX test's
+    nn_h >= max(sp_h, 4) and nn_fp <= sp_fp}.
+
+        python3 -c "import chip_smoke as c; print(c.fixture_scores(PATH))"
+    """
+    from openwurli_tpu_torch.calib import notes, onset_model
+
+    params = onset_model.load_params(weights_path)
+    check(params is not None, f"{weights_path}: no format-3 weights")
+    mix, sr_f = fixture_mixture()
+    nn = onset_score(onset_model.nn_extract_notes(
+        mix, sr_f, params=params, min_duration=0.15, device=device))
+    spectral = onset_score(notes.extract_notes(
+        mix, sr_f, min_duration=0.15, method="spectral", device=device))
+    return {"network": nn, "spectral": spectral,
+            "wins": nn[0] >= max(spectral[0], 4) and nn[1] <= spectral[1]}
+
+
 def onset_score(found):
     """(hits, spurious) as tests/test_onset_model.py scores them."""
     used, hits = set(), 0
@@ -1731,19 +1786,7 @@ def calib_phases(dev, card, launches, vb, mc):
 
     # ── the onset extractors on the 4-note fixture mixture
     # (tests/test_onset_model.py:79-128) ──
-    with np.load(os.path.join(repo, "tests", "baselines",
-                              "onset_test_clips.npz")) as z:
-        clips = {48: z["note48"], 67: z["note67"]}
-        sr_f = float(z["sr"])
-    mix = np.zeros(int(6.0 * sr_f))
-    for onset_s, midi, gain_db in ONSET_EVENTS:
-        seg = clips[midi].astype(np.float64).copy()
-        n_f = int(0.05 * sr_f)
-        seg[-n_f:] *= np.linspace(1.0, 0.0, n_f)
-        i0 = int(onset_s * sr_f)
-        k = min(len(seg), len(mix) - i0)
-        mix[i0:i0 + k] += 10.0 ** (gain_db / 20.0) * seg[:k]
-    mix += 1e-5 * np.random.default_rng(0).normal(size=len(mix))
+    mix, sr_f = fixture_mixture()
     weights = onset_model.load_params()
     nn = onset_score(notes.extract_notes(mix, sr_f, min_duration=0.15,
                                          method="nn", device=dev))
@@ -2326,6 +2369,206 @@ def stage_phases(dev, card, launches, vb, mc, ptxas):
             "E9": {**e9, "ptxas": ptxas.get("E9"),
                    "stage_bench_us": us["power amp"]},
             "stage_bench_us": us}
+
+
+# ── the multi-device path and the onset trainer (phases 30-33) ──
+
+# The headline width of phase 30's render_grid_sharded (streams x voices)
+# and its samples; phase 33's training run (the tool's usage line).
+SHARDED_SAMPLES = 8192
+ONSET_TOOL_ARGS = ("--clips", "20", "--steps", "200")
+
+
+def parallel_phases(dev, card, launches, vb, mc):
+    """Phases 30-33: `fast.render_grid_sharded` over a one-rank NCCL group
+    at the headline width against `render_grid`; `mesh.sharded_grid_render`
+    against `voice.render` and `dryrun.main(1, device="cuda")` (a spawned
+    NCCL rank); `entry.entry()`'s forward step against the plain K1 and K2;
+    `tools/torch_train_onset_model.py` at its usage line's size. Adds the
+    paths' launch counts to `launches`; → the paths' numbers."""
+    import contextlib
+    import io
+    import os
+    import runpy
+
+    import torch.distributed as dist
+
+    from openwurli_tpu_torch import entry, fast, voice
+    from openwurli_tpu_torch.calib import onset_model
+    from openwurli_tpu_torch.parallel import dryrun
+    from openwurli_tpu_torch.parallel import mesh as meshlib
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_p = time.perf_counter()
+    # ── phase 30: render_grid_sharded over a one-rank NCCL group ──
+    mesh = meshlib.make_mesh()
+    check(dist.get_backend() == "nccl" and mesh == meshlib.Mesh(
+        0, 1, torch.device("cuda", 0)), f"mesh {mesh} on {dist.get_backend()}")
+    streams = 128
+    midis = np.tile(np.arange(36, 100, dtype=np.float64), (streams, 1))
+    vel = (0.95 + 0.0005 * np.arange(streams))[:, None] \
+        * np.ones((1, midis.shape[1]))
+    seconds = SHARDED_SAMPLES / SR
+    reset_counts(vb, mc)
+    cold_ms, sharded = host_ms(lambda: fast.render_grid_sharded(
+        mesh, midis, vel, seconds, SR))
+    launches["render_grid_sharded"] = counts = read_counts(vb, mc)
+    check(counts["voice_bank"] == 1 and counts["mono_chain"] == 1
+          and counts["plain"] == 0, f"render_grid_sharded launches {counts}")
+    # a warm call, its stages timed (the first one sets up NCCL's
+    # communicator at its first collective)
+    timer = StageTimer()
+    timer.wrap(vb, "render_voice_bank", "K1")
+    timer.wrap(mc, "render", "K2")
+    wall_ms, _ = host_ms(lambda: fast.render_grid_sharded(
+        mesh, midis, vel, seconds, SR))
+    timer.restore()
+    grid = fast.render_grid(midis, vel, seconds, SR, device=dev)
+    check(sharded.shape == (SHARDED_SAMPLES, streams)
+          and bits_equal(sharded, grid),
+          f"render_grid_sharded vs render_grid: differing "
+          f"{first_diff(sharded.view(torch.int32), grid.view(torch.int32))}")
+    sharded_ms = {"cold": cold_ms, "wall": wall_ms, **timer.ms}
+    print(f"phase 30 render_grid_sharded over a one-rank NCCL group, "
+          f"{streams} streams x 64 voices x {SHARDED_SAMPLES}: bit-identical "
+          f"to render_grid; first call {cold_ms:.1f} ms, warm call "
+          f"{wall_ms:.1f} ms (K1 stage {timer.ms['K1']:.1f} ms, K2 stage "
+          f"{timer.ms['K2']:.1f} ms), launches {counts} [{card}]", flush=True)
+
+    # ── phase 31: sharded_grid_render (E4) and the dry run ──
+    g = np.repeat(np.arange(33.0, 97.0), 8)
+    v = np.tile(np.array([1, 20, 40, 60, 80, 100, 120, 127]) / 127.0, 64)
+    reset_counts(vb, mc)
+    grid_ms, out = host_ms(lambda: meshlib.sharded_grid_render(
+        mesh, g, v, 0.5, SR))
+    launches["sharded_grid_render"] = counts = read_counts(vb, mc)
+    check(counts["voice_render"] == 1 and counts["plain"] == 0,
+          f"sharded_grid_render launches {counts}")
+    dist.destroy_process_group()
+    vparams, detuned = voice.note_on_params(g, v, SR, mlp_enabled=False)
+    state = voice.init_state(vparams, detuned, v, SR,
+                             voice.default_note_seed(g))
+    _, whole = voice.render(vparams, state, int(0.5 * SR), device=dev)
+    check(out.shape == whole.shape == (int(0.5 * SR), 512)
+          and torch.equal(out.view(torch.int64), whole.view(torch.int64)),
+          f"sharded_grid_render vs voice.render: differing "
+          f"{first_diff(out, whole)}")
+    # the spawned rank prints its lines itself; rank 0 returns them
+    dry_ms, dry = host_ms(lambda: dryrun.main(1, device="cuda"))
+    dry_lines = dry["lines"]
+    check(len(dry_lines) == 2 and all(ln.endswith("— OK")
+                                      for ln in dry_lines)
+          and "platform=cuda" in dry_lines[0], f"dry run {dry_lines}")
+    launches["dryrun"] = {**{k: 0 for k in counts}, **dry["launches"]}
+    check(dry["launches"]["voice_render"] == 2
+          and dry["launches"]["voice_bank"] == 2
+          and dry["launches"]["mono_chain"] == 2
+          and dry["launches"]["plain"] == 0,
+          f"dry run launches {dry['launches']}")
+    print(f"phase 31 sharded_grid_render 64 notes x 8 velocities x 0.5 s "
+          f"(E4, one NCCL rank): {grid_ms:.1f} ms, bit-identical to "
+          f"voice.render; dryrun.main(1, device='cuda') in "
+          f"{dry_ms / 1e3:.1f} s: " + " | ".join(dry_lines)
+          + f" (rank 0 launches {dry['launches']}) [{card}]", flush=True)
+
+    # ── phase 32: entry()'s forward step against the plain K1 and K2 ──
+    fn, args = entry.entry()
+    params, vstate, ctrl, cstate = args
+    timer = StageTimer()
+    timer.wrap(mc, "render", "K2", keep=True)
+    k1_out = []
+    k1 = vb.render_voice_bank
+
+    def recording_k1(*a, **k):
+        k1_out.append(k1(*a, **k))
+        return k1_out[-1]
+
+    vb.render_voice_bank = recording_k1
+    reset_counts(vb, mc)
+    try:
+        blk, vstate2, cstate2 = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        vb.render_voice_bank = k1
+    launches["entry"] = counts = read_counts(vb, mc)
+    timer.restore()
+    check(counts["voice_bank"] == 1 and counts["mono_chain"] == 1
+          and counts["plain"] == 0, f"entry launches {counts}")
+    check(blk.shape == (entry.T_BLOCK, entry.STREAMS)
+          and bool(torch.isfinite(blk).all()), "entry block")
+    p_voices, p_vst = vb.render_voice_bank_plain(
+        params, entry.T_BLOCK, state=vstate, return_state=True)
+    check(bits_equal(p_vst, vstate2), "entry: K1's state against its plain "
+          f"version: {first_diff(p_vst.view(torch.int32), vstate2.view(torch.int32))}")
+    (k1_voices, _), = k1_out
+    check(bits_equal(p_voices, k1_voices), "entry: K1's voices against its "
+          f"plain version: {first_diff(p_voices, k1_voices)}")
+    (call,) = timer.calls["K2"]
+    p_audio = p_voices.reshape(entry.T_BLOCK, entry.STREAMS,
+                               entry.N_VOICES).sum(-1)
+    check(torch.equal(call[0][3], p_audio),
+          "entry: the lane sum of the plain K1 differs from K2's input")
+    cmp = compare_chain(mc, call, LANES_REPLAY_N, "entry's block")
+    head, _ = mc.render(SR, ctrl, cstate,
+                        call[0][3][:LANES_REPLAY_N].contiguous())
+    check(bits_equal(head, blk[:LANES_REPLAY_N]),
+          "entry: K2 over the compared prefix differs from the block's head")
+    block_ms = cuda_ms(lambda: fn(*args), reps=5)
+    print(f"phase 32 entry() forward step, {entry.STREAMS} streams x "
+          f"{entry.N_VOICES} voices x {entry.T_BLOCK}: {block_ms:.2f} ms per "
+          f"block; K1 output and state bit-identical to the plain K1, K2 "
+          f"over its first {LANES_REPLAY_N} samples (output and state) to "
+          f"the plain K2 ({cmp['plain_ms'] / 1e3:.1f} s), launches {counts} "
+          f"[{card}]", flush=True)
+
+    # ── phase 33: the onset trainer at its usage line's size ──
+    tool = runpy.run_path(os.path.join(repo, "tools",
+                                       "torch_train_onset_model.py"))
+    out_path = os.path.join(repo, "build", "chip_smoke", "onset_pitch.npz")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    losses = []
+    loss_fn = onset_model.loss_fn
+
+    def recording_loss(*a, **k):
+        loss = loss_fn(*a, **k)
+        losses.append(loss.detach())
+        return loss
+
+    onset_model.loss_fn = recording_loss
+    reset_counts(vb, mc)
+    so = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(so):
+            tool_ms, _ = host_ms(lambda: tool["main"](
+                list(ONSET_TOOL_ARGS) + ["--out", out_path]))
+    finally:
+        onset_model.loss_fn = loss_fn
+    launches["train_onset_model"] = counts = read_counts(vb, mc)
+    check(counts["voice_bank"] == 4 and counts["mono_chain"] == 3
+          and counts["plain"] == 0, f"train_onset_model launches {counts}")
+    losses = torch.stack(losses).cpu().numpy()
+    first, last = float(losses[0]), float(losses[-20:].mean())
+    check(len(losses) == 200 and np.isfinite(losses).all()
+          and last < 0.7 * first,
+          f"onset training loss {first:.4f} -> {last:.4f} (last 20 steps)")
+    saved = onset_model.load_params(out_path)
+    check(saved is not None and int(saved["fmt"][0]) == 3,
+          f"{out_path} does not reload as format 3")
+    fixture = fixture_scores(out_path, dev)
+    lines = [ln for ln in so.getvalue().splitlines()
+             if ln.startswith(("val:", "end-to-end:", "spectral baseline:",
+                               "stage seconds:"))]
+    check(len(lines) == 4, f"train_onset_model output {lines}")
+    print(f"phase 33 tools/torch_train_onset_model.py "
+          f"{' '.join(ONSET_TOOL_ARGS)}: {tool_ms / 1e3:.1f} s; loss "
+          f"{first:.4f} -> {last:.4f} (mean of the last 20 steps); "
+          + "; ".join(lines) + f"; fixture mixture (hits of 4, spurious): "
+          f"network {fixture['network']}, spectral {fixture['spectral']}; "
+          f"reloads as format 3; launches {counts} [{card}] "
+          f"({time.perf_counter() - t_p:.0f} s for phases 30-33)",
+          flush=True)
+    return {"sharded_ms": sharded_ms, "entry_k2": cmp,
+            "dryrun_s": dry_ms / 1e3}
 
 
 # ── the f64 engine batched over B engines (phase 28) ──
@@ -3594,6 +3837,7 @@ def main():
     mod_k = model_phases(dev, card, launches, vb, mc, ptxas)
     cal_k = calib_phases(dev, card, launches, vb, mc)
     stg_k = stage_phases(dev, card, launches, vb, mc, ptxas)
+    par_k = parallel_phases(dev, card, launches, vb, mc)
     cli_k = cli_phases(dev, card, launches, vb, mc, ptxas)
     bat_k = batch_phases(dev, card, launches, vb, mc)
 
@@ -3771,6 +4015,18 @@ def main():
             models = k["name"].split("_")[2:] or ["dk", "circuit"]
             k["batched"] = batched([c for c in bat_k["E2"]
                                     if c["models"] == list(models)])
+    for k in kernels:
+        if k["name"] == "voice_bank":
+            k["main_path_ms"][f"render_grid_sharded stage, one NCCL rank, "
+                              f"8192 lanes x {SHARDED_SAMPLES}"] = \
+                par_k["sharded_ms"]["K1"]
+        if k["name"] == "mono_chain":
+            k["main_path_ms"][f"render_grid_sharded stage, one NCCL rank, "
+                              f"128 streams x {SHARDED_SAMPLES}"] = \
+                par_k["sharded_ms"]["K2"]
+            k["compared"].append(par_k["entry_k2"])
+        if k["name"] == "voice_render":
+            k["dryrun_s"] = par_k["dryrun_s"]
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} was never launched on "
               "a driven path")

@@ -283,7 +283,7 @@ def train(x, y_onset, y_note, note_mask=None, steps=3000, batch=512,
         opt.step()
         sched.step()
         if log_every and s % log_every == 0:
-            print(f"step {s}: loss {float(loss):.4f}", flush=True)
+            print(f"step {s}: loss {float(loss.detach()):.4f}", flush=True)
     return {k: v.detach().cpu().numpy() for k, v in pt.items()}
 
 

@@ -81,7 +81,10 @@ def _forward_norm(weights: mlp.MlpWeights, inputs):
     return h2 @ weights.w3.T + weights.b3
 
 
-def masked_huber_loss(weights: mlp.MlpWeights, batch: TrainBatch):
+def masked_huber_terms(weights: mlp.MlpWeights, batch: TrainBatch):
+    """The loss's numerator (the weighted Huber sum over valid entries)
+    and denominator (the count of valid entries). A batch split over
+    ranks sums each over the ranks before the division."""
     pred = _forward_norm(weights, batch.inputs)
     target_norm = (batch.targets - weights.target_means) / weights.target_stds
     diff = pred - target_norm
@@ -90,7 +93,12 @@ def masked_huber_loss(weights: mlp.MlpWeights, batch: TrainBatch):
                         HUBER_DELTA * (abs_diff - 0.5 * HUBER_DELTA))
     m = batch.mask.to(pred.dtype)
     loss = huber * m * batch.weights[..., None]
-    return loss.sum() / torch.clamp(m.sum(), min=1.0)
+    return loss.sum(), m.sum()
+
+
+def masked_huber_loss(weights: mlp.MlpWeights, batch: TrainBatch):
+    num, den = masked_huber_terms(weights, batch)
+    return num / torch.clamp(den, min=1.0)
 
 
 def make_train_step(learning_rate=1e-3):

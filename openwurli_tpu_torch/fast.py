@@ -10,7 +10,9 @@
     the chain's batch axis: every voice once in its own local time (K3),
     shifted and summed into the song, the tremolo's states at the segment
     starts from the pre-roll (K4), then all segments at once through the
-    chain (K2), each behind a warm-up of its preceding audio.
+    chain (K2), each behind a warm-up of its preceding audio;
+  * `render_grid_sharded`: `render_grid`'s streams split over the ranks of
+    a `parallel.mesh` (one device each), gathered on every rank.
 
 Host packing runs in float64 on the CPU; the packed float32 arrays move to
 `device`, where the kernels run: the CUDA kernels on a CUDA device, their
@@ -57,18 +59,27 @@ def render_grid(midis, velocities, seconds, sample_rate=44100.0,
                             device=device)
     state = mc.init_state(sr, s, device=device)
     noise = bool(np.any(np.asarray(noise_level) > 0.0))
+    out = _grid_chain(sr, params, ctrl, state, (s, v), t_pad, t_tile,
+                      warm_seconds, vb.steady_limits(params), noise)
+    return out[:t_total]
 
+
+def _grid_chain(sr, params, ctrl, state, shape, t_pad, t_tile,
+                warm_seconds, steady, noise=False):
+    """A packed grid of `shape` (S, V) streams × voices → (t_pad, S): the
+    warm-up of silence (warm_seconds rounded up to whole tiles), K1 with
+    `steady` gating, the stream-major lane sum, K2 (K5 with noise)."""
+    s, v = shape
     if warm_seconds > 0.0:
         t_warm = -(-int(warm_seconds * sr) // t_tile) * t_tile
         silence = torch.zeros((t_warm, s), dtype=torch.float32,
                               device=params.device)
         _, state = mc.render(sr, ctrl, state, silence, noise=noise)
 
-    voices = vb.render_voice_bank(params, t_pad, events=False,
-                                  steady=vb.steady_limits(params))
+    voices = vb.render_voice_bank(params, t_pad, events=False, steady=steady)
     audio = voices[:, :s * v].reshape(t_pad, s, v).sum(-1)
     out, _ = mc.render(sr, ctrl, state, audio.contiguous(), noise=noise)
-    return out[:t_total]
+    return out
 
 
 def render_chord(notes, velocity, seconds, sample_rate=44100.0, **kw):
@@ -348,3 +359,46 @@ def render_midi_file(path, sample_rate=44100.0, tail_seconds=2.0,
     render = render_events_parallel if parallel else render_events
     return render(midis, vels, onsets, releases, total_s + tail_seconds,
                   sample_rate, **kw)
+
+
+def render_grid_sharded(mesh, midis, velocities, seconds,
+                        sample_rate=44100.0, volume=0.5, depth=0.5,
+                        character=0.0, warm_seconds=0.0, t_tile=None):
+    """Multi-device batch render: the S streams of `render_grid` split
+    over the ranks of `mesh` (`parallel.mesh.make_mesh`), S a multiple of
+    the mesh's size. Returns (T, S) float32 on every rank.
+
+    Each rank packs its own block of streams (lanes rounded up to 128 as
+    a standalone render of that block rounds them) and takes its rows of
+    the controls and the initial state packed for all S streams, since
+    volume, depth and character may be (S,). Then the optional warm-up, K1,
+    the lane sum and K2 on its device, and an `all_gather` of the blocks.
+    The voice bank's steady gating uses the largest limits over all ranks
+    (an `all_reduce` MAX), as the reference's shard_map body must; later
+    gating leaves every voice's output bit for bit as it was."""
+    from openwurli_tpu_torch.parallel import mesh as meshlib
+
+    midis = np.atleast_2d(np.asarray(midis, dtype=np.float64))
+    vels = np.broadcast_to(np.asarray(velocities, dtype=np.float64),
+                           midis.shape)
+    s, v = midis.shape
+    rows = meshlib.block(mesh, s)
+    s_loc = rows.stop - rows.start
+    sr = float(sample_rate)
+    t_tile = t_tile or mc.T_TILE
+    t_total = int(round(seconds * sr))
+    t_pad = -(-t_total // t_tile) * t_tile
+    device = mesh.device
+
+    lanes = max(vb.LANES, -(-s_loc * v // vb.LANES) * vb.LANES)
+    params, _ = vb.make_kernel_params(
+        midis[rows].reshape(-1), vels[rows].reshape(-1), sr, lanes=lanes,
+        device=device)
+    ctrl = mc.make_controls(sr, s, volume=volume, depth=depth,
+                            character=character, device=device)
+    ctrl = ctrl[:, rows].contiguous()
+    state = mc.init_state(sr, s, device=device)[:, rows].contiguous()
+    steady = meshlib.all_reduce_max(mesh, vb.steady_limits(params))
+    out = _grid_chain(sr, params, ctrl, state, (s_loc, v), t_pad, t_tile,
+                      warm_seconds, steady)
+    return meshlib.all_gather(mesh, out[:t_total].contiguous(), dim=1)

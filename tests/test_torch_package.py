@@ -29,7 +29,7 @@ TOOLS = ("torch_probe", "torch_interactive_rtf", "torch_k4_breakdown",
          "torch_h3_analysis", "torch_wurli_compare",
          "torch_recording_analyzer", "torch_gen_settled_states",
          "torch_perf_sweep", "torch_engine_chunk", "torch_stage_bench",
-         "torch_export_spice")
+         "torch_export_spice", "torch_train_onset_model")
 
 
 def test_imports_without_jax():
@@ -53,7 +53,9 @@ def test_imports_without_jax():
             "openwurli_tpu_torch.calib.alias_audit, "
             "openwurli_tpu_torch.calib.calibrate, "
             "openwurli_tpu_torch.calib.pipeline, openwurli_tpu_torch.cli, "
-            "openwurli_tpu_torch.native\n"
+            "openwurli_tpu_torch.native, openwurli_tpu_torch.entry, "
+            "openwurli_tpu_torch.parallel.mesh, "
+            "openwurli_tpu_torch.parallel.dryrun\n"
             "import runpy\n"
             "for tool in TOOLS:\n"
             "    runpy.run_path(f'tools/{tool}.py')\n"
@@ -204,6 +206,25 @@ def test_cuda_wrappers_raise_without_cuda(tmp_path):
         ek.init_tremolo_scan_state(88200.0, 2, "cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         ek.init_power_amp_scan_state(88200.0, 2, "cuda")
+    # and the multi-device path: a CUDA mesh never falls back to gloo or
+    # to the CPU, and the entry points default to the card
+    from openwurli_tpu_torch import entry
+    from openwurli_tpu_torch.parallel import dryrun, mesh
+    for devices in (None, ["cuda:0"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mesh.make_mesh(devices)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises((RuntimeError, AssertionError)):
+        entry.entry()
+    for run in (lambda: dryrun.main(1), lambda: dryrun.cli(["1"]),
+                lambda: entry.dryrun_multichip(1)):
+        with pytest.raises(RuntimeError, match="CUDA devices"):
+            run()
+    onset = runpy.run_path(os.path.join(REPO, "tools",
+                                        "torch_train_onset_model.py"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        onset["main"](["--clips", "1", "--steps", "1", "--out",
+                       str(tmp_path / "op.npz")])
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():
