@@ -54,9 +54,11 @@ each with the launch counts set to 0 just before it and read just after:
     preamp twin through E7, the tremolo through E8, the power amp through
     E9), before the alias sweep;
   * the f64 engine batched: `engine.render_states` over B engine states
-    (E1 a block per engine, E2 a thread per engine): an 8-engine batch,
-    each engine against its own `Engine.render`, and the throughput from
-    the reference perf sweep's broadcast chord at 1-128 engines;
+    (E1 a block per engine, E2 a warp per engine, a thread per engine
+    above `kernels.engine.CHAIN_WARP_MAX_ENGINES`): an 8-engine batch,
+    each engine against its own `Engine.render`, the throughput from the
+    reference perf sweep's broadcast chord at 1-128 engines, and the
+    chord at 8192 engines (the thread form) against one engine;
   * the multi-device path on one card: `fast.render_grid_sharded` over a
     one-rank NCCL group at the headline width (K1, K2), bit for bit
     `render_grid`; `parallel.mesh.sharded_grid_render` over the
@@ -83,10 +85,17 @@ NaN and inf columns; E7 on the CLI's `sweep` (25 streams) and
 `pump-sinusoid` (a resistance per sample) calls, the first 1000 steps, and
 on 133 ragged streams with NaN and inf inputs, both taps; E1 and E2 over
 five distinct engines (rail sag off, a NaN slot, steal fades, guard #2),
-over 128 distinct ones (four E2 blocks) and each other instantiation over
-two (noise on one) against their batched plain versions; E8 on 33
-circuits from seeded starts at three depths (a kicked and a NaN circuit)
-and E9 on 33 streams (a 200 V spike, a NaN and an inf stream).
+over 128 distinct ones (32 E2 blocks of four warps) and each other
+instantiation over two (noise on one) against their batched plain
+versions; E8 on 33 circuits from seeded starts at three depths (a kicked
+and a NaN circuit) and E9 on 33 streams (a 200 V spike, a NaN and an inf
+stream). E2's circuit instantiations run a warp per engine up to
+`CHAIN_WARP_MAX_ENGINES` engines and a thread per engine above: the two
+forms are held to each other bit for bit on the kicked, guard #2,
+session, melange plugin and 128-engine chunks and timed there in turns
+(thread, warp, warp, thread); E6's warp step and E9's one-thread step
+leave the same power-amp rows on run_calibrate's call and on the ragged
+streams, timed in turns the same way.
 K1 and K3 (eight threads per voice lane) are also held to their plain
 versions at a ragged lane count, with non-finite parameters in some lanes
 and with the pickup driven past its knee, and K1 is timed across widths.
@@ -320,6 +329,29 @@ def ptxas_lines(log):
     return {k: tuple(v) for k, v in found.items()}
 
 
+# The kernels built around the warp-cooperative mna step, and the step's
+# __noinline__ functions
+WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp", "E6")
+WARP_STEP = ("mna_step_warpILi21ELi16ELi8ELi16E", "mna_step_warpILi7ELi4ELi2ELi4E",
+             "power_amp_step_warp", "tremolo_step_warp")
+
+
+def function_frames(log, key):
+    """[(stack bytes, spill stores, spill loads)] of every device function
+    whose mangled name holds `key`, from nvcc's -Xptxas -v output (one
+    entry per kernel that calls it)."""
+    found, name = [], None
+    for line in (log or "").splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif name and "stack frame" in line:
+            if key in name:
+                words = line.replace(",", " ").split()
+                found.append((int(words[0]), int(words[4]), int(words[8])))
+            name = None
+    return found
+
+
 class StageTimer:
     """Wraps functions of modules so that each call is timed with the
     device synchronised before and after; times in ms by key. With
@@ -361,8 +393,9 @@ def reset_counts(vb, mc):
 
     ek.VOICES_LAUNCHES = ek.SETTLE_LAUNCHES = 0
     ek.VOICES_PLAIN_CALLS = ek.CHAIN_PLAIN_CALLS = ek.SETTLE_PLAIN_CALLS = 0
-    for key in ek.CHAIN_LAUNCHES_BY_MODELS:
-        ek.CHAIN_LAUNCHES_BY_MODELS[key] = 0
+    for counter in (ek.CHAIN_LAUNCHES_BY_MODELS, ek.CHAIN_LAUNCHES_BY_FORM):
+        for key in counter:
+            counter[key] = 0
     kr.VOICE_RENDER_LAUNCHES = kr.VOICE_RENDER_PLAIN_CALLS = 0
     kr.PREAMP_SCAN_PLAIN_CALLS = 0
     kr.VOICE_TAP_LAUNCHES = kr.VOICE_TAP_PLAIN_CALLS = 0
@@ -388,15 +421,21 @@ def read_counts(vb, mc):
     from openwurli_tpu_torch.kernels import probe
     from openwurli_tpu_torch.kernels import render as kr
 
-    by_models = ek.CHAIN_LAUNCHES_BY_MODELS
+    by_models, by_form = ek.CHAIN_LAUNCHES_BY_MODELS, ek.CHAIN_LAUNCHES_BY_FORM
     return {**vb.LAUNCHES_BY_KERNEL, "mono_chain": mc.KERNEL_LAUNCHES,
             "mono_chain_noise": mc.NOISE_KERNEL_LAUNCHES,
             "trem_preroll": mc.PREROLL_KERNEL_LAUNCHES,
             "probe": probe.KERNEL_LAUNCHES,
             "engine_voices": ek.VOICES_LAUNCHES,
-            "engine_chain": by_models["dk", "circuit"],
-            **{f"engine_chain_{p}_{a}": n for (p, a), n in by_models.items()
-               if (p, a) != ("dk", "circuit")},
+            # E2's circuit instantiations: the warp form under the names
+            # they had, the thread form with "_thread" appended
+            "engine_chain": by_form["dk", "warp"],
+            "engine_chain_thread": by_form["dk", "thread"],
+            "engine_chain_melange_circuit": by_form["melange", "warp"],
+            "engine_chain_melange_circuit_thread":
+                by_form["melange", "thread"],
+            **{f"engine_chain_{p}_behavioral": by_models[p, "behavioral"]
+               for p in ("dk", "melange")},
             "tremolo_settle": ek.SETTLE_LAUNCHES,
             "voice_render": kr.VOICE_RENDER_LAUNCHES,
             "preamp_scan_dk": kr.PREAMP_SCAN_LAUNCHES["dk"],
@@ -863,6 +902,37 @@ def compare_chain_f64(ek, call, what):
             "us_per_base_sample": ms * 1e3 / n}
 
 
+def chain_forms(ek, call, what):
+    """E2's circuit instantiations in their two forms on one recorded
+    call: a warp per engine (engine_chain_warp_kernel) and a thread per
+    engine (engine_chain_kernel) give the same output and state bit for
+    bit; timed thread, warp, warp, thread (CUDA events). → numbers."""
+    cp, mono, state, sag = call[:4]
+    scale = call[4] if len(call) > 4 else 0.0
+    widest = ek.CHAIN_WARP_MAX_ENGINES
+
+    def run(warp, st):
+        ek.CHAIN_WARP_MAX_ENGINES = None if warp else 0
+        try:
+            return ek.render_chain(cp, mono, st, sag, scale)
+        finally:
+            ek.CHAIN_WARP_MAX_ENGINES = widest
+
+    sw, st_ = state.clone(), state.clone()
+    ow, ot = run(True, sw), run(False, st_)
+    check(same_bits(ow, ot) and same_bits(sw, st_),
+          f"E2 {what}: the warp form against the thread form: output "
+          f"{first_diff(ow, ot)}, state {first_diff(sw, st_)}")
+    times = [cuda_ms(lambda: run(w, state.clone()))
+             for w in (False, True, True, False)]
+    n = mono.shape[-1]
+    return {"inputs": f"E2 {what}", "models": [cp.preamp_model,
+                                                cp.pa_model],
+            "thread_ms": [times[0], times[3]], "warp_ms": times[1:3],
+            "us_per_base_sample": {"thread": times[0] * 1e3 / n,
+                                   "warp": times[1] * 1e3 / n}}
+
+
 def engine_phases(dev, card, launches, vb, mc, fast):
     """Phases 20-22: E3 (the tremolo settle), E1 and E2 against their
     plain versions, and the f64 engine driven through its entry points.
@@ -967,6 +1037,8 @@ def engine_phases(dev, card, launches, vb, mc, fast):
     trem_diag = diag[a:b].tolist()
     check(trem_diag[4] > 0 and trem_diag[1] > 0,
           f"the kick reached the BE replay: tremolo diag {trem_diag}")
+    e2_forms = [chain_forms(ek, (eng.params, spiked, kick, True),
+                            "kicked chunk")]
     nan_state = eng.chain.clone()
     nan_state[ek.CHAIN_OFF["spk"][0]] = float("nan")
     e2_cmp.append(compare_chain_f64(
@@ -985,9 +1057,12 @@ def engine_phases(dev, card, launches, vb, mc, fast):
     e1_us = {n: cuda_ms(lambda: ek.render_voices(
         *[x.clone() for x in call[:4]], n, eng.fade_len, eng.sample_rate),
         reps=2) * 1e3 for n in (256, 2048, 16384)}
+    e2_forms.append(chain_forms(ek, (eng.params, mono, nan_state, True),
+                                "NaN speaker state (guard #2)"))
     print(f"phase 21 E1 and E2 bit-identical to their plain versions: "
           + "; ".join(f"{c['inputs']} kernel {c['ms']:.3f} ms plain "
                       f"{c['plain_ms']:.0f} ms" for c in e1_cmp + e2_cmp)
+          + "; E2's warp and thread forms bit-identical on both chunks"
           + f"; tremolo diag after the kick {trem_diag}; E2 "
           f"{e2_us['2048 base samples']:.1f} us per base sample; E1 per "
           f"chunk (us) {e1_us} [{card}] ({time.perf_counter() - t_p:.0f} s)",
@@ -1031,7 +1106,9 @@ def engine_phases(dev, card, launches, vb, mc, fast):
         inv.render(1536)
         for n in (48, 55, 60, 63, 67, 70):
             inv.note_on(n, 0.95)
+        n_calls = len(rec.chain)
         sec_ms, sec = host_ms(lambda: inv.render(int(SR)))
+        loud = next(c for c in rec.chain[n_calls:] if c[1].shape[-1] == 256)
         sec = sec.cpu().numpy()
         peak = float(np.abs(sec).max())
         check(np.isfinite(sec).all() and 0.15 < peak <= 1.02,
@@ -1053,6 +1130,11 @@ def engine_phases(dev, card, launches, vb, mc, fast):
             f"Engine session chunk (first {E2_REPLAY_N} of 256)"))
     finally:
         rec.restore()
+    # the main path's own call in E2's two forms, A B B A: the loud 1 s
+    # render's first 256-sample chunk (tools/torch_engine_chunk.py's)
+    e2_forms.append(chain_forms(ek, loud, "the 1 s chord's first "
+                                "256-sample chunk"))
+    abba = e2_forms[-1]
     rtf = 1000.0 / sec_ms
     # the plugin, with events at in-block offsets
     reset_counts(vb, mc)
@@ -1086,12 +1168,20 @@ def engine_phases(dev, card, launches, vb, mc, fast):
           f"({int(SR * 0.6)} samples), session of 3 x 4096 (chord, 65 "
           f"notes with a steal, pedal lift) then 1 s in "
           f"{sec_ms / 1e3:.2f} s = {rtf:.3f}x realtime, peak {peak:.4f}, "
-          f"power_amp_diag all 0; chunk replays bit-identical; "
+          f"power_amp_diag all 0; chunk replays bit-identical; E2 on "
+          f"the 1 s render's first 256-sample chunk, A B B A: thread "
+          f"{abba['thread_ms'][0]:.3f} ms, warp "
+          + " / ".join(f"{t:.3f}" for t in abba["warp_ms"])
+          + f" ms, thread {abba['thread_ms'][1]:.3f} ms "
+          f"({abba['us_per_base_sample']['warp']:.1f} against "
+          f"{abba['us_per_base_sample']['thread']:.1f} us per base "
+          f"sample); "
           f"WurliPlugin 3 blocks of 512 and StreamHost(engine='f64') 3 "
           f"blocks: launches {counts} [{card}] "
           f"({time.perf_counter() - t_p:.0f} s)", flush=True)
     return {"E1": {"cmp": e1_cmp, "us_per_chunk": e1_us},
-            "E2": {"cmp": e2_cmp, "us_per_base_sample": e2_us,
+            "E2": {"cmp": e2_cmp, "forms": e2_forms,
+                   "us_per_base_sample": e2_us,
                    "warm_up_ms": warm_ms, "one_second_ms": sec_ms,
                    "realtime_factor": rtf},
             "E3": {"ms": e3_ms, "plain_ms": e3_plain_ms, "bound": e3_bound,
@@ -1429,6 +1519,10 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
             ek, (cp_, mono_[:E2_REPLAY_N].contiguous(), st_, sag_, sc_),
             f"<melange, circuit> melange plugin chunk (first "
             f"{E2_REPLAY_N})"))
+        mel_forms = chain_forms(
+            ek, (cp_, mono_[:E2_REPLAY_N].contiguous(), st_, sag_, sc_),
+            f"<melange, circuit> melange plugin chunk (first "
+            f"{E2_REPLAY_N})")
         beh = {}
         for models in (("dk", "behavioral"), ("melange", "behavioral")):
             reset_counts(vb, mc)
@@ -1453,7 +1547,11 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
           f"authentic noise: warm_up {warm_ms / 1e3:.2f} s ({int(SR * 0.6)} "
           f"samples), the chord's 1 s block in {sec_ms / 1e3:.2f} s = "
           f"{rtf:.3f}x realtime, peak {peak:.4f}; chunk replay "
-          f"bit-identical; behavioral sessions (4096 samples): "
+          f"bit-identical; E2's two forms bit-identical on it, "
+          f"A B B A: thread {mel_forms['thread_ms'][0]:.3f}, warp "
+          + " / ".join(f"{t:.3f}" for t in mel_forms["warp_ms"])
+          + f", thread {mel_forms['thread_ms'][1]:.3f} ms; behavioral "
+          f"sessions (4096 samples): "
           + ", ".join(f"{k} {v['ms_4096']:.0f} ms peak {v['peak']:.4f}"
                       for k, v in beh.items())
           + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
@@ -1467,6 +1565,7 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
             "E2": e2_cmp, "di_stages_ms": di_stages, "di_ms": di_ms,
             "melange_plugin": {"warm_up_ms": warm_ms, "one_second_ms": sec_ms,
                                "realtime_factor": rtf, "peak": peak},
+            "melange_forms": mel_forms,
             "behavioral": beh}
 
 
@@ -1498,11 +1597,11 @@ ONSET_EVENTS = ((0.4, 48, 0.0), (1.6, 67, -6.0), (2.9, 48, -12.0),
                 (4.1, 67, 0.0))
 ONSET_SPECTRAL_REF = (1, 6)
 # The alias sweep shrinks to note 84 when it would end past SCRIPT_LIMIT_S
-# (the script must end within 1200 s); a note takes ALIAS_NOTE_S (45-49 s
-# measured on an NVIDIA H100 80GB HBM3 at 700 W: 67686 loud samples
-# through E2).
+# (the script must end within 1200 s); a note takes ALIAS_NOTE_S (7.2-7.9 s
+# measured on an NVIDIA H100 80GB HBM3 at 700 W with E2 a warp per engine,
+# 45-49 s with a thread: 67686 loud samples through E2).
 SCRIPT_LIMIT_S = 1000.0
-ALIAS_NOTE_S = 50.0
+ALIAS_NOTE_S = 12.0
 T_START = time.perf_counter()
 
 
@@ -1569,6 +1668,28 @@ def compare_pa_speaker(kr, x, state, volume, character, what):
             "newton": {"power_amp": [solves, iters]},
             "us_per_sample": ms * 1e3 / n,
             "max_abs_err": float((out - ref).abs().nan_to_num().max())}
+
+
+def pa_step_forms(kr, x, state, volume, character):
+    """The power-amp step's two forms on one E6 call: E6 (the warp step,
+    power_amp_step_warp) and E9 (the one-thread power_amp_step) on the
+    same input x · volume · volume from the same power-amp rows leave the
+    same rows bit for bit; timed E9, E6, E6, E9 (CUDA events). → ms."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    sr = 44100.0
+    x9 = x * volume * volume  # the kernel's own product, in its order
+    a = state.clone()
+    kr.pa_speaker_scan(sr, x, a, volume, character)
+    b = state[:ek.PA_ROWS].clone()
+    ek.power_amp_scan(sr, x9, b)
+    check(same_bits(a[:ek.PA_ROWS], b),
+          f"E6's power-amp rows against E9's: {first_diff(a[:ek.PA_ROWS], b)}")
+    e9 = lambda: ek.power_amp_scan(sr, x9, state[:ek.PA_ROWS].clone())
+    e6 = lambda: kr.pa_speaker_scan(sr, x, state.clone(), volume, character)
+    times = [cuda_ms(f) for f in (e9, e6, e6, e9)]
+    return {"one_thread_ms": [times[0], times[3]],
+            "warp_ms": [times[1], times[2]]}
 
 
 def fixture_mixture():
@@ -1727,11 +1848,20 @@ def calib_phases(dev, card, launches, vb, mc):
     e6_r = compare_pa_speaker(
         kr, x_r, kr.init_pa_speaker_state(calibrate.BASE_SR, g_r, dev), 0.4,
         1.0, f"{g_r} ragged streams, NaN and inf columns, rails")
+    forms = pa_step_forms(kr, x6[:n_e6].contiguous(), st6, vol6, chr6)
+    pa_step_forms(kr, x_r, kr.init_pa_speaker_state(calibrate.BASE_SR, g_r,
+                                                    dev), 0.4, 1.0)
+    e6_main["abba"] = forms
     print("phase 26 E4<tap> and E6 bit-identical to their plain versions: "
           + "; ".join(f"{c['inputs']} {c['shape']} kernel {c['ms']:.3f} ms "
                       f"plain {c['plain_ms']:.0f} ms"
                       for c in (tap_main, tap_r, e6_main, e6_r))
-          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+          + f"; the power-amp step's two forms leave the same rows on both "
+          f"calls; A B B A on run_calibrate's call (512 x {n_e6}): one "
+          f"thread (E9) {forms['one_thread_ms'][0]:.3f} ms, warp (E6) "
+          + " / ".join(f"{t:.3f}" for t in forms["warp_ms"])
+          + f" ms, one thread {forms['one_thread_ms'][1]:.3f} ms"
+          f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
 
     # ── the pipeline, stages 1-6 through main, on the three-note
     # recording of tests/test_calib_pipeline.py:84-122 (rendered here by
@@ -2204,13 +2334,14 @@ STAGE_SR = 88200.0
 # E1-E7's ptxas (registers, stack bytes, spill stores, spill loads) as
 # built before E8 and E9 existed (NVIDIA H100 80GB HBM3, the card machine's
 # nvcc): E8 and E9 add callers of E2's tremolo and power-amp steps, and
-# must not move the existing kernels' allocation
+# must not move the existing kernels' allocation; nor must the warp step
+# beside them (E6, a warp per stream since, is not in the list)
 EARLIER_PTXAS = {
     "E1": (255, 40, 0, 0), "E3": (96, 768, 0, 0), "E4": (240, 40, 0, 0),
     "E4<tap>": (230, 40, 0, 0), "E5<dk>": (255, 1168, 496, 488),
-    "E5<melange>": (168, 3312, 628, 632), "E6": (168, 7088, 680, 664),
-    "E2<dk, circuit>": (255, 6912, 80, 136),
-    "E2<melange, circuit>": (255, 7152, 128, 176),
+    "E5<melange>": (168, 3312, 628, 632),
+    "E2<dk, circuit> thread": (255, 6912, 80, 136),
+    "E2<melange, circuit> thread": (255, 7152, 128, 176),
     "E2<dk, behavioral>": (255, 2880, 208, 212),
     "E2<melange, behavioral>": (255, 3824, 120, 136),
     "E7<diff>": (255, 960, 404, 368), "E7<shadow>": (255, 960, 404, 368)}
@@ -2586,6 +2717,9 @@ BATCH_CASES = ((("dk", "circuit"), 5, 256), (("dk", "behavioral"), 2, 32),
                (("melange", "behavioral"), 2, 32))
 BATCH_HISTORY = 512
 BATCH_SWEEP = ((1, 8, 32, 128), 2048)
+# (d)'s width above kernels.engine.CHAIN_WARP_MAX_ENGINES (E2's thread
+# form) and its samples per call
+THREAD_WIDTH, THREAD_WIDTH_N = 8192, 256
 # (a)'s wide case: the 8 kinds of batch_engine, WIDE_COPIES copies each
 # (128 engines: 4 E2 blocks of 32, 128 E1 blocks), copy j WIDE_STEP · j
 # samples further on (the steal fades, 220 samples, live in every copy)
@@ -2650,7 +2784,7 @@ def batch_guards(ek, cp, st, vin, mono):
 
 
 def batch_phases(dev, card, launches, vb, mc):
-    """Phase 28: E1 (a block per engine) and E2 (a thread per engine) over
+    """Phase 28: E1 (a block per engine) and E2 (a warp per engine) over
     B distinct engines against their batched plain versions in all four
     instantiations; each engine of a batch against its own Engine.render;
     render_states' throughput from the broadcast chord. Adds its paths'
@@ -2715,16 +2849,22 @@ def batch_phases(dev, card, launches, vb, mc):
              kinds[0].fade_len, SR), tag + ")"))
     vin = [x.clone() for x in wide[:4]]
     mono = ek.render_voices(*vin, WIDE_N, kinds[0].fade_len, SR)
+    wide_call = (kinds[0].params, mono, wide.chain, wide.rail_sag,
+                 wide.noise_scale)
     e2_cmp.append(compare_chain_f64(
-        ek, (kinds[0].params, mono, wide.chain, wide.rail_sag,
-             wide.noise_scale), tag + ": rail sag off, NaN slots, steal "
-        "fades, guard #2, noise, ramps, releases)"))
+        ek, wide_call, tag + ": rail sag off, NaN slots, steal fades, guard "
+        "#2, noise, ramps, releases)"))
+    forms = chain_forms(ek, wide_call, f"{b} distinct engines x {WIDE_N}")
     batch_guards(ek, kinds[0].params, wide, vin, mono)
     print("phase 28 (a) E1 and E2 over distinct engines bit-identical to "
           "their batched plain versions (output and state): "
           + "; ".join(f"{c['inputs']} kernel {c['ms']:.3f} ms plain "
                       f"{c['plain_ms']:.0f} ms" for c in e1_cmp + e2_cmp)
-          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+          + f"; E2's two forms bit-identical on the {b} engines, A B B A: "
+          f"thread {forms['thread_ms'][0]:.3f}, warp "
+          + " / ".join(f"{t:.3f}" for t in forms["warp_ms"])
+          + f", thread {forms['thread_ms'][1]:.3f} ms"
+          f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
 
     # (b) each engine of an 8-engine batch against its own Engine.render,
     # 1024 samples in Engine.render's chunks (4 x 256)
@@ -2801,9 +2941,46 @@ def batch_phases(dev, card, launches, vb, mc):
           "sample, aggregate realtime): " + "; ".join(
               f"{k} {v['ms']:.1f} ms {v['us_per_base_sample']:.1f} us "
               f"{v['aggregate_rtf']:.4f}x" for k, v in rows.items())
-          + f"; launches {counts} [{card}] "
-          f"({time.perf_counter() - t_p:.0f} s for phase 28)", flush=True)
-    return {"E1": e1_cmp, "E2": e2_cmp,
+          + f"; launches {counts} [{card}]", flush=True)
+
+    # (d) above the crossover: render_states at THREAD_WIDTH engines runs
+    # E2's thread form, each broadcast row equal to the chord's one-engine
+    # (warp form) call on the same state, for both circuit instantiations
+    t_d = time.perf_counter()
+    b = THREAD_WIDTH
+    check(b > ek.CHAIN_WARP_MAX_ENGINES, "THREAD_WIDTH above the crossover")
+    wide_rows = {}
+    reset_counts(vb, mc)
+    for pre in ("dk", "melange"):
+        eng = pe.Engine(SR, device=dev, preamp_model=pre)
+        for note in SWEEP_CHORD:
+            eng.note_on(note, 0.95)
+        one = pe.EngineState(*[x.clone() for x in eng.state])
+        wide = pe.broadcast_state(eng.state, b)
+        ms, out = host_ms(lambda: pe.render_states(eng, wide,
+                                                   THREAD_WIDTH_N)[1])
+        _, ref = pe.render_states(eng, one, THREAD_WIDTH_N)
+        check(same_bits(out, ref.expand_as(out))
+              and same_bits(wide.chain, one.chain.expand_as(wide.chain)),
+              f"{pre}: {b} engines (thread form) against one (warp form): "
+              f"{first_diff(out, ref.expand_as(out))}")
+        wide_rows[pre] = {"ms": ms, "aggregate_rtf":
+                          b * THREAD_WIDTH_N / SR / (ms / 1e3)}
+    path = f"render_states, {b} engines x {THREAD_WIDTH_N} (thread form)"
+    launches[path] = counts = read_counts(vb, mc)
+    check(counts["engine_chain_thread"] == 1
+          and counts["engine_chain_melange_circuit_thread"] == 1
+          and counts["plain"] == 0, counts)
+    print(f"phase 28 (d) render_states at {b} engines x {THREAD_WIDTH_N}, "
+          f"above CHAIN_WARP_MAX_ENGINES = {ek.CHAIN_WARP_MAX_ENGINES}: "
+          + "; ".join(f"<{k}, circuit> {v['ms']:.1f} ms = "
+                      f"{v['aggregate_rtf']:.1f}x realtime aggregate"
+                      for k, v in wide_rows.items())
+          + f", every row bit-identical to the one-engine (warp form) "
+          f"call; launches {counts} [{card}] ({time.perf_counter() - t_d:.0f}"
+          f" s; {time.perf_counter() - t_p:.0f} s for phase 28)", flush=True)
+    return {"E1": e1_cmp, "E2": e2_cmp, "E2_forms": forms,
+            "thread_width": wide_rows,
             "batch_vs_one": {"engines": 8, "samples": 1024,
                              "batch_ms": batch_ms, "one_at_a_time_ms":
                              one_ms},
@@ -2866,9 +3043,14 @@ def main():
                           ("mono_chain_kernelILb0E", "K2"),
                           ("mono_chain_kernelILb1E", "K5"),
                           ("engine_voices_kernel", "E1"),
-                          ("engine_chain_kernelILi0ELi0E", "E2<dk, circuit>"),
+                          ("engine_chain_kernelILi0ELi0E",
+                           "E2<dk, circuit> thread"),
                           ("engine_chain_kernelILi1ELi0E",
-                           "E2<melange, circuit>"),
+                           "E2<melange, circuit> thread"),
+                          ("engine_chain_warp_kernelILi0E",
+                           "E2<dk, circuit> warp"),
+                          ("engine_chain_warp_kernelILi1E",
+                           "E2<melange, circuit> warp"),
                           ("engine_chain_kernelILi0ELi1E",
                            "E2<dk, behavioral>"),
                           ("engine_chain_kernelILi1ELi1E",
@@ -2895,6 +3077,19 @@ def main():
         for name in ("K1", "K3", "K4"):
             check(ptxas[name]["stack"] == ptxas[name]["spill_stores"] == 0,
                   f"{name} uses stack or spills: {ptxas[name]}")
+        # the warp kernels, and the warp step's functions (their own
+        # frames): no stack, no spills
+        steps = {k: function_frames(_build.BUILD_LOG, k) for k in WARP_STEP}
+        print("phase 1 the warp kernels' ptxas: " + "; ".join(
+            f"{k} {ptxas[k]['registers']} registers, {ptxas[k]['stack']} "
+            f"bytes stack, {ptxas[k]['spill_stores']} / "
+            f"{ptxas[k]['spill_loads']} bytes spilled"
+            for k in WARP_KERNELS) + "; the warp step's functions (stack, "
+            "spill stores, spill loads): " + "; ".join(
+                f"{k} {v}" for k, v in steps.items()), flush=True)
+        check(all(v and all(f == (0, 0, 0) for f in v)
+                  for v in steps.values()),
+              f"the warp step's functions use stack or spill: {steps}")
 
     # ── phase 2: K1 on the card against its plain version on the card ──
     notes = np.repeat(np.arange(36, 100), 4).astype(np.float64)
@@ -3914,7 +4109,9 @@ def main():
             ("engine_voices", "E1", "openwurli_tpu/engine.py:452",
              {"us_per_chunk": eng_k["E1"]["us_per_chunk"]}),
             ("engine_chain", "E2", "openwurli_tpu/engine.py:452",
-             {k: v for k, v in eng_k["E2"].items() if k != "cmp"})):
+             {k: v for k, v in eng_k["E2"].items() if k != "cmp"}
+             | {"form": "a warp per engine", "ptxas": ptxas.get(
+                 "E2<dk, circuit> warp")})):
         cmps = eng_k[key]["cmp"]
         main = cmps[-1]  # the engine session's own chunk
         kernels.append(entry(
@@ -3934,14 +4131,34 @@ def main():
                    ("melange", "behavioral")):
         cmps = [c for c in mod_k["E2"] if c["models"] == list(models)]
         main = cmps[-1]
+        circuit = models[1] == "circuit"
         kernels.append(entry(
             f"engine_chain_{models[0]}_{models[1]}", "engine.cu",
             "openwurli_tpu/engine.py:452", main["shape"],
             max(c["max_abs_err"] for c in cmps), main["ms"],
             main["plain_ms"], main["bound"], ptxas=ptxas.get(
-                f"E2<{models[0]}, {models[1]}>"),
+                f"E2<{models[0]}, {models[1]}>" + (" warp" if circuit
+                                                   else "")),
+            form="a warp per engine" if circuit else "a thread per engine",
             compared=[{k: v for k, v in c.items() if k != "bound"}
                       | {"bound_ms": c["bound"][0]} for c in cmps]))
+    # the circuit instantiations' thread form (above CHAIN_WARP_MAX_ENGINES
+    # engines), timed beside the warp form on a call that both ran
+    for name, pre, forms, main in (
+            ("engine_chain_thread", "dk", bat_k["E2_forms"], bat_k["E2"][-1]),
+            ("engine_chain_melange_circuit_thread", "melange",
+             mod_k["melange_forms"],
+             [c for c in mod_k["E2"] if c["models"] == [
+                 "melange", "circuit"]][-1])):
+        kernels.append(entry(
+            name, "engine.cu", "openwurli_tpu/engine.py:452", main["shape"],
+            main["max_abs_err"], forms["thread_ms"][0], main["plain_ms"],
+            main["bound"], ptxas=ptxas.get(f"E2<{pre}, circuit> thread"),
+            form="a thread per engine, above CHAIN_WARP_MAX_ENGINES",
+            against_warp_form=forms,
+            main_path_ms={f"render_states {THREAD_WIDTH} engines x "
+                          f"{THREAD_WIDTH_N}":
+                          bat_k["thread_width"][pre]["ms"]}))
     for name, key, replaces in (
             ("voice_render", "E4", "openwurli_tpu/voice.py:140"),
             ("preamp_scan_dk", "E5<dk>", "openwurli_tpu/di.py:29"),
@@ -3963,7 +4180,7 @@ def main():
              "openwurli_tpu/calib/calibrate.py:80", {}),
             ("pa_speaker_scan", "E6", "openwurli_tpu/calib/calibrate.py:123",
              {"calibrate": cal_k["calibrate"], "pipeline": cal_k["pipeline"],
-              "onsets": cal_k["onsets"]})):
+              "onsets": cal_k["onsets"], "form": "a warp per stream"})):
         k = cal_k[key]
         kernels.append(entry(
             name, "engine.cu", replaces, k["shape"],
@@ -4011,7 +4228,8 @@ def main():
             k["batch_sweep_x2048"] = bat_k["sweep_x2048"]
         if k["name"] == "engine_voices":
             k["batched"] = batched(bat_k["E1"])
-        if k["name"].startswith("engine_chain"):
+        if k["name"].startswith("engine_chain") and \
+                not k["name"].endswith("_thread"):
             models = k["name"].split("_")[2:] or ["dk", "circuit"]
             k["batched"] = batched([c for c in bat_k["E2"]
                                     if c["models"] == list(models)])

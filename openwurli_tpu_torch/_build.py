@@ -61,8 +61,9 @@ _SIGNATURES = {
     # stream
     "ow_engine_voices": (_P, _P, _P, _P, _P, _I, _I, _D, _D, _P),
     # consts, n_consts, mono, chain, out, n, engines, rail_sag (bool per
-    # engine), pre_model, pa_model, noise_scale (float64 per engine), stream
-    "ow_engine_chain": (_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P),
+    # engine), pre_model, pa_model, noise_scale (float64 per engine), warp
+    # (1: a warp per engine, the circuit power amp only), stream
+    "ow_engine_chain": (_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _P),
     # consts, n_consts, state, n_steps, stream
     "ow_tremolo_settle": (_P, _I, _P, _I, _P),
     # vpar, vst, vsti, out, voices, n, stream

@@ -3,18 +3,20 @@
 //
 //   E1 engine_voices      the 64 main + 64 steal voice slots over one chunk,
 //                         of B engines (a block per engine)
-//   E2 engine_chain       the mono chain over that chunk, of B engines (a
-//                         thread per engine), a template over the preamp
-//                         (DK or melange) and the power amp (circuit or
-//                         behavioral)
+//   E2 engine_chain       the mono chain over that chunk, of B engines, a
+//                         template over the preamp (DK or melange) and the
+//                         power amp (circuit or behavioral): a warp per
+//                         engine for the circuit power amp (up to the
+//                         wrapper's crossover), else a thread per engine
 //   E3 tremolo_settle     the tremolo oscillator's step, n times
 //   E4 voice_render       G voices over n samples (voice.render); with
 //                         TAP, the reed alone into the pickup, the reed's
 //                         output kept (calibrate.run_calibrate's T1, T2)
 //   E5 preamp_scan        G preamp streams over n samples: the DI path's
 //                         2x-oversampled DK preamp, or the melange preamp
-//   E6 pa_speaker_scan    G streams over n samples: volume², the power amp
-//                         with rail sag, the speaker, the post-speaker gain
+//   E6 pa_speaker_scan    G streams over n samples, a warp per stream:
+//                         volume², the power amp with rail sag, the
+//                         speaker, the post-speaker gain
 //                         (calibrate.run_calibrate's T5)
 //   E7 dk_scan            G streams over n samples of the twin DK preamp
 //                         at the input's rate, each sample at its own LDR
@@ -39,16 +41,21 @@
 // (tools/stage_bench.py:82-83); none is a Pallas kernel.
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
-// slot by one thread (a block of 128 per engine), E4-E7 each voice or
+// slot by one thread (a block of 128 per engine), E4, E5, E7 each voice or
 // stream by one thread, E8 and E9 each circuit or stream by one thread,
-// E2 each engine's chain and E3 the tremolo by one
-// thread walking the data-dependent Newton solves sample by sample. The bytes are
-// a few hundred per sample and the operations some 10^4-10^5 f64 per base
-// sample, far from the card's rates; what bounds the time is the length of
-// the dependent chain of f64 operations and libm calls per sample. The
-// design takes two exact savings: each Newton loop ends once every row has
-// converged (the masked iterations of the reference change nothing), and
-// E2 reuses the speaker's coefficients while the character is unchanged.
+// E3 the tremolo by one thread walking the data-dependent Newton solves
+// sample by sample. The bytes are a few hundred per sample and the
+// operations some 10^4-10^5 f64 per base sample, far from the card's
+// rates; what bounds the time is the length of the dependent chain of f64
+// operations and libm calls per sample. E6 and E2's circuit instantiations
+// shorten that chain with a warp per stream or engine (mna_step_warp: the
+// rows of every matvec, BJT, Jacobian row, pivot update and junction limit
+// on their own lanes, the solver block staged in shared memory, no local
+// memory in the solve); E2 keeps a thread per engine above the crossover,
+// where a full card runs 32 engines per warp. The design takes two exact
+// savings: each Newton loop ends once every row has converged (the masked
+// iterations of the reference change nothing), and E2 reuses the
+// speaker's coefficients while the character is unchanged.
 //
 // Every kernel equals its plain torch version bit for bit: compiled with
 // -fmad=false, sums in the plain version's index order, every max/min/clip
@@ -499,27 +506,35 @@ __device__ __forceinline__ double limexp(double x) {
   return x < XC ? exp(jmin(x, XC)) : EXC * (1.0 + (x - XC));
 }
 
+// one BJT's two port currents (gp.bjt_currents) from its 13 parameters,
+// parameter j at p[j * stride]
+__device__ __forceinline__ void bjt_currents(const double* p, int stride,
+                                             double vbe, double vbc,
+                                             double* i0, double* i1) {
+  const double is_ = p[0], nf_vt = p[stride], nr_vt = p[2 * stride],
+               inv_vaf = p[3 * stride], inv_var = p[4 * stride],
+               inv_ikf = p[5 * stride], inv_ikr = p[6 * stride],
+               bf = p[7 * stride], br = p[8 * stride], ise = p[9 * stride],
+               ne_vt = p[10 * stride], isc = p[11 * stride],
+               nc_vt = p[12 * stride];
+  const double i_f = is_ * (limexp(vbe / nf_vt) - 1.0);
+  const double i_r = is_ * (limexp(vbc / nr_vt) - 1.0);
+  const double q1 = 1.0 / jmax(1.0 - vbc * inv_vaf - vbe * inv_var, 1e-4);
+  const double q2 = i_f * inv_ikf + i_r * inv_ikr;
+  const double qb = q1 * 0.5 * (1.0 + sqrt(1.0 + 4.0 * jmax(q2, 0.0)));
+  const double ict = (i_f - i_r) / qb;
+  const double ibe = i_f / bf + ise * (limexp(vbe / ne_vt) - 1.0);
+  const double ibc = i_r / br + isc * (limexp(vbc / nc_vt) - 1.0);
+  *i0 = ibe + ibc;
+  *i1 = ict - ibc;
+}
+
 // the reference's mna.bjt_currents (gp.bjt_currents), per BJT
 template <int M, int NB>
 __device__ __noinline__ void currents(const double* gpc, const double* vnl, double* i) {
-  for (int b = 0; b < NB; ++b) {
-    const double* p = gpc + 13 * b;
-    const double is_ = p[0], nf_vt = p[1], nr_vt = p[2], inv_vaf = p[3],
-                 inv_var = p[4], inv_ikf = p[5], inv_ikr = p[6], bf = p[7],
-                 br = p[8], ise = p[9], ne_vt = p[10], isc = p[11],
-                 nc_vt = p[12];
-    const double vbe = vnl[2 * b], vbc = vnl[2 * b + 1];
-    const double i_f = is_ * (limexp(vbe / nf_vt) - 1.0);
-    const double i_r = is_ * (limexp(vbc / nr_vt) - 1.0);
-    const double q1 = 1.0 / jmax(1.0 - vbc * inv_vaf - vbe * inv_var, 1e-4);
-    const double q2 = i_f * inv_ikf + i_r * inv_ikr;
-    const double qb = q1 * 0.5 * (1.0 + sqrt(1.0 + 4.0 * jmax(q2, 0.0)));
-    const double ict = (i_f - i_r) / qb;
-    const double ibe = i_f / bf + ise * (limexp(vbe / ne_vt) - 1.0);
-    const double ibc = i_r / br + isc * (limexp(vbc / nc_vt) - 1.0);
-    i[2 * b] = ibe + ibc;
-    i[2 * b + 1] = ict - ibc;
-  }
+  for (int b = 0; b < NB; ++b)
+    bjt_currents(gpc + 13 * b, 1, vnl[2 * b], vnl[2 * b + 1], &i[2 * b],
+                 &i[2 * b + 1]);
 }
 
 __device__ __forceinline__ void limexp_d(double x, double* val, double* dv) {
@@ -529,52 +544,62 @@ __device__ __forceinline__ void limexp_d(double x, double* val, double* dv) {
   *dv = lin ? e : EXC;
 }
 
+// one BJT's closed-form GP derivatives (gp.bjt_currents_derivs_packed)
+// from its 13 parameters, parameter j at p[j * stride]: the two entries
+// of its Jacobian columns inside its block, top[k] = dI[0]/dV[k], bot[k] =
+// dI[1]/dV[k] for its ports k = 0, 1
+__device__ __forceinline__ void bjt_derivs(const double* p, int stride,
+                                           double vbe, double vbc,
+                                           double* top, double* bot) {
+  const double is_ = p[0], inv_nfvt = p[stride], inv_nrvt = p[2 * stride],
+               inv_vaf = p[3 * stride], inv_var = p[4 * stride],
+               inv_ikf = p[5 * stride], inv_ikr = p[6 * stride],
+               ise = p[7 * stride], inv_nevt = p[8 * stride],
+               isc = p[9 * stride], inv_ncvt = p[10 * stride],
+               inv_bf = p[11 * stride], inv_br = p[12 * stride];
+  double ef, def, er, der, el, dle, ec, dlc;
+  limexp_d(vbe * inv_nfvt, &ef, &def);
+  limexp_d(vbc * inv_nrvt, &er, &der);
+  limexp_d(vbe * inv_nevt, &el, &dle);
+  limexp_d(vbc * inv_ncvt, &ec, &dlc);
+  const double i_f = is_ * (ef - 1.0);
+  const double i_r = is_ * (er - 1.0);
+  const double dif = is_ * def * inv_nfvt;
+  const double dir = is_ * der * inv_nrvt;
+  const double q1_arg = 1.0 - vbc * inv_vaf - vbe * inv_var;
+  const bool clipped = q1_arg < 1e-4;
+  const double q1 = 1.0 / jmax(q1_arg, 1e-4);
+  const double q1sq = q1 * q1;
+  const double dq1_be = clipped ? 0.0 : inv_var * q1sq;
+  const double dq1_bc = clipped ? 0.0 : inv_vaf * q1sq;
+  const double q2 = i_f * inv_ikf + i_r * inv_ikr;
+  const double root = sqrt(1.0 + 4.0 * jmax(q2, 0.0));
+  const double h = 0.5 * (1.0 + root);
+  const double dh = q2 > 0.0 ? 1.0 / root : 0.0;
+  const double qb = q1 * h;
+  const double dqb_be = dq1_be * h + q1 * dh * (dif * inv_ikf);
+  const double dqb_bc = dq1_bc * h + q1 * dh * (dir * inv_ikr);
+  const double inv_qb = 1.0 / qb;
+  const double ict = (i_f - i_r) * inv_qb;
+  const double dict_be = (dif - ict * dqb_be) * inv_qb;
+  const double dict_bc = (-dir - ict * dqb_bc) * inv_qb;
+  const double dibe_be = dif * inv_bf + ise * dle * inv_nevt;
+  const double dibc_bc = dir * inv_br + isc * dlc * inv_ncvt;
+  top[0] = dibe_be;
+  top[1] = dibc_bc;
+  bot[0] = dict_be;
+  bot[1] = dict_bc - dibc_bc;
+}
+
 // closed-form GP derivatives (gp.bjt_currents_derivs_packed): the two
 // entries of each Jacobian column inside its block, top = dI[2b]/dV[k],
 // bot = dI[2b+1]/dV[k]
 template <int M, int NB>
 __device__ __noinline__ void derivs(const double* gpd, const double* vnl, double* top,
                        double* bot) {
-  for (int b = 0; b < NB; ++b) {
-    const double* p = gpd + 13 * b;
-    const double is_ = p[0], inv_nfvt = p[1], inv_nrvt = p[2],
-                 inv_vaf = p[3], inv_var = p[4], inv_ikf = p[5],
-                 inv_ikr = p[6], ise = p[7], inv_nevt = p[8], isc = p[9],
-                 inv_ncvt = p[10], inv_bf = p[11], inv_br = p[12];
-    const double vbe = vnl[2 * b], vbc = vnl[2 * b + 1];
-    double ef, def, er, der, el, dle, ec, dlc;
-    limexp_d(vbe * inv_nfvt, &ef, &def);
-    limexp_d(vbc * inv_nrvt, &er, &der);
-    limexp_d(vbe * inv_nevt, &el, &dle);
-    limexp_d(vbc * inv_ncvt, &ec, &dlc);
-    const double i_f = is_ * (ef - 1.0);
-    const double i_r = is_ * (er - 1.0);
-    const double dif = is_ * def * inv_nfvt;
-    const double dir = is_ * der * inv_nrvt;
-    const double q1_arg = 1.0 - vbc * inv_vaf - vbe * inv_var;
-    const bool clipped = q1_arg < 1e-4;
-    const double q1 = 1.0 / jmax(q1_arg, 1e-4);
-    const double q1sq = q1 * q1;
-    const double dq1_be = clipped ? 0.0 : inv_var * q1sq;
-    const double dq1_bc = clipped ? 0.0 : inv_vaf * q1sq;
-    const double q2 = i_f * inv_ikf + i_r * inv_ikr;
-    const double root = sqrt(1.0 + 4.0 * jmax(q2, 0.0));
-    const double h = 0.5 * (1.0 + root);
-    const double dh = q2 > 0.0 ? 1.0 / root : 0.0;
-    const double qb = q1 * h;
-    const double dqb_be = dq1_be * h + q1 * dh * (dif * inv_ikf);
-    const double dqb_bc = dq1_bc * h + q1 * dh * (dir * inv_ikr);
-    const double inv_qb = 1.0 / qb;
-    const double ict = (i_f - i_r) * inv_qb;
-    const double dict_be = (dif - ict * dqb_be) * inv_qb;
-    const double dict_bc = (-dir - ict * dqb_bc) * inv_qb;
-    const double dibe_be = dif * inv_bf + ise * dle * inv_nevt;
-    const double dibc_bc = dir * inv_br + isc * dlc * inv_ncvt;
-    top[2 * b] = dibe_be;
-    top[2 * b + 1] = dibc_bc;
-    bot[2 * b] = dict_be;
-    bot[2 * b + 1] = dict_bc - dibc_bc;
-  }
+  for (int b = 0; b < NB; ++b)
+    bjt_derivs(gpd + 13 * b, 1, vnl[2 * b], vnl[2 * b + 1], top + 2 * b,
+               bot + 2 * b);
 }
 
 // the f32 unpivoted elimination of mna.ge_solve_numpy: jac (M×M) and f
@@ -727,6 +752,299 @@ __device__ __noinline__ void mna_step(const double* c, SolverState& st,
   dg[2] = dg[2] + (bad ? 1.0 : 0.0);
   dg[3] = dg[3] + (damp_hit ? 1.0 : 0.0);
   dg[4] = dg[4] + (need_be ? 1.0 : 0.0);
+}
+
+// ═══════════════════ the warp-cooperative mna step ═══════════════════
+//
+// mna_step's step run by the 32 lanes of one warp (E2's circuit
+// instantiations, E6). Lane r holds node row r of v (r < N) and nonlinear
+// row r of i and v_nl (r < M); during Newton also its residual f[r], its
+// Jacobian row and its augmented f32 row, in registers. Between the
+// broadcasts every row is independent: the matvecs (lane r walks row r in
+// column order over a vector published in shared memory), the BJTs'
+// currents and derivatives (lanes 2b and 2b + 1 both compute BJT b and keep
+// their own row), the Jacobian rows, the row updates of each pivot step
+// (pivot row k broadcast by __shfl_sync) and the junction limit. The
+// convergence test, the failure test and the NaN test are votes; the
+// reductions whose value is kept or used (max_abs of f, of dv) are taken in
+// index order on every lane from the published vector, so every lane holds
+// the values and takes the branches that mna_step does, and each value is
+// the same function of the same operands as there.
+//
+// The solver block is staged in shared memory once per block, every
+// matrix transposed, so that the lanes' row walks read consecutive
+// addresses: a stride of M = 16 doubles would put every lane of a
+// row-major walk on one bank.
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// one lane's rows of a circuit's solver state; resid and the counters
+// (cooldown, nr_fail, nan_reset, damp, be_steps) are the same on every lane
+struct LaneState {
+  double v, i, v_nl, resid, diag[5];
+};
+
+// a warp's vectors in shared memory, published by their owning lanes
+struct WarpScratch {
+  double a[32], b[32];
+};
+
+// where element k of the row-major block sits once staged
+template <int N, int M, int NB>
+__device__ int staged_index(int k) {
+  using L = SL<N, M, NB>;
+  const int seg[12][3] = {
+      {L::S, N, N},      {L::AH, N, N},    {L::NV, M, N},   {L::NI, N, M},
+      {L::SNI, N, M},    {L::K, M, M},     {L::SBE, N, N},  {L::AHBE, N, N},
+      {L::SNIBE, N, M},  {L::KBE, M, M},   {L::GPD, NB, 13},
+      {L::GPC, NB, 13}};
+  for (int s = 0; s < 12; ++s) {
+    const int q = k - seg[s][0];
+    if (q >= 0 && q < seg[s][1] * seg[s][2])
+      return seg[s][0] + (q % seg[s][2]) * seg[s][1] + q / seg[s][2];
+  }
+  return k;
+}
+
+// the block's threads copy `src` (row-major, SL's layout) into `dst`
+template <int N, int M, int NB>
+__device__ void stage_block(const double* __restrict__ src, double* dst) {
+  for (int k = threadIdx.x; k < SL<N, M, NB>::SIZE; k += blockDim.x)
+    dst[staged_index<N, M, NB>(k)] = src[k];
+}
+
+// every lane's x (lanes below n) into buf; after it every lane reads buf
+__device__ __forceinline__ void publish(double* buf, double x, int lane,
+                                        int n) {
+  __syncwarp();  // every lane has read buf's previous contents
+  if (lane < n) buf[lane] = x;
+  __syncwarp();
+}
+
+// row r of a staged R × C matrix (a[c * R + r]) times buf, in column order
+template <int R, int C>
+__device__ __forceinline__ double row_dot(const double* a, const double* x,
+                                          int r) {
+  double acc = a[r] * x[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) acc = acc + a[c * R + r] * x[c];
+  return acc;
+}
+
+// max_abs of the lanes' x over rows below n, in index order on every lane
+__device__ __forceinline__ double max_abs_warp(double* buf, double x,
+                                               int lane, int n) {
+  publish(buf, x, lane, n);
+  return max_abs(buf, n);
+}
+
+// this lane's current of `currents`: BJT lane / 2, row lane
+template <int NB>
+__device__ __forceinline__ double current_lane(const double* gpc,
+                                               double v_nl, int lane) {
+  const int b = min(lane >> 1, NB - 1);
+  const double vbe = __shfl_sync(FULL, v_nl, lane & ~1);
+  const double vbc = __shfl_sync(FULL, v_nl, lane | 1);
+  double i0, i1;  // staged: parameter j at gpc[j * NB + b]
+  bjt_currents(gpc + b, NB, vbe, vbc, &i0, &i1);
+  return (lane & 1) ? i1 : i0;
+}
+
+// this lane's column of `derivs`: top = dI[2b]/dV[lane], bot =
+// dI[2b+1]/dV[lane] for BJT b = lane / 2
+template <int NB>
+__device__ __forceinline__ void derivs_lane(const double* gpd, double v_nl,
+                                            int lane, double* top,
+                                            double* bot) {
+  const int b = min(lane >> 1, NB - 1);
+  const double vbe = __shfl_sync(FULL, v_nl, lane & ~1);
+  const double vbc = __shfl_sync(FULL, v_nl, lane | 1);
+  double t[2], u[2];
+  bjt_derivs(gpd + b, NB, vbe, vbc, t, u);
+  *top = (lane & 1) ? t[1] : t[0];
+  *bot = (lane & 1) ? u[1] : u[0];
+}
+
+// ge_solve_f32 on a warp: lane r holds row r of the augmented f32 system;
+// step k broadcasts pivot row k, every lane below it updates its own row,
+// each update rounded once from double as there; back substitution in the
+// same order. → this lane's x
+template <int M>
+__device__ __forceinline__ float ge_solve_f32_warp(float (&aug)[M + 1],
+                                                   int lane) {
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const float piv = __shfl_sync(FULL, aug[k], k);
+    const float inv = 1.0f / (fabsf(piv) > 1e-30f ? piv : 1e-30f);
+    const double fac = (double)aug[k];
+#pragma unroll
+    for (int c = k + 1; c <= M; ++c) {
+      const float pk = __shfl_sync(FULL, aug[c], k) * inv;
+      const float upd = (float)((double)aug[c] - fac * (double)pk);
+      aug[c] = lane == k ? pk : (lane > k ? upd : aug[c]);
+    }
+  }
+  float x[M], own = 0.0f;
+#pragma unroll
+  for (int i = M - 1; i >= 0; --i) {
+    float acc = aug[M];
+#pragma unroll
+    for (int j = i + 1; j < M; ++j)
+      acc = (float)((double)acc - (double)aug[j] * (double)x[j]);
+    x[i] = __shfl_sync(FULL, acc, i);
+    own = lane == i ? x[i] : own;
+  }
+  return own;
+}
+
+// nr_solve on a warp: Newton on this lane's row of v_nl = p + K i(v_nl),
+// K the staged k_eff; leaves the row's current in i; → the final residual
+// (the same on every lane)
+template <int N, int M, int NB, int ITERS>
+__device__ __forceinline__ double nr_solve_warp(const double* s,
+                                                const double* k_eff, double p,
+                                                double& v_nl, double& i,
+                                                WarpScratch* w, int lane) {
+  using L = SL<N, M, NB>;
+  const int r = min(lane, M - 1);
+  const double nvt = s[L::NVT + r], vcrit = s[L::VCRIT + r];
+#pragma unroll 1
+  for (int it = 0; it < ITERS; ++it) {
+    i = current_lane<NB>(s + L::GPC, v_nl, lane);
+    publish(w->a, i, lane, M);
+    const double f = v_nl - p - row_dot<M, M>(k_eff, w->a, r);
+    if (__all_sync(FULL, lane >= M || fabs(f) < 1e-9))
+      return max_abs_warp(w->b, f, lane, M);
+    double top, bot;
+    derivs_lane<NB>(s + L::GPD, v_nl, lane, &top, &bot);
+    __syncwarp();  // every lane has read a's currents and b's last max
+    if (lane < M) {
+      w->a[lane] = top;
+      w->b[lane] = bot;
+    }
+    __syncwarp();
+    float aug[M + 1];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const int r0 = 2 * (k / 2);
+      const double jac = (r == k ? 1.0 : 0.0) -
+                         (k_eff[r0 * M + r] * w->a[k] +
+                          k_eff[(r0 + 1) * M + r] * w->b[k]);
+      aug[k] = (float)jac;
+    }
+    aug[M] = (float)f;
+    const double dv = (double)ge_solve_f32_warp<M>(aug, lane);
+    const double v_old = v_nl;
+    const double v_new = v_old - jclip(dv, -2.0, 2.0);
+    const double delta = v_new - v_old;
+    const double lim = v_old + nvt * log1p(jmax(delta, 0.0) / nvt);
+    const bool apply = (v_new > vcrit) && (delta > 2.0 * nvt);
+    v_nl = apply ? lim : v_new;
+  }
+  i = current_lane<NB>(s + L::GPC, v_nl, lane);
+  publish(w->a, i, lane, M);
+  const double f = v_nl - p - row_dot<M, M>(k_eff, w->a, r);
+  return max_abs_warp(w->b, f, lane, M);
+}
+
+// failed() on a warp: votes, equal to the thread's test (a NaN row makes
+// both the ringing max NaN, false, and the non-finite test true)
+template <int N>
+__device__ __forceinline__ bool failed_warp(double v, double resid,
+                                            int n_nodes, int lane) {
+  const bool ring = __any_sync(FULL, lane < n_nodes && fabs(v) > 55.0);
+  const bool nonfin = __any_sync(FULL, lane < N && !finite(v));
+  return resid > 1e-3 || ring || nonfin;
+}
+
+// mna_step on a warp, on the staged block `s`; w_extra this lane's row of
+// the extra source vector
+template <int N, int M, int NB, int ITERS>
+__device__ __noinline__ void mna_step_warp(const double* s, LaneState& st,
+                                           double w_extra, WarpScratch* w) {
+  using L = SL<N, M, NB>;
+  const int lane = threadIdx.x & 31;
+  const int rn = min(lane, N - 1), rm = min(lane, M - 1);
+  const int n_nodes = (int)s[L::N_NODES];
+  const bool trap_primary = s[L::TRAP_PRIMARY] != 0.0;
+  double v = 0.0, i_new = 0.0, v_nl = 0.0, resid = 0.0;
+  bool need_be = false;
+  // solve_once: the trapezoidal pass, then the BE replay where needed
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool be = pass == 1;
+    const double* a_hist = s + (be ? L::AHBE : L::AH);
+    const double* s_mat = s + (be ? L::SBE : L::S);
+    const double* s_ni = s + (be ? L::SNIBE : L::SNI);
+    const double* k_eff = s + (be ? L::KBE : L::K);
+    const double w_sc = s[(be ? L::WSBE : L::WS) + rn];
+    const double trap_i = be ? 0.0 : s[L::TRAP_I];
+    __syncwarp();
+    if (lane < N) w->a[lane] = st.v;
+    if (lane < M) w->b[lane] = st.i;
+    __syncwarp();
+    double rhs = row_dot<N, N>(a_hist, w->a, rn);
+    rhs = rhs + w_sc * s[L::W + rn] + w_extra;
+    rhs = rhs + trap_i * row_dot<N, M>(s + L::NI, w->b, rn);
+    publish(w->a, rhs, lane, N);
+    const double v_lin = row_dot<N, N>(s_mat, w->a, rn);
+    publish(w->a, v_lin, lane, N);
+    const double p = row_dot<M, N>(s + L::NV, w->a, rm);
+    v_nl = st.v_nl;
+    resid = nr_solve_warp<N, M, NB, ITERS>(s, k_eff, p, v_nl, i_new, w,
+                                           lane);
+    publish(w->a, i_new, lane, M);
+    v = v_lin + row_dot<N, M>(s_ni, w->a, rn);
+    if (be) break;
+    need_be = trap_primary &&
+              (failed_warp<N>(v, resid, n_nodes, lane) || st.diag[0] > 0.0);
+    if (!need_be) break;
+  }
+  const bool fail = failed_warp<N>(v, resid, n_nodes, lane);
+  const double dv = v - st.v;
+  const double dv_max = max_abs_warp(w->b, dv, lane, N);
+  const bool damp_hit = finite(dv_max) && dv_max > 30.0;
+  const double scale = damp_hit ? 30.0 / jmax(dv_max, 1e-30) : 1.0;
+  v = st.v + dv * scale;
+  const bool bad = __any_sync(FULL, lane < N && !finite(v));
+  st.v = bad ? s[L::VDC + rn] : v;
+  st.i = bad ? s[L::IDC + rm] : i_new;
+  st.v_nl = bad ? s[L::VNLDC + rm] : v_nl;
+  st.resid = resid;
+  double* dg = st.diag;
+  dg[0] = fail ? 64.0 : (dg[0] - 1.0 > 0.0 ? dg[0] - 1.0 : 0.0);
+  dg[1] = dg[1] + (fail ? 1.0 : 0.0);
+  dg[2] = dg[2] + (bad ? 1.0 : 0.0);
+  dg[3] = dg[3] + (damp_hit ? 1.0 : 0.0);
+  dg[4] = dg[4] + (need_be ? 1.0 : 0.0);
+}
+
+// the lane's rows of a solver state whose rows v (N), i (M), v_nl (M),
+// resid, diag (5) follow one another from row 0 of `rows`, row k at
+// rows[k * stride]
+template <int N, int M>
+__device__ void load_lane(LaneState& st, const double* rows, size_t stride,
+                          int lane) {
+  const int rn = min(lane, N - 1), rm = min(lane, M - 1);
+  st.v = rows[rn * stride];
+  st.i = rows[(N + rm) * stride];
+  st.v_nl = rows[(N + M + rm) * stride];
+  st.resid = rows[(N + 2 * M) * stride];
+  for (int k = 0; k < 5; ++k) st.diag[k] = rows[(N + 2 * M + 1 + k) * stride];
+}
+
+template <int N, int M>
+__device__ void store_lane(const LaneState& st, double* rows, size_t stride,
+                           int lane) {
+  if (lane < N) rows[lane * stride] = st.v;
+  if (lane < M) {
+    rows[(N + lane) * stride] = st.i;
+    rows[(N + M + lane) * stride] = st.v_nl;
+  }
+  if (lane == 0) {
+    rows[(N + 2 * M) * stride] = st.resid;
+    for (int k = 0; k < 5; ++k) rows[(N + 2 * M + 1 + k) * stride] = st.diag[k];
+  }
 }
 
 // ═════════════════════════════ E2: chain ═════════════════════════════
@@ -1116,6 +1434,30 @@ __device__ void init_power_amp(const double* pa, double* ch) {
   ch[CH_PA_LAST] = 0.0;
 }
 
+// tremolo.step after the oscillator: vactrol (its envelope *env) → CdS R
+// (*r_ldr) → divider at `depth`; returns the shunt
+__device__ __forceinline__ double vactrol_shunt(const double* misc,
+                                                double v_out, double depth,
+                                                double* env, double* r_ldr) {
+  const double led = jclip((10.95 - v_out) / (10.95 - 0.70), 0.0, 1.0);
+  const double env0 = *env;
+  const double coeff = led > env0 ? misc[M_TREM_ATT] : misc[M_TREM_REL];
+  const double env1 = led + coeff * (env0 - led);
+  const double drive = jclip(env1, 0.0, 1.0);
+  const double log_r =
+      misc[M_LN_RMAX] + misc[M_LN_SPAN] * pow(jmax(drive, 1e-30), 0.9);
+  const double r = drive < 1e-6 ? 1000000.0 : exp(log_r);
+  *env = env1;
+  *r_ldr = r;
+  const double r_upper = 50000.0 * (1.0 - depth);
+  const double r_lower = 50000.0 * depth;
+  const double top =
+      r_upper > 0.0 ? r_upper * 18000.0 / (r_upper + 18000.0) : 0.0;
+  const double br = 680.0 + r;
+  const double low = r_lower > 0.0 ? r_lower * br / (r_lower + br) : 0.0;
+  return top + low;
+}
+
 // tremolo.step: oscillator → vactrol → CdS R → divider; returns the shunt
 __device__ __noinline__ double tremolo_step(const double* c, const double* misc,
                                double* ch, double depth) {
@@ -1124,23 +1466,34 @@ __device__ __noinline__ double tremolo_step(const double* c, const double* misc,
   const double w0[7] = {0, 0, 0, 0, 0, 0, 0};
   mna_step<7, 4, 2, 4>(c + C_TREM, st, w0);
   const double v_out = ch[CH_TREM_V + (int)misc[M_TREM_OUT]];
-  const double led = jclip((10.95 - v_out) / (10.95 - 0.70), 0.0, 1.0);
-  const double env0 = ch[CH_TREM_ENV];
-  const double coeff = led > env0 ? misc[M_TREM_ATT] : misc[M_TREM_REL];
-  const double env = led + coeff * (env0 - led);
-  const double drive = jclip(env, 0.0, 1.0);
-  const double log_r =
-      misc[M_LN_RMAX] + misc[M_LN_SPAN] * pow(jmax(drive, 1e-30), 0.9);
-  const double r_ldr = drive < 1e-6 ? 1000000.0 : exp(log_r);
-  ch[CH_TREM_ENV] = env;
-  ch[CH_TREM_RLDR] = r_ldr;
-  const double r_upper = 50000.0 * (1.0 - depth);
-  const double r_lower = 50000.0 * depth;
-  const double top =
-      r_upper > 0.0 ? r_upper * 18000.0 / (r_upper + 18000.0) : 0.0;
-  const double br = 680.0 + r_ldr;
-  const double low = r_lower > 0.0 ? r_lower * br / (r_lower + br) : 0.0;
-  return top + low;
+  return vactrol_shunt(misc, v_out, depth, ch + CH_TREM_ENV,
+                       ch + CH_TREM_RLDR);
+}
+
+// power_amp.step's rail sag after the solve: back to rest after a bad
+// step, else toward the load of the output `raw`
+__device__ __forceinline__ void rails_after(const double* misc, double* rails,
+                                            double raw, bool bad) {
+  if (bad) {
+    rails[0] = 22.5;
+    rails[1] = 22.5;
+    rails[2] = 0.0;
+    rails[3] = 0.0;
+  } else {
+    const double a_i = misc[M_PA_IAVG];
+    const double i_pos = jmax(raw / 8.0, 0.0);
+    const double i_neg = jmax(-raw / 8.0, 0.0);
+    const double iap = rails[2] + a_i * (i_pos - rails[2]);
+    const double ian = rails[3] + a_i * (i_neg - rails[3]);
+    const double tp = 24.5 - iap * 3.5;
+    const double tn = 24.5 - ian * 3.5;
+    const double ap = tp < rails[0] ? misc[M_PA_ATT] : misc[M_PA_REL];
+    const double an = tn < rails[1] ? misc[M_PA_ATT] : misc[M_PA_REL];
+    rails[0] = rails[0] + ap * (tp - rails[0]);
+    rails[1] = rails[1] + an * (tn - rails[1]);
+    rails[2] = iap;
+    rails[3] = ian;
+  }
 }
 
 // power_amp.step: rails into the sources, the circuit, the two-tier
@@ -1178,29 +1531,104 @@ __device__ __noinline__ double power_amp_step(const double* c, const double* mis
   }
   const double out = bad ? ch[CH_PA_LAST] : jclip(result, -1.0, 1.0);
   ch[CH_PA_LAST] = out;
-  if (sag) {
-    if (bad) {
-      rails[0] = 22.5;
-      rails[1] = 22.5;
-      rails[2] = 0.0;
-      rails[3] = 0.0;
-    } else {
-      const double a_i = misc[M_PA_IAVG];
-      const double i_pos = jmax(raw / 8.0, 0.0);
-      const double i_neg = jmax(-raw / 8.0, 0.0);
-      const double iap = rails[2] + a_i * (i_pos - rails[2]);
-      const double ian = rails[3] + a_i * (i_neg - rails[3]);
-      const double tp = 24.5 - iap * 3.5;
-      const double tn = 24.5 - ian * 3.5;
-      const double ap = tp < rails[0] ? misc[M_PA_ATT] : misc[M_PA_REL];
-      const double an = tn < rails[1] ? misc[M_PA_ATT] : misc[M_PA_REL];
-      rails[0] = rails[0] + ap * (tp - rails[0]);
-      rails[1] = rails[1] + an * (tn - rails[1]);
-      rails[2] = iap;
-      rails[3] = ian;
-    }
-  }
+  if (sag) rails_after(misc, rails, raw, bad);
   return out;
+}
+
+// a warp's power amp: its solver rows (LaneState), the rails and the last
+// output (the same on every lane); the chain's rows CH_PA_V .. CH_PA_LAST
+struct PaWarp {
+  LaneState s;
+  double rails[4], last;
+};
+using PaL = SL<21, 16, 8>;
+constexpr int PA_BLOCK = PaL::SIZE;
+constexpr int PA_RAILS = CH_PA_RAILS - CH_PA_V;  // rows from CH_PA_V
+
+__device__ void load_pa(PaWarp& pa, const double* rows, size_t stride,
+                        int lane) {
+  load_lane<21, 16>(pa.s, rows, stride, lane);
+  for (int k = 0; k < 4; ++k) pa.rails[k] = rows[(PA_RAILS + k) * stride];
+  pa.last = rows[(PA_RAILS + 4) * stride];
+}
+
+__device__ void store_pa(const PaWarp& pa, double* rows, size_t stride,
+                         int lane) {
+  store_lane<21, 16>(pa.s, rows, stride, lane);
+  if (lane == 0) {
+    for (int k = 0; k < 4; ++k) rows[(PA_RAILS + k) * stride] = pa.rails[k];
+    rows[(PA_RAILS + 4) * stride] = pa.last;
+  }
+}
+
+// init_power_amp on a warp (the staged block's DC point)
+__device__ __forceinline__ void init_power_amp_warp(const double* pa,
+                                                    PaWarp& st, int lane) {
+  const int rn = min(lane, 20), rm = min(lane, 15);
+  st.s.v = pa[PaL::VDC + rn];
+  st.s.i = pa[PaL::IDC + rm];
+  st.s.v_nl = pa[PaL::VNLDC + rm];
+  st.s.resid = 0.0;
+  for (int k = 0; k < 5; ++k) st.s.diag[k] = 0.0;
+  st.rails[0] = st.rails[1] = 22.5;
+  st.rails[2] = st.rails[3] = 0.0;
+  st.last = 0.0;
+}
+
+// power_amp_step on a warp: pa the staged solver block, x the same on
+// every lane; → the output, the same on every lane
+__device__ __noinline__ double power_amp_step_warp(const double* pa,
+                                                   const double* misc,
+                                                   PaWarp& st, double x,
+                                                   bool sag, WarpScratch* w) {
+  const int lane = threadIdx.x & 31;
+  const double sag_f = sag ? 1.0 : 0.0;
+  double* rails = st.rails;
+  // the sources, in power_amp_step's order of assignment
+  const double w1 = (rails[0] - 22.5) * sag_f;
+  const double w2 = (rails[1] - 22.5) * sag_f;
+  const double wx = lane == (int)misc[M_PA_IN]   ? x
+                    : lane == (int)misc[M_PA_V2] ? w2
+                    : lane == (int)misc[M_PA_V1] ? w1
+                                                 : 0.0;
+  mna_step_warp<21, 16, 8, 16>(pa, st.s, wx, w);
+  const double raw = __shfl_sync(FULL, st.s.v, (int)misc[M_PA_OUT]);
+  const double result = raw / 22.0;
+  const bool nr_failed = st.s.resid > 1e-3;
+  const bool insane = __any_sync(
+      FULL, lane < 21 && (!finite(st.s.v) || fabs(st.s.v) > 100.0));
+  const bool reset = !finite(result) || insane;
+  const bool bad = reset || nr_failed;
+  if (reset) {
+    const int rn = min(lane, 20), rm = min(lane, 15);
+    st.s.v = pa[PaL::VDC + rn];
+    st.s.i = pa[PaL::IDC + rm];
+    st.s.v_nl = pa[PaL::VNLDC + rm];
+  }
+  const double out = bad ? st.last : jclip(result, -1.0, 1.0);
+  st.last = out;
+  if (sag) rails_after(misc, rails, raw, bad);
+  return out;
+}
+
+// a warp's tremolo: its solver rows, the vactrol's envelope and the LDR
+// resistance (the same on every lane); the chain's rows CH_TREM_V ..
+// CH_TREM_RLDR
+struct TremWarp {
+  LaneState s;
+  double env, r_ldr;
+};
+constexpr int TREM_BLOCK = SL<7, 4, 2>::SIZE;
+
+// tremolo_step on a warp: trem the staged solver block; → the shunt, the
+// same on every lane
+__device__ __noinline__ double tremolo_step_warp(const double* trem,
+                                                 const double* misc,
+                                                 TremWarp& st, double depth,
+                                                 WarpScratch* w) {
+  mna_step_warp<7, 4, 2, 4>(trem, st.s, 0.0, w);
+  const double v_out = __shfl_sync(FULL, st.s.v, (int)misc[M_TREM_OUT]);
+  return vactrol_shunt(misc, v_out, depth, &st.env, &st.r_ldr);
 }
 
 // power_amp.behavioral_process: 8 Newton iterations on
@@ -1363,8 +1791,10 @@ __device__ __noinline__ double chain_sample(const double* c, double* ch, double 
   return out;
 }
 
-// E2: a thread per engine, blocks of E2_BLOCK. Thread e runs engine e's
-// chain: row e of chain (B, CHAIN_ROWS), mono (B, n) and out (B, n), its
+// E2's thread form: a thread per engine, blocks of E2_BLOCK (the
+// behavioral instantiations, and the circuit ones above the wrapper's
+// crossover, kernels/engine.py CHAIN_WARP_MAX_ENGINES). Thread e runs
+// engine e's chain: row e of chain (B, CHAIN_ROWS), mono (B, n) and out (B, n), its
 // own flags sag[e] and noise_scale[e], its own speaker coefficients; the
 // constants are shared. Each row is one thread's alone, so the layout is
 // engine-major as render_states returns it; a thread reads one mono word
@@ -1397,6 +1827,150 @@ __global__ void engine_chain_kernel(const double* __restrict__ c,
   }
   for (int k = 0; k < CHAIN_ROWS; ++k)
     chain[(size_t)e * CHAIN_ROWS + k] = ch[k];
+}
+
+// E2 for the circuit power amp: a warp per engine. Lane 0 runs what has
+// no parallel rows: the smoothers, the oversampler's allpass branches, the
+// preamp (DK or melange), the speaker and guard #2, on the chain rows it
+// holds in `ch`. The whole warp runs the tremolo's and the power amp's mna
+// steps (mna_step_warp, their solver blocks staged in shared memory per
+// block); the preamp's input goes from the tremolo to lane 0 and its
+// output from lane 0 to the warp by __shfl_sync. Every value and branch is
+// the thread kernel's, so the two forms agree bit for bit.
+constexpr int E2_WARPS = 4;  // engines (warps) per block
+
+// the chain rows that the warp's solver states hold, not lane 0's `ch`
+__device__ __forceinline__ bool warp_row(int k) {
+  return (k >= CH_TREM_V && k <= CH_TREM_RLDR) ||
+         (k >= CH_PA_V && k <= CH_PA_LAST);
+}
+
+template <int PRE>
+__device__ __forceinline__ double nonlinear_step_warp(
+    const double* c, const double* misc, double* ch, TremWarp& tr, PaWarp& pa,
+    const double* s_trem, const double* s_pa, WarpScratch* w, double depth,
+    double u, bool sag, double noise_scale, int lane) {
+  const double shunt = tremolo_step_warp(s_trem, misc, tr, depth, w);
+  const double g = 1.0 / jmax(shunt, 1000.0);
+  double pre = 0.0;
+  if (lane == 0) {
+    if constexpr (PRE == PRE_DK)
+      pre = preamp_step(c + C_PRE, ch + CH_PRE_V, g, u);
+    else
+      pre = melange_step(c + C_MEL, ch + CH_MEL_V, g, u, noise_scale);
+  }
+  pre = __shfl_sync(FULL, pre, 0);
+  const double drive = 0.25;  // tables.FIXED_CIRCUIT_DRIVE
+  return power_amp_step_warp(s_pa, misc, pa, pre * drive, sag, w);
+}
+
+// chain_sample on a warp; → the output on lane 0
+template <int PRE>
+__device__ __noinline__ double chain_sample_warp(
+    const double* c, double* ch, TremWarp& tr, PaWarp& pa,
+    const double* s_trem, const double* s_pa, WarpScratch* w, double mono,
+    bool sag, double noise_scale, double* last_char, Speaker* spk_k) {
+  const int lane = threadIdx.x & 31;
+  const double* misc = c + C_MISC;
+  double depth = 0.0, vol = 0.0, chr = 0.0;
+  if (lane == 0) {
+    depth = smoother_next(ch + CH_SM_DEPTH);
+    vol = smoother_next(ch + CH_SM_VOLUME);
+    chr = smoother_next(ch + CH_SM_CHAR);
+  }
+  depth = __shfl_sync(FULL, depth, 0);
+  double amp_out = 0.0;
+  if (misc[M_OVERSAMPLE] != 0.0) {
+    double us[2] = {0.0, 0.0}, y[2];
+    if (lane == 0) {
+      us[0] = branch_step(kBranchA, ch + CH_OS_UP_A, mono);
+      us[1] = branch_step(kBranchB, ch + CH_OS_UP_B, mono);
+    }
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h)
+      y[h] = nonlinear_step_warp<PRE>(c, misc, ch, tr, pa, s_trem, s_pa, w,
+                                      depth, us[h], sag, noise_scale, lane);
+    if (lane == 0) {
+      const double a = branch_step(kBranchA, ch + CH_OS_DOWN_A, y[0]);
+      const double b = branch_step(kBranchB, ch + CH_OS_DOWN_B, y[1]);
+      amp_out = (a + ch[CH_OS_DELAY]) * 0.5;
+      ch[CH_OS_DELAY] = b;
+    }
+  } else {
+    amp_out = nonlinear_step_warp<PRE>(c, misc, ch, tr, pa, s_trem, s_pa, w,
+                                       depth, mono, sag, noise_scale, lane);
+  }
+  double out = 0.0;
+  int bad = 0;
+  if (lane == 0) {
+    if (__double_as_longlong(chr) != __double_as_longlong(*last_char)) {
+      *last_char = chr;
+      speaker_design(chr, misc[M_SPK_SR], spk_k);
+    }
+    double* spk = ch + CH_SPK;
+    const double y = speaker_step(*spk_k, spk, amp_out, misc[M_SPK_ALPHA]);
+    out = y * misc[M_POST_GAIN] * vol;
+    bad = !finite(out);
+    if (bad) {
+      // NaN guard #2: preamp (the melange one's noise key and draws
+      // included), oversampler and speaker here, the power amp below
+      for (int k = 0; k < OS_ROWS; ++k) ch[CH_OS_UP_A + k] = 0.0;
+      if constexpr (PRE == PRE_DK)
+        init_preamp(c + C_PRE, ch + CH_PRE_V);
+      else
+        init_melange(c + C_MEL, ch + CH_MEL_V);
+      for (int k = 0; k < 5; ++k) spk[k] = 0.0;
+      out = 0.0;
+    }
+  }
+  if (__shfl_sync(FULL, bad, 0)) init_power_amp_warp(s_pa, pa, lane);
+  return out;
+}
+
+template <int PRE>
+__global__ void __launch_bounds__(E2_WARPS * 32)
+engine_chain_warp_kernel(const double* __restrict__ c,
+                         const double* __restrict__ mono, double* chain,
+                         float* out, int n, int b, const unsigned char* sag,
+                         const double* noise_scale) {
+  __shared__ double s_pa[PA_BLOCK], s_trem[TREM_BLOCK];
+  __shared__ WarpScratch scratch[E2_WARPS];
+  stage_block<21, 16, 8>(c + C_PA, s_pa);
+  stage_block<7, 4, 2>(c + C_TREM, s_trem);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int e = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (e >= b) return;  // the whole warp: no block-wide sync follows
+  double* row = chain + (size_t)e * CHAIN_ROWS;
+  double ch[CHAIN_ROWS];  // lane 0's rows
+  if (lane == 0)
+    for (int k = 0; k < CHAIN_ROWS; ++k) ch[k] = warp_row(k) ? 0.0 : row[k];
+  TremWarp tr;
+  load_lane<7, 4>(tr.s, row + CH_TREM_V, 1, lane);
+  tr.env = row[CH_TREM_ENV];
+  tr.r_ldr = row[CH_TREM_RLDR];
+  PaWarp pa;
+  load_pa(pa, row + CH_PA_V, 1, lane);
+  double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
+  Speaker spk_k;
+  WarpScratch* w = &scratch[warp];
+  for (int t = 0; t < n; ++t) {
+    const size_t i = (size_t)e * n + t;
+    const double y =
+        chain_sample_warp<PRE>(c, ch, tr, pa, s_trem, s_pa, w, mono[i],
+                               sag[e] != 0, noise_scale[e], &last_char,
+                               &spk_k);
+    if (lane == 0) out[i] = (float)y;
+  }
+  if (lane == 0)
+    for (int k = 0; k < CHAIN_ROWS; ++k)
+      if (!warp_row(k)) row[k] = ch[k];
+  store_lane<7, 4>(tr.s, row + CH_TREM_V, 1, lane);
+  if (lane == 0) {
+    row[CH_TREM_ENV] = tr.env;
+    row[CH_TREM_RLDR] = tr.r_ldr;
+  }
+  store_pa(pa, row + CH_PA_V, 1, lane);
 }
 
 // ═════════════════════════════ E3: settle ═════════════════════════════
@@ -1486,34 +2060,51 @@ dk_scan_kernel(const double* __restrict__ c, const double* __restrict__ x,
 
 // ═══════════════════════ E6: power amp and speaker ═══════════════════════
 
-// run_calibrate's T5, a thread per stream: x · volume · volume → the power
-// amp (the chain's step, rail sag on) → the speaker (its filters designed
-// once, from `character`) → × POST_SPEAKER_GAIN. No smoothers, no NaN
-// guard, no volume after the speaker. The constants have the chain's
-// layout (C_PA, C_MISC; the tremolo and preamp blocks unused); the state
-// (E6_ROWS, G) holds the chain's rows CH_PA_V .. CH_SPK + 4 of each stream.
-constexpr int E6_BLOCK = 32;
+// run_calibrate's T5, a warp per stream: x · volume · volume → the power
+// amp (the chain's step, rail sag on, on the warp: power_amp_step_warp) →
+// the speaker (its filters designed once, from `character`, on lane 0) →
+// × POST_SPEAKER_GAIN. No smoothers, no NaN guard, no volume after the
+// speaker. The constants have the chain's layout (C_PA, C_MISC; the
+// tremolo and preamp blocks unused); the state (E6_ROWS, G) holds the
+// chain's rows CH_PA_V .. CH_SPK + 4 of each stream, each row loaded and
+// stored by the lane that owns it. E6_WARPS streams to a block share one
+// staged copy of the power amp's solver block: run_calibrate's 512 streams
+// are 128 blocks, so every SM but four holds one.
+constexpr int E6_WARPS = 4;
 constexpr int E6_ROWS = CH_SPK + 5 - CH_PA_V;
+constexpr int E6_SPK = CH_SPK - CH_PA_V;
 
-__global__ void __launch_bounds__(E6_BLOCK)
+__global__ void __launch_bounds__(E6_WARPS * 32)
 pa_speaker_scan_kernel(const double* __restrict__ c,
                        const double* __restrict__ x, double* state,
                        double* out, int n, int g, double volume,
                        double character) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= g) return;
-  double ch[CHAIN_ROWS];  // only the power amp's and the speaker's rows
-  for (int k = 0; k < E6_ROWS; ++k) ch[CH_PA_V + k] = state[(size_t)k * g + j];
+  __shared__ double s_pa[PA_BLOCK];
+  __shared__ WarpScratch scratch[E6_WARPS];
+  stage_block<21, 16, 8>(c + C_PA, s_pa);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (j >= g) return;  // the whole warp: no block-wide sync follows
+  PaWarp pa;
+  load_pa(pa, state + j, g, lane);
+  double spk[5];
+  for (int k = 0; k < 5; ++k) spk[k] = state[(size_t)(E6_SPK + k) * g + j];
   const double* misc = c + C_MISC;
-  Speaker spk;
-  speaker_design(character, misc[M_SPK_SR], &spk);
+  Speaker spk_k;
+  if (lane == 0) speaker_design(character, misc[M_SPK_SR], &spk_k);
+  WarpScratch* w = &scratch[warp];
   for (int t = 0; t < n; ++t) {
     const double xt = x[(size_t)t * g + j] * volume * volume;
-    const double y = power_amp_step(c, misc, ch, xt, true);
-    const double z = speaker_step(spk, ch + CH_SPK, y, misc[M_SPK_ALPHA]);
-    out[(size_t)t * g + j] = z * misc[M_POST_GAIN];
+    const double y = power_amp_step_warp(s_pa, misc, pa, xt, true, w);
+    if (lane == 0) {
+      const double z = speaker_step(spk_k, spk, y, misc[M_SPK_ALPHA]);
+      out[(size_t)t * g + j] = z * misc[M_POST_GAIN];
+    }
   }
-  for (int k = 0; k < E6_ROWS; ++k) state[(size_t)k * g + j] = ch[CH_PA_V + k];
+  store_pa(pa, state + j, g, lane);
+  if (lane == 0)
+    for (int k = 0; k < 5; ++k) state[(size_t)(E6_SPK + k) * g + j] = spk[k];
 }
 
 // ═══════════════════ E8, E9: the stage benchmark's scans ═══════════════════
@@ -1608,9 +2199,10 @@ extern "C" int ow_pa_speaker_scan(const double* consts, int n_consts,
   if (n_consts != C_TOTAL || n < 0 || g < 0)
     return (int)cudaErrorInvalidValue;
   if (g == 0) return 0;
-  pa_speaker_scan_kernel<<<(g + E6_BLOCK - 1) / E6_BLOCK, E6_BLOCK, 0,
-                           stream>>>(consts, x, state, out, n, g, volume,
-                                     character);
+  const int blocks = (g + E6_WARPS - 1) / E6_WARPS;
+  const int warps = g < E6_WARPS ? g : E6_WARPS;
+  pa_speaker_scan_kernel<<<blocks, warps * 32, 0, stream>>>(
+      consts, x, state, out, n, g, volume, character);
   return (int)cudaGetLastError();
 }
 
@@ -1618,13 +2210,25 @@ extern "C" int ow_engine_chain(const double* consts, int n_consts,
                                const double* mono, double* chain, float* out,
                                int n, int b, const unsigned char* rail_sag,
                                int pre_model, int pa_model,
-                               const double* noise_scale,
+                               const double* noise_scale, int warp,
                                cudaStream_t stream) {
   const int want = C_TOTAL + (pre_model == PRE_MELANGE ? ML_SIZE : 0);
   if (n_consts != want || n < 0 || b < 0 || pre_model < 0 ||
-      pre_model > 1 || pa_model < 0 || pa_model > 1)
+      pre_model > 1 || pa_model < 0 || pa_model > 1 || warp < 0 ||
+      warp > 1 || (warp && pa_model != PA_CIRCUIT))
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
+  if (warp) {
+    const int blocks = (b + E2_WARPS - 1) / E2_WARPS;
+    const int threads = 32 * (b < E2_WARPS ? b : E2_WARPS);
+    if (pre_model == PRE_DK)
+      engine_chain_warp_kernel<PRE_DK><<<blocks, threads, 0, stream>>>(
+          consts, mono, chain, out, n, b, rail_sag, noise_scale);
+    else
+      engine_chain_warp_kernel<PRE_MELANGE><<<blocks, threads, 0, stream>>>(
+          consts, mono, chain, out, n, b, rail_sag, noise_scale);
+    return (int)cudaGetLastError();
+  }
   const int blocks = (b + E2_BLOCK - 1) / E2_BLOCK;
   const int threads = b < E2_BLOCK ? b : E2_BLOCK;
   if (pre_model == PRE_DK && pa_model == PA_CIRCUIT)

@@ -19,7 +19,12 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
     melange preamp with its thermal noise) → power amp (the circuit, or
     the memoryless behavioral model), downsampling, the speaker with its
     per-sample coefficient design, post gain and volume, NaN guard #2, the
-    f32 cast. The two model choices are template arguments.
+    f32 cast. The two model choices are template arguments. The circuit
+    power amp's instantiations run a warp per engine
+    (`engine_chain_warp_kernel`: the tremolo's and the power amp's Newton
+    solves on the whole warp, the rest on lane 0) up to
+    `CHAIN_WARP_MAX_ENGINES` engines and a thread per engine above it; the
+    behavioral ones a thread per engine. The two forms agree bit for bit.
   * **E3 `tremolo_settle`**: the tremolo oscillator's mna step alone, n
     times.
   * **E8 `tremolo_scan`**: G tremolo circuits, a thread each, over n
@@ -119,9 +124,21 @@ VOICES_LAUNCHES = SETTLE_LAUNCHES = 0
 VOICES_PLAIN_CALLS = CHAIN_PLAIN_CALLS = SETTLE_PLAIN_CALLS = 0
 TREMOLO_SCAN_LAUNCHES = TREMOLO_SCAN_PLAIN_CALLS = 0
 POWER_AMP_SCAN_LAUNCHES = POWER_AMP_SCAN_PLAIN_CALLS = 0
-# E2's launches by instantiation (preamp_model, pa_model)
+# E2's launches by instantiation (preamp_model, pa_model), and those of
+# the circuit instantiations by (preamp_model, form): "warp" a warp per
+# engine, "thread" a thread per engine
 CHAIN_LAUNCHES_BY_MODELS = {(p, a): 0 for p in ("dk", "melange")
                             for a in ("circuit", "behavioral")}
+CHAIN_LAUNCHES_BY_FORM = {(p, f): 0 for p in ("dk", "melange")
+                          for f in ("warp", "thread")}
+# The widest batch (engines) at which E2's circuit instantiations run a
+# warp per engine; wider batches run a thread per engine. The warp form
+# holds one engine's pace to 128 engines and saturates at 90-144x realtime
+# aggregate from 2048-4096 engines (8 warps per SM at 255 registers); the
+# thread form, 32 engines per warp, overtakes it between 2048 and 4096 and
+# reaches 324x at 16384 (NVIDIA H100 80GB HBM3, 700 W,
+# tools/torch_perf_sweep.py --form warp / thread; PERF.md §5).
+CHAIN_WARP_MAX_ENGINES = 2048
 
 
 # ─────────────────────────── voice bank packing ───────────────────────────
@@ -957,9 +974,11 @@ def render_chain(cp: ChainParams, mono, chain, rail_sag,
                  noise_scale=0.0):
     """E2: the chain of one engine over mono (T,) float64 with `chain`
     (CHAIN_ROWS,) float64, rail_sag a bool and noise_scale a float → out
-    (T,) float32; or of B engines (a thread per engine) over mono (B, T)
-    with chain (B, CHAIN_ROWS), rail_sag (B,) bool and noise_scale (B,)
-    float64 tensors on the same device → out (B, T). `chain` is updated
+    (T,) float32; or of B engines over mono (B, T) with chain (B,
+    CHAIN_ROWS), rail_sag (B,) bool and noise_scale (B,) float64 tensors
+    on the same device → out (B, T). On the card the circuit power amp
+    runs a warp per engine up to CHAIN_WARP_MAX_ENGINES engines, a thread
+    per engine above; the behavioral one a thread per engine. `chain` is updated
     in place. The instantiation is `cp`'s (preamp_model, pa_model);
     `noise_scale` (noise_enabled · noise_gain) acts on the melange preamp
     only. B = 0 launches nothing and returns a (0, T) tensor."""
@@ -989,13 +1008,18 @@ def render_chain(cp: ChainParams, mono, chain, rail_sag,
         CHAIN_PLAIN_CALLS += 1
         return chain_plain(cp, mono, chain, rail_sag, noise_scale)
     flat = _flat_on(_cp_key(cp), str(dev))
+    warp = cp.pa_model == "circuit" and (CHAIN_WARP_MAX_ENGINES is None
+                                         or b <= CHAIN_WARP_MAX_ENGINES)
     _lib_call("engine_chain", lambda lib: lib.ow_engine_chain,
               flat.data_ptr(), flat.numel(), mono.data_ptr(),
               chain.data_ptr(), out.data_ptr(), n, b, rail_sag.data_ptr(),
               PREAMP_MODELS.index(cp.preamp_model),
               PA_MODELS.index(cp.pa_model), noise_scale.data_ptr(),
-              device=dev)
+              int(warp), device=dev)
     CHAIN_LAUNCHES_BY_MODELS[cp.preamp_model, cp.pa_model] += 1
+    if cp.pa_model == "circuit":
+        CHAIN_LAUNCHES_BY_FORM[cp.preamp_model,
+                               "warp" if warp else "thread"] += 1
     return out
 
 

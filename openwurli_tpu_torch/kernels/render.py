@@ -26,10 +26,10 @@ loops are kernels:
         allpass down step;
       - `melange`: one melange preamp step per sample at the stream's LDR
         conductance and noise scale (noise_enabled · noise_gain).
-  * **E6 `pa_speaker_scan`**: G streams, a thread each, over n samples:
-    `run_calibrate`'s T5, x · volume² → the power amp (E2's step, rail
-    sag on, at the input's rate) → the speaker (filters designed once from
-    the character) → × POST_SPEAKER_GAIN.
+  * **E6 `pa_speaker_scan`**: G streams, a warp each, over n samples:
+    `run_calibrate`'s T5, x · volume² → the power amp (E2's warp step,
+    rail sag on, at the input's rate) → the speaker (filters designed once
+    from the character) → × POST_SPEAKER_GAIN.
   * **E7 `dk_scan`**: G streams, a thread each, over n samples: the twin
     DK preamp stepped once per sample at the input's own rate (no
     oversampler), each sample at its own LDR resistance; each sample

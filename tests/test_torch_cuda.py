@@ -406,7 +406,8 @@ def test_engine_chain_kernel_matches_plain(cuda, case):
                                     ("melange", "behavioral")],
                          ids=lambda m: "-".join(m))
 def test_engine_batch_kernels_match_plain_and_one_engine(cuda, models):
-    """E1 (a block per engine) and E2 (a thread per engine) over 3 distinct
+    """E1 (a block per engine) and E2 (a warp per engine for the circuit
+    power amp, a thread per engine for the behavioral one) over 3 distinct
     engines (rail sag off on one, noise on at gain 3 on another, a NaN
     speaker state on the third) against their batched plain versions,
     and each engine's row against its own one-engine launch."""
@@ -437,6 +438,51 @@ def test_engine_batch_kernels_match_plain_and_one_engine(cuda, models):
         assert _same_bits(out[k], e.render(40))
         assert _same_bits(st.chain[k], e.chain)
     assert float(out[2, 0]) == 0.0
+
+
+@pytest.mark.parametrize("pre", ["dk", "melange"])
+@pytest.mark.parametrize("case", ["kick", "nan"])
+def test_engine_chain_forms_agree(cuda, pre, case, monkeypatch):
+    """E2's circuit instantiations in their two forms: a warp per engine
+    (up to CHAIN_WARP_MAX_ENGINES engines) and a thread per engine (above
+    it), on one engine and on 3 distinct ones (rail sag off, noise on at
+    gain 3): output and state bit for bit, and both equal to the plain
+    version."""
+    from openwurli_tpu_torch import engine as pe
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    engines = []
+    for k in range(3):
+        e = pe.Engine(SR, device=cuda, preamp_model=pre)
+        for i, note in enumerate((48 + 5 * k, 55 + 3 * k, 64 + k)):
+            e.note_on(note, 0.4 + 0.15 * i)
+        engines.append(e)
+    engines[1].set_rail_sag(False)
+    engines[2].set_noise_enabled(True)
+    engines[2].set_noise_gain(3.0)
+    st = pe.stack_states([e.state for e in engines])
+    mono = ek.render_voices(*[x.clone() for x in st[:4]], 40,
+                            engines[0].fade_len, SR)
+    state = st.chain.clone()
+    if case == "kick":
+        state[:, ek.CHAIN_OFF["trem_v"][0]] += 70.0  # BE replays
+        mono[:, 7] = 30.0                             # input spikes
+    else:
+        state[:, ek.CHAIN_OFF["spk"][0]] = float("nan")  # guard #2
+    for b in (1, 3):
+        runs = []
+        for widest in (None, 0):  # the warp form, the thread form
+            monkeypatch.setattr(ek, "CHAIN_WARP_MAX_ENGINES", widest)
+            a = state[:b].clone()
+            runs.append((ek.render_chain(engines[0].params, mono[:b], a,
+                                         st.rail_sag[:b],
+                                         st.noise_scale[:b]), a))
+        (ow, sw), (ot, stt) = runs
+        assert _same_bits(ow, ot) and _same_bits(sw, stt)
+        p = state[:b].clone()
+        ref = ek.chain_plain(engines[0].params, mono[:b], p,
+                             st.rail_sag[:b], st.noise_scale[:b])
+        assert _same_bits(ow, ref) and _same_bits(sw, p)
 
 
 def test_tremolo_settle_kernel_matches_plain(cuda):
@@ -611,6 +657,29 @@ def test_pa_speaker_scan_kernel_matches_plain(cuda):
         ref = kr.pa_speaker_scan_plain(SR, x, b, 0.4, character)
         assert _same_bits(out, ref) and _same_bits(a, b)
         assert torch.isfinite(out).all()
+
+
+def test_pa_speaker_scan_warp_step_matches_one_thread_step(cuda):
+    """E6 (the warp step) and E9 (the one-thread power_amp_step) on the
+    same input x · volume² from the same rows: the same power-amp rows, bit
+    for bit, at a stream count that leaves a partial block (33)."""
+    from openwurli_tpu_torch.kernels import engine as ek
+    from openwurli_tpu_torch.kernels import render as kr
+
+    rng = np.random.default_rng(15)
+    n, g = 48, 33
+    t = np.arange(n)[:, None]
+    x = rng.uniform(0.02, 2.0, g) * np.sin(2 * np.pi * 440 * t / SR)
+    x[n // 3, 1] = 200.0
+    x[n // 4, 2] = np.nan
+    x[n // 2:, 3] = np.inf
+    x = torch.as_tensor(x, device=cuda)
+    st = kr.init_pa_speaker_state(SR, g, cuda)
+    a = st.clone()
+    kr.pa_speaker_scan(SR, x, a, 0.7, 0.5)
+    b = st[:ek.PA_ROWS].clone()
+    ek.power_amp_scan(SR, x * 0.7 * 0.7, b)
+    assert _same_bits(a[:ek.PA_ROWS], b)
 
 
 def _dk_scan_inputs(cuda, n, g, seed):

@@ -22,10 +22,8 @@ Small shapes: seconds on one core.
 
 import ctypes
 import os
-import re
-import shutil
-import subprocess
 
+import cuda_host_shim
 import numpy as np
 import pytest
 import torch
@@ -155,113 +153,17 @@ def test_padding_row_is_renormed_never_advanced():
 
 
 # ─────────────── (e) the kernel's source under a host shim ───────────────
-
-SHIM_H = r"""
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <memory>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __constant__ static const
-#define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
-#define __launch_bounds__(...)
-typedef void* cudaStream_t;
-struct alignas(16) float4 { float x, y, z, w; };
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline int cudaGetLastError() { return 0; }
-struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local Dim3 threadIdx, blockIdx;
-inline Dim3 blockDim, gridDim;
-namespace shim {
-struct Warp { std::barrier<> bar{32}; uint64_t slot[32]; };
-inline thread_local Warp* warp;
-inline thread_local std::barrier<>* block;
-inline thread_local int lane;
-// Blocks run one after another, so __shared__ arrays can be statics.
-template <class K, class... A>
-void launch(int blocks, int threads, K kernel, A... args) {
-  blockDim.x = threads;
-  gridDim.x = blocks;
-  for (int b = 0; b < blocks; ++b) {
-    std::vector<std::unique_ptr<Warp>> warps;
-    for (int w = 0; w < threads / 32; ++w) warps.emplace_back(new Warp);
-    std::barrier<> bar(threads);
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        block = &bar;
-        warp = warps[t / 32].get();
-        lane = t % 32;
-        kernel(args...);
-      });
-    for (auto& t : ts) t.join();
-  }
-}
-}  // namespace shim
-inline void __syncwarp(unsigned = 0xffffffffu) {
-  shim::warp->bar.arrive_and_wait();
-}
-inline void __syncthreads() { shim::block->arrive_and_wait(); }
-inline bool __any_sync(unsigned, bool p) {
-  shim::warp->slot[shim::lane] = p;
-  shim::warp->bar.arrive_and_wait();
-  bool any = false;
-  for (int i = 0; i < 32; ++i) any = any || shim::warp->slot[i];
-  shim::warp->bar.arrive_and_wait();
-  return any;
-}
-template <class T>
-T __shfl_sync(unsigned, T v, int src, int width = 32) {
-  uint64_t bits = 0;
-  std::memcpy(&bits, &v, sizeof(T));
-  shim::warp->slot[shim::lane] = bits;
-  shim::warp->bar.arrive_and_wait();
-  bits = shim::warp->slot[(shim::lane & ~(width - 1)) + (src & (width - 1))];
-  shim::warp->bar.arrive_and_wait();
-  T out;
-  std::memcpy(&out, &bits, sizeof(T));
-  return out;
-}
-inline float __uint_as_float(uint32_t u) {
-  float f;
-  std::memcpy(&f, &u, 4);
-  return f;
-}
-inline uint32_t __float_as_uint(float f) {
-  uint32_t u;
-  std::memcpy(&u, &f, 4);
-  return u;
-}
-inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
-"""
+# (tests/cuda_host_shim.py)
 
 
 @pytest.fixture(scope="module")
 def shim_lib(tmp_path_factory):
-    if shutil.which("g++") is None:
+    if not cuda_host_shim.have_gxx():
         pytest.skip("needs g++ to build the kernel against the host shim")
-    d = tmp_path_factory.mktemp("vb_shim")
-    (d / "cuda_runtime.h").write_text(SHIM_H)
-    src = open(os.path.join(os.path.dirname(vb.__file__), "..", "csrc",
-                            "voice_bank.cu")).read()
-    src, n = re.subn(r"([\w:]+(?:<[^<>;]*>)?)<<<([^,]+),\s*([^,]+),[^>]*>>>\(",
-                     r"shim::launch(\2, \3, \1, ", src)
-    assert n == 1
-    (d / "voice_bank.cpp").write_text(src)
-    lib = d / "libvb_shim.so"
-    subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-pthread", f"-I{d}", "-o", str(lib),
-                    str(d / "voice_bank.cpp")], check=True,
-                   capture_output=True)
-    dll = ctypes.CDLL(str(lib))
+    dll = cuda_host_shim.build(
+        os.path.join(os.path.dirname(vb.__file__), "..", "csrc",
+                     "voice_bank.cu"),
+        tmp_path_factory.mktemp("vb_shim"), "vb_shim", launches=1)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll.ow_voice_bank.argtypes = [p, p, p, p, i, i, i, i, f, f, p]
     dll.ow_voice_bank_events.argtypes = [p, p, p, p, i, i, i, i, f, f, f, p]

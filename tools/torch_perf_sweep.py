@@ -2,10 +2,16 @@
 """Throughput sweep of the PyTorch port's f64 engine over batch widths.
 
 Renders B engine states at once (`engine.render_states`: E1 a block per
-engine, E2 a thread per engine) at several widths B and prints a CSV of
-aggregate realtime factors, the counterpart of `tools/perf_sweep.py`:
+engine, E2 a warp per engine up to `kernels.engine.CHAIN_WARP_MAX_ENGINES`
+engines and a thread per engine above) at several widths B and prints a
+CSV of aggregate realtime factors, the counterpart of
+`tools/perf_sweep.py`:
 
     python tools/torch_perf_sweep.py --streams 8,32,128 --seconds 0.25
+
+`--form warp` or `--form thread` runs the sweep's E2 calls in that form
+at every width, to measure the two forms against each other; standard
+error says which form ran at each width ("plain" on the CPU).
 
 Every width starts from one engine holding the six-note chord (MIDI 48,
 55, 60, 63, 67, 70 at 0.95) broadcast to B engines; each call renders one
@@ -25,6 +31,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import torch  # noqa: E402
 
 from openwurli_tpu_torch import engine  # noqa: E402
+from openwurli_tpu_torch.kernels import engine as ek  # noqa: E402
 
 CHORD = (48, 55, 60, 63, 67, 70)
 VELOCITY = 0.95
@@ -42,6 +49,8 @@ def main(argv=None):
     p.add_argument("--reps", type=int, default=4)
     p.add_argument("--sr", type=float, default=44100.0)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--form", choices=("auto", "warp", "thread"),
+                   default="auto")
     args = p.parse_args(argv)
 
     eng = engine.Engine(args.sr, device=args.device)
@@ -51,22 +60,32 @@ def main(argv=None):
     block = int(args.sr * args.seconds)
     dev = eng.device
 
+    widest = ek.CHAIN_WARP_MAX_ENGINES
     print("streams,compile_s,wall_s,per_stream_rtf,aggregate_rtf")
     for b in [int(x) for x in args.streams.split(",")]:
+        if args.form != "auto":
+            ek.CHAIN_WARP_MAX_ENGINES = b if args.form == "warp" else 0
+        lim = ek.CHAIN_WARP_MAX_ENGINES
+        form = "plain" if dev.type == "cpu" else (
+            "warp" if lim is None or b <= lim else "thread")
         st = engine.broadcast_state(base, b)
-        _sync(dev)
-        t0 = time.time()
-        st, out = engine.render_states(eng, st, block)
-        _sync(dev)
-        compile_s = time.time() - t0
-        t0 = time.time()
-        for _ in range(args.reps):
+        try:
+            _sync(dev)
+            t0 = time.time()
             st, out = engine.render_states(eng, st, block)
-        _sync(dev)
-        wall = time.time() - t0
+            _sync(dev)
+            compile_s = time.time() - t0
+            t0 = time.time()
+            for _ in range(args.reps):
+                st, out = engine.render_states(eng, st, block)
+            _sync(dev)
+            wall = time.time() - t0
+        finally:
+            ek.CHAIN_WARP_MAX_ENGINES = widest
         rtf = args.reps * b * args.seconds / wall
         print(f"{b},{compile_s:.0f},{wall:.3f},{rtf/b:.1f},{rtf:.1f}",
               flush=True)
+        print(f"# {b} engines: E2 {form}", file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":
