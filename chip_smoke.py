@@ -89,7 +89,9 @@ over 128 distinct ones (32 E2 blocks of four warps) and each other
 instantiation over two (noise on one) against their batched plain
 versions; E8 on 33 circuits from seeded starts at three depths (a kicked
 and a NaN circuit) and E9 on 33 streams (a 200 V spike, a NaN and an inf
-stream). E2's circuit instantiations run a warp per engine up to
+stream). E5<melange> runs a warp per stream (the melange step on a
+warp, also E2<melange, circuit>'s). E2's circuit instantiations run a
+warp per engine up to
 `CHAIN_WARP_MAX_ENGINES` engines and a thread per engine above: the two
 forms are held to each other bit for bit on the kicked, guard #2,
 session, melange plugin and 128-engine chunks and timed there in turns
@@ -329,11 +331,12 @@ def ptxas_lines(log):
     return {k: tuple(v) for k, v in found.items()}
 
 
-# The kernels built around the warp-cooperative mna step, and the step's
-# __noinline__ functions
-WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp", "E6")
+# The kernels built around the warp-cooperative mna and melange steps, and
+# the steps' __noinline__ functions
+WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp", "E6",
+                "E5<melange>")
 WARP_STEP = ("mna_step_warpILi21ELi16ELi8ELi16E", "mna_step_warpILi7ELi4ELi2ELi4E",
-             "power_amp_step_warp", "tremolo_step_warp")
+             "power_amp_step_warp", "tremolo_step_warp", "melange_step_warp")
 
 
 def function_frames(log, key):
@@ -2334,12 +2337,12 @@ STAGE_SR = 88200.0
 # E1-E7's ptxas (registers, stack bytes, spill stores, spill loads) as
 # built before E8 and E9 existed (NVIDIA H100 80GB HBM3, the card machine's
 # nvcc): E8 and E9 add callers of E2's tremolo and power-amp steps, and
-# must not move the existing kernels' allocation; nor must the warp step
-# beside them (E6, a warp per stream since, is not in the list)
+# must not move the existing kernels' allocation; nor must the warp steps
+# beside them (E6 and E5<melange>, a warp per stream since, are not in the
+# list)
 EARLIER_PTXAS = {
     "E1": (255, 40, 0, 0), "E3": (96, 768, 0, 0), "E4": (240, 40, 0, 0),
     "E4<tap>": (230, 40, 0, 0), "E5<dk>": (255, 1168, 496, 488),
-    "E5<melange>": (168, 3312, 628, 632),
     "E2<dk, circuit> thread": (255, 6912, 80, 136),
     "E2<melange, circuit> thread": (255, 7152, 128, 176),
     "E2<dk, behavioral>": (255, 2880, 208, 212),
@@ -3060,7 +3063,7 @@ def main():
                           ("voice_render_kernelILb1E", "E4<tap>"),
                           ("pa_speaker_scan_kernel", "E6"),
                           ("preamp_scan_kernelILi0E", "E5<dk>"),
-                          ("preamp_scan_kernelILi1E", "E5<melange>"),
+                          ("melange_scan_kernel", "E5<melange>"),
                           ("dk_scan_kernelILi0E", "E7<diff>"),
                           ("dk_scan_kernelILi1E", "E7<shadow>"),
                           ("tremolo_scan_kernel", "E8"),
@@ -4159,17 +4162,20 @@ def main():
             main_path_ms={f"render_states {THREAD_WIDTH} engines x "
                           f"{THREAD_WIDTH_N}":
                           bat_k["thread_width"][pre]["ms"]}))
-    for name, key, replaces in (
-            ("voice_render", "E4", "openwurli_tpu/voice.py:140"),
-            ("preamp_scan_dk", "E5<dk>", "openwurli_tpu/di.py:29"),
+    for name, key, replaces, form in (
+            ("voice_render", "E4", "openwurli_tpu/voice.py:140",
+             "a thread per voice"),
+            ("preamp_scan_dk", "E5<dk>", "openwurli_tpu/di.py:29",
+             "a thread per stream"),
             ("preamp_scan_melange", "E5<melange>",
-             "openwurli_tpu/circuits/melange_preamp.py:177")):
+             "openwurli_tpu/circuits/melange_preamp.py:177",
+             "a warp per stream")):
         k = mod_k[key]
         cmps = k.get("compared", [k])
         kernels.append(entry(
             name, "engine.cu", replaces, k["shape"],
             max(c["max_abs_err"] for c in cmps), k["ms"], k["plain_ms"],
-            k["bound"], ptxas=ptxas.get(key),
+            k["bound"], ptxas=ptxas.get(key), form=form,
             compared=[{k_: v for k_, v in c.items()
                        if k_ not in ("bound", "compared", "main_path_ms")}
                       | {"bound_ms": c["bound"][0]} for c in cmps],

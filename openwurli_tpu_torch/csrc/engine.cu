@@ -13,7 +13,8 @@
 //                         TAP, the reed alone into the pickup, the reed's
 //                         output kept (calibrate.run_calibrate's T1, T2)
 //   E5 preamp_scan        G preamp streams over n samples: the DI path's
-//                         2x-oversampled DK preamp, or the melange preamp
+//                         2x-oversampled DK preamp (a thread per stream),
+//                         or the melange preamp (a warp per stream)
 //   E6 pa_speaker_scan    G streams over n samples, a warp per stream:
 //                         volume², the power amp with rail sag, the
 //                         speaker, the post-speaker gain
@@ -41,8 +42,8 @@
 // (tools/stage_bench.py:82-83); none is a Pallas kernel.
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
-// slot by one thread (a block of 128 per engine), E4, E5, E7 each voice or
-// stream by one thread, E8 and E9 each circuit or stream by one thread,
+// slot by one thread (a block of 128 per engine), E4, E5<dk>, E7 each voice
+// or stream by one thread, E8 and E9 each circuit or stream by one thread,
 // E3 the tremolo by one thread walking the data-dependent Newton solves
 // sample by sample. The bytes are a few hundred per sample and the
 // operations some 10^4-10^5 f64 per base sample, far from the card's
@@ -51,8 +52,11 @@
 // shorten that chain with a warp per stream or engine (mna_step_warp: the
 // rows of every matvec, BJT, Jacobian row, pivot update and junction limit
 // on their own lanes, the solver block staged in shared memory, no local
-// memory in the solve); E2 keeps a thread per engine above the crossover,
-// where a full card runs 32 engines per warp. The design takes two exact
+// memory in the solve); E5<melange> and E2<melange, circuit> run the
+// melange preamp's step on a warp too (melange_step_warp: the twins on the
+// two half-warps, the ten noise draws at once, the block staged in shared
+// memory). E2 keeps a thread per engine above the crossover, where a full
+// card runs 32 engines per warp. The design takes two exact
 // savings: each Newton loop ends once every row has converged (the masked
 // iterations of the reference change nothing), and E2 reuses the
 // speaker's coefficients while the character is unchanged.
@@ -789,7 +793,19 @@ struct WarpScratch {
   double a[32], b[32];
 };
 
-// where element k of the row-major block sits once staged
+// where element k of a block sits once each of its n_seg segments
+// {offset, rows, cols} (row-major) is stored transposed
+__device__ __forceinline__ int transposed_index(const int (*seg)[3],
+                                                int n_seg, int k) {
+  for (int s = 0; s < n_seg; ++s) {
+    const int q = k - seg[s][0];
+    if (q >= 0 && q < seg[s][1] * seg[s][2])
+      return seg[s][0] + (q % seg[s][2]) * seg[s][1] + q / seg[s][2];
+  }
+  return k;
+}
+
+// where element k of the row-major solver block sits once staged
 template <int N, int M, int NB>
 __device__ int staged_index(int k) {
   using L = SL<N, M, NB>;
@@ -798,12 +814,7 @@ __device__ int staged_index(int k) {
       {L::SNI, N, M},    {L::K, M, M},     {L::SBE, N, N},  {L::AHBE, N, N},
       {L::SNIBE, N, M},  {L::KBE, M, M},   {L::GPD, NB, 13},
       {L::GPC, NB, 13}};
-  for (int s = 0; s < 12; ++s) {
-    const int q = k - seg[s][0];
-    if (q >= 0 && q < seg[s][1] * seg[s][2])
-      return seg[s][0] + (q % seg[s][2]) * seg[s][1] + q / seg[s][2];
-  }
-  return k;
+  return transposed_index(seg, 12, k);
 }
 
 // the block's threads copy `src` (row-major, SL's layout) into `dst`
@@ -813,11 +824,13 @@ __device__ void stage_block(const double* __restrict__ src, double* dst) {
     dst[staged_index<N, M, NB>(k)] = src[k];
 }
 
-// every lane's x (lanes below n) into buf; after it every lane reads buf
+// every lane's x (rows below n of each W-lane segment) into buf[lane];
+// after it every lane reads buf (its segment's W entries)
+template <int W = 32>
 __device__ __forceinline__ void publish(double* buf, double x, int lane,
                                         int n) {
   __syncwarp();  // every lane has read buf's previous contents
-  if (lane < n) buf[lane] = x;
+  if ((lane & (W - 1)) < n) buf[lane] = x;
   __syncwarp();
 }
 
@@ -838,50 +851,54 @@ __device__ __forceinline__ double max_abs_warp(double* buf, double x,
   return max_abs(buf, n);
 }
 
-// this lane's current of `currents`: BJT lane / 2, row lane
-template <int NB>
+// The lane helpers below work on a segment of W lanes (the warp, or a
+// half-warp that holds one of two systems): `row` is the lane's index in
+// its segment, and every shuffle stays inside the segment.
+
+// this lane's current of `currents`: BJT row / 2, its row `row`
+template <int NB, int W = 32>
 __device__ __forceinline__ double current_lane(const double* gpc,
-                                               double v_nl, int lane) {
-  const int b = min(lane >> 1, NB - 1);
-  const double vbe = __shfl_sync(FULL, v_nl, lane & ~1);
-  const double vbc = __shfl_sync(FULL, v_nl, lane | 1);
+                                               double v_nl, int row) {
+  const int b = min(row >> 1, NB - 1);
+  const double vbe = __shfl_sync(FULL, v_nl, row & ~1, W);
+  const double vbc = __shfl_sync(FULL, v_nl, row | 1, W);
   double i0, i1;  // staged: parameter j at gpc[j * NB + b]
   bjt_currents(gpc + b, NB, vbe, vbc, &i0, &i1);
-  return (lane & 1) ? i1 : i0;
+  return (row & 1) ? i1 : i0;
 }
 
-// this lane's column of `derivs`: top = dI[2b]/dV[lane], bot =
-// dI[2b+1]/dV[lane] for BJT b = lane / 2
-template <int NB>
+// this lane's column of `derivs`: top = dI[2b]/dV[row], bot =
+// dI[2b+1]/dV[row] for BJT b = row / 2
+template <int NB, int W = 32>
 __device__ __forceinline__ void derivs_lane(const double* gpd, double v_nl,
-                                            int lane, double* top,
+                                            int row, double* top,
                                             double* bot) {
-  const int b = min(lane >> 1, NB - 1);
-  const double vbe = __shfl_sync(FULL, v_nl, lane & ~1);
-  const double vbc = __shfl_sync(FULL, v_nl, lane | 1);
+  const int b = min(row >> 1, NB - 1);
+  const double vbe = __shfl_sync(FULL, v_nl, row & ~1, W);
+  const double vbc = __shfl_sync(FULL, v_nl, row | 1, W);
   double t[2], u[2];
   bjt_derivs(gpd + b, NB, vbe, vbc, t, u);
-  *top = (lane & 1) ? t[1] : t[0];
-  *bot = (lane & 1) ? u[1] : u[0];
+  *top = (row & 1) ? t[1] : t[0];
+  *bot = (row & 1) ? u[1] : u[0];
 }
 
-// ge_solve_f32 on a warp: lane r holds row r of the augmented f32 system;
-// step k broadcasts pivot row k, every lane below it updates its own row,
-// each update rounded once from double as there; back substitution in the
-// same order. → this lane's x
-template <int M>
+// ge_solve_f32 on a segment: the lane of row r holds row r of the
+// augmented f32 system; step k broadcasts pivot row k, every row below it
+// updates itself, each update rounded once from double as there; back
+// substitution in the same order. → this row's x
+template <int M, int W = 32>
 __device__ __forceinline__ float ge_solve_f32_warp(float (&aug)[M + 1],
-                                                   int lane) {
+                                                   int row) {
 #pragma unroll
   for (int k = 0; k < M; ++k) {
-    const float piv = __shfl_sync(FULL, aug[k], k);
+    const float piv = __shfl_sync(FULL, aug[k], k, W);
     const float inv = 1.0f / (fabsf(piv) > 1e-30f ? piv : 1e-30f);
     const double fac = (double)aug[k];
 #pragma unroll
     for (int c = k + 1; c <= M; ++c) {
-      const float pk = __shfl_sync(FULL, aug[c], k) * inv;
+      const float pk = __shfl_sync(FULL, aug[c], k, W) * inv;
       const float upd = (float)((double)aug[c] - fac * (double)pk);
-      aug[c] = lane == k ? pk : (lane > k ? upd : aug[c]);
+      aug[c] = row == k ? pk : (row > k ? upd : aug[c]);
     }
   }
   float x[M], own = 0.0f;
@@ -891,8 +908,8 @@ __device__ __forceinline__ float ge_solve_f32_warp(float (&aug)[M + 1],
 #pragma unroll
     for (int j = i + 1; j < M; ++j)
       acc = (float)((double)acc - (double)aug[j] * (double)x[j]);
-    x[i] = __shfl_sync(FULL, acc, i);
-    own = lane == i ? x[i] : own;
+    x[i] = __shfl_sync(FULL, acc, i, W);
+    own = row == i ? x[i] : own;
   }
   return own;
 }
@@ -1418,6 +1435,224 @@ __device__ void init_melange(const double* mc, double* ms) {
   for (int r = 0; r < 10; ++r) ms[MS_WPREV + r] = 0.0;
 }
 
+// ═══════════════════ the warp-cooperative melange step ═══════════════════
+//
+// melange_step run by the 32 lanes of one warp (E5<melange>, E2<melange,
+// circuit>'s warp form). The twins run side by side on the two
+// half-warps: lane l serves twin r = l / 16 and row q = l % 16, and holds
+// v[r][q] (q < 13), i[r][q] and v_nl[r][q] (q < 5) and draw q of the last
+// step (q < 10). Lanes q < 10 each draw one of the step's ten normals
+// (both halves the same ones), so the draws cost the latency of one. Every
+// matrix product is a row per lane in column order over a vector its half
+// published in shared memory (row_dot); the BJTs' currents and
+// derivatives, the Jacobian rows and the 5-pivot elimination run on the
+// five rows of each half, shuffling inside the half. Each half's
+// convergence is a ballot of its rows, equal to the thread's max_abs test
+// (a NaN residual is no convergence there and here); both halves run the
+// elimination until both have converged, a converged half keeping its
+// rows, as the thread skips it. The output, and so the reset, is the same
+// value on every lane. Each value is the same function of the same
+// operands as in melange_step, so the two agree bit for bit.
+//
+// The melange block is staged in shared memory once per block with every
+// matrix transposed (a 13 × 10 row-major walk puts lanes 0 and 8 on one
+// bank), so that the lanes' row walks read consecutive addresses.
+
+constexpr int MEL_SEGS = 10;
+
+// where element k of the melange block sits once staged
+__device__ int mel_staged_index(int k) {
+  const int seg[MEL_SEGS][3] = {
+      {ML_A_HIST, 13, 13}, {ML_S, 13, 13},      {ML_N_V, 5, 13},
+      {ML_N_I, 13, 5},     {ML_S_NI, 13, 5},    {ML_K, 5, 5},
+      {ML_K_OUTER, 5, 5},  {ML_INJECT, 13, 10}, {ML_CUR, 2, 13},
+      {ML_DER, 2, 13}};
+  return transposed_index(seg, MEL_SEGS, k);
+}
+
+// the block's threads copy the melange block `src` into `dst`, staged
+__device__ void stage_melange(const double* __restrict__ src, double* dst) {
+  for (int k = threadIdx.x; k < ML_SIZE; k += blockDim.x)
+    dst[mel_staged_index(k)] = src[k];
+}
+
+// a warp's melange preamp: this lane's rows (see above); the LDR
+// conductance of the last step and the noise key the same on every lane
+struct MelWarp {
+  double v, i, v_nl, w_prev, g_prev, key[2];
+};
+
+// the lane's rows of the melange rows (MelState) from row 0 of `rows`,
+// row k at rows[k * stride]
+__device__ void load_mel(MelWarp& st, const double* rows, size_t stride,
+                         int lane) {
+  const int r = lane >> 4, q = lane & 15;
+  st.v = rows[(MS_V + 13 * r + min(q, 12)) * stride];
+  st.i = rows[(MS_I + 5 * r + min(q, 4)) * stride];
+  st.v_nl = rows[(MS_VNL + 5 * r + min(q, 4)) * stride];
+  st.w_prev = rows[(MS_WPREV + min(q, 9)) * stride];
+  st.g_prev = rows[MS_GPREV * stride];
+  st.key[0] = rows[MS_KEY * stride];
+  st.key[1] = rows[(MS_KEY + 1) * stride];
+}
+
+__device__ void store_mel(const MelWarp& st, double* rows, size_t stride,
+                          int lane) {
+  const int r = lane >> 4, q = lane & 15;
+  if (q < 13) rows[(MS_V + 13 * r + q) * stride] = st.v;
+  if (q < 5) {
+    rows[(MS_I + 5 * r + q) * stride] = st.i;
+    rows[(MS_VNL + 5 * r + q) * stride] = st.v_nl;
+  }
+  if (lane < 10) rows[(MS_WPREV + lane) * stride] = st.w_prev;
+  if (lane == 0) {
+    rows[MS_GPREV * stride] = st.g_prev;
+    rows[MS_KEY * stride] = st.key[0];
+    rows[(MS_KEY + 1) * stride] = st.key[1];
+  }
+}
+
+// init_melange on a warp (the staged block's DC point)
+__device__ __forceinline__ void init_melange_warp(const double* s,
+                                                  MelWarp& st, int lane) {
+  const int q = lane & 15;
+  st.v = s[ML_V_DC + min(q, 12)];
+  st.i = s[ML_I_DC + min(q, 4)];
+  st.v_nl = s[ML_V_NL_DC + min(q, 4)];
+  st.w_prev = 0.0;
+  st.g_prev = 1.0 / 1000000.0;
+  st.key[0] = 0.0;
+  st.key[1] = 24301.0;  // 0x5EED
+}
+
+// mel_currents' row q: the 2N5089s' ports 0-3, the 1N4148's port 4
+__device__ __forceinline__ double mel_current_lane(const double* s,
+                                                   double v_nl, int q) {
+  const double ib = current_lane<2, 16>(s + ML_CUR, v_nl, q);
+  const double id = s[ML_DIODE] * (limexp(v_nl / s[ML_DIODE + 1]) - 1.0);
+  return q == 4 ? id : ib;
+}
+
+// mel_jacobian's column q: the BJTs' two entries (top, bot) for q < 4, the
+// diode's conductance (top) for q = 4
+__device__ __forceinline__ void mel_derivs_lane(const double* s, double v_nl,
+                                                int q, double* top,
+                                                double* bot) {
+  derivs_lane<2, 16>(s + ML_DER, v_nl, q, top, bot);
+  double val, dval;
+  limexp_d(v_nl / s[ML_DIODE + 1], &val, &dval);
+  const double g_d = s[ML_DIODE] * dval / s[ML_DIODE + 1];
+  if (q == 4) *top = g_d;
+}
+
+// melange_step on a warp, on the staged block `s`; g, x and scale the same
+// on every lane; → main − shadow, the same on every lane
+__device__ __noinline__ double melange_step_warp(const double* s,
+                                                 MelWarp& st, double g,
+                                                 double x, double scale,
+                                                 WarpScratch* w) {
+  constexpr int N = 13, M = 5, NR = 10;
+  const int lane = threadIdx.x & 31, r = lane >> 4, q = lane & 15;
+  const int rn = min(q, N - 1), rm = min(q, M - 1);
+  const int fb = (int)s[ML_IDX], outn = (int)s[ML_IDX + 1];
+  const int row_in = (int)s[ML_IDX + 2];
+  const double* a = w->a + 16 * r;  // this half's published vectors
+  const double* b = w->b + 16 * r;
+  // the key's two hashes: the next key on lane NR of each half, the
+  // draws' key on every other lane; one normal on each lane q < NR
+  uint32_t h1, h2;
+  threefry((uint32_t)st.key[0], (uint32_t)st.key[1], 0u,
+           q == NR ? 0u : 1u, &h1, &h2);
+  const uint32_t n1 = __shfl_sync(FULL, h1, NR, 16);
+  const uint32_t n2 = __shfl_sync(FULL, h2, NR, 16);
+  const int d = min(q, NR - 1);
+  const double w_new =
+      normal_draw(h1, h2, (uint32_t)d) * s[ML_SIGMA + d] * scale;
+  publish<16>(w->b, w_new + st.w_prev, lane, NR);
+  const double i_noise = row_dot<N, NR>(s + ML_INJECT, b, rn);
+  // the history, fb's LDR term, the sources, the input, the device
+  // currents, the noise (main twin only)
+  __syncwarp();  // every lane has read b's draws
+  if (q < N) w->a[lane] = st.v;
+  if (q < M) w->b[lane] = st.i;
+  __syncwarp();
+  double rhs = row_dot<N, N>(s + ML_A_HIST, a, rn);
+  rhs = q == fb ? rhs + (-st.g_prev) * st.v : rhs;
+  rhs = rhs + s[ML_WS_W + rn];
+  rhs = q == row_in ? rhs + (r == 0 ? x : 0.0) : rhs;
+  rhs = rhs + row_dot<N, M>(s + ML_N_I, b, rn);
+  rhs = rhs + (r == 0 ? i_noise : 0.0);
+  // the predictor, its LDR correction, the ports' p, this row of K_corr
+  publish<16>(w->a, rhs, lane, N);
+  const double vpb = row_dot<N, N>(s + ML_S, a, rn);
+  const double sm_k = g / (1.0 + s[ML_S_FB_FB] * g);
+  const double vpb_fb = __shfl_sync(FULL, vpb, fb, 16);
+  const double v_pred = vpb - (sm_k * vpb_fb) * s[ML_S_FB_COL + rn];
+  publish<16>(w->a, v_pred, lane, N);
+  const double p = row_dot<M, N>(s + ML_N_V, a, rm);
+  double kc[M];
+#pragma unroll
+  for (int k = 0; k < M; ++k)
+    kc[k] = s[ML_K + k * M + rm] - sm_k * s[ML_K_OUTER + k * M + rm];
+  // Newton, both twins at once: at most 12 iterations, leaving once both
+  // have converged with the currents of the final v_nl in hand
+  double v_nl = st.v_nl, i_nl = 0.0;
+  bool done = false;
+#pragma unroll 1
+  for (int it = 0; it < 12; ++it) {
+    i_nl = mel_current_lane(s, v_nl, q);
+    publish<16>(w->b, i_nl, lane, M);
+    double ki = kc[0] * b[0];
+#pragma unroll
+    for (int k = 1; k < M; ++k) ki = ki + kc[k] * b[k];
+    const double f = v_nl - p - ki;
+    const unsigned ok = __ballot_sync(FULL, q >= M || fabs(f) < 1e-9);
+    const bool conv0 = (ok & 0xffffu) == 0xffffu;
+    const bool conv1 = (ok >> 16) == 0xffffu;
+    if (conv0 && conv1) {
+      done = true;
+      break;
+    }
+    double top, bot;
+    mel_derivs_lane(s, v_nl, q, &top, &bot);
+    __syncwarp();  // every lane has read b's currents
+    if (q < M) {
+      w->a[lane] = top;
+      w->b[lane] = bot;
+    }
+    __syncwarp();
+    float aug[M + 1];
+#pragma unroll
+    for (int k = 0; k < M - 1; ++k) {
+      const int r0 = 2 * (k / 2);
+      aug[k] = (float)((q == k ? 1.0 : 0.0) -
+                       (kc[r0] * a[k] + kc[r0 + 1] * b[k]));
+    }
+    aug[M - 1] = (float)((q == M - 1 ? 1.0 : 0.0) - kc[M - 1] * a[M - 1]);
+    aug[M] = (float)f;
+    const double dv = (double)ge_solve_f32_warp<M, 16>(aug, q);
+    const bool conv = r == 0 ? conv0 : conv1;
+    v_nl = conv ? v_nl : v_nl - jclip(dv, -0.5, 0.5);
+  }
+  if (!done) i_nl = mel_current_lane(s, v_nl, q);
+  // the corrector, the reset to the DC point on a non-finite output
+  publish<16>(w->b, i_nl, lane, M);
+  const double s_ni = row_dot<N, M>(s + ML_S_NI, b, rn);
+  const double dot = row_dot<1, M>(s + ML_SFB_NI, b, 0);
+  const double v_new = v_pred + s_ni - (sm_k * dot) * s[ML_S_FB_COL + rn];
+  const double out = __shfl_sync(FULL, v_new, outn) -
+                     __shfl_sync(FULL, v_new, 16 + outn);
+  const bool bad = !finite(out);
+  st.v = bad ? s[ML_V_DC + rn] : v_new;
+  st.i = bad ? s[ML_I_DC + rm] : i_nl;
+  st.v_nl = bad ? s[ML_V_NL_DC + rm] : v_nl;
+  st.w_prev = w_new;
+  st.g_prev = g;
+  st.key[0] = (double)n1;
+  st.key[1] = (double)n2;
+  return bad ? 0.0 : out;
+}
+
 __device__ void init_power_amp(const double* pa, double* ch) {
   using L = SL<21, 16, 8>;
   for (int r = 0; r < 21; ++r) ch[CH_PA_V + r] = pa[L::VDC + r];
@@ -1831,35 +2066,41 @@ __global__ void engine_chain_kernel(const double* __restrict__ c,
 
 // E2 for the circuit power amp: a warp per engine. Lane 0 runs what has
 // no parallel rows: the smoothers, the oversampler's allpass branches, the
-// preamp (DK or melange), the speaker and guard #2, on the chain rows it
-// holds in `ch`. The whole warp runs the tremolo's and the power amp's mna
-// steps (mna_step_warp, their solver blocks staged in shared memory per
-// block); the preamp's input goes from the tremolo to lane 0 and its
-// output from lane 0 to the warp by __shfl_sync. Every value and branch is
-// the thread kernel's, so the two forms agree bit for bit.
+// DK preamp, the speaker and guard #2, on the chain rows it holds in `ch`.
+// The whole warp runs the tremolo's and the power amp's mna steps
+// (mna_step_warp) and the melange preamp's step (melange_step_warp), their
+// constant blocks staged in shared memory per block; the preamp's input
+// goes from lane 0 to the warp (melange) or from the tremolo to lane 0
+// (DK), and the DK preamp's output from lane 0 to the warp, by
+// __shfl_sync. Every value and branch is the thread kernel's, so the two
+// forms agree bit for bit.
 constexpr int E2_WARPS = 4;  // engines (warps) per block
 
-// the chain rows that the warp's solver states hold, not lane 0's `ch`
+// the chain rows that the warp's states hold, not lane 0's `ch`
+template <int PRE>
 __device__ __forceinline__ bool warp_row(int k) {
   return (k >= CH_TREM_V && k <= CH_TREM_RLDR) ||
-         (k >= CH_PA_V && k <= CH_PA_LAST);
+         (k >= CH_PA_V && k <= CH_PA_LAST) ||
+         (PRE == PRE_MELANGE && k >= CH_MEL_V);
 }
 
+// mel and s_mel: the melange preamp's rows and staged block (PRE_MELANGE)
 template <int PRE>
 __device__ __forceinline__ double nonlinear_step_warp(
     const double* c, const double* misc, double* ch, TremWarp& tr, PaWarp& pa,
-    const double* s_trem, const double* s_pa, WarpScratch* w, double depth,
-    double u, bool sag, double noise_scale, int lane) {
+    MelWarp* mel, const double* s_trem, const double* s_pa,
+    const double* s_mel, WarpScratch* w, double depth, double u, bool sag,
+    double noise_scale, int lane) {
   const double shunt = tremolo_step_warp(s_trem, misc, tr, depth, w);
   const double g = 1.0 / jmax(shunt, 1000.0);
   double pre = 0.0;
-  if (lane == 0) {
-    if constexpr (PRE == PRE_DK)
-      pre = preamp_step(c + C_PRE, ch + CH_PRE_V, g, u);
-    else
-      pre = melange_step(c + C_MEL, ch + CH_MEL_V, g, u, noise_scale);
+  if constexpr (PRE == PRE_DK) {
+    if (lane == 0) pre = preamp_step(c + C_PRE, ch + CH_PRE_V, g, u);
+    pre = __shfl_sync(FULL, pre, 0);
+  } else {
+    pre = melange_step_warp(s_mel, *mel, g, __shfl_sync(FULL, u, 0),
+                            noise_scale, w);
   }
-  pre = __shfl_sync(FULL, pre, 0);
   const double drive = 0.25;  // tables.FIXED_CIRCUIT_DRIVE
   return power_amp_step_warp(s_pa, misc, pa, pre * drive, sag, w);
 }
@@ -1867,9 +2108,10 @@ __device__ __forceinline__ double nonlinear_step_warp(
 // chain_sample on a warp; → the output on lane 0
 template <int PRE>
 __device__ __noinline__ double chain_sample_warp(
-    const double* c, double* ch, TremWarp& tr, PaWarp& pa,
-    const double* s_trem, const double* s_pa, WarpScratch* w, double mono,
-    bool sag, double noise_scale, double* last_char, Speaker* spk_k) {
+    const double* c, double* ch, TremWarp& tr, PaWarp& pa, MelWarp* mel,
+    const double* s_trem, const double* s_pa, const double* s_mel,
+    WarpScratch* w, double mono, bool sag, double noise_scale,
+    double* last_char, Speaker* spk_k) {
   const int lane = threadIdx.x & 31;
   const double* misc = c + C_MISC;
   double depth = 0.0, vol = 0.0, chr = 0.0;
@@ -1888,8 +2130,9 @@ __device__ __noinline__ double chain_sample_warp(
     }
 #pragma unroll 1
     for (int h = 0; h < 2; ++h)
-      y[h] = nonlinear_step_warp<PRE>(c, misc, ch, tr, pa, s_trem, s_pa, w,
-                                      depth, us[h], sag, noise_scale, lane);
+      y[h] = nonlinear_step_warp<PRE>(c, misc, ch, tr, pa, mel, s_trem,
+                                      s_pa, s_mel, w, depth, us[h], sag,
+                                      noise_scale, lane);
     if (lane == 0) {
       const double a = branch_step(kBranchA, ch + CH_OS_DOWN_A, y[0]);
       const double b = branch_step(kBranchB, ch + CH_OS_DOWN_B, y[1]);
@@ -1897,8 +2140,9 @@ __device__ __noinline__ double chain_sample_warp(
       ch[CH_OS_DELAY] = b;
     }
   } else {
-    amp_out = nonlinear_step_warp<PRE>(c, misc, ch, tr, pa, s_trem, s_pa, w,
-                                       depth, mono, sag, noise_scale, lane);
+    amp_out = nonlinear_step_warp<PRE>(c, misc, ch, tr, pa, mel, s_trem,
+                                       s_pa, s_mel, w, depth, mono, sag,
+                                       noise_scale, lane);
   }
   double out = 0.0;
   int bad = 0;
@@ -1912,18 +2156,19 @@ __device__ __noinline__ double chain_sample_warp(
     out = y * misc[M_POST_GAIN] * vol;
     bad = !finite(out);
     if (bad) {
-      // NaN guard #2: preamp (the melange one's noise key and draws
-      // included), oversampler and speaker here, the power amp below
+      // NaN guard #2: the DK preamp, oversampler and speaker here; the
+      // melange preamp (its noise key and draws included) and the power
+      // amp below
       for (int k = 0; k < OS_ROWS; ++k) ch[CH_OS_UP_A + k] = 0.0;
-      if constexpr (PRE == PRE_DK)
-        init_preamp(c + C_PRE, ch + CH_PRE_V);
-      else
-        init_melange(c + C_MEL, ch + CH_MEL_V);
+      if constexpr (PRE == PRE_DK) init_preamp(c + C_PRE, ch + CH_PRE_V);
       for (int k = 0; k < 5; ++k) spk[k] = 0.0;
       out = 0.0;
     }
   }
-  if (__shfl_sync(FULL, bad, 0)) init_power_amp_warp(s_pa, pa, lane);
+  if (__shfl_sync(FULL, bad, 0)) {
+    init_power_amp_warp(s_pa, pa, lane);
+    if constexpr (PRE == PRE_MELANGE) init_melange_warp(s_mel, *mel, lane);
+  }
   return out;
 }
 
@@ -1933,10 +2178,13 @@ engine_chain_warp_kernel(const double* __restrict__ c,
                          const double* __restrict__ mono, double* chain,
                          float* out, int n, int b, const unsigned char* sag,
                          const double* noise_scale) {
+  constexpr bool MEL = PRE == PRE_MELANGE;
   __shared__ double s_pa[PA_BLOCK], s_trem[TREM_BLOCK];
+  __shared__ double s_mel[MEL ? ML_SIZE : 1];
   __shared__ WarpScratch scratch[E2_WARPS];
   stage_block<21, 16, 8>(c + C_PA, s_pa);
   stage_block<7, 4, 2>(c + C_TREM, s_trem);
+  if constexpr (MEL) stage_melange(c + C_MEL, s_mel);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int e = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -1944,27 +2192,31 @@ engine_chain_warp_kernel(const double* __restrict__ c,
   double* row = chain + (size_t)e * CHAIN_ROWS;
   double ch[CHAIN_ROWS];  // lane 0's rows
   if (lane == 0)
-    for (int k = 0; k < CHAIN_ROWS; ++k) ch[k] = warp_row(k) ? 0.0 : row[k];
+    for (int k = 0; k < CHAIN_ROWS; ++k)
+      ch[k] = warp_row<PRE>(k) ? 0.0 : row[k];
   TremWarp tr;
   load_lane<7, 4>(tr.s, row + CH_TREM_V, 1, lane);
   tr.env = row[CH_TREM_ENV];
   tr.r_ldr = row[CH_TREM_RLDR];
   PaWarp pa;
   load_pa(pa, row + CH_PA_V, 1, lane);
+  MelWarp mel;
+  if constexpr (MEL) load_mel(mel, row + CH_MEL_V, 1, lane);
   double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
   Speaker spk_k;
   WarpScratch* w = &scratch[warp];
   for (int t = 0; t < n; ++t) {
     const size_t i = (size_t)e * n + t;
-    const double y =
-        chain_sample_warp<PRE>(c, ch, tr, pa, s_trem, s_pa, w, mono[i],
-                               sag[e] != 0, noise_scale[e], &last_char,
-                               &spk_k);
+    const double y = chain_sample_warp<PRE>(
+        c, ch, tr, pa, MEL ? &mel : nullptr, s_trem, s_pa,
+        MEL ? s_mel : nullptr, w, mono[i], sag[e] != 0, noise_scale[e],
+        &last_char, &spk_k);
     if (lane == 0) out[i] = (float)y;
   }
   if (lane == 0)
     for (int k = 0; k < CHAIN_ROWS; ++k)
-      if (!warp_row(k)) row[k] = ch[k];
+      if (!warp_row<PRE>(k)) row[k] = ch[k];
+  if constexpr (MEL) store_mel(mel, row + CH_MEL_V, 1, lane);
   store_lane<7, 4>(tr.s, row + CH_TREM_V, 1, lane);
   if (lane == 0) {
     row[CH_TREM_ENV] = tr.env;
@@ -1989,42 +2241,65 @@ __global__ void tremolo_settle_kernel(const double* __restrict__ c,
 
 // ═══════════════════════════ E5: preamp scan ═══════════════════════════
 
-// a thread per stream, columns of the (rows, G) state; x and out (n, G)
-// time major
+// Columns of the (rows, G) state, one per stream; x and out (n, G) time
+// major. E5<dk>: a thread per stream (di.preamp_di: allpass up, the twin
+// DK step twice, allpass down).
 constexpr int E5_BLOCK = 32;
 
 template <int PRE>
 __global__ void __launch_bounds__(E5_BLOCK)
 preamp_scan_kernel(const double* __restrict__ c, const double* __restrict__ x,
                    double* state, const double* __restrict__ g_ldr,
-                   const double* __restrict__ noise_scale, double* out, int n,
-                   int g) {
-  constexpr int ROWS = PRE == PRE_DK ? OS_ROWS + PS_ROWS : MS_ROWS;
+                   double* out, int n, int g) {
+  static_assert(PRE == PRE_DK, "E5<melange> is melange_scan_kernel");
+  constexpr int ROWS = OS_ROWS + PS_ROWS;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= g) return;
   double s[ROWS];
   for (int k = 0; k < ROWS; ++k) s[k] = state[(size_t)k * g + j];
   const double gl = g_ldr[j];
-  const double scale = PRE == PRE_MELANGE ? noise_scale[j] : 0.0;
   for (int t = 0; t < n; ++t) {
     const double xt = x[(size_t)t * g + j];
-    double y;
-    if constexpr (PRE == PRE_DK) {
-      // di.preamp_di: allpass up, the twin DK step twice, allpass down
-      const double e = branch_step(kBranchA, s + 0, xt);
-      const double o = branch_step(kBranchB, s + 3, xt);
-      const double y0 = preamp_step(c, s + OS_ROWS, gl, e);
-      const double y1 = preamp_step(c, s + OS_ROWS, gl, o);
-      const double a = branch_step(kBranchA, s + 6, y0);
-      const double b = branch_step(kBranchB, s + 9, y1);
-      y = (a + s[12]) * 0.5;
-      s[12] = b;
-    } else {
-      y = melange_step(c, s, gl, xt, scale);
-    }
-    out[(size_t)t * g + j] = y;
+    const double e = branch_step(kBranchA, s + 0, xt);
+    const double o = branch_step(kBranchB, s + 3, xt);
+    const double y0 = preamp_step(c, s + OS_ROWS, gl, e);
+    const double y1 = preamp_step(c, s + OS_ROWS, gl, o);
+    const double a = branch_step(kBranchA, s + 6, y0);
+    const double b = branch_step(kBranchB, s + 9, y1);
+    out[(size_t)t * g + j] = (a + s[12]) * 0.5;
+    s[12] = b;
   }
   for (int k = 0; k < ROWS; ++k) state[(size_t)k * g + j] = s[k];
+}
+
+// E5<melange>: a warp per stream (melange_step_warp), E5_WARPS streams to
+// a block sharing one staged copy of the melange block; each of the
+// stream's rows is loaded and stored by the lane that owns it.
+constexpr int E5_WARPS = 4;
+
+__global__ void __launch_bounds__(E5_WARPS * 32)
+melange_scan_kernel(const double* __restrict__ c,
+                    const double* __restrict__ x, double* state,
+                    const double* __restrict__ g_ldr,
+                    const double* __restrict__ noise_scale, double* out,
+                    int n, int g) {
+  __shared__ double s_mel[ML_SIZE];
+  __shared__ WarpScratch scratch[E5_WARPS];
+  stage_melange(c, s_mel);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (j >= g) return;  // the whole warp: no block-wide sync follows
+  MelWarp st;
+  load_mel(st, state + j, g, lane);
+  const double gl = g_ldr[j], scale = noise_scale[j];
+  WarpScratch* w = &scratch[warp];
+  for (int t = 0; t < n; ++t) {
+    const double y = melange_step_warp(s_mel, st, gl, x[(size_t)t * g + j],
+                                       scale, w);
+    if (lane == 0) out[(size_t)t * g + j] = y;
+  }
+  store_mel(st, state + j, g, lane);
 }
 
 // ═══════════════════════ E7: the DK measurement scan ═══════════════════════
@@ -2258,13 +2533,16 @@ extern "C" int ow_preamp_scan(int kind, const double* consts, int n_consts,
       n_consts != (kind == PRE_DK ? PR_J_CIN_DC + 1 : ML_SIZE))
     return (int)cudaErrorInvalidValue;
   if (g == 0) return 0;
-  const int blocks = (g + E5_BLOCK - 1) / E5_BLOCK;
-  if (kind == PRE_DK)
-    preamp_scan_kernel<PRE_DK><<<blocks, E5_BLOCK, 0, stream>>>(
+  if (kind == PRE_DK) {
+    preamp_scan_kernel<PRE_DK><<<(g + E5_BLOCK - 1) / E5_BLOCK, E5_BLOCK, 0,
+                                 stream>>>(consts, x, state, g_ldr, out, n,
+                                           g);
+  } else {
+    const int blocks = (g + E5_WARPS - 1) / E5_WARPS;
+    const int warps = g < E5_WARPS ? g : E5_WARPS;
+    melange_scan_kernel<<<blocks, warps * 32, 0, stream>>>(
         consts, x, state, g_ldr, noise_scale, out, n, g);
-  else
-    preamp_scan_kernel<PRE_MELANGE><<<blocks, E5_BLOCK, 0, stream>>>(
-        consts, x, state, g_ldr, noise_scale, out, n, g);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -21,8 +21,8 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
     per-sample coefficient design, post gain and volume, NaN guard #2, the
     f32 cast. The two model choices are template arguments. The circuit
     power amp's instantiations run a warp per engine
-    (`engine_chain_warp_kernel`: the tremolo's and the power amp's Newton
-    solves on the whole warp, the rest on lane 0) up to
+    (`engine_chain_warp_kernel`: the tremolo's, the melange preamp's and
+    the power amp's steps on the whole warp, the rest on lane 0) up to
     `CHAIN_WARP_MAX_ENGINES` engines and a thread per engine above it; the
     behavioral ones a thread per engine. The two forms agree bit for bit.
   * **E3 `tremolo_settle`**: the tremolo oscillator's mna step alone, n

@@ -19,13 +19,14 @@ loops are kernels:
     `run_calibrate`'s T1 and T2: the reed alone into the pickup (no attack
     noise, no post-pickup gain), with the reed's samples as a second
     (n, G) output.
-  * **E5 `preamp_scan<PRE>`**: G streams, a thread each, over n samples
-    of (n, G) float64 input:
-      - `dk`: `di.preamp_di`'s chain: the 2× allpass up step, the twin DK
-        preamp step twice at the stream's fixed LDR conductance, the
-        allpass down step;
-      - `melange`: one melange preamp step per sample at the stream's LDR
-        conductance and noise scale (noise_enabled · noise_gain).
+  * **E5 `preamp_scan<PRE>`**: G streams over n samples of (n, G)
+    float64 input:
+      - `dk`, a thread each: `di.preamp_di`'s chain: the 2× allpass up
+        step, the twin DK preamp step twice at the stream's fixed LDR
+        conductance, the allpass down step;
+      - `melange`, a warp each (E2's warp step: the twins on the two
+        half-warps): one melange preamp step per sample at the stream's
+        LDR conductance and noise scale (noise_enabled · noise_gain).
   * **E6 `pa_speaker_scan`**: G streams, a warp each, over n samples:
     `run_calibrate`'s T5, x · volume² → the power amp (E2's warp step,
     rail sag on, at the input's rate) → the speaker (filters designed once

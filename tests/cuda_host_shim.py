@@ -2,7 +2,7 @@
 `openwurli_tpu_torch/csrc/` builds with g++ and runs on the CPU.
 
 One std::thread per CUDA thread and a std::barrier per warp (for
-__syncwarp, the shuffles and the votes) and per block (__syncthreads);
+__syncwarp, the shuffles and the votes, the ballot among them) and per block (__syncthreads);
 __shared__ arrays are statics, which is right because the blocks of a
 launch run one after another. `build` writes the header as
 cuda_runtime.h beside the source, rewrites each `kernel<<<blocks,
@@ -103,6 +103,14 @@ inline bool __any_sync(unsigned, bool p) {
   return any;
 }
 inline bool __all_sync(unsigned m, bool p) { return !__any_sync(m, !p); }
+inline unsigned __ballot_sync(unsigned, bool p) {
+  const uint64_t* s = shim::exchange(p);
+  unsigned bits = 0;
+  for (int i = 0; i < (int)blockDim.x - (int)(threadIdx.x & ~31u) && i < 32;
+       ++i)
+    bits |= s[i] ? 1u << i : 0u;
+  return bits;
+}
 template <class T>
 T __shfl_sync(unsigned, T v, int src, int width = 32) {
   uint64_t bits = 0;

@@ -573,6 +573,55 @@ def test_preamp_scan_melange_kernel_matches_plain(cuda):
     assert float(out[40, 5]) == 0.0 and torch.isfinite(out).all()
 
 
+@pytest.mark.parametrize("g", [1, 5, 33])
+def test_preamp_scan_melange_warp_geometry_matches_plain(cuda, g):
+    """E5<melange>, a warp per stream, four to a block: one stream, a
+    partial block and a partial last block, seeded millivolt inputs, LDR
+    conductances and noise scales 0, 1 and 30, a NaN input on the last
+    stream: output and state bit for bit."""
+    from openwurli_tpu_torch.kernels import render as kr
+
+    sr = 88200.0
+    rng = np.random.default_rng(g)
+    x = torch.as_tensor(rng.uniform(-0.003, 0.003, (48, g)), device=cuda)
+    x[20, g - 1] = float("nan")
+    gl = torch.as_tensor(1.0 / rng.uniform(1e4, 1e6, g), device=cuda)
+    scale = torch.as_tensor(rng.choice([0.0, 1.0, 30.0], g), device=cuda)
+    st = kr.init_melange_state(sr, g, cuda)
+    a, b = st.clone(), st.clone()
+    out = kr.preamp_scan("melange", sr, x, a, gl, scale)
+    ref = kr.preamp_scan_plain("melange", sr, x, b, gl, scale)
+    assert _same_bits(out, ref) and _same_bits(a, b)
+    assert float(out[20, g - 1]) == 0.0
+
+
+def test_engine_chain_melange_warp_on_chord(cuda, monkeypatch):
+    """E2<melange, circuit> on a sounding chord with the thermal noise on,
+    as the melange plugin runs it: the warp form against the thread form
+    and the plain version, output and state bit for bit."""
+    from openwurli_tpu_torch.engine import Engine
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    eng = Engine(SR, device=cuda, preamp_model="melange")
+    eng.set_noise_enabled(True)
+    for note in (48, 55, 60, 63, 67, 70):
+        eng.note_on(note, 0.95)
+    eng.render(300)
+    mono = ek.render_voices(eng.vpar, eng.vst, eng.vsti, eng.eng_i, 64,
+                            eng.fade_len, eng.sample_rate)
+    runs = []
+    for widest in (None, 0):  # the warp form, the thread form
+        monkeypatch.setattr(ek, "CHAIN_WARP_MAX_ENGINES", widest)
+        a = eng.chain.clone()
+        runs.append((ek.render_chain(eng.params, mono, a, True, 1.0), a))
+    (ow, sw), (ot, st) = runs
+    assert _same_bits(ow, ot) and _same_bits(sw, st)
+    b = eng.chain.clone()
+    ref = ek.chain_plain(eng.params, mono, b, True, 1.0)
+    assert _same_bits(ow, ref) and _same_bits(sw, b)
+    assert ow.abs().max() > 1e-3  # sounding
+
+
 @pytest.mark.parametrize("models", [("melange", "circuit"),
                                     ("dk", "behavioral"),
                                     ("melange", "behavioral")])

@@ -2,7 +2,9 @@
 """One f64 engine's chunk on the port: E1 and E2 at B = 1, the batch that
 `Engine.render` launches, beside their plain versions on the same inputs.
 
-Builds `Engine(sr)` at volume 1 and tremolo depth 1, renders --history
+Builds `Engine(sr)` (the DK preamp, or with --preamp-model melange the
+melange one; --noise turns its thermal noise on, as a plugin with
+authentic noise does) at volume 1 and tremolo depth 1, renders --history
 samples, strikes the chord (MIDI 48, 55, 60, 63, 67, 70 at 0.95) and
 renders --chord-s seconds (at the defaults `chip_smoke.py` phase 22's
 loud 1 s render), keeping the inputs of its first 256-sample chunk. Then it
@@ -13,6 +15,7 @@ engine's --warm-up-s seconds of silence are timed too. Host times are
 synchronised.
 
     python tools/torch_engine_chunk.py [--root CHECKOUT] [--device cpu]
+        [--preamp-model melange] [--noise]
 
 --root imports the package from another checkout (one that has the same
 `Engine` and `kernels.engine` entry points), so that two trees can be
@@ -51,6 +54,8 @@ def main(argv=None):
     p.add_argument("--chord-s", type=float, default=1.0)
     p.add_argument("--warm-up-s", type=float, default=0.6)
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--preamp-model", default="dk", choices=("dk", "melange"))
+    p.add_argument("--noise", action="store_true")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -108,10 +113,15 @@ def main(argv=None):
             seen["chain"] = clones(a)
         return real_c(*a)
 
-    fresh = Engine(args.sr, device=dev)
+    def engine():
+        e = Engine(args.sr, device=dev, preamp_model=args.preamp_model)
+        e.set_noise_enabled(args.noise)
+        return e
+
+    fresh = engine()
     n_warm = int(args.sr * args.warm_up_s)
     warm_ms, _ = host_ms(lambda: fresh.render(n_warm))
-    eng = Engine(args.sr, device=dev)
+    eng = engine()
     eng.set_volume(1.0)
     eng.set_tremolo_depth(1.0)
     eng.render(args.history)
@@ -145,6 +155,7 @@ def main(argv=None):
     card = torch.cuda.get_device_name(dev) if cuda else "cpu"
     print(json.dumps({
         "root": root, "device": card, "sr": args.sr,
+        "preamp_model": args.preamp_model, "noise": args.noise,
         "warm_up_ms": warm_ms, "warm_up_samples": n_warm,
         "chord_ms": chord_ms, "chord_samples": int(args.sr * args.chord_s),
         "chunk": CHUNK, "e1_ms": e1_ms, "e1_plain_ms": e1_plain_ms,

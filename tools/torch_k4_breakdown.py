@@ -58,7 +58,7 @@ def build():
     out_dir = os.path.join(REPO, "build", "k4_breakdown")
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, "libk4b.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib,
            os.path.join(REPO, "tools", "k4_breakdown.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:

@@ -62,7 +62,7 @@ def build():
     out_dir = os.path.join(REPO, "build", "vb_breakdown")
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, "libvbb.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib,
            os.path.join(REPO, "tools", "vb_breakdown.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
