@@ -77,20 +77,21 @@ voice slots, live steal fades, a tremolo BE replay, a power-amp Newton
 failure and NaN guard #2, and on one chunk of the engine session; E4
 and E5<dk> on `render_di`'s own inputs (all 512 voices, the first 1000
 samples, against `render_di`'s output) and at 133 ragged voices with NaN
-and inf ones, E5<melange> at noise scales 0, 1 and 30, E2's other
+and inf ones (E5<dk> also at 1, 5 and 33 of them), E5<melange> at noise scales 0, 1 and 30, E2's other
 instantiations on a kicked chunk and on 64 samples of the melange
 plugin's chunk; E4<tap> and E6 on `run_calibrate`'s own inputs (all 512
 streams, the first 1000 and 128 samples) and on 133 ragged streams with
 NaN and inf columns; E7 on the CLI's `sweep` (25 streams) and
 `pump-sinusoid` (a resistance per sample) calls, the first 1000 steps, and
-on 133 ragged streams with NaN and inf inputs, both taps; E1 and E2 over
+on 133 ragged streams with NaN and inf inputs (and at 1 and 33 of them),
+both taps; E1 and E2 over
 five distinct engines (rail sag off, a NaN slot, steal fades, guard #2),
 over 128 distinct ones (32 E2 blocks of four warps) and each other
 instantiation over two (noise on one) against their batched plain
 versions; E8 on 33 circuits from seeded starts at three depths (a kicked
 and a NaN circuit) and E9 on 33 streams (a 200 V spike, a NaN and an inf
-stream). E5<melange> runs a warp per stream (the melange step on a
-warp, also E2<melange, circuit>'s). E2's circuit instantiations run a
+stream). E5 and E7 run a warp per stream (the melange and DK steps on a
+warp; the melange step also in E2<melange, circuit>). E2's circuit instantiations run a
 warp per engine up to
 `CHAIN_WARP_MAX_ENGINES` engines and a thread per engine above: the two
 forms are held to each other bit for bit on the kicked, guard #2,
@@ -331,12 +332,13 @@ def ptxas_lines(log):
     return {k: tuple(v) for k, v in found.items()}
 
 
-# The kernels built around the warp-cooperative mna and melange steps, and
-# the steps' __noinline__ functions
+# The kernels built around the warp-cooperative mna, melange and DK steps,
+# and the steps' __noinline__ functions
 WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp", "E6",
-                "E5<melange>")
+                "E5<melange>", "E5<dk>", "E7<diff>", "E7<shadow>")
 WARP_STEP = ("mna_step_warpILi21ELi16ELi8ELi16E", "mna_step_warpILi7ELi4ELi2ELi4E",
-             "power_amp_step_warp", "tremolo_step_warp", "melange_step_warp")
+             "power_amp_step_warp", "tremolo_step_warp", "melange_step_warp",
+             "dk_step_warp")
 
 
 def function_frames(log, key):
@@ -1311,6 +1313,16 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
     e5dk, _ = compare_preamp_scan(
         kr, "dk", os_sr, x5, kr.init_dk_state(os_sr, g_v, dev), g5,
         f"{g_v} ragged streams, NaN and inf voices, two g")
+    # a warp per stream, four to a block: one stream, fewer streams than a
+    # block's warps, a partial last block (133 above and 512 in phase 24
+    # are partial and whole), each with the inf stream
+    e5dk_geo = []
+    for g in (1, 5, 33):
+        xg = x5[:200, :g].clone()
+        xg[100:, g - 1] = float("inf")
+        e5dk_geo.append(compare_preamp_scan(
+            kr, "dk", os_sr, xg, kr.init_dk_state(os_sr, g, dev),
+            g5[:g].contiguous(), f"{g} stream(s), an inf stream")[0])
 
     sr_m = 88200.0
     t = torch.arange(160, dtype=torch.float64, device=dev)
@@ -1359,7 +1371,7 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
     print("phase 23 bit-identical to their plain versions: "
           + "; ".join(f"{c['inputs']} {c['shape']} kernel {c['ms']:.3f} ms "
                       f"plain {c['plain_ms']:.0f} ms"
-                      for c in (e4, e5dk, e5mel)) + "; "
+                      for c in (e4, e5dk, *e5dk_geo, e5mel)) + "; "
           + "; ".join(f"E2{c['models']} kernel {c['ms']:.3f} ms plain "
                       f"{c['plain_ms']:.0f} ms" for c in e2_cmp)
           + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
@@ -1412,7 +1424,9 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
     print(f"phase 24 render_di 64 notes x 8 velocities x {dur} s at "
           f"{SR:g} Hz (512 x {n}, {grid.nbytes / 1e6:.0f} MB): "
           f"{di_ms / 1e3:.2f} s = {512 * dur / (di_ms / 1e3):.1f} voice "
-          f"seconds per second; stages (ms) {di_stages}; finite; note 69 f0 "
+          f"seconds per second; stages (ms) {di_stages}; E5<dk> "
+          f"{e5_grid_ms * 1e3 / (2 * n):.3f} us per DK step (two per "
+          f"sample, a warp per stream); finite; note 69 f0 "
           f"{f0:.4f} Hz ({cents:+.3f} cents); launches {counts}; its first "
           f"{n_p} samples bit-identical to the plain chain's (E4 kernel "
           f"{e4_main['ms']:.3f} ms plain {e4_main['plain_ms']:.0f} ms, E5<dk> "
@@ -1560,7 +1574,8 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
           + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
     return {"E4": {**e4_main, "compared": [e4_main, e4],
                    "main_path_ms": {"render_di 512 x 88200": e4_grid_ms}},
-            "E5<dk>": {**e5_main, "compared": [e5_main, e5dk],
+            "E5<dk>": {**e5_main, "compared": [e5_main, e5dk, *e5dk_geo],
+                       "us_per_dk_step": e5_grid_ms * 1e3 / (2 * n),
                        "main_path_ms": {"render_di 512 x 88200":
                                         e5_grid_ms}},
             "E5<melange>": {**e5mel, "main_path_ms": {
@@ -2307,6 +2322,18 @@ def cli_phases(dev, card, launches, vb, mc, ptxas):
         cmps.append(compare_dk_scan(
             kr, 88200.0, x, r, kr.init_dk_scan_state(88200.0, g_r, dev), tap,
             f"{g_r} ragged streams, NaN and inf"))
+        # a warp per stream, four to a block: one stream (the NaN input's)
+        # and a partial last block of 33 (the NaN and inf inputs, the NaN
+        # resistance)
+        for cols, what in (([5], "the NaN input's stream"),
+                           (list(range(30)) + [31, 77, 100],
+                            "33 of those: NaN and inf inputs, a NaN "
+                            "resistance")):
+            g = len(cols)
+            cmps.append(compare_dk_scan(
+                kr, 88200.0, x[:400, cols].contiguous(),
+                r[:400, cols].contiguous(),
+                kr.init_dk_scan_state(88200.0, g, dev), tap, what))
     e7_ptxas = {k: v for k, v in ptxas.items() if k.startswith("E7")}
     print("phase 27 E7 ptxas: " + "; ".join(
         f"{k} {v['registers']} registers, {v['stack']} bytes stack, "
@@ -2338,16 +2365,15 @@ STAGE_SR = 88200.0
 # built before E8 and E9 existed (NVIDIA H100 80GB HBM3, the card machine's
 # nvcc): E8 and E9 add callers of E2's tremolo and power-amp steps, and
 # must not move the existing kernels' allocation; nor must the warp steps
-# beside them (E6 and E5<melange>, a warp per stream since, are not in the
-# list)
+# beside them (E6, E5<melange>, E5<dk> and E7, a warp per stream since, are
+# not in the list)
 EARLIER_PTXAS = {
     "E1": (255, 40, 0, 0), "E3": (96, 768, 0, 0), "E4": (240, 40, 0, 0),
-    "E4<tap>": (230, 40, 0, 0), "E5<dk>": (255, 1168, 496, 488),
+    "E4<tap>": (230, 40, 0, 0),
     "E2<dk, circuit> thread": (255, 6912, 80, 136),
     "E2<melange, circuit> thread": (255, 7152, 128, 176),
     "E2<dk, behavioral>": (255, 2880, 208, 212),
-    "E2<melange, behavioral>": (255, 3824, 120, 136),
-    "E7<diff>": (255, 960, 404, 368), "E7<shadow>": (255, 960, 404, 368)}
+    "E2<melange, behavioral>": (255, 3824, 120, 136)}
 STAGE_NAMES = ("voices", "preamp twin", "tremolo", "power amp")
 
 
@@ -4166,7 +4192,7 @@ def main():
             ("voice_render", "E4", "openwurli_tpu/voice.py:140",
              "a thread per voice"),
             ("preamp_scan_dk", "E5<dk>", "openwurli_tpu/di.py:29",
-             "a thread per stream"),
+             "a warp per stream"),
             ("preamp_scan_melange", "E5<melange>",
              "openwurli_tpu/circuits/melange_preamp.py:177",
              "a warp per stream")):
@@ -4181,6 +4207,7 @@ def main():
                       | {"bound_ms": c["bound"][0]} for c in cmps],
             main_path_ms=k["main_path_ms"]))
     kernels[-3]["di_stages_ms"] = mod_k["di_stages_ms"]
+    kernels[-2]["us_per_dk_step"] = mod_k["E5<dk>"]["us_per_dk_step"]
     for name, key, replaces, more in (
             ("voice_render_tap", "E4<tap>",
              "openwurli_tpu/calib/calibrate.py:80", {}),
@@ -4202,6 +4229,7 @@ def main():
         max(c["max_abs_err"] for c in e7["compared"]), e7["ms"],
         e7["plain_ms"], e7["bound"], ptxas=e7["ptxas"],
         also_replaces=["openwurli_tpu/cli.py:87", "openwurli_tpu/cli.py:388"],
+        form="a warp per stream",
         compared=[{k_: v for k_, v in c.items() if k_ != "bound"}
                   | {"bound_ms": c["bound"][0]} for c in e7["compared"]],
         main_path_ms=e7["main_path_ms"], cli=cli_k["cli"]))

@@ -12,17 +12,17 @@
 //   E4 voice_render       G voices over n samples (voice.render); with
 //                         TAP, the reed alone into the pickup, the reed's
 //                         output kept (calibrate.run_calibrate's T1, T2)
-//   E5 preamp_scan        G preamp streams over n samples: the DI path's
-//                         2x-oversampled DK preamp (a thread per stream),
-//                         or the melange preamp (a warp per stream)
+//   E5 preamp_scan        G preamp streams over n samples, a warp per
+//                         stream: the DI path's 2x-oversampled DK preamp,
+//                         or the melange preamp
 //   E6 pa_speaker_scan    G streams over n samples, a warp per stream:
 //                         volume², the power amp with rail sag, the
 //                         speaker, the post-speaker gain
 //                         (calibrate.run_calibrate's T5)
 //   E7 dk_scan            G streams over n samples of the twin DK preamp
-//                         at the input's rate, each sample at its own LDR
-//                         resistance: the CLI's gain, harmonics and pump
-//                         measurements
+//                         at the input's rate, a warp per stream, each
+//                         sample at its own LDR resistance: the CLI's
+//                         gain, harmonics and pump measurements
 //   E8 tremolo_scan       G tremolo circuits over n steps at the
 //                         tremolo's own rate: the oscillator, the vactrol
 //                         and the divider's shunt at a depth per circuit
@@ -42,10 +42,10 @@
 // (tools/stage_bench.py:82-83); none is a Pallas kernel.
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
-// slot by one thread (a block of 128 per engine), E4, E5<dk>, E7 each voice
-// or stream by one thread, E8 and E9 each circuit or stream by one thread,
-// E3 the tremolo by one thread walking the data-dependent Newton solves
-// sample by sample. The bytes are a few hundred per sample and the
+// slot by one thread (a block of 128 per engine), E4 each voice by one
+// thread, E8 and E9 each circuit or stream by one thread, E3 the tremolo
+// by one thread walking the data-dependent Newton solves sample by
+// sample. The bytes are a few hundred per sample and the
 // operations some 10^4-10^5 f64 per base sample, far from the card's
 // rates; what bounds the time is the length of the dependent chain of f64
 // operations and libm calls per sample. E6 and E2's circuit instantiations
@@ -55,10 +55,12 @@
 // memory in the solve); E5<melange> and E2<melange, circuit> run the
 // melange preamp's step on a warp too (melange_step_warp: the twins on the
 // two half-warps, the ten noise draws at once, the block staged in shared
-// memory). E2 keeps a thread per engine above the crossover, where a full
-// card runs 32 engines per warp. The design takes two exact
-// savings: each Newton loop ends once every row has converged (the masked
-// iterations of the reference change nothing), and E2 reuses the
+// memory), and E5<dk> and E7 the DK preamp's (dk_step_warp: the twins on
+// the two half-warps, each junction's exp on a lane of its own). E2 keeps
+// a thread per engine above the crossover, where a full card runs 32
+// engines per warp. The design takes two exact savings: each Newton loop
+// ends once every row has converged (the masked iterations of the
+// reference change nothing), and E2 reuses the
 // speaker's coefficients while the character is unchanged.
 //
 // Every kernel equals its plain torch version bit for bit: compiled with
@@ -1209,6 +1211,168 @@ __device__ void init_preamp(const double* pc, double* ps) {
   ps[PS_GPREV] = 1.0 / 1000000.0;
 }
 
+// ═════════════════════ the warp-cooperative DK step ═════════════════════
+//
+// preamp_step run by the 32 lanes of one warp (E5<dk>, E7). The twins run
+// side by side on the two half-warps: lane l serves twin r = l / 16 and
+// node row q = l % 16 (rows above 7 repeat row 7), and holds v[r][q]; the
+// twin's junction currents and voltages, its input capacitor's companion
+// current and its last source term are the same on every lane of its half,
+// the last LDR conductance on every lane. The history and the predictor
+// are a row per lane in column order over a vector the half published in
+// shared memory (row_dot), each row's own source terms added in
+// preamp_step's order. Newton's 2 × 2 system is small enough to run on
+// every lane of the half: lanes 0 and 1 evaluate the two junctions' exps
+// at once and shuffle them to the half, which then forms the residuals,
+// the Jacobian and the masked update identically on every lane. Each
+// half's convergence is preamp_step's own test; a ballot leaves the loop
+// once both halves have converged (a converged half keeping its voltages,
+// as the thread's masked update does), with the final currents in hand.
+// Each value is the same function of the same operands as in preamp_step,
+// so the two agree bit for bit.
+//
+// The preamp block is staged in shared memory once per block with A_neg
+// and S_base transposed, so that the lanes' row walks read consecutive
+// addresses.
+
+constexpr int PR_SIZE = PR_J_CIN_DC + 1;
+
+// the block's threads copy the preamp block `src` into `dst`, staged
+__device__ void stage_dk(const double* __restrict__ src, double* dst) {
+  const int seg[2][3] = {{PR_A_NEG, 8, 8}, {PR_S_BASE, 8, 8}};
+  for (int k = threadIdx.x; k < PR_SIZE; k += blockDim.x)
+    dst[transposed_index(seg, 2, k)] = src[k];
+}
+
+// a warp's DK preamp: this lane's node row, its twin's scalars, and the
+// LDR conductance of the last step
+struct DkWarp {
+  double v, i_nl[2], v_nl[2], j_cin, cin_prev, g_prev;
+};
+
+// the lane's rows of the DK rows (PreState) from row 0 of `rows`, row k at
+// rows[k * stride]
+__device__ void load_dk(DkWarp& st, const double* rows, size_t stride,
+                        int lane) {
+  const int r = lane >> 4, q = lane & 15;
+  st.v = rows[(PS_V + 8 * r + min(q, 7)) * stride];
+  for (int k = 0; k < 2; ++k) {
+    st.i_nl[k] = rows[(PS_I + 2 * r + k) * stride];
+    st.v_nl[k] = rows[(PS_VNL + 2 * r + k) * stride];
+  }
+  st.j_cin = rows[(PS_JCIN + r) * stride];
+  st.cin_prev = rows[(PS_CINPREV + r) * stride];
+  st.g_prev = rows[PS_GPREV * stride];
+}
+
+__device__ void store_dk(const DkWarp& st, double* rows, size_t stride,
+                         int lane) {
+  const int r = lane >> 4, q = lane & 15;
+  if (q < 8) rows[(PS_V + 8 * r + q) * stride] = st.v;
+  if (q < 2) {
+    rows[(PS_I + 2 * r + q) * stride] = q ? st.i_nl[1] : st.i_nl[0];
+    rows[(PS_VNL + 2 * r + q) * stride] = q ? st.v_nl[1] : st.v_nl[0];
+  }
+  if (q == 2) rows[(PS_JCIN + r) * stride] = st.j_cin;
+  if (q == 3) rows[(PS_CINPREV + r) * stride] = st.cin_prev;
+  if (lane == 0) rows[PS_GPREV * stride] = st.g_prev;
+}
+
+// both junctions' (ic, gm) at (v0, v1) on every lane of the half: lane 0
+// evaluates v0's, lane 1 v1's
+__device__ __forceinline__ void bjt_pair(double v0, double v1, int q,
+                                         double* ic, double* gm) {
+  double c, g;
+  bjt_ic_gm(q & 1 ? v1 : v0, &c, &g);
+  ic[0] = __shfl_sync(FULL, c, 0, 16);
+  ic[1] = __shfl_sync(FULL, c, 1, 16);
+  gm[0] = __shfl_sync(FULL, g, 0, 16);
+  gm[1] = __shfl_sync(FULL, g, 1, 16);
+}
+
+// preamp_step on a warp, on the staged block `s`; g and x the same on every
+// lane; → main − shadow, the same on every lane
+__device__ __noinline__ double dk_step_warp(const double* s, DkWarp& st,
+                                            double g, double x,
+                                            WarpScratch* w) {
+  const int lane = threadIdx.x & 31, r = lane >> 4, q = lane & 15;
+  const int n = min(q, 7);
+  const double* a = w->a + 16 * r;  // this half's published vector
+  // the history, fb's LDR term, the sources, the input, two_w
+  publish<16>(w->a, st.v, lane, 8);
+  double rhs = row_dot<8, 8>(s + PR_A_NEG, a, n);
+  const double u = r == 0 ? x : 0.0;
+  const double cin_now = s[PR_G_CIN] * u + st.j_cin;
+  rhs = n == FB ? rhs + (-st.g_prev) * st.v : rhs;
+  rhs = n == B1 ? rhs + (cin_now + st.cin_prev) : rhs;
+  rhs = n == E1 ? rhs + st.i_nl[0] : rhs;
+  rhs = n == C1 ? rhs + (-st.i_nl[0]) : rhs;
+  rhs = n == E2 ? rhs + st.i_nl[1] : rhs;
+  rhs = n == C2 ? rhs + (-st.i_nl[1]) : rhs;
+  rhs = rhs + s[PR_TWO_W + n];
+  // the predictor, its LDR correction, the ports' p
+  publish<16>(w->a, rhs, lane, 8);
+  const double vpb = row_dot<8, 8>(s + PR_S_BASE, a, n);
+  const double sm_k = g / (1.0 + s[PR_S_FB_FB] * g);
+  const double vpb_fb = __shfl_sync(FULL, vpb, FB, 16);
+  const double v_pred = vpb - (sm_k * vpb_fb) * s[PR_S_FB_COL + n];
+  const double p0 = __shfl_sync(FULL, v_pred, B1, 16) -
+                    __shfl_sync(FULL, v_pred, E1, 16);
+  const double p1 = __shfl_sync(FULL, v_pred, C1, 16) -
+                    __shfl_sync(FULL, v_pred, E2, 16);
+  double kc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) kc[k] = s[PR_K + k] - sm_k * s[PR_K_OUTER + k];
+  // Newton, both twins at once: at most 6 iterations, leaving once both
+  // have converged with the currents of the final v_nl in hand
+  double v0 = st.v_nl[0], v1 = st.v_nl[1], ic[2], gm[2];
+  bool done = false;
+#pragma unroll 1
+  for (int it = 0; it < 6; ++it) {
+    bjt_pair(v0, v1, q, ic, gm);
+    const double f0 = v0 - p0 - kc[0] * ic[0] - kc[1] * ic[1];
+    const double f1 = v1 - p1 - kc[2] * ic[0] - kc[3] * ic[1];
+    const bool conv = fabs(f0) < 1e-9 && fabs(f1) < 1e-9;
+    if (__ballot_sync(FULL, conv) == FULL) {
+      done = true;
+      break;
+    }
+    const double j00 = 1.0 - kc[0] * gm[0];
+    const double j01 = -kc[1] * gm[1];
+    const double j10 = -kc[2] * gm[0];
+    const double j11 = 1.0 - kc[3] * gm[1];
+    const double det = j00 * j11 - j01 * j10;
+    const bool big = fabs(det) > 1e-30;
+    const bool ok = !conv && big;
+    const double inv_det = big ? 1.0 / det : 0.0;
+    const double dv0 = inv_det * (j11 * f0 - j01 * f1);
+    const double dv1 = inv_det * (j00 * f1 - j10 * f0);
+    v0 = v0 - (ok ? dv0 : 0.0);
+    v1 = v1 - (ok ? dv1 : 0.0);
+  }
+  if (!done) bjt_pair(v0, v1, q, ic, gm);
+  // the corrector, the input capacitor, the reset to the DC point on a
+  // non-finite output
+  const double dot = s[PR_SFB_NI] * ic[0] + s[PR_SFB_NI + 1] * ic[1];
+  const double s_ni = ic[0] * s[PR_NI_COL0 + n] + ic[1] * s[PR_NI_COL1 + n];
+  const double v_new = v_pred + s_ni - (sm_k * dot) * s[PR_S_FB_COL + n];
+  const double jc = -s[PR_GC_1PC] * (u - __shfl_sync(FULL, v_new, B1, 16)) -
+                    s[PR_C_CIN] * st.j_cin;
+  const double out = __shfl_sync(FULL, v_new, OUTN) -
+                     __shfl_sync(FULL, v_new, 16 + OUTN);
+  const bool bad = !finite(out);
+  const double jdc = s[PR_J_CIN_DC];
+  st.v = bad ? s[PR_V_DC + n] : v_new;
+  st.i_nl[0] = bad ? s[PR_I_NL_DC] : ic[0];
+  st.i_nl[1] = bad ? s[PR_I_NL_DC + 1] : ic[1];
+  st.v_nl[0] = bad ? s[PR_V_NL_DC] : v0;
+  st.v_nl[1] = bad ? s[PR_V_NL_DC + 1] : v1;
+  st.j_cin = bad ? jdc : jc;
+  st.cin_prev = bad ? jdc : cin_now;
+  st.g_prev = g;
+  return bad ? 0.0 : out;
+}
+
 // ═══════════════════════ the melange preamp ═══════════════════════
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -2242,41 +2406,57 @@ __global__ void tremolo_settle_kernel(const double* __restrict__ c,
 // ═══════════════════════════ E5: preamp scan ═══════════════════════════
 
 // Columns of the (rows, G) state, one per stream; x and out (n, G) time
-// major. E5<dk>: a thread per stream (di.preamp_di: allpass up, the twin
-// DK step twice, allpass down).
-constexpr int E5_BLOCK = 32;
+// major. Both forms run a warp per stream, E5_WARPS streams to a block
+// sharing one staged copy of the preamp's constants; each of the stream's
+// rows is loaded and stored by the lane that owns it. E5<dk>
+// (di.preamp_di): lane 0 runs the oversampler (allpass up, then down) and
+// the whole warp the twin DK step twice (dk_step_warp).
+constexpr int E5_WARPS = 4;
 
 template <int PRE>
-__global__ void __launch_bounds__(E5_BLOCK)
+__global__ void __launch_bounds__(E5_WARPS * 32)
 preamp_scan_kernel(const double* __restrict__ c, const double* __restrict__ x,
                    double* state, const double* __restrict__ g_ldr,
                    double* out, int n, int g) {
   static_assert(PRE == PRE_DK, "E5<melange> is melange_scan_kernel");
-  constexpr int ROWS = OS_ROWS + PS_ROWS;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= g) return;
-  double s[ROWS];
-  for (int k = 0; k < ROWS; ++k) s[k] = state[(size_t)k * g + j];
+  __shared__ double s_pre[PR_SIZE];
+  __shared__ WarpScratch scratch[E5_WARPS];
+  stage_dk(c, s_pre);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (j >= g) return;  // the whole warp: no block-wide sync follows
+  double os[OS_ROWS];  // lane 0's oversampler
+  if (lane == 0)
+    for (int k = 0; k < OS_ROWS; ++k) os[k] = state[(size_t)k * g + j];
+  DkWarp st;
+  load_dk(st, state + (size_t)OS_ROWS * g + j, g, lane);
   const double gl = g_ldr[j];
+  WarpScratch* w = &scratch[warp];
+  double x_next = n > 0 ? x[j] : 0.0;  // the next sample's, a step ahead
   for (int t = 0; t < n; ++t) {
-    const double xt = x[(size_t)t * g + j];
-    const double e = branch_step(kBranchA, s + 0, xt);
-    const double o = branch_step(kBranchB, s + 3, xt);
-    const double y0 = preamp_step(c, s + OS_ROWS, gl, e);
-    const double y1 = preamp_step(c, s + OS_ROWS, gl, o);
-    const double a = branch_step(kBranchA, s + 6, y0);
-    const double b = branch_step(kBranchB, s + 9, y1);
-    out[(size_t)t * g + j] = (a + s[12]) * 0.5;
-    s[12] = b;
+    const double xt = x_next;
+    if (t + 1 < n) x_next = x[(size_t)(t + 1) * g + j];
+    double e = 0.0, o = 0.0;
+    if (lane == 0) {
+      e = branch_step(kBranchA, os + 0, xt);
+      o = branch_step(kBranchB, os + 3, xt);
+    }
+    const double y0 = dk_step_warp(s_pre, st, gl, __shfl_sync(FULL, e, 0), w);
+    const double y1 = dk_step_warp(s_pre, st, gl, __shfl_sync(FULL, o, 0), w);
+    if (lane == 0) {
+      const double a = branch_step(kBranchA, os + 6, y0);
+      const double b = branch_step(kBranchB, os + 9, y1);
+      out[(size_t)t * g + j] = (a + os[12]) * 0.5;
+      os[12] = b;
+    }
   }
-  for (int k = 0; k < ROWS; ++k) state[(size_t)k * g + j] = s[k];
+  if (lane == 0)
+    for (int k = 0; k < OS_ROWS; ++k) state[(size_t)k * g + j] = os[k];
+  store_dk(st, state + (size_t)OS_ROWS * g + j, g, lane);
 }
 
-// E5<melange>: a warp per stream (melange_step_warp), E5_WARPS streams to
-// a block sharing one staged copy of the melange block; each of the
-// stream's rows is loaded and stored by the lane that owns it.
-constexpr int E5_WARPS = 4;
-
+// E5<melange>: the melange step on the warp (melange_step_warp).
 __global__ void __launch_bounds__(E5_WARPS * 32)
 melange_scan_kernel(const double* __restrict__ c,
                     const double* __restrict__ x, double* state,
@@ -2305,32 +2485,47 @@ melange_scan_kernel(const double* __restrict__ c,
 // ═══════════════════════ E7: the DK measurement scan ═══════════════════════
 
 // The CLI's preamp and pump measurements: the twin DK preamp stepped once
-// per sample at the input's own rate (no oversampler), a thread per
-// stream, x, r_ldr and out (n, G) time major, the state (PS_ROWS, G).
-// Each sample's LDR conductance is 1 / max(r, 1 kOhm) of that sample's
-// resistance (dk_preamp.ldr_conductance). TAP selects what each sample
-// writes: DK_TAP_DIFF the step's main - shadow, DK_TAP_SHADOW the shadow's
-// OUT node after the step (after the step's reset to the DC point, when
-// its output went non-finite).
-constexpr int E7_BLOCK = 32;
+// per sample at the input's own rate (no oversampler), a warp per stream
+// (dk_step_warp), E7_WARPS streams to a block sharing one staged copy of
+// the constants; x, r_ldr and out (n, G) time major, the state (PS_ROWS,
+// G), each row loaded and stored by the lane that owns it. Each sample's
+// LDR conductance is 1 / max(r, 1 kOhm) of that sample's resistance
+// (dk_preamp.ldr_conductance), on every lane. TAP selects what each sample
+// writes: DK_TAP_DIFF the step's main - shadow (lane 0), DK_TAP_SHADOW the
+// shadow's OUT node after the step (after the step's reset to the DC
+// point, when its output went non-finite; the lane that owns the row).
+constexpr int E7_WARPS = 4;
 enum DkTap { DK_TAP_DIFF = 0, DK_TAP_SHADOW = 1 };
 
 template <int TAP>
-__global__ void __launch_bounds__(E7_BLOCK)
+__global__ void __launch_bounds__(E7_WARPS * 32)
 dk_scan_kernel(const double* __restrict__ c, const double* __restrict__ x,
                const double* __restrict__ r_ldr, double* state, double* out,
                int n, int g) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= g) return;
-  double s[PS_ROWS];
-  for (int k = 0; k < PS_ROWS; ++k) s[k] = state[(size_t)k * g + j];
+  __shared__ double s_pre[PR_SIZE];
+  __shared__ WarpScratch scratch[E7_WARPS];
+  stage_dk(c, s_pre);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (j >= g) return;  // the whole warp: no block-wide sync follows
+  DkWarp st;
+  load_dk(st, state + j, g, lane);
+  WarpScratch* w = &scratch[warp];
+  // the next sample's input and resistance, loaded a step ahead
+  double x_next = n > 0 ? x[j] : 0.0, r_next = n > 0 ? r_ldr[j] : 0.0;
   for (int t = 0; t < n; ++t) {
     const size_t at = (size_t)t * g + j;
-    const double gl = 1.0 / jmax(r_ldr[at], 1000.0);
-    const double y = preamp_step(c, s, gl, x[at]);
-    out[at] = TAP == DK_TAP_DIFF ? y : s[PS_V + 8 + OUTN];
+    const double xt = x_next, rt = r_next;
+    if (t + 1 < n) {
+      x_next = x[at + g];
+      r_next = r_ldr[at + g];
+    }
+    const double y = dk_step_warp(s_pre, st, 1.0 / jmax(rt, 1000.0), xt, w);
+    if (TAP == DK_TAP_DIFF && lane == 0) out[at] = y;
+    if (TAP == DK_TAP_SHADOW && lane == 16 + OUTN) out[at] = st.v;
   }
-  for (int k = 0; k < PS_ROWS; ++k) state[(size_t)k * g + j] = s[k];
+  store_dk(st, state + j, g, lane);
 }
 
 // ═══════════════════════ E6: power amp and speaker ═══════════════════════
@@ -2530,19 +2725,17 @@ extern "C" int ow_preamp_scan(int kind, const double* consts, int n_consts,
                               double* out, int n, int g,
                               cudaStream_t stream) {
   if (n < 0 || g < 0 || kind < 0 || kind > 1 ||
-      n_consts != (kind == PRE_DK ? PR_J_CIN_DC + 1 : ML_SIZE))
+      n_consts != (kind == PRE_DK ? PR_SIZE : ML_SIZE))
     return (int)cudaErrorInvalidValue;
   if (g == 0) return 0;
-  if (kind == PRE_DK) {
-    preamp_scan_kernel<PRE_DK><<<(g + E5_BLOCK - 1) / E5_BLOCK, E5_BLOCK, 0,
-                                 stream>>>(consts, x, state, g_ldr, out, n,
-                                           g);
-  } else {
-    const int blocks = (g + E5_WARPS - 1) / E5_WARPS;
-    const int warps = g < E5_WARPS ? g : E5_WARPS;
+  const int blocks = (g + E5_WARPS - 1) / E5_WARPS;
+  const int warps = g < E5_WARPS ? g : E5_WARPS;
+  if (kind == PRE_DK)
+    preamp_scan_kernel<PRE_DK><<<blocks, warps * 32, 0, stream>>>(
+        consts, x, state, g_ldr, out, n, g);
+  else
     melange_scan_kernel<<<blocks, warps * 32, 0, stream>>>(
         consts, x, state, g_ldr, noise_scale, out, n, g);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -2550,15 +2743,16 @@ extern "C" int ow_dk_scan(int tap, const double* consts, int n_consts,
                           const double* x, const double* r_ldr,
                           double* state, double* out, int n, int g,
                           cudaStream_t stream) {
-  if (n < 0 || g < 0 || tap < 0 || tap > 1 || n_consts != PR_J_CIN_DC + 1)
+  if (n < 0 || g < 0 || tap < 0 || tap > 1 || n_consts != PR_SIZE)
     return (int)cudaErrorInvalidValue;
   if (g == 0) return 0;
-  const int blocks = (g + E7_BLOCK - 1) / E7_BLOCK;
+  const int blocks = (g + E7_WARPS - 1) / E7_WARPS;
+  const int warps = g < E7_WARPS ? g : E7_WARPS;
   if (tap == DK_TAP_DIFF)
-    dk_scan_kernel<DK_TAP_DIFF><<<blocks, E7_BLOCK, 0, stream>>>(
+    dk_scan_kernel<DK_TAP_DIFF><<<blocks, warps * 32, 0, stream>>>(
         consts, x, r_ldr, state, out, n, g);
   else
-    dk_scan_kernel<DK_TAP_SHADOW><<<blocks, E7_BLOCK, 0, stream>>>(
+    dk_scan_kernel<DK_TAP_SHADOW><<<blocks, warps * 32, 0, stream>>>(
         consts, x, r_ldr, state, out, n, g);
   return (int)cudaGetLastError();
 }

@@ -21,9 +21,10 @@ loops are kernels:
     (n, G) output.
   * **E5 `preamp_scan<PRE>`**: G streams over n samples of (n, G)
     float64 input:
-      - `dk`, a thread each: `di.preamp_di`'s chain: the 2× allpass up
-        step, the twin DK preamp step twice at the stream's fixed LDR
-        conductance, the allpass down step;
+      - `dk`, a warp each (`dk_step_warp`: the twins on the two
+        half-warps, the oversampler on lane 0): `di.preamp_di`'s chain:
+        the 2× allpass up step, the twin DK preamp step twice at the
+        stream's fixed LDR conductance, the allpass down step;
       - `melange`, a warp each (E2's warp step: the twins on the two
         half-warps): one melange preamp step per sample at the stream's
         LDR conductance and noise scale (noise_enabled · noise_gain).
@@ -31,11 +32,11 @@ loops are kernels:
     `run_calibrate`'s T5, x · volume² → the power amp (E2's warp step,
     rail sag on, at the input's rate) → the speaker (filters designed once
     from the character) → × POST_SPEAKER_GAIN.
-  * **E7 `dk_scan`**: G streams, a thread each, over n samples: the twin
-    DK preamp stepped once per sample at the input's own rate (no
-    oversampler), each sample at its own LDR resistance; each sample
-    writes main − shadow (`tap="diff"`: the CLI's gain, sweep, harmonics
-    and tremolo-sweep) or the shadow's OUT node after the step
+  * **E7 `dk_scan`**: G streams, a warp each (E5<dk>'s warp step), over n
+    samples: the twin DK preamp stepped once per sample at the input's
+    own rate (no oversampler), each sample at its own LDR resistance; each
+    sample writes main − shadow (`tap="diff"`: the CLI's gain, sweep,
+    harmonics and tremolo-sweep) or the shadow's OUT node after the step
     (`tap="shadow"`: its pump measurements).
 
 Each has a plain version here, a loop of the ported steps (`voice.step`;

@@ -532,15 +532,21 @@ def test_voice_render_kernel_matches_plain(cuda):
         assert _same_bits(x, y)
 
 
-def test_preamp_scan_dk_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("streams", [1, 3, 5, 33, 133])
+def test_preamp_scan_dk_kernel_matches_plain(cuda, streams):
+    """E5<dk>, a warp per stream, four to a block: one stream, fewer
+    streams than a block's warps, partial last blocks; the ragged voices'
+    first `streams` columns with an inf stream: output and state bit for
+    bit."""
     from openwurli_tpu_torch.kernels import render as kr
 
     cols = _ragged_voices(cuda)
     x = kr.voice_render(*[c.clone() for c in cols], 600)
-    x[100:, 9] = float("inf")            # a stream that resets to DC
+    x = x[:, :streams].contiguous()
+    x[100:, 9 % streams] = float("inf")  # a stream that resets to DC
     os_sr = 2 * SR
-    st = kr.init_dk_state(os_sr, 133, cuda)
-    g = torch.full((133,), 1e-6, dtype=torch.float64, device=cuda)
+    st = kr.init_dk_state(os_sr, streams, cuda)
+    g = torch.full((streams,), 1e-6, dtype=torch.float64, device=cuda)
     g[::5] = 1.0 / 19_000.0
     a, b = st.clone(), st.clone()
     out = kr.preamp_scan("dk", os_sr, x, a, g)
@@ -739,19 +745,22 @@ def _dk_scan_inputs(cuda, n, g, seed):
     t = np.arange(n)[:, None]
     x = rng.uniform(1e-4, 5e-3, g) * np.sin(rng.uniform(0.001, 0.5, g) * t)
     r = np.exp(rng.uniform(np.log(500.0), np.log(2e6), (n, g)))
-    x[n // 3, 5] = np.nan
+    x[n // 3, 5 % g] = np.nan
     x[n // 2:, 77 % g] = np.inf
     r[n // 4, 31 % g] = np.nan
     return (torch.as_tensor(x, device=cuda), torch.as_tensor(r, device=cuda))
 
 
+@pytest.mark.parametrize("streams", [1, 3, 5, 33, 133])
 @pytest.mark.parametrize("tap", ["diff", "shadow"])
-def test_dk_scan_kernel_matches_plain(cuda, tap):
+def test_dk_scan_kernel_matches_plain(cuda, tap, streams):
+    """E7, a warp per stream, four to a block, at one stream, fewer than a
+    block's warps and partial last blocks: output and state bit for bit."""
     from openwurli_tpu_torch.kernels import render as kr
 
     sr = 88200.0
-    x, r = _dk_scan_inputs(cuda, 700, 133, 7)
-    st = kr.init_dk_scan_state(sr, 133, cuda)
+    x, r = _dk_scan_inputs(cuda, 700, streams, 7)
+    st = kr.init_dk_scan_state(sr, streams, cuda)
     a, b = st.clone(), st.clone()
     out = kr.dk_scan(sr, x, r, a, tap)
     ref = kr.dk_scan_plain(sr, x, r, b, tap)
