@@ -74,7 +74,8 @@ each with the launch counts set to 0 just before it and read just after:
 E3 is held to its plain version over 512 steps and its full 2 s settle at
 88.2 and 96 kHz to the package data; E1 and E2 to theirs with NaN and inf
 voice slots, live steal fades, a tremolo BE replay, a power-amp Newton
-failure and NaN guard #2, and on one chunk of the engine session; E4
+failure and NaN guard #2 (at the first sample, and midway after a NaN
+input), and on one chunk of the engine session; E4
 and E5<dk> on `render_di`'s own inputs (all 512 voices, the first 1000
 samples, against `render_di`'s output) and at 133 ragged voices with NaN
 and inf ones (E5<dk> also at 1, 5 and 33 of them), E5<melange> at noise scales 0, 1 and 30, E2's other
@@ -90,12 +91,13 @@ over 128 distinct ones (32 E2 blocks of four warps) and each other
 instantiation over two (noise on one) against their batched plain
 versions; E8 on 33 circuits from seeded starts at three depths (a kicked
 and a NaN circuit) and E9 on 33 streams (a 200 V spike, a NaN and an inf
-stream). E5 and E7 run a warp per stream (the melange and DK steps on a
-warp; the melange step also in E2<melange, circuit>). E2's circuit instantiations run a
-warp per engine up to
+stream). E5 and E7 run a warp per stream and E3 one warp (the melange,
+DK and mna steps on a warp; the melange and DK steps also in E2's circuit
+instantiations). E2's circuit instantiations run a warp per engine up to
 `CHAIN_WARP_MAX_ENGINES` engines and a thread per engine above: the two
-forms are held to each other bit for bit on the kicked, guard #2,
-session, melange plugin and 128-engine chunks and timed there in turns
+forms are held to each other bit for bit on the kicked, guard #2 (at the
+first sample and midway), session, melange plugin and 128-engine chunks
+and timed there in turns
 (thread, warp, warp, thread); E6's warp step and E9's one-thread step
 leave the same power-amp rows on run_calibrate's call and on the ragged
 streams, timed in turns the same way.
@@ -335,7 +337,7 @@ def ptxas_lines(log):
 # The kernels built around the warp-cooperative mna, melange and DK steps,
 # and the steps' __noinline__ functions
 WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp", "E6",
-                "E5<melange>", "E5<dk>", "E7<diff>", "E7<shadow>")
+                "E5<melange>", "E5<dk>", "E7<diff>", "E7<shadow>", "E3")
 WARP_STEP = ("mna_step_warpILi21ELi16ELi8ELi16E", "mna_step_warpILi7ELi4ELi2ELi4E",
              "power_amp_step_warp", "tremolo_step_warp", "melange_step_warp",
              "dk_step_warp")
@@ -938,7 +940,7 @@ def chain_forms(ek, call, what):
                                    "warp": times[1] * 1e3 / n}}
 
 
-def engine_phases(dev, card, launches, vb, mc, fast):
+def engine_phases(dev, card, launches, vb, mc, fast, ptxas):
     """Phases 20-22: E3 (the tremolo settle), E1 and E2 against their
     plain versions, and the f64 engine driven through its entry points.
     Adds its paths' launch counts to `launches`; → the three kernels'
@@ -979,7 +981,8 @@ def engine_phases(dev, card, launches, vb, mc, fast):
             check(max(dv, dvnl) <= E3_SETTLE_GATE,
                   f"E3 settle at {sr:g} Hz: {dv:.3g} / {dvnl:.3g} V from "
                   f"the npz (gate {E3_SETTLE_GATE:g})")
-            full[key] = {"steps": n_steps, "ms": ms, "dv": dv, "dv_nl": dvnl}
+            full[key] = {"steps": n_steps, "ms": ms, "dv": dv, "dv_nl": dvnl,
+                         "us_per_step": ms * 1e3 / n_steps}
     # the path: render_grid at a 32 kHz base rate, whose 64 kHz tremolo
     # state is not in the package data and is settled on the card
     sr32 = 32000.0
@@ -995,10 +998,17 @@ def engine_phases(dev, card, launches, vb, mc, fast):
     check(np.isfinite(g).all() and (np.abs(g).max(0) > 1e-3).all(),
           f"render_grid at 32 kHz: finite and audible, peaks "
           f"{np.abs(g).max(0)}")
-    print(f"phase 20 E3: 512 steps at 88.2 kHz bit-identical to its plain "
-          f"version, kernel {e3_ms:.3f} ms, plain {e3_plain_ms:.1f} ms; full "
-          f"settles " + ", ".join(
-              f"{k}: {v['steps']} steps {v['ms']:.0f} ms, {v['dv']:.3g} V "
+    e3_us = e3_ms * 1e3 / 512
+    e3_ptx = ptxas.get("E3")
+    print(f"phase 20 E3 (one warp): 512 steps at 88.2 kHz bit-identical to "
+          f"its plain version, kernel {e3_ms:.3f} ms = {e3_us:.3f} us per "
+          f"step, plain {e3_plain_ms:.1f} ms; ptxas "
+          + (f"{e3_ptx['registers']} registers, {e3_ptx['stack']} bytes "
+             f"stack, {e3_ptx['spill_stores']} / {e3_ptx['spill_loads']} "
+             "bytes spilled" if e3_ptx else "not in the build log")
+          + "; full settles " + ", ".join(
+              f"{k}: {v['steps']} steps {v['ms']:.0f} ms = "
+              f"{v['us_per_step']:.3f} us per step, {v['dv']:.3g} V "
               f"from the npz" for k, v in full.items())
           + f" (gate {E3_SETTLE_GATE:g} V); render_grid at 32 kHz "
           f"{g.shape[1]} streams x {g.shape[0]} in {g32_ms:.0f} ms "
@@ -1064,10 +1074,30 @@ def engine_phases(dev, card, launches, vb, mc, fast):
         reps=2) * 1e3 for n in (256, 2048, 16384)}
     e2_forms.append(chain_forms(ek, (eng.params, mono, nan_state, True),
                                 "NaN speaker state (guard #2)"))
+    # guard #2 midway: a NaN in mono at sample 4 (the DK preamp resets on
+    # each later step), the volume smoother reaching a NaN target at
+    # sample 9 (guard #2 fires from there, resetting the warp's rows)
+    mid = eng.chain.clone()
+    a_vol, _ = ek.CHAIN_OFF["sm_volume"]
+    mid[a_vol + 1:a_vol + 4] = torch.tensor([float("nan"), 0.0, 10.0],
+                                            dtype=torch.float64, device=dev)
+    mid_mono = mono.clone()
+    mid_mono[4] = float("nan")
+    e2_cmp.append(compare_chain_f64(
+        ek, (eng.params, mid_mono, mid, True),
+        f"{E2_REPLAY_N}, a NaN in mono at 4, guard #2 from sample 9"))
+    g3 = mid.clone()
+    out3 = ek.render_chain(eng.params, mid_mono, g3, True)
+    check(bool(torch.isfinite(out3).all()) and bool((out3[9:] == 0).all())
+          and bool((out3[:9] != 0).any()),
+          f"guard #2 fired from sample 9 on, not before: {out3[:12]}")
+    e2_forms.append(chain_forms(ek, (eng.params, mid_mono, mid, True),
+                                "NaN mono, guard #2 midway"))
     print(f"phase 21 E1 and E2 bit-identical to their plain versions: "
           + "; ".join(f"{c['inputs']} kernel {c['ms']:.3f} ms plain "
                       f"{c['plain_ms']:.0f} ms" for c in e1_cmp + e2_cmp)
-          + "; E2's warp and thread forms bit-identical on both chunks"
+          + "; E2's warp and thread forms bit-identical on the three "
+          "chunks"
           + f"; tremolo diag after the kick {trem_diag}; E2 "
           f"{e2_us['2048 base samples']:.1f} us per base sample; E1 per "
           f"chunk (us) {e1_us} [{card}] ({time.perf_counter() - t_p:.0f} s)",
@@ -1190,7 +1220,8 @@ def engine_phases(dev, card, launches, vb, mc, fast):
                    "warm_up_ms": warm_ms, "one_second_ms": sec_ms,
                    "realtime_factor": rtf},
             "E3": {"ms": e3_ms, "plain_ms": e3_plain_ms, "bound": e3_bound,
-                   "max_abs_err": e3_err, "full_settle": full}}
+                   "max_abs_err": e3_err, "full_settle": full,
+                   "us_per_step": e3_us}}
 
 
 # ── the render paths and the engine's other models (phases 23-25) ──
@@ -1358,9 +1389,9 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
             f"<{models[0]}, {models[1]}> 64 from a warmed state, tremolo "
             "kicked, input spike, noise scale 30"))
     names = ("E1", "E3", "E4", "E4<tap>", "E5<dk>", "E5<melange>", "E6",
-             "E2<dk, circuit>",
-             "E2<melange, circuit>", "E2<dk, behavioral>",
-             "E2<melange, behavioral>")
+             "E2<dk, circuit> warp", "E2<dk, circuit> thread",
+             "E2<melange, circuit> warp", "E2<melange, circuit> thread",
+             "E2<dk, behavioral>", "E2<melange, behavioral>")
     print("phase 23 ptxas: " + "; ".join(
         f"{k} {ptxas[k]['registers']} registers, {ptxas[k]['stack']} bytes "
         f"stack, {ptxas[k]['spill_stores']} / {ptxas[k]['spill_loads']} "
@@ -2365,10 +2396,10 @@ STAGE_SR = 88200.0
 # built before E8 and E9 existed (NVIDIA H100 80GB HBM3, the card machine's
 # nvcc): E8 and E9 add callers of E2's tremolo and power-amp steps, and
 # must not move the existing kernels' allocation; nor must the warp steps
-# beside them (E6, E5<melange>, E5<dk> and E7, a warp per stream since, are
-# not in the list)
+# beside them (E6, E5<melange>, E5<dk> and E7, a warp per stream since, and
+# E3, one warp since, are not in the list)
 EARLIER_PTXAS = {
-    "E1": (255, 40, 0, 0), "E3": (96, 768, 0, 0), "E4": (240, 40, 0, 0),
+    "E1": (255, 40, 0, 0), "E4": (240, 40, 0, 0),
     "E4<tap>": (230, 40, 0, 0),
     "E2<dk, circuit> thread": (255, 6912, 80, 136),
     "E2<melange, circuit> thread": (255, 7152, 128, 176),
@@ -4057,7 +4088,7 @@ def main():
           + f" us per group [{card}] ({time.perf_counter() - t_p19:.0f} s)",
           flush=True)
 
-    eng_k = engine_phases(dev, card, launches, vb, mc, fast)
+    eng_k = engine_phases(dev, card, launches, vb, mc, fast, ptxas)
     mod_k = model_phases(dev, card, launches, vb, mc, ptxas)
     cal_k = calib_phases(dev, card, launches, vb, mc)
     stg_k = stage_phases(dev, card, launches, vb, mc, ptxas)
@@ -4153,8 +4184,9 @@ def main():
     kernels.append(entry(
         "tremolo_settle", "engine.cu", "openwurli_tpu/circuits/tremolo.py:160",
         "512 steps at 88.2 kHz", e3["max_abs_err"], e3["ms"],
-        e3["plain_ms"], e3["bound"],
-        full_settle=e3["full_settle"]))
+        e3["plain_ms"], e3["bound"], full_settle=e3["full_settle"],
+        us_per_step=e3["us_per_step"], form="one warp",
+        ptxas=ptxas.get("E3")))
     # E2's other instantiations (the DK / circuit one is engine_chain)
     for models in (("melange", "circuit"), ("dk", "behavioral"),
                    ("melange", "behavioral")):

@@ -8,7 +8,8 @@
 //                         power amp (circuit or behavioral): a warp per
 //                         engine for the circuit power amp (up to the
 //                         wrapper's crossover), else a thread per engine
-//   E3 tremolo_settle     the tremolo oscillator's step, n times
+//   E3 tremolo_settle     the tremolo oscillator's step, n times, on one
+//                         warp
 //   E4 voice_render       G voices over n samples (voice.render); with
 //                         TAP, the reed alone into the pickup, the reed's
 //                         output kept (calibrate.run_calibrate's T1, T2)
@@ -43,22 +44,22 @@
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
 // slot by one thread (a block of 128 per engine), E4 each voice by one
-// thread, E8 and E9 each circuit or stream by one thread, E3 the tremolo
-// by one thread walking the data-dependent Newton solves sample by
-// sample. The bytes are a few hundred per sample and the
-// operations some 10^4-10^5 f64 per base sample, far from the card's
-// rates; what bounds the time is the length of the dependent chain of f64
-// operations and libm calls per sample. E6 and E2's circuit instantiations
-// shorten that chain with a warp per stream or engine (mna_step_warp: the
-// rows of every matvec, BJT, Jacobian row, pivot update and junction limit
-// on their own lanes, the solver block staged in shared memory, no local
-// memory in the solve); E5<melange> and E2<melange, circuit> run the
-// melange preamp's step on a warp too (melange_step_warp: the twins on the
-// two half-warps, the ten noise draws at once, the block staged in shared
-// memory), and E5<dk> and E7 the DK preamp's (dk_step_warp: the twins on
-// the two half-warps, each junction's exp on a lane of its own). E2 keeps
-// a thread per engine above the crossover, where a full card runs 32
-// engines per warp. The design takes two exact savings: each Newton loop
+// thread, E8 and E9 each circuit or stream by one thread walking the
+// data-dependent Newton solves sample by sample. The bytes are a few
+// hundred per sample and the operations some 10^4-10^5 f64 per base
+// sample, far from the card's rates; what bounds the time is the length of
+// the dependent chain of f64 operations and libm calls per sample. E6, E3
+// and E2's circuit instantiations shorten that chain with a warp per
+// stream, settle or engine (mna_step_warp: the rows of every matvec, BJT,
+// Jacobian row, pivot update and junction limit on their own lanes, the
+// solver block staged in shared memory, no local memory in the solve);
+// E5<melange> and E2<melange, circuit> run the melange preamp's step on a
+// warp too (melange_step_warp: the twins on the two half-warps, the ten
+// noise draws at once, the block staged in shared memory), and E5<dk>, E7
+// and E2<dk, circuit> the DK preamp's (dk_step_warp: the twins on the two
+// half-warps, each junction's exp on a lane of its own). E2 keeps a thread
+// per engine above the crossover, where a full card runs 32 engines per
+// warp. The design takes two exact savings: each Newton loop
 // ends once every row has converged (the masked iterations of the
 // reference change nothing), and E2 reuses the
 // speaker's coefficients while the character is unchanged.
@@ -1213,12 +1214,13 @@ __device__ void init_preamp(const double* pc, double* ps) {
 
 // ═════════════════════ the warp-cooperative DK step ═════════════════════
 //
-// preamp_step run by the 32 lanes of one warp (E5<dk>, E7). The twins run
-// side by side on the two half-warps: lane l serves twin r = l / 16 and
-// node row q = l % 16 (rows above 7 repeat row 7), and holds v[r][q]; the
-// twin's junction currents and voltages, its input capacitor's companion
-// current and its last source term are the same on every lane of its half,
-// the last LDR conductance on every lane. The history and the predictor
+// preamp_step run by the 32 lanes of one warp (E5<dk>, E7, E2<dk,
+// circuit>'s warp form). The twins run side by side on the two half-warps:
+// lane l serves twin r = l / 16 and node row q = l % 16 (rows above 7
+// repeat row 7), and holds v[r][q]; the twin's junction currents and
+// voltages, its input capacitor's companion current and its last source
+// term are the same on every lane of its half, the last LDR conductance on
+// every lane. The history and the predictor
 // are a row per lane in column order over a vector the half published in
 // shared memory (row_dot), each row's own source terms added in
 // preamp_step's order. Newton's 2 × 2 system is small enough to run on
@@ -1236,6 +1238,7 @@ __device__ void init_preamp(const double* pc, double* ps) {
 // addresses.
 
 constexpr int PR_SIZE = PR_J_CIN_DC + 1;
+static_assert(C_MISC - C_PRE == PR_SIZE, "the chain's DK block is E5's");
 
 // the block's threads copy the preamp block `src` into `dst`, staged
 __device__ void stage_dk(const double* __restrict__ src, double* dst) {
@@ -1276,6 +1279,19 @@ __device__ void store_dk(const DkWarp& st, double* rows, size_t stride,
   if (q == 2) rows[(PS_JCIN + r) * stride] = st.j_cin;
   if (q == 3) rows[(PS_CINPREV + r) * stride] = st.cin_prev;
   if (lane == 0) rows[PS_GPREV * stride] = st.g_prev;
+}
+
+// init_preamp on a warp (the staged block's DC point)
+__device__ __forceinline__ void init_dk_warp(const double* s, DkWarp& st,
+                                             int lane) {
+  st.v = s[PR_V_DC + min(lane & 15, 7)];
+  for (int k = 0; k < 2; ++k) {
+    st.i_nl[k] = s[PR_I_NL_DC + k];
+    st.v_nl[k] = s[PR_V_NL_DC + k];
+  }
+  st.j_cin = s[PR_J_CIN_DC];
+  st.cin_prev = s[PR_J_CIN_DC];
+  st.g_prev = 1.0 / 1000000.0;
 }
 
 // both junctions' (ic, gm) at (v0, v1) on every lane of the half: lane 0
@@ -2230,52 +2246,60 @@ __global__ void engine_chain_kernel(const double* __restrict__ c,
 
 // E2 for the circuit power amp: a warp per engine. Lane 0 runs what has
 // no parallel rows: the smoothers, the oversampler's allpass branches, the
-// DK preamp, the speaker and guard #2, on the chain rows it holds in `ch`.
-// The whole warp runs the tremolo's and the power amp's mna steps
-// (mna_step_warp) and the melange preamp's step (melange_step_warp), their
-// constant blocks staged in shared memory per block; the preamp's input
-// goes from lane 0 to the warp (melange) or from the tremolo to lane 0
-// (DK), and the DK preamp's output from lane 0 to the warp, by
-// __shfl_sync. Every value and branch is the thread kernel's, so the two
-// forms agree bit for bit.
+// speaker and guard #2's test, on the chain rows it holds in `ch`. The
+// whole warp runs the tremolo's and the power amp's mna steps
+// (mna_step_warp) and the preamp's step (dk_step_warp or
+// melange_step_warp), their constant blocks staged in shared memory per
+// block, and guard #2's reset of their rows; the preamp's input goes from
+// lane 0 to the warp by __shfl_sync. Every value and branch is the thread
+// kernel's, so the two forms agree bit for bit.
 constexpr int E2_WARPS = 4;  // engines (warps) per block
+
+// a warp's preamp rows, and its staged block's size
+template <int PRE> struct PreWarpOf {
+  using T = DkWarp;
+  static constexpr int BLOCK = PR_SIZE;
+};
+template <> struct PreWarpOf<PRE_MELANGE> {
+  using T = MelWarp;
+  static constexpr int BLOCK = ML_SIZE;
+};
+template <int PRE> using PreWarp = typename PreWarpOf<PRE>::T;
 
 // the chain rows that the warp's states hold, not lane 0's `ch`
 template <int PRE>
 __device__ __forceinline__ bool warp_row(int k) {
   return (k >= CH_TREM_V && k <= CH_TREM_RLDR) ||
          (k >= CH_PA_V && k <= CH_PA_LAST) ||
-         (PRE == PRE_MELANGE && k >= CH_MEL_V);
+         (PRE == PRE_MELANGE ? k >= CH_MEL_V
+                             : k >= CH_PRE_V && k <= CH_PRE_GPREV);
 }
 
-// mel and s_mel: the melange preamp's rows and staged block (PRE_MELANGE)
+// pre and s_pre: the preamp's rows and staged block; u lane 0's input
 template <int PRE>
 __device__ __forceinline__ double nonlinear_step_warp(
-    const double* c, const double* misc, double* ch, TremWarp& tr, PaWarp& pa,
-    MelWarp* mel, const double* s_trem, const double* s_pa,
-    const double* s_mel, WarpScratch* w, double depth, double u, bool sag,
-    double noise_scale, int lane) {
+    const double* misc, TremWarp& tr, PaWarp& pa, PreWarp<PRE>& pre,
+    const double* s_trem, const double* s_pa, const double* s_pre,
+    WarpScratch* w, double depth, double u, bool sag, double noise_scale) {
   const double shunt = tremolo_step_warp(s_trem, misc, tr, depth, w);
   const double g = 1.0 / jmax(shunt, 1000.0);
-  double pre = 0.0;
-  if constexpr (PRE == PRE_DK) {
-    if (lane == 0) pre = preamp_step(c + C_PRE, ch + CH_PRE_V, g, u);
-    pre = __shfl_sync(FULL, pre, 0);
-  } else {
-    pre = melange_step_warp(s_mel, *mel, g, __shfl_sync(FULL, u, 0),
-                            noise_scale, w);
-  }
+  const double x = __shfl_sync(FULL, u, 0);
+  double y;
+  if constexpr (PRE == PRE_DK)
+    y = dk_step_warp(s_pre, pre, g, x, w);
+  else
+    y = melange_step_warp(s_pre, pre, g, x, noise_scale, w);
   const double drive = 0.25;  // tables.FIXED_CIRCUIT_DRIVE
-  return power_amp_step_warp(s_pa, misc, pa, pre * drive, sag, w);
+  return power_amp_step_warp(s_pa, misc, pa, y * drive, sag, w);
 }
 
 // chain_sample on a warp; → the output on lane 0
 template <int PRE>
 __device__ __noinline__ double chain_sample_warp(
-    const double* c, double* ch, TremWarp& tr, PaWarp& pa, MelWarp* mel,
-    const double* s_trem, const double* s_pa, const double* s_mel,
-    WarpScratch* w, double mono, bool sag, double noise_scale,
-    double* last_char, Speaker* spk_k) {
+    const double* c, double* ch, TremWarp& tr, PaWarp& pa,
+    PreWarp<PRE>& pre, const double* s_trem, const double* s_pa,
+    const double* s_pre, WarpScratch* w, double mono, bool sag,
+    double noise_scale, double* last_char, Speaker* spk_k) {
   const int lane = threadIdx.x & 31;
   const double* misc = c + C_MISC;
   double depth = 0.0, vol = 0.0, chr = 0.0;
@@ -2294,9 +2318,9 @@ __device__ __noinline__ double chain_sample_warp(
     }
 #pragma unroll 1
     for (int h = 0; h < 2; ++h)
-      y[h] = nonlinear_step_warp<PRE>(c, misc, ch, tr, pa, mel, s_trem,
-                                      s_pa, s_mel, w, depth, us[h], sag,
-                                      noise_scale, lane);
+      y[h] = nonlinear_step_warp<PRE>(misc, tr, pa, pre, s_trem, s_pa,
+                                      s_pre, w, depth, us[h], sag,
+                                      noise_scale);
     if (lane == 0) {
       const double a = branch_step(kBranchA, ch + CH_OS_DOWN_A, y[0]);
       const double b = branch_step(kBranchB, ch + CH_OS_DOWN_B, y[1]);
@@ -2304,9 +2328,9 @@ __device__ __noinline__ double chain_sample_warp(
       ch[CH_OS_DELAY] = b;
     }
   } else {
-    amp_out = nonlinear_step_warp<PRE>(c, misc, ch, tr, pa, mel, s_trem,
-                                       s_pa, s_mel, w, depth, mono, sag,
-                                       noise_scale, lane);
+    amp_out = nonlinear_step_warp<PRE>(misc, tr, pa, pre, s_trem, s_pa,
+                                       s_pre, w, depth, mono, sag,
+                                       noise_scale);
   }
   double out = 0.0;
   int bad = 0;
@@ -2320,18 +2344,20 @@ __device__ __noinline__ double chain_sample_warp(
     out = y * misc[M_POST_GAIN] * vol;
     bad = !finite(out);
     if (bad) {
-      // NaN guard #2: the DK preamp, oversampler and speaker here; the
-      // melange preamp (its noise key and draws included) and the power
-      // amp below
+      // NaN guard #2: the oversampler and speaker here; the preamp (the
+      // melange one's noise key and draws included) and the power amp
+      // below
       for (int k = 0; k < OS_ROWS; ++k) ch[CH_OS_UP_A + k] = 0.0;
-      if constexpr (PRE == PRE_DK) init_preamp(c + C_PRE, ch + CH_PRE_V);
       for (int k = 0; k < 5; ++k) spk[k] = 0.0;
       out = 0.0;
     }
   }
   if (__shfl_sync(FULL, bad, 0)) {
+    if constexpr (PRE == PRE_DK)
+      init_dk_warp(s_pre, pre, lane);
+    else
+      init_melange_warp(s_pre, pre, lane);
     init_power_amp_warp(s_pa, pa, lane);
-    if constexpr (PRE == PRE_MELANGE) init_melange_warp(s_mel, *mel, lane);
   }
   return out;
 }
@@ -2343,12 +2369,16 @@ engine_chain_warp_kernel(const double* __restrict__ c,
                          float* out, int n, int b, const unsigned char* sag,
                          const double* noise_scale) {
   constexpr bool MEL = PRE == PRE_MELANGE;
+  constexpr int PRE_ROW = MEL ? CH_MEL_V : CH_PRE_V;
   __shared__ double s_pa[PA_BLOCK], s_trem[TREM_BLOCK];
-  __shared__ double s_mel[MEL ? ML_SIZE : 1];
+  __shared__ double s_pre[PreWarpOf<PRE>::BLOCK];
   __shared__ WarpScratch scratch[E2_WARPS];
   stage_block<21, 16, 8>(c + C_PA, s_pa);
   stage_block<7, 4, 2>(c + C_TREM, s_trem);
-  if constexpr (MEL) stage_melange(c + C_MEL, s_mel);
+  if constexpr (MEL)
+    stage_melange(c + C_MEL, s_pre);
+  else
+    stage_dk(c + C_PRE, s_pre);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int e = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -2364,23 +2394,28 @@ engine_chain_warp_kernel(const double* __restrict__ c,
   tr.r_ldr = row[CH_TREM_RLDR];
   PaWarp pa;
   load_pa(pa, row + CH_PA_V, 1, lane);
-  MelWarp mel;
-  if constexpr (MEL) load_mel(mel, row + CH_MEL_V, 1, lane);
+  PreWarp<PRE> pre;
+  if constexpr (MEL)
+    load_mel(pre, row + PRE_ROW, 1, lane);
+  else
+    load_dk(pre, row + PRE_ROW, 1, lane);
   double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
   Speaker spk_k;
   WarpScratch* w = &scratch[warp];
   for (int t = 0; t < n; ++t) {
     const size_t i = (size_t)e * n + t;
     const double y = chain_sample_warp<PRE>(
-        c, ch, tr, pa, MEL ? &mel : nullptr, s_trem, s_pa,
-        MEL ? s_mel : nullptr, w, mono[i], sag[e] != 0, noise_scale[e],
-        &last_char, &spk_k);
+        c, ch, tr, pa, pre, s_trem, s_pa, s_pre, w, mono[i], sag[e] != 0,
+        noise_scale[e], &last_char, &spk_k);
     if (lane == 0) out[i] = (float)y;
   }
   if (lane == 0)
     for (int k = 0; k < CHAIN_ROWS; ++k)
       if (!warp_row<PRE>(k)) row[k] = ch[k];
-  if constexpr (MEL) store_mel(mel, row + CH_MEL_V, 1, lane);
+  if constexpr (MEL)
+    store_mel(pre, row + PRE_ROW, 1, lane);
+  else
+    store_dk(pre, row + PRE_ROW, 1, lane);
   store_lane<7, 4>(tr.s, row + CH_TREM_V, 1, lane);
   if (lane == 0) {
     row[CH_TREM_ENV] = tr.env;
@@ -2391,16 +2426,25 @@ engine_chain_warp_kernel(const double* __restrict__ c,
 
 // ═════════════════════════════ E3: settle ═════════════════════════════
 
-constexpr int OSC_ROWS = 7 + 4 + 4 + 1 + 5;
+// The oscillator's rows (v, i, v_nl, resid, diag: load_lane's layout)
+// stepped n times by one warp: E2's tremolo step without the vactrol
+// (mna_step_warp), its solver block staged in shared memory.
+constexpr int OSC_ROWS = 7 + 2 * 4 + 1 + 5;
 
-__global__ void tremolo_settle_kernel(const double* __restrict__ c,
-                                      double* state, int n_steps) {
-  double s[OSC_ROWS];
-  for (int k = 0; k < OSC_ROWS; ++k) s[k] = state[k];
-  SolverState st{s, s + 7, s + 11, s + 15, s + 16};
-  const double w0[7] = {0, 0, 0, 0, 0, 0, 0};
-  for (int t = 0; t < n_steps; ++t) mna_step<7, 4, 2, 4>(c, st, w0);
-  for (int k = 0; k < OSC_ROWS; ++k) state[k] = s[k];
+__global__ void __launch_bounds__(32)
+tremolo_settle_kernel(const double* __restrict__ c, double* state,
+                      int n_steps) {
+  __shared__ double s_osc[TREM_BLOCK];
+  __shared__ WarpScratch scratch;
+  stage_block<7, 4, 2>(c, s_osc);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  LaneState st;
+  load_lane<7, 4>(st, state, 1, lane);
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t)
+    mna_step_warp<7, 4, 2, 4>(s_osc, st, 0.0, &scratch);
+  store_lane<7, 4>(st, state, 1, lane);
 }
 
 // ═══════════════════════════ E5: preamp scan ═══════════════════════════
@@ -2762,7 +2806,7 @@ extern "C" int ow_tremolo_settle(const double* consts, int n_consts,
                                  cudaStream_t stream) {
   if (n_consts != SL<7, 4, 2>::SIZE || n_steps < 0)
     return (int)cudaErrorInvalidValue;
-  tremolo_settle_kernel<<<1, 1, 0, stream>>>(consts, state, n_steps);
+  tremolo_settle_kernel<<<1, 32, 0, stream>>>(consts, state, n_steps);
   return (int)cudaGetLastError();
 }
 

@@ -21,12 +21,12 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
     per-sample coefficient design, post gain and volume, NaN guard #2, the
     f32 cast. The two model choices are template arguments. The circuit
     power amp's instantiations run a warp per engine
-    (`engine_chain_warp_kernel`: the tremolo's, the melange preamp's and
-    the power amp's steps on the whole warp, the rest on lane 0) up to
+    (`engine_chain_warp_kernel`: the tremolo's, the preamp's and the
+    power amp's steps on the whole warp, the rest on lane 0) up to
     `CHAIN_WARP_MAX_ENGINES` engines and a thread per engine above it; the
     behavioral ones a thread per engine. The two forms agree bit for bit.
   * **E3 `tremolo_settle`**: the tremolo oscillator's mna step alone, n
-    times.
+    times, on one warp (E2's tremolo step without the vactrol).
   * **E8 `tremolo_scan`**: G tremolo circuits, a thread each, over n
     steps at the tremolo's own rate (`tremolo.step`: oscillator, vactrol,
     the divider's shunt at the circuit's depth), E2's tremolo step.
@@ -133,12 +133,14 @@ CHAIN_LAUNCHES_BY_FORM = {(p, f): 0 for p in ("dk", "melange")
                           for f in ("warp", "thread")}
 # The widest batch (engines) at which E2's circuit instantiations run a
 # warp per engine; wider batches run a thread per engine. The warp form
-# holds one engine's pace to 128 engines and saturates at 90-144x realtime
-# aggregate from 2048-4096 engines (8 warps per SM at 255 registers); the
-# thread form, 32 engines per warp, overtakes it between 2048 and 4096 and
-# reaches 324x at 16384 (NVIDIA H100 80GB HBM3, 700 W,
-# tools/torch_perf_sweep.py --form warp / thread; PERF.md §5).
-CHAIN_WARP_MAX_ENGINES = 2048
+# holds one engine's pace to 128 engines and, at 168 registers (12 warps
+# per SM), reaches 188-197x realtime aggregate at 2048 engines and 227-233x
+# at 4096, where the thread form (32 engines per warp) gives 124-160x; at
+# 8192 the thread form wins for the DK preamp (245-249x against 235-238x)
+# and the warp form still for the melange one (240-242x against 206-208x)
+# (NVIDIA H100 80GB HBM3, 700 W, tools/torch_perf_sweep.py --form warp /
+# thread --preamp-model dk / melange, three calls; PERF.md §5).
+CHAIN_WARP_MAX_ENGINES = 4096
 
 
 # ─────────────────────────── voice bank packing ───────────────────────────

@@ -441,13 +441,15 @@ def test_engine_batch_kernels_match_plain_and_one_engine(cuda, models):
 
 
 @pytest.mark.parametrize("pre", ["dk", "melange"])
-@pytest.mark.parametrize("case", ["kick", "nan"])
+@pytest.mark.parametrize("case", ["kick", "nan", "guard-midway"])
 def test_engine_chain_forms_agree(cuda, pre, case, monkeypatch):
     """E2's circuit instantiations in their two forms: a warp per engine
     (up to CHAIN_WARP_MAX_ENGINES engines) and a thread per engine (above
     it), on one engine and on 3 distinct ones (rail sag off, noise on at
     gain 3): output and state bit for bit, and both equal to the plain
-    version."""
+    version. "guard-midway": a NaN in mono at sample 4 (the preamp resets
+    on each later step) and the volume smoother reaching a NaN target at
+    sample 9, which fires guard #2 on every sample from there."""
     from openwurli_tpu_torch import engine as pe
     from openwurli_tpu_torch.kernels import engine as ek
 
@@ -467,8 +469,14 @@ def test_engine_chain_forms_agree(cuda, pre, case, monkeypatch):
     if case == "kick":
         state[:, ek.CHAIN_OFF["trem_v"][0]] += 70.0  # BE replays
         mono[:, 7] = 30.0                             # input spikes
-    else:
+    elif case == "nan":
         state[:, ek.CHAIN_OFF["spk"][0]] = float("nan")  # guard #2
+    else:
+        mono[:, 4] = float("nan")
+        a = ek.CHAIN_OFF["sm_volume"][0]
+        state[:, a + 1:a + 4] = torch.tensor([float("nan"), 0.0, 10.0],
+                                             dtype=torch.float64,
+                                             device=cuda)
     for b in (1, 3):
         runs = []
         for widest in (None, 0):  # the warp form, the thread form
@@ -483,17 +491,24 @@ def test_engine_chain_forms_agree(cuda, pre, case, monkeypatch):
         ref = ek.chain_plain(engines[0].params, mono[:b], p,
                              st.rail_sag[:b], st.noise_scale[:b])
         assert _same_bits(ow, ref) and _same_bits(sw, p)
+        if case == "guard-midway":
+            assert (ow[:, 9:] == 0).all() and (ow[:, :9] != 0).any()
 
 
 def test_tremolo_settle_kernel_matches_plain(cuda):
+    """E3 (one warp) from the settle's perturbed start at 64 kHz, and from
+    that start with a NaN node (the reset to the DC point), bit for bit."""
     from openwurli_tpu_torch.circuits import tremolo
     from openwurli_tpu_torch.kernels import engine as ek
 
     sr = 64000.0
     st = ek.osc_flat(tremolo.perturbed_start(tremolo.make_params(sr), cuda))
-    a = ek.settle(sr, st.clone(), 200)
-    b = ek.settle_plain(sr, st.clone(), 200)
-    assert _same_bits(a, b)
+    nan = st.clone()
+    nan[2] = float("nan")
+    for start in (st, nan):
+        a = ek.settle(sr, start.clone(), 200)
+        b = ek.settle_plain(sr, start.clone(), 200)
+        assert _same_bits(a, b) and torch.isfinite(a).all()
 
 
 # ── the render paths' kernels (E4, E5) and E2's other instantiations ──

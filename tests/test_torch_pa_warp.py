@@ -240,3 +240,35 @@ def test_e2_forms_agree_kicked(lib):
     assert st_p[trem + 4] > 0, "the kick reached the tremolo's BE replay"
     pa = ek.CHAIN_OFF["pa_diag"][0]
     assert st_p[pa + 1] > 0, "the spike failed the power amp's Newton"
+
+
+def test_e2_forms_agree_guard(lib):
+    """Guard #2 midway through a 16-sample chunk: a NaN in mono at sample 4
+    resets the DK preamp to its DC point on each later step (the
+    oversampler's up branches keep the NaN, and the preamp's own reset
+    keeps the output finite), and the volume smoother reaching a NaN target
+    at sample 9 fires guard #2 on every sample from there, which resets the
+    preamp's, the oversampler's and the power amp's rows. The two forms
+    agree bit for bit; the outputs match the plain version."""
+    cp, state, _ = _chain_case(kicked=False)
+    n = 16
+    t = np.arange(n)
+    mono = torch.from_numpy(0.3 * np.sin(2 * np.pi * 440 * t / 44100.0))
+    mono[4] = float("nan")
+    a, _ = ek.CHAIN_OFF["sm_volume"]
+    state[a + 1:a + 4] = torch.tensor([float("nan"), 0.0, 10.0],
+                                      dtype=torch.float64)
+    out_w, st_w = _chain_kernel(lib, cp, state, mono, 1)
+    out_t, st_t = _chain_kernel(lib, cp, state, mono, 0)
+    assert _same(out_w, out_t) and _same(st_w, st_t)
+    st_p = state.clone()
+    out_p = ek.chain_plain(cp, mono, st_p, True)
+    _close(out_w, out_p, TOL_OUT)
+    assert torch.isfinite(out_w).all() and (out_w[9:] == 0).all()
+    assert (out_w[:9] != 0).all()
+    # guard #2 left the preamp, the oversampler and the power amp at rest
+    rest = ek.init_chain(cp, volume=0.8, depth=0.7, character=0.3)
+    for name in ("pre_v", "pre_i", "pre_vnl", "pre_jcin", "pre_cinprev",
+                 "pre_gprev", "os_up_a", "os_delay", "pa_v", "pa_rails"):
+        lo, hi = ek.CHAIN_OFF[name]
+        assert _same(st_w[lo:hi], rest[lo:hi]), name

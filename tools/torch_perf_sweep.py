@@ -12,6 +12,7 @@ CSV of aggregate realtime factors, the counterpart of
 `--form warp` or `--form thread` runs the sweep's E2 calls in that form
 at every width, to measure the two forms against each other; standard
 error says which form ran at each width ("plain" on the CPU).
+`--preamp-model melange` sweeps the melange engine (default: the DK one).
 
 Every width starts from one engine holding the six-note chord (MIDI 48,
 55, 60, 63, 67, 70 at 0.95) broadcast to B engines; each call renders one
@@ -51,9 +52,12 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--form", choices=("auto", "warp", "thread"),
                    default="auto")
+    p.add_argument("--preamp-model", choices=("dk", "melange"),
+                   default="dk")
     args = p.parse_args(argv)
 
-    eng = engine.Engine(args.sr, device=args.device)
+    eng = engine.Engine(args.sr, device=args.device,
+                        preamp_model=args.preamp_model)
     for note in CHORD:
         eng.note_on(note, VELOCITY)
     base = eng.state
@@ -85,7 +89,8 @@ def main(argv=None):
         rtf = args.reps * b * args.seconds / wall
         print(f"{b},{compile_s:.0f},{wall:.3f},{rtf/b:.1f},{rtf:.1f}",
               flush=True)
-        print(f"# {b} engines: E2 {form}", file=sys.stderr, flush=True)
+        print(f"# {b} engines: E2<{args.preamp_model}> {form}",
+              file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":
