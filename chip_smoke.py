@@ -98,9 +98,11 @@ instantiations). E2's circuit instantiations run a warp per engine up to
 forms are held to each other bit for bit on the kicked, guard #2 (at the
 first sample and midway), session, melange plugin and 128-engine chunks
 and timed there in turns
-(thread, warp, warp, thread); E6's warp step and E9's one-thread step
-leave the same power-amp rows on run_calibrate's call and on the ragged
-streams, timed in turns the same way.
+(thread, warp, warp, thread); E6 and E9 (both on the warp step) leave
+the same power-amp rows on run_calibrate's call and on the ragged
+streams, timed in turns the same way. E4 and E4<tap> (eight threads per
+voice) are also held to their plain versions at 1, 5, 33 and 133 voices,
+each voice at its own sample count (mid-onset, a damper mid-ramp).
 K1 and K3 (eight threads per voice lane) are also held to their plain
 versions at a ragged lane count, with non-finite parameters in some lanes
 and with the pickup driven past its knee, and K1 is timed across widths.
@@ -337,7 +339,8 @@ def ptxas_lines(log):
 # The kernels built around the warp-cooperative mna, melange and DK steps,
 # and the steps' __noinline__ functions
 WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp", "E6",
-                "E5<melange>", "E5<dk>", "E7<diff>", "E7<shadow>", "E3")
+                "E5<melange>", "E5<dk>", "E7<diff>", "E7<shadow>", "E3",
+                "E9")
 WARP_STEP = ("mna_step_warpILi21ELi16ELi8ELi16E", "mna_step_warpILi7ELi4ELi2ELi4E",
              "power_amp_step_warp", "tremolo_step_warp", "melange_step_warp",
              "dk_step_warp")
@@ -1234,6 +1237,29 @@ E4_OPS_SAMPLE = 7 * 14 + 7 * 4 + 12 + 14
 E5_OS_OPS = 4 * 3 * 4 + 2
 
 
+def staggered_voices(cols, g, seed=19):
+    """Copies of the first g packed voice columns, each voice at its own
+    sample count (every other one mid-onset, the rest up to past 1024),
+    every third voice's damper mid-ramp: the voices of one E4 warp then
+    differ in their onset, jitter, renorm and damper conditions."""
+    from openwurli_tpu_torch import reed
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    vpar, vst, vsti = (c[:, :g].clone() for c in cols)
+    rng = np.random.default_rng(seed)
+    nn = rng.integers(0, 1100, g)
+    nn[::2] = rng.integers(0, 60, (g + 1) // 2)
+    vsti[ek.I_N] = torch.as_tensor(nn, device=vsti.device)
+    rate, mult, ramp, _ = reed.damper_constants(vpar[ek.P_MIDI], SR)
+    d = slice(1, None, 3)
+    vst[ek.S_DRATE:ek.S_DRATE + 7, d] = rate[d].T
+    vst[ek.S_DMULT:ek.S_DMULT + 7, d] = mult[d].T
+    vst[ek.S_DRAMP, d] = ramp[d]
+    vst[ek.S_DCOUNT, d] = ramp[d] * 0.5
+    vsti[ek.I_DACT, d] = 1
+    return [vpar, vst, vsti]
+
+
 def compare_voice_render(kr, cols, n, what):
     """E4 against its plain version on packed voice columns: output and
     end state bit for bit; the plain run gives the libm calls the data
@@ -1334,6 +1360,12 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
     n4 = 1100
     e4, out4 = compare_voice_render(kr, cols, n4,
                                     f"{g_v} ragged voices, NaN and inf")
+    # eight threads per voice, four voices per warp: one voice, a partial
+    # warp, partial blocks, the voices at their own sample counts
+    e4_geo = [compare_voice_render(
+        kr, staggered_voices(cols, g), 300,
+        f"{g} staggered voice(s)" + (", NaN and inf" if g > 50 else ""))[0]
+        for g in (1, 5, 33, 133)]
 
     n5 = 600
     x5 = out4[:n5].clone()
@@ -1402,7 +1434,7 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
     print("phase 23 bit-identical to their plain versions: "
           + "; ".join(f"{c['inputs']} {c['shape']} kernel {c['ms']:.3f} ms "
                       f"plain {c['plain_ms']:.0f} ms"
-                      for c in (e4, e5dk, *e5dk_geo, e5mel)) + "; "
+                      for c in (e4, *e4_geo, e5dk, *e5dk_geo, e5mel)) + "; "
           + "; ".join(f"E2{c['models']} kernel {c['ms']:.3f} ms plain "
                       f"{c['plain_ms']:.0f} ms" for c in e2_cmp)
           + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
@@ -1603,7 +1635,8 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
           + ", ".join(f"{k} {v['ms_4096']:.0f} ms peak {v['peak']:.4f}"
                       for k, v in beh.items())
           + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
-    return {"E4": {**e4_main, "compared": [e4_main, e4],
+    return {"E4": {**e4_main, "compared": [e4_main, e4, *e4_geo],
+                   "us_per_sample": e4_grid_ms * 1e3 / n,
                    "main_path_ms": {"render_di 512 x 88200": e4_grid_ms}},
             "E5<dk>": {**e5_main, "compared": [e5_main, e5dk, *e5dk_geo],
                        "us_per_dk_step": e5_grid_ms * 1e3 / (2 * n),
@@ -1720,10 +1753,10 @@ def compare_pa_speaker(kr, x, state, volume, character, what):
 
 
 def pa_step_forms(kr, x, state, volume, character):
-    """The power-amp step's two forms on one E6 call: E6 (the warp step,
-    power_amp_step_warp) and E9 (the one-thread power_amp_step) on the
-    same input x · volume · volume from the same power-amp rows leave the
-    same rows bit for bit; timed E9, E6, E6, E9 (CUDA events). → ms."""
+    """E6 and E9 (both the warp step, power_amp_step_warp; E9 without
+    volume² and the speaker) on the same input x · volume · volume from the
+    same power-amp rows leave the same rows bit for bit; timed E9, E6, E6,
+    E9 (CUDA events). → ms."""
     from openwurli_tpu_torch.kernels import engine as ek
 
     sr = 44100.0
@@ -1737,8 +1770,7 @@ def pa_step_forms(kr, x, state, volume, character):
     e9 = lambda: ek.power_amp_scan(sr, x9, state[:ek.PA_ROWS].clone())
     e6 = lambda: kr.pa_speaker_scan(sr, x, state.clone(), volume, character)
     times = [cuda_ms(f) for f in (e9, e6, e6, e9)]
-    return {"one_thread_ms": [times[0], times[3]],
-            "warp_ms": [times[1], times[2]]}
+    return {"e9_ms": [times[0], times[3]], "e6_ms": [times[1], times[2]]}
 
 
 def fixture_mixture():
@@ -1889,6 +1921,10 @@ def calib_phases(dev, card, launches, vb, mc):
     cols[0][ek.P_DS, 9] *= 40.0            # the pickup past its knee
     tap_r, (t2_r, _) = compare_voice_tap(
         kr, cols, 1100, f"{g_r} ragged streams, NaN and inf columns")
+    tap_geo = [compare_voice_tap(
+        kr, staggered_voices(cols, g), 300,
+        f"{g} staggered stream(s)" + (", NaN and inf" if g > 80 else ""))[0]
+        for g in (1, 5, 33, 133)]
     x_r = di.preamp_di(t2_r[:, :] * taps.out_scale, calibrate.BASE_SR,
                        device=dev)[-160:].contiguous()
     x_r[:, 5] = float("nan")
@@ -1904,12 +1940,12 @@ def calib_phases(dev, card, launches, vb, mc):
     print("phase 26 E4<tap> and E6 bit-identical to their plain versions: "
           + "; ".join(f"{c['inputs']} {c['shape']} kernel {c['ms']:.3f} ms "
                       f"plain {c['plain_ms']:.0f} ms"
-                      for c in (tap_main, tap_r, e6_main, e6_r))
-          + f"; the power-amp step's two forms leave the same rows on both "
-          f"calls; A B B A on run_calibrate's call (512 x {n_e6}): one "
-          f"thread (E9) {forms['one_thread_ms'][0]:.3f} ms, warp (E6) "
-          + " / ".join(f"{t:.3f}" for t in forms["warp_ms"])
-          + f" ms, one thread {forms['one_thread_ms'][1]:.3f} ms"
+                      for c in (tap_main, tap_r, *tap_geo, e6_main, e6_r))
+          + f"; E6 and E9 leave the same power-amp rows on both calls; "
+          f"A B B A on run_calibrate's call (512 x {n_e6}): E9 (no "
+          f"speaker) {forms['e9_ms'][0]:.3f} ms, E6 "
+          + " / ".join(f"{t:.3f}" for t in forms["e6_ms"])
+          + f" ms, E9 {forms['e9_ms'][1]:.3f} ms"
           f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
 
     # ── the pipeline, stages 1-6 through main, on the three-note
@@ -1986,7 +2022,9 @@ def calib_phases(dev, card, launches, vb, mc):
           + ("(shipped weights lack the format-3 tag: none loaded)"
              if weights is None else "") + f" [{card}]", flush=True)
 
-    return {"E4<tap>": {**tap_main, "compared": [tap_main, tap_r],
+    n_cal = int(calibrate.DURATION_S * calibrate.BASE_SR)
+    return {"E4<tap>": {**tap_main, "compared": [tap_main, tap_r, *tap_geo],
+                        "us_per_sample": stages["E4<tap>"] * 1e3 / n_cal,
                         "main_path_ms": {"run_calibrate 512 x 22050":
                                          stages["E4<tap>"]}},
             "E6": {**e6_main, "compared": [e6_main, e6_r],
@@ -2396,11 +2434,11 @@ STAGE_SR = 88200.0
 # built before E8 and E9 existed (NVIDIA H100 80GB HBM3, the card machine's
 # nvcc): E8 and E9 add callers of E2's tremolo and power-amp steps, and
 # must not move the existing kernels' allocation; nor must the warp steps
-# beside them (E6, E5<melange>, E5<dk> and E7, a warp per stream since, and
-# E3, one warp since, are not in the list)
+# beside them (E6, E5<melange>, E5<dk>, E7 and E9, a warp per stream
+# since, E3, one warp since, and E4, eight threads per voice since, are not
+# in the list)
 EARLIER_PTXAS = {
-    "E1": (255, 40, 0, 0), "E4": (240, 40, 0, 0),
-    "E4<tap>": (230, 40, 0, 0),
+    "E1": (255, 40, 0, 0),
     "E2<dk, circuit> thread": (255, 6912, 80, 136),
     "E2<melange, circuit> thread": (255, 7152, 128, 176),
     "E2<dk, behavioral>": (255, 2880, 208, 212),
@@ -2515,12 +2553,13 @@ def stage_phases(dev, card, launches, vb, mc, ptxas):
     moved = {k: (tuple(ptxas[k].values()), v)
              for k, v in EARLIER_PTXAS.items()
              if k in ptxas and tuple(ptxas[k].values()) != v}
-    check(not moved, f"E1-E7's ptxas moved from EARLIER_PTXAS: {moved}")
+    check(not moved, f"ptxas moved from EARLIER_PTXAS: {moved}")
     print("phase 29 ptxas: " + "; ".join(
         f"{k} {v['registers']} registers, {v['stack']} bytes stack, "
         f"{v['spill_stores']} / {v['spill_loads']} bytes spilled"
         for k, v in sorted(stage_ptxas.items()))
-        + (f"; E1-E7 ({len(EARLIER_PTXAS)} entries) as before E8 and E9"
+        + (f"; E1 and E2's thread forms ({len(EARLIER_PTXAS)} entries) "
+           "as before E8 and E9"
            if ptxas else "; no build log (library already built)"),
         flush=True)
 
@@ -3116,8 +3155,8 @@ def main():
                           ("engine_chain_kernelILi1ELi1E",
                            "E2<melange, behavioral>"),
                           ("tremolo_settle_kernel", "E3"),
-                          ("voice_render_kernelILb0E", "E4"),
-                          ("voice_render_kernelILb1E", "E4<tap>"),
+                          ("voice_lanes_kernelILb0E", "E4"),
+                          ("voice_lanes_kernelILb1E", "E4<tap>"),
                           ("pa_speaker_scan_kernel", "E6"),
                           ("preamp_scan_kernelILi0E", "E5<dk>"),
                           ("melange_scan_kernel", "E5<melange>"),
@@ -4222,7 +4261,7 @@ def main():
                           bat_k["thread_width"][pre]["ms"]}))
     for name, key, replaces, form in (
             ("voice_render", "E4", "openwurli_tpu/voice.py:140",
-             "a thread per voice"),
+             "eight threads per voice, four voices per warp"),
             ("preamp_scan_dk", "E5<dk>", "openwurli_tpu/di.py:29",
              "a warp per stream"),
             ("preamp_scan_melange", "E5<melange>",
@@ -4239,10 +4278,14 @@ def main():
                       | {"bound_ms": c["bound"][0]} for c in cmps],
             main_path_ms=k["main_path_ms"]))
     kernels[-3]["di_stages_ms"] = mod_k["di_stages_ms"]
+    # µs per sample step of render_di's grid (every voice in parallel)
+    kernels[-3]["us_per_sample"] = mod_k["E4"]["us_per_sample"]
     kernels[-2]["us_per_dk_step"] = mod_k["E5<dk>"]["us_per_dk_step"]
     for name, key, replaces, more in (
             ("voice_render_tap", "E4<tap>",
-             "openwurli_tpu/calib/calibrate.py:80", {}),
+             "openwurli_tpu/calib/calibrate.py:80",
+             {"form": "eight threads per voice, four voices per warp",
+              "us_per_sample": cal_k["E4<tap>"]["us_per_sample"]}),
             ("pa_speaker_scan", "E6", "openwurli_tpu/calib/calibrate.py:123",
              {"calibrate": cal_k["calibrate"], "pipeline": cal_k["pipeline"],
               "onsets": cal_k["onsets"], "form": "a warp per stream"})):
@@ -4265,17 +4308,17 @@ def main():
         compared=[{k_: v for k_, v in c.items() if k_ != "bound"}
                   | {"bound_ms": c["bound"][0]} for c in e7["compared"]],
         main_path_ms=e7["main_path_ms"], cli=cli_k["cli"]))
-    for name, key, replaces, scan in (
+    for name, key, replaces, scan, form in (
             ("tremolo_scan", "E8", "openwurli_tpu/circuits/tremolo.py:207",
-             "tools/stage_bench.py:82"),
+             "tools/stage_bench.py:82", "a thread per circuit"),
             ("power_amp_scan", "E9",
              "openwurli_tpu/circuits/power_amp.py:210",
-             "tools/stage_bench.py:83")):
+             "tools/stage_bench.py:83", "a warp per stream")):
         k = stg_k[key]
         kernels.append(entry(
             name, "engine.cu", replaces, k["shape"], k["max_abs_err"],
             k["ms"], k["plain_ms"], k["bound"], ptxas=k["ptxas"],
-            also_replaces=[scan], newton=k["newton"],
+            also_replaces=[scan], newton=k["newton"], form=form,
             main_path_ms={"tools/torch_stage_bench.py, 32 streams x 256":
                           k["stage_bench_us"] * 256 / 1e3},
             stage_bench_us=stg_k["stage_bench_us"]))

@@ -10,9 +10,10 @@
 //                         wrapper's crossover), else a thread per engine
 //   E3 tremolo_settle     the tremolo oscillator's step, n times, on one
 //                         warp
-//   E4 voice_render       G voices over n samples (voice.render); with
-//                         TAP, the reed alone into the pickup, the reed's
-//                         output kept (calibrate.run_calibrate's T1, T2)
+//   E4 voice_render       G voices over n samples (voice.render), eight
+//                         threads per voice; with TAP, the reed alone into
+//                         the pickup, the reed's output kept
+//                         (calibrate.run_calibrate's T1, T2)
 //   E5 preamp_scan        G preamp streams over n samples, a warp per
 //                         stream: the DI path's 2x-oversampled DK preamp,
 //                         or the melange preamp
@@ -29,7 +30,8 @@
 //                         and the divider's shunt at a depth per circuit
 //                         (tools/torch_stage_bench.py's "tremolo")
 //   E9 power_amp_scan     G power-amp streams over n samples at the input's
-//                         rate, rail sag on (the stage bench's "power amp")
+//                         rate, rail sag on, a warp per stream (the stage
+//                         bench's "power amp")
 //
 // Replaces: the reference's jitted lax.scans of its float64 engine
 // (openwurli_tpu/engine.py:452 `_render`), of its tremolo settle
@@ -43,13 +45,14 @@
 // (tools/stage_bench.py:82-83); none is a Pallas kernel.
 //
 // Bound: latency. A chunk is a serial recurrence: E1 advances each voice
-// slot by one thread (a block of 128 per engine), E4 each voice by one
-// thread, E8 and E9 each circuit or stream by one thread walking the
-// data-dependent Newton solves sample by sample. The bytes are a few
+// slot by one thread (a block of 128 per engine), E4 each voice by eight
+// (its seven modes on threads, then its group's samples on threads), E8
+// each circuit by one thread walking the data-dependent Newton solves
+// sample by sample. The bytes are a few
 // hundred per sample and the operations some 10^4-10^5 f64 per base
 // sample, far from the card's rates; what bounds the time is the length of
-// the dependent chain of f64 operations and libm calls per sample. E6, E3
-// and E2's circuit instantiations shorten that chain with a warp per
+// the dependent chain of f64 operations and libm calls per sample. E6, E9,
+// E3 and E2's circuit instantiations shorten that chain with a warp per
 // stream, settle or engine (mna_step_warp: the rows of every matvec, BJT,
 // Jacobian row, pivot update and junction limit on their own lanes, the
 // solver block staged in shared memory, no local memory in the solve);
@@ -154,6 +157,7 @@ enum Misc {
 
 constexpr double EXC = 0x1.a220d397972eap+57;  // float(np.exp(40.0))
 constexpr double XC = 40.0;
+constexpr unsigned FULL = 0xffffffffu;
 
 // ── selects that keep NaN, as the reference's jnp.maximum/minimum ──
 
@@ -461,26 +465,342 @@ engine_voices_kernel(const double* __restrict__ vpar, double* vst,
   if (j == 0) eng_i[EI_FIRES] += (long long)fires;
 }
 
-// E4: a thread per voice; out (n, G) time major, so that a warp's voices
-// store one coalesced row per sample. With TAP, reed (n, G) gets the
-// reed's samples.
-constexpr int E4_BLOCK = 32;
+// E4: eight threads per voice, four voices per warp (K1's design in f64).
+// out (n, G) time major; with TAP, reed (n, G) gets the reed's samples.
+//  * Modes on threads: thread m < 7 of a voice owns mode m (its s, c, env,
+//    drift and constants) and advances it through an 8-sample group,
+//    sample by sample: the damper, the jitter tick (its draw, the voice's
+//    LCG word stepped m + 1 times, by an exact jump-ahead mod 2^32), the
+//    term's share amp·s and env into the warp's scratch, the rotation, the
+//    decay and the renorm. Thread 7 runs mode 6's arithmetic into a row
+//    that nobody reads and stores nothing of it.
+//  * Samples on threads: thread j computes sample j's onset, then, after a
+//    __syncwarp, sums its seven terms (amp·s)·onset·env in index order.
+//  * The serial tail on every thread of the voice: the attack noise over
+//    the group (its fade for sample j taken ahead by thread j, read by a
+//    shuffle), then each thread's saturation and charge factors for its
+//    sample, published, and the charge recurrence over the group, each
+//    thread keeping sample j's charge; thread j stores sample j.
+// The voice's own counters (nn, the damper's, the jitter and noise words,
+// the charge) advance alike on its eight threads. cos, pow, exp, sqrt and
+// tanh run only on the path whose value is selected, and a warp takes
+// such a path for all its voices when one needs it (a vote); every
+// multiply and add of voice_sample stays, the env · 1.0 of an unselected
+// damper among them, so NaN and inf voices keep their bits. A warp whose
+// voices all lie past G returns; in any other warp every thread takes part
+// in every sync, shuffle and vote, and threads of voices past G load and
+// store nothing.
+constexpr int E4_TPV = 8;        // threads per voice
+constexpr int E4_GROUP = 8;      // samples per group
+constexpr int E4_MAX_BLOCK = 128;
+// threads per block in ow_voice_render*: as fast as 32 at 512 voices
+// (tools/torch_voice_breakdown.py), and a block's E4Scratch serves four
+// warps, where a block of 32 would hold it for one
+constexpr int E4_BLOCK = 128;
+// scratch rows: 8 (7 modes, a padding row) × 8 samples per voice, padded
+constexpr int E4_ROW = E4_GROUP + 1, E4_VOICE = E4_TPV * E4_ROW;
+struct E4Scratch {
+  double share[4 * E4_VOICE], env[4 * E4_VOICE];  // amp·s, env
+  double pn[4][E4_GROUP], den[4][E4_GROUP];        // 1 − α, 1 + α
+};
+// the jitter LCG stepped k + 1 times: A^(k+1) · s + C_(k+1) mod 2^32
+__constant__ uint32_t kJitterA[NM] = {
+    1664525u, 389569705u, 2940799637u, 158984081u, 2862450781u,
+    3211393721u, 1851289957u};
+__constant__ uint32_t kJitterC[NM] = {
+    1013904223u, 1196435762u, 3519870697u, 2868466484u, 1649599747u,
+    2670642822u, 1476291629u};
 
-template <bool TAP>
-__global__ void __launch_bounds__(E4_BLOCK)
-voice_render_kernel(const double* __restrict__ vpar, double* vst,
-                    long long* vsti, double* out, double* reed, int g,
-                    int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= g) return;
-  Voice v;
-  voice_load(v, vpar, vst, vsti, g, j);
-  for (int t = 0; t < n; ++t) {
-    double r;
-    out[(size_t)t * g + j] = voice_sample<TAP>(v, &r);
-    if constexpr (TAP) reed[(size_t)t * g + j] = r;
+// Variants for tools/voice_breakdown.cu; the library builds VARIANT = 0.
+enum : int {
+  E4_STAGED = 1,  // exact: a block's rows stored whole through shared memory
+  E4_STAMPED = 2  // exact: each part's cycles (clock64) into parts (4, G)
+};
+enum E4Part { E4P_MODES, E4P_SUM, E4P_TAIL, E4P_STORE, E4_PARTS };
+
+template <bool TAP, int VARIANT = 0>
+__global__ void __launch_bounds__(E4_MAX_BLOCK)
+voice_lanes_kernel(const double* __restrict__ vpar, double* vst,
+                   long long* vsti, double* out, double* reed, int g, int n,
+                   long long* parts) {
+  constexpr bool STAGED = VARIANT & E4_STAGED;
+  constexpr bool STAMPED = VARIANT & E4_STAMPED;
+  __shared__ E4Scratch scratch[E4_MAX_BLOCK / 32];
+  __shared__ double staged[STAGED ? (TAP ? 2 : 1) * E4_MAX_BLOCK : 1];
+  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
+  // A warp whose voices all lie past g has nothing to do.
+  if (!STAGED && (gt & ~31) / E4_TPV >= g) return;
+  const int lane = threadIdx.x & 31;
+  const int wv = lane / E4_TPV;  // the voice within the warp
+  const int k = lane % E4_TPV;   // mode k (7: padding); sample k
+  const int km = k < NM ? k : NM - 1;
+  const int j = gt / E4_TPV;     // the voice
+  const bool valid = j < g;
+  E4Scratch& w = scratch[threadIdx.x >> 5];
+  auto PAR = [&](int r) { return valid ? vpar[(size_t)r * g + j] : 0.0; };
+  auto ST = [&](int r) { return valid ? vst[(size_t)r * g + j] : 0.0; };
+  auto STI = [&](int r) { return valid ? vsti[(size_t)r * g + j] : 0LL; };
+
+  // mode km
+  const double cos_inc = PAR(P_COS + km), sin_inc = PAR(P_SIN + km),
+               phase_inc = PAR(P_PHASE + km), amp = PAR(P_AMP + km),
+               decay = PAR(P_DECAY + km);
+  const double drate = ST(S_DRATE + km), dmult = ST(S_DMULT + km);
+  double s = ST(S_S + km), c = ST(S_C + km), env = ST(S_ENV + km),
+         drift = ST(S_DRIFT + km);
+  const uint32_t jit_a = kJitterA[km], jit_c = kJitterC[km],
+                 jit_a7 = kJitterA[NM - 1], jit_c7 = kJitterC[NM - 1];
+  // the voice
+  const double ramp_n = PAR(P_RAMP_N), ramp_inc = PAR(P_RAMP_INC),
+               shape = PAR(P_SHAPE), revert = PAR(P_REVERT),
+               diffusion = PAR(P_DIFF), beta = PAR(P_BETA), ds = PAR(P_DS);
+  const double dramp = ST(S_DRAMP);
+  const bool dact = STI(I_DACT) != 0;
+  double dcount = ST(S_DCOUNT), q = ST(S_Q);
+  long long jst = STI(I_JST), nn = STI(I_N);
+  bool ddone = STI(I_DDONE) != 0;
+  // the attack noise and the post-pickup gain (E4 only)
+  double ndecay = 0.0, b0 = 0.0, b1 = 0.0, b2 = 0.0, a1 = 0.0, a2 = 0.0,
+         gain = 0.0, namp = 0.0, z1 = 0.0, z2 = 0.0;
+  long long nrem = 0, nfade = 0, nrng = 0;
+  if constexpr (!TAP) {
+    ndecay = PAR(P_NDECAY);
+    b0 = PAR(P_BPF);
+    b1 = PAR(P_BPF + 1);
+    b2 = PAR(P_BPF + 2);
+    a1 = PAR(P_BPF + 3);
+    a2 = PAR(P_BPF + 4);
+    gain = PAR(P_GAIN);
+    namp = ST(S_NAMP);
+    z1 = ST(S_Z1);
+    z2 = ST(S_Z2);
+    nrem = STI(I_NREM);
+    nfade = STI(I_NFADE);
+    nrng = STI(I_NRNG);
   }
-  voice_store(v, vst, vsti, g, j);
+
+  long long acc[E4_PARTS] = {0, 0, 0, 0};
+  long long t_clk = 0;
+  auto stamp = [&](int part) {
+    if constexpr (STAMPED) {
+      const long long now = clock64();
+      acc[part] += now - t_clk;
+      t_clk = now;
+    }
+  };
+  if constexpr (STAMPED) t_clk = clock64();
+
+  double* const share_row = w.share + wv * E4_VOICE + k * E4_ROW;
+  double* const env_row = w.env + wv * E4_VOICE + k * E4_ROW;
+  const double* const share_col = w.share + wv * E4_VOICE + k;
+  const double* const env_col = w.env + wv * E4_VOICE + k;
+  for (int t0 = 0; t0 < n; t0 += E4_GROUP) {
+    const int cnt = min(E4_GROUP, n - t0);
+    const bool mine = valid && k < cnt;  // sample k is this group's
+    // ── sample k's onset and (E4) its noise fade, ahead of the modes
+    const long long nk = nn + k;
+    const bool ramping = (double)nk < ramp_n;
+    double onset = 1.0;
+    if (__any_sync(FULL, mine && ramping)) {
+      const double cosine = 0.5 * (1.0 - cos((double)nk * ramp_inc));
+      const bool lin = shape <= 1.001, sq = shape >= 1.999;
+      double pw = 0.0;
+      if (__any_sync(FULL, mine && ramping && !lin && !sq))
+        pw = pow(jmax(cosine, 0.0), shape);
+      const double shaped = lin ? cosine : sq ? cosine * cosine : pw;
+      onset = ramping ? shaped : 1.0;
+    }
+    double nenv = 1.0;
+    if constexpr (!TAP) {
+      // sample k is in the burst while k < nrem; nfade counts down from
+      // the group's start once per sample in the burst
+      const long long nf = nfade > 0 ? nfade - (k < nfade ? k : nfade)
+                                     : nfade;
+      const bool in_fade = nf > 0;
+      if (__any_sync(FULL, mine && k < nrem && in_fade)) {
+        const double tf = (double)(16 - nf) / 16.0;
+        nenv = in_fade ? 0.5 * (1.0 - cos(M_PI * tf)) : 1.0;
+      }
+    }
+    stamp(E4P_SUM);
+
+    // ── modes on threads: mode km through the group's samples
+    for (int i = 0; i < cnt; ++i) {
+      const long long ni = nn + i;
+      const double rel = dact ? dcount + 1.0 : dcount;
+      const bool past = rel > dramp;
+      const bool in_ramp = dact && !ddone && !past;
+      const bool done2 = ddone || (dact && past);
+      double damp = 1.0;
+      if (__any_sync(FULL, valid && in_ramp)) {
+        const double ratio = rel / jmax(dramp, 1e-30);
+        const double inst = drate * ratio;
+        damp = in_ramp ? exp(-inst) : 1.0;
+      }
+      env = env * damp;
+      env = env * ((dact && done2) ? dmult : 1.0);
+      if ((ni & 15) == 0) {
+        const uint32_t js = (uint32_t)jst;
+        const uint32_t draw = jit_a * js + jit_c;
+        const double u = (double)(draw >> 1) / 2147483647.5;
+        const double nz = (u * 2.0 - 1.0) * 1.7320508080;
+        drift = revert * drift + diffusion * nz;
+        jst = (long long)(jit_a7 * js + jit_c7);
+      }
+      share_row[i] = amp * s;
+      env_row[i] = env;
+      const bool renorm = ((ni & 1023) == 0) && ni > 0;
+      const double dp = drift * phase_inc;
+      const double ci = cos_inc - dp * sin_inc;
+      const double si = sin_inc + dp * cos_inc;
+      const double s_new = s * ci + c * si;
+      const double c_new = c * ci - s * si;
+      env = env * decay;
+      double scale = 1.0;
+      if (__any_sync(FULL, valid && renorm))
+        scale = renorm ? 1.0 / sqrt(s_new * s_new + c_new * c_new) : 1.0;
+      s = s_new * scale;
+      c = c_new * scale;
+      dcount = rel;
+      ddone = done2;
+    }
+    nn += cnt;
+    __syncwarp();
+    stamp(E4P_MODES);
+
+    // ── samples on threads: sample k's reed output, modes in index order
+    double reed_out = share_col[0] * onset * env_col[0];
+#pragma unroll
+    for (int m = 1; m < NM; ++m)
+      reed_out = reed_out + share_col[m * E4_ROW] * onset * env_col[m * E4_ROW];
+    stamp(E4P_SUM);
+
+    // ── the attack noise, serial over the group on every thread
+    double yy;
+    if constexpr (TAP) {
+      yy = reed_out * ds;
+    } else {
+      double noise_out = 0.0;
+      if (__any_sync(FULL, valid && nrem > 0)) {
+        for (int i = 0; i < cnt; ++i) {
+          const double ne = __shfl_sync(FULL, nenv, (lane & ~7) | i);
+          const bool active = nrem > 0;
+          const bool in_fade = nfade > 0;
+          const long long r = lcg(nrng);
+          const double noise =
+              (double)(r >= 2147483648LL ? r - 4294967296LL : r) /
+              2147483647.0;
+          const double y = b0 * noise + z1;
+          const double nz1 = b1 * noise - a1 * y + z2;
+          const double nz2 = b2 * noise - a2 * y;
+          const double o = active ? namp * ne * y : 0.0;
+          noise_out = i == k ? o : noise_out;
+          if (active) {
+            namp = namp * ndecay;
+            nrem = nrem - 1;
+            if (in_fade) nfade = nfade - 1;
+            z1 = nz1;
+            z2 = nz2;
+            nrng = r;
+          }
+        }
+      }
+      yy = (reed_out + noise_out) * ds;
+    }
+    // ── the pickup: sample k's saturation and charge factors, then the
+    // charge recurrence over the group on every thread
+    const double ay = fabs(yy);
+    double ys = yy;
+    if (__any_sync(FULL, mine && !(ay < 0.94))) {
+      const double rng = 0.98 - 0.94;
+      const double sat = 0.94 + rng * tanh((ay - 0.94) / rng);
+      if (!(ay < 0.94)) ys = yy >= 0.0 ? sat : -sat;
+    }
+    const double omy = 1.0 - ys;
+    const double alpha = beta * omy;
+    w.pn[wv][k] = 1.0 - alpha;
+    w.den[wv][k] = 1.0 + alpha;
+    __syncwarp();
+    double q_k = q;
+    for (int i = 0; i < cnt; ++i) {
+      q = (q * w.pn[wv][i] + 2.0 * beta) / w.den[wv][i];
+      q_k = i == k ? q : q_k;
+    }
+    double y_out = (q_k * omy - 1.0) * 1.8375;
+    if constexpr (!TAP) y_out = y_out * gain;
+    stamp(E4P_TAIL);
+
+    // ── stores: sample k of voice j
+    if constexpr (STAGED) {
+      // the block's voices × the group's samples through shared memory,
+      // each row's voices stored contiguously
+      const int vb = blockDim.x / E4_TPV;
+      staged[k * vb + threadIdx.x / E4_TPV] = y_out;
+      if constexpr (TAP)
+        staged[E4_MAX_BLOCK + k * vb + threadIdx.x / E4_TPV] = reed_out;
+      __syncthreads();
+      const int row = threadIdx.x / vb, col = threadIdx.x % vb;
+      const int jv = blockIdx.x * vb + col;
+      if (jv < g && row < cnt) {
+        out[(size_t)(t0 + row) * g + jv] = staged[row * vb + col];
+        if constexpr (TAP)
+          reed[(size_t)(t0 + row) * g + jv] =
+              staged[E4_MAX_BLOCK + row * vb + col];
+      }
+      __syncthreads();
+    } else if (mine) {
+      out[(size_t)(t0 + k) * g + j] = y_out;
+      if constexpr (TAP) reed[(size_t)(t0 + k) * g + j] = reed_out;
+    }
+    stamp(E4P_STORE);
+  }
+
+  if (!valid) return;
+#define STW(r) vst[(size_t)(r) * g + j]
+#define STIW(r) vsti[(size_t)(r) * g + j]
+  if (k < NM) {
+    STW(S_S + k) = s;
+    STW(S_C + k) = c;
+    STW(S_ENV + k) = env;
+    STW(S_DRIFT + k) = drift;
+  } else {
+    STW(S_DCOUNT) = dcount;
+    STW(S_Q) = q;
+    STIW(I_JST) = jst;
+    STIW(I_N) = nn;
+    STIW(I_DDONE) = ddone ? 1 : 0;
+    if constexpr (!TAP) {
+      STW(S_NAMP) = namp;
+      STW(S_Z1) = z1;
+      STW(S_Z2) = z2;
+      STIW(I_NREM) = nrem;
+      STIW(I_NFADE) = nfade;
+      STIW(I_NRNG) = nrng;
+    }
+  }
+#undef STW
+#undef STIW
+  if constexpr (STAMPED)
+    if (k == 0)
+      for (int p = 0; p < E4_PARTS; ++p) parts[(size_t)p * g + j] = acc[p];
+}
+
+// E4's launch: blocks of `block` threads (a multiple of 32), a warp at
+// least, eight threads per voice
+template <bool TAP, int VARIANT = 0>
+int launch_voice_lanes(const double* vpar, double* vst, long long* vsti,
+                       double* out, double* reed, int g, int n,
+                       long long* parts, int block, cudaStream_t stream) {
+  if (g < 0 || n < 0 || g > (1 << 27) || block <= 0 || block % 32 ||
+      block > E4_MAX_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  if (g == 0) return 0;
+  const int threads = g * E4_TPV;
+  const int warps = (threads + 31) / 32;
+  const int t = warps * 32 < block ? warps * 32 : block;
+  voice_lanes_kernel<TAP, VARIANT><<<(threads + t - 1) / t, t, 0, stream>>>(
+      vpar, vst, vsti, out, reed, g, n, parts);
+  return (int)cudaGetLastError();
 }
 
 // ═══════════════════════ the generic mna step ═══════════════════════
@@ -782,8 +1102,6 @@ __device__ __noinline__ void mna_step(const double* c, SolverState& st,
 // matrix transposed, so that the lanes' row walks read consecutive
 // addresses: a stride of M = 16 doubles would put every lane of a
 // row-major walk on one bank.
-
-constexpr unsigned FULL = 0xffffffffu;
 
 // one lane's rows of a circuit's solver state; resid and the counters
 // (cooldown, nr_fail, nan_reset, damp, be_steps) are the same on every lane
@@ -2623,17 +2941,19 @@ pa_speaker_scan_kernel(const double* __restrict__ c,
 
 // ═══════════════════ E8, E9: the stage benchmark's scans ═══════════════════
 
-// The tremolo and the power amp alone, a thread per circuit or stream,
-// through the chain's own steps (tremolo_step, power_amp_step) and its
-// constant layout (C_TREM, C_PA, C_MISC; the preamp block unused), built
-// at the stage's own rate. E8's state (E8_ROWS, G) holds the chain's rows
-// CH_TREM_V .. CH_TREM_RLDR of each circuit, its output (n, G) the shunt
-// impedance after each step at the circuit's depth; E9's state (E9_ROWS, G)
-// the rows CH_PA_V .. CH_PA_LAST, its output (n, G) the power amp's, rail
-// sag on. x and out are time major.
+// The tremolo and the power amp alone, at the stage's own rate, in the
+// chain's constant layout (C_TREM, C_PA, C_MISC; the preamp block unused).
+// E8, a thread per circuit, runs the chain's `tremolo_step`: its state
+// (E8_ROWS, G) holds the chain's rows CH_TREM_V .. CH_TREM_RLDR of each
+// circuit, its output (n, G) the shunt impedance after each step at the
+// circuit's depth. E9 is E6 without volume² and without the speaker: a
+// warp per stream, four per block sharing one staged copy of the power
+// amp's solver block, `power_amp_step_warp` with rail sag on, lane 0
+// writing the output; its state (E9_ROWS, G) holds the rows CH_PA_V ..
+// CH_PA_LAST, E6's first rows. x and out are time major.
 constexpr int E8_BLOCK = 32;
 constexpr int E8_ROWS = CH_TREM_RLDR + 1 - CH_TREM_V;
-constexpr int E9_BLOCK = 32;
+constexpr int E9_WARPS = 4;
 constexpr int E9_ROWS = CH_PA_LAST + 1 - CH_PA_V;
 
 __global__ void __launch_bounds__(E8_BLOCK)
@@ -2653,21 +2973,29 @@ tremolo_scan_kernel(const double* __restrict__ c, double* state,
     state[(size_t)k * g + j] = ch[CH_TREM_V + k];
 }
 
-__global__ void __launch_bounds__(E9_BLOCK)
+// One block per SM is enough: without that bound ptxas caps E9 at 128
+// registers, and power_amp_step_warp spills inside it.
+__global__ void __launch_bounds__(E9_WARPS * 32, 1)
 power_amp_scan_kernel(const double* __restrict__ c,
                       const double* __restrict__ x, double* state,
                       double* out, int n, int g) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= g) return;
-  double ch[CHAIN_ROWS];  // only the power amp's rows
-  for (int k = 0; k < E9_ROWS; ++k)
-    ch[CH_PA_V + k] = state[(size_t)k * g + j];
+  __shared__ double s_pa[PA_BLOCK];
+  __shared__ WarpScratch scratch[E9_WARPS];
+  stage_block<21, 16, 8>(c + C_PA, s_pa);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (j >= g) return;  // the whole warp: no block-wide sync follows
+  PaWarp pa;
+  load_pa(pa, state + j, g, lane);
   const double* misc = c + C_MISC;
-  for (int t = 0; t < n; ++t)
-    out[(size_t)t * g + j] =
-        power_amp_step(c, misc, ch, x[(size_t)t * g + j], true);
-  for (int k = 0; k < E9_ROWS; ++k)
-    state[(size_t)k * g + j] = ch[CH_PA_V + k];
+  WarpScratch* w = &scratch[warp];
+  for (int t = 0; t < n; ++t) {
+    const double y =
+        power_amp_step_warp(s_pa, misc, pa, x[(size_t)t * g + j], true, w);
+    if (lane == 0) out[(size_t)t * g + j] = y;
+  }
+  store_pa(pa, state + j, g, lane);
 }
 
 }  // namespace
@@ -2686,24 +3014,16 @@ extern "C" int ow_engine_voices(const double* vpar, double* vst,
 extern "C" int ow_voice_render(const double* vpar, double* vst,
                                long long* vsti, double* out, int g, int n,
                                cudaStream_t stream) {
-  if (g < 0 || n < 0) return (int)cudaErrorInvalidValue;
-  if (g == 0) return 0;
-  voice_render_kernel<false>
-      <<<(g + E4_BLOCK - 1) / E4_BLOCK, E4_BLOCK, 0, stream>>>(
-          vpar, vst, vsti, out, nullptr, g, n);
-  return (int)cudaGetLastError();
+  return launch_voice_lanes<false>(vpar, vst, vsti, out, nullptr, g, n,
+                                   nullptr, E4_BLOCK, stream);
 }
 
 extern "C" int ow_voice_render_tap(const double* vpar, double* vst,
                                    long long* vsti, double* out,
                                    double* reed, int g, int n,
                                    cudaStream_t stream) {
-  if (g < 0 || n < 0) return (int)cudaErrorInvalidValue;
-  if (g == 0) return 0;
-  voice_render_kernel<true>
-      <<<(g + E4_BLOCK - 1) / E4_BLOCK, E4_BLOCK, 0, stream>>>(
-          vpar, vst, vsti, out, reed, g, n);
-  return (int)cudaGetLastError();
+  return launch_voice_lanes<true>(vpar, vst, vsti, out, reed, g, n,
+                                  nullptr, E4_BLOCK, stream);
 }
 
 extern "C" int ow_pa_speaker_scan(const double* consts, int n_consts,
@@ -2828,7 +3148,9 @@ extern "C" int ow_power_amp_scan(const double* consts, int n_consts,
   if (n_consts != C_TOTAL || n < 0 || g < 0)
     return (int)cudaErrorInvalidValue;
   if (g == 0) return 0;
-  power_amp_scan_kernel<<<(g + E9_BLOCK - 1) / E9_BLOCK, E9_BLOCK, 0,
-                          stream>>>(consts, x, state, out, n, g);
+  const int blocks = (g + E9_WARPS - 1) / E9_WARPS;
+  const int warps = g < E9_WARPS ? g : E9_WARPS;
+  power_amp_scan_kernel<<<blocks, warps * 32, 0, stream>>>(consts, x, state,
+                                                            out, n, g);
   return (int)cudaGetLastError();
 }

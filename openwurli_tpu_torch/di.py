@@ -4,10 +4,10 @@ preamp at R_ldr = 1 MΩ (tremolo off).
 Port of `openwurli_tpu/di.py`: the chain the calibration pipeline and the
 A/B comparisons render, the voice path with the preamp's gain, rolloff
 and H2, without power amp or speaker. The whole grid renders at once:
-the voices through kernel E4, the preamp through E5<dk> (a thread per
-voice each, `kernels/render.py`) on the card, or their plain loops on the
-CPU. The preamp steps at twice the base rate at every rate, 88.2 kHz and
-above included.
+the voices through kernel E4 (eight threads per voice), the preamp
+through E5<dk> (a warp per stream; `kernels/render.py`) on the card, or
+their plain loops on the CPU. The preamp steps at twice the base rate at
+every rate, 88.2 kHz and above included.
 """
 
 from __future__ import annotations

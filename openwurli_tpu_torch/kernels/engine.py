@@ -30,9 +30,10 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
   * **E8 `tremolo_scan`**: G tremolo circuits, a thread each, over n
     steps at the tremolo's own rate (`tremolo.step`: oscillator, vactrol,
     the divider's shunt at the circuit's depth), E2's tremolo step.
-  * **E9 `power_amp_scan`**: G streams, a thread each, over n samples of
-    `power_amp.step` with rail sag on at the input's rate, E2's power-amp
-    step alone. E8 and E9 replace the reference's per-stage scans
+  * **E9 `power_amp_scan`**: G streams, a warp each (four to a block),
+    over n samples of `power_amp.step` with rail sag on at the input's
+    rate, E2's and E6's warp power-amp step alone (E6 without volume² and
+    the speaker). E8 and E9 replace the reference's per-stage scans
     (`tools/stage_bench.py:82-83`), which `tools/torch_stage_bench.py`
     times.
 

@@ -11,11 +11,12 @@ measurements the same way (`openwurli_tpu/cli.py:34-63`, `:87-118`,
 either scan is some hundreds of small ops, so on the card the sample
 loops are kernels:
 
-  * **E4 `voice_render`**: G voices, a thread each, over n samples: the
-    reed → attack noise → pickup → post-pickup gain step that E1 runs for
-    the engine's slots (the same device function). Output (n, G), time
-    major, so that a warp's 32 voices store one coalesced row per sample;
-    the voices' state is updated in place. **E4<tap>** (`voice_tap`) is
+  * **E4 `voice_render`**: G voices, eight threads each (four voices to a
+    warp: the modes on threads for the state, the samples of an 8-sample
+    group on threads for the output), over n samples: the reed → attack
+    noise → pickup → post-pickup gain step that E1 runs for the engine's
+    slots, in its order of operations. Output (n, G), time major; the
+    voices' state is updated in place. **E4<tap>** (`voice_tap`) is
     `run_calibrate`'s T1 and T2: the reed alone into the pickup (no attack
     noise, no post-pickup gain), with the reed's samples as a second
     (n, G) output.

@@ -14,6 +14,7 @@ another built here bit for bit where both run the same arithmetic.
 """
 
 import ctypes
+import os
 import re
 import shutil
 import subprocess
@@ -148,10 +149,12 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline long long clock64() { return 0; }
 """
 
 _LAUNCH = re.compile(
     r"([\w:]+(?:<[^<>;]*>)?)\s*<<<([^,]+),\s*([^,]+),[^>]*>>>\(")
+_INCLUDE_CU = re.compile(r'^#include "([^"]+\.cu)"$', re.M)
 
 
 def have_gxx():
@@ -161,10 +164,14 @@ def have_gxx():
 def build(src_path, out_dir, name, extra="", launches=None):
     """Build `src_path` (a .cu) against the shim into out_dir/lib<name>.so
     and load it; `launches`, when given, is the number of kernel launches
-    the source must hold."""
+    the source must hold. A `#include "x.cu"` (a path from the source's
+    folder) is expanded in place, so that its launches are rewritten too."""
     (out_dir / "cuda_runtime.h").write_text(SHIM_H)
     with open(src_path) as f:
         src = f.read()
+    here = os.path.dirname(os.path.abspath(src_path))
+    src = _INCLUDE_CU.sub(
+        lambda m: open(os.path.join(here, m.group(1))).read(), src)
     src, n = _LAUNCH.subn(r"shim::launch(\2, \3, \1, ", src)
     assert launches is None or n == launches, (src_path, n)
     cpp = out_dir / f"{name}.cpp"

@@ -547,6 +547,46 @@ def test_voice_render_kernel_matches_plain(cuda):
         assert _same_bits(x, y)
 
 
+def _staggered(cols, g, seed=19):
+    """Copies of the first g packed voice columns, each voice at its own
+    sample count (every other one mid-onset, the rest up to past 1024),
+    every third voice's damper mid-ramp."""
+    from openwurli_tpu_torch import reed
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    vpar, vst, vsti = (c[:, :g].clone() for c in cols)
+    rng = np.random.default_rng(seed)
+    nn = rng.integers(0, 1100, g)
+    nn[::2] = rng.integers(0, 60, (g + 1) // 2)
+    vsti[ek.I_N] = torch.as_tensor(nn, device=vsti.device)
+    rate, mult, ramp, _ = reed.damper_constants(vpar[ek.P_MIDI], SR)
+    d = slice(1, None, 3)
+    vst[ek.S_DRATE:ek.S_DRATE + 7, d] = rate[d].T
+    vst[ek.S_DMULT:ek.S_DMULT + 7, d] = mult[d].T
+    vst[ek.S_DRAMP, d] = ramp[d]
+    vst[ek.S_DCOUNT, d] = ramp[d] * 0.5
+    vsti[ek.I_DACT, d] = 1
+    return [vpar, vst, vsti]
+
+
+@pytest.mark.parametrize("g", [1, 5, 33, 133])
+def test_voice_render_kernel_ragged_widths(cuda, g):
+    """E4, eight threads per voice and four voices per warp: one voice, a
+    partial warp, partial blocks; voices at their own sample counts
+    (mid-onset, mid-damper; the NaN and inf voices from 33 on): output
+    and state bit for bit."""
+    from openwurli_tpu_torch.kernels import render as kr
+
+    cols = _staggered(_ragged_voices(cuda), g)
+    a = [c.clone() for c in cols]
+    b = [c.clone() for c in cols]
+    out = kr.voice_render(*a, 300)
+    ref = kr.voice_render_plain(*b, 300)
+    assert _same_bits(out, ref)
+    for x, y in zip(a, b):
+        assert _same_bits(x, y)
+
+
 @pytest.mark.parametrize("streams", [1, 3, 5, 33, 133])
 def test_preamp_scan_dk_kernel_matches_plain(cuda, streams):
     """E5<dk>, a warp per stream, four to a block: one stream, fewer
@@ -708,6 +748,26 @@ def test_voice_tap_kernel_matches_plain(cuda):
                                                            ek.S_Z2 + 1])
 
 
+@pytest.mark.parametrize("g", [1, 5, 33])
+def test_voice_tap_kernel_ragged_widths(cuda, g):
+    """E4<tap> as E4 in test_voice_render_kernel_ragged_widths, on
+    run_calibrate's packing, the second voice's pickup past its knee."""
+    from openwurli_tpu_torch.kernels import engine as ek
+    from openwurli_tpu_torch.kernels import render as kr
+
+    taps = _calibrate_taps(cuda, notes=tuple(range(33, 97, 2)))
+    cols = _staggered(list(taps.cols), g)
+    if g > 1:
+        cols[0][ek.P_DS, 1] *= 40.0
+    a = [c.clone() for c in cols]
+    b = [c.clone() for c in cols]
+    out, reed = kr.voice_tap(*a, 300)
+    ref, ref_reed = kr.voice_tap_plain(*b, 300)
+    assert _same_bits(out, ref) and _same_bits(reed, ref_reed)
+    for x, y in zip(a, b):
+        assert _same_bits(x, y)
+
+
 def test_pa_speaker_scan_kernel_matches_plain(cuda):
     from openwurli_tpu_torch import di
     from openwurli_tpu_torch.kernels import render as kr
@@ -859,6 +919,21 @@ def test_power_amp_scan_kernel_matches_plain(cuda):
     ref = ek.power_amp_scan_plain(88200.0, x, b)
     assert _same_bits(out, ref) and _same_bits(a, b)
     assert torch.isfinite(out).all() and float(out.abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("g", [1, 3, 5])
+def test_power_amp_scan_kernel_ragged_widths(cuda, g):
+    """E9, a warp per stream, four to a block: one stream, fewer streams
+    than a block's warps, a partial last block; output and state bit for
+    bit."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    x = _power_amp_case(cuda, g=5)[:, :g].contiguous()
+    st = ek.init_power_amp_scan_state(88200.0, g, cuda)
+    a, b = st.clone(), st.clone()
+    out = ek.power_amp_scan(88200.0, x, a)
+    ref = ek.power_amp_scan_plain(88200.0, x, b)
+    assert _same_bits(out, ref) and _same_bits(a, b)
 
 
 def test_stage_scans_from_carried_state(cuda):

@@ -5,10 +5,12 @@ tests/cuda_host_shim.py (a std::thread per CUDA thread, a std::barrier
 per warp for __shfl_sync, __all_sync and __syncwarp).
 
   (a) in one binary, the warp step (`power_amp_step_warp`, driven by a
-      one-warp-per-stream scan appended to the source) equals E9's
-      one-thread `power_amp_step` bit for bit, output and state, on 4
+      one-warp-per-stream scan appended to the source) equals the
+      one-thread `power_amp_step` (a thread-per-stream scan, E9 before its
+      warp redesign, appended too) bit for bit, output and state, on 4
       streams × 32 samples: the bench's sine, a 200 V spike, a NaN stream
-      and sagged rails; E6 at volume 1 leaves the same power-amp rows;
+      and sagged rails; E6 at volume 1 leaves the same power-amp rows; and
+      so do E9 itself and its output;
   (b) E6 (a warp per stream) against `pa_speaker_scan_plain`, and (c) one
       E2<dk, circuit> engine (a warp) against `chain_plain`, the outputs
       within 1e-11 and the states within 1e-9 V (the host's libm against
@@ -53,10 +55,24 @@ def _close(a, b, tol):
     assert err <= tol, err
 
 
-# The warp step over G streams, one warp each, written like E9's kernel
-# (power_amp_scan_kernel): the same state rows and arguments.
+# The warp step over G streams, one warp each, with E9's state rows and
+# arguments but two warps to a block; the one-thread step over G streams,
+# a thread each, as E9 ran before its warp redesign.
 HARNESS = r"""
 namespace {
+void pa_thread_scan_kernel(const double* c, const double* x, double* state,
+                           double* out, int n, int g) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= g) return;
+  double ch[CHAIN_ROWS];  // only the power amp's rows
+  for (int k = 0; k < E9_ROWS; ++k)
+    ch[CH_PA_V + k] = state[(size_t)k * g + j];
+  for (int t = 0; t < n; ++t)
+    out[(size_t)t * g + j] = power_amp_step(c, c + C_MISC, ch,
+                                            x[(size_t)t * g + j], true);
+  for (int k = 0; k < E9_ROWS; ++k)
+    state[(size_t)k * g + j] = ch[CH_PA_V + k];
+}
 constexpr int T_WARPS = 2;
 void pa_warp_scan_kernel(const double* c, const double* x, double* state,
                          double* out, int n, int g) {
@@ -85,6 +101,13 @@ extern "C" int ow_test_pa_warp_scan(const double* consts, const double* x,
                pa_warp_scan_kernel, consts, x, state, out, n, g);
   return 0;
 }
+extern "C" int ow_test_pa_thread_scan(const double* consts, const double* x,
+                                      double* state, double* out, int n,
+                                      int g) {
+  shim::launch((g + 31) / 32, 32, pa_thread_scan_kernel, consts, x, state,
+               out, n, g);
+  return 0;
+}
 """
 
 
@@ -101,6 +124,7 @@ def lib(tmp_path_factory):
     dll.ow_pa_speaker_scan.argtypes = [p, i, p, p, p, i, i, d, d, p]
     dll.ow_engine_chain.argtypes = [p, i, p, p, p, i, i, p, i, i, p, i, p]
     dll.ow_test_pa_warp_scan.argtypes = [p, p, p, p, i, i]
+    dll.ow_test_pa_thread_scan.argtypes = [p, p, p, p, i, i]
     return dll
 
 
@@ -138,6 +162,14 @@ def _e9(lib, consts, x, st):
     return out
 
 
+def _thread(lib, consts, x, st):
+    out = torch.empty_like(x)
+    assert lib.ow_test_pa_thread_scan(consts.data_ptr(), x.data_ptr(),
+                                      st.data_ptr(), out.data_ptr(), N,
+                                      G) == 0
+    return out
+
+
 def _e6(lib, sr, x, st, volume, character):
     consts = torch.from_numpy(kr.pa_speaker_consts(sr))
     out = torch.empty_like(x)
@@ -152,7 +184,7 @@ def test_warp_step_equals_one_thread_step(lib):
     x, st0 = _inputs(SR)
     consts = torch.from_numpy(ek.scan_consts(SR, "power_amp"))
     st_t, st_w = st0.clone(), st0.clone()
-    out_t = _e9(lib, consts, x, st_t)
+    out_t = _thread(lib, consts, x, st_t)
     out_w = torch.empty_like(x)
     assert lib.ow_test_pa_warp_scan(consts.data_ptr(), x.data_ptr(),
                                     st_w.data_ptr(), out_w.data_ptr(),
@@ -171,6 +203,35 @@ def test_warp_step_equals_one_thread_step(lib):
     st6 = torch.cat([st0, spk]).contiguous()
     _e6(lib, SR, x, st6, 1.0, 0.5)
     assert _same(st6[:ek.PA_ROWS], st_t)
+
+
+def test_e9_equals_one_thread_step_and_e6(lib):
+    """E9, a warp per stream since its redesign: the one-thread step's
+    output and rows bit for bit, and E6's power-amp rows at volume 1."""
+    x, st0 = _inputs(SR)
+    consts = torch.from_numpy(ek.scan_consts(SR, "power_amp"))
+    st_t, st_9 = st0.clone(), st0.clone()
+    out_t = _thread(lib, consts, x, st_t)
+    out_9 = _e9(lib, consts, x, st_9)
+    assert _same(out_9, out_t) and _same(st_9, st_t)
+    spk = torch.zeros((kr.PA_SPEAKER_ROWS - ek.PA_ROWS, G),
+                      dtype=torch.float64)
+    st6 = torch.cat([st0, spk]).contiguous()
+    _e6(lib, SR, x, st6, 1.0, 0.5)
+    assert _same(st6[:ek.PA_ROWS], st_9)
+    # G = 1 and G = 5: one stream, a partial last block
+    for g in (1, 5):
+        cols = [j % G for j in range(g)]
+        xg, sg = x[:, cols].contiguous(), st0[:, cols].contiguous()
+        a, b = sg.clone(), sg.clone()
+        oa, ob = torch.empty_like(xg), torch.empty_like(xg)
+        assert lib.ow_power_amp_scan(consts.data_ptr(), consts.numel(),
+                                     xg.data_ptr(), a.data_ptr(),
+                                     oa.data_ptr(), N, g, None) == 0
+        assert lib.ow_test_pa_thread_scan(consts.data_ptr(), xg.data_ptr(),
+                                          b.data_ptr(), ob.data_ptr(), N,
+                                          g) == 0
+        assert _same(oa, ob) and _same(a, b)
 
 
 def test_e6_warp_matches_plain(lib):

@@ -25,7 +25,7 @@ REPO = os.path.dirname(PKG_DIR)
 # the port's tools, each a script under tools/
 TOOLS = ("torch_probe", "torch_interactive_rtf", "torch_k4_breakdown",
          "torch_vb_breakdown", "torch_melange_breakdown",
-         "torch_dk_breakdown", "torch_mna_breakdown",
+         "torch_dk_breakdown", "torch_mna_breakdown", "torch_voice_breakdown",
          "torch_strip_pedal", "torch_analyze_pump_dynamics",
          "torch_h3_analysis", "torch_wurli_compare",
          "torch_recording_analyzer", "torch_gen_settled_states",

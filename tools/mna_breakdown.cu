@@ -256,6 +256,24 @@ mb_trem_stamped_kernel(const double* __restrict__ c, double* state,
 
 // ── the power-amp family: E9's layout ──
 
+// E9 before its warp redesign: a thread per stream, E2's power_amp_step
+__global__ void __launch_bounds__(32)
+mb_pa_thread_kernel(const double* __restrict__ c,
+                    const double* __restrict__ x, double* state, double* out,
+                    int n, int g) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= g) return;
+  double ch[CHAIN_ROWS];  // only the power amp's rows
+  for (int k = 0; k < E9_ROWS; ++k)
+    ch[CH_PA_V + k] = state[(size_t)k * g + j];
+  const double* misc = c + C_MISC;
+  for (int t = 0; t < n; ++t)
+    out[(size_t)t * g + j] =
+        power_amp_step(c, misc, ch, x[(size_t)t * g + j], true);
+  for (int k = 0; k < E9_ROWS; ++k)
+    state[(size_t)k * g + j] = ch[CH_PA_V + k];
+}
+
 // the warp step over G streams, a warp each, E6's geometry; STAMP the
 // stamped copy, parts (N_PARTS, G)
 template <bool STAMP>
@@ -320,7 +338,8 @@ extern "C" int mb_trem_launch(int which, const double* consts, int n_consts,
   return (int)cudaGetLastError();
 }
 
-// the power-amp family: 0 one thread (E9), 1 the warp step, 2 stamped;
+// the power-amp family: 0 one thread (E9 before), 1 the warp step, 2
+// stamped;
 // consts the chain's layout (E9's), parts (N_PARTS, G)
 extern "C" int mb_pa_launch(int which, const double* consts, int n_consts,
                             const double* x, double* state, double* out,
@@ -333,8 +352,8 @@ extern "C" int mb_pa_launch(int which, const double* consts, int n_consts,
   const int wt = 32 * (g < E6_WARPS ? g : E6_WARPS);
   switch (which) {
     case 0:
-      power_amp_scan_kernel<<<(g + E9_BLOCK - 1) / E9_BLOCK, E9_BLOCK, 0,
-                              stream>>>(consts, x, state, out, n, g);
+      mb_pa_thread_kernel<<<(g + 31) / 32, 32, 0, stream>>>(consts, x, state,
+                                                           out, n, g);
       break;
     case 1:
       mb_pa_warp_kernel<false><<<wb, wt, 0, stream>>>(consts, x, state, out,

@@ -12,9 +12,10 @@ build/mna_breakdown/, at two sizes:
     that start and from one with a NaN node;
   * the power amp, <21, 16, 8, 16> (E6, E2's power amp): E9's layout, the
     stage bench's 0.05 V, 1 kHz sine at 88.2 kHz over each of --pa-streams
-    streams (a warp each, four to a block, as E6); every variant checked
-    bit for bit against E9 (`kernels.engine.power_amp_scan`, the one-thread
-    step), there and on 4 streams with a 200 V spike, a NaN and loud rails.
+    streams (a warp each, four to a block, as E6 and E9); every variant
+    checked bit for bit against E9 (`kernels.engine.power_amp_scan`, the
+    warp step since its redesign, the one-thread step before), there and
+    on 4 streams with a 200 V spike, a NaN and loud rails.
 
 It times each variant with CUDA events (µs per step) and splits the
 stamped one's step into its parts: each part's share of the stamped
@@ -47,7 +48,7 @@ COUNTS = ("evaluations", "iterations", "be_replays")
 TREM_VARIANTS = [("one thread: mna_step (E3 before)", False),
                  ("warp: E3 (tremolo_settle_kernel)", False),
                  ("warp: E3, stamped", True)]
-PA_VARIANTS = [("one thread: power_amp_step (E9)", False),
+PA_VARIANTS = [("one thread: power_amp_step (E9 before)", False),
                ("warp: power_amp_step_warp, a warp per stream (E6's)", False),
                ("warp: stamped", True)]
 SR = 88200.0  # the chain's oversampled rate, the stage bench's
