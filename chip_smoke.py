@@ -54,11 +54,12 @@ each with the launch counts set to 0 just before it and read just after:
     preamp twin through E7, the tremolo through E8, the power amp through
     E9), before the alias sweep;
   * the f64 engine batched: `engine.render_states` over B engine states
-    (E1 a block per engine, E2 a warp per engine, a thread per engine
-    above `kernels.engine.CHAIN_WARP_MAX_ENGINES`): an 8-engine batch,
-    each engine against its own `Engine.render`, the throughput from the
-    reference perf sweep's broadcast chord at 1-128 engines, and the
-    chord at 8192 engines (the thread form) against one engine;
+    (E1 a cluster of eight blocks per engine, E2 a warp per engine, a
+    thread per engine above `kernels.engine.CHAIN_WARP_MAX_ENGINES`, one
+    crossover per power-amp model): an 8-engine batch, each engine
+    against its own `Engine.render`, the throughput from the reference
+    perf sweep's broadcast chord at 1-128 engines, and the chord at 8192
+    engines (the thread form) against one engine, for each instantiation;
   * the multi-device path on one card: `fast.render_grid_sharded` over a
     one-rank NCCL group at the headline width (K1, K2), bit for bit
     `render_grid`; `parallel.mesh.sharded_grid_render` over the
@@ -92,17 +93,18 @@ instantiation over two (noise on one) against their batched plain
 versions; E8 on 33 circuits from seeded starts at three depths (a kicked
 and a NaN circuit) and E9 on 33 streams (a 200 V spike, a NaN and an inf
 stream). E5 and E7 run a warp per stream and E3 one warp (the melange,
-DK and mna steps on a warp; the melange and DK steps also in E2's circuit
-instantiations). E2's circuit instantiations run a warp per engine up to
-`CHAIN_WARP_MAX_ENGINES` engines and a thread per engine above: the two
-forms are held to each other bit for bit on the kicked, guard #2 (at the
-first sample and midway), session, melange plugin and 128-engine chunks
-and timed there in turns
+DK and mna steps on a warp; the melange and DK steps also in E2). E2
+runs a warp per engine up to `CHAIN_WARP_MAX_ENGINES[pa_model]` engines
+and a thread per engine above: the two forms are held to each other bit
+for bit on the kicked, guard #2 (at the first sample and midway),
+session, melange plugin, behavioral session and 128-engine chunks and
+timed there in turns
 (thread, warp, warp, thread); E6 and E9 (both on the warp step) leave
 the same power-amp rows on run_calibrate's call and on the ragged
 streams, timed in turns the same way. E4 and E4<tap> (eight threads per
 voice) are also held to their plain versions at 1, 5, 33 and 133 voices,
-each voice at its own sample count (mid-onset, a damper mid-ramp).
+each voice at its own sample count (mid-onset, a damper mid-ramp); E1
+(eight threads per slot on E4's group body) at 1, 5 and 128 engines.
 K1 and K3 (eight threads per voice lane) are also held to their plain
 versions at a ragged lane count, with non-finite parameters in some lanes
 and with the pickup driven past its knee, and K1 is timed across widths.
@@ -338,9 +340,10 @@ def ptxas_lines(log):
 
 # The kernels built around the warp-cooperative mna, melange and DK steps,
 # and the steps' __noinline__ functions
-WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp", "E6",
-                "E5<melange>", "E5<dk>", "E7<diff>", "E7<shadow>", "E3",
-                "E9")
+WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp",
+                "E2<dk, behavioral> warp", "E2<melange, behavioral> warp",
+                "E6", "E5<melange>", "E5<dk>", "E7<diff>", "E7<shadow>",
+                "E3", "E9")
 WARP_STEP = ("mna_step_warpILi21ELi16ELi8ELi16E", "mna_step_warpILi7ELi4ELi2ELi4E",
              "power_amp_step_warp", "tremolo_step_warp", "melange_step_warp",
              "dk_step_warp")
@@ -401,11 +404,12 @@ def reset_counts(vb, mc):
 
     from openwurli_tpu_torch.kernels import render as kr
 
-    ek.VOICES_LAUNCHES = ek.SETTLE_LAUNCHES = 0
+    ek.SETTLE_LAUNCHES = 0
+    for key in ek.VOICES_LAUNCHES_BY_FORM:
+        ek.VOICES_LAUNCHES_BY_FORM[key] = 0
     ek.VOICES_PLAIN_CALLS = ek.CHAIN_PLAIN_CALLS = ek.SETTLE_PLAIN_CALLS = 0
-    for counter in (ek.CHAIN_LAUNCHES_BY_MODELS, ek.CHAIN_LAUNCHES_BY_FORM):
-        for key in counter:
-            counter[key] = 0
+    for key in ek.CHAIN_LAUNCHES_BY_FORM:
+        ek.CHAIN_LAUNCHES_BY_FORM[key] = 0
     kr.VOICE_RENDER_LAUNCHES = kr.VOICE_RENDER_PLAIN_CALLS = 0
     kr.PREAMP_SCAN_PLAIN_CALLS = 0
     kr.VOICE_TAP_LAUNCHES = kr.VOICE_TAP_PLAIN_CALLS = 0
@@ -431,21 +435,23 @@ def read_counts(vb, mc):
     from openwurli_tpu_torch.kernels import probe
     from openwurli_tpu_torch.kernels import render as kr
 
-    by_models, by_form = ek.CHAIN_LAUNCHES_BY_MODELS, ek.CHAIN_LAUNCHES_BY_FORM
+    by_form = ek.CHAIN_LAUNCHES_BY_FORM
     return {**vb.LAUNCHES_BY_KERNEL, "mono_chain": mc.KERNEL_LAUNCHES,
             "mono_chain_noise": mc.NOISE_KERNEL_LAUNCHES,
             "trem_preroll": mc.PREROLL_KERNEL_LAUNCHES,
             "probe": probe.KERNEL_LAUNCHES,
-            "engine_voices": ek.VOICES_LAUNCHES,
-            # E2's circuit instantiations: the warp form under the names
-            # they had, the thread form with "_thread" appended
-            "engine_chain": by_form["dk", "warp"],
-            "engine_chain_thread": by_form["dk", "thread"],
-            "engine_chain_melange_circuit": by_form["melange", "warp"],
-            "engine_chain_melange_circuit_thread":
-                by_form["melange", "thread"],
-            **{f"engine_chain_{p}_behavioral": by_models[p, "behavioral"]
-               for p in ("dk", "melange")},
+            # E1: the cluster form under the name E1 had, the thread form
+            # with "_thread" appended
+            "engine_voices": ek.VOICES_LAUNCHES_BY_FORM["lanes"],
+            "engine_voices_thread": ek.VOICES_LAUNCHES_BY_FORM["thread"],
+            # E2: the warp form under the names the instantiations had,
+            # the thread form with "_thread" appended
+            "engine_chain": by_form["dk", "circuit", "warp"],
+            "engine_chain_thread": by_form["dk", "circuit", "thread"],
+            **{f"engine_chain_{p}_{a}" + ("_thread" if f == "thread"
+                                          else ""): by_form[p, a, f]
+               for p, a, f in by_form
+               if (p, a) != ("dk", "circuit")},
             "tremolo_settle": ek.SETTLE_LAUNCHES,
             "voice_render": kr.VOICE_RENDER_LAUNCHES,
             "preamp_scan_dk": kr.PREAMP_SCAN_LAUNCHES["dk"],
@@ -913,20 +919,20 @@ def compare_chain_f64(ek, call, what):
 
 
 def chain_forms(ek, call, what):
-    """E2's circuit instantiations in their two forms on one recorded
-    call: a warp per engine (engine_chain_warp_kernel) and a thread per
-    engine (engine_chain_kernel) give the same output and state bit for
-    bit; timed thread, warp, warp, thread (CUDA events). → numbers."""
+    """E2's two forms on one recorded call: a warp per engine
+    (engine_chain_warp_kernel) and a thread per engine
+    (engine_chain_kernel) give the same output and state bit for bit;
+    timed thread, warp, warp, thread (CUDA events). → numbers."""
     cp, mono, state, sag = call[:4]
     scale = call[4] if len(call) > 4 else 0.0
-    widest = ek.CHAIN_WARP_MAX_ENGINES
+    widest = ek.CHAIN_WARP_MAX_ENGINES[cp.pa_model]
 
     def run(warp, st):
-        ek.CHAIN_WARP_MAX_ENGINES = None if warp else 0
+        ek.CHAIN_WARP_MAX_ENGINES[cp.pa_model] = None if warp else 0
         try:
             return ek.render_chain(cp, mono, st, sag, scale)
         finally:
-            ek.CHAIN_WARP_MAX_ENGINES = widest
+            ek.CHAIN_WARP_MAX_ENGINES[cp.pa_model] = widest
 
     sw, st_ = state.clone(), state.clone()
     ow, ot = run(True, sw), run(False, st_)
@@ -941,6 +947,43 @@ def chain_forms(ek, call, what):
             "thread_ms": [times[0], times[3]], "warp_ms": times[1:3],
             "us_per_base_sample": {"thread": times[0] * 1e3 / n,
                                    "warp": times[1] * 1e3 / n}}
+
+
+def voices_forms(ek, call, what):
+    """E1's two forms on one call: a cluster of blocks per engine
+    (engine_voices_kernel) and a thread per slot (engine_voices_thread_
+    kernel) give the same mono and state bit for bit; timed thread,
+    lanes, lanes, thread (CUDA events). → numbers."""
+    cols, rest = call[:4], call[4:]
+    widest = ek.VOICES_LANES_MAX_ENGINES
+
+    def run(lanes, st):
+        ek.VOICES_LANES_MAX_ENGINES = None if lanes else 0
+        try:
+            return ek.render_voices(*st, *rest)
+        finally:
+            ek.VOICES_LANES_MAX_ENGINES = widest
+
+    sl, stt = [x.clone() for x in cols], [x.clone() for x in cols]
+    ml, mt = run(True, sl), run(False, stt)
+    check(same_bits(ml, mt) and all(same_bits(a, b)
+                                    for a, b in zip(sl, stt)),
+          f"E1 {what}: the cluster form against the thread form: mono "
+          f"{first_diff(ml, mt)}")
+    times = [cuda_ms(lambda: run(f, [x.clone() for x in cols]))
+             for f in (False, True, True, False)]
+    return {"inputs": f"E1 {what}", "thread_ms": [times[0], times[3]],
+            "lanes_ms": times[1:3]}
+
+
+def abba_line(forms):
+    """chain_forms' times as printed: thread, warp, warp, thread (ms), and
+    µs per base sample of each form."""
+    us = forms["us_per_base_sample"]
+    return (f"thread {forms['thread_ms'][0]:.3f}, warp "
+            + " / ".join(f"{t:.3f}" for t in forms["warp_ms"])
+            + f", thread {forms['thread_ms'][1]:.3f} ms ({us['warp']:.2f} "
+            f"against {us['thread']:.2f} us per base sample)")
 
 
 def engine_phases(dev, card, launches, vb, mc, fast, ptxas):
@@ -1403,7 +1446,7 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
 
     # E2's new instantiations on one 64-sample chunk each, from a warmed
     # chain, with the tremolo kicked (its BE replay) and an input spike
-    e2_cmp = []
+    e2_cmp, beh_forms = [], []
     for models in (("melange", "circuit"), ("dk", "behavioral"),
                    ("melange", "behavioral")):
         eng = Engine(SR, device=dev, preamp_model=models[0],
@@ -1415,20 +1458,48 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
                                 eng.fade_len, eng.sample_rate).clone()
         kick = eng.chain.clone()
         kick[ek.CHAIN_OFF["trem_v"][0]] += 70.0
+        clean = mono.clone()
         mono[40] = 30.0
         e2_cmp.append(compare_chain_f64(
             ek, (eng.params, mono, kick, True, 30.0),
             f"<{models[0]}, {models[1]}> 64 from a warmed state, tremolo "
             "kicked, input spike, noise scale 30"))
-    names = ("E1", "E3", "E4", "E4<tap>", "E5<dk>", "E5<melange>", "E6",
-             "E2<dk, circuit> warp", "E2<dk, circuit> thread",
-             "E2<melange, circuit> warp", "E2<melange, circuit> thread",
-             "E2<dk, behavioral>", "E2<melange, behavioral>")
+        if models[1] == "behavioral":
+            # the behavioral warp form against the plain version and the
+            # thread form: kicked; a NaN in mono at 4 and guard #2 from 9
+            # (its power-amp rows, moved off rest, reset by the guard)
+            tag = f"<{models[0]}, behavioral>"
+            beh_forms.append(chain_forms(
+                ek, (eng.params, mono, kick, True, 30.0),
+                f"{tag} kicked, noise scale 30"))
+            mid = eng.chain.clone()
+            a_vol, _ = ek.CHAIN_OFF["sm_volume"]
+            mid[a_vol + 1:a_vol + 4] = torch.tensor(
+                [float("nan"), 0.0, 10.0], dtype=torch.float64, device=dev)
+            lo, hi = ek.CHAIN_OFF["pa_v"][0], ek.CHAIN_OFF["pa_last"][1]
+            rest = mid[lo:hi].clone()
+            mid[lo:hi] += 1.0
+            clean[4] = float("nan")
+            call = (eng.params, clean, mid, True, 30.0)
+            e2_cmp.append(compare_chain_f64(
+                ek, call, f"{tag} 64, a NaN in mono at 4, guard #2 from "
+                "sample 9, noise scale 30"))
+            g3 = mid.clone()
+            out3 = ek.render_chain(*call[:2], g3, *call[3:])
+            check(bool((out3[9:] == 0).all()) and same_bits(g3[lo:hi], rest),
+                  f"{tag}: guard #2 from sample 9 reset the power-amp rows")
+            beh_forms.append(chain_forms(
+                ek, call, f"{tag} NaN mono, guard #2 midway"))
+    names = ("E1", "E1 thread", "E3", "E4", "E4<tap>", "E5<dk>",
+             "E5<melange>", "E6",
+             *(f"E2<{p}, {a}> {f}" for p in ("dk", "melange")
+               for a in ("circuit", "behavioral")
+               for f in ("warp", "thread")))
     print("phase 23 ptxas: " + "; ".join(
         f"{k} {ptxas[k]['registers']} registers, {ptxas[k]['stack']} bytes "
         f"stack, {ptxas[k]['spill_stores']} / {ptxas[k]['spill_loads']} "
         f"bytes spilled" for k in names if k in ptxas), flush=True)
-    for k in ("E1", "E3", "E4", "E4<tap>"):
+    for k in ("E1", "E1 thread", "E3", "E4", "E4<tap>"):
         if k in ptxas:
             check(ptxas[k]["spill_stores"] == 0, f"{k} spills: {ptxas[k]}")
     print("phase 23 bit-identical to their plain versions: "
@@ -1437,6 +1508,11 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
                       for c in (e4, *e4_geo, e5dk, *e5dk_geo, e5mel)) + "; "
           + "; ".join(f"E2{c['models']} kernel {c['ms']:.3f} ms plain "
                       f"{c['plain_ms']:.0f} ms" for c in e2_cmp)
+          + "; the behavioral warp and thread forms bit-identical, A B B "
+          "A: " + "; ".join(
+              f"{f['inputs']} thread {f['thread_ms'][0]:.3f}, warp "
+              + " / ".join(f"{t:.3f}" for t in f["warp_ms"])
+              + f", thread {f['thread_ms'][1]:.3f} ms" for f in beh_forms)
           + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
 
     # ── phase 24: the DI path at the calibration grid's full width ──
@@ -1620,6 +1696,14 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
             name = f"engine_chain_{models[0]}_behavioral"
             check(counts[name] > 0 and counts["plain"] == 0, counts)
             beh[key] = {"ms_4096": b_ms, "peak": float(np.abs(out).max())}
+            # the session's first chunk (256 samples of it) in E2's two
+            # forms, A B B A
+            cp_, mono_, st_, sag_, sc_ = next(
+                c for c in rec.chain if c[0].pa_model == "behavioral"
+                and c[0].preamp_model == models[0])
+            beh[key]["forms"] = chain_forms(
+                ek, (cp_, mono_[:256].contiguous(), st_, sag_, sc_),
+                f"<{models[0]}, behavioral> session chunk (first 256)")
     finally:
         rec.restore()
     rtf = 1000.0 / sec_ms
@@ -1632,7 +1716,9 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
           + " / ".join(f"{t:.3f}" for t in mel_forms["warp_ms"])
           + f", thread {mel_forms['thread_ms'][1]:.3f} ms; behavioral "
           f"sessions (4096 samples): "
-          + ", ".join(f"{k} {v['ms_4096']:.0f} ms peak {v['peak']:.4f}"
+          + ", ".join(f"{k} {v['ms_4096']:.0f} ms peak {v['peak']:.4f}, "
+                      f"its first 256 samples in E2's two forms "
+                      f"bit-identical, A B B A: {abba_line(v['forms'])}"
                       for k, v in beh.items())
           + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
     return {"E4": {**e4_main, "compared": [e4_main, e4, *e4_geo],
@@ -1648,7 +1734,7 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
             "melange_plugin": {"warm_up_ms": warm_ms, "one_second_ms": sec_ms,
                                "realtime_factor": rtf, "peak": peak},
             "melange_forms": mel_forms,
-            "behavioral": beh}
+            "behavioral": beh, "behavioral_forms": beh_forms}
 
 
 # ── the calibration pipeline (phase 26) ──
@@ -2430,19 +2516,19 @@ def cli_phases(dev, card, launches, vb, mc, ptxas):
 E8_OPS_STEP = 30 + 2 * LIBM_OPS
 E9_OPS_SAMPLE = 21 + 40 + 25
 STAGE_SR = 88200.0
-# E1-E7's ptxas (registers, stack bytes, spill stores, spill loads) as
-# built before E8 and E9 existed (NVIDIA H100 80GB HBM3, the card machine's
-# nvcc): E8 and E9 add callers of E2's tremolo and power-amp steps, and
-# must not move the existing kernels' allocation; nor must the warp steps
-# beside them (E6, E5<melange>, E5<dk>, E7 and E9, a warp per stream
-# since, E3, one warp since, and E4, eight threads per voice since, are not
-# in the list)
+# E1's and E2's thread forms' ptxas (registers, stack bytes, spill stores,
+# spill loads) as built before E8 and E9 existed (NVIDIA H100 80GB HBM3,
+# the card machine's nvcc): E8 and E9 add callers of E2's tremolo and
+# power-amp steps, and must not move the existing kernels' allocation; nor
+# must the warp steps beside them (E6, E5<melange>, E5<dk>, E7 and E9, a
+# warp per stream since, E3, one warp since, E4 and E1's cluster form,
+# eight threads per voice since, and E2's warp forms are not in the list)
 EARLIER_PTXAS = {
-    "E1": (255, 40, 0, 0),
+    "E1 thread": (255, 40, 0, 0),
     "E2<dk, circuit> thread": (255, 6912, 80, 136),
     "E2<melange, circuit> thread": (255, 7152, 128, 176),
-    "E2<dk, behavioral>": (255, 2880, 208, 212),
-    "E2<melange, behavioral>": (255, 3824, 120, 136)}
+    "E2<dk, behavioral> thread": (255, 2880, 208, 212),
+    "E2<melange, behavioral> thread": (255, 3824, 120, 136)}
 STAGE_NAMES = ("voices", "preamp twin", "tremolo", "power amp")
 
 
@@ -2883,11 +2969,12 @@ def batch_guards(ek, cp, st, vin, mono):
 
 
 def batch_phases(dev, card, launches, vb, mc):
-    """Phase 28: E1 (a block per engine) and E2 (a warp per engine) over
-    B distinct engines against their batched plain versions in all four
-    instantiations; each engine of a batch against its own Engine.render;
-    render_states' throughput from the broadcast chord. Adds its paths'
-    launch counts to `launches`; → the batched measurements."""
+    """Phase 28: E1 (a cluster of blocks per engine) and E2 (a warp per
+    engine) over B distinct engines against their batched plain versions
+    in all four instantiations; each engine of a batch against its own
+    Engine.render; render_states' throughput from the broadcast chord; the
+    thread forms above the crossovers. Adds its paths' launch counts to
+    `launches`; → the batched measurements."""
     from openwurli_tpu_torch import engine as pe
     from openwurli_tpu_torch.kernels import engine as ek
 
@@ -2955,6 +3042,13 @@ def batch_phases(dev, card, launches, vb, mc):
         "#2, noise, ramps, releases)"))
     forms = chain_forms(ek, wide_call, f"{b} distinct engines x {WIDE_N}")
     batch_guards(ek, kinds[0].params, wide, vin, mono)
+    # E1 per chunk of WIDE_N at 1, 5 and 128 of these engines, and its two
+    # forms on the 128
+    e1_chunk_us = {w: cuda_ms(lambda: ek.render_voices(
+        *[x[:w].clone() for x in wide[:4]], WIDE_N, kinds[0].fade_len, SR),
+        reps=3) * 1e3 for w in (1, 5, b)}
+    e1_forms = voices_forms(ek, (*wide[:4], WIDE_N, kinds[0].fade_len, SR),
+                            f"{b} distinct engines x {WIDE_N}")
     print("phase 28 (a) E1 and E2 over distinct engines bit-identical to "
           "their batched plain versions (output and state): "
           + "; ".join(f"{c['inputs']} kernel {c['ms']:.3f} ms plain "
@@ -2962,8 +3056,15 @@ def batch_phases(dev, card, launches, vb, mc):
           + f"; E2's two forms bit-identical on the {b} engines, A B B A: "
           f"thread {forms['thread_ms'][0]:.3f}, warp "
           + " / ".join(f"{t:.3f}" for t in forms["warp_ms"])
-          + f", thread {forms['thread_ms'][1]:.3f} ms"
-          f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
+          + f", thread {forms['thread_ms'][1]:.3f} ms; E1's two forms "
+          f"bit-identical on them, A B B A: thread "
+          f"{e1_forms['thread_ms'][0]:.3f}, lanes "
+          + " / ".join(f"{t:.3f}" for t in e1_forms["lanes_ms"])
+          + f", thread {e1_forms['thread_ms'][1]:.3f} ms; E1 per chunk of "
+          f"{WIDE_N} (us): " + ", ".join(f"{w} engine{'s' if w > 1 else ''} "
+                                         f"{v:.1f}"
+                                         for w, v in e1_chunk_us.items())
+          + f" [{card}] ({time.perf_counter() - t_p:.0f} s)", flush=True)
 
     # (b) each engine of an 8-engine batch against its own Engine.render,
     # 1024 samples in Engine.render's chunks (4 x 256)
@@ -3044,42 +3145,60 @@ def batch_phases(dev, card, launches, vb, mc):
 
     # (d) above the crossover: render_states at THREAD_WIDTH engines runs
     # E2's thread form, each broadcast row equal to the chord's one-engine
-    # (warp form) call on the same state, for both circuit instantiations
+    # (warp form) call on the same state, for every instantiation
     t_d = time.perf_counter()
     b = THREAD_WIDTH
-    check(b > ek.CHAIN_WARP_MAX_ENGINES, "THREAD_WIDTH above the crossover")
+    check(all(w is not None and b > w
+              for w in (*ek.CHAIN_WARP_MAX_ENGINES.values(),
+                        ek.VOICES_LANES_MAX_ENGINES)),
+          "THREAD_WIDTH above the crossovers")
     wide_rows = {}
     reset_counts(vb, mc)
-    for pre in ("dk", "melange"):
-        eng = pe.Engine(SR, device=dev, preamp_model=pre)
+    for pre, pa in (("dk", "circuit"), ("melange", "circuit"),
+                    ("dk", "behavioral"), ("melange", "behavioral")):
+        eng = pe.Engine(SR, device=dev, preamp_model=pre, pa_model=pa)
         for note in SWEEP_CHORD:
             eng.note_on(note, 0.95)
         one = pe.EngineState(*[x.clone() for x in eng.state])
         wide = pe.broadcast_state(eng.state, b)
+        if (pre, pa) == ("dk", "circuit"):
+            e1_wide = (wide, eng.fade_len)
         ms, out = host_ms(lambda: pe.render_states(eng, wide,
                                                    THREAD_WIDTH_N)[1])
         _, ref = pe.render_states(eng, one, THREAD_WIDTH_N)
         check(same_bits(out, ref.expand_as(out))
               and same_bits(wide.chain, one.chain.expand_as(wide.chain)),
-              f"{pre}: {b} engines (thread form) against one (warp form): "
-              f"{first_diff(out, ref.expand_as(out))}")
-        wide_rows[pre] = {"ms": ms, "aggregate_rtf":
-                          b * THREAD_WIDTH_N / SR / (ms / 1e3)}
+              f"<{pre}, {pa}>: {b} engines (thread form) against one (warp "
+              f"form): {first_diff(out, ref.expand_as(out))}")
+        wide_rows[pre, pa] = {"ms": ms, "aggregate_rtf":
+                              b * THREAD_WIDTH_N / SR / (ms / 1e3)}
     path = f"render_states, {b} engines x {THREAD_WIDTH_N} (thread form)"
     launches[path] = counts = read_counts(vb, mc)
-    check(counts["engine_chain_thread"] == 1
+    # E1's thread form alone at this width (after the path's counts)
+    e1_wide_ms = cuda_ms(lambda: ek.render_voices(
+        *[x.clone() for x in e1_wide[0][:4]], THREAD_WIDTH_N, e1_wide[1],
+        SR))
+    check(counts["engine_voices_thread"] == 4
+          and counts["engine_chain_thread"] == 1
           and counts["engine_chain_melange_circuit_thread"] == 1
+          and counts["engine_chain_dk_behavioral_thread"] == 1
+          and counts["engine_chain_melange_behavioral_thread"] == 1
           and counts["plain"] == 0, counts)
     print(f"phase 28 (d) render_states at {b} engines x {THREAD_WIDTH_N}, "
           f"above CHAIN_WARP_MAX_ENGINES = {ek.CHAIN_WARP_MAX_ENGINES}: "
-          + "; ".join(f"<{k}, circuit> {v['ms']:.1f} ms = "
+          + "; ".join(f"<{k[0]}, {k[1]}> {v['ms']:.1f} ms = "
                       f"{v['aggregate_rtf']:.1f}x realtime aggregate"
                       for k, v in wide_rows.items())
-          + f", every row bit-identical to the one-engine (warp form) "
+          + f"; E1's thread form alone {e1_wide_ms:.3f} ms"
+          f", every row bit-identical to the one-engine (warp form) "
           f"call; launches {counts} [{card}] ({time.perf_counter() - t_d:.0f}"
           f" s; {time.perf_counter() - t_p:.0f} s for phase 28)", flush=True)
     return {"E1": e1_cmp, "E2": e2_cmp, "E2_forms": forms,
-            "thread_width": wide_rows,
+            "E1_forms": e1_forms, "E1_thread_width_ms": e1_wide_ms,
+            "E1_us_per_chunk": {f"{w} engines x {WIDE_N}": v
+                                for w, v in e1_chunk_us.items()},
+            "thread_width": {f"{k[0]}, {k[1]}": v
+                             for k, v in wide_rows.items()},
             "batch_vs_one": {"engines": 8, "samples": 1024,
                              "batch_ms": batch_ms, "one_at_a_time_ms":
                              one_ms},
@@ -3142,18 +3261,23 @@ def main():
                           ("mono_chain_kernelILb0E", "K2"),
                           ("mono_chain_kernelILb1E", "K5"),
                           ("engine_voices_kernel", "E1"),
+                          ("engine_voices_thread_kernel", "E1 thread"),
                           ("engine_chain_kernelILi0ELi0E",
                            "E2<dk, circuit> thread"),
                           ("engine_chain_kernelILi1ELi0E",
                            "E2<melange, circuit> thread"),
-                          ("engine_chain_warp_kernelILi0E",
+                          ("engine_chain_warp_kernelILi0ELi0E",
                            "E2<dk, circuit> warp"),
-                          ("engine_chain_warp_kernelILi1E",
+                          ("engine_chain_warp_kernelILi1ELi0E",
                            "E2<melange, circuit> warp"),
+                          ("engine_chain_warp_kernelILi0ELi1E",
+                           "E2<dk, behavioral> warp"),
+                          ("engine_chain_warp_kernelILi1ELi1E",
+                           "E2<melange, behavioral> warp"),
                           ("engine_chain_kernelILi0ELi1E",
-                           "E2<dk, behavioral>"),
+                           "E2<dk, behavioral> thread"),
                           ("engine_chain_kernelILi1ELi1E",
-                           "E2<melange, behavioral>"),
+                           "E2<melange, behavioral> thread"),
                           ("tremolo_settle_kernel", "E3"),
                           ("voice_lanes_kernelILb0E", "E4"),
                           ("voice_lanes_kernelILb1E", "E4<tap>"),
@@ -4206,7 +4330,9 @@ def main():
     # the f64 engine's kernels: no Pallas kernel stands behind them
     for name, key, replaces, more in (
             ("engine_voices", "E1", "openwurli_tpu/engine.py:452",
-             {"us_per_chunk": eng_k["E1"]["us_per_chunk"]}),
+             {"us_per_chunk": eng_k["E1"]["us_per_chunk"],
+              "form": "a cluster of eight blocks per engine, eight threads "
+              "per slot", "ptxas": ptxas.get("E1")}),
             ("engine_chain", "E2", "openwurli_tpu/engine.py:452",
              {k: v for k, v in eng_k["E2"].items() if k != "cmp"}
              | {"form": "a warp per engine", "ptxas": ptxas.get(
@@ -4219,6 +4345,17 @@ def main():
             main["plain_ms"], main["bound"],
             compared=[{k: v for k, v in c.items() if k != "bound"}
                       | {"bound_ms": c["bound"][0]} for c in cmps], **more))
+    # E1's thread form (above VOICES_LANES_MAX_ENGINES engines), timed
+    # beside the cluster form on phase 28 (a)'s 128 engines
+    main = bat_k["E1"][-1]
+    kernels.append(entry(
+        "engine_voices_thread", "engine.cu", "openwurli_tpu/engine.py:452",
+        main["shape"], main["max_abs_err"], bat_k["E1_forms"]["thread_ms"][0],
+        main["plain_ms"], main["bound"], ptxas=ptxas.get("E1 thread"),
+        form="a block per engine, a thread per slot, above "
+        "VOICES_LANES_MAX_ENGINES", against_cluster_form=bat_k["E1_forms"],
+        main_path_ms={f"render_states {THREAD_WIDTH} engines x "
+                      f"{THREAD_WIDTH_N}": bat_k["E1_thread_width_ms"]}))
     e3 = eng_k["E3"]
     kernels.append(entry(
         "tremolo_settle", "engine.cu", "openwurli_tpu/circuits/tremolo.py:160",
@@ -4231,34 +4368,42 @@ def main():
                    ("melange", "behavioral")):
         cmps = [c for c in mod_k["E2"] if c["models"] == list(models)]
         main = cmps[-1]
-        circuit = models[1] == "circuit"
         kernels.append(entry(
             f"engine_chain_{models[0]}_{models[1]}", "engine.cu",
             "openwurli_tpu/engine.py:452", main["shape"],
             max(c["max_abs_err"] for c in cmps), main["ms"],
             main["plain_ms"], main["bound"], ptxas=ptxas.get(
-                f"E2<{models[0]}, {models[1]}>" + (" warp" if circuit
-                                                   else "")),
-            form="a warp per engine" if circuit else "a thread per engine",
+                f"E2<{models[0]}, {models[1]}> warp"),
+            form="a warp per engine",
+            against_thread_form=[f for f in mod_k["behavioral_forms"]
+                                 if f["models"] == list(models)],
             compared=[{k: v for k, v in c.items() if k != "bound"}
                       | {"bound_ms": c["bound"][0]} for c in cmps]))
-    # the circuit instantiations' thread form (above CHAIN_WARP_MAX_ENGINES
-    # engines), timed beside the warp form on a call that both ran
-    for name, pre, forms, main in (
-            ("engine_chain_thread", "dk", bat_k["E2_forms"], bat_k["E2"][-1]),
-            ("engine_chain_melange_circuit_thread", "melange",
-             mod_k["melange_forms"],
-             [c for c in mod_k["E2"] if c["models"] == [
-                 "melange", "circuit"]][-1])):
+    # the thread form (above CHAIN_WARP_MAX_ENGINES engines), timed beside
+    # the warp form on a call that both ran
+    for name, models, forms in (
+            ("engine_chain_thread", ("dk", "circuit"), bat_k["E2_forms"]),
+            ("engine_chain_melange_circuit_thread", ("melange", "circuit"),
+             mod_k["melange_forms"]),
+            # phase 23's last behavioral call (guard #2 midway), the call
+            # of the entry's main comparison
+            *((f"engine_chain_{pre}_behavioral_thread", (pre, "behavioral"),
+               [f for f in mod_k["behavioral_forms"]
+                if f["models"] == [pre, "behavioral"]][-1])
+              for pre in ("dk", "melange"))):
+        main = ([c for c in mod_k["E2"] if c["models"] == list(models)]
+                or [c for c in bat_k["E2"]
+                    if c["models"] == list(models)])[-1]
         kernels.append(entry(
             name, "engine.cu", "openwurli_tpu/engine.py:452", main["shape"],
             main["max_abs_err"], forms["thread_ms"][0], main["plain_ms"],
-            main["bound"], ptxas=ptxas.get(f"E2<{pre}, circuit> thread"),
+            main["bound"], ptxas=ptxas.get(f"E2<{models[0]}, {models[1]}> "
+                                           "thread"),
             form="a thread per engine, above CHAIN_WARP_MAX_ENGINES",
             against_warp_form=forms,
             main_path_ms={f"render_states {THREAD_WIDTH} engines x "
                           f"{THREAD_WIDTH_N}":
-                          bat_k["thread_width"][pre]["ms"]}))
+                          bat_k["thread_width"][", ".join(models)]["ms"]}))
     for name, key, replaces, form in (
             ("voice_render", "E4", "openwurli_tpu/voice.py:140",
              "eight threads per voice, four voices per warp"),
@@ -4337,6 +4482,7 @@ def main():
             k["batch_sweep_x2048"] = bat_k["sweep_x2048"]
         if k["name"] == "engine_voices":
             k["batched"] = batched(bat_k["E1"])
+            k["us_per_chunk_batched"] = bat_k["E1_us_per_chunk"]
         if k["name"].startswith("engine_chain") and \
                 not k["name"].endswith("_thread"):
             models = k["name"].split("_")[2:] or ["dk", "circuit"]

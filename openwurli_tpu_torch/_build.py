@@ -60,6 +60,8 @@ _SIGNATURES = {
     # vpar, vst, vsti, eng_i, mono, n, engines, fade_len, sample_rate,
     # stream
     "ow_engine_voices": (_P, _P, _P, _P, _P, _I, _I, _D, _D, _P),
+    # the same arguments: E1's thread form (a thread per slot)
+    "ow_engine_voices_thread": (_P, _P, _P, _P, _P, _I, _I, _D, _D, _P),
     # consts, n_consts, mono, chain, out, n, engines, rail_sag (bool per
     # engine), pre_model, pa_model, noise_scale (float64 per engine), warp
     # (1: a warp per engine, the circuit power amp only), stream

@@ -2,12 +2,14 @@
 // and of the offline render paths (openwurli_tpu_torch/kernels/render.py):
 //
 //   E1 engine_voices      the 64 main + 64 steal voice slots over one chunk,
-//                         of B engines (a block per engine)
+//                         of B engines: a cluster of eight blocks per
+//                         engine, eight threads per slot, up to the
+//                         wrapper's crossover, a thread per slot above
 //   E2 engine_chain       the mono chain over that chunk, of B engines, a
 //                         template over the preamp (DK or melange) and the
 //                         power amp (circuit or behavioral): a warp per
-//                         engine for the circuit power amp (up to the
-//                         wrapper's crossover), else a thread per engine
+//                         engine up to the wrapper's crossover, a thread
+//                         per engine above
 //   E3 tremolo_settle     the tremolo oscillator's step, n times, on one
 //                         warp
 //   E4 voice_render       G voices over n samples (voice.render), eight
@@ -44,9 +46,11 @@
 // the stage benchmark's tremolo and power-amp scans
 // (tools/stage_bench.py:82-83); none is a Pallas kernel.
 //
-// Bound: latency. A chunk is a serial recurrence: E1 advances each voice
-// slot by one thread (a block of 128 per engine), E4 each voice by eight
-// (its seven modes on threads, then its group's samples on threads), E8
+// Bound: latency. A chunk is a serial recurrence: E1 and E4 advance each
+// voice (slot) by eight threads (its seven modes on threads, then its
+// group's samples on threads; E1 a cluster of eight blocks per engine, and
+// a thread per slot above its crossover, where a full card's throughput
+// favours one thread per voice), E8
 // each circuit by one thread walking the data-dependent Newton solves
 // sample by sample. The bytes are a few
 // hundred per sample and the operations some 10^4-10^5 f64 per base
@@ -56,10 +60,10 @@
 // stream, settle or engine (mna_step_warp: the rows of every matvec, BJT,
 // Jacobian row, pivot update and junction limit on their own lanes, the
 // solver block staged in shared memory, no local memory in the solve);
-// E5<melange> and E2<melange, circuit> run the melange preamp's step on a
+// E5<melange> and E2<melange, *> run the melange preamp's step on a
 // warp too (melange_step_warp: the twins on the two half-warps, the ten
 // noise draws at once, the block staged in shared memory), and E5<dk>, E7
-// and E2<dk, circuit> the DK preamp's (dk_step_warp: the twins on the two
+// and E2<dk, *> the DK preamp's (dk_step_warp: the twins on the two
 // half-warps, each junction's exp on a lane of its own). E2 keeps a thread
 // per engine above the crossover, where a full card runs 32 engines per
 // warp. The design takes two exact savings: each Newton loop
@@ -75,16 +79,18 @@
 // threefry2x32 stream (integer, exact) through XLA's erfinv polynomial,
 // written op for op in prng.normal_f64.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int MAXV = 64;
 constexpr int SLOTS = 128;
 constexpr int NM = 7;
-constexpr int TILE = 32;  // samples per shared-memory output tile in E1
 
 // voice layouts (kernels/engine.py), rows × SLOTS
 enum VPar {
@@ -198,6 +204,11 @@ __device__ __forceinline__ void matvec(const double* a, const double* x,
 __device__ __forceinline__ long long lcg(long long s) {
   return (s * 1664525LL + 1013904223LL) & 0xFFFFFFFFLL;
 }
+
+// One voice on one thread: Voice, voice_load / voice_store and
+// voice_sample: E1's thread form (above the wrapper's crossover), and E4
+// as it ran before its lane redesign (tools/voice_breakdown.cu's
+// one-thread oracle); E4 and E1's cluster form run VoiceLanes below.
 
 // one voice's note-on constants and state (the vpar / vst / vsti rows)
 struct Voice {
@@ -389,82 +400,6 @@ __device__ __forceinline__ double voice_sample(Voice& v, double* reed_tap) {
   return (v.q * omy - 1.0) * 1.8375 * v.gain;
 }
 
-// E1: block b runs engine b's 128 slots, a thread per slot; the engine's
-// tensors are rows b of vpar (B, NPAR, SLOTS), vst, vsti, eng_i (B, ENG_I)
-// and mono (B, n).
-__global__ void __launch_bounds__(SLOTS, 1)
-engine_voices_kernel(const double* __restrict__ vpar, double* vst,
-                     long long* vsti, long long* eng_i, double* mono, int n,
-                     double fade_len, double sample_rate) {
-  __shared__ double tile[TILE][SLOTS];
-  __shared__ int bad_tile[TILE];
-  __shared__ unsigned long long fires;
-  const size_t e = blockIdx.x;
-  vpar += e * NPAR * SLOTS;
-  vst += e * NST * SLOTS;
-  vsti += e * NSTI * SLOTS;
-  eng_i += e * ENG_I;
-  mono += e * (size_t)n;
-  const int j = threadIdx.x;
-  const bool main_slot = j < MAXV;
-  Voice v;
-  voice_load(v, vpar, vst, vsti, SLOTS, j);
-  long long gate = eng_i[j];  // slot state (main) or steal fade (steal)
-  if (j == 0) fires = 0;
-
-  for (int t0 = 0; t0 < n; t0 += TILE) {
-    const int tn = min(TILE, n - t0);
-    if (j < TILE) bad_tile[j] = 0;
-    __syncthreads();
-    for (int tt = 0; tt < tn; ++tt) {
-      const double out = voice_sample<false>(v, nullptr);
-      // ── gates and NaN guard #1
-      double g;
-      bool bad;
-      if (main_slot) {
-        const double x = gate != 0 ? out : 0.0;
-        bad = !finite(x);
-        g = bad ? 0.0 : x;
-        if (bad) gate = 0;
-      } else {
-        const double gn = (double)gate / fade_len;
-        const double sv = gate > 0 ? out * gn : 0.0;
-        gate = gate - 1 > 0 ? gate - 1 : 0;
-        bad = !finite(sv);
-        g = bad ? 0.0 : sv;
-        if (bad) gate = 0;
-      }
-      tile[tt][j] = g;
-      if (bad) atomicOr(&bad_tile[tt], 1);
-    }
-    __syncthreads();
-    if (j < tn) {
-      double m = tile[j][0], st = tile[j][MAXV];
-      for (int k = 1; k < MAXV; ++k) {
-        m = m + tile[j][k];
-        st = st + tile[j][MAXV + k];
-      }
-      mono[t0 + j] = m + st;
-      if (bad_tile[j]) atomicAdd(&fires, 1ULL);
-    }
-    __syncthreads();
-  }
-
-  // chunk-end cleanup: a silent main voice goes FREE
-  if (main_slot && gate != 0) {
-    const double rel_s = v.dact ? v.dcount / sample_rate : 0.0;
-    bool silent = v.dact && rel_s > 10.0;
-    bool quiet = true;
-    for (int k = 0; k < NM; ++k)
-      quiet = quiet && fabs(v.amp[k] * v.env[k]) <= 1e-4;
-    if (silent || quiet) gate = 0;
-  }
-  voice_store(v, vst, vsti, SLOTS, j);
-  eng_i[j] = gate;
-  __syncthreads();
-  if (j == 0) eng_i[EI_FIRES] += (long long)fires;
-}
-
 // E4: eight threads per voice, four voices per warp (K1's design in f64).
 // out (n, G) time major; with TAP, reed (n, G) gets the reed's samples.
 //  * Modes on threads: thread m < 7 of a voice owns mode m (its s, c, env,
@@ -518,84 +453,95 @@ enum : int {
 };
 enum E4Part { E4P_MODES, E4P_SUM, E4P_TAIL, E4P_STORE, E4_PARTS };
 
-template <bool TAP, int VARIANT = 0>
-__global__ void __launch_bounds__(E4_MAX_BLOCK)
-voice_lanes_kernel(const double* __restrict__ vpar, double* vst,
-                   long long* vsti, double* out, double* reed, int g, int n,
-                   long long* parts) {
-  constexpr bool STAGED = VARIANT & E4_STAGED;
-  constexpr bool STAMPED = VARIANT & E4_STAMPED;
-  __shared__ E4Scratch scratch[E4_MAX_BLOCK / 32];
-  __shared__ double staged[STAGED ? (TAP ? 2 : 1) * E4_MAX_BLOCK : 1];
-  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
-  // A warp whose voices all lie past g has nothing to do.
-  if (!STAGED && (gt & ~31) / E4_TPV >= g) return;
-  const int lane = threadIdx.x & 31;
-  const int wv = lane / E4_TPV;  // the voice within the warp
-  const int k = lane % E4_TPV;   // mode k (7: padding); sample k
-  const int km = k < NM ? k : NM - 1;
-  const int j = gt / E4_TPV;     // the voice
-  const bool valid = j < g;
-  E4Scratch& w = scratch[threadIdx.x >> 5];
-  auto PAR = [&](int r) { return valid ? vpar[(size_t)r * g + j] : 0.0; };
-  auto ST = [&](int r) { return valid ? vst[(size_t)r * g + j] : 0.0; };
-  auto STI = [&](int r) { return valid ? vsti[(size_t)r * g + j] : 0LL; };
-
+// One voice on each of its eight threads (E4 and E1): thread k holds mode
+// km's constants and state (km = min(k, 6)) and the voice's own, which
+// advance alike on the eight threads.
+template <bool TAP>
+struct VoiceLanes {
   // mode km
-  const double cos_inc = PAR(P_COS + km), sin_inc = PAR(P_SIN + km),
-               phase_inc = PAR(P_PHASE + km), amp = PAR(P_AMP + km),
-               decay = PAR(P_DECAY + km);
-  const double drate = ST(S_DRATE + km), dmult = ST(S_DMULT + km);
-  double s = ST(S_S + km), c = ST(S_C + km), env = ST(S_ENV + km),
-         drift = ST(S_DRIFT + km);
-  const uint32_t jit_a = kJitterA[km], jit_c = kJitterC[km],
-                 jit_a7 = kJitterA[NM - 1], jit_c7 = kJitterC[NM - 1];
+  double cos_inc, sin_inc, phase_inc, amp, decay, drate, dmult;
+  double s, c, env, drift;
+  uint32_t jit_a, jit_c, jit_a7, jit_c7;
   // the voice
-  const double ramp_n = PAR(P_RAMP_N), ramp_inc = PAR(P_RAMP_INC),
-               shape = PAR(P_SHAPE), revert = PAR(P_REVERT),
-               diffusion = PAR(P_DIFF), beta = PAR(P_BETA), ds = PAR(P_DS);
-  const double dramp = ST(S_DRAMP);
-  const bool dact = STI(I_DACT) != 0;
-  double dcount = ST(S_DCOUNT), q = ST(S_Q);
-  long long jst = STI(I_JST), nn = STI(I_N);
-  bool ddone = STI(I_DDONE) != 0;
-  // the attack noise and the post-pickup gain (E4 only)
-  double ndecay = 0.0, b0 = 0.0, b1 = 0.0, b2 = 0.0, a1 = 0.0, a2 = 0.0,
-         gain = 0.0, namp = 0.0, z1 = 0.0, z2 = 0.0;
-  long long nrem = 0, nfade = 0, nrng = 0;
-  if constexpr (!TAP) {
-    ndecay = PAR(P_NDECAY);
-    b0 = PAR(P_BPF);
-    b1 = PAR(P_BPF + 1);
-    b2 = PAR(P_BPF + 2);
-    a1 = PAR(P_BPF + 3);
-    a2 = PAR(P_BPF + 4);
-    gain = PAR(P_GAIN);
-    namp = ST(S_NAMP);
-    z1 = ST(S_Z1);
-    z2 = ST(S_Z2);
-    nrem = STI(I_NREM);
-    nfade = STI(I_NFADE);
-    nrng = STI(I_NRNG);
+  double ramp_n, ramp_inc, shape, revert, diffusion, beta, ds, dramp;
+  bool dact;
+  double dcount, q;
+  long long jst, nn;
+  bool ddone;
+  // the attack noise and the post-pickup gain (not with TAP)
+  double ndecay, b0, b1, b2, a1, a2, gain, namp, z1, z2;
+  long long nrem, nfade, nrng;
+
+  // voice j's column of the packed rows, `stride` columns per row; a
+  // thread of no voice (valid false) loads zeros
+  __device__ __forceinline__ void load(const double* vpar, const double* vst,
+                                       const long long* vsti, size_t stride,
+                                       int j, bool valid, int km) {
+    auto PAR = [&](int r) { return valid ? vpar[(size_t)r * stride + j] : 0.0; };
+    auto ST = [&](int r) { return valid ? vst[(size_t)r * stride + j] : 0.0; };
+    auto STI = [&](int r) { return valid ? vsti[(size_t)r * stride + j] : 0LL; };
+    cos_inc = PAR(P_COS + km);
+    sin_inc = PAR(P_SIN + km);
+    phase_inc = PAR(P_PHASE + km);
+    amp = PAR(P_AMP + km);
+    decay = PAR(P_DECAY + km);
+    drate = ST(S_DRATE + km);
+    dmult = ST(S_DMULT + km);
+    s = ST(S_S + km);
+    c = ST(S_C + km);
+    env = ST(S_ENV + km);
+    drift = ST(S_DRIFT + km);
+    jit_a = kJitterA[km];
+    jit_c = kJitterC[km];
+    jit_a7 = kJitterA[NM - 1];
+    jit_c7 = kJitterC[NM - 1];
+    ramp_n = PAR(P_RAMP_N);
+    ramp_inc = PAR(P_RAMP_INC);
+    shape = PAR(P_SHAPE);
+    revert = PAR(P_REVERT);
+    diffusion = PAR(P_DIFF);
+    beta = PAR(P_BETA);
+    ds = PAR(P_DS);
+    dramp = ST(S_DRAMP);
+    dact = STI(I_DACT) != 0;
+    dcount = ST(S_DCOUNT);
+    q = ST(S_Q);
+    jst = STI(I_JST);
+    nn = STI(I_N);
+    ddone = STI(I_DDONE) != 0;
+    ndecay = b0 = b1 = b2 = a1 = a2 = gain = namp = z1 = z2 = 0.0;
+    nrem = nfade = nrng = 0;
+    if constexpr (!TAP) {
+      ndecay = PAR(P_NDECAY);
+      b0 = PAR(P_BPF);
+      b1 = PAR(P_BPF + 1);
+      b2 = PAR(P_BPF + 2);
+      a1 = PAR(P_BPF + 3);
+      a2 = PAR(P_BPF + 4);
+      gain = PAR(P_GAIN);
+      namp = ST(S_NAMP);
+      z1 = ST(S_Z1);
+      z2 = ST(S_Z2);
+      nrem = STI(I_NREM);
+      nfade = STI(I_NFADE);
+      nrng = STI(I_NRNG);
+    }
   }
 
-  long long acc[E4_PARTS] = {0, 0, 0, 0};
-  long long t_clk = 0;
-  auto stamp = [&](int part) {
-    if constexpr (STAMPED) {
-      const long long now = clock64();
-      acc[part] += now - t_clk;
-      t_clk = now;
-    }
-  };
-  if constexpr (STAMPED) t_clk = clock64();
-
-  double* const share_row = w.share + wv * E4_VOICE + k * E4_ROW;
-  double* const env_row = w.env + wv * E4_VOICE + k * E4_ROW;
-  const double* const share_col = w.share + wv * E4_VOICE + k;
-  const double* const env_col = w.env + wv * E4_VOICE + k;
-  for (int t0 = 0; t0 < n; t0 += E4_GROUP) {
-    const int cnt = min(E4_GROUP, n - t0);
+  // one group of cnt <= E4_GROUP samples, on thread k = lane % 8 of the
+  // warp's voice lane / 8, w the warp's scratch; → sample k's output (the
+  // post-pickup gain applied, unless TAP) and its reed output in
+  // *reed_out. stamp(part) closes a part's time (E4_STAMPED).
+  template <class Stamp>
+  __device__ __forceinline__ double group(E4Scratch& w, int lane, int cnt,
+                                          bool valid, double* reed_out,
+                                          Stamp&& stamp) {
+    const int wv = lane / E4_TPV;  // the voice within the warp
+    const int k = lane % E4_TPV;   // mode k (7: padding); sample k
+    double* const share_row = w.share + wv * E4_VOICE + k * E4_ROW;
+    double* const env_row = w.env + wv * E4_VOICE + k * E4_ROW;
+    const double* const share_col = w.share + wv * E4_VOICE + k;
+    const double* const env_col = w.env + wv * E4_VOICE + k;
     const bool mine = valid && k < cnt;  // sample k is this group's
     // ── sample k's onset and (E4) its noise fade, ahead of the modes
     const long long nk = nn + k;
@@ -669,16 +615,17 @@ voice_lanes_kernel(const double* __restrict__ vpar, double* vst,
     stamp(E4P_MODES);
 
     // ── samples on threads: sample k's reed output, modes in index order
-    double reed_out = share_col[0] * onset * env_col[0];
+    double reed = share_col[0] * onset * env_col[0];
 #pragma unroll
     for (int m = 1; m < NM; ++m)
-      reed_out = reed_out + share_col[m * E4_ROW] * onset * env_col[m * E4_ROW];
+      reed = reed + share_col[m * E4_ROW] * onset * env_col[m * E4_ROW];
+    *reed_out = reed;
     stamp(E4P_SUM);
 
     // ── the attack noise, serial over the group on every thread
     double yy;
     if constexpr (TAP) {
-      yy = reed_out * ds;
+      yy = reed * ds;
     } else {
       double noise_out = 0.0;
       if (__any_sync(FULL, valid && nrem > 0)) {
@@ -705,7 +652,7 @@ voice_lanes_kernel(const double* __restrict__ vpar, double* vst,
           }
         }
       }
-      yy = (reed_out + noise_out) * ds;
+      yy = (reed + noise_out) * ds;
     }
     // ── the pickup: sample k's saturation and charge factors, then the
     // charge recurrence over the group on every thread
@@ -729,6 +676,76 @@ voice_lanes_kernel(const double* __restrict__ vpar, double* vst,
     double y_out = (q_k * omy - 1.0) * 1.8375;
     if constexpr (!TAP) y_out = y_out * gain;
     stamp(E4P_TAIL);
+    return y_out;
+  }
+
+  // the state rows a group moves, into voice j's column: the mode rows
+  // from their threads (k < 7), the voice's from thread 7
+  __device__ __forceinline__ void store(double* vst, long long* vsti,
+                                        size_t stride, int j, int k) const {
+#define STW(r) vst[(size_t)(r) * stride + j]
+#define STIW(r) vsti[(size_t)(r) * stride + j]
+    if (k < NM) {
+      STW(S_S + k) = s;
+      STW(S_C + k) = c;
+      STW(S_ENV + k) = env;
+      STW(S_DRIFT + k) = drift;
+    } else {
+      STW(S_DCOUNT) = dcount;
+      STW(S_Q) = q;
+      STIW(I_JST) = jst;
+      STIW(I_N) = nn;
+      STIW(I_DDONE) = ddone ? 1 : 0;
+      if constexpr (!TAP) {
+        STW(S_NAMP) = namp;
+        STW(S_Z1) = z1;
+        STW(S_Z2) = z2;
+        STIW(I_NREM) = nrem;
+        STIW(I_NFADE) = nfade;
+        STIW(I_NRNG) = nrng;
+      }
+    }
+#undef STW
+#undef STIW
+  }
+};
+
+template <bool TAP, int VARIANT = 0>
+__global__ void __launch_bounds__(E4_MAX_BLOCK)
+voice_lanes_kernel(const double* __restrict__ vpar, double* vst,
+                   long long* vsti, double* out, double* reed, int g, int n,
+                   long long* parts) {
+  constexpr bool STAGED = VARIANT & E4_STAGED;
+  constexpr bool STAMPED = VARIANT & E4_STAMPED;
+  __shared__ E4Scratch scratch[E4_MAX_BLOCK / 32];
+  __shared__ double staged[STAGED ? (TAP ? 2 : 1) * E4_MAX_BLOCK : 1];
+  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
+  // A warp whose voices all lie past g has nothing to do.
+  if (!STAGED && (gt & ~31) / E4_TPV >= g) return;
+  const int lane = threadIdx.x & 31;
+  const int k = lane % E4_TPV;   // mode k (7: padding); sample k
+  const int j = gt / E4_TPV;     // the voice
+  const bool valid = j < g;
+  E4Scratch& w = scratch[threadIdx.x >> 5];
+  VoiceLanes<TAP> v;
+  v.load(vpar, vst, vsti, g, j, valid, k < NM ? k : NM - 1);
+
+  long long acc[E4_PARTS] = {0, 0, 0, 0};
+  long long t_clk = 0;
+  auto stamp = [&](int part) {
+    if constexpr (STAMPED) {
+      const long long now = clock64();
+      acc[part] += now - t_clk;
+      t_clk = now;
+    }
+  };
+  if constexpr (STAMPED) t_clk = clock64();
+
+  for (int t0 = 0; t0 < n; t0 += E4_GROUP) {
+    const int cnt = min(E4_GROUP, n - t0);
+    const bool mine = valid && k < cnt;  // sample k is this group's
+    double reed_out;
+    const double y_out = v.group(w, lane, cnt, valid, &reed_out, stamp);
 
     // ── stores: sample k of voice j
     if constexpr (STAGED) {
@@ -756,30 +773,7 @@ voice_lanes_kernel(const double* __restrict__ vpar, double* vst,
   }
 
   if (!valid) return;
-#define STW(r) vst[(size_t)(r) * g + j]
-#define STIW(r) vsti[(size_t)(r) * g + j]
-  if (k < NM) {
-    STW(S_S + k) = s;
-    STW(S_C + k) = c;
-    STW(S_ENV + k) = env;
-    STW(S_DRIFT + k) = drift;
-  } else {
-    STW(S_DCOUNT) = dcount;
-    STW(S_Q) = q;
-    STIW(I_JST) = jst;
-    STIW(I_N) = nn;
-    STIW(I_DDONE) = ddone ? 1 : 0;
-    if constexpr (!TAP) {
-      STW(S_NAMP) = namp;
-      STW(S_Z1) = z1;
-      STW(S_Z2) = z2;
-      STIW(I_NREM) = nrem;
-      STIW(I_NFADE) = nfade;
-      STIW(I_NRNG) = nrng;
-    }
-  }
-#undef STW
-#undef STIW
+  v.store(vst, vsti, g, j, k);
   if constexpr (STAMPED)
     if (k == 0)
       for (int p = 0; p < E4_PARTS; ++p) parts[(size_t)p * g + j] = acc[p];
@@ -800,6 +794,225 @@ int launch_voice_lanes(const double* vpar, double* vst, long long* vsti,
   const int t = warps * 32 < block ? warps * 32 : block;
   voice_lanes_kernel<TAP, VARIANT><<<(threads + t - 1) / t, t, 0, stream>>>(
       vpar, vst, vsti, out, reed, g, n, parts);
+  return (int)cudaGetLastError();
+}
+
+// E1's cluster form, up to the wrapper's crossover (kernels/engine.py
+// VOICES_LANES_MAX_ENGINES): a cluster of E1_CLUSTER blocks per engine,
+// eight threads per voice slot (E4's lanes and group body,
+// VoiceLanes<false>), 16 slots to a block of 128 threads: block r of
+// engine b's cluster runs slots 16r .. 16r + 15 (ranks 0-3 the main
+// slots, 4-7 the steal slots); the engine's tensors
+// are rows b of vpar (B, NPAR, SLOTS), vst, vsti, eng_i (B, ENG_I) and mono
+// (B, n). Per 8-sample group, after E4's body:
+//  * the gates and NaN guard #1 on the slot's eight threads, sample k on
+//    thread k: a main slot passes its output while its gate is set, a
+//    steal slot its output times its fade (gate − k) / fade_len while that
+//    is positive; the first sample that is not finite is bad, found by a
+//    ballot over the slot's threads, and ends the slot's gate; it and
+//    every later sample of the group pass 0;
+//  * each gated sample into the leader block's tile (distributed shared
+//    memory), a flag per sample where any slot was bad;
+//  * one cluster barrier, then on the leader's first eight threads the
+//    slot sum of sample k in index order, mono = (main slots 0..63) +
+//    (steal slots 64..127), and the fires. The tile is double buffered,
+//    so a group's writes never meet the sum of the group before.
+// The chunk-end cleanup's `quiet` is a vote over the slot's mode threads.
+// Every multiply, add and select is the thread form's, so mono, the slot
+// states and the fire count are its bits.
+constexpr int E1_CLUSTER = 8;                    // blocks per engine
+constexpr int E1_SLOTS = SLOTS / E1_CLUSTER;     // slots per block
+constexpr int E1_BLOCK = E1_SLOTS * E4_TPV;      // threads per block
+static_assert(MAXV % E1_SLOTS == 0, "a block's slots all main or all steal");
+// the leader's tile: per buffer, the group's samples of every slot, and
+// whether any slot was bad in each sample
+struct E1Tile {
+  double g[2][E4_GROUP][SLOTS];
+  int bad[2][E4_GROUP];
+};
+// Knock-outs for tools/voice_breakdown.cu, timed only (not exact); the
+// library builds VARIANT = 0.
+enum : int {
+  E1_NO_SUM = 1,      // the leader sums nothing: mono is not written
+  E1_NO_CLUSTER = 2   // no tile, no cluster barrier, no sum: blocks alone
+};
+
+template <int VARIANT = 0>
+__global__ void __cluster_dims__(E1_CLUSTER, 1, 1) __launch_bounds__(E1_BLOCK)
+engine_voices_kernel(const double* __restrict__ vpar, double* vst,
+                     long long* vsti, long long* eng_i, double* mono, int n,
+                     double fade_len, double sample_rate) {
+  constexpr bool CLUSTER = !(VARIANT & E1_NO_CLUSTER);
+  constexpr bool SUM = CLUSTER && !(VARIANT & E1_NO_SUM);
+  __shared__ E4Scratch scratch[E1_BLOCK / 32];
+  __shared__ E1Tile tile;  // the leader's serves the cluster
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const size_t e = blockIdx.x / E1_CLUSTER;
+  vpar += e * NPAR * SLOTS;
+  vst += e * NST * SLOTS;
+  vsti += e * NSTI * SLOTS;
+  eng_i += e * ENG_I;
+  mono += e * (size_t)n;
+  const int lane = threadIdx.x & 31;
+  const int k = lane % E4_TPV;  // mode k (7: padding); sample k
+  const int j = rank * E1_SLOTS + (int)threadIdx.x / E4_TPV;  // the slot
+  const bool main_slot = j < MAXV;
+  const unsigned slot_bits = 0xffu << (lane & ~7);
+  E4Scratch& w = scratch[threadIdx.x >> 5];
+  VoiceLanes<false> v;
+  v.load(vpar, vst, vsti, SLOTS, j, true, k < NM ? k : NM - 1);
+  long long gate = eng_i[j];  // slot state (main) or steal fade (steal)
+  E1Tile* const lead = cluster.map_shared_rank(&tile, 0);
+  if (rank == 0 && threadIdx.x < 2 * E4_GROUP)
+    tile.bad[threadIdx.x / E4_GROUP][threadIdx.x % E4_GROUP] = 0;
+  long long fires = 0;  // the leader's first eight threads
+  if constexpr (CLUSTER) cluster.sync();  // every block runs, flags clear
+
+  for (int t0 = 0, buf = 0; t0 < n; t0 += E4_GROUP, buf ^= 1) {
+    const int cnt = min(E4_GROUP, n - t0);
+    double reed_out;
+    const double out = v.group(w, lane, cnt, true, &reed_out, [](int) {});
+    // ── gates and NaN guard #1: sample k's gated value, the first bad
+    // sample of the slot's group
+    const long long gk = gate - k;  // a steal slot's fade before sample k
+    const double x = main_slot ? (gate != 0 ? out : 0.0)
+                               : (gk > 0 ? out * ((double)gk / fade_len)
+                                         : 0.0);
+    const unsigned bad = (__ballot_sync(FULL, k < cnt && !finite(x))
+                          & slot_bits) >> (lane & ~7);
+    const int first = bad ? __ffs((int)bad) - 1 : E4_GROUP;
+    if constexpr (CLUSTER) {
+      if (k < cnt) lead->g[buf][k][j] = k < first ? x : 0.0;
+      if (k == first) lead->bad[buf][k] = 1;
+    }
+    if (first < E4_GROUP) gate = 0;
+    else if (!main_slot) gate = gate - cnt > 0 ? gate - cnt : 0;
+    if constexpr (CLUSTER) cluster.sync();
+    // ── the slot sum of sample k in index order, on the leader
+    if (SUM && rank == 0 && (int)threadIdx.x < cnt) {
+      const double* gt = tile.g[buf][threadIdx.x];
+      double m = gt[0], st = gt[MAXV];
+      for (int s = 1; s < MAXV; ++s) {
+        m = m + gt[s];
+        st = st + gt[MAXV + s];
+      }
+      mono[t0 + threadIdx.x] = m + st;
+      fires += tile.bad[buf][threadIdx.x] != 0;
+      tile.bad[buf][threadIdx.x] = 0;
+    }
+  }
+
+  // chunk-end cleanup: a silent main voice goes FREE (quiet: every mode's
+  // |amp·env| small, a vote over the mode threads; thread 7 repeats mode 6)
+  const bool small = fabs(v.amp * v.env) <= 1e-4;
+  const bool quiet = (__ballot_sync(FULL, small) & slot_bits) == slot_bits;
+  if (main_slot && gate != 0) {
+    const double rel_s = v.dact ? v.dcount / sample_rate : 0.0;
+    const bool silent = v.dact && rel_s > 10.0;
+    if (silent || quiet) gate = 0;
+  }
+  v.store(vst, vsti, SLOTS, j, k);
+  if (k == 0) eng_i[j] = gate;
+  if (rank == 0 && threadIdx.x < 32) {
+    long long total = fires;
+    for (int i = 1; i < E4_GROUP; ++i) total += __shfl_sync(FULL, fires, i);
+    if (threadIdx.x == 0) eng_i[EI_FIRES] += total;
+  }
+}
+
+// E1's thread form, above the wrapper's crossover (kernels/engine.py
+// VOICES_LANES_MAX_ENGINES): block b runs engine b's 128 slots, a thread
+// per slot (voice_sample), the gates sample by sample and the slot sum
+// through a shared tile of E1_TILE samples. On a full card its 128
+// voices per block (two blocks per SM at 255 registers) render more
+// engine-samples per second than the cluster form's eight threads per
+// voice, whose serial tail runs on every thread.
+constexpr int E1_TILE = 32;
+
+__global__ void __launch_bounds__(SLOTS, 1)
+engine_voices_thread_kernel(const double* __restrict__ vpar, double* vst,
+                            long long* vsti, long long* eng_i, double* mono,
+                            int n, double fade_len, double sample_rate) {
+  __shared__ double tile[E1_TILE][SLOTS];
+  __shared__ int bad_tile[E1_TILE];
+  __shared__ unsigned long long fires;
+  const size_t e = blockIdx.x;
+  vpar += e * NPAR * SLOTS;
+  vst += e * NST * SLOTS;
+  vsti += e * NSTI * SLOTS;
+  eng_i += e * ENG_I;
+  mono += e * (size_t)n;
+  const int j = threadIdx.x;
+  const bool main_slot = j < MAXV;
+  Voice v;
+  voice_load(v, vpar, vst, vsti, SLOTS, j);
+  long long gate = eng_i[j];  // slot state (main) or steal fade (steal)
+  if (j == 0) fires = 0;
+
+  for (int t0 = 0; t0 < n; t0 += E1_TILE) {
+    const int tn = min(E1_TILE, n - t0);
+    if (j < E1_TILE) bad_tile[j] = 0;
+    __syncthreads();
+    for (int tt = 0; tt < tn; ++tt) {
+      const double out = voice_sample<false>(v, nullptr);
+      // ── gates and NaN guard #1
+      double g;
+      bool bad;
+      if (main_slot) {
+        const double x = gate != 0 ? out : 0.0;
+        bad = !finite(x);
+        g = bad ? 0.0 : x;
+        if (bad) gate = 0;
+      } else {
+        const double gn = (double)gate / fade_len;
+        const double sv = gate > 0 ? out * gn : 0.0;
+        gate = gate - 1 > 0 ? gate - 1 : 0;
+        bad = !finite(sv);
+        g = bad ? 0.0 : sv;
+        if (bad) gate = 0;
+      }
+      tile[tt][j] = g;
+      if (bad) atomicOr(&bad_tile[tt], 1);
+    }
+    __syncthreads();
+    if (j < tn) {
+      double m = tile[j][0], st = tile[j][MAXV];
+      for (int k = 1; k < MAXV; ++k) {
+        m = m + tile[j][k];
+        st = st + tile[j][MAXV + k];
+      }
+      mono[t0 + j] = m + st;
+      if (bad_tile[j]) atomicAdd(&fires, 1ULL);
+    }
+    __syncthreads();
+  }
+
+  // chunk-end cleanup: a silent main voice goes FREE
+  if (main_slot && gate != 0) {
+    const double rel_s = v.dact ? v.dcount / sample_rate : 0.0;
+    bool silent = v.dact && rel_s > 10.0;
+    bool quiet = true;
+    for (int k = 0; k < NM; ++k)
+      quiet = quiet && fabs(v.amp[k] * v.env[k]) <= 1e-4;
+    if (silent || quiet) gate = 0;
+  }
+  voice_store(v, vst, vsti, SLOTS, j);
+  eng_i[j] = gate;
+  __syncthreads();
+  if (j == 0) eng_i[EI_FIRES] += (long long)fires;
+}
+
+// E1's launch: a cluster of E1_CLUSTER blocks per engine
+template <int VARIANT = 0>
+int launch_engine_voices(const double* vpar, double* vst, long long* vsti,
+                         long long* eng_i, double* mono, int n, int b,
+                         double fade_len, double sample_rate,
+                         cudaStream_t stream) {
+  if (n < 0 || b < 0 || b > (1 << 27)) return (int)cudaErrorInvalidValue;
+  if (b == 0) return 0;
+  engine_voices_kernel<VARIANT><<<b * E1_CLUSTER, E1_BLOCK, 0, stream>>>(
+      vpar, vst, vsti, eng_i, mono, n, fade_len, sample_rate);
   return (int)cudaGetLastError();
 }
 
@@ -2524,9 +2737,9 @@ __device__ __noinline__ double chain_sample(const double* c, double* ch, double 
   return out;
 }
 
-// E2's thread form: a thread per engine, blocks of E2_BLOCK (the
-// behavioral instantiations, and the circuit ones above the wrapper's
-// crossover, kernels/engine.py CHAIN_WARP_MAX_ENGINES). Thread e runs
+// E2's thread form: a thread per engine, blocks of E2_BLOCK, above the
+// wrapper's crossover (kernels/engine.py CHAIN_WARP_MAX_ENGINES, one per
+// power-amp model). Thread e runs
 // engine e's chain: row e of chain (B, CHAIN_ROWS), mono (B, n) and out (B, n), its
 // own flags sag[e] and noise_scale[e], its own speaker coefficients; the
 // constants are shared. Each row is one thread's alone, so the layout is
@@ -2562,14 +2775,17 @@ __global__ void engine_chain_kernel(const double* __restrict__ c,
     chain[(size_t)e * CHAIN_ROWS + k] = ch[k];
 }
 
-// E2 for the circuit power amp: a warp per engine. Lane 0 runs what has
-// no parallel rows: the smoothers, the oversampler's allpass branches, the
-// speaker and guard #2's test, on the chain rows it holds in `ch`. The
-// whole warp runs the tremolo's and the power amp's mna steps
-// (mna_step_warp) and the preamp's step (dk_step_warp or
-// melange_step_warp), their constant blocks staged in shared memory per
-// block, and guard #2's reset of their rows; the preamp's input goes from
-// lane 0 to the warp by __shfl_sync. Every value and branch is the thread
+// E2's warp form: a warp per engine. Lane 0 runs what has no parallel
+// rows: the smoothers, the oversampler's allpass branches, the speaker and
+// guard #2's test, on the chain rows it holds in `ch`. The whole warp runs
+// the tremolo's mna step (mna_step_warp), the preamp's step (dk_step_warp
+// or melange_step_warp) and, for the circuit power amp, its mna step, their
+// constant blocks staged in shared memory per block, and guard #2's reset
+// of their rows; the preamp's input goes from lane 0 to the warp by
+// __shfl_sync. The behavioral power amp is memoryless and scalar:
+// behavioral() runs on every lane with the same input, its rows stay in
+// lane 0's `ch` (guard #2 resets them there, as the thread form does), and
+// no power-amp block is staged. Every value and branch is the thread
 // kernel's, so the two forms agree bit for bit.
 constexpr int E2_WARPS = 4;  // engines (warps) per block
 
@@ -2584,19 +2800,36 @@ template <> struct PreWarpOf<PRE_MELANGE> {
 };
 template <int PRE> using PreWarp = typename PreWarpOf<PRE>::T;
 
+// a warp's power-amp rows: PaWarp for the circuit; none for the
+// behavioral power amp, which is memoryless (its rows stay in lane 0's
+// `ch`, where only guard #2 writes them)
+struct NoPa {};
+template <int PA> struct PaWarpOf { using T = PaWarp; };
+template <> struct PaWarpOf<PA_BEHAVIORAL> { using T = NoPa; };
+template <int PA> using PaWarpT = typename PaWarpOf<PA>::T;
+
 // the chain rows that the warp's states hold, not lane 0's `ch`
-template <int PRE>
+template <int PRE, int PA>
 __device__ __forceinline__ bool warp_row(int k) {
   return (k >= CH_TREM_V && k <= CH_TREM_RLDR) ||
-         (k >= CH_PA_V && k <= CH_PA_LAST) ||
+         (PA == PA_CIRCUIT && k >= CH_PA_V && k <= CH_PA_LAST) ||
          (PRE == PRE_MELANGE ? k >= CH_MEL_V
                              : k >= CH_PRE_V && k <= CH_PRE_GPREV);
 }
 
-// pre and s_pre: the preamp's rows and staged block; u lane 0's input
-template <int PRE>
+// Where the behavioral warp form runs behavioral(): on every lane with
+// the same input (1, the library) or on lane 0 alone (0); the bits are the
+// same, tools/torch_chain_breakdown.py times the two
+#ifndef OW_BEHAVIORAL_ALL_LANES
+#define OW_BEHAVIORAL_ALL_LANES 1
+#endif
+
+// pre and s_pre: the preamp's rows and staged block; u lane 0's input;
+// → the power amp's output (on every lane; with OW_BEHAVIORAL_ALL_LANES
+// 0, the behavioral one on lane 0 alone)
+template <int PRE, int PA>
 __device__ __forceinline__ double nonlinear_step_warp(
-    const double* misc, TremWarp& tr, PaWarp& pa, PreWarp<PRE>& pre,
+    const double* misc, TremWarp& tr, PaWarpT<PA>& pa, PreWarp<PRE>& pre,
     const double* s_trem, const double* s_pa, const double* s_pre,
     WarpScratch* w, double depth, double u, bool sag, double noise_scale) {
   const double shunt = tremolo_step_warp(s_trem, misc, tr, depth, w);
@@ -2608,13 +2841,19 @@ __device__ __forceinline__ double nonlinear_step_warp(
   else
     y = melange_step_warp(s_pre, pre, g, x, noise_scale, w);
   const double drive = 0.25;  // tables.FIXED_CIRCUIT_DRIVE
-  return power_amp_step_warp(s_pa, misc, pa, y * drive, sag, w);
+  if constexpr (PA == PA_CIRCUIT) {
+    return power_amp_step_warp(s_pa, misc, pa, y * drive, sag, w);
+  } else {
+    if (OW_BEHAVIORAL_ALL_LANES || (threadIdx.x & 31) == 0)
+      return behavioral(y * drive);
+    return 0.0;
+  }
 }
 
 // chain_sample on a warp; → the output on lane 0
-template <int PRE>
+template <int PRE, int PA>
 __device__ __noinline__ double chain_sample_warp(
-    const double* c, double* ch, TremWarp& tr, PaWarp& pa,
+    const double* c, double* ch, TremWarp& tr, PaWarpT<PA>& pa,
     PreWarp<PRE>& pre, const double* s_trem, const double* s_pa,
     const double* s_pre, WarpScratch* w, double mono, bool sag,
     double noise_scale, double* last_char, Speaker* spk_k) {
@@ -2636,9 +2875,9 @@ __device__ __noinline__ double chain_sample_warp(
     }
 #pragma unroll 1
     for (int h = 0; h < 2; ++h)
-      y[h] = nonlinear_step_warp<PRE>(misc, tr, pa, pre, s_trem, s_pa,
-                                      s_pre, w, depth, us[h], sag,
-                                      noise_scale);
+      y[h] = nonlinear_step_warp<PRE, PA>(misc, tr, pa, pre, s_trem, s_pa,
+                                          s_pre, w, depth, us[h], sag,
+                                          noise_scale);
     if (lane == 0) {
       const double a = branch_step(kBranchA, ch + CH_OS_DOWN_A, y[0]);
       const double b = branch_step(kBranchB, ch + CH_OS_DOWN_B, y[1]);
@@ -2646,9 +2885,9 @@ __device__ __noinline__ double chain_sample_warp(
       ch[CH_OS_DELAY] = b;
     }
   } else {
-    amp_out = nonlinear_step_warp<PRE>(misc, tr, pa, pre, s_trem, s_pa,
-                                       s_pre, w, depth, mono, sag,
-                                       noise_scale);
+    amp_out = nonlinear_step_warp<PRE, PA>(misc, tr, pa, pre, s_trem, s_pa,
+                                           s_pre, w, depth, mono, sag,
+                                           noise_scale);
   }
   double out = 0.0;
   int bad = 0;
@@ -2662,10 +2901,12 @@ __device__ __noinline__ double chain_sample_warp(
     out = y * misc[M_POST_GAIN] * vol;
     bad = !finite(out);
     if (bad) {
-      // NaN guard #2: the oversampler and speaker here; the preamp (the
-      // melange one's noise key and draws included) and the power amp
-      // below
+      // NaN guard #2: the oversampler and speaker here (and the
+      // behavioral power amp's rows, as the thread form resets them); the
+      // preamp (the melange one's noise key and draws included) and the
+      // circuit power amp below
       for (int k = 0; k < OS_ROWS; ++k) ch[CH_OS_UP_A + k] = 0.0;
+      if constexpr (PA == PA_BEHAVIORAL) init_power_amp(c + C_PA, ch);
       for (int k = 0; k < 5; ++k) spk[k] = 0.0;
       out = 0.0;
     }
@@ -2675,23 +2916,25 @@ __device__ __noinline__ double chain_sample_warp(
       init_dk_warp(s_pre, pre, lane);
     else
       init_melange_warp(s_pre, pre, lane);
-    init_power_amp_warp(s_pa, pa, lane);
+    if constexpr (PA == PA_CIRCUIT) init_power_amp_warp(s_pa, pa, lane);
   }
   return out;
 }
 
-template <int PRE>
+template <int PRE, int PA>
 __global__ void __launch_bounds__(E2_WARPS * 32)
 engine_chain_warp_kernel(const double* __restrict__ c,
                          const double* __restrict__ mono, double* chain,
                          float* out, int n, int b, const unsigned char* sag,
                          const double* noise_scale) {
   constexpr bool MEL = PRE == PRE_MELANGE;
+  constexpr bool CIRCUIT = PA == PA_CIRCUIT;
   constexpr int PRE_ROW = MEL ? CH_MEL_V : CH_PRE_V;
-  __shared__ double s_pa[PA_BLOCK], s_trem[TREM_BLOCK];
+  __shared__ double s_trem[TREM_BLOCK];
+  __shared__ double s_pa[CIRCUIT ? PA_BLOCK : 1];
   __shared__ double s_pre[PreWarpOf<PRE>::BLOCK];
   __shared__ WarpScratch scratch[E2_WARPS];
-  stage_block<21, 16, 8>(c + C_PA, s_pa);
+  if constexpr (CIRCUIT) stage_block<21, 16, 8>(c + C_PA, s_pa);
   stage_block<7, 4, 2>(c + C_TREM, s_trem);
   if constexpr (MEL)
     stage_melange(c + C_MEL, s_pre);
@@ -2705,13 +2948,13 @@ engine_chain_warp_kernel(const double* __restrict__ c,
   double ch[CHAIN_ROWS];  // lane 0's rows
   if (lane == 0)
     for (int k = 0; k < CHAIN_ROWS; ++k)
-      ch[k] = warp_row<PRE>(k) ? 0.0 : row[k];
+      ch[k] = warp_row<PRE, PA>(k) ? 0.0 : row[k];
   TremWarp tr;
   load_lane<7, 4>(tr.s, row + CH_TREM_V, 1, lane);
   tr.env = row[CH_TREM_ENV];
   tr.r_ldr = row[CH_TREM_RLDR];
-  PaWarp pa;
-  load_pa(pa, row + CH_PA_V, 1, lane);
+  PaWarpT<PA> pa;
+  if constexpr (CIRCUIT) load_pa(pa, row + CH_PA_V, 1, lane);
   PreWarp<PRE> pre;
   if constexpr (MEL)
     load_mel(pre, row + PRE_ROW, 1, lane);
@@ -2722,14 +2965,14 @@ engine_chain_warp_kernel(const double* __restrict__ c,
   WarpScratch* w = &scratch[warp];
   for (int t = 0; t < n; ++t) {
     const size_t i = (size_t)e * n + t;
-    const double y = chain_sample_warp<PRE>(
+    const double y = chain_sample_warp<PRE, PA>(
         c, ch, tr, pa, pre, s_trem, s_pa, s_pre, w, mono[i], sag[e] != 0,
         noise_scale[e], &last_char, &spk_k);
     if (lane == 0) out[i] = (float)y;
   }
   if (lane == 0)
     for (int k = 0; k < CHAIN_ROWS; ++k)
-      if (!warp_row<PRE>(k)) row[k] = ch[k];
+      if (!warp_row<PRE, PA>(k)) row[k] = ch[k];
   if constexpr (MEL)
     store_mel(pre, row + PRE_ROW, 1, lane);
   else
@@ -2739,7 +2982,7 @@ engine_chain_warp_kernel(const double* __restrict__ c,
     row[CH_TREM_ENV] = tr.env;
     row[CH_TREM_RLDR] = tr.r_ldr;
   }
-  store_pa(pa, row + CH_PA_V, 1, lane);
+  if constexpr (CIRCUIT) store_pa(pa, row + CH_PA_V, 1, lane);
 }
 
 // ═════════════════════════════ E3: settle ═════════════════════════════
@@ -3004,10 +3247,19 @@ extern "C" int ow_engine_voices(const double* vpar, double* vst,
                                 long long* vsti, long long* eng_i,
                                 double* mono, int n, int b, double fade_len,
                                 double sample_rate, cudaStream_t stream) {
+  return launch_engine_voices(vpar, vst, vsti, eng_i, mono, n, b, fade_len,
+                              sample_rate, stream);
+}
+
+extern "C" int ow_engine_voices_thread(const double* vpar, double* vst,
+                                       long long* vsti, long long* eng_i,
+                                       double* mono, int n, int b,
+                                       double fade_len, double sample_rate,
+                                       cudaStream_t stream) {
   if (n < 0 || b < 0) return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
-  engine_voices_kernel<<<b, SLOTS, 0, stream>>>(vpar, vst, vsti, eng_i, mono,
-                                                n, fade_len, sample_rate);
+  engine_voices_thread_kernel<<<b, SLOTS, 0, stream>>>(
+      vpar, vst, vsti, eng_i, mono, n, fade_len, sample_rate);
   return (int)cudaGetLastError();
 }
 
@@ -3049,18 +3301,28 @@ extern "C" int ow_engine_chain(const double* consts, int n_consts,
   const int want = C_TOTAL + (pre_model == PRE_MELANGE ? ML_SIZE : 0);
   if (n_consts != want || n < 0 || b < 0 || pre_model < 0 ||
       pre_model > 1 || pa_model < 0 || pa_model > 1 || warp < 0 ||
-      warp > 1 || (warp && pa_model != PA_CIRCUIT))
+      warp > 1)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   if (warp) {
     const int blocks = (b + E2_WARPS - 1) / E2_WARPS;
     const int threads = 32 * (b < E2_WARPS ? b : E2_WARPS);
-    if (pre_model == PRE_DK)
-      engine_chain_warp_kernel<PRE_DK><<<blocks, threads, 0, stream>>>(
-          consts, mono, chain, out, n, b, rail_sag, noise_scale);
+    if (pre_model == PRE_DK && pa_model == PA_CIRCUIT)
+      engine_chain_warp_kernel<PRE_DK, PA_CIRCUIT>
+          <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                           rail_sag, noise_scale);
+    else if (pre_model == PRE_DK)
+      engine_chain_warp_kernel<PRE_DK, PA_BEHAVIORAL>
+          <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                           rail_sag, noise_scale);
+    else if (pa_model == PA_CIRCUIT)
+      engine_chain_warp_kernel<PRE_MELANGE, PA_CIRCUIT>
+          <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                           rail_sag, noise_scale);
     else
-      engine_chain_warp_kernel<PRE_MELANGE><<<blocks, threads, 0, stream>>>(
-          consts, mono, chain, out, n, b, rail_sag, noise_scale);
+      engine_chain_warp_kernel<PRE_MELANGE, PA_BEHAVIORAL>
+          <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                           rail_sag, noise_scale);
     return (int)cudaGetLastError();
   }
   const int blocks = (b + E2_BLOCK - 1) / E2_BLOCK;

@@ -26,8 +26,10 @@ affected slot columns on the device.
 Batches of engines: `EngineState` holds what one chunk of the reference's
 `_render` reads and writes, for B engines, as device tensors with a
 leading B axis. `render_states(eng, states, n)` renders one chunk of n
-samples for all of them (E1 a block per engine, E2 a warp per engine, or
-a thread per engine above `kernels.engine.CHAIN_WARP_MAX_ENGINES`),
+samples for all of them (E1 a cluster of eight blocks per engine, or a
+thread per slot above `kernels.engine.VOICES_LANES_MAX_ENGINES`; E2 a
+warp per engine, or a thread per engine above
+`kernels.engine.CHAIN_WARP_MAX_ENGINES[pa_model]`),
 the counterpart of `jax.vmap(lambda s: engine._render(eng, s, n))`;
 `Engine.render` is its B = 1 call. `Engine.state` gets and sets one
 engine's `EngineState`; `stack_states` and `broadcast_state` build

@@ -11,7 +11,11 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
   * **E1 `engine_voices`**: the 64 main + 64 steal voice slots over a
     chunk (reed + hammer noise + pickup, the active and steal-fade masks,
     NaN guard #1) and the chunk-end cleanup; writes each sample's mono
-    sum. The voice bank never reads the chain, so E1 runs a whole chunk
+    sum. Up to `VOICES_LANES_MAX_ENGINES` engines eight threads per slot
+    on E4's group body, a cluster of eight blocks of 16 slots per engine,
+    the gated samples summed in slot order on the cluster's leader; above
+    it a thread per slot, a block per engine. The two forms agree bit for
+    bit. The voice bank never reads the chain, so E1 runs a whole chunk
     before E2.
   * **E2 `engine_chain<PRE, PA>`**: the chain over the chunk's mono
     input: the three smoothers, 2× allpass oversampling, per oversampled
@@ -19,12 +23,12 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
     melange preamp with its thermal noise) → power amp (the circuit, or
     the memoryless behavioral model), downsampling, the speaker with its
     per-sample coefficient design, post gain and volume, NaN guard #2, the
-    f32 cast. The two model choices are template arguments. The circuit
-    power amp's instantiations run a warp per engine
-    (`engine_chain_warp_kernel`: the tremolo's, the preamp's and the
-    power amp's steps on the whole warp, the rest on lane 0) up to
-    `CHAIN_WARP_MAX_ENGINES` engines and a thread per engine above it; the
-    behavioral ones a thread per engine. The two forms agree bit for bit.
+    f32 cast. The two model choices are template arguments. Every
+    instantiation runs a warp per engine (`engine_chain_warp_kernel`: the
+    tremolo's, the preamp's and the circuit power amp's steps, or the
+    behavioral one's Newton loop, on the whole warp, the rest on lane 0)
+    up to `CHAIN_WARP_MAX_ENGINES[pa_model]` engines and a thread per
+    engine above it. The two forms agree bit for bit.
   * **E3 `tremolo_settle`**: the tremolo oscillator's mna step alone, n
     times, on one warp (E2's tremolo step without the vactrol).
   * **E8 `tremolo_scan`**: G tremolo circuits, a thread each, over n
@@ -121,27 +125,47 @@ PA_MODELS = ("circuit", "behavioral")
 
 # Launch counters: *_LAUNCHES count CUDA launches, *_PLAIN_CALLS the calls
 # served by the plain version.
-VOICES_LAUNCHES = SETTLE_LAUNCHES = 0
+SETTLE_LAUNCHES = 0
 VOICES_PLAIN_CALLS = CHAIN_PLAIN_CALLS = SETTLE_PLAIN_CALLS = 0
 TREMOLO_SCAN_LAUNCHES = TREMOLO_SCAN_PLAIN_CALLS = 0
 POWER_AMP_SCAN_LAUNCHES = POWER_AMP_SCAN_PLAIN_CALLS = 0
-# E2's launches by instantiation (preamp_model, pa_model), and those of
-# the circuit instantiations by (preamp_model, form): "warp" a warp per
+# E1's launches by form: "lanes" eight threads per slot (a cluster of
+# blocks per engine), "thread" a thread per slot (a block per engine)
+VOICES_LAUNCHES_BY_FORM = {"lanes": 0, "thread": 0}
+# The widest batch (engines) at which E1 runs its cluster form; wider
+# batches run the thread form (None: the cluster form at every width, 0:
+# the thread form). Per 256-sample chunk the cluster form takes 0.149-0.155
+# ms at 1 engine, 0.285-0.286 at 64, 0.322-0.325 at 96 and 0.448-0.455 at
+# 128, the thread form 0.448, 0.449, 0.451 and 0.453; at 192 the thread
+# form wins (0.498 against 0.609-0.612 ms) and from there on (1024: 1.961
+# against 2.709-2.714): eight threads per slot repeat the voice's serial
+# tail on every thread, which a full card pays for. (NVIDIA H100 80GB HBM3,
+# 700 W, tools/torch_voices_sweep.py --form lanes / thread, three calls
+# each; PERF.md §6.)
+VOICES_LANES_MAX_ENGINES = 128
+# E2's launches by (preamp_model, pa_model, form): "warp" a warp per
 # engine, "thread" a thread per engine
-CHAIN_LAUNCHES_BY_MODELS = {(p, a): 0 for p in ("dk", "melange")
-                            for a in ("circuit", "behavioral")}
-CHAIN_LAUNCHES_BY_FORM = {(p, f): 0 for p in ("dk", "melange")
+CHAIN_LAUNCHES_BY_FORM = {(p, a, f): 0 for p in ("dk", "melange")
+                          for a in ("circuit", "behavioral")
                           for f in ("warp", "thread")}
-# The widest batch (engines) at which E2's circuit instantiations run a
-# warp per engine; wider batches run a thread per engine. The warp form
-# holds one engine's pace to 128 engines and, at 168 registers (12 warps
-# per SM), reaches 188-197x realtime aggregate at 2048 engines and 227-233x
-# at 4096, where the thread form (32 engines per warp) gives 124-160x; at
-# 8192 the thread form wins for the DK preamp (245-249x against 235-238x)
-# and the warp form still for the melange one (240-242x against 206-208x)
-# (NVIDIA H100 80GB HBM3, 700 W, tools/torch_perf_sweep.py --form warp /
-# thread --preamp-model dk / melange, three calls; PERF.md §5).
-CHAIN_WARP_MAX_ENGINES = 4096
+# The widest batch (engines) at which E2 runs a warp per engine, by
+# power-amp model; wider batches run a thread per engine (None: the warp
+# form at every width, 0: the thread form). Circuit: the warp form holds
+# one engine's pace to 128 engines and, at 168 registers (12 warps per
+# SM), reaches 188-197x realtime aggregate at 2048 engines and 227-233x at
+# 4096, where the thread form (32 engines per warp) gives 124-160x; at 8192
+# the thread form wins for the DK preamp (245-249x against 235-238x) and
+# the warp form still for the melange one (240-242x against 206-208x).
+# Behavioral: the warp form (168 registers) is saturated from 1024
+# engines on (dk 488-571x, melange 382-384x, where the thread form gives
+# 340-343x and 97-100x); at 2048 the thread form wins for the DK preamp
+# (611-616x against 545-548x), at 4096 the warp form still for the melange
+# one (418-420x against 356-363x), at 8192 the thread form for both (dk
+# 1473-1505x against 666-668x, melange 613-642x against 431-434x): 2048
+# keeps the worse of the two misses at 14 %. (NVIDIA H100 80GB HBM3, 700
+# W, tools/torch_perf_sweep.py --form warp / thread --preamp-model dk /
+# melange [--pa-model behavioral], three calls each; PERF.md §5.)
+CHAIN_WARP_MAX_ENGINES = {"circuit": 4096, "behavioral": 2048}
 
 
 # ─────────────────────────── voice bank packing ───────────────────────────
@@ -939,10 +963,13 @@ def render_voices(vpar, vst, vsti, eng_i, num_samples: int, fade_len: float,
     """E1: one chunk of the 128 voice slots of one engine (vpar (NPAR,
     SLOTS), vst (NST, SLOTS), vsti (NSTI, SLOTS) int64, eng_i (ENG_I,)
     int64) → mono (num_samples,) float64, or of B engines (the same with a
-    leading B axis; a block per engine) → mono (B, num_samples). vst, vsti
-    and eng_i are updated in place (the chunk-end cleanup included). B = 0
-    launches nothing and returns a (0, num_samples) tensor."""
-    global VOICES_LAUNCHES, VOICES_PLAIN_CALLS
+    leading B axis) → mono (B, num_samples). On the card E1 runs a cluster
+    of eight blocks per engine, eight threads per slot, up to
+    VOICES_LANES_MAX_ENGINES engines, a block per engine and a thread per
+    slot above. vst, vsti and eng_i are updated in place (the chunk-end
+    cleanup included). B = 0 launches nothing and returns a (0,
+    num_samples) tensor."""
+    global VOICES_PLAIN_CALLS
     f64, i64 = torch.float64, torch.int64
     lead = tuple(vpar.shape[:-2]) if vpar.dim() == 3 else ()
     _check("vpar", vpar, lead + (NPAR, SLOTS), f64)
@@ -964,12 +991,16 @@ def render_voices(vpar, vst, vsti, eng_i, num_samples: int, fade_len: float,
         return voices_plain(vpar, vst, vsti, eng_i, n, float(fade_len),
                             float(sample_rate))
     mono = torch.empty(lead + (n,), dtype=f64, device=dev)
-    _lib_call("engine_voices", lambda lib: lib.ow_engine_voices,
+    b = lead[0] if lead else 1
+    lanes = VOICES_LANES_MAX_ENGINES is None or b <= VOICES_LANES_MAX_ENGINES
+    _lib_call("engine_voices",
+              lambda lib: (lib.ow_engine_voices if lanes
+                           else lib.ow_engine_voices_thread),
               vpar.data_ptr(), vst.data_ptr(), vsti.data_ptr(),
-              eng_i.data_ptr(), mono.data_ptr(), n, lead[0] if lead else 1,
+              eng_i.data_ptr(), mono.data_ptr(), n, b,
               ctypes.c_double(fade_len), ctypes.c_double(sample_rate),
               device=dev)
-    VOICES_LAUNCHES += 1
+    VOICES_LAUNCHES_BY_FORM["lanes" if lanes else "thread"] += 1
     return mono
 
 
@@ -979,12 +1010,12 @@ def render_chain(cp: ChainParams, mono, chain, rail_sag,
     (CHAIN_ROWS,) float64, rail_sag a bool and noise_scale a float → out
     (T,) float32; or of B engines over mono (B, T) with chain (B,
     CHAIN_ROWS), rail_sag (B,) bool and noise_scale (B,) float64 tensors
-    on the same device → out (B, T). On the card the circuit power amp
-    runs a warp per engine up to CHAIN_WARP_MAX_ENGINES engines, a thread
-    per engine above; the behavioral one a thread per engine. `chain` is updated
-    in place. The instantiation is `cp`'s (preamp_model, pa_model);
-    `noise_scale` (noise_enabled · noise_gain) acts on the melange preamp
-    only. B = 0 launches nothing and returns a (0, T) tensor."""
+    on the same device → out (B, T). On the card E2 runs a warp per
+    engine up to CHAIN_WARP_MAX_ENGINES[cp.pa_model] engines, a thread per
+    engine above. `chain` is updated in place. The instantiation is
+    `cp`'s (preamp_model, pa_model); `noise_scale` (noise_enabled ·
+    noise_gain) acts on the melange preamp only. B = 0 launches nothing
+    and returns a (0, T) tensor."""
     global CHAIN_PLAIN_CALLS
     dev = mono.device
     if mono.dim() == 1:
@@ -1011,18 +1042,16 @@ def render_chain(cp: ChainParams, mono, chain, rail_sag,
         CHAIN_PLAIN_CALLS += 1
         return chain_plain(cp, mono, chain, rail_sag, noise_scale)
     flat = _flat_on(_cp_key(cp), str(dev))
-    warp = cp.pa_model == "circuit" and (CHAIN_WARP_MAX_ENGINES is None
-                                         or b <= CHAIN_WARP_MAX_ENGINES)
+    widest = CHAIN_WARP_MAX_ENGINES[cp.pa_model]
+    warp = widest is None or b <= widest
     _lib_call("engine_chain", lambda lib: lib.ow_engine_chain,
               flat.data_ptr(), flat.numel(), mono.data_ptr(),
               chain.data_ptr(), out.data_ptr(), n, b, rail_sag.data_ptr(),
               PREAMP_MODELS.index(cp.preamp_model),
               PA_MODELS.index(cp.pa_model), noise_scale.data_ptr(),
               int(warp), device=dev)
-    CHAIN_LAUNCHES_BY_MODELS[cp.preamp_model, cp.pa_model] += 1
-    if cp.pa_model == "circuit":
-        CHAIN_LAUNCHES_BY_FORM[cp.preamp_model,
-                               "warp" if warp else "thread"] += 1
+    CHAIN_LAUNCHES_BY_FORM[cp.preamp_model, cp.pa_model,
+                           "warp" if warp else "thread"] += 1
     return out
 
 

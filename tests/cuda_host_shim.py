@@ -3,12 +3,18 @@
 
 One std::thread per CUDA thread and a std::barrier per warp (for
 __syncwarp, the shuffles and the votes, the ballot among them) and per block (__syncthreads);
-__shared__ arrays are statics, which is right because the blocks of a
-launch run one after another. `build` writes the header as
-cuda_runtime.h beside the source, rewrites each `kernel<<<blocks,
-threads, ...>>>(` as `shim::launch(blocks, threads, kernel, `, appends
-`extra` (C++ that may call the source's own device functions) and
-compiles a shared library with FMA contraction off, as nvcc's -fmad=false.
+the blocks of a launch run one after another, except that the blocks of
+a thread-block cluster (a kernel declared with __cluster_dims__) run at
+once, with a std::barrier for cluster.sync(). Each block has its own
+shared memory: `build` rewrites every `__shared__` declaration into a
+reference to the block's arena (shim::shared), so that
+cluster.map_shared_rank reaches another block's copy at the same offset.
+`build` writes the header as cuda_runtime.h (and a cooperative_groups.h)
+beside the source, rewrites each `kernel<<<blocks, threads, ...>>>(` as
+`shim::launch(blocks, threads, kernel, ` (`shim::launch_cluster(size,
+...` for a cluster kernel), appends `extra` (C++ that may call the
+source's own device functions) and compiles a shared library with FMA
+contraction off, as nvcc's -fmad=false.
 The host's libm stands in for CUDA's, so a kernel built here equals
 another built here bit for bit where both run the same arithmetic.
 """
@@ -21,17 +27,19 @@ import subprocess
 
 SHIM_H = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
+#define __cluster_dims__(...)
 #define __global__
 #define __device__
 #define __constant__ static const
-#define __shared__ static
 #define __noinline__ __attribute__((noinline))
 #define __forceinline__ inline
 #define __align__(n) __attribute__((aligned(n)))
@@ -64,31 +72,76 @@ inline uint64_t* exchange(uint64_t bits) {
   warp->bar.arrive_and_wait();
   return s;
 }
-// Blocks run one after another, so __shared__ arrays can be statics. A
-// launch of fewer than 32 threads is one partial warp.
+// Shared memory: an arena per running block; each __shared__ declaration
+// (build's rewrite) takes its offset, the same in every arena, on first
+// use.
+constexpr size_t kArena = size_t(4) << 20;
+inline thread_local unsigned char* arena;          // this block's
+inline thread_local unsigned char* const* cluster_arenas;
+inline thread_local int cluster_rank;
+inline thread_local std::barrier<>* cluster_bar;
+inline std::atomic<size_t> arena_top{0};
+template <class T, int ID>
+T& shared() {
+  static const size_t off = [] {
+    const size_t a = arena_top.fetch_add((sizeof(T) + 63) & ~size_t(63));
+    if (a + sizeof(T) > kArena) std::abort();
+    return a;
+  }();
+  return *reinterpret_cast<T*>(arena + off);
+}
+inline unsigned char* arena_at(int i) {
+  static std::vector<unsigned char*> pool;
+  while ((int)pool.size() <= i) {
+    auto* a = static_cast<unsigned char*>(std::aligned_alloc(64, kArena));
+    std::memset(a, 0, kArena);
+    pool.push_back(a);
+  }
+  return pool[i];
+}
+// The blocks of a cluster of `cluster` blocks run at once, the clusters
+// one after another (a plain launch: clusters of one block). A launch of
+// fewer than 32 threads is one partial warp.
 template <class K, class... A>
-void launch(int blocks, int threads, K kernel, A... args) {
+void launch_cluster(int cluster, int blocks, int threads, K kernel,
+                    A... args) {
   blockDim.x = threads;
   gridDim.x = blocks;
-  for (int b = 0; b < blocks; ++b) {
-    std::vector<std::unique_ptr<Warp>> warps;
-    for (int w = 0; w * 32 < threads; ++w)
-      warps.emplace_back(new Warp(threads - 32 * w < 32 ? threads - 32 * w
-                                                        : 32));
-    std::barrier<> bar(threads);
+  for (int b0 = 0; b0 < blocks; b0 += cluster) {
+    const int nb = blocks - b0 < cluster ? blocks - b0 : cluster;
+    std::vector<unsigned char*> arenas;
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<std::vector<std::unique_ptr<Warp>>> warps(nb);
+    for (int r = 0; r < nb; ++r) {
+      arenas.push_back(arena_at(r));
+      bars.emplace_back(new std::barrier<>(threads));
+      for (int w = 0; w * 32 < threads; ++w)
+        warps[r].emplace_back(new Warp(threads - 32 * w < 32
+                                           ? threads - 32 * w : 32));
+    }
+    std::barrier<> cbar(nb * threads);
     std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        block = &bar;
-        warp = warps[t / 32].get();
-        lane = t % 32;
-        bank = 0;
-        kernel(args...);
-      });
+    for (int r = 0; r < nb; ++r)
+      for (int t = 0; t < threads; ++t)
+        ts.emplace_back([&, r, t] {
+          threadIdx.x = t;
+          blockIdx.x = b0 + r;
+          block = bars[r].get();
+          warp = warps[r][t / 32].get();
+          lane = t % 32;
+          bank = 0;
+          arena = arenas[r];
+          cluster_arenas = arenas.data();
+          cluster_rank = r;
+          cluster_bar = &cbar;
+          kernel(args...);
+        });
     for (auto& t : ts) t.join();
   }
+}
+template <class K, class... A>
+void launch(int blocks, int threads, K kernel, A... args) {
+  launch_cluster(1, blocks, threads, kernel, args...);
 }
 }  // namespace shim
 inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -150,11 +203,72 @@ inline unsigned long long atomicAdd(unsigned long long* p,
 inline int min(int a, int b) { return a < b ? a : b; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline long long clock64() { return 0; }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+"""
+
+COOPERATIVE_GROUPS_H = r"""
+#pragma once
+#include "cuda_runtime.h"
+namespace cooperative_groups {
+struct cluster_group {
+  static unsigned block_rank() { return shim::cluster_rank; }
+  static void sync() { shim::cluster_bar->arrive_and_wait(); }
+  template <class T>
+  static T* map_shared_rank(T* addr, int rank) {
+    const auto* p = reinterpret_cast<const unsigned char*>(addr);
+    return reinterpret_cast<T*>(shim::cluster_arenas[rank] +
+                                (p - shim::arena));
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
 """
 
 _LAUNCH = re.compile(
     r"([\w:]+(?:<[^<>;]*>)?)\s*<<<([^,]+),\s*([^,]+),[^>]*>>>\(")
 _INCLUDE_CU = re.compile(r'^#include "([^"]+\.cu)"$', re.M)
+_CLUSTER = re.compile(r"__cluster_dims__\(([^,()]+),[^()]*\)\s*"
+                      r"(?:__launch_bounds__\([^()]*\)\s*)?(\w+)\s*\(")
+_SHARED = re.compile(r"^([ \t]*)__shared__\s+(?:__align__\(\d+\)\s+)?"
+                     r"([^;{}]+);", re.M)
+
+
+def _split_top(text):
+    """text split at the commas outside brackets and parentheses."""
+    parts, depth, cur = [], 0, ""
+    for ch in text:
+        depth += ch in "[(" and 1 or (ch in "])" and -1 or 0)
+        if ch == "," and depth == 0:
+            parts.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    return parts + [cur]
+
+
+def _per_block_shared(src):
+    """Each `__shared__ T a[..], b[..];` as references into the running
+    block's arena: `auto& a = shim::shared<T[..], id>(); ...`."""
+    count = [0]
+
+    def one(m):
+        indent, decls = m.group(1), _split_top(m.group(2))
+        head = decls[0]
+        cut = head.find("[")
+        base = head if cut < 0 else head[:cut]
+        typ = re.match(r"(.*?)(\w+)\s*$", base, re.S).group(1)
+        decls[0] = head[len(typ):]
+        typ = " ".join(typ.split())
+        out = []
+        for d in decls:
+            d = " ".join(d.split())
+            nm = re.match(r"(\w+)", d).group(1)
+            count[0] += 1
+            out.append(f"auto& {nm} = shim::shared<{typ}{d[len(nm):]}, "
+                       f"{count[0]}>();")
+        return indent + " ".join(out)
+
+    return _SHARED.sub(one, src)
 
 
 def have_gxx():
@@ -167,15 +281,26 @@ def build(src_path, out_dir, name, extra="", launches=None):
     the source must hold. A `#include "x.cu"` (a path from the source's
     folder) is expanded in place, so that its launches are rewritten too."""
     (out_dir / "cuda_runtime.h").write_text(SHIM_H)
+    (out_dir / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS_H)
     with open(src_path) as f:
         src = f.read()
     here = os.path.dirname(os.path.abspath(src_path))
     src = _INCLUDE_CU.sub(
         lambda m: open(os.path.join(here, m.group(1))).read(), src)
-    src, n = _LAUNCH.subn(r"shim::launch(\2, \3, \1, ", src)
+    clusters = {m.group(2): m.group(1) for m in _CLUSTER.finditer(src)}
+
+    def launch(m):
+        kernel, blocks, threads = m.groups()
+        size = clusters.get(kernel.split("<")[0])
+        if size is None:
+            return f"shim::launch({blocks}, {threads}, {kernel}, "
+        return (f"shim::launch_cluster(({size}), {blocks}, {threads}, "
+                f"{kernel}, ")
+
+    src, n = _LAUNCH.subn(launch, src)
     assert launches is None or n == launches, (src_path, n)
     cpp = out_dir / f"{name}.cpp"
-    cpp.write_text(src + extra)
+    cpp.write_text(_per_block_shared(src + extra))
     lib = out_dir / f"lib{name}.so"
     proc = subprocess.run(
         ["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-shared", "-fPIC",

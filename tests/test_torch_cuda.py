@@ -363,23 +363,44 @@ def _engine(cuda):
     return eng
 
 
-def test_engine_voices_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("form", ["lanes", "thread"])
+@pytest.mark.parametrize("engines", [1, 5, 128])
+def test_engine_voices_kernel_matches_plain(cuda, engines, form,
+                                            monkeypatch):
+    """E1 in each form (a cluster of eight blocks per engine, eight
+    threads per slot; a block per engine, a thread per slot) over 100
+    samples of one engine (no engine axis) or of 5 and 128 distinct ones
+    (the chord at its own sample offset in each, a steal slot fading from
+    its own count, a NaN in its own live slot): mono and every state row
+    bit for bit, one fire in each engine."""
     from openwurli_tpu_torch.kernels import engine as ek
 
     eng = _engine(cuda)
     for t in (eng.vpar, eng.vst, eng.vsti):
         t[:, ek.MAX_VOICES + 2] = t[:, 2]   # a steal slot, fading
     eng.eng_i[ek.MAX_VOICES + 2] = 150
-    eng.vst[ek.S_S, 4] = float("nan")
-    args = (eng.vpar, eng.vst, eng.vsti, eng.eng_i)
+    args = [eng.vpar, eng.vst, eng.vsti, eng.eng_i]
+    if engines == 1:
+        args[1][ek.S_S, 4] = float("nan")
+    else:
+        args = [x.expand(engines, *x.shape).clone() for x in args]
+        e = torch.arange(engines, device=cuda)
+        args[2][:, ek.I_N] += 37 * e[:, None]
+        args[3][:, ek.MAX_VOICES + 2] = 150 - e
+        args[1][e, ek.S_S, e % 7] = float("nan")
     a = [x.clone() for x in args]
     b = [x.clone() for x in args]
+    monkeypatch.setattr(ek, "VOICES_LANES_MAX_ENGINES",
+                        None if form == "lanes" else 0)
     mono = ek.render_voices(*a, 100, eng.fade_len, eng.sample_rate)
+    assert ek.VOICES_LAUNCHES_BY_FORM[form] > 0
     ref = ek.voices_plain(*b, 100, eng.fade_len, eng.sample_rate)
     assert _same_bits(mono, ref)
     for x, y in zip(a, b):
         assert _same_bits(x, y)
-    assert int(a[3][ek.EI_FIRES]) == 1
+    fires = a[3][..., ek.EI_FIRES] - args[3][..., ek.EI_FIRES]
+    assert (fires == 1).all()
+    assert torch.isfinite(mono).all() and (mono.abs().amax(-1) > 0).all()
 
 
 @pytest.mark.parametrize("case", ["plain", "kick", "nan"])
@@ -406,8 +427,8 @@ def test_engine_chain_kernel_matches_plain(cuda, case):
                                     ("melange", "behavioral")],
                          ids=lambda m: "-".join(m))
 def test_engine_batch_kernels_match_plain_and_one_engine(cuda, models):
-    """E1 (a block per engine) and E2 (a warp per engine for the circuit
-    power amp, a thread per engine for the behavioral one) over 3 distinct
+    """E1 (a cluster of blocks per engine) and E2 (a warp per engine) over
+    3 distinct
     engines (rail sag off on one, noise on at gain 3 on another, a NaN
     speaker state on the third) against their batched plain versions,
     and each engine's row against its own one-engine launch."""
@@ -440,22 +461,28 @@ def test_engine_batch_kernels_match_plain_and_one_engine(cuda, models):
     assert float(out[2, 0]) == 0.0
 
 
-@pytest.mark.parametrize("pre", ["dk", "melange"])
+@pytest.mark.parametrize("models", [("dk", "circuit"), ("melange", "circuit"),
+                                    ("dk", "behavioral"),
+                                    ("melange", "behavioral")],
+                         ids=lambda m: "-".join(m))
 @pytest.mark.parametrize("case", ["kick", "nan", "guard-midway"])
-def test_engine_chain_forms_agree(cuda, pre, case, monkeypatch):
-    """E2's circuit instantiations in their two forms: a warp per engine
-    (up to CHAIN_WARP_MAX_ENGINES engines) and a thread per engine (above
-    it), on one engine and on 3 distinct ones (rail sag off, noise on at
-    gain 3): output and state bit for bit, and both equal to the plain
-    version. "guard-midway": a NaN in mono at sample 4 (the preamp resets
-    on each later step) and the volume smoother reaching a NaN target at
-    sample 9, which fires guard #2 on every sample from there."""
+def test_engine_chain_forms_agree(cuda, models, case, monkeypatch):
+    """E2's instantiations in their two forms: a warp per engine (up to
+    CHAIN_WARP_MAX_ENGINES[pa_model] engines) and a thread per engine
+    (above it), on one engine and on 3 distinct ones (rail sag off, noise
+    on at gain 3): output and state bit for bit, and both equal to the
+    plain version. "guard-midway": a NaN in mono at sample 4 (the preamp
+    resets on each later step) and the volume smoother reaching a NaN
+    target at sample 9, which fires guard #2 on every sample from there
+    (for the behavioral power amp its rows, moved off rest first, go back
+    to rest)."""
     from openwurli_tpu_torch import engine as pe
     from openwurli_tpu_torch.kernels import engine as ek
 
+    pre, pa = models
     engines = []
     for k in range(3):
-        e = pe.Engine(SR, device=cuda, preamp_model=pre)
+        e = pe.Engine(SR, device=cuda, preamp_model=pre, pa_model=pa)
         for i, note in enumerate((48 + 5 * k, 55 + 3 * k, 64 + k)):
             e.note_on(note, 0.4 + 0.15 * i)
         engines.append(e)
@@ -477,10 +504,14 @@ def test_engine_chain_forms_agree(cuda, pre, case, monkeypatch):
         state[:, a + 1:a + 4] = torch.tensor([float("nan"), 0.0, 10.0],
                                              dtype=torch.float64,
                                              device=cuda)
+        if pa == "behavioral":
+            lo, hi = ek.CHAIN_OFF["pa_v"][0], ek.CHAIN_OFF["pa_last"][1]
+            rest = state[:, lo:hi].clone()
+            state[:, lo:hi] += 1.0
     for b in (1, 3):
         runs = []
         for widest in (None, 0):  # the warp form, the thread form
-            monkeypatch.setattr(ek, "CHAIN_WARP_MAX_ENGINES", widest)
+            monkeypatch.setitem(ek.CHAIN_WARP_MAX_ENGINES, pa, widest)
             a = state[:b].clone()
             runs.append((ek.render_chain(engines[0].params, mono[:b], a,
                                          st.rail_sag[:b],
@@ -493,6 +524,8 @@ def test_engine_chain_forms_agree(cuda, pre, case, monkeypatch):
         assert _same_bits(ow, ref) and _same_bits(sw, p)
         if case == "guard-midway":
             assert (ow[:, 9:] == 0).all() and (ow[:, :9] != 0).any()
+            if pa == "behavioral":
+                assert _same_bits(sw[:, lo:hi], rest[:b])
 
 
 def test_tremolo_settle_kernel_matches_plain(cuda):
@@ -672,7 +705,7 @@ def test_engine_chain_melange_warp_on_chord(cuda, monkeypatch):
                             eng.fade_len, eng.sample_rate)
     runs = []
     for widest in (None, 0):  # the warp form, the thread form
-        monkeypatch.setattr(ek, "CHAIN_WARP_MAX_ENGINES", widest)
+        monkeypatch.setitem(ek.CHAIN_WARP_MAX_ENGINES, "circuit", widest)
         a = eng.chain.clone()
         runs.append((ek.render_chain(eng.params, mono, a, True, 1.0), a))
     (ow, sw), (ot, st) = runs

@@ -16,7 +16,12 @@ per warp for __shfl_sync, __all_sync and __syncwarp).
       within 1e-11 and the states within 1e-9 V (the host's libm against
       torch's, carried through Newton's 1e-9 V stop); on a kicked chunk
       E2's two forms, a warp and a thread per engine, agree bit for bit in
-      one binary.
+      one binary;
+  (d) the behavioral power amp's two instantiations, <dk, behavioral> and
+      <melange, behavioral> (at noise scale 30): the warp form and the
+      thread form bit for bit, output and every state row, on a kicked
+      chunk, guard #2 midway and a NaN input, the outputs against
+      `chain_plain`; guard #2 leaves the power-amp rows at rest in both.
 
 Both sides of (a) and of (c)'s two forms use the host's libm, so any
 difference there would be a fault of the warp's lane logic.
@@ -261,18 +266,22 @@ def _chain_case(kicked):
     return cp, state, mono
 
 
-def _chain_kernel(lib, cp, state, mono, warp):
+def _chain_kernel(lib, cp, state, mono, warp, noise_scale=0.0):
+    """One engine through ow_engine_chain in cp's instantiation, a warp
+    (warp=1) or a thread (warp=0) per engine."""
     n = mono.shape[0]
     consts = torch.from_numpy(cp.flat)
     sag = torch.ones(1, dtype=torch.bool)
-    scale = torch.zeros(1, dtype=torch.float64)
+    scale = torch.full((1,), noise_scale, dtype=torch.float64)
     st = state[None].clone()
     out = torch.empty((1, n), dtype=torch.float32)
     assert lib.ow_engine_chain(consts.data_ptr(), consts.numel(),
                                mono[None].contiguous().data_ptr(),
                                st.data_ptr(), out.data_ptr(), n, 1,
-                               sag.data_ptr(), 0, 0, scale.data_ptr(),
-                               warp, None) == 0
+                               sag.data_ptr(),
+                               ek.PREAMP_MODELS.index(cp.preamp_model),
+                               ek.PA_MODELS.index(cp.pa_model),
+                               scale.data_ptr(), warp, None) == 0
     return out[0], st[0]
 
 
@@ -333,3 +342,64 @@ def test_e2_forms_agree_guard(lib):
                  "pre_gprev", "os_up_a", "os_delay", "pa_v", "pa_rails"):
         lo, hi = ek.CHAIN_OFF[name]
         assert _same(st_w[lo:hi], rest[lo:hi]), name
+
+
+# (d): the behavioral power amp's instantiations, and the noise scale of
+# each (it acts on the melange preamp only)
+BEHAVIORAL = {"dk": 0.0, "melange": 30.0}
+PA_ROW_NAMES = ("pa_v", "pa_i", "pa_vnl", "pa_resid", "pa_diag", "pa_rails",
+                "pa_last")
+
+
+def _behavioral_case(pre, case):
+    """One <pre, behavioral> engine's chunk of a 440 Hz sine from its
+    initial state with its power-amp rows moved off rest (the behavioral
+    power amp never writes them; guard #2 resets them): "kicked" the
+    tremolo 70 V off and a 30 V input spike, "guard" a NaN in mono at
+    sample 4 and a NaN volume target reached at sample 9 (guard #2 from
+    there on), "nan" a NaN in mono at sample 5 (the preamp's own reset)."""
+    cp = ek.chain_params(44100.0, pre, "behavioral")
+    state = ek.init_chain(cp, volume=0.8, depth=0.7, character=0.3)
+    for k, name in enumerate(PA_ROW_NAMES):
+        lo, hi = ek.CHAIN_OFF[name]
+        state[lo:hi] += 1.0 + k  # whole: the diag rows are counters
+    n = 16 if case == "guard" else 24
+    t = np.arange(n)
+    mono = torch.from_numpy(0.3 * np.sin(2 * np.pi * 440 * t / 44100.0))
+    if case == "kicked":
+        state[ek.CHAIN_OFF["trem_v"][0]] += 70.0
+        mono[9] = 30.0
+    elif case == "guard":
+        mono[4] = float("nan")
+        a, _ = ek.CHAIN_OFF["sm_volume"]
+        state[a + 1:a + 4] = torch.tensor([float("nan"), 0.0, 10.0],
+                                          dtype=torch.float64)
+    else:
+        mono[5] = float("nan")
+    return cp, state, mono
+
+
+@pytest.mark.parametrize("case", ["kicked", "guard", "nan"])
+@pytest.mark.parametrize("pre", sorted(BEHAVIORAL))
+def test_e2_behavioral_forms_agree(lib, pre, case):
+    cp, state, mono = _behavioral_case(pre, case)
+    scale = BEHAVIORAL[pre]
+    out_w, st_w = _chain_kernel(lib, cp, state, mono, 1, scale)
+    out_t, st_t = _chain_kernel(lib, cp, state, mono, 0, scale)
+    assert _same(out_w, out_t) and _same(st_w, st_t)
+    st_p = state.clone()
+    out_p = ek.chain_plain(cp, mono, st_p, True, scale)
+    _close(out_w, out_p, TOL_OUT)
+    assert torch.isfinite(out_w).all()
+    rest = ek.init_chain(cp, volume=0.8, depth=0.7, character=0.3)
+    for name in PA_ROW_NAMES:
+        lo, hi = ek.CHAIN_OFF[name]
+        # guard #2 resets the power-amp rows; nothing else writes them
+        assert _same(st_w[lo:hi], (rest if case == "guard" else state)[lo:hi]
+                     ), name
+        assert _same(st_p[lo:hi], st_w[lo:hi]), name
+    if case == "guard":
+        assert (out_w[9:] == 0).all() and (out_w[:9] != 0).any()
+    if case == "kicked":
+        trem = ek.CHAIN_OFF["trem_diag"][0]
+        assert st_p[trem + 4] > 0, "the kick reached the tremolo's BE replay"

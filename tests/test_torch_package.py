@@ -308,7 +308,8 @@ def test_build_signatures_cover_every_entry_point():
     assert set(found) == set(_build._SIGNATURES) == {
         "ow_voice_bank", "ow_voice_bank_events", "ow_mono_chain",
         "ow_mono_chain_noise", "ow_trem_preroll", "ow_probe",
-        "ow_engine_voices", "ow_engine_chain", "ow_tremolo_settle",
+        "ow_engine_voices", "ow_engine_voices_thread", "ow_engine_chain",
+        "ow_tremolo_settle",
         "ow_voice_render", "ow_preamp_scan", "ow_voice_render_tap",
         "ow_pa_speaker_scan", "ow_dk_scan", "ow_tremolo_scan",
         "ow_power_amp_scan"}

@@ -4,18 +4,19 @@
 
 Builds `Engine(sr)` (the DK preamp, or with --preamp-model melange the
 melange one; --noise turns its thermal noise on, as a plugin with
-authentic noise does) at volume 1 and tremolo depth 1, renders --history
-samples, strikes the chord (MIDI 48, 55, 60, 63, 67, 70 at 0.95) and
-renders --chord-s seconds (at the defaults `chip_smoke.py` phase 22's
-loud 1 s render), keeping the inputs of its first 256-sample chunk. Then it
-times E1 and E2 on that chunk (CUDA events, the mean of --reps calls after
-one), runs the plain versions once on the same inputs and checks each
-kernel against its plain version bit for bit, output and state. A fresh
-engine's --warm-up-s seconds of silence are timed too. Host times are
-synchronised.
+authentic noise does; --pa-model behavioral takes the behavioral power
+amp in place of the circuit one) at volume 1 and tremolo depth 1,
+renders --history samples, strikes the chord (MIDI 48, 55, 60, 63, 67,
+70 at 0.95) and renders --chord-s seconds (at the defaults
+`chip_smoke.py` phase 22's loud 1 s render), keeping the inputs of its
+first 256-sample chunk. Then it times E1 and E2 on that chunk (CUDA
+events, the mean of --reps calls after one), runs the plain versions
+once on the same inputs and checks each kernel against its plain version
+bit for bit, output and state. A fresh engine's --warm-up-s seconds of
+silence are timed too. Host times are synchronised.
 
     python tools/torch_engine_chunk.py [--root CHECKOUT] [--device cpu]
-        [--preamp-model melange] [--noise]
+        [--preamp-model melange] [--noise] [--pa-model behavioral]
 
 --root imports the package from another checkout (one that has the same
 `Engine` and `kernels.engine` entry points), so that two trees can be
@@ -56,6 +57,8 @@ def main(argv=None):
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--preamp-model", default="dk", choices=("dk", "melange"))
     p.add_argument("--noise", action="store_true")
+    p.add_argument("--pa-model", default="circuit",
+                   choices=("circuit", "behavioral"))
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -114,7 +117,8 @@ def main(argv=None):
         return real_c(*a)
 
     def engine():
-        e = Engine(args.sr, device=dev, preamp_model=args.preamp_model)
+        e = Engine(args.sr, device=dev, preamp_model=args.preamp_model,
+                   pa_model=args.pa_model)
         e.set_noise_enabled(args.noise)
         return e
 
@@ -152,10 +156,18 @@ def main(argv=None):
     e2_plain_ms, p_out = host_ms(lambda: ek.chain_plain(*p_in))
     e2_same = _same(k_out, p_out) and _same(k_in[2], p_in[2])
 
-    card = torch.cuda.get_device_name(dev) if cuda else "cpu"
+    card = "cpu"
+    if cuda:
+        import subprocess
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={dev.index or 0}"],
+            capture_output=True, text=True).stdout.strip()
+        card = smi or torch.cuda.get_device_name(dev)
     print(json.dumps({
         "root": root, "device": card, "sr": args.sr,
-        "preamp_model": args.preamp_model, "noise": args.noise,
+        "preamp_model": args.preamp_model, "pa_model": args.pa_model,
+        "noise": args.noise,
         "warm_up_ms": warm_ms, "warm_up_samples": n_warm,
         "chord_ms": chord_ms, "chord_samples": int(args.sr * args.chord_s),
         "chunk": CHUNK, "e1_ms": e1_ms, "e1_plain_ms": e1_plain_ms,

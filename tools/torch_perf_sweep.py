@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Throughput sweep of the PyTorch port's f64 engine over batch widths.
 
-Renders B engine states at once (`engine.render_states`: E1 a block per
-engine, E2 a warp per engine up to `kernels.engine.CHAIN_WARP_MAX_ENGINES`
-engines and a thread per engine above) at several widths B and prints a
-CSV of aggregate realtime factors, the counterpart of
-`tools/perf_sweep.py`:
+Renders B engine states at once (`engine.render_states`: E1 a cluster
+of eight blocks per engine up to `kernels.engine.VOICES_LANES_MAX_ENGINES`
+engines and a thread per slot above, E2 a warp per engine up to
+`kernels.engine.CHAIN_WARP_MAX_ENGINES[pa_model]` engines and a thread per
+engine above) at several widths B and prints a CSV of aggregate realtime
+factors, the counterpart of `tools/perf_sweep.py`:
 
     python tools/torch_perf_sweep.py --streams 8,32,128 --seconds 0.25
 
 `--form warp` or `--form thread` runs the sweep's E2 calls in that form
 at every width, to measure the two forms against each other; standard
 error says which form ran at each width ("plain" on the CPU).
-`--preamp-model melange` sweeps the melange engine (default: the DK one).
+`--preamp-model melange` sweeps the melange engine (default: the DK one),
+`--pa-model behavioral` the behavioral power amp (default: the circuit).
+The first line names the card and its power limit (nvidia-smi).
 
 Every width starts from one engine holding the six-note chord (MIDI 48,
 55, 60, 63, 67, 70 at 0.95) broadcast to B engines; each call renders one
@@ -38,6 +41,20 @@ CHORD = (48, 55, 60, 63, 67, 70)
 VELOCITY = 0.95
 
 
+def _card(device):
+    """The card's name and power limit, as nvidia-smi gives them."""
+    import subprocess
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={device.index or 0}"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        smi = ""
+    return smi or torch.cuda.get_device_name(device) + ", power limit " \
+        "not read"
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -54,22 +71,28 @@ def main(argv=None):
                    default="auto")
     p.add_argument("--preamp-model", choices=("dk", "melange"),
                    default="dk")
+    p.add_argument("--pa-model", choices=("circuit", "behavioral"),
+                   default="circuit")
     args = p.parse_args(argv)
 
     eng = engine.Engine(args.sr, device=args.device,
-                        preamp_model=args.preamp_model)
+                        preamp_model=args.preamp_model,
+                        pa_model=args.pa_model)
     for note in CHORD:
         eng.note_on(note, VELOCITY)
     base = eng.state
     block = int(args.sr * args.seconds)
     dev = eng.device
 
-    widest = ek.CHAIN_WARP_MAX_ENGINES
+    pa = args.pa_model
+    widest = ek.CHAIN_WARP_MAX_ENGINES[pa]
+    if dev.type == "cuda":
+        print("# " + _card(dev), flush=True)
     print("streams,compile_s,wall_s,per_stream_rtf,aggregate_rtf")
     for b in [int(x) for x in args.streams.split(",")]:
         if args.form != "auto":
-            ek.CHAIN_WARP_MAX_ENGINES = b if args.form == "warp" else 0
-        lim = ek.CHAIN_WARP_MAX_ENGINES
+            ek.CHAIN_WARP_MAX_ENGINES[pa] = b if args.form == "warp" else 0
+        lim = ek.CHAIN_WARP_MAX_ENGINES[pa]
         form = "plain" if dev.type == "cpu" else (
             "warp" if lim is None or b <= lim else "thread")
         st = engine.broadcast_state(base, b)
@@ -85,11 +108,11 @@ def main(argv=None):
             _sync(dev)
             wall = time.time() - t0
         finally:
-            ek.CHAIN_WARP_MAX_ENGINES = widest
+            ek.CHAIN_WARP_MAX_ENGINES[pa] = widest
         rtf = args.reps * b * args.seconds / wall
         print(f"{b},{compile_s:.0f},{wall:.3f},{rtf/b:.1f},{rtf:.1f}",
               flush=True)
-        print(f"# {b} engines: E2<{args.preamp_model}> {form}",
+        print(f"# {b} engines: E2<{args.preamp_model}, {pa}> {form}",
               file=sys.stderr, flush=True)
 
 

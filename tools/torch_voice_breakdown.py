@@ -20,8 +20,17 @@ against the library's kernel (`kernels.render.voice_render` /
 `voice_tap`) on both cases and on 133 ragged voices with a NaN and an inf
 voice. It then times each with CUDA events (ms, µs per sample step) and
 splits the stamped one's time into its parts: each part's share of the
-stamped cycles times the stamped variant's time. Run on a machine with a
-card:
+stamped cycles times the stamped variant's time.
+
+E1 (the f64 engine's voice slots, E4's group body on a cluster of eight
+blocks per engine) on an engine session's 128 slots (chip_smoke.py phase
+21's: ten notes, 2048 samples of history, the bank filled by steals) at
+1, 5 and 128 engines (each copy at its own sample offset and steal
+fade), 256-sample chunks: the library's kernel is checked bit for bit
+against `kernels.engine.render_voices` first, then timed beside its two
+knock-outs (no slot sum; no tile, cluster barrier or sum) and E4 on the
+same slots (`kernels.render.voice_render`, the group body without E1's
+gates and sum). Run on a machine with a card:
 
     python tools/torch_voice_breakdown.py [--samples 2048] [--reps 3]
 """
@@ -42,6 +51,11 @@ VARIANTS = ("thread (E4 before)", "thread, libm guarded",
             "lanes, staged stores, 128 per block", "lanes, stamped, 32")
 STAMPED = len(VARIANTS) - 1
 PARTS = ("modes", "sum", "tail", "stores")
+# voice_breakdown.cu's E1 variants, in order; E1's engines and chunk
+E1_VARIANTS = ("E1 (library)", "E1 without the slot sum",
+               "E1 without tile, cluster barrier and sum")
+E1_ENGINES = (1, 5, 128)
+E1_CHUNK = 256
 SR = 44100.0
 # BASELINE.json config 4 (chip_smoke.py's CALIB_NOTES, CALIB_VELOCITIES)
 CALIB_NOTES = tuple(range(33, 97))
@@ -62,9 +76,13 @@ def build():
     dll = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.e4b_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, p]
-    for f in (dll.e4b_launch, dll.e4b_count, dll.e4b_parts):
+    d = ctypes.c_double
+    dll.e1b_launch.argtypes = [i, p, p, p, p, p, i, i, d, d, p]
+    for f in (dll.e4b_launch, dll.e4b_count, dll.e4b_parts, dll.e1b_launch,
+              dll.e1b_count):
         f.restype = i
-    if dll.e4b_count() != len(VARIANTS) or dll.e4b_parts() != len(PARTS):
+    if dll.e4b_count() != len(VARIANTS) or dll.e4b_parts() != len(PARTS) \
+            or dll.e1b_count() != len(E1_VARIANTS):
         raise RuntimeError("the tool's lists and voice_breakdown.cu differ")
     return dll, proc.stdout + proc.stderr
 
@@ -187,6 +205,7 @@ def main(argv=None):
             row["us_per_sample"] = row["ms"] * 1e3 / n
         results[label] = rows
 
+    e1 = e1_rows(dll, dev, ms_of, same, stream)
     print(f"{card}; {n} samples, {args.reps} reps; every variant "
           "bit-identical to the library's kernel on both cases and on 133 "
           "ragged voices (NaN, inf)")
@@ -199,12 +218,71 @@ def main(argv=None):
                 print("            " + ", ".join(
                     f"{k} {v:.3f}" for k, v in row["parts_ms"].items())
                     + " ms")
+    print(f"E1, {E1_CHUNK}-sample chunks (the library's kernel "
+          "bit-identical to render_voices; the knock-outs timed only)")
+    for b, rows in e1.items():
+        print(f"  {b} engine{'s' if b > 1 else ''}: " + "; ".join(
+            f"{r['variant']} {r['ms']:.4f} ms" for r in rows))
     ptxas = [" ".join(line.split()) for line in log.splitlines()
              if "e4b_" in line or "voice_lanes" in line or "Used" in line
-             or "stack frame" in line]
+             or "engine_voices" in line or "stack frame" in line]
     print(json.dumps({"card": card, "samples": n, "results": results,
-                      "ptxas": ptxas}))
+                      "e1_chunk": E1_CHUNK, "e1": e1, "ptxas": ptxas}))
     return results
+
+
+def e1_rows(dll, dev, ms_of, same, stream):
+    """E1 and its knock-outs, and E4 on the same slots, at E1_ENGINES
+    engines: {engines: [{"variant", "ms"}]}."""
+    import torch
+
+    from openwurli_tpu_torch.engine import Engine
+    from openwurli_tpu_torch.kernels import engine as ek
+    from openwurli_tpu_torch.kernels import render as kr
+
+    eng = Engine(SR, device=dev)
+    for k, note in enumerate((41, 48, 55, 60, 64, 67, 72, 79, 84, 93)):
+        eng.note_on(note, 0.35 + 0.06 * k)
+    eng.render(2048)
+    for note in range(33, 97):  # fills the bank; steals with fades
+        eng.note_on(note, 0.5)
+    n = E1_CHUNK
+
+    def run(w, cols):
+        a = [c.clone() for c in cols]
+        mono = torch.empty((a[0].shape[0], n), dtype=torch.float64,
+                           device=dev)
+        err = dll.e1b_launch(w, *[c.data_ptr() for c in a],
+                             mono.data_ptr(), n, a[0].shape[0],
+                             eng.fade_len, SR, stream)
+        if err:
+            raise RuntimeError(f"{E1_VARIANTS[w]}: cudaError {err}")
+        return mono, a
+
+    out = {}
+    for b in E1_ENGINES:
+        cols = [x.expand(b, *x.shape).clone()
+                for x in (eng.vpar, eng.vst, eng.vsti, eng.eng_i)]
+        e = torch.arange(b, device=dev)
+        cols[2][:, ek.I_N] += 37 * e[:, None]
+        cols[3][:, ek.MAX_VOICES:ek.SLOTS] = torch.clamp(
+            cols[3][:, ek.MAX_VOICES:ek.SLOTS] - e[:, None], min=0)
+        ref = [c.clone() for c in cols]
+        ref_mono = ek.render_voices(*ref, n, eng.fade_len, SR)
+        mono, st = run(0, cols)
+        if not (same(mono, ref_mono)
+                and all(same(x, y) for x, y in zip(st, ref))):
+            raise RuntimeError(f"E1 at {b} engines differs from "
+                               "render_voices")
+        rows = [{"variant": name, "ms": ms_of(lambda: run(w, cols))}
+                for w, name in enumerate(E1_VARIANTS)]
+        voices = [c.transpose(0, 1).reshape(c.shape[1], -1).contiguous()
+                  for c in cols[:3]]
+        rows.append({"variant": "E4 on the same slots",
+                     "ms": ms_of(lambda: kr.voice_render(
+                         *[v.clone() for v in voices], n))})
+        out[b] = rows
+    return out
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 // run_calibrate's reed and pickup taps), built and run by
 // tools/torch_voice_breakdown.py. Three designs in one binary:
 //   thread          E4 before its lane redesign: a thread per voice,
-//                   blocks of 32, `voice_sample<TAP>` (E1's step)
+//                   blocks of 32, `voice_sample<TAP>` (E1 ran it too
+//                   before its own lane redesign)
 //   thread guarded  the same with cos, pow, exp, sqrt and tanh run only
 //                   where their value is selected, a vote per warp (the
 //                   lane kernel's rule) and nothing else changed
@@ -19,7 +20,8 @@
 //             charge factors and the charge recurrence
 //     stores  the group's output (and reed) stores
 // Every variant runs the arithmetic of voice_sample in its order, so each
-// equals E4 bit for bit, which the tool checks.
+// equals E4 bit for bit, which the tool checks. E1's knock-outs (e1b_*)
+// show what its cluster barrier and slot sum add to E4's group body.
 
 #include "../openwurli_tpu_torch/csrc/engine.cu"
 
@@ -202,6 +204,32 @@ int e4b_launch_tap(int which, const double* vpar, double* vst,
 }
 
 }  // namespace
+
+// E1 (engine_voices_kernel, a cluster of eight blocks per engine) and its
+// knock-outs, timed only: without the leader's slot sum, and without the
+// tile, the cluster barrier and the sum (each block's slots alone)
+enum { W1_LIBRARY, W1_NO_SUM, W1_NO_CLUSTER, kE1Variants };
+
+extern "C" int e1b_count() { return kE1Variants; }
+
+extern "C" int e1b_launch(int which, const double* vpar, double* vst,
+                          long long* vsti, long long* eng_i, double* mono,
+                          int n, int b, double fade_len, double sample_rate,
+                          cudaStream_t stream) {
+  switch (which) {
+    case W1_LIBRARY:
+      return launch_engine_voices(vpar, vst, vsti, eng_i, mono, n, b,
+                                  fade_len, sample_rate, stream);
+    case W1_NO_SUM:
+      return launch_engine_voices<E1_NO_SUM>(vpar, vst, vsti, eng_i, mono,
+                                             n, b, fade_len, sample_rate,
+                                             stream);
+    case W1_NO_CLUSTER:
+      return launch_engine_voices<E1_NO_CLUSTER>(
+          vpar, vst, vsti, eng_i, mono, n, b, fade_len, sample_rate, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int e4b_count() { return kVariants; }
 extern "C" int e4b_parts() { return E4_PARTS; }
