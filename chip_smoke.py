@@ -54,12 +54,13 @@ each with the launch counts set to 0 just before it and read just after:
     preamp twin through E7, the tremolo through E8, the power amp through
     E9), before the alias sweep;
   * the f64 engine batched: `engine.render_states` over B engine states
-    (E1 a cluster of eight blocks per engine, E2 a warp per engine, a
-    thread per engine above `kernels.engine.CHAIN_WARP_MAX_ENGINES`, one
-    crossover per power-amp model): an 8-engine batch, each engine
-    against its own `Engine.render`, the throughput from the reference
-    perf sweep's broadcast chord at 1-128 engines, and the chord at 8192
-    engines (the thread form) against one engine, for each instantiation;
+    (E1 a cluster of eight blocks per engine, or a thread per slot above
+    `kernels.engine.VOICES_LANES_MAX_ENGINES`; E2 a warp, a half-warp or a
+    thread per engine, in the bands of `kernels.engine.chain_form`): an
+    8-engine batch, each engine against its own `Engine.render`, the
+    throughput from the reference perf sweep's broadcast chord at 1-128
+    engines, and the chord at 8192 and 16384 engines (and inside each
+    band of E2 those miss) against one engine, for each instantiation;
   * the multi-device path on one card: `fast.render_grid_sharded` over a
     one-rank NCCL group at the headline width (K1, K2), bit for bit
     `render_grid`; `parallel.mesh.sharded_grid_render` over the
@@ -94,12 +95,14 @@ versions; E8 on 33 circuits from seeded starts at three depths (a kicked
 and a NaN circuit) and E9 on 33 streams (a 200 V spike, a NaN and an inf
 stream). E5 and E7 run a warp per stream and E3 one warp (the melange,
 DK and mna steps on a warp; the melange and DK steps also in E2). E2
-runs a warp per engine up to `CHAIN_WARP_MAX_ENGINES[pa_model]` engines
-and a thread per engine above: the two forms are held to each other bit
-for bit on the kicked, guard #2 (at the first sample and midway),
-session, melange plugin, behavioral session and 128-engine chunks and
-timed there in turns
-(thread, warp, warp, thread); E6 and E9 (both on the warp step) leave
+runs a warp, a half-warp or a thread per engine by width: the warp and
+thread forms are held to each other bit for bit on the kicked, guard #2
+(at the first sample and midway), session, melange plugin, behavioral
+session and 128-engine chunks and timed there in turns (thread, warp,
+warp, thread), the half and thread forms on the chord at 8192 and 16384
+engines in every instantiation and on 8192 engines tiled from the 128
+distinct ones (thread, half, half, thread), the half form against its
+plain version over 64 samples of each; E6 and E9 (both on the warp step) leave
 the same power-amp rows on run_calibrate's call and on the ragged
 streams, timed in turns the same way. E4 and E4<tap> (eight threads per
 voice) are also held to their plain versions at 1, 5, 33 and 133 voices,
@@ -120,6 +123,7 @@ a JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import collections
 import json
 import subprocess
 import sys
@@ -344,6 +348,11 @@ WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp",
                 "E2<dk, behavioral> warp", "E2<melange, behavioral> warp",
                 "E6", "E5<melange>", "E5<dk>", "E7<diff>", "E7<shadow>",
                 "E3", "E9")
+HALF_KERNELS = ("E2<dk, circuit> half", "E2<melange, circuit> half",
+                "E2<dk, behavioral> half", "E2<melange, behavioral> half")
+HALF_STEP = ("mna_step_segILi21ELi16ELi8ELi16E", "mna_step_segILi7ELi4ELi2ELi4E",
+             "power_amp_step_seg", "tremolo_step_seg", "dk_step_seg",
+             "melange_step_seg")
 WARP_STEP = ("mna_step_warpILi21ELi16ELi8ELi16E", "mna_step_warpILi7ELi4ELi2ELi4E",
              "power_amp_step_warp", "tremolo_step_warp", "melange_step_warp",
              "dk_step_warp")
@@ -445,13 +454,12 @@ def read_counts(vb, mc):
             "engine_voices": ek.VOICES_LAUNCHES_BY_FORM["lanes"],
             "engine_voices_thread": ek.VOICES_LAUNCHES_BY_FORM["thread"],
             # E2: the warp form under the names the instantiations had,
-            # the thread form with "_thread" appended
-            "engine_chain": by_form["dk", "circuit", "warp"],
-            "engine_chain_thread": by_form["dk", "circuit", "thread"],
-            **{f"engine_chain_{p}_{a}" + ("_thread" if f == "thread"
-                                          else ""): by_form[p, a, f]
-               for p, a, f in by_form
-               if (p, a) != ("dk", "circuit")},
+            # the thread and half forms with "_thread" and "_half"
+            # appended
+            **{"engine_chain" + ("" if (p, a) == ("dk", "circuit")
+                                 else f"_{p}_{a}")
+               + ("" if f == "warp" else f"_{f}"): by_form[p, a, f]
+               for p, a, f in by_form},
             "tremolo_settle": ek.SETTLE_LAUNCHES,
             "voice_render": kr.VOICE_RENDER_LAUNCHES,
             "preamp_scan_dk": kr.PREAMP_SCAN_LAUNCHES["dk"],
@@ -860,35 +868,67 @@ def compare_voices(ek, call, what):
             "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops)}
 
 
-def compare_chain_f64(ek, call, what):
+def compare_chain_f64(ek, call, what, plain_rows=None):
     """E2 against its plain version on one recorded call's inputs (one
     engine, or B engines: mono (B, n), chain (B, CHAIN_ROWS) and the flags
-    as (B,) tensors): output and chain state bit for bit; the plain run's
-    Newton counts, summed over the engines, give the operations this
-    chunk needed (for the bound)."""
+    as (B,) tensors): output and chain state bit for bit, in the form that
+    render_chain picks for B and in the other two forced (each timed);
+    the plain run's Newton counts, summed over the engines, give the
+    operations this chunk needed (for the bound). With `plain_rows`, the
+    kernels run at B and the plain version on the first plain_rows
+    engines, whose rows are compared: for a batch whose rows repeat with
+    that period (a broadcast or tiled state), whose operations scale with
+    B / plain_rows."""
     from openwurli_tpu_torch.circuits import dk_preamp, melange_preamp, mna
 
     cp, mono, state, sag = call[:4]
     scale = call[4] if len(call) > 4 else 0.0
+    check(plain_rows is None or mono.shape[0] % plain_rows == 0,
+          f"E2 {what}: {plain_rows} plain rows of {mono.shape[0]}")
     st = state.clone()
     out = ek.render_chain(cp, mono, st, sag, scale)
-    p_st = state.clone()
+    rows = slice(None) if plain_rows is None else slice(0, plain_rows)
+    p_st = state[rows].clone()
     n0 = dict(mna.NEWTON_COUNTS)
     passes0 = dk_preamp.NEWTON_PASSES[0]
     mel0 = dict(melange_preamp.NEWTON_COUNTS)
-    plain_ms, p_out = host_ms(lambda: ek.chain_plain(cp, mono, p_st, sag,
-                                                     scale))
+    plain_ms, p_out = host_ms(lambda: ek.chain_plain(
+        cp, mono[rows], p_st, sag[rows] if plain_rows else sag,
+        scale[rows] if plain_rows else scale))
     count = {k: mna.NEWTON_COUNTS[k] - n0.get(k, 0)
              for k in mna.NEWTON_COUNTS}
     passes = dk_preamp.NEWTON_PASSES[0] - passes0
     mel = {k: melange_preamp.NEWTON_COUNTS[k] - mel0[k] for k in mel0}
-    check(same_bits(out, p_out) and same_bits(st, p_st),
-          f"E2 {what}: output {first_diff(out, p_out)}, state "
-          f"{first_diff(st, p_st)} against the plain version")
-    ms = cuda_ms(lambda: ek.render_chain(cp, mono, state.clone(), sag,
-                                         scale), reps=2)
+    check(same_bits(out[rows], p_out) and same_bits(st[rows], p_st),
+          f"E2 {what}: output {first_diff(out[rows], p_out)}, state "
+          f"{first_diff(st[rows], p_st)} against the plain version")
+    # every form of E2 on the same call, forced: the routed form's bits,
+    # and each form's time
+    models = (cp.preamp_model, cp.pa_model)
     n = mono.shape[-1]
     b = mono.shape[0] if mono.dim() == 2 else 1
+    form = ek.chain_form(*models, b)
+    ms_by_form = {}
+    for f in ek.CHAIN_FORMS:
+        restore = force_chain_form(ek, models, f)
+        try:
+            if f != form:
+                s_f = state.clone()
+                o_f = ek.render_chain(cp, mono, s_f, sag, scale)
+                check(same_bits(o_f, out) and same_bits(s_f, st),
+                      f"E2 {what}: the {f} form against the {form} form: "
+                      f"output {first_diff(o_f, out)}, state "
+                      f"{first_diff(s_f, st)}")
+            ms_by_form[f] = cuda_ms(lambda: ek.render_chain(
+                cp, mono, state.clone(), sag, scale), reps=2)
+        finally:
+            restore()
+    ms = ms_by_form[form]
+    if plain_rows is not None:  # the operations of all B engines
+        per = b // plain_rows
+        count = {k: v * per for k, v in count.items()}
+        passes *= per
+        mel = {k: v * per for k, v in mel.items()}
     a, _ = ek.CHAIN_OFF["sm_char"]
     rems = state.reshape(b, ek.CHAIN_ROWS)[:, a + ek.SM_REM].tolist()
     designs = sum(1 + min(int(rem), n) for rem in rems)
@@ -907,9 +947,11 @@ def compare_chain_f64(ek, call, what):
     n_bytes = cp.flat.size * 8 + b * (n * 12 + 2 * ek.CHAIN_ROWS * 8)
     return {"shape": f"{b} engine{'s' if b > 1 else ''} x {n}",
             "inputs": f"E2 {what}",
-            "models": [cp.preamp_model, cp.pa_model],
-            "max_abs_err": float((out - p_out).abs().nan_to_num().max()),
-            "ms": ms, "plain_ms": plain_ms, "bound": bound64(n_bytes, ops),
+            "models": [cp.preamp_model, cp.pa_model], "form": form,
+            "max_abs_err": float((out[rows] - p_out).abs().nan_to_num()
+                                 .max()),
+            "ms": ms, "ms_by_form": ms_by_form, "plain_ms": plain_ms,
+            "bound": bound64(n_bytes, ops),
             "newton": {"tremolo": [count.get((4, "solves"), 0),
                                    count.get((4, "iterations"), 0)],
                        "power_amp": [count.get((16, "solves"), 0),
@@ -918,35 +960,50 @@ def compare_chain_f64(ek, call, what):
             "us_per_base_sample": ms * 1e3 / n}
 
 
-def chain_forms(ek, call, what):
-    """E2's two forms on one recorded call: a warp per engine
-    (engine_chain_warp_kernel) and a thread per engine
-    (engine_chain_kernel) give the same output and state bit for bit;
-    timed thread, warp, warp, thread (CUDA events). → numbers."""
+def force_chain_form(ek, models, form):
+    """Routes E2<models> to `form` ("warp", "half" or "thread") at every
+    width; → a function that puts the wrapper's bands back."""
+    saved = [(d, d[models]) for d in (ek.CHAIN_WARP_MAX_ENGINES,
+                                      ek.CHAIN_HALF_MAX_ENGINES)]
+    ek.CHAIN_WARP_MAX_ENGINES[models] = None if form == "warp" else 0
+    ek.CHAIN_HALF_MAX_ENGINES[models] = None if form == "half" else 0
+
+    def restore():
+        for d, widest in saved:
+            d[models] = widest
+    return restore
+
+
+def chain_forms(ek, call, what, forms=("thread", "warp")):
+    """Two of E2's forms on one recorded call (a thread per engine,
+    engine_chain_kernel; a warp per engine, engine_chain_warp_kernel; a
+    half-warp per engine, engine_chain_half_kernel) give the same output
+    and state bit for bit; timed A B B A (CUDA events). → numbers."""
     cp, mono, state, sag = call[:4]
     scale = call[4] if len(call) > 4 else 0.0
-    widest = ek.CHAIN_WARP_MAX_ENGINES[cp.pa_model]
+    models = (cp.preamp_model, cp.pa_model)
 
-    def run(warp, st):
-        ek.CHAIN_WARP_MAX_ENGINES[cp.pa_model] = None if warp else 0
+    def run(form, st):
+        restore = force_chain_form(ek, models, form)
         try:
             return ek.render_chain(cp, mono, st, sag, scale)
         finally:
-            ek.CHAIN_WARP_MAX_ENGINES[cp.pa_model] = widest
+            restore()
 
-    sw, st_ = state.clone(), state.clone()
-    ow, ot = run(True, sw), run(False, st_)
-    check(same_bits(ow, ot) and same_bits(sw, st_),
-          f"E2 {what}: the warp form against the thread form: output "
-          f"{first_diff(ow, ot)}, state {first_diff(sw, st_)}")
-    times = [cuda_ms(lambda: run(w, state.clone()))
-             for w in (False, True, True, False)]
+    a, b = forms
+    sa, sb = state.clone(), state.clone()
+    oa, ob = run(a, sa), run(b, sb)
+    check(same_bits(oa, ob) and same_bits(sa, sb),
+          f"E2 {what}: the {b} form against the {a} form: output "
+          f"{first_diff(ob, oa)}, state {first_diff(sb, sa)}")
+    times = [cuda_ms(lambda f=f: run(f, state.clone()))
+             for f in (a, b, b, a)]
     n = mono.shape[-1]
     return {"inputs": f"E2 {what}", "models": [cp.preamp_model,
                                                 cp.pa_model],
-            "thread_ms": [times[0], times[3]], "warp_ms": times[1:3],
-            "us_per_base_sample": {"thread": times[0] * 1e3 / n,
-                                   "warp": times[1] * 1e3 / n}}
+            f"{a}_ms": [times[0], times[3]], f"{b}_ms": times[1:3],
+            "us_per_base_sample": {a: times[0] * 1e3 / n,
+                                   b: times[1] * 1e3 / n}}
 
 
 def voices_forms(ek, call, what):
@@ -974,6 +1031,64 @@ def voices_forms(ek, call, what):
              for f in (False, True, True, False)]
     return {"inputs": f"E1 {what}", "thread_ms": [times[0], times[3]],
             "lanes_ms": times[1:3]}
+
+
+def voice_tool():
+    """tools/torch_voice_breakdown.py's namespace: its build() makes
+    tools/voice_breakdown.cu, which holds E1's thread form before its
+    votes (voice_sample on every slot) beside the library's kernels."""
+    import os
+    import runpy
+    return runpy.run_path(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools", "torch_voice_breakdown.py"))
+
+
+def e1_against_parent(tool, dll, ek, cols, n, fade, what):
+    """E1's thread form (render_voices above VOICES_LANES_MAX_ENGINES)
+    and its parent, the same kernel before its votes (the tool's
+    e1b_thread_kernel<1, false>), on the same slots: bit for bit (mono
+    and every slot row), then timed thread form, parent, parent, thread
+    form (CUDA events; each call on its own copy of the slots, made
+    before the timed calls). → numbers."""
+    b = cols[0].shape[0]
+    check(b > ek.VOICES_LANES_MAX_ENGINES, f"E1 {what}: in the thread band")
+    stream = torch.cuda.current_stream().cuda_stream
+    before = tool["E1_VARIANTS"].index(
+        "E1 thread form without votes (before)")
+
+    def parent(a):
+        mono = torch.empty((b, n), dtype=torch.float64, device=a[0].device)
+        err = dll.e1b_launch(before, *[x.data_ptr() for x in a],
+                             mono.data_ptr(), n, b, fade, SR, stream)
+        check(err == 0, f"E1 {what}: the parent kernel, cudaError {err}")
+        return mono
+
+    def library(a):
+        return ek.render_voices(*a, n, fade, SR)
+
+    sa, sp = [x.clone() for x in cols], [x.clone() for x in cols]
+    ma, mp = library(sa), parent(sp)
+    check(same_bits(ma, mp) and all(same_bits(x, y)
+                                    for x, y in zip(sa, sp)),
+          f"E1 {what}: the thread form against its parent: mono "
+          f"{first_diff(ma, mp)}")
+    del sa, sp
+
+    def timed(fn):
+        copies = [[x.clone() for x in cols] for _ in range(3)]
+        fn(copies.pop())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for a in copies:
+            fn(a)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / len(copies)
+
+    times = [timed(f) for f in (library, parent, parent, library)]
+    return {"inputs": f"E1 {what}", "ms": [times[0], times[3]],
+            "parent_ms": times[1:3]}
 
 
 def abba_line(forms):
@@ -1198,7 +1313,8 @@ def engine_phases(dev, card, launches, vb, mc, fast, ptxas):
         check(all(v == 0 for v in inv.power_amp_diag().values()),
               f"power_amp_diag {inv.power_amp_diag()}")
         launches["Engine session"] = counts = read_counts(vb, mc)
-        check(counts["engine_voices"] > 0 and counts["engine_chain"] > 0
+        check(counts["engine_voices"] > 0
+              and counts[chain_kernel(ek, "dk", "circuit", 1)] > 0
               and counts["plain"] == 0, counts)
         # replay the first 256-sample chunk of the 1 s render
         idx = next(i for i, c in enumerate(rec.chain)
@@ -1228,7 +1344,8 @@ def engine_phases(dev, card, launches, vb, mc, fast, ptxas):
     launches["WurliPlugin.process"] = counts = read_counts(vb, mc)
     pcm = np.concatenate(blocks)
     check(pcm.shape == (1536, 2) and np.isfinite(pcm).all()
-          and np.abs(pcm).max() > 0 and counts["engine_chain"] >= 4
+          and np.abs(pcm).max() > 0
+          and counts[chain_kernel(ek, "dk", "circuit", 1)] >= 4
           and counts["plain"] == 0, f"WurliPlugin {counts}")
     # the transport over it
     reset_counts(vb, mc)
@@ -1243,7 +1360,8 @@ def engine_phases(dev, card, launches, vb, mc, fast, ptxas):
     launches["StreamHost(engine='f64')"] = counts = read_counts(vb, mc)
     pcm = np.frombuffer(buf.getvalue(), dtype=np.float32)
     check(pcm.size == 3 * 512 * 2 and np.isfinite(pcm).all()
-          and np.abs(pcm).max() > 0 and counts["engine_chain"] >= 3
+          and np.abs(pcm).max() > 0
+          and counts[chain_kernel(ek, "dk", "circuit", 1)] >= 3
           and counts["plain"] == 0, f"StreamHost f64 {counts}")
     print(f"phase 22 Engine(44100): warm_up {warm_ms / 1e3:.2f} s "
           f"({int(SR * 0.6)} samples), session of 3 x 4096 (chord, 65 "
@@ -1664,7 +1782,7 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
               f"power_amp_diag {plug.engine.power_amp_diag()}")
         launches["WurliPlugin(preamp_model='melange')"] = counts = \
             read_counts(vb, mc)
-        check(counts["engine_chain_melange_circuit"] > 0
+        check(counts[chain_kernel(ek, "melange", "circuit", 1)] > 0
               and counts["plain"] == 0, f"melange plugin {counts}")
         # replay the first 256 samples of the last 2048-sample chunk of
         # the 1 s render (the chord sounding)
@@ -1693,7 +1811,7 @@ def model_phases(dev, card, launches, vb, mc, ptxas):
                   f"Engine{models} finite and sounding")
             key = f"Engine(preamp_model='{models[0]}', pa_model='behavioral')"
             launches[key] = counts = read_counts(vb, mc)
-            name = f"engine_chain_{models[0]}_behavioral"
+            name = chain_kernel(ek, *models, 1)
             check(counts[name] > 0 and counts["plain"] == 0, counts)
             beh[key] = {"ms_4096": b_ms, "peak": float(np.abs(out).max())}
             # the session's first chunk (256 samples of it) in E2's two
@@ -2215,8 +2333,10 @@ def cli_phases(dev, card, launches, vb, mc, ptxas):
 
     from openwurli_tpu_torch import cli, voice
     from openwurli_tpu_torch.calib import alias_audit
+    from openwurli_tpu_torch.kernels import engine as ek
     from openwurli_tpu_torch.kernels import render as kr
 
+    e2_one = chain_kernel(ek, "dk", "circuit", 1)  # one DK engine's E2
     repo = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(repo, "build", "chip_smoke_cli")
     shutil.rmtree(work, ignore_errors=True)
@@ -2357,11 +2477,11 @@ def cli_phases(dev, card, launches, vb, mc, ptxas):
     launched("reed-render", "voice_render")
     launched("bench-reed", "voice_render")
     launched("render-poly", "voice_bank", "mono_chain")
-    launched("render-poly", "engine_voices", "engine_chain", k=1)
+    launched("render-poly", "engine_voices", e2_one, k=1)
     launched("render-midi", "voice_bank_events", "trem_preroll",
              "mono_chain")
     launched("render-midi", "voice_bank_events", "mono_chain", k=1)
-    launched("render-midi", "engine_voices", "engine_chain", k=2)
+    launched("render-midi", "engine_voices", e2_one, k=2)
     for name in ("bark-audit", "calibrate", "sensitivity"):
         launched(name, "voice_render_tap", "preamp_scan_dk",
                  "pa_speaker_scan")
@@ -2411,7 +2531,7 @@ def cli_phases(dev, card, launches, vb, mc, ptxas):
         after = read_counts(vb, mc)
         diff = {k: after[k] - before[k] for k in after
                 if after[k] != before[k]}
-        check(diff.get("engine_chain", 0) > 0 and "plain" not in diff,
+        check(diff.get(e2_one, 0) > 0 and "plain" not in diff,
               f"alias-audit --note {note} launches {diff}")
         per_cmd.append({"cmd": f"alias-audit --note {note}", "ms": ms,
                         "launches": diff})
@@ -2516,15 +2636,15 @@ def cli_phases(dev, card, launches, vb, mc, ptxas):
 E8_OPS_STEP = 30 + 2 * LIBM_OPS
 E9_OPS_SAMPLE = 21 + 40 + 25
 STAGE_SR = 88200.0
-# E1's and E2's thread forms' ptxas (registers, stack bytes, spill stores,
-# spill loads) as built before E8 and E9 existed (NVIDIA H100 80GB HBM3,
-# the card machine's nvcc): E8 and E9 add callers of E2's tremolo and
+# E2's thread forms' ptxas (registers, stack bytes, spill stores, spill
+# loads) as built before E8 and E9 existed (NVIDIA H100 80GB HBM3, the
+# card machine's nvcc): E8 and E9 add callers of E2's tremolo and
 # power-amp steps, and must not move the existing kernels' allocation; nor
 # must the warp steps beside them (E6, E5<melange>, E5<dk>, E7 and E9, a
 # warp per stream since, E3, one warp since, E4 and E1's cluster form,
-# eight threads per voice since, and E2's warp forms are not in the list)
+# eight threads per voice since, E1's thread form, its libm behind votes
+# since, and E2's warp and half forms are not in the list)
 EARLIER_PTXAS = {
-    "E1 thread": (255, 40, 0, 0),
     "E2<dk, circuit> thread": (255, 6912, 80, 136),
     "E2<melange, circuit> thread": (255, 7152, 128, 176),
     "E2<dk, behavioral> thread": (255, 2880, 208, 212),
@@ -2644,7 +2764,7 @@ def stage_phases(dev, card, launches, vb, mc, ptxas):
         f"{k} {v['registers']} registers, {v['stack']} bytes stack, "
         f"{v['spill_stores']} / {v['spill_loads']} bytes spilled"
         for k, v in sorted(stage_ptxas.items()))
-        + (f"; E1 and E2's thread forms ({len(EARLIER_PTXAS)} entries) "
+        + (f"; E2's thread forms ({len(EARLIER_PTXAS)} entries) "
            "as before E8 and E9"
            if ptxas else "; no build log (library already built)"),
         flush=True)
@@ -2891,8 +3011,10 @@ def parallel_phases(dev, card, launches, vb, mc):
 
 # The seconds the script needs after the alias sweep: E7 against its plain
 # version and phase 28 (17 s and 67 s measured on an NVIDIA H100 80GB HBM3
-# at 700 W; each prints its own time). The sweep shrinks to leave them.
-AFTER_ALIAS_S = 90.0
+# at 700 W before (d) drove the wide forms at two widths and (e) the
+# distinct engines at 8192, which add about 90 s; each prints its own
+# time). The sweep shrinks to leave them.
+AFTER_ALIAS_S = 180.0
 # the reference perf sweep's chord (tools/perf_sweep.py)
 SWEEP_CHORD = (48, 55, 60, 63, 67, 70)
 # (a)'s batches: (models, engines, samples); each engine's history before
@@ -2902,13 +3024,96 @@ BATCH_CASES = ((("dk", "circuit"), 5, 256), (("dk", "behavioral"), 2, 32),
                (("melange", "behavioral"), 2, 32))
 BATCH_HISTORY = 512
 BATCH_SWEEP = ((1, 8, 32, 128), 2048)
-# (d)'s width above kernels.engine.CHAIN_WARP_MAX_ENGINES (E2's thread
-# form) and its samples per call
+# (d)'s widths above E2's warp bands (kernels.engine.chain_form: the
+# half and thread forms) and its samples per call; (e)'s width of (a)'s
+# distinct engines, tiled
 THREAD_WIDTH, THREAD_WIDTH_N = 8192, 256
+WIDE_WIDTHS = (THREAD_WIDTH, 16384)
+DISTINCT_WIDTH = 8192
+# the engines of (d)'s broadcast calls that the plain version replays
+# (all rows are alike: each is the one-engine call's)
+PLAIN_ROWS = 128
+E2_MODELS = (("dk", "circuit"), ("melange", "circuit"),
+             ("dk", "behavioral"), ("melange", "behavioral"))
 # (a)'s wide case: the 8 kinds of batch_engine, WIDE_COPIES copies each
 # (128 engines: 4 E2 blocks of 32, 128 E1 blocks), copy j WIDE_STEP · j
 # samples further on (the steal fades, 220 samples, live in every copy)
 WIDE_COPIES, WIDE_STEP, WIDE_N = 16, 8, 256
+
+
+def wide_ms(bat_k, models, form):
+    """Phase 28 (d)'s render_states calls of E2<models> that ran `form`:
+    {path: ms}."""
+    key = ", ".join(models) + ", "
+    return {f"render_states {k[len(key):]} engines x {THREAD_WIDTH_N}":
+            v["ms"] for k, v in bat_k["wide_rows"].items()
+            if k.startswith(key) and v["form"] == form}
+
+
+def warp_off_path(ek, models):
+    """The kernels line's note on E2<models>'s warp form when no band of
+    chain_form routes to it."""
+    if band_of(ek, models, "warp"):
+        return ""
+    return (f"; off the path for <{models[0]}, {models[1]}>: chain_form "
+            "routes no width to it, so its launches are phase 28 (d)'s "
+            "forced call and its times the forced form on the path's calls")
+
+
+def chain_kernel(ek, pre, pa, b):
+    """read_counts' name of the E2<pre, pa> form that b engines run."""
+    return kernel_name(pre, pa, ek.chain_form(pre, pa, b))
+
+
+def kernel_name(pre, pa, form):
+    """read_counts' name of E2<pre, pa>'s form."""
+    return ("engine_chain" + ("" if (pre, pa) == ("dk", "circuit")
+                              else f"_{pre}_{pa}")
+            + ("" if form == "warp" else f"_{form}"))
+
+
+def band_of(ek, models, form):
+    """Whether some width routes E2<models> to `form`."""
+    warp = ek.CHAIN_WARP_MAX_ENGINES[models]
+    if form == "warp":
+        return warp is None or warp > 0
+    if form == "half":
+        return half_band(ek, models) is not None
+    half = ek.CHAIN_HALF_MAX_ENGINES[models]
+    return warp is not None and half is not None
+
+
+def half_band(ek, models):
+    """(first, last) engines of E2<models>'s half band, None if empty
+    (the last None: no upper limit)."""
+    low = ek.CHAIN_WARP_MAX_ENGINES[models]
+    high = ek.CHAIN_HALF_MAX_ENGINES[models]
+    if low is None or high == 0 or (high is not None and high <= low):
+        return None
+    return low + 1, high
+
+
+def band_widths(ek, models):
+    """The widths at which phase 28 (d) drives E2<models>: WIDE_WIDTHS,
+    and a width inside its half band and one inside its thread band where
+    those miss the band."""
+    widths = list(WIDE_WIDTHS)
+    forms = {ek.chain_form(*models, w) for w in widths}
+    half = half_band(ek, models)
+    if half and "half" not in forms:
+        widths.append(half[1])
+    top = ek.CHAIN_HALF_MAX_ENGINES[models] if half \
+        else ek.CHAIN_WARP_MAX_ENGINES[models]
+    if top is not None and "thread" not in forms:
+        widths.append(2 * top)
+    return widths
+
+
+def chain_bands(ek):
+    """E2's bands, by instantiation: (warp up to, half up to)."""
+    return {f"{p}, {a}": (ek.CHAIN_WARP_MAX_ENGINES[p, a],
+                          ek.CHAIN_HALF_MAX_ENGINES[p, a])
+            for p, a in E2_MODELS}
 
 
 def batch_engine(dev, k, models=("dk", "circuit")):
@@ -2948,6 +3153,31 @@ def batch_engine(dev, k, models=("dk", "circuit")):
     return e
 
 
+def distinct_engines(dev, models=("dk", "circuit")):
+    """Phase 28 (a)'s wide case: the 8 kinds of batch_engine (models),
+    WIDE_COPIES copies each, copy j WIDE_STEP · j samples further on,
+    kinds 2 and 4 keeping their NaN slot and NaN speaker state in every
+    copy (engine e of kind e % 8) → (the 8 Engines, the 128 engines'
+    EngineState). tools/torch_perf_sweep.py --traffic distinct tiles
+    them."""
+    from openwurli_tpu_torch import engine as pe
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    kinds = [batch_engine(dev, k, models) for k in range(8)]
+    eight = pe.stack_states([e.state for e in kinds])
+    held = eight.eng_i[2, 1].clone()
+    copies = []
+    for _ in range(WIDE_COPIES):
+        copies.append(pe.EngineState(*[x.clone() for x in eight]))
+        pe.render_states(kinds[0], eight, WIDE_STEP)
+    wide = pe.stack_states(copies)
+    kind = torch.arange(wide.batch, device=dev) % 8
+    wide.vst[kind == 2, ek.S_S, 1] = float("nan")
+    wide.eng_i[kind == 2, 1] = held
+    wide.chain[kind == 4, ek.CHAIN_OFF["spk"][0]] = float("nan")
+    return kinds, wide
+
+
 def batch_guards(ek, cp, st, vin, mono):
     """Phase 28 (a)'s guards on a batch of batch_engine kinds (engine e of
     kind e % 8): E1 (its updated inputs `vin`) fired guard #1 once in
@@ -2968,7 +3198,7 @@ def batch_guards(ek, cp, st, vin, mono):
           f"({st.batch} engines)")
 
 
-def batch_phases(dev, card, launches, vb, mc):
+def batch_phases(dev, card, launches, vb, mc, e1_tool):
     """Phase 28: E1 (a cluster of blocks per engine) and E2 (a warp per
     engine) over B distinct engines against their batched plain versions
     in all four instantiations; each engine of a batch against its own
@@ -3006,21 +3236,9 @@ def batch_phases(dev, card, launches, vb, mc):
         if b == 5:
             batch_guards(ek, engines[0].params, st, vin, mono)
 
-    # the wide case: 128 distinct engines, kinds 2 and 4 keeping their NaN
-    # slot and NaN speaker state in every copy
-    kinds = [batch_engine(dev, k) for k in range(8)]
-    eight = pe.stack_states([e.state for e in kinds])
-    held = eight.eng_i[2, 1].clone()
-    copies = []
-    for _ in range(WIDE_COPIES):
-        copies.append(pe.EngineState(*[x.clone() for x in eight]))
-        pe.render_states(kinds[0], eight, WIDE_STEP)
-    wide = pe.stack_states(copies)
+    # the wide case: 128 distinct engines
+    kinds, wide = distinct_engines(dev)
     b = wide.batch
-    kind = torch.arange(b, device=dev) % 8
-    wide.vst[kind == 2, ek.S_S, 1] = float("nan")
-    wide.eng_i[kind == 2, 1] = held
-    wide.chain[kind == 4, ek.CHAIN_OFF["spk"][0]] = float("nan")
     rows = [torch.unique(x.reshape(b, -1).view(torch.int64), dim=0).shape[0]
             for x in (wide.vst, wide.chain)]
     check(rows == [b, b] and int((~wide.rail_sag).sum()) == WIDE_COPIES
@@ -3042,6 +3260,7 @@ def batch_phases(dev, card, launches, vb, mc):
         "#2, noise, ramps, releases)"))
     forms = chain_forms(ek, wide_call, f"{b} distinct engines x {WIDE_N}")
     batch_guards(ek, kinds[0].params, wide, vin, mono)
+    distinct = wide  # (d) tiles these engines to DISTINCT_WIDTH
     # E1 per chunk of WIDE_N at 1, 5 and 128 of these engines, and its two
     # forms on the 128
     e1_chunk_us = {w: cuda_ms(lambda: ek.render_voices(
@@ -3077,7 +3296,8 @@ def batch_phases(dev, card, launches, vb, mc):
         engines[0], st, 256)[1]) for _ in range(4)])
     path = "render_states, 8 engines x 4 chunks of 256"
     launches[path] = counts = read_counts(vb, mc)
-    check(counts["engine_voices"] == 4 and counts["engine_chain"] == 4
+    check(counts["engine_voices"] == 4
+          and counts[chain_kernel(ek, "dk", "circuit", 8)] == 4
           and counts["plain"] == 0, counts)
     out = torch.cat(outs, 1)
     one_ms, ones = host_ms(lambda: [e.render(1024) for e in engines])
@@ -3119,8 +3339,14 @@ def batch_phases(dev, card, launches, vb, mc):
         lambda: pe.render_states(chord, mixed, n))
     path = f"render_states sweep, {widths} engines x {n}"
     launches[path] = counts = read_counts(vb, mc)
-    check(counts["engine_voices"] == counts["engine_chain"]
-          == len(widths) + 1 and counts["plain"] == 0, counts)
+    calls = (*widths, 32)
+    lanes = ek.VOICES_LANES_MAX_ENGINES
+    e1 = collections.Counter("engine_voices" if lanes is None or b <= lanes
+                             else "engine_voices_thread" for b in calls)
+    e2 = collections.Counter(chain_kernel(ek, "dk", "circuit", b)
+                             for b in calls)
+    check(all(counts[k] == v for k, v in (*e1.items(), *e2.items()))
+          and counts["plain"] == 0, (counts, e1, e2))
     # the 32 of 8: each row equals its kind's row of an 8-engine call on
     # the same states, output and state
     _, e_out = pe.render_states(chord, eight, n)
@@ -3143,66 +3369,256 @@ def batch_phases(dev, card, launches, vb, mc):
               f"{v['aggregate_rtf']:.4f}x" for k, v in rows.items())
           + f"; launches {counts} [{card}]", flush=True)
 
-    # (d) above the crossover: render_states at THREAD_WIDTH engines runs
-    # E2's thread form, each broadcast row equal to the chord's one-engine
-    # (warp form) call on the same state, for every instantiation
-    t_d = time.perf_counter()
-    b = THREAD_WIDTH
-    check(all(w is not None and b > w
-              for w in (*ek.CHAIN_WARP_MAX_ENGINES.values(),
-                        ek.VOICES_LANES_MAX_ENGINES)),
-          "THREAD_WIDTH above the crossovers")
-    wide_rows = {}
-    reset_counts(vb, mc)
-    for pre, pa in (("dk", "circuit"), ("melange", "circuit"),
-                    ("dk", "behavioral"), ("melange", "behavioral")):
-        eng = pe.Engine(SR, device=dev, preamp_model=pre, pa_model=pa)
-        for note in SWEEP_CHORD:
-            eng.note_on(note, 0.95)
-        one = pe.EngineState(*[x.clone() for x in eng.state])
-        wide = pe.broadcast_state(eng.state, b)
-        if (pre, pa) == ("dk", "circuit"):
-            e1_wide = (wide, eng.fade_len)
-        ms, out = host_ms(lambda: pe.render_states(eng, wide,
-                                                   THREAD_WIDTH_N)[1])
-        _, ref = pe.render_states(eng, one, THREAD_WIDTH_N)
-        check(same_bits(out, ref.expand_as(out))
-              and same_bits(wide.chain, one.chain.expand_as(wide.chain)),
-              f"<{pre}, {pa}>: {b} engines (thread form) against one (warp "
-              f"form): {first_diff(out, ref.expand_as(out))}")
-        wide_rows[pre, pa] = {"ms": ms, "aggregate_rtf":
-                              b * THREAD_WIDTH_N / SR / (ms / 1e3)}
-    path = f"render_states, {b} engines x {THREAD_WIDTH_N} (thread form)"
-    launches[path] = counts = read_counts(vb, mc)
-    # E1's thread form alone at this width (after the path's counts)
-    e1_wide_ms = cuda_ms(lambda: ek.render_voices(
-        *[x.clone() for x in e1_wide[0][:4]], THREAD_WIDTH_N, e1_wide[1],
-        SR))
-    check(counts["engine_voices_thread"] == 4
-          and counts["engine_chain_thread"] == 1
-          and counts["engine_chain_melange_circuit_thread"] == 1
-          and counts["engine_chain_dk_behavioral_thread"] == 1
-          and counts["engine_chain_melange_behavioral_thread"] == 1
-          and counts["plain"] == 0, counts)
-    print(f"phase 28 (d) render_states at {b} engines x {THREAD_WIDTH_N}, "
-          f"above CHAIN_WARP_MAX_ENGINES = {ek.CHAIN_WARP_MAX_ENGINES}: "
-          + "; ".join(f"<{k[0]}, {k[1]}> {v['ms']:.1f} ms = "
-                      f"{v['aggregate_rtf']:.1f}x realtime aggregate"
-                      for k, v in wide_rows.items())
-          + f"; E1's thread form alone {e1_wide_ms:.3f} ms"
-          f", every row bit-identical to the one-engine (warp form) "
-          f"call; launches {counts} [{card}] ({time.perf_counter() - t_d:.0f}"
-          f" s; {time.perf_counter() - t_p:.0f} s for phase 28)", flush=True)
-    return {"E1": e1_cmp, "E2": e2_cmp, "E2_forms": forms,
-            "E1_forms": e1_forms, "E1_thread_width_ms": e1_wide_ms,
+    wide = wide_phases(dev, card, launches, vb, mc, distinct, kinds[0],
+                       e1_tool)
+    print(f"phase 28 took {time.perf_counter() - t_p:.0f} s", flush=True)
+    return {"E1": e1_cmp + [wide.pop("E1_distinct")], "E2": e2_cmp,
+            "E2_forms": forms, "E1_forms": e1_forms, **wide,
             "E1_us_per_chunk": {f"{w} engines x {WIDE_N}": v
                                 for w, v in e1_chunk_us.items()},
-            "thread_width": {f"{k[0]}, {k[1]}": v
-                             for k, v in wide_rows.items()},
+
             "batch_vs_one": {"engines": 8, "samples": 1024,
                              "batch_ms": batch_ms, "one_at_a_time_ms":
                              one_ms},
             "sweep_x2048": rows}
+
+
+def wide_phases(dev, card, launches, vb, mc, distinct, kind0, e1_tool):
+    """Phase 28 (d) and (e): E1's thread form and E2's half and thread
+    forms above the warp bands, from the broadcast chord at WIDE_WIDTHS
+    (and a width inside each band those miss) and over `distinct`
+    ((a)'s distinct engines, whose first is `kind0`) tiled to
+    DISTINCT_WIDTH; E1's thread form against its parent through
+    `e1_tool` (voice_tool() and a future of its build). Adds its paths'
+    launch counts to `launches`; → the measurements."""
+    from openwurli_tpu_torch import engine as pe
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    # (d) above the warp forms' bands: render_states from the broadcast
+    # chord at each of WIDE_WIDTHS engines (and inside an instantiation's
+    # half or thread band where neither width reaches it) in every
+    # instantiation, in the form that chain_form gives there, each row
+    # equal to the chord's one-engine call on the same state; E1's thread
+    # form throughout
+    t_d = time.perf_counter()
+    lanes_max = ek.VOICES_LANES_MAX_ENGINES
+    check(all(ek.chain_form(*m, w) != "warp" and lanes_max is not None
+              and w > lanes_max for m in E2_MODELS for w in WIDE_WIDTHS),
+          "WIDE_WIDTHS above the warp and cluster forms' bands")
+    chords, widths = {}, {}
+    for pre, pa in E2_MODELS:
+        eng = pe.Engine(SR, device=dev, preamp_model=pre, pa_model=pa)
+        for note in SWEEP_CHORD:
+            eng.note_on(note, 0.95)
+        chords[pre, pa] = eng
+        widths[pre, pa] = band_widths(ek, (pre, pa))
+    wide_rows, wide_calls, expect = {}, {}, {}
+    seen = []
+    real_chain = ek.render_chain
+
+    def keep(cp, mono, state, sag, scale=0.0):
+        if mono.dim() == 2 and mono.shape[0] > 1:
+            seen.append((cp, mono.clone(), state.clone(), sag.clone(),
+                         scale.clone()))
+        return real_chain(cp, mono, state, sag, scale)
+
+    reset_counts(vb, mc)
+    for (pre, pa), eng in chords.items():
+        one = pe.EngineState(*[x.clone() for x in eng.state])
+        _, ref = pe.render_states(eng, one, THREAD_WIDTH_N)
+        for b in widths[pre, pa]:
+            wide = pe.broadcast_state(eng.state, b)
+            ek.render_chain = keep
+            try:
+                ms, out = host_ms(lambda: pe.render_states(
+                    eng, wide, THREAD_WIDTH_N)[1])
+            finally:
+                ek.render_chain = real_chain
+            wide_calls[pre, pa, b] = seen.pop()
+            check(same_bits(out, ref.expand_as(out))
+                  and same_bits(wide.chain, one.chain.expand_as(wide.chain)),
+                  f"<{pre}, {pa}>: {b} engines against one: "
+                  f"{first_diff(out, ref.expand_as(out))}")
+            form = ek.chain_form(pre, pa, b)
+            name = kernel_name(pre, pa, form)
+            expect[name] = expect.get(name, 0) + 1
+            wide_rows[pre, pa, b] = {
+                "form": form, "ms": ms,
+                "aggregate_rtf": b * THREAD_WIDTH_N / SR / (ms / 1e3)}
+        one_name = chain_kernel(ek, pre, pa, 1)  # the one-engine call
+        expect[one_name] = expect.get(one_name, 0) + 1
+    n_wide = sum(len(w) for w in widths.values())
+    path = (f"render_states, {WIDE_WIDTHS} engines x {THREAD_WIDTH_N} "
+            "(the wide forms), and one engine")
+    launches[path] = counts = read_counts(vb, mc)
+    check(counts["engine_voices_thread"] == n_wide
+          and counts["engine_voices"] == len(E2_MODELS)
+          and all(counts[k] == v for k, v in expect.items())
+          and counts["plain"] == 0, (counts, expect))
+    # a form that no band routes to (an empty band) runs on a path of its
+    # own, the form forced, so that its kernel is launched: the warp form
+    # at 8 engines, the half and thread forms at the widest WIDE_WIDTHS
+    forced = [(m, f) for m in E2_MODELS for f in ek.CHAIN_FORMS
+              if not band_of(ek, m, f)]
+    if forced:
+        reset_counts(vb, mc)
+        for m, f in forced:
+            restore = force_chain_form(ek, m, f)
+            try:
+                wide = pe.broadcast_state(
+                    chords[m].state, 8 if f == "warp" else WIDE_WIDTHS[-1])
+                pe.render_states(chords[m], wide, THREAD_WIDTH_N)
+            finally:
+                restore()
+        path = (f"render_states x {THREAD_WIDTH_N}, forms forced that no "
+                f"band routes to ({forced})")
+        launches[path] = forced_counts = read_counts(vb, mc)
+        check(all(forced_counts[kernel_name(*m, f)] == 1 for m, f in forced)
+              and forced_counts["plain"] == 0, forced_counts)
+    # E1's thread form alone at each width, A B B A against its parent
+    # on the same slots
+    tool, tool_build = e1_tool
+    tool_dll, _ = tool_build.result()
+    e1_parent = {}
+    for b in WIDE_WIDTHS:
+        st = pe.broadcast_state(chords["dk", "circuit"].state, b)
+        e1_parent[b] = e1_against_parent(
+            tool, tool_dll, ek, list(st[:4]), THREAD_WIDTH_N,
+            chords["dk", "circuit"].fade_len,
+            f"{b} engines x {THREAD_WIDTH_N}, the broadcast chord")
+        del st
+    e1_wide_ms = {b: sum(v["ms"]) / 2 for b, v in e1_parent.items()}
+    # E2's thread and half forms on each recorded call, bit for bit,
+    # thread, half, half, thread
+    wide_forms = {key: chain_forms(
+        ek, call, f"<{key[0]}, {key[1]}> {key[2]} engines x "
+        f"{THREAD_WIDTH_N}, the broadcast chord", forms=("thread", "half"))
+        for key, call in wide_calls.items() if key[2] in WIDE_WIDTHS}
+    # the half form against its plain version over E2_REPLAY_N samples of
+    # each first-width call (the thread form is the half form's bits)
+    half_cmp = {}
+    b0 = WIDE_WIDTHS[0]
+    for pre, pa in E2_MODELS:
+        cp, mono, state, sag, scale = wide_calls[pre, pa, b0]
+        restore = force_chain_form(ek, (pre, pa), "half")
+        try:
+            half_cmp[pre, pa] = compare_chain_f64(
+                ek, (cp, mono[:, :E2_REPLAY_N].contiguous(), state, sag,
+                     scale), f"<{pre}, {pa}> {b0} engines x {E2_REPLAY_N}, "
+                f"the broadcast chord (half form; the plain version on the "
+                f"first {PLAIN_ROWS})", plain_rows=PLAIN_ROWS)
+        finally:
+            restore()
+    # each width's bound, scaled from the first width's E2_REPLAY_N
+    # samples (whose Newton counts the plain run gave): rows alike, the
+    # later samples assumed to need what the first ones did
+    for (pre, pa, b), row in wide_rows.items():
+        row["bound_ms_scaled"] = half_cmp[pre, pa]["bound"][0] * (
+            b * THREAD_WIDTH_N) / (b0 * E2_REPLAY_N)
+    print(f"phase 28 (d) render_states x {THREAD_WIDTH_N} (E2 bands "
+          f"{chain_bands(ek)}): "
+          + "; ".join(f"<{k[0]}, {k[1]}> {k[2]} ({v['form']}) "
+                      f"{v['ms']:.1f} ms = {v['aggregate_rtf']:.1f}x"
+                      for k, v in wide_rows.items())
+          + "; every row bit-identical to the one-engine call (the "
+          f"form its band gives); launches {counts}; E2's bounds, scaled "
+          "from the first "
+          f"width's {E2_REPLAY_N} samples: "
+          + ", ".join(f"<{k[0]}, {k[1]}> {k[2]} {v['bound_ms_scaled']:.4f} ms"
+                      for k, v in wide_rows.items())
+          + "; E1's thread form bit-identical to its parent (before its "
+          "votes), A B B A: "
+          + "; ".join(f"{b} engines {v['ms'][0]:.3f}, parent "
+                      + " / ".join(f"{t:.3f}" for t in v["parent_ms"])
+                      + f", {v['ms'][1]:.3f} ms" for b, v in
+                      e1_parent.items())
+          + "; E2's thread and half forms bit-identical, A B B A: "
+          + "; ".join(f"{f['inputs'][3:]}: thread {f['thread_ms'][0]:.2f}, "
+                      "half " + " / ".join(f"{t:.2f}" for t in f["half_ms"])
+                      + f", thread {f['thread_ms'][1]:.2f} ms"
+                      for f in wide_forms.values())
+          + "; the half form bit-identical to chain_plain over "
+          f"{E2_REPLAY_N} samples: "
+          + "; ".join(f"<{k[0]}, {k[1]}> {v['ms']:.2f} / plain "
+                      f"{v['plain_ms']:.0f} ms" for k, v in half_cmp.items())
+          + f" [{card}] ({time.perf_counter() - t_d:.0f} s)", flush=True)
+
+    # distinct engines at width: (a)'s 128 tiled to DISTINCT_WIDTH (so
+    # that neighbouring engines, a warp's two segments among them,
+    # differ): E1's thread form and E2's thread and half forms over WIDE_N,
+    # each row equal to its engine's row of the 128-engine call (E1's
+    # cluster form, E2's warp form); then E1 and the half form against
+    # their plain versions over E2_REPLAY_N samples
+    t_e = time.perf_counter()
+    tiles = DISTINCT_WIDTH // distinct.batch
+    big = pe.stack_states([distinct] * tiles)
+    params, fade = kind0.params, kind0.fade_len
+    v_small = [x.clone() for x in distinct[:4]]
+    mono_small = ek.render_voices(*v_small, WIDE_N, fade, SR)
+    st_small = distinct.chain.clone()
+    out_small = ek.render_chain(params, mono_small, st_small,
+                                distinct.rail_sag, distinct.noise_scale)
+    v_big = [x.clone() for x in big[:4]]
+    mono_big = ek.render_voices(*v_big, WIDE_N, fade, SR)
+
+    def tiled(x):
+        return x.repeat(tiles, *([1] * (x.dim() - 1)))
+
+    check(same_bits(mono_big, tiled(mono_small))
+          and all(same_bits(x, tiled(y)) for x, y in zip(v_big, v_small)),
+          f"E1 at {DISTINCT_WIDTH} distinct engines against the 128-engine "
+          f"call: {first_diff(mono_big, tiled(mono_small))}")
+    for form in ("thread", "half"):
+        restore = force_chain_form(ek, ("dk", "circuit"), form)
+        try:
+            st = big.chain.clone()
+            o = ek.render_chain(params, mono_big, st, big.rail_sag,
+                                big.noise_scale)
+        finally:
+            restore()
+        check(same_bits(o, tiled(out_small))
+              and same_bits(st, tiled(st_small)),
+              f"E2's {form} form at {DISTINCT_WIDTH} engines against the "
+              f"{distinct.batch}-engine call: "
+              f"{first_diff(o, tiled(out_small))}")
+    distinct_forms = chain_forms(
+        ek, (params, mono_big, big.chain, big.rail_sag, big.noise_scale),
+        f"{DISTINCT_WIDTH} distinct engines x {WIDE_N}",
+        forms=("thread", "half"))
+    e1_distinct = compare_voices(
+        ek, (*big[:4], E2_REPLAY_N, fade, SR),
+        f"{DISTINCT_WIDTH} distinct engines x {E2_REPLAY_N} (thread form)")
+    restore = force_chain_form(ek, ("dk", "circuit"), "half")
+    try:
+        half_distinct = compare_chain_f64(
+            ek, (params, mono_big[:, :E2_REPLAY_N].contiguous(), big.chain,
+                 big.rail_sag, big.noise_scale),
+            f"{DISTINCT_WIDTH} engines x {E2_REPLAY_N}, (a)'s "
+            f"{distinct.batch} tiled (half form; the plain version on one "
+            "tile)", plain_rows=distinct.batch)
+    finally:
+        restore()
+    print(f"phase 28 (e) {DISTINCT_WIDTH} engines, (a)'s {distinct.batch} "
+          f"distinct ones tiled: E1's thread form and E2's thread and half "
+          f"forms bit-identical to the {distinct.batch}-engine call (cluster "
+          "and warp forms), A B B A: thread "
+          f"{distinct_forms['thread_ms'][0]:.2f}, half "
+          + " / ".join(f"{t:.2f}" for t in distinct_forms["half_ms"])
+          + f", thread {distinct_forms['thread_ms'][1]:.2f} ms; E1 "
+          f"{e1_distinct['ms']:.3f} / plain {e1_distinct['plain_ms']:.0f} "
+          f"ms and the half form {half_distinct['ms']:.2f} / plain "
+          f"{half_distinct['plain_ms']:.0f} ms over {E2_REPLAY_N} samples, "
+          f"bit-identical [{card}] ({time.perf_counter() - t_e:.0f} s)",
+          flush=True)
+    return {"E1_distinct": e1_distinct, "E1_thread_width_ms": e1_wide_ms,
+            "E1_against_parent": list(e1_parent.values()),
+            "half": {f"{k[0]}, {k[1]}": v for k, v in half_cmp.items()},
+            "half_distinct": half_distinct,
+            "wide_forms": {f"{k[0]}, {k[1]}, {k[2]}": v
+                           for k, v in wide_forms.items()},
+            "distinct_forms": distinct_forms,
+            "wide_rows": {f"{k[0]}, {k[1]}, {k[2]}": v
+                          for k, v in wide_rows.items()}}
 
 
 def main():
@@ -3237,13 +3653,20 @@ def main():
     check(seen == [False, False], f"onset model cudnn.allow_tf32 {seen}")
 
     from openwurli_tpu_torch import _build, fast
+    from openwurli_tpu_torch.kernels import engine as ek
     from openwurli_tpu_torch.kernels import mono_chain as mc
     from openwurli_tpu_torch.kernels import voice_bank as vb
 
     dev = "cuda"
 
     # ── phase 1: build ──
+    # (and, beside it, tools/voice_breakdown.cu, whose E1 thread form
+    # before its votes phase 28 (d) times against the library's)
+    import concurrent.futures
     t0 = time.perf_counter()
+    e1_pool = concurrent.futures.ThreadPoolExecutor(1)
+    tool = voice_tool()
+    e1_tool = (tool, e1_pool.submit(tool["build"]))
     _build.library()
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.BUILD_SECONDS} s)", flush=True)
@@ -3278,6 +3701,14 @@ def main():
                            "E2<dk, behavioral> thread"),
                           ("engine_chain_kernelILi1ELi1E",
                            "E2<melange, behavioral> thread"),
+                          ("engine_chain_half_kernelILi0ELi0E",
+                           "E2<dk, circuit> half"),
+                          ("engine_chain_half_kernelILi1ELi0E",
+                           "E2<melange, circuit> half"),
+                          ("engine_chain_half_kernelILi0ELi1E",
+                           "E2<dk, behavioral> half"),
+                          ("engine_chain_half_kernelILi1ELi1E",
+                           "E2<melange, behavioral> half"),
                           ("tremolo_settle_kernel", "E3"),
                           ("voice_lanes_kernelILb0E", "E4"),
                           ("voice_lanes_kernelILb1E", "E4<tap>"),
@@ -3313,6 +3744,19 @@ def main():
         check(all(v and all(f == (0, 0, 0) for f in v)
                   for v in steps.values()),
               f"the warp step's functions use stack or spill: {steps}")
+        # E2's half form and its segment steps' functions: no stack, no
+        # spills in the steps (the kernels hold lane 0's chain rows)
+        steps = {k: function_frames(_build.BUILD_LOG, k) for k in HALF_STEP}
+        print("phase 1 the half kernels' ptxas: " + "; ".join(
+            f"{k} {ptxas[k]['registers']} registers, {ptxas[k]['stack']} "
+            f"bytes stack, {ptxas[k]['spill_stores']} / "
+            f"{ptxas[k]['spill_loads']} bytes spilled"
+            for k in HALF_KERNELS) + "; the segment steps' functions "
+            "(stack, spill stores, spill loads): " + "; ".join(
+                f"{k} {v}" for k, v in steps.items()), flush=True)
+        check(all(v and all(f == (0, 0, 0) for f in v)
+                  for v in steps.values()),
+              f"the segment steps' functions use stack or spill: {steps}")
 
     # ── phase 2: K1 on the card against its plain version on the card ──
     notes = np.repeat(np.arange(36, 100), 4).astype(np.float64)
@@ -4257,7 +4701,8 @@ def main():
     stg_k = stage_phases(dev, card, launches, vb, mc, ptxas)
     par_k = parallel_phases(dev, card, launches, vb, mc)
     cli_k = cli_phases(dev, card, launches, vb, mc, ptxas)
-    bat_k = batch_phases(dev, card, launches, vb, mc)
+    bat_k = batch_phases(dev, card, launches, vb, mc, e1_tool)
+    e1_pool.shutdown()
 
     def by_path(name):
         return {path: c[name] for path, c in launches.items()}
@@ -4335,27 +4780,33 @@ def main():
               "per slot", "ptxas": ptxas.get("E1")}),
             ("engine_chain", "E2", "openwurli_tpu/engine.py:452",
              {k: v for k, v in eng_k["E2"].items() if k != "cmp"}
-             | {"form": "a warp per engine", "ptxas": ptxas.get(
+             | {"form": "a warp per engine" + warp_off_path(
+                 ek, ("dk", "circuit")), "ptxas": ptxas.get(
                  "E2<dk, circuit> warp")})):
         cmps = eng_k[key]["cmp"]
         main = cmps[-1]  # the engine session's own chunk
         kernels.append(entry(
             name, "engine.cu", replaces, main["shape"],
-            max(c["max_abs_err"] for c in cmps), main["ms"],
+            max(c["max_abs_err"] for c in cmps),
+            main["ms_by_form"]["warp"] if key == "E2" else main["ms"],
             main["plain_ms"], main["bound"],
             compared=[{k: v for k, v in c.items() if k != "bound"}
                       | {"bound_ms": c["bound"][0]} for c in cmps], **more))
-    # E1's thread form (above VOICES_LANES_MAX_ENGINES engines), timed
-    # beside the cluster form on phase 28 (a)'s 128 engines
+    # E1's thread form (above VOICES_LANES_MAX_ENGINES engines): its
+    # comparison with the plain version at DISTINCT_WIDTH engines, timed
+    # beside the cluster form on phase 28 (a)'s 128 engines and beside its
+    # parent (the kernel before its votes) at each of WIDE_WIDTHS
     main = bat_k["E1"][-1]
     kernels.append(entry(
         "engine_voices_thread", "engine.cu", "openwurli_tpu/engine.py:452",
-        main["shape"], main["max_abs_err"], bat_k["E1_forms"]["thread_ms"][0],
+        main["shape"], main["max_abs_err"], main["ms"],
         main["plain_ms"], main["bound"], ptxas=ptxas.get("E1 thread"),
-        form="a block per engine, a thread per slot, above "
-        "VOICES_LANES_MAX_ENGINES", against_cluster_form=bat_k["E1_forms"],
-        main_path_ms={f"render_states {THREAD_WIDTH} engines x "
-                      f"{THREAD_WIDTH_N}": bat_k["E1_thread_width_ms"]}))
+        form="a block per engine, a thread per slot, its libm behind warp "
+        "votes, above VOICES_LANES_MAX_ENGINES",
+        against_cluster_form=bat_k["E1_forms"],
+        main_path_ms={f"render_states {b} engines x {THREAD_WIDTH_N}": ms
+                      for b, ms in bat_k["E1_thread_width_ms"].items()},
+        against_parent=bat_k["E1_against_parent"]))
     e3 = eng_k["E3"]
     kernels.append(entry(
         "tremolo_settle", "engine.cu", "openwurli_tpu/circuits/tremolo.py:160",
@@ -4371,10 +4822,10 @@ def main():
         kernels.append(entry(
             f"engine_chain_{models[0]}_{models[1]}", "engine.cu",
             "openwurli_tpu/engine.py:452", main["shape"],
-            max(c["max_abs_err"] for c in cmps), main["ms"],
+            max(c["max_abs_err"] for c in cmps), main["ms_by_form"]["warp"],
             main["plain_ms"], main["bound"], ptxas=ptxas.get(
                 f"E2<{models[0]}, {models[1]}> warp"),
-            form="a warp per engine",
+            form="a warp per engine" + warp_off_path(ek, models),
             against_thread_form=[f for f in mod_k["behavioral_forms"]
                                  if f["models"] == list(models)],
             compared=[{k: v for k, v in c.items() if k != "bound"}
@@ -4399,11 +4850,41 @@ def main():
             main["max_abs_err"], forms["thread_ms"][0], main["plain_ms"],
             main["bound"], ptxas=ptxas.get(f"E2<{models[0]}, {models[1]}> "
                                            "thread"),
-            form="a thread per engine, above CHAIN_WARP_MAX_ENGINES",
+            form="a thread per engine, in its band of chain_form (if any)",
             against_warp_form=forms,
-            main_path_ms={f"render_states {THREAD_WIDTH} engines x "
-                          f"{THREAD_WIDTH_N}":
-                          bat_k["thread_width"][", ".join(models)]["ms"]}))
+            against_half_form=[f for k, f in bat_k["wide_forms"].items()
+                               if k.startswith(", ".join(models) + ",")],
+            main_path_ms=wide_ms(bat_k, models, "thread")))
+    # the half form (a half-warp per engine, two engines to a warp): its
+    # comparison with the plain version at THREAD_WIDTH engines, timed
+    # beside the thread form at WIDE_WIDTHS (and on the distinct engines),
+    # and the calls of phases 20-25 that chain_form routed to it (the
+    # engine session's chunks, the plugins': B = 1), each with its time in
+    # the half form and its bound
+    sessions = eng_k["E2"]["cmp"] + mod_k["E2"]
+    for models in E2_MODELS:
+        key = ", ".join(models)
+        c = bat_k["half"][key]
+        routed = [x | {"ms": x["ms_by_form"]["half"]} for x in sessions
+                  if x["models"] == list(models) and x["form"] == "half"]
+        cmps = [c] + ([bat_k["half_distinct"]]
+                      if models == ("dk", "circuit") else []) + routed
+        kernels.append(entry(
+            kernel_name(*models, "half"), "engine.cu",
+            "openwurli_tpu/engine.py:452", c["shape"],
+            max(x["max_abs_err"] for x in cmps), c["ms"], c["plain_ms"],
+            c["bound"], ptxas=ptxas.get(f"E2<{models[0]}, {models[1]}> "
+                                         "half"),
+            form="a half-warp per engine, two engines to a warp, in its "
+            "band of chain_form",
+            against_thread_form=[f for k, f in bat_k["wide_forms"].items()
+                                 if k.startswith(key + ",")]
+            + ([bat_k["distinct_forms"]] if models == ("dk", "circuit")
+               else []),
+            compared=[{k: v for k, v in x.items() if k != "bound"}
+                      | {"bound_ms": x["bound"][0]} for x in cmps],
+            main_path_ms=wide_ms(bat_k, models, "half")
+            | {f"{x['inputs']} ({x['shape']})": x["ms"] for x in routed}))
     for name, key, replaces, form in (
             ("voice_render", "E4", "openwurli_tpu/voice.py:140",
              "eight threads per voice, four voices per warp"),

@@ -5,11 +5,13 @@
 //                         of B engines: a cluster of eight blocks per
 //                         engine, eight threads per slot, up to the
 //                         wrapper's crossover, a thread per slot above
+//                         (its libm behind warp votes)
 //   E2 engine_chain       the mono chain over that chunk, of B engines, a
 //                         template over the preamp (DK or melange) and the
 //                         power amp (circuit or behavioral): a warp per
-//                         engine up to the wrapper's crossover, a thread
-//                         per engine above
+//                         engine, a half-warp per engine (two engines to a
+//                         warp) or a thread per engine, in the wrapper's
+//                         bands of width
 //   E3 tremolo_settle     the tremolo oscillator's step, n times, on one
 //                         warp
 //   E4 voice_render       G voices over n samples (voice.render), eight
@@ -64,9 +66,10 @@
 // warp too (melange_step_warp: the twins on the two half-warps, the ten
 // noise draws at once, the block staged in shared memory), and E5<dk>, E7
 // and E2<dk, *> the DK preamp's (dk_step_warp: the twins on the two
-// half-warps, each junction's exp on a lane of its own). E2 keeps a thread
-// per engine above the crossover, where a full card runs 32 engines per
-// warp. The design takes two exact savings: each Newton loop
+// half-warps, each junction's exp on a lane of its own). At width E2 runs
+// the same steps on half-warps, two engines to a warp, whose lanes the
+// warp form leaves idle (engine_chain_half_kernel), or a thread per engine
+// (32 engines per warp). The design takes two exact savings: each Newton loop
 // ends once every row has converged (the masked iterations of the
 // reference change nothing), and E2 reuses the
 // speaker's coefficients while the character is unchanged.
@@ -392,6 +395,129 @@ __device__ __forceinline__ double voice_sample(Voice& v, double* reed_tap) {
   if (!(ay < 0.94)) {
     const double sat = 0.94 + rng * tanh((ay - 0.94) / rng);
     ys = yy >= 0.0 ? sat : -sat;
+  }
+  const double omy = 1.0 - ys;
+  const double alpha = v.beta * omy;
+  v.q = (v.q * (1.0 - alpha) + 2.0 * v.beta) / (1.0 + alpha);
+  if constexpr (TAP) return (v.q * omy - 1.0) * 1.8375;
+  return (v.q * omy - 1.0) * 1.8375 * v.gain;
+}
+
+// voice_sample with its libm calls behind warp votes (VoiceLanes' rule),
+// E1's thread form: cos, pow, exp, sqrt and tanh run only where a voice
+// (`valid`) of the warp selects their value, and the attack noise only
+// where one is in its burst; every multiply and add stays, so NaN and inf
+// voices keep their bits (tools/voice_breakdown.cu holds it to
+// voice_sample bit for bit). Every thread of the warp takes each vote.
+
+// hammer.noise_step with the fade's cos only where a voice of the warp is
+// in its burst and its fade, and nothing where none is in its burst
+__device__ __forceinline__ double noise_sample_guarded(Voice& v,
+                                                       bool valid) {
+  const bool active = v.nrem > 0;
+  if (!__any_sync(FULL, valid && active)) return 0.0;
+  const bool in_fade = v.nfade > 0;
+  double nenv = 1.0;
+  if (__any_sync(FULL, valid && active && in_fade)) {
+    const double tf = (double)(16 - v.nfade) / 16.0;
+    nenv = in_fade ? 0.5 * (1.0 - cos(M_PI * tf)) : 1.0;
+  }
+  const long long r = lcg(v.nrng);
+  const double noise =
+      (double)(r >= 2147483648LL ? r - 4294967296LL : r) / 2147483647.0;
+  const double y = v.b0 * noise + v.z1;
+  const double nz1 = v.b1 * noise - v.a1 * y + v.z2;
+  const double nz2 = v.b2 * noise - v.a2 * y;
+  const double noise_out = active ? v.namp * nenv * y : 0.0;
+  if (active) {
+    v.namp = v.namp * v.ndecay;
+    v.nrem = v.nrem - 1;
+    if (in_fade) v.nfade = v.nfade - 1;
+    v.z1 = nz1;
+    v.z2 = nz2;
+    v.nrng = r;
+  }
+  return noise_out;
+}
+
+template <bool TAP>
+__device__ __forceinline__ double voice_sample_guarded(Voice& v,
+                                                       double* reed_tap,
+                                                       bool valid) {
+  const double rel = v.dact ? v.dcount + 1.0 : v.dcount;
+  const bool past = rel > v.dramp;
+  const bool in_ramp = v.dact && !v.ddone && !past;
+  const bool done2 = v.ddone || (v.dact && past);
+  const bool damp = __any_sync(FULL, valid && in_ramp);
+  const double ratio = damp ? rel / jmax(v.dramp, 1e-30) : 0.0;
+  for (int k = 0; k < NM; ++k) {
+    double f = 1.0;
+    if (damp) {
+      const double inst = v.drate[k] * ratio;
+      f = in_ramp ? exp(-inst) : 1.0;
+    }
+    v.env[k] = v.env[k] * f;
+    v.env[k] = v.env[k] * ((v.dact && done2) ? v.dmult[k] : 1.0);
+  }
+  const bool ramping = (double)v.nn < v.ramp_n;
+  double onset = 1.0;
+  if (__any_sync(FULL, valid && ramping)) {
+    const double cosine = 0.5 * (1.0 - cos((double)v.nn * v.ramp_inc));
+    const bool lin = v.shape <= 1.001, sq = v.shape >= 1.999;
+    double pw = 0.0;
+    if (__any_sync(FULL, valid && ramping && !lin && !sq))
+      pw = pow(jmax(cosine, 0.0), v.shape);
+    const double shaped = lin ? cosine : sq ? cosine * cosine : pw;
+    onset = ramping ? shaped : 1.0;
+  }
+  if ((v.nn & 15) == 0) {
+    long long js = v.jst;
+    for (int k = 0; k < NM; ++k) {
+      js = lcg(js);
+      const double u = (double)(js >> 1) / 2147483647.5;
+      const double nz = (u * 2.0 - 1.0) * 1.7320508080;
+      v.drift[k] = v.revert * v.drift[k] + v.diffusion * nz;
+    }
+    v.jst = js;
+  }
+  double reed_out = 0.0;
+  for (int k = 0; k < NM; ++k) {
+    const double term = v.amp[k] * v.s[k] * onset * v.env[k];
+    reed_out = (k == 0) ? term : reed_out + term;
+  }
+  const bool renorm = ((v.nn & 1023) == 0) && v.nn > 0;
+  const bool any_renorm = __any_sync(FULL, valid && renorm);
+  for (int k = 0; k < NM; ++k) {
+    const double dp = v.drift[k] * v.phase_inc[k];
+    const double ci = v.cos_inc[k] - dp * v.sin_inc[k];
+    const double si = v.sin_inc[k] + dp * v.cos_inc[k];
+    const double s_new = v.s[k] * ci + v.c[k] * si;
+    const double c_new = v.c[k] * ci - v.s[k] * si;
+    v.env[k] = v.env[k] * v.decay[k];
+    double scale = 1.0;
+    if (any_renorm)
+      scale = renorm ? 1.0 / sqrt(s_new * s_new + c_new * c_new) : 1.0;
+    v.s[k] = s_new * scale;
+    v.c[k] = c_new * scale;
+  }
+  v.nn += 1;
+  v.dcount = rel;
+  v.ddone = done2;
+
+  double yy;
+  if constexpr (TAP) {
+    *reed_tap = reed_out;
+    yy = reed_out * v.ds;
+  } else {
+    const double noise_out = noise_sample_guarded(v, valid);
+    yy = (reed_out + noise_out) * v.ds;
+  }
+  const double ay = fabs(yy);
+  double ys = yy;
+  if (__any_sync(FULL, valid && !(ay < 0.94))) {
+    const double rng = 0.98 - 0.94;
+    const double sat = 0.94 + rng * tanh((ay - 0.94) / rng);
+    if (!(ay < 0.94)) ys = yy >= 0.0 ? sat : -sat;
   }
   const double omy = 1.0 - ys;
   const double alpha = v.beta * omy;
@@ -923,11 +1049,14 @@ engine_voices_kernel(const double* __restrict__ vpar, double* vst,
 
 // E1's thread form, above the wrapper's crossover (kernels/engine.py
 // VOICES_LANES_MAX_ENGINES): block b runs engine b's 128 slots, a thread
-// per slot (voice_sample), the gates sample by sample and the slot sum
-// through a shared tile of E1_TILE samples. On a full card its 128
-// voices per block (two blocks per SM at 255 registers) render more
+// per slot (voice_sample_guarded: a warp is 32 slots of one engine, and
+// once the attacks are over its votes skip nearly every libm call), the
+// gates sample by sample and the slot sum through a shared tile of
+// E1_TILE samples. On a full card its 128 voices per block render more
 // engine-samples per second than the cluster form's eight threads per
-// voice, whose serial tail runs on every thread.
+// voice, whose serial tail runs on every thread. One block per SM in the
+// launch bound: at 3 or 4 ptxas spills (tools/voice_breakdown.cu times
+// them, and the kernel without its votes).
 constexpr int E1_TILE = 32;
 
 __global__ void __launch_bounds__(SLOTS, 1)
@@ -955,7 +1084,7 @@ engine_voices_thread_kernel(const double* __restrict__ vpar, double* vst,
     if (j < E1_TILE) bad_tile[j] = 0;
     __syncthreads();
     for (int tt = 0; tt < tn; ++tt) {
-      const double out = voice_sample<false>(v, nullptr);
+      const double out = voice_sample_guarded<false>(v, nullptr, true);
       // ── gates and NaN guard #1
       double g;
       bool bad;
@@ -1825,16 +1954,17 @@ __device__ __forceinline__ void init_dk_warp(const double* s, DkWarp& st,
   st.g_prev = 1.0 / 1000000.0;
 }
 
-// both junctions' (ic, gm) at (v0, v1) on every lane of the half: lane 0
-// evaluates v0's, lane 1 v1's
+// both junctions' (ic, gm) at (v0, v1) on every lane of the twin's W
+// lanes: its lane 0 evaluates v0's, its lane 1 v1's
+template <int W = 16>
 __device__ __forceinline__ void bjt_pair(double v0, double v1, int q,
                                          double* ic, double* gm) {
   double c, g;
   bjt_ic_gm(q & 1 ? v1 : v0, &c, &g);
-  ic[0] = __shfl_sync(FULL, c, 0, 16);
-  ic[1] = __shfl_sync(FULL, c, 1, 16);
-  gm[0] = __shfl_sync(FULL, g, 0, 16);
-  gm[1] = __shfl_sync(FULL, g, 1, 16);
+  ic[0] = __shfl_sync(FULL, c, 0, W);
+  ic[1] = __shfl_sync(FULL, c, 1, W);
+  gm[0] = __shfl_sync(FULL, g, 0, W);
+  gm[1] = __shfl_sync(FULL, g, 1, W);
 }
 
 // preamp_step on a warp, on the staged block `s`; g and x the same on every
@@ -2236,20 +2366,23 @@ __device__ __forceinline__ void init_melange_warp(const double* s,
   st.key[1] = 24301.0;  // 0x5EED
 }
 
-// mel_currents' row q: the 2N5089s' ports 0-3, the 1N4148's port 4
+// mel_currents' row q: the 2N5089s' ports 0-3, the 1N4148's port 4; the
+// twin on W lanes
+template <int W = 16>
 __device__ __forceinline__ double mel_current_lane(const double* s,
                                                    double v_nl, int q) {
-  const double ib = current_lane<2, 16>(s + ML_CUR, v_nl, q);
+  const double ib = current_lane<2, W>(s + ML_CUR, v_nl, q);
   const double id = s[ML_DIODE] * (limexp(v_nl / s[ML_DIODE + 1]) - 1.0);
   return q == 4 ? id : ib;
 }
 
 // mel_jacobian's column q: the BJTs' two entries (top, bot) for q < 4, the
-// diode's conductance (top) for q = 4
+// diode's conductance (top) for q = 4; the twin on W lanes
+template <int W = 16>
 __device__ __forceinline__ void mel_derivs_lane(const double* s, double v_nl,
                                                 int q, double* top,
                                                 double* bot) {
-  derivs_lane<2, 16>(s + ML_DER, v_nl, q, top, bot);
+  derivs_lane<2, W>(s + ML_DER, v_nl, q, top, bot);
   double val, dval;
   limexp_d(v_nl / s[ML_DIODE + 1], &val, &dval);
   const double g_d = s[ML_DIODE] * dval / s[ML_DIODE + 1];
@@ -2737,9 +2870,9 @@ __device__ __noinline__ double chain_sample(const double* c, double* ch, double 
   return out;
 }
 
-// E2's thread form: a thread per engine, blocks of E2_BLOCK, above the
-// wrapper's crossover (kernels/engine.py CHAIN_WARP_MAX_ENGINES, one per
-// power-amp model). Thread e runs
+// E2's thread form: a thread per engine, blocks of E2_BLOCK, in the
+// wrapper's widest band (kernels/engine.py chain_form; the behavioral
+// instantiations at width, the circuit ones in none). Thread e runs
 // engine e's chain: row e of chain (B, CHAIN_ROWS), mono (B, n) and out (B, n), its
 // own flags sag[e] and noise_scale[e], its own speaker coefficients; the
 // constants are shared. Each row is one thread's alone, so the layout is
@@ -2983,6 +3116,887 @@ engine_chain_warp_kernel(const double* __restrict__ c,
     row[CH_TREM_RLDR] = tr.r_ldr;
   }
   if constexpr (CIRCUIT) store_pa(pa, row + CH_PA_V, 1, lane);
+}
+
+// ═══════════════════ E2's half form: a half-warp per engine ═══════════════════
+//
+// engine_chain_half_kernel<PRE, PA>: two engines to a warp, each on a
+// 16-lane segment (lane q = threadIdx.x % 16 of segment threadIdx.x / 16),
+// on the blocks that the warp form stages. A segment runs what the warp
+// form's warp runs, on this row map:
+//  * the tremolo's mna step (mna_step_seg): node rows 0-6 and Newton rows
+//    0-3 on lanes 0-6 and 0-3;
+//  * the power amp's: its 16 Newton rows one per lane, its 21 node rows on
+//    lanes 0-15 and, a second row on lanes 0-4 (v2), rows 16-20 for the
+//    history matvec, v_lin and v;
+//  * the DK twins (dk_step_seg) on the segment's two 8-lane quarters, 8
+//    node rows each;
+//  * the melange twins (melange_step_seg) on the segment's two quarters,
+//    13 node rows each (8, and 5 as a second row) and 5 Newton rows;
+//  * lane 0 of the segment runs what lane 0 runs in the warp form.
+// The two engines of a warp diverge: Newton's early exit, the BE replay,
+// the power amp's reset and guard #2 decide per engine. Every shuffle and
+// __syncwarp needs both segments, so the control flow around them is the
+// warp's: a loop runs until both engines are done, a finished engine's
+// values frozen by selects (or, in the preamps' Newton, by its own
+// convergence mask), a pass that one engine needs runs on both and the
+// other keeps its values, and the votes are the segment's bits of a
+// ballot. A batch of odd B leaves the last warp's second segment without
+// an engine: it runs its neighbour's engine and stores nothing. Every
+// value is the warp form's function of the same operands, so the three
+// forms agree bit for bit. Each segment has its own WarpScratch: rows
+// 0-15 at [q], second rows at [16 + q].
+
+// Stamped parts (tools/chain_breakdown.cu builds the half form with
+// -DOW_HALF_STAMPS=1; the library with 0, where half_switch is empty):
+// each thread's clock64 cycles by part, in row (thread) of
+// g_half_parts: HALF_PARTS sums, then the clock at the last switch and
+// the part running since.
+#ifndef OW_HALF_STAMPS
+#define OW_HALF_STAMPS 0
+#endif
+enum HalfPart { HP_NEWTON, HP_VOTES, HP_LANE0, HP_REST, HALF_PARTS };
+#if OW_HALF_STAMPS
+__device__ long long* g_half_parts;
+#endif
+// the cycles since the last switch to the running part; `part` runs
+// from here on; → the part that ran
+__device__ __forceinline__ int half_switch(int part) {
+#if OW_HALF_STAMPS
+  long long* row = g_half_parts + (size_t)(blockIdx.x * blockDim.x +
+                                           threadIdx.x) * (HALF_PARTS + 2);
+  const long long now = clock64();
+  const int prev = (int)row[HALF_PARTS + 1];
+  row[prev] += now - row[HALF_PARTS];
+  row[HALF_PARTS] = now;
+  row[HALF_PARTS + 1] = part;
+  return prev;
+#else
+  return part;
+#endif
+}
+
+constexpr unsigned SEG = 0xffffu;  // a segment's bits in its own ballot
+
+// this lane's segment's bits of a warp-wide ballot
+__device__ __forceinline__ unsigned seg_ballot(bool p) {
+  const int prev = half_switch(HP_VOTES);
+  const unsigned bits = (__ballot_sync(FULL, p) >> (threadIdx.x & 16)) & SEG;
+  half_switch(prev);
+  return bits;
+}
+// the warp's vote (both segments): a loop's exit
+__device__ __forceinline__ bool warp_all(bool p) {
+  const int prev = half_switch(HP_VOTES);
+  const bool all = __all_sync(FULL, p);
+  half_switch(prev);
+  return all;
+}
+__device__ __forceinline__ bool warp_any(bool p) {
+  const int prev = half_switch(HP_VOTES);
+  const bool any = __any_sync(FULL, p);
+  half_switch(prev);
+  return any;
+}
+__device__ __forceinline__ bool seg_all(bool p) {
+  return seg_ballot(p) == SEG;
+}
+__device__ __forceinline__ bool seg_any(bool p) {
+  return seg_ballot(p) != 0u;
+}
+
+// the segment's rows below n into buf: row q from lane q (x) and row
+// 16 + q from lane q (x2); after it the segment reads buf
+__device__ __forceinline__ void publish_seg(double* buf, double x, double x2,
+                                            int q, int n) {
+  __syncwarp();  // every lane has read buf's previous contents
+  if (q < n) buf[q] = x;
+  if (16 + q < n) buf[16 + q] = x2;
+  __syncwarp();
+}
+
+// a segment's rows of a circuit's solver state: node rows q (v) and
+// 16 + q (v2, below N), nonlinear row q (i, v_nl); resid and the counters
+// the same on every lane of the segment
+struct SegState {
+  double v, v2, i, v_nl, resid, diag[5];
+};
+
+// nr_solve_warp on a segment. A segment whose rows have converged keeps
+// its junction voltages (the select on v_nl), so its currents, residual
+// and test stay what they were; the loop runs until both segments have
+// converged, as the warp form's returns once its one engine has.
+template <int N, int M, int NB, int ITERS>
+__device__ __forceinline__ double nr_solve_seg(const double* s,
+                                               const double* k_eff, double p,
+                                               double& v_nl, double& i,
+                                               WarpScratch* w, int q) {
+  using L = SL<N, M, NB>;
+  static_assert(M <= 16, "a Newton row per lane");
+  const int r = min(q, M - 1);
+  const double nvt = s[L::NVT + r], vcrit = s[L::VCRIT + r];
+  const int outer = half_switch(HP_NEWTON);
+  double f = 0.0;
+#pragma unroll 1
+  for (int it = 0;; ++it) {
+    i = current_lane<NB, 16>(s + L::GPC, v_nl, q);
+    publish_seg(w->a, i, 0.0, q, M);
+    f = v_nl - p - row_dot<M, M>(k_eff, w->a, r);
+    if (it == ITERS) break;
+    const bool done = seg_all(q >= M || fabs(f) < 1e-9);
+    if (warp_all(done)) break;
+    double top, bot;
+    derivs_lane<NB, 16>(s + L::GPD, v_nl, q, &top, &bot);
+    __syncwarp();  // every lane has read a's currents
+    if (q < M) {
+      w->a[q] = top;
+      w->b[q] = bot;
+    }
+    __syncwarp();
+    float aug[M + 1];
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const int r0 = 2 * (k / 2);
+      const double jac = (r == k ? 1.0 : 0.0) -
+                         (k_eff[r0 * M + r] * w->a[k] +
+                          k_eff[(r0 + 1) * M + r] * w->b[k]);
+      aug[k] = (float)jac;
+    }
+    aug[M] = (float)f;
+    const double dv = (double)ge_solve_f32_warp<M, 16>(aug, q);
+    const double v_old = v_nl;
+    const double v_new = v_old - jclip(dv, -2.0, 2.0);
+    const double delta = v_new - v_old;
+    const double lim = v_old + nvt * log1p(jmax(delta, 0.0) / nvt);
+    const bool apply = (v_new > vcrit) && (delta > 2.0 * nvt);
+    v_nl = done ? v_old : (apply ? lim : v_new);
+  }
+  publish_seg(w->b, f, 0.0, q, M);
+  const double resid = max_abs(w->b, M);
+  half_switch(outer);
+  return resid;
+}
+
+// failed() on a segment: one vote over its node rows
+template <int N>
+__device__ __forceinline__ bool failed_seg(double v, double v2, double resid,
+                                           int n_nodes, int q) {
+  constexpr int N2 = N > 16 ? N - 16 : 0;
+  const bool row = (q < n_nodes && fabs(v) > 55.0) || (q < N && !finite(v)) ||
+                   (q < N2 && ((16 + q < n_nodes && fabs(v2) > 55.0) ||
+                               !finite(v2)));
+  const bool any = seg_any(row);
+  return resid > 1e-3 || any;
+}
+
+// mna_step_warp on a segment, on the staged block `s`; w_extra and
+// w_extra2 this lane's rows q and 16 + q of the extra source vector. The
+// BE replay runs on both segments when either needs it; the other keeps
+// its trapezoidal values.
+template <int N, int M, int NB, int ITERS>
+__device__ __noinline__ void mna_step_seg(const double* s, SegState& st,
+                                          double w_extra, double w_extra2,
+                                          WarpScratch* w) {
+  using L = SL<N, M, NB>;
+  constexpr int N2 = N > 16 ? N - 16 : 0;
+  static_assert(N <= 32, "at most two node rows per lane");
+  const int q = threadIdx.x & 15;
+  const int rn = min(q, N - 1), rm = min(q, M - 1);
+  const int rn2 = N2 > 0 ? 16 + min(q, N2 - 1) : rn;
+  const int n_nodes = (int)s[L::N_NODES];
+  const bool trap_primary = s[L::TRAP_PRIMARY] != 0.0;
+  double v = 0.0, v2 = 0.0, i_new = 0.0, v_nl = 0.0, resid = 0.0;
+  bool need_be = false;
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool be = pass == 1;
+    const double* a_hist = s + (be ? L::AHBE : L::AH);
+    const double* s_mat = s + (be ? L::SBE : L::S);
+    const double* s_ni = s + (be ? L::SNIBE : L::SNI);
+    const double* k_eff = s + (be ? L::KBE : L::K);
+    const double* w_sc = s + (be ? L::WSBE : L::WS);
+    const double trap_i = be ? 0.0 : s[L::TRAP_I];
+    __syncwarp();
+    if (q < N) w->a[q] = st.v;
+    if (q < N2) w->a[16 + q] = st.v2;
+    if (q < M) w->b[q] = st.i;
+    __syncwarp();
+    double rhs = row_dot<N, N>(a_hist, w->a, rn);
+    rhs = rhs + w_sc[rn] * s[L::W + rn] + w_extra;
+    rhs = rhs + trap_i * row_dot<N, M>(s + L::NI, w->b, rn);
+    double rhs2 = 0.0;
+    if constexpr (N2 > 0) {
+      rhs2 = row_dot<N, N>(a_hist, w->a, rn2);
+      rhs2 = rhs2 + w_sc[rn2] * s[L::W + rn2] + w_extra2;
+      rhs2 = rhs2 + trap_i * row_dot<N, M>(s + L::NI, w->b, rn2);
+    }
+    publish_seg(w->a, rhs, rhs2, q, N);
+    const double lin = row_dot<N, N>(s_mat, w->a, rn);
+    double lin2 = 0.0;
+    if constexpr (N2 > 0) lin2 = row_dot<N, N>(s_mat, w->a, rn2);
+    publish_seg(w->a, lin, lin2, q, N);
+    const double p = row_dot<M, N>(s + L::NV, w->a, rm);
+    double vn = st.v_nl, in = 0.0;
+    const double res = nr_solve_seg<N, M, NB, ITERS>(s, k_eff, p, vn, in,
+                                                     w, q);
+    publish_seg(w->a, in, 0.0, q, M);
+    const double vv = lin + row_dot<N, M>(s_ni, w->a, rn);
+    double vv2 = 0.0;
+    if constexpr (N2 > 0) vv2 = lin2 + row_dot<N, M>(s_ni, w->a, rn2);
+    if (be) {
+      v = need_be ? vv : v;
+      v2 = need_be ? vv2 : v2;
+      i_new = need_be ? in : i_new;
+      v_nl = need_be ? vn : v_nl;
+      resid = need_be ? res : resid;
+      break;
+    }
+    v = vv;
+    v2 = vv2;
+    i_new = in;
+    v_nl = vn;
+    resid = res;
+    need_be = trap_primary && (failed_seg<N>(v, v2, resid, n_nodes, q) ||
+                               st.diag[0] > 0.0);
+    if (!warp_any(need_be)) break;
+  }
+  const bool fail = failed_seg<N>(v, v2, resid, n_nodes, q);
+  const double dv = v - st.v, dv2 = v2 - st.v2;
+  publish_seg(w->b, dv, dv2, q, N);
+  const double dv_max = max_abs(w->b, N);
+  const bool damp_hit = finite(dv_max) && dv_max > 30.0;
+  const double scale = damp_hit ? 30.0 / jmax(dv_max, 1e-30) : 1.0;
+  v = st.v + dv * scale;
+  v2 = st.v2 + dv2 * scale;
+  const bool bad =
+      seg_any((q < N && !finite(v)) || (q < N2 && !finite(v2)));
+  st.v = bad ? s[L::VDC + rn] : v;
+  if constexpr (N2 > 0) st.v2 = bad ? s[L::VDC + rn2] : v2;
+  st.i = bad ? s[L::IDC + rm] : i_new;
+  st.v_nl = bad ? s[L::VNLDC + rm] : v_nl;
+  st.resid = resid;
+  double* dg = st.diag;
+  dg[0] = fail ? 64.0 : (dg[0] - 1.0 > 0.0 ? dg[0] - 1.0 : 0.0);
+  dg[1] = dg[1] + (fail ? 1.0 : 0.0);
+  dg[2] = dg[2] + (bad ? 1.0 : 0.0);
+  dg[3] = dg[3] + (damp_hit ? 1.0 : 0.0);
+  dg[4] = dg[4] + (need_be ? 1.0 : 0.0);
+}
+
+// the lane's rows of a solver state (load_lane's layout) from `rows`
+template <int N, int M>
+__device__ void load_seg(SegState& st, const double* rows, int q) {
+  constexpr int N2 = N > 16 ? N - 16 : 0;
+  st.v = rows[min(q, N - 1)];
+  st.v2 = 0.0;
+  if constexpr (N2 > 0) st.v2 = rows[16 + min(q, N2 - 1)];
+  st.i = rows[N + min(q, M - 1)];
+  st.v_nl = rows[N + M + min(q, M - 1)];
+  st.resid = rows[N + 2 * M];
+  for (int k = 0; k < 5; ++k) st.diag[k] = rows[N + 2 * M + 1 + k];
+}
+
+template <int N, int M>
+__device__ void store_seg(const SegState& st, double* rows, int q) {
+  if (q < N) rows[q] = st.v;
+  if (16 + q < N) rows[16 + q] = st.v2;
+  if (q < M) {
+    rows[N + q] = st.i;
+    rows[N + M + q] = st.v_nl;
+  }
+  if (q == 0) {
+    rows[N + 2 * M] = st.resid;
+    for (int k = 0; k < 5; ++k) rows[N + 2 * M + 1 + k] = st.diag[k];
+  }
+}
+
+// a segment's power amp (PaWarp's rows) and tremolo (TremWarp's)
+struct PaSeg {
+  SegState s;
+  double rails[4], last;
+};
+struct TremSeg {
+  SegState s;
+  double env, r_ldr;
+};
+
+__device__ void load_pa_seg(PaSeg& pa, const double* rows, int q) {
+  load_seg<21, 16>(pa.s, rows, q);
+  for (int k = 0; k < 4; ++k) pa.rails[k] = rows[PA_RAILS + k];
+  pa.last = rows[PA_RAILS + 4];
+}
+
+__device__ void store_pa_seg(const PaSeg& pa, double* rows, int q) {
+  store_seg<21, 16>(pa.s, rows, q);
+  if (q == 0) {
+    for (int k = 0; k < 4; ++k) rows[PA_RAILS + k] = pa.rails[k];
+    rows[PA_RAILS + 4] = pa.last;
+  }
+}
+
+// the power amp's node, current and junction rows at the DC point
+__device__ __forceinline__ void pa_rows_at_dc(const double* pa, SegState& s,
+                                              int q) {
+  s.v = pa[PaL::VDC + q];
+  s.v2 = pa[PaL::VDC + 16 + min(q, 4)];
+  s.i = pa[PaL::IDC + q];
+  s.v_nl = pa[PaL::VNLDC + q];
+}
+
+// init_power_amp on a segment (the staged block's DC point)
+__device__ __forceinline__ void init_power_amp_seg(const double* pa,
+                                                   PaSeg& st, int q) {
+  pa_rows_at_dc(pa, st.s, q);
+  st.s.resid = 0.0;
+  for (int k = 0; k < 5; ++k) st.s.diag[k] = 0.0;
+  st.rails[0] = st.rails[1] = 22.5;
+  st.rails[2] = st.rails[3] = 0.0;
+  st.last = 0.0;
+}
+
+// power_amp_step_warp on a segment
+__device__ __noinline__ double power_amp_step_seg(const double* pa,
+                                                  const double* misc,
+                                                  PaSeg& st, double x,
+                                                  bool sag, WarpScratch* w) {
+  const int q = threadIdx.x & 15, q2 = 16 + q;
+  const double sag_f = sag ? 1.0 : 0.0;
+  double* rails = st.rails;
+  // the sources, in power_amp_step's order of assignment
+  const double w1 = (rails[0] - 22.5) * sag_f;
+  const double w2 = (rails[1] - 22.5) * sag_f;
+  const int k_in = (int)misc[M_PA_IN], k_v2 = (int)misc[M_PA_V2],
+            k_v1 = (int)misc[M_PA_V1];
+  const double wx = q == k_in ? x : q == k_v2 ? w2 : q == k_v1 ? w1 : 0.0;
+  const double wx2 =
+      q2 == k_in ? x : q2 == k_v2 ? w2 : q2 == k_v1 ? w1 : 0.0;
+  mna_step_seg<21, 16, 8, 16>(pa, st.s, wx, wx2, w);
+  const int k_out = (int)misc[M_PA_OUT];
+  const double raw =
+      __shfl_sync(FULL, k_out < 16 ? st.s.v : st.s.v2, k_out, 16);
+  const double result = raw / 22.0;
+  const bool nr_failed = st.s.resid > 1e-3;
+  const bool insane = seg_any(
+      !finite(st.s.v) || fabs(st.s.v) > 100.0 ||
+      (q < 5 && (!finite(st.s.v2) || fabs(st.s.v2) > 100.0)));
+  const bool reset = !finite(result) || insane;
+  const bool bad = reset || nr_failed;
+  if (reset) pa_rows_at_dc(pa, st.s, q);
+  const double out = bad ? st.last : jclip(result, -1.0, 1.0);
+  st.last = out;
+  if (sag) rails_after(misc, rails, raw, bad);
+  return out;
+}
+
+// tremolo_step_warp on a segment
+__device__ __noinline__ double tremolo_step_seg(const double* trem,
+                                                const double* misc,
+                                                TremSeg& st, double depth,
+                                                WarpScratch* w) {
+  mna_step_seg<7, 4, 2, 4>(trem, st.s, 0.0, 0.0, w);
+  const double v_out =
+      __shfl_sync(FULL, st.s.v, (int)misc[M_TREM_OUT], 16);
+  return vactrol_shunt(misc, v_out, depth, &st.env, &st.r_ldr);
+}
+
+// The DK rows on a segment (DkWarp, one engine): lane q serves twin
+// q / 8 and node row q % 8
+
+__device__ void load_dk_seg(DkWarp& st, const double* rows, int q) {
+  const int r = q >> 3, n = q & 7;
+  st.v = rows[PS_V + 8 * r + n];
+  for (int k = 0; k < 2; ++k) {
+    st.i_nl[k] = rows[PS_I + 2 * r + k];
+    st.v_nl[k] = rows[PS_VNL + 2 * r + k];
+  }
+  st.j_cin = rows[PS_JCIN + r];
+  st.cin_prev = rows[PS_CINPREV + r];
+  st.g_prev = rows[PS_GPREV];
+}
+
+__device__ void store_dk_seg(const DkWarp& st, double* rows, int q) {
+  const int r = q >> 3, n = q & 7;
+  rows[PS_V + 8 * r + n] = st.v;
+  if (n < 2) {
+    rows[PS_I + 2 * r + n] = n ? st.i_nl[1] : st.i_nl[0];
+    rows[PS_VNL + 2 * r + n] = n ? st.v_nl[1] : st.v_nl[0];
+  }
+  if (n == 2) rows[PS_JCIN + r] = st.j_cin;
+  if (n == 3) rows[PS_CINPREV + r] = st.cin_prev;
+  if (q == 0) rows[PS_GPREV] = st.g_prev;
+}
+
+__device__ __forceinline__ void init_dk_seg(const double* s, DkWarp& st,
+                                            int q) {
+  init_dk_warp(s, st, q);
+  st.v = s[PR_V_DC + (q & 7)];
+}
+
+// dk_step_warp on a segment: the twins on its two quarters. Newton's loop
+// runs until all four twins of the warp have converged: a converged twin's
+// update is masked (as preamp_step's), so its voltages, and the currents
+// recomputed from them, stay what they were.
+__device__ __noinline__ double dk_step_seg(const double* s, DkWarp& st,
+                                           double g, double x,
+                                           WarpScratch* w) {
+  const int q = threadIdx.x & 15, r = q >> 3, n = q & 7;
+  const double* a = w->a + 8 * r;  // this twin's published vector
+  // the history, fb's LDR term, the sources, the input, two_w
+  publish_seg(w->a, st.v, 0.0, q, 16);
+  double rhs = row_dot<8, 8>(s + PR_A_NEG, a, n);
+  const double u = r == 0 ? x : 0.0;
+  const double cin_now = s[PR_G_CIN] * u + st.j_cin;
+  rhs = n == FB ? rhs + (-st.g_prev) * st.v : rhs;
+  rhs = n == B1 ? rhs + (cin_now + st.cin_prev) : rhs;
+  rhs = n == E1 ? rhs + st.i_nl[0] : rhs;
+  rhs = n == C1 ? rhs + (-st.i_nl[0]) : rhs;
+  rhs = n == E2 ? rhs + st.i_nl[1] : rhs;
+  rhs = n == C2 ? rhs + (-st.i_nl[1]) : rhs;
+  rhs = rhs + s[PR_TWO_W + n];
+  // the predictor, its LDR correction, the ports' p
+  publish_seg(w->a, rhs, 0.0, q, 16);
+  const double vpb = row_dot<8, 8>(s + PR_S_BASE, a, n);
+  const double sm_k = g / (1.0 + s[PR_S_FB_FB] * g);
+  const double vpb_fb = __shfl_sync(FULL, vpb, FB, 8);
+  const double v_pred = vpb - (sm_k * vpb_fb) * s[PR_S_FB_COL + n];
+  const double p0 = __shfl_sync(FULL, v_pred, B1, 8) -
+                    __shfl_sync(FULL, v_pred, E1, 8);
+  const double p1 = __shfl_sync(FULL, v_pred, C1, 8) -
+                    __shfl_sync(FULL, v_pred, E2, 8);
+  double kc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) kc[k] = s[PR_K + k] - sm_k * s[PR_K_OUTER + k];
+  double v0 = st.v_nl[0], v1 = st.v_nl[1], ic[2], gm[2];
+  bool done = false;
+#pragma unroll 1
+  for (int it = 0; it < 6; ++it) {
+    bjt_pair<8>(v0, v1, n, ic, gm);
+    const double f0 = v0 - p0 - kc[0] * ic[0] - kc[1] * ic[1];
+    const double f1 = v1 - p1 - kc[2] * ic[0] - kc[3] * ic[1];
+    const bool conv = fabs(f0) < 1e-9 && fabs(f1) < 1e-9;
+    if (warp_all(conv)) {
+      done = true;
+      break;
+    }
+    const double j00 = 1.0 - kc[0] * gm[0];
+    const double j01 = -kc[1] * gm[1];
+    const double j10 = -kc[2] * gm[0];
+    const double j11 = 1.0 - kc[3] * gm[1];
+    const double det = j00 * j11 - j01 * j10;
+    const bool big = fabs(det) > 1e-30;
+    const bool ok = !conv && big;
+    const double inv_det = big ? 1.0 / det : 0.0;
+    const double dv0 = inv_det * (j11 * f0 - j01 * f1);
+    const double dv1 = inv_det * (j00 * f1 - j10 * f0);
+    v0 = v0 - (ok ? dv0 : 0.0);
+    v1 = v1 - (ok ? dv1 : 0.0);
+  }
+  if (!done) bjt_pair<8>(v0, v1, n, ic, gm);
+  // the corrector, the input capacitor, the reset to the DC point on a
+  // non-finite output
+  const double dot = s[PR_SFB_NI] * ic[0] + s[PR_SFB_NI + 1] * ic[1];
+  const double s_ni = ic[0] * s[PR_NI_COL0 + n] + ic[1] * s[PR_NI_COL1 + n];
+  const double v_new = v_pred + s_ni - (sm_k * dot) * s[PR_S_FB_COL + n];
+  const double jc = -s[PR_GC_1PC] * (u - __shfl_sync(FULL, v_new, B1, 8)) -
+                    s[PR_C_CIN] * st.j_cin;
+  const double out = __shfl_sync(FULL, v_new, OUTN, 16) -
+                     __shfl_sync(FULL, v_new, 8 + OUTN, 16);
+  const bool bad = !finite(out);
+  const double jdc = s[PR_J_CIN_DC];
+  st.v = bad ? s[PR_V_DC + n] : v_new;
+  st.i_nl[0] = bad ? s[PR_I_NL_DC] : ic[0];
+  st.i_nl[1] = bad ? s[PR_I_NL_DC + 1] : ic[1];
+  st.v_nl[0] = bad ? s[PR_V_NL_DC] : v0;
+  st.v_nl[1] = bad ? s[PR_V_NL_DC + 1] : v1;
+  st.j_cin = bad ? jdc : jc;
+  st.cin_prev = bad ? jdc : cin_now;
+  st.g_prev = g;
+  return bad ? 0.0 : out;
+}
+
+// The melange rows on a segment, the twins side by side on its two 8-lane
+// quarters: lane q serves twin r = q / 8, its node rows n = q % 8 (v[0])
+// and, on n < 5, 8 + n (v[1]), and its Newton row min(n, 4) (i, v_nl);
+// the draws on lanes q < 10. (The twins one after the other on the whole
+// segment ran 12-26 % slower from 1 to 32768 engines: PERF.md §6.)
+struct MelSeg {
+  double v[2], i, v_nl, w_prev, g_prev, key[2];
+};
+
+// lane q's node rows (nv[0], nv[1]) as offsets into the melange rows; →
+// its Newton row
+__device__ __forceinline__ int mel_seg_rows(int q, int* nv) {
+  const int r = q >> 3, n = q & 7;
+  nv[0] = MS_V + 13 * r + n;
+  nv[1] = MS_V + 13 * r + 8 + min(n, 4);
+  return 5 * r + min(n, 4);
+}
+
+__device__ void load_mel_seg(MelSeg& st, const double* rows, int q) {
+  int nv[2];
+  const int nm = mel_seg_rows(q, nv);
+  st.v[0] = rows[nv[0]];
+  st.v[1] = rows[nv[1]];
+  st.i = rows[MS_I + nm];
+  st.v_nl = rows[MS_VNL + nm];
+  st.w_prev = rows[MS_WPREV + min(q, 9)];
+  st.g_prev = rows[MS_GPREV];
+  st.key[0] = rows[MS_KEY];
+  st.key[1] = rows[MS_KEY + 1];
+}
+
+__device__ void store_mel_seg(const MelSeg& st, double* rows, int q) {
+  const int r = q >> 3, n = q & 7;
+  rows[MS_V + 13 * r + n] = st.v[0];
+  if (n < 5) {
+    rows[MS_V + 13 * r + 8 + n] = st.v[1];
+    rows[MS_I + 5 * r + n] = st.i;
+    rows[MS_VNL + 5 * r + n] = st.v_nl;
+  }
+  if (q < 10) rows[MS_WPREV + q] = st.w_prev;
+  if (q == 0) {
+    rows[MS_GPREV] = st.g_prev;
+    rows[MS_KEY] = st.key[0];
+    rows[MS_KEY + 1] = st.key[1];
+  }
+}
+
+// the twins' rows at the DC point
+__device__ __forceinline__ void mel_rows_at_dc(const double* s, MelSeg& st,
+                                               int q) {
+  int nv[2];
+  const int nm = mel_seg_rows(q, nv);
+  for (int k = 0; k < 2; ++k)
+    st.v[k] = s[ML_V_DC + nv[k] - MS_V - 13 * (nv[k] - MS_V >= 13)];
+  st.i = s[ML_I_DC + nm % 5];
+  st.v_nl = s[ML_V_NL_DC + nm % 5];
+}
+
+__device__ __forceinline__ void init_melange_seg(const double* s,
+                                                 MelSeg& st, int q) {
+  mel_rows_at_dc(s, st, q);
+  st.w_prev = 0.0;
+  st.g_prev = 1.0 / 1000000.0;
+  st.key[0] = 0.0;
+  st.key[1] = 24301.0;  // 0x5EED
+}
+
+// melange_step_warp on a segment, the twins side by side on its two
+// 8-lane quarters (MelSeg's map): lane q serves twin r = q / 8, its node
+// rows n = q % 8 (v[0]) and, on n < 5, a second row 8 + n (v[1]), its
+// Newton row n < 5 (i, v_nl). Twin r's vectors are published at [16 r,
+// 16 r + 13) of the segment's buffers. Newton runs until all four twins
+// of the warp have converged, a converged twin's update masked as in the
+// warp form.
+__device__ __noinline__ double melange_step_seg(const double* s,
+                                                MelSeg& st, double g,
+                                                double x, double scale,
+                                                WarpScratch* w) {
+  constexpr int N = 13, M = 5, NR = 10;
+  const int q = threadIdx.x & 15, r = q >> 3, n = q & 7;
+  const int rn = n, rn2 = 8 + min(n, N - 9), rm = min(n, M - 1);
+  const int fb = (int)s[ML_IDX], outn = (int)s[ML_IDX + 1];
+  const int row_in = (int)s[ML_IDX + 2];
+  const double* a = w->a + 16 * r;  // this twin's published vectors
+  const double* b = w->b + 16 * r;
+  // the key's two hashes: the next key on lane NR, the draws' key on every
+  // other lane; one normal on each lane q < NR
+  uint32_t h1, h2;
+  threefry((uint32_t)st.key[0], (uint32_t)st.key[1], 0u,
+           q == NR ? 0u : 1u, &h1, &h2);
+  const uint32_t n1 = __shfl_sync(FULL, h1, NR, 16);
+  const uint32_t n2 = __shfl_sync(FULL, h2, NR, 16);
+  const int d = min(q, NR - 1);
+  const double w_new =
+      normal_draw(h1, h2, (uint32_t)d) * s[ML_SIGMA + d] * scale;
+  publish_seg(w->b, w_new + st.w_prev, 0.0, q, NR);
+  const double i_noise = row_dot<N, NR>(s + ML_INJECT, w->b, rn);
+  const double i_noise2 = row_dot<N, NR>(s + ML_INJECT, w->b, rn2);
+  // the history, fb's LDR term, the sources, the input, the device
+  // currents, the noise (main twin only), rows rn and rn2
+  const double v = st.v[0], v2 = st.v[1];
+  __syncwarp();  // every lane has read b's draws
+  w->a[16 * r + n] = v;
+  if (n < N - 8) w->a[16 * r + 8 + n] = v2;
+  if (n < M) w->b[16 * r + n] = st.i;
+  __syncwarp();
+  const double u = r == 0 ? x : 0.0;
+  auto rhs_row = [&](int row, double vr, double noise) {
+    double rhs = row_dot<N, N>(s + ML_A_HIST, a, row);
+    rhs = row == fb ? rhs + (-st.g_prev) * vr : rhs;
+    rhs = rhs + s[ML_WS_W + row];
+    rhs = row == row_in ? rhs + u : rhs;
+    rhs = rhs + row_dot<N, M>(s + ML_N_I, b, row);
+    return rhs + (r == 0 ? noise : 0.0);
+  };
+  const double rhs = rhs_row(rn, v, i_noise);
+  const double rhs2 = rhs_row(rn2, v2, i_noise2);
+  // the predictor, its LDR correction, the ports' p, this row of K_corr
+  __syncwarp();
+  w->a[16 * r + n] = rhs;
+  if (n < N - 8) w->a[16 * r + 8 + n] = rhs2;
+  __syncwarp();
+  const double vpb = row_dot<N, N>(s + ML_S, a, rn);
+  const double vpb2 = row_dot<N, N>(s + ML_S, a, rn2);
+  const double sm_k = g / (1.0 + s[ML_S_FB_FB] * g);
+  const double vpb_fb = __shfl_sync(FULL, fb < 8 ? vpb : vpb2, fb & 7, 8);
+  const double v_pred = vpb - (sm_k * vpb_fb) * s[ML_S_FB_COL + rn];
+  const double v_pred2 = vpb2 - (sm_k * vpb_fb) * s[ML_S_FB_COL + rn2];
+  __syncwarp();
+  w->a[16 * r + n] = v_pred;
+  if (n < N - 8) w->a[16 * r + 8 + n] = v_pred2;
+  __syncwarp();
+  const double p = row_dot<M, N>(s + ML_N_V, a, rm);
+  double kc[M];
+#pragma unroll
+  for (int k = 0; k < M; ++k)
+    kc[k] = s[ML_K + k * M + rm] - sm_k * s[ML_K_OUTER + k * M + rm];
+  // Newton, the warp's four twins at once: at most 12 iterations
+  double v_nl = st.v_nl, i_nl = 0.0;
+  bool done = false;
+#pragma unroll 1
+  for (int it = 0; it < 12; ++it) {
+    i_nl = mel_current_lane<8>(s, v_nl, n);
+    __syncwarp();
+    if (n < M) w->b[16 * r + n] = i_nl;
+    __syncwarp();
+    double ki = kc[0] * b[0];
+#pragma unroll
+    for (int k = 1; k < M; ++k) ki = ki + kc[k] * b[k];
+    const double f = v_nl - p - ki;
+    const int prev = half_switch(HP_VOTES);
+    const unsigned ok = __ballot_sync(FULL, n >= M || fabs(f) < 1e-9);
+    half_switch(prev);
+    const bool conv = ((ok >> (threadIdx.x & 24)) & 0xffu) == 0xffu;
+    if (warp_all(conv)) {
+      done = true;
+      break;
+    }
+    double top, bot;
+    mel_derivs_lane<8>(s, v_nl, n, &top, &bot);
+    __syncwarp();  // every lane has read b's currents
+    if (n < M) {
+      w->a[16 * r + n] = top;
+      w->b[16 * r + n] = bot;
+    }
+    __syncwarp();
+    float aug[M + 1];
+#pragma unroll
+    for (int k = 0; k < M - 1; ++k) {
+      const int r0 = 2 * (k / 2);
+      aug[k] = (float)((n == k ? 1.0 : 0.0) -
+                       (kc[r0] * a[k] + kc[r0 + 1] * b[k]));
+    }
+    aug[M - 1] = (float)((n == M - 1 ? 1.0 : 0.0) - kc[M - 1] * a[M - 1]);
+    aug[M] = (float)f;
+    const double dv = (double)ge_solve_f32_warp<M, 8>(aug, n);
+    v_nl = conv ? v_nl : v_nl - jclip(dv, -0.5, 0.5);
+  }
+  if (!done) i_nl = mel_current_lane<8>(s, v_nl, n);
+  // the corrector, the reset to the DC point on a non-finite output
+  __syncwarp();
+  if (n < M) w->b[16 * r + n] = i_nl;
+  __syncwarp();
+  const double dot = row_dot<1, M>(s + ML_SFB_NI, b, 0);
+  const double v_new = v_pred + row_dot<N, M>(s + ML_S_NI, b, rn) -
+                       (sm_k * dot) * s[ML_S_FB_COL + rn];
+  const double v_new2 = v_pred2 + row_dot<N, M>(s + ML_S_NI, b, rn2) -
+                        (sm_k * dot) * s[ML_S_FB_COL + rn2];
+  const double o = outn < 8 ? v_new : v_new2;
+  const double out = __shfl_sync(FULL, o, outn & 7, 16) -
+                     __shfl_sync(FULL, o, 8 + (outn & 7), 16);
+  const bool bad = !finite(out);
+  st.v[0] = bad ? s[ML_V_DC + rn] : v_new;
+  st.v[1] = bad ? s[ML_V_DC + rn2] : v_new2;
+  st.i = bad ? s[ML_I_DC + rm] : i_nl;
+  st.v_nl = bad ? s[ML_V_NL_DC + rm] : v_nl;
+  st.w_prev = w_new;
+  st.g_prev = g;
+  st.key[0] = (double)n1;
+  st.key[1] = (double)n2;
+  return bad ? 0.0 : out;
+}
+
+// a segment's preamp rows and power-amp rows
+template <int PRE> struct PreSegOf { using T = DkWarp; };
+template <> struct PreSegOf<PRE_MELANGE> { using T = MelSeg; };
+template <int PRE> using PreSeg = typename PreSegOf<PRE>::T;
+template <int PA> struct PaSegOf { using T = PaSeg; };
+template <> struct PaSegOf<PA_BEHAVIORAL> { using T = NoPa; };
+template <int PA> using PaSegT = typename PaSegOf<PA>::T;
+
+// nonlinear_step_warp on a segment; → the power amp's output on every
+// lane of the segment
+template <int PRE, int PA>
+__device__ __forceinline__ double nonlinear_step_seg(
+    const double* misc, TremSeg& tr, PaSegT<PA>& pa, PreSeg<PRE>& pre,
+    const double* s_trem, const double* s_pa, const double* s_pre,
+    WarpScratch* w, double depth, double u, bool sag, double noise_scale) {
+  const double shunt = tremolo_step_seg(s_trem, misc, tr, depth, w);
+  const double g = 1.0 / jmax(shunt, 1000.0);
+  const double x = __shfl_sync(FULL, u, 0, 16);
+  double y;
+  if constexpr (PRE == PRE_DK)
+    y = dk_step_seg(s_pre, pre, g, x, w);
+  else
+    y = melange_step_seg(s_pre, pre, g, x, noise_scale, w);
+  const double drive = 0.25;  // tables.FIXED_CIRCUIT_DRIVE
+  if constexpr (PA == PA_CIRCUIT)
+    return power_amp_step_seg(s_pa, misc, pa, y * drive, sag, w);
+  else
+    return behavioral(y * drive);
+}
+
+// chain_sample_warp on a segment; → the output on its lane 0
+template <int PRE, int PA>
+__device__ __noinline__ double chain_sample_seg(
+    const double* c, double* ch, TremSeg& tr, PaSegT<PA>& pa,
+    PreSeg<PRE>& pre, const double* s_trem, const double* s_pa,
+    const double* s_pre, WarpScratch* w, double mono, bool sag,
+    double noise_scale, double* last_char, Speaker* spk_k) {
+  const int q = threadIdx.x & 15;
+  const double* misc = c + C_MISC;
+  double depth = 0.0, vol = 0.0, chr = 0.0;
+  if (q == 0) {
+    half_switch(HP_LANE0);
+    depth = smoother_next(ch + CH_SM_DEPTH);
+    vol = smoother_next(ch + CH_SM_VOLUME);
+    chr = smoother_next(ch + CH_SM_CHAR);
+    half_switch(HP_REST);
+  }
+  depth = __shfl_sync(FULL, depth, 0, 16);
+  double amp_out = 0.0;
+  if (misc[M_OVERSAMPLE] != 0.0) {
+    double us[2] = {0.0, 0.0}, y[2];
+    if (q == 0) {
+      half_switch(HP_LANE0);
+      us[0] = branch_step(kBranchA, ch + CH_OS_UP_A, mono);
+      us[1] = branch_step(kBranchB, ch + CH_OS_UP_B, mono);
+      half_switch(HP_REST);
+    }
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h)
+      y[h] = nonlinear_step_seg<PRE, PA>(misc, tr, pa, pre, s_trem, s_pa,
+                                         s_pre, w, depth, us[h], sag,
+                                         noise_scale);
+    if (q == 0) {
+      half_switch(HP_LANE0);
+      const double a = branch_step(kBranchA, ch + CH_OS_DOWN_A, y[0]);
+      const double b = branch_step(kBranchB, ch + CH_OS_DOWN_B, y[1]);
+      amp_out = (a + ch[CH_OS_DELAY]) * 0.5;
+      ch[CH_OS_DELAY] = b;
+      half_switch(HP_REST);
+    }
+  } else {
+    amp_out = nonlinear_step_seg<PRE, PA>(misc, tr, pa, pre, s_trem, s_pa,
+                                          s_pre, w, depth, mono, sag,
+                                          noise_scale);
+  }
+  double out = 0.0;
+  int bad = 0;
+  if (q == 0) {
+    half_switch(HP_LANE0);
+    if (__double_as_longlong(chr) != __double_as_longlong(*last_char)) {
+      *last_char = chr;
+      speaker_design(chr, misc[M_SPK_SR], spk_k);
+    }
+    double* spk = ch + CH_SPK;
+    const double y = speaker_step(*spk_k, spk, amp_out, misc[M_SPK_ALPHA]);
+    out = y * misc[M_POST_GAIN] * vol;
+    bad = !finite(out);
+    if (bad) {
+      // NaN guard #2, as in the warp form
+      for (int k = 0; k < OS_ROWS; ++k) ch[CH_OS_UP_A + k] = 0.0;
+      if constexpr (PA == PA_BEHAVIORAL) init_power_amp(c + C_PA, ch);
+      for (int k = 0; k < 5; ++k) spk[k] = 0.0;
+      out = 0.0;
+    }
+    half_switch(HP_REST);
+  }
+  if (__shfl_sync(FULL, bad, 0, 16)) {
+    if constexpr (PRE == PRE_DK)
+      init_dk_seg(s_pre, pre, q);
+    else
+      init_melange_seg(s_pre, pre, q);
+    if constexpr (PA == PA_CIRCUIT) init_power_amp_seg(s_pa, pa, q);
+  }
+  return out;
+}
+
+constexpr int E2_HALF_WARPS = 4;  // warps per block: eight engines
+
+template <int PRE, int PA>
+__global__ void __launch_bounds__(E2_HALF_WARPS * 32)
+engine_chain_half_kernel(const double* __restrict__ c,
+                         const double* __restrict__ mono, double* chain,
+                         float* out, int n, int b, const unsigned char* sag,
+                         const double* noise_scale) {
+  constexpr bool MEL = PRE == PRE_MELANGE;
+  constexpr bool CIRCUIT = PA == PA_CIRCUIT;
+  constexpr int PRE_ROW = MEL ? CH_MEL_V : CH_PRE_V;
+  __shared__ double s_trem[TREM_BLOCK];
+  __shared__ double s_pa[CIRCUIT ? PA_BLOCK : 1];
+  __shared__ double s_pre[PreWarpOf<PRE>::BLOCK];
+  __shared__ WarpScratch scratch[2 * E2_HALF_WARPS];
+  if constexpr (CIRCUIT) stage_block<21, 16, 8>(c + C_PA, s_pa);
+  stage_block<7, 4, 2>(c + C_TREM, s_trem);
+  if constexpr (MEL)
+    stage_melange(c + C_MEL, s_pre);
+  else
+    stage_dk(c + C_PRE, s_pre);
+  __syncthreads();
+  const int q = threadIdx.x & 15;
+  const int e = blockIdx.x * (blockDim.x >> 4) + (threadIdx.x >> 4);
+  if ((e & ~1) >= b) return;  // the whole warp: no block-wide sync follows
+  // a segment past b runs its neighbour's engine and stores nothing
+  const bool live = e < b;
+  const int own = live ? e : b - 1;
+  double* row = chain + (size_t)own * CHAIN_ROWS;
+  double ch[CHAIN_ROWS];  // lane 0's rows
+  if (q == 0)
+    for (int k = 0; k < CHAIN_ROWS; ++k)
+      ch[k] = warp_row<PRE, PA>(k) ? 0.0 : row[k];
+  TremSeg tr;
+  load_seg<7, 4>(tr.s, row + CH_TREM_V, q);
+  tr.env = row[CH_TREM_ENV];
+  tr.r_ldr = row[CH_TREM_RLDR];
+  PaSegT<PA> pa;
+  if constexpr (CIRCUIT) load_pa_seg(pa, row + CH_PA_V, q);
+  PreSeg<PRE> pre;
+  if constexpr (MEL)
+    load_mel_seg(pre, row + PRE_ROW, q);
+  else
+    load_dk_seg(pre, row + PRE_ROW, q);
+  double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
+  Speaker spk_k;
+  WarpScratch* w = &scratch[threadIdx.x >> 4];
+#if OW_HALF_STAMPS
+  long long* stamps = g_half_parts + (size_t)(blockIdx.x * blockDim.x +
+                                              threadIdx.x) * (HALF_PARTS + 2);
+  stamps[HALF_PARTS] = clock64();
+  stamps[HALF_PARTS + 1] = HP_REST;
+#endif
+  for (int t = 0; t < n; ++t) {
+    const size_t i = (size_t)own * n + t;
+    const double y = chain_sample_seg<PRE, PA>(
+        c, ch, tr, pa, pre, s_trem, s_pa, s_pre, w, mono[i], sag[own] != 0,
+        noise_scale[own], &last_char, &spk_k);
+    if (q == 0 && live) out[i] = (float)y;
+  }
+  if (!live) return;
+  if (q == 0)
+    for (int k = 0; k < CHAIN_ROWS; ++k)
+      if (!warp_row<PRE, PA>(k)) row[k] = ch[k];
+  if constexpr (MEL)
+    store_mel_seg(pre, row + PRE_ROW, q);
+  else
+    store_dk_seg(pre, row + PRE_ROW, q);
+  store_seg<7, 4>(tr.s, row + CH_TREM_V, q);
+  if (q == 0) {
+    row[CH_TREM_ENV] = tr.env;
+    row[CH_TREM_RLDR] = tr.r_ldr;
+  }
+  if constexpr (CIRCUIT) store_pa_seg(pa, row + CH_PA_V, q);
 }
 
 // ═════════════════════════════ E3: settle ═════════════════════════════
@@ -3292,30 +4306,57 @@ extern "C" int ow_pa_speaker_scan(const double* consts, int n_consts,
   return (int)cudaGetLastError();
 }
 
+// E2's forms: 0 a thread per engine, 1 a warp per engine, 2 a half-warp
+// per engine
+enum { E2_THREAD = 0, E2_WARP = 1, E2_HALF = 2 };
+
 extern "C" int ow_engine_chain(const double* consts, int n_consts,
                                const double* mono, double* chain, float* out,
                                int n, int b, const unsigned char* rail_sag,
                                int pre_model, int pa_model,
-                               const double* noise_scale, int warp,
+                               const double* noise_scale, int form,
                                cudaStream_t stream) {
   const int want = C_TOTAL + (pre_model == PRE_MELANGE ? ML_SIZE : 0);
   if (n_consts != want || n < 0 || b < 0 || pre_model < 0 ||
-      pre_model > 1 || pa_model < 0 || pa_model > 1 || warp < 0 ||
-      warp > 1)
+      pre_model > 1 || pa_model < 0 || pa_model > 1 || form < E2_THREAD ||
+      form > E2_HALF)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
-  if (warp) {
+  const bool dk = pre_model == PRE_DK, circuit = pa_model == PA_CIRCUIT;
+  if (form == E2_HALF) {
+    const int warps = (b + 1) / 2;
+    const int blocks = (warps + E2_HALF_WARPS - 1) / E2_HALF_WARPS;
+    const int threads = 32 * (warps < E2_HALF_WARPS ? warps : E2_HALF_WARPS);
+    if (dk && circuit)
+      engine_chain_half_kernel<PRE_DK, PA_CIRCUIT>
+          <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                           rail_sag, noise_scale);
+    else if (dk)
+      engine_chain_half_kernel<PRE_DK, PA_BEHAVIORAL>
+          <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                           rail_sag, noise_scale);
+    else if (circuit)
+      engine_chain_half_kernel<PRE_MELANGE, PA_CIRCUIT>
+          <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                           rail_sag, noise_scale);
+    else
+      engine_chain_half_kernel<PRE_MELANGE, PA_BEHAVIORAL>
+          <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
+                                           rail_sag, noise_scale);
+    return (int)cudaGetLastError();
+  }
+  if (form == E2_WARP) {
     const int blocks = (b + E2_WARPS - 1) / E2_WARPS;
     const int threads = 32 * (b < E2_WARPS ? b : E2_WARPS);
-    if (pre_model == PRE_DK && pa_model == PA_CIRCUIT)
+    if (dk && circuit)
       engine_chain_warp_kernel<PRE_DK, PA_CIRCUIT>
           <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
                                            rail_sag, noise_scale);
-    else if (pre_model == PRE_DK)
+    else if (dk)
       engine_chain_warp_kernel<PRE_DK, PA_BEHAVIORAL>
           <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
                                            rail_sag, noise_scale);
-    else if (pa_model == PA_CIRCUIT)
+    else if (circuit)
       engine_chain_warp_kernel<PRE_MELANGE, PA_CIRCUIT>
           <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
                                            rail_sag, noise_scale);
@@ -3327,14 +4368,14 @@ extern "C" int ow_engine_chain(const double* consts, int n_consts,
   }
   const int blocks = (b + E2_BLOCK - 1) / E2_BLOCK;
   const int threads = b < E2_BLOCK ? b : E2_BLOCK;
-  if (pre_model == PRE_DK && pa_model == PA_CIRCUIT)
+  if (dk && circuit)
     engine_chain_kernel<PRE_DK, PA_CIRCUIT><<<blocks, threads, 0, stream>>>(
         consts, mono, chain, out, n, b, rail_sag, noise_scale);
-  else if (pre_model == PRE_DK)
+  else if (dk)
     engine_chain_kernel<PRE_DK, PA_BEHAVIORAL>
         <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
                                          rail_sag, noise_scale);
-  else if (pa_model == PA_CIRCUIT)
+  else if (circuit)
     engine_chain_kernel<PRE_MELANGE, PA_CIRCUIT>
         <<<blocks, threads, 0, stream>>>(consts, mono, chain, out, n, b,
                                          rail_sag, noise_scale);

@@ -28,8 +28,8 @@ Batches of engines: `EngineState` holds what one chunk of the reference's
 leading B axis. `render_states(eng, states, n)` renders one chunk of n
 samples for all of them (E1 a cluster of eight blocks per engine, or a
 thread per slot above `kernels.engine.VOICES_LANES_MAX_ENGINES`; E2 a
-warp per engine, or a thread per engine above
-`kernels.engine.CHAIN_WARP_MAX_ENGINES[pa_model]`),
+warp, a half-warp or a thread per engine, by width:
+`kernels.engine.chain_form`),
 the counterpart of `jax.vmap(lambda s: engine._render(eng, s, n))`;
 `Engine.render` is its B = 1 call. `Engine.state` gets and sets one
 engine's `EngineState`; `stack_states` and `broadcast_state` build

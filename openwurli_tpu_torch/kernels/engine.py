@@ -24,11 +24,15 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
     the memoryless behavioral model), downsampling, the speaker with its
     per-sample coefficient design, post gain and volume, NaN guard #2, the
     f32 cast. The two model choices are template arguments. Every
-    instantiation runs a warp per engine (`engine_chain_warp_kernel`: the
-    tremolo's, the preamp's and the circuit power amp's steps, or the
-    behavioral one's Newton loop, on the whole warp, the rest on lane 0)
-    up to `CHAIN_WARP_MAX_ENGINES[pa_model]` engines and a thread per
-    engine above it. The two forms agree bit for bit.
+    instantiation has three forms, in bands of width (`chain_form`): a
+    warp per engine (`engine_chain_warp_kernel`: the tremolo's, the
+    preamp's and the circuit power amp's steps, or the behavioral one's
+    Newton loop, on the whole warp, the rest on lane 0) up to
+    `CHAIN_WARP_MAX_ENGINES`, a half-warp per engine
+    (`engine_chain_half_kernel`: the same on a 16-lane segment, two
+    engines to a warp) up to `CHAIN_HALF_MAX_ENGINES`, and a thread per
+    engine (`engine_chain_kernel`) above. The three forms agree bit for
+    bit.
   * **E3 `tremolo_settle`**: the tremolo oscillator's mna step alone, n
     times, on one warp (E2's tremolo step without the vactrol).
   * **E8 `tremolo_scan`**: G tremolo circuits, a thread each, over n
@@ -134,38 +138,73 @@ POWER_AMP_SCAN_LAUNCHES = POWER_AMP_SCAN_PLAIN_CALLS = 0
 VOICES_LAUNCHES_BY_FORM = {"lanes": 0, "thread": 0}
 # The widest batch (engines) at which E1 runs its cluster form; wider
 # batches run the thread form (None: the cluster form at every width, 0:
-# the thread form). Per 256-sample chunk the cluster form takes 0.149-0.155
-# ms at 1 engine, 0.285-0.286 at 64, 0.322-0.325 at 96 and 0.448-0.455 at
-# 128, the thread form 0.448, 0.449, 0.451 and 0.453; at 192 the thread
-# form wins (0.498 against 0.609-0.612 ms) and from there on (1024: 1.961
-# against 2.709-2.714): eight threads per slot repeat the voice's serial
-# tail on every thread, which a full card pays for. (NVIDIA H100 80GB HBM3,
-# 700 W, tools/torch_voices_sweep.py --form lanes / thread, three calls
-# each; PERF.md §6.)
-VOICES_LANES_MAX_ENGINES = 128
-# E2's launches by (preamp_model, pa_model, form): "warp" a warp per
-# engine, "thread" a thread per engine
+# the thread form). Per 256-sample chunk the cluster form takes
+# 0.145-0.146 ms at 1 engine, 0.285 at 64, 0.324-0.325 at 96 and
+# 0.448-0.451 at 128; the thread form (its libm behind warp votes) 0.410,
+# 0.413-0.414, 0.414 and 0.415-0.417: at 128 the thread form wins, and
+# from there on (192: 0.439 against 0.604-0.610; 1024: 1.244 against
+# 2.715-2.716): eight threads per slot repeat the voice's serial tail on
+# every thread, which a full card pays for. (NVIDIA H100 80GB HBM3, 700 W,
+# tools/torch_voices_sweep.py --form lanes / thread, three calls each;
+# PERF.md §6.)
+VOICES_LANES_MAX_ENGINES = 96
+# E2's forms, in ow_engine_chain's numbering: "thread" a thread per
+# engine, "warp" a warp per engine, "half" a half-warp per engine (two
+# engines to a warp)
+CHAIN_FORMS = ("thread", "warp", "half")
+# E2's launches by (preamp_model, pa_model, form)
 CHAIN_LAUNCHES_BY_FORM = {(p, a, f): 0 for p in ("dk", "melange")
                           for a in ("circuit", "behavioral")
-                          for f in ("warp", "thread")}
-# The widest batch (engines) at which E2 runs a warp per engine, by
-# power-amp model; wider batches run a thread per engine (None: the warp
-# form at every width, 0: the thread form). Circuit: the warp form holds
-# one engine's pace to 128 engines and, at 168 registers (12 warps per
-# SM), reaches 188-197x realtime aggregate at 2048 engines and 227-233x at
-# 4096, where the thread form (32 engines per warp) gives 124-160x; at 8192
-# the thread form wins for the DK preamp (245-249x against 235-238x) and
-# the warp form still for the melange one (240-242x against 206-208x).
-# Behavioral: the warp form (168 registers) is saturated from 1024
-# engines on (dk 488-571x, melange 382-384x, where the thread form gives
-# 340-343x and 97-100x); at 2048 the thread form wins for the DK preamp
-# (611-616x against 545-548x), at 4096 the warp form still for the melange
-# one (418-420x against 356-363x), at 8192 the thread form for both (dk
-# 1473-1505x against 666-668x, melange 613-642x against 431-434x): 2048
-# keeps the worse of the two misses at 14 %. (NVIDIA H100 80GB HBM3, 700
-# W, tools/torch_perf_sweep.py --form warp / thread --preamp-model dk /
-# melange [--pa-model behavioral], three calls each; PERF.md §5.)
-CHAIN_WARP_MAX_ENGINES = {"circuit": 4096, "behavioral": 2048}
+                          for f in CHAIN_FORMS}
+# E2's bands of width, by (preamp_model, pa_model): a warp per engine up
+# to CHAIN_WARP_MAX_ENGINES engines, a half-warp per engine above that up
+# to CHAIN_HALF_MAX_ENGINES, a thread per engine above both (None: no
+# upper limit, 0: the form never runs). Set on distinct engines, since a
+# broadcast never lets a warp's two segments diverge: aggregate realtime
+# factor, 256-sample chunks, three calls each, warp / half / thread
+# (tools/torch_perf_sweep.py --traffic distinct --form: chip_smoke.py
+# phase 28 (a)'s 128 distinct engines tiled; NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §5-6):
+#   <dk, circuit>: the half form leads at every width: 256: 78.7-78.9 /
+#   82.4-83.1; 512: 154.1-155.3 / 161.9-163.1; 1024: 248.1-251.7 /
+#   311.6-312.7; 2048: 209.8-213.1 / 487.8-491.8; 8192: 505.2-513.0 /
+#   248.6-250.3 (thread); 16384: 517.5-524.8 / 376.8-377.2 (thread). One
+#   engine (the broadcast chord, the kernel alone): 18.04 / 16.98 ms.
+#   <melange, circuit>: 256: 13.2 / 13.3; 512: 25.9-26.0 / 26.5; 1024:
+#   48.3-48.5 / 52.6-52.7; 2048: 63.6-65.1 / 98.7; 8192: 116.2-117.5 /
+#   38.9-39.3 (thread); 16384: 118.3-119.3 / 54.5-54.6 (thread). One
+#   engine (chord, the kernel alone) 24.49 / 24.59 ms, so one engine (the
+#   melange Engine and its plugin) keeps the warp form; 2-255 engines are
+#   not measured on distinct engines.
+#   <dk, behavioral>: 256: 178.5-181.8 / 178.6-182.1; 512: 342.0-347.5 /
+#   339.1-340.5; 1024: 573.3-577.6 / 628.3-634.1 / 334.9-337.1; 2048:
+#   570.3-571.9 / 1001.7-1011.3 / 624.3-628.9; 4096: 1007.0-1011.0 /
+#   1105.0-1108.3 (half / thread).
+#   <melange, behavioral>: 256: 40.1-43.7 / 42.6-42.9; 512: 85.3-86.1 /
+#   84.5-85.2; 1024: 159.1-160.3 / 164.8-166.7; 2048: 200.2-203.0 /
+#   293.8-302.1; 4096: 287.5-296.1 / 150.6-151.6 (half / thread); 8192:
+#   373.5-376.0 / 284.8-285.8; 16384: 373.0-376.9 / 480.2-484.8.
+# The broadcast chord's sweeps (PERF.md §5) gave the same bands but for
+# <melange, circuit>, whose warp form led there up to 512 engines.
+CHAIN_WARP_MAX_ENGINES = {("dk", "circuit"): 0,
+                          ("melange", "circuit"): 1,
+                          ("dk", "behavioral"): 512,
+                          ("melange", "behavioral"): 512}
+CHAIN_HALF_MAX_ENGINES = {("dk", "circuit"): None,
+                          ("melange", "circuit"): None,
+                          ("dk", "behavioral"): 2048,
+                          ("melange", "behavioral"): 8192}
+
+
+def chain_form(preamp_model: str, pa_model: str, b: int) -> str:
+    """The form of E2 that render_chain launches for b engines."""
+    models = (preamp_model, pa_model)
+    for form, limits in (("warp", CHAIN_WARP_MAX_ENGINES),
+                         ("half", CHAIN_HALF_MAX_ENGINES)):
+        widest = limits[models]
+        if widest is None or b <= widest:
+            return form
+    return "thread"
 
 
 # ─────────────────────────── voice bank packing ───────────────────────────
@@ -1010,9 +1049,9 @@ def render_chain(cp: ChainParams, mono, chain, rail_sag,
     (CHAIN_ROWS,) float64, rail_sag a bool and noise_scale a float → out
     (T,) float32; or of B engines over mono (B, T) with chain (B,
     CHAIN_ROWS), rail_sag (B,) bool and noise_scale (B,) float64 tensors
-    on the same device → out (B, T). On the card E2 runs a warp per
-    engine up to CHAIN_WARP_MAX_ENGINES[cp.pa_model] engines, a thread per
-    engine above. `chain` is updated in place. The instantiation is
+    on the same device → out (B, T). On the card E2 runs the form that
+    chain_form gives for B engines: a warp per engine, a half-warp per
+    engine or a thread per engine. `chain` is updated in place. The instantiation is
     `cp`'s (preamp_model, pa_model); `noise_scale` (noise_enabled ·
     noise_gain) acts on the melange preamp only. B = 0 launches nothing
     and returns a (0, T) tensor."""
@@ -1042,16 +1081,14 @@ def render_chain(cp: ChainParams, mono, chain, rail_sag,
         CHAIN_PLAIN_CALLS += 1
         return chain_plain(cp, mono, chain, rail_sag, noise_scale)
     flat = _flat_on(_cp_key(cp), str(dev))
-    widest = CHAIN_WARP_MAX_ENGINES[cp.pa_model]
-    warp = widest is None or b <= widest
+    form = chain_form(cp.preamp_model, cp.pa_model, b)
     _lib_call("engine_chain", lambda lib: lib.ow_engine_chain,
               flat.data_ptr(), flat.numel(), mono.data_ptr(),
               chain.data_ptr(), out.data_ptr(), n, b, rail_sag.data_ptr(),
               PREAMP_MODELS.index(cp.preamp_model),
               PA_MODELS.index(cp.pa_model), noise_scale.data_ptr(),
-              int(warp), device=dev)
-    CHAIN_LAUNCHES_BY_FORM[cp.preamp_model, cp.pa_model,
-                           "warp" if warp else "thread"] += 1
+              CHAIN_FORMS.index(form), device=dev)
+    CHAIN_LAUNCHES_BY_FORM[cp.preamp_model, cp.pa_model, form] += 1
     return out
 
 

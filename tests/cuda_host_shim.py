@@ -1,20 +1,22 @@
 """A host stand-in for the CUDA runtime, so that a kernel source of
 `openwurli_tpu_torch/csrc/` builds with g++ and runs on the CPU.
 
-One std::thread per CUDA thread and a std::barrier per warp (for
-__syncwarp, the shuffles and the votes, the ballot among them) and per block (__syncthreads);
-the blocks of a launch run one after another, except that the blocks of
-a thread-block cluster (a kernel declared with __cluster_dims__) run at
-once, with a std::barrier for cluster.sync(). Each block has its own
-shared memory: `build` rewrites every `__shared__` declaration into a
-reference to the block's arena (shim::shared), so that
-cluster.map_shared_rank reaches another block's copy at the same offset.
-`build` writes the header as cuda_runtime.h (and a cooperative_groups.h)
-beside the source, rewrites each `kernel<<<blocks, threads, ...>>>(` as
-`shim::launch(blocks, threads, kernel, ` (`shim::launch_cluster(size,
-...` for a cluster kernel), appends `extra` (C++ that may call the
-source's own device functions) and compiles a shared library with FMA
-contraction off, as nvcc's -fmad=false.
+Every CUDA thread of a launch is a fiber on the calling thread, with a
+stack of its own, switched by hand (a few instructions: the callee-saved
+registers and the stack pointer); a barrier per warp (for __syncwarp, the
+shuffles and the votes, the ballot among them), per block (__syncthreads)
+and per cluster parks each arriving fiber and runs the others in turn
+until the last one arrives. The blocks of a launch run one after another,
+except that the blocks of a thread-block cluster (a kernel declared with
+__cluster_dims__) run at once. Each block has its own shared memory:
+`build` rewrites every `__shared__` declaration into a reference to the
+block's arena (shim::shared), so that cluster.map_shared_rank reaches
+another block's copy at the same offset. `build` writes the header as
+cuda_runtime.h (and a cooperative_groups.h) beside the source, rewrites
+each `kernel<<<blocks, threads, ...>>>(` as `shim::launch(blocks, threads,
+kernel, ` (`shim::launch_cluster(size, ...` for a cluster kernel), appends
+`extra` (C++ that may call the source's own device functions) and
+compiles a shared library with FMA contraction off, as nvcc's -fmad=false.
 The host's libm stands in for CUDA's, so a kernel built here equals
 another built here bit for bit where both run the same arithmetic.
 """
@@ -27,14 +29,14 @@ import subprocess
 
 SHIM_H = r"""
 #pragma once
-#include <atomic>
-#include <barrier>
+#include <sys/mman.h>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 #define __cluster_dims__(...)
 #define __global__
@@ -51,27 +53,59 @@ inline int cudaGetLastError() { return 0; }
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local Dim3 threadIdx, blockIdx;
 inline Dim3 blockDim, gridDim;
+// shim_switch(&from_sp, to_sp): saves the callee-saved registers, the SSE
+// and x87 control words and the stack pointer of the running fiber, and
+// resumes the fiber whose stack pointer is to_sp
+extern "C" void shim_switch(void** from_sp, void* to_sp);
+asm(R"(
+.text
+.p2align 4
+.weak shim_switch
+.type shim_switch, @function
+shim_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  subq $8, %rsp
+  stmxcsr (%rsp)
+  fnstcw 4(%rsp)
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  ldmxcsr (%rsp)
+  fldcw 4(%rsp)
+  addq $8, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+.size shim_switch, .-shim_switch
+)");
 namespace shim {
+struct Barrier {
+  explicit Barrier(int n) : n(n) {}
+  void arrive_and_wait();
+  int n, count = 0;
+  unsigned gen = 0;
+};
 // The shuffles and votes exchange through two banks of slots in turn, so
 // that each needs one barrier: a bank is written again only two exchanges
 // later, after every lane has passed the exchange between, and so has read
 // it.
 struct Warp {
   explicit Warp(int n) : bar(n) {}
-  std::barrier<> bar;
+  Barrier bar;
   uint64_t slot[2][32];
 };
 inline thread_local Warp* warp;
-inline thread_local std::barrier<>* block;
+inline thread_local Barrier* block;
 inline thread_local int lane;
 inline thread_local int bank;
-inline uint64_t* exchange(uint64_t bits) {
-  uint64_t* s = warp->slot[bank];
-  bank ^= 1;
-  s[lane] = bits;
-  warp->bar.arrive_and_wait();
-  return s;
-}
 // Shared memory: an arena per running block; each __shared__ declaration
 // (build's rewrite) takes its offset, the same in every arena, on first
 // use.
@@ -79,12 +113,114 @@ constexpr size_t kArena = size_t(4) << 20;
 inline thread_local unsigned char* arena;          // this block's
 inline thread_local unsigned char* const* cluster_arenas;
 inline thread_local int cluster_rank;
-inline thread_local std::barrier<>* cluster_bar;
-inline std::atomic<size_t> arena_top{0};
+inline thread_local Barrier* cluster_bar;
+// A CUDA thread: its stack, its saved stack pointer, and the values of the
+// thread-locals above that are its own
+struct Fiber {
+  void* sp = nullptr;
+  Dim3 tid, bid;
+  Warp* warp = nullptr;
+  Barrier* block = nullptr;
+  int lane = 0, bank = 0, rank = 0;
+  unsigned char* arena = nullptr;
+  bool done = false;
+};
+constexpr size_t kStack = size_t(512) << 10;
+inline thread_local std::vector<Fiber>* fibers;
+inline thread_local int cur;
+inline thread_local int alive;
+inline thread_local void* main_sp;
+inline thread_local std::function<void()>* body;
+inline void resume(const Fiber& f) {
+  threadIdx = f.tid;
+  blockIdx = f.bid;
+  warp = f.warp;
+  block = f.block;
+  lane = f.lane;
+  bank = f.bank;
+  arena = f.arena;
+  cluster_rank = f.rank;
+}
+// the next fiber after the running one that has not ended
+inline int next_alive() {
+  const int n = (int)fibers->size();
+  int k = cur;
+  do k = (k + 1) % n; while ((*fibers)[k].done && k != cur);
+  return k;
+}
+// park the running fiber and run the next one
+inline void yield() {
+  Fiber& me = (*fibers)[cur];
+  me.bank = bank;
+  const int k = next_alive();
+  if (k == cur) {
+    std::fprintf(stderr, "shim: every other thread has ended; a barrier "
+                 "can never complete\n");
+    std::abort();
+  }
+  cur = k;
+  resume((*fibers)[k]);
+  shim_switch(&me.sp, (*fibers)[k].sp);
+}
+inline void Barrier::arrive_and_wait() {
+  const unsigned g = gen;
+  if (++count == n) {
+    count = 0;
+    ++gen;
+    return;
+  }
+  while (gen == g) yield();
+}
+inline uint64_t* exchange(uint64_t bits) {
+  uint64_t* s = warp->slot[bank];
+  bank ^= 1;
+  s[lane] = bits;
+  warp->bar.arrive_and_wait();
+  return s;
+}
+// a fiber's first frame: it runs the kernel, then hands over to the next
+// fiber, or back to the launch after the last
+extern "C" inline void shim_fiber_main() {
+  (*body)();
+  Fiber& me = (*fibers)[cur];
+  me.done = true;
+  void* dead;
+  if (--alive == 0) shim_switch(&dead, main_sp);
+  cur = next_alive();
+  resume((*fibers)[cur]);
+  shim_switch(&dead, (*fibers)[cur].sp);
+}
+inline char* stack_at(size_t i) {
+  static std::vector<char*> pool;
+  while (pool.size() <= i) {
+    void* p = mmap(nullptr, kStack, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (p == MAP_FAILED) std::abort();
+    pool.push_back(static_cast<char*>(p));
+  }
+  return pool[i];
+}
+// a new fiber's stack: shim_switch's frame, its return into
+// shim_fiber_main, aligned as a call would leave it
+inline void* first_sp(char* stack) {
+  auto* top = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(stack + kStack) & ~uintptr_t(15)));
+  uint64_t* sp = top - 2;
+  sp[0] = reinterpret_cast<uint64_t>(&shim_fiber_main);
+  sp[1] = 0;
+  sp -= 6;  // rbp rbx r12 r13 r14 r15
+  for (int i = 0; i < 6; ++i) sp[i] = 0;
+  sp -= 1;
+  uint32_t cw[2] = {0x1F80u, 0x037Fu};  // mxcsr, x87 control word
+  std::memcpy(sp, cw, sizeof(cw));
+  return sp;
+}
+inline size_t arena_top = 0;
 template <class T, int ID>
 T& shared() {
   static const size_t off = [] {
-    const size_t a = arena_top.fetch_add((sizeof(T) + 63) & ~size_t(63));
+    const size_t a = arena_top;
+    arena_top += (sizeof(T) + 63) & ~size_t(63);
     if (a + sizeof(T) > kArena) std::abort();
     return a;
   }();
@@ -107,36 +243,41 @@ void launch_cluster(int cluster, int blocks, int threads, K kernel,
                     A... args) {
   blockDim.x = threads;
   gridDim.x = blocks;
+  std::function<void()> run = [&] { kernel(args...); };
   for (int b0 = 0; b0 < blocks; b0 += cluster) {
     const int nb = blocks - b0 < cluster ? blocks - b0 : cluster;
     std::vector<unsigned char*> arenas;
-    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<std::unique_ptr<Barrier>> bars;
     std::vector<std::vector<std::unique_ptr<Warp>>> warps(nb);
     for (int r = 0; r < nb; ++r) {
       arenas.push_back(arena_at(r));
-      bars.emplace_back(new std::barrier<>(threads));
+      bars.emplace_back(new Barrier(threads));
       for (int w = 0; w * 32 < threads; ++w)
         warps[r].emplace_back(new Warp(threads - 32 * w < 32
                                            ? threads - 32 * w : 32));
     }
-    std::barrier<> cbar(nb * threads);
-    std::vector<std::thread> ts;
+    Barrier cbar(nb * threads);
+    std::vector<Fiber> fs(nb * threads);
     for (int r = 0; r < nb; ++r)
-      for (int t = 0; t < threads; ++t)
-        ts.emplace_back([&, r, t] {
-          threadIdx.x = t;
-          blockIdx.x = b0 + r;
-          block = bars[r].get();
-          warp = warps[r][t / 32].get();
-          lane = t % 32;
-          bank = 0;
-          arena = arenas[r];
-          cluster_arenas = arenas.data();
-          cluster_rank = r;
-          cluster_bar = &cbar;
-          kernel(args...);
-        });
-    for (auto& t : ts) t.join();
+      for (int t = 0; t < threads; ++t) {
+        Fiber& f = fs[r * threads + t];
+        f.tid.x = t;
+        f.bid.x = b0 + r;
+        f.block = bars[r].get();
+        f.warp = warps[r][t / 32].get();
+        f.lane = t % 32;
+        f.rank = r;
+        f.arena = arenas[r];
+        f.sp = first_sp(stack_at(r * threads + t));
+      }
+    cluster_arenas = arenas.data();
+    cluster_bar = &cbar;
+    fibers = &fs;
+    body = &run;
+    cur = 0;
+    alive = nb * threads;
+    resume(fs[0]);
+    shim_switch(&main_sp, fs[0].sp);
   }
 }
 template <class K, class... A>

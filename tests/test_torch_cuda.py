@@ -363,6 +363,14 @@ def _engine(cuda):
     return eng
 
 
+def _force_chain_form(monkeypatch, ek, pre, pa, form):
+    """render_chain runs E2<pre, pa> in `form` at every width."""
+    monkeypatch.setitem(ek.CHAIN_WARP_MAX_ENGINES, (pre, pa),
+                        None if form == "warp" else 0)
+    monkeypatch.setitem(ek.CHAIN_HALF_MAX_ENGINES, (pre, pa),
+                        None if form == "half" else 0)
+
+
 @pytest.mark.parametrize("form", ["lanes", "thread"])
 @pytest.mark.parametrize("engines", [1, 5, 128])
 def test_engine_voices_kernel_matches_plain(cuda, engines, form,
@@ -467,11 +475,11 @@ def test_engine_batch_kernels_match_plain_and_one_engine(cuda, models):
                          ids=lambda m: "-".join(m))
 @pytest.mark.parametrize("case", ["kick", "nan", "guard-midway"])
 def test_engine_chain_forms_agree(cuda, models, case, monkeypatch):
-    """E2's instantiations in their two forms: a warp per engine (up to
-    CHAIN_WARP_MAX_ENGINES[pa_model] engines) and a thread per engine
-    (above it), on one engine and on 3 distinct ones (rail sag off, noise
-    on at gain 3): output and state bit for bit, and both equal to the
-    plain version. "guard-midway": a NaN in mono at sample 4 (the preamp
+    """E2's instantiations in their three forms: a warp, a thread and a
+    half-warp per engine (each band of chain_form), on one engine and on 3 distinct ones
+    (rail sag off, noise on at gain 3; the half form's last warp holds one
+    engine): output and state bit for bit, and all equal to the plain
+    version. "guard-midway": a NaN in mono at sample 4 (the preamp
     resets on each later step) and the volume smoother reaching a NaN
     target at sample 9, which fires guard #2 on every sample from there
     (for the behavioral power amp its rows, moved off rest first, go back
@@ -510,14 +518,15 @@ def test_engine_chain_forms_agree(cuda, models, case, monkeypatch):
             state[:, lo:hi] += 1.0
     for b in (1, 3):
         runs = []
-        for widest in (None, 0):  # the warp form, the thread form
-            monkeypatch.setitem(ek.CHAIN_WARP_MAX_ENGINES, pa, widest)
+        for form in ("warp", "thread", "half"):
+            _force_chain_form(monkeypatch, ek, pre, pa, form)
             a = state[:b].clone()
             runs.append((ek.render_chain(engines[0].params, mono[:b], a,
                                          st.rail_sag[:b],
                                          st.noise_scale[:b]), a))
-        (ow, sw), (ot, stt) = runs
+        (ow, sw), (ot, stt), (oh, sh) = runs
         assert _same_bits(ow, ot) and _same_bits(sw, stt)
+        assert _same_bits(oh, ot) and _same_bits(sh, stt)
         p = state[:b].clone()
         ref = ek.chain_plain(engines[0].params, mono[:b], p,
                              st.rail_sag[:b], st.noise_scale[:b])
@@ -526,6 +535,105 @@ def test_engine_chain_forms_agree(cuda, models, case, monkeypatch):
             assert (ow[:, 9:] == 0).all() and (ow[:, :9] != 0).any()
             if pa == "behavioral":
                 assert _same_bits(sw[:, lo:hi], rest[:b])
+
+
+@pytest.mark.parametrize("models", [("dk", "circuit"), ("melange", "circuit"),
+                                    ("dk", "behavioral"),
+                                    ("melange", "behavioral")],
+                         ids=lambda m: "-".join(m))
+def test_engine_chain_half_form_diverging_engines(cuda, models,
+                                                  monkeypatch):
+    """The half form's two engines of a warp diverge: over 7 engines
+    (warps (0, 1), (2, 3), (4, 5), (6, -)) engine 1 is kicked (the
+    tremolo's BE replay, an input spike that fails the power amp's Newton)
+    beside a clean engine 0, engine 2 reaches guard #2 midway beside a
+    clean engine 3, engine 5 gets a NaN input beside a kicked engine 4,
+    and engine 6 runs alone in its warp. The half form equals the thread
+    form and the warp form bit for bit, output and state, and the plain
+    version."""
+    from openwurli_tpu_torch import engine as pe
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    pre, pa = models
+    engines = []
+    for k in range(7):
+        e = pe.Engine(SR, device=cuda, preamp_model=pre, pa_model=pa)
+        for i, note in enumerate((48 + 2 * k, 55 + k, 64 + k % 3)):
+            e.note_on(note, 0.4 + 0.1 * i)
+        engines.append(e)
+    engines[3].set_rail_sag(False)
+    engines[6].set_noise_enabled(True)
+    engines[6].set_noise_gain(3.0)
+    st = pe.stack_states([e.state for e in engines])
+    mono = ek.render_voices(*[x.clone() for x in st[:4]], 32,
+                            engines[0].fade_len, SR)
+    state = st.chain.clone()
+    for k in (1, 4):
+        state[k, ek.CHAIN_OFF["trem_v"][0]] += 70.0
+        mono[k, 7 + k] = 30.0
+    a = ek.CHAIN_OFF["sm_volume"][0]
+    state[2, a + 1:a + 4] = torch.tensor([float("nan"), 0.0, 10.0],
+                                         dtype=torch.float64, device=cuda)
+    mono[5, 11] = float("nan")
+    runs = {}
+    for form in ("warp", "thread", "half"):
+        _force_chain_form(monkeypatch, ek, pre, pa, form)
+        s_ = state.clone()
+        runs[form] = (ek.render_chain(engines[0].params, mono, s_,
+                                      st.rail_sag, st.noise_scale), s_)
+    oh, sh = runs["half"]
+    for form in ("warp", "thread"):
+        assert _same_bits(oh, runs[form][0]), form
+        assert _same_bits(sh, runs[form][1]), form
+    p = state.clone()
+    ref = ek.chain_plain(engines[0].params, mono, p, st.rail_sag,
+                         st.noise_scale)
+    assert _same_bits(oh, ref) and _same_bits(sh, p)
+    assert (oh[2, 9:] == 0).all() and (oh[0] != 0).any()
+    assert torch.isfinite(oh).all()
+
+
+def test_engine_voices_thread_form_slots(cuda, monkeypatch):
+    """E1's thread form (a thread per slot, its libm behind warp votes)
+    on 64 engines whose slots mix onsets (fresh notes), damper ramps
+    (released notes), steady and free slots and steal fades, a NaN slot
+    and an inf slot off each warp's first slot: mono, every state row and
+    the fire count bit for bit against the cluster form and voices_plain."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    eng = _engine(cuda)
+    eng.render(700)
+    for k, note in enumerate((50, 57, 62, 69, 74)):
+        eng.note_on(note, 0.3 + 0.1 * k)   # onsets
+    for note in (48, 55, 64):
+        eng.note_off(note)                  # damper ramps
+    for t in (eng.vpar, eng.vst, eng.vsti):
+        t[:, ek.MAX_VOICES + 5] = t[:, 3]   # a steal slot, fading
+    eng.eng_i[ek.MAX_VOICES + 5] = 90
+    b = 64
+    args = [x.expand(b, *x.shape).clone()
+            for x in (eng.vpar, eng.vst, eng.vsti, eng.eng_i)]
+    e = torch.arange(b, device=cuda)
+    args[2][:, ek.I_N] += 29 * e[:, None]
+    args[3][:, ek.MAX_VOICES + 5] = 90 - e
+    args[1][e, ek.S_S, 1 + e % 6] = float("nan")     # slot 1 + e % 6
+    args[1][e, ek.S_C + 2, 33 + e % 5] = float("inf")  # slot 33 + e % 5
+    runs = {}
+    for form in ("lanes", "thread"):
+        monkeypatch.setattr(ek, "VOICES_LANES_MAX_ENGINES",
+                            None if form == "lanes" else 0)
+        a = [x.clone() for x in args]
+        runs[form] = (ek.render_voices(*a, 300, eng.fade_len,
+                                       eng.sample_rate), a)
+    b_ = [x.clone() for x in args]
+    ref = ek.voices_plain(*b_, 300, eng.fade_len, eng.sample_rate)
+    for form, (mono, a) in runs.items():
+        assert _same_bits(mono, ref), form
+        for x, y in zip(a, b_):
+            assert _same_bits(x, y), form
+    fires = runs["thread"][1][3][:, ek.EI_FIRES] - args[3][:, ek.EI_FIRES]
+    assert (fires >= 1).all()
+    assert torch.isfinite(ref).all()
 
 
 def test_tremolo_settle_kernel_matches_plain(cuda):
@@ -704,8 +812,8 @@ def test_engine_chain_melange_warp_on_chord(cuda, monkeypatch):
     mono = ek.render_voices(eng.vpar, eng.vst, eng.vsti, eng.eng_i, 64,
                             eng.fade_len, eng.sample_rate)
     runs = []
-    for widest in (None, 0):  # the warp form, the thread form
-        monkeypatch.setitem(ek.CHAIN_WARP_MAX_ENGINES, "circuit", widest)
+    for form in ("warp", "thread"):
+        _force_chain_form(monkeypatch, ek, "melange", "circuit", form)
         a = eng.chain.clone()
         runs.append((ek.render_chain(eng.params, mono, a, True, 1.0), a))
     (ow, sw), (ot, st) = runs

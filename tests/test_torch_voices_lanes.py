@@ -2,11 +2,12 @@
 (`engine_voices_kernel`: a cluster of eight blocks per engine, eight
 threads per voice slot on E4's group body) and its thread form
 (`engine_voices_thread_kernel`: a block per engine, a thread per slot,
-`voice_sample`, the gates sample by sample and the slot sum through a
-shared tile, as E1 ran before its lane redesign), the source built with
-g++ against the host shim of tests/cuda_host_shim.py (a std::thread per
-CUDA thread, a std::barrier per warp, per block and per cluster, each
-block's shared memory its own, the cluster's blocks at once).
+`voice_sample_guarded` (the voice step with its cos, pow, exp, sqrt and
+tanh behind warp votes), the gates sample by sample and the slot sum
+through a shared tile), the source built with g++ against the host shim
+of tests/cuda_host_shim.py (a fiber per CUDA thread, a barrier per warp,
+per block and per cluster, each block's shared memory its own, the
+cluster's blocks at once).
 
   (a) in one binary, the cluster form equals the thread form bit for
       bit: mono, vst, vsti and eng_i with its fire count, at 1, 2 and 3
@@ -14,7 +15,13 @@ block's shared memory its own, the cluster's blocks at once).
       form's 32-sample tile;
   (b) the same runs against `voices_plain` within the host-libm
       tolerances below, the integer rows (the gates, the fires, the
-      voices' counters) exactly.
+      voices' counters) exactly;
+  (c) in one binary, the thread form equals the thread form without its
+      votes (tools/voice_breakdown.cu's `e1b_thread_kernel<1, false>`,
+      `voice_sample` on every slot, as E1's thread form ran before) bit
+      for bit, and matches `voices_plain` as in (b).
+
+The binary is tools/voice_breakdown.cu, which includes the source.
 
 Each engine's 128 slots hold seeded notes and velocities, main slots free
 and live, steal slots at fades that end mid-group (and one at rest), a
@@ -54,16 +61,31 @@ TOL_OUT = 1e-12
 TOL_STATE = 1e-13
 
 
+# the thread form without its votes: voice_sample on every slot
+HARNESS = r"""
+extern "C" int ow_test_voices_thread_unguarded(
+    const double* vpar, double* vst, long long* vsti, long long* eng_i,
+    double* mono, int n, int b, double fade_len, double sample_rate,
+    cudaStream_t) {
+  shim::launch(b, SLOTS, e1b_thread_kernel<1, false>, vpar, vst, vsti,
+               eng_i, mono, n, fade_len, sample_rate);
+  return 0;
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     if not cuda_host_shim.have_gxx():
         pytest.skip("needs g++ to build the kernel against the host shim")
     dll = cuda_host_shim.build(
-        os.path.join(os.path.dirname(ek.__file__), "..", "csrc",
-                     "engine.cu"),
-        tmp_path_factory.mktemp("voices_lanes"), "voices_lanes")
+        os.path.join(os.path.dirname(ek.__file__), "..", "..", "tools",
+                     "voice_breakdown.cu"),
+        tmp_path_factory.mktemp("voices_lanes"), "voices_lanes",
+        extra=HARNESS)
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for fn in (dll.ow_engine_voices, dll.ow_engine_voices_thread):
+    for fn in (dll.ow_engine_voices, dll.ow_engine_voices_thread,
+               dll.ow_test_voices_thread_unguarded):
         fn.argtypes = [p, p, p, p, p, i, i, d, d, p]
     return dll
 
@@ -160,6 +182,12 @@ def _thread(lib, cols, n):
                                                        SR, None), cols, n)
 
 
+def _unguarded(lib, cols, n):
+    b = cols[0].shape[0]
+    return _run(lambda *p: lib.ow_test_voices_thread_unguarded(
+        *p, n, b, FADE_LEN, SR, None), cols, n)
+
+
 @pytest.mark.parametrize("b,n", CASES)
 def test_lanes_equal_one_thread(lib, b, n):
     cols = _engines(b)
@@ -200,3 +228,31 @@ def test_lanes_match_plain(lib, b, n):
     assert err <= TOL_STATE, err
     assert torch.equal(st_l[2], p[2])
     assert torch.equal(st_l[3], p[3])
+
+
+@pytest.mark.parametrize("b,n", CASES)
+def test_thread_form_votes(lib, b, n):
+    """(c): the votes skip only calls whose values no slot selects. The
+    slots mix onsets, damper ramps, steady and free slots; the NaN and
+    inf slots and the dampers sit off their warp's first slot."""
+    cols = _engines(b)
+    mono_t, st_t = _thread(lib, cols, n)
+    mono_u, st_u = _unguarded(lib, cols, n)
+    assert _same(mono_t, mono_u)
+    for x, y in zip(st_t, st_u):
+        assert _same(x, y)
+    # the cases reach the votes' both sides: slots in their onset and
+    # slots past it, dampers mid-ramp, a renorm
+    nn, ramp_n = cols[2][:, ek.I_N], cols[0][:, ek.P_RAMP_N]
+    onset = nn.double() < ramp_n
+    assert onset.any() and (~onset).any()
+    assert (cols[2][:, ek.I_DACT] != 0).any()
+    p = [c.clone() for c in cols]
+    mono_p = ek.voices_plain(*p, n, FADE_LEN, SR)
+    err = (mono_t - mono_p).abs().max()
+    assert err <= TOL_OUT, err
+    fin = torch.isfinite(p[1])
+    assert torch.equal(torch.isnan(p[1]), torch.isnan(st_t[1]))
+    err = (st_t[1] - p[1])[fin].abs().max()
+    assert err <= TOL_STATE, err
+    assert torch.equal(st_t[2], p[2]) and torch.equal(st_t[3], p[3])

@@ -1,25 +1,41 @@
 #!/usr/bin/env python3
-"""Where E2's behavioral warp form runs `behavioral()`, on an NVIDIA GPU:
-on every lane of the engine's warp with the same input (the library,
-`OW_BEHAVIORAL_ALL_LANES` 1) or on lane 0 alone (0).
+"""Where E2's time goes, on an NVIDIA GPU: where its behavioral warp form
+runs `behavioral()`, and the half form's stamped parts.
 
 Builds tools/chain_breakdown.cu (which includes
-openwurli_tpu_torch/csrc/engine.cu) twice with the port's nvcc flags into
-build/chain_breakdown/, once with each setting, and runs
-`ow_engine_chain` of both on the chord's first 256-sample chunk of
-`Engine(44100, preamp_model=P, pa_model="behavioral")` at B = 1 (the
-chord MIDI 48, 55, 60, 63, 67, 70 at 0.95 after --history samples at
-volume 1 and tremolo depth 1, the inputs `Engine.render` gives E2), for
-both preamps: the two warp forms and the thread form are first checked
-bit for bit (output and state) against each other and against the
-library's `kernels.engine.render_chain`, then timed with CUDA events in
-turns (all lanes, lane 0, lane 0, all lanes; the mean of --reps calls
-each). It also times one `behavioral()` call's latency (a dependent chain
-of --calls calls on one thread, `cb_behavioral`). Prints the card and its
-power limit, then one JSON line:
+openwurli_tpu_torch/csrc/engine.cu) three times with the port's nvcc
+flags into build/chain_breakdown/: `OW_BEHAVIORAL_ALL_LANES` 1 (the
+library's setting: `behavioral()` on every lane of the engine's warp with
+the same input) and 0 (on lane 0 alone), and `OW_HALF_STAMPS` 1 (the half
+form with each thread's clock64 cycles summed by part).
+
+  * The behavioral warp form: `ow_engine_chain` of both builds on the
+    chord's first 256-sample chunk of `Engine(44100, preamp_model=P,
+    pa_model="behavioral")` at B = 1 (the chord MIDI 48, 55, 60, 63, 67,
+    70 at 0.95 after --history samples at volume 1 and tremolo depth 1,
+    the inputs `Engine.render` gives E2), for both preamps: the two warp
+    forms and the thread form are first checked bit for bit (output and
+    state) against each other and against the library's
+    `kernels.engine.render_chain`, then timed with CUDA events in turns
+    (all lanes, lane 0, lane 0, all lanes; the mean of --reps calls
+    each). It also times one `behavioral()` call's latency (a dependent
+    chain of --calls calls on one thread, `cb_behavioral`).
+  * The half form (a half-warp per engine), every instantiation, on the
+    same kind of chunk broadcast to --half-engines engines: the half,
+    warp and thread forms and the stamped half form are first checked bit
+    for bit against the library's render_chain, then timed (thread,
+    half, half, thread; the warp form and the stamped half form once),
+    and the stamped run's cycles split into its parts: Newton (the
+    tremolo's and the power amp's mna Newton loops), the votes (the
+    segment ballots and the loops' warp votes, with their waits), lane
+    0's share (the smoothers, the allpass branches, the speaker and guard
+    #2's test, on lane 0 of each segment) and the rest; each part's share
+    of lane 0's cycles and of the other lanes'.
+
+Prints the card and its power limit, then one JSON line:
 
     python tools/torch_chain_breakdown.py [--reps 5] [--history 1536]
-        [--calls 4096]
+        [--calls 4096] [--half-engines 1,8192]
 """
 
 import argparse
@@ -34,19 +50,57 @@ sys.path.insert(0, REPO)
 
 CHORD = (48, 55, 60, 63, 67, 70)
 CHUNK = 256
-SETTINGS = {"all lanes": 1, "lane 0": 0}
+SETTINGS = {"all lanes": "-DOW_BEHAVIORAL_ALL_LANES=1",
+            "lane 0": "-DOW_BEHAVIORAL_ALL_LANES=0",
+            "half stamped": "-DOW_HALF_STAMPS=1"}
+# engine.cu's HalfPart, in order
+HALF_PARTS = ("newton", "votes", "lane 0", "rest")
+MODELS = (("dk", "circuit"), ("melange", "circuit"), ("dk", "behavioral"),
+          ("melange", "behavioral"))
 
 
-def build(setting):
+def build(name):
     from openwurli_tpu_torch import _build
 
     out_dir = os.path.join(REPO, "build", "chain_breakdown")
     os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, f"libchain{setting}.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-           f"-DOW_BEHAVIORAL_ALL_LANES={setting}", "-o", lib,
-           os.path.join(REPO, "tools", "chain_breakdown.cu")]
+    lib = os.path.join(out_dir, f"libchain-{name.replace(' ', '-')}.so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", SETTINGS[name],
+           "-o", lib, os.path.join(REPO, "tools", "chain_breakdown.cu")]
     return cmd, lib
+
+
+def chunk_inputs(ek, Engine, pre, pa, history, dev):
+    """The chord's first CHUNK-sample E2 call of Engine(44100, pre, pa)
+    after `history` samples at volume 1 and tremolo depth 1: (cp, mono (1,
+    CHUNK), chain (1, CHAIN_ROWS), sag (1,), scale (1,))."""
+    import torch
+
+    eng = Engine(44100.0, device=dev, preamp_model=pre, pa_model=pa)
+    eng.set_volume(1.0)
+    eng.set_tremolo_depth(1.0)
+    eng.render(history)
+    for note in CHORD:
+        eng.note_on(note, 0.95)
+    seen = []
+    real = ek.render_chain
+
+    def keep(cp, mono, chain, sag, scale=0.0):
+        if mono.shape[-1] >= CHUNK and not seen:
+            seen.append((cp, mono[..., :CHUNK].clone(), chain.clone(), sag,
+                         scale))
+        return real(cp, mono, chain, sag, scale)
+
+    ek.render_chain = keep
+    try:
+        eng.render(CHUNK)
+    finally:
+        ek.render_chain = real
+    cp, mono, chain, sag, scale = seen[0]
+    return (cp, mono.reshape(1, CHUNK).contiguous(),
+            chain.reshape(1, -1).contiguous(),
+            torch.tensor([bool(sag)], device=dev),
+            torch.tensor([float(scale)], dtype=torch.float64, device=dev))
 
 
 def main(argv=None):
@@ -54,6 +108,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--history", type=int, default=1536)
     ap.add_argument("--calls", type=int, default=4096)
+    ap.add_argument("--half-engines", default="1,8192")
     args = ap.parse_args(argv)
 
     import torch
@@ -69,7 +124,7 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    builds = {name: build(v) for name, v in SETTINGS.items()}
+    builds = {name: build(name) for name in SETTINGS}
     procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
              for name, (cmd, _) in builds.items()}
@@ -83,6 +138,7 @@ def main(argv=None):
         dll.ow_engine_chain.argtypes = [p, i, p, p, p, i, i, p, i, i, p, i,
                                         p]
         dll.cb_behavioral.argtypes = [p, i, p]
+        dll.cb_half_parts.argtypes = [p, p]
         libs[name] = dll
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -106,33 +162,8 @@ def main(argv=None):
 
     rows = {}
     for pre in ("dk", "melange"):
-        eng = Engine(44100.0, device=dev, preamp_model=pre,
-                     pa_model="behavioral")
-        eng.set_volume(1.0)
-        eng.set_tremolo_depth(1.0)
-        eng.render(args.history)
-        for note in CHORD:
-            eng.note_on(note, 0.95)
-        seen = []
-        real = ek.render_chain
-
-        def keep(cp, mono, chain, sag, scale=0.0):
-            if mono.shape[-1] >= CHUNK and not seen:
-                seen.append((cp, mono[..., :CHUNK].clone(), chain.clone(),
-                             sag, scale))
-            return real(cp, mono, chain, sag, scale)
-
-        ek.render_chain = keep
-        try:
-            eng.render(CHUNK)
-        finally:
-            ek.render_chain = real
-        cp, mono, chain, sag, scale = seen[0]
-        mono = mono.reshape(1, CHUNK).contiguous()
-        chain = chain.reshape(1, -1).contiguous()
-        sag_t = torch.tensor([bool(sag)], device=dev)
-        scale_t = torch.tensor([float(scale)], dtype=torch.float64,
-                               device=dev)
+        cp, mono, chain, sag_t, scale_t = chunk_inputs(
+            ek, Engine, pre, "behavioral", args.history, dev)
         flat = ek._flat_on(ek._cp_key(cp), dev)
 
         def run(name, warp):
@@ -149,7 +180,7 @@ def main(argv=None):
 
         lib_st = chain.clone()
         lib_out = ek.render_chain(cp, mono, lib_st, sag_t, scale_t)
-        got = {name: run(name, 1) for name in SETTINGS}
+        got = {name: run(name, 1) for name in ("all lanes", "lane 0")}
         got["thread"] = run("all lanes", 0)
         for name, (out, st) in got.items():
             if not (same(out, lib_out) and same(st, lib_st)):
@@ -173,10 +204,78 @@ def main(argv=None):
             raise RuntimeError(f"cb_behavioral: cudaError {err}")
 
     call_us = ms_of(calls) * 1e3 / args.calls
+    half = half_rows(args, ek, Engine, libs, dev, stream, same, ms_of)
     print(json.dumps({"card": card, "chunk": CHUNK, "reps": args.reps,
                       "bit_identical": True, "behavioral": rows,
-                      "behavioral_call_us": call_us}), flush=True)
+                      "behavioral_call_us": call_us, "half": half}),
+          flush=True)
     return 0
+
+
+def half_rows(args, ek, Engine, libs, dev, stream, same, ms_of):
+    """The half form against the thread and warp forms, and its stamped
+    parts, for every instantiation at --half-engines engines."""
+    import torch
+
+    out = {}
+    for pre, pa in MODELS:
+        cp, mono1, chain1, sag1, scale1 = chunk_inputs(
+            ek, Engine, pre, pa, args.history, dev)
+        flat = ek._flat_on(ek._cp_key(cp), dev)
+        for b in [int(x) for x in args.half_engines.split(",")]:
+            mono = mono1.expand(b, CHUNK).contiguous()
+            chain = chain1.expand(b, -1).contiguous()
+            sag, scale = sag1.expand(b).contiguous(), scale1.expand(b).contiguous()
+            threads = (b + 1) // 2 * 32
+
+            def run(name, form, parts=None):
+                st = chain.clone()
+                o = torch.empty((b, CHUNK), dtype=torch.float32, device=dev)
+                if parts is not None:
+                    err = libs[name].cb_half_parts(parts.data_ptr(), stream)
+                    if err:
+                        raise RuntimeError(f"cb_half_parts: cudaError {err}")
+                err = libs[name].ow_engine_chain(
+                    flat.data_ptr(), flat.numel(), mono.data_ptr(),
+                    st.data_ptr(), o.data_ptr(), CHUNK, b, sag.data_ptr(),
+                    ek.PREAMP_MODELS.index(pre), ek.PA_MODELS.index(pa),
+                    scale.data_ptr(), ek.CHAIN_FORMS.index(form), stream)
+                if err:
+                    raise RuntimeError(f"{name} {form}: cudaError {err}")
+                return o, st
+
+            lib_st = chain.clone()
+            lib_out = ek.render_chain(cp, mono, lib_st, sag, scale)
+            parts = torch.zeros((threads, len(HALF_PARTS) + 2),
+                                dtype=torch.int64, device=dev)
+            got = {form: run("all lanes", form)
+                   for form in ("thread", "warp", "half")}
+            got["half stamped"] = run("half stamped", "half", parts)
+            for name, (o, st) in got.items():
+                if not (same(o, lib_out) and same(st, lib_st)):
+                    raise SystemExit(f"<{pre}, {pa}> {name} at {b} engines "
+                                     "differs from the library's "
+                                     "render_chain")
+            order = ("thread", "half", "half", "thread")
+            times = [ms_of(lambda f=f: run("all lanes", f)) for f in order]
+            warp_ms = ms_of(lambda: run("all lanes", "warp"))
+            parts.zero_()
+            stamped_ms = ms_of(lambda: run("half stamped", "half", parts))
+            cyc = parts[:, :len(HALF_PARTS)].double().cpu()
+            lane0 = torch.arange(threads) % 16 == 0
+
+            def share(rows):
+                tot = rows.sum()
+                return dict(zip(HALF_PARTS, (rows.sum(0) / tot).tolist()))
+
+            out[f"{pre}, {pa}, {b}"] = {
+                "thread_ms": [times[0], times[3]],
+                "half_ms": times[1:3], "warp_ms": warp_ms,
+                "stamped_half_ms": stamped_ms,
+                "lane0_share": share(cyc[lane0]),
+                "other_lanes_share": share(cyc[~lane0]),
+                "us_per_base_sample_half": times[1] * 1e3 / CHUNK}
+    return out
 
 
 if __name__ == "__main__":

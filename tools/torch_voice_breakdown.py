@@ -22,17 +22,23 @@ voice. It then times each with CUDA events (ms, µs per sample step) and
 splits the stamped one's time into its parts: each part's share of the
 stamped cycles times the stamped variant's time.
 
-E1 (the f64 engine's voice slots, E4's group body on a cluster of eight
-blocks per engine) on an engine session's 128 slots (chip_smoke.py phase
-21's: ten notes, 2048 samples of history, the bank filled by steals) at
-1, 5 and 128 engines (each copy at its own sample offset and steal
-fade), 256-sample chunks: the library's kernel is checked bit for bit
+E1 (the f64 engine's voice slots) on an engine session's 128 slots
+(chip_smoke.py phase 21's: ten notes, 2048 samples of history, the bank
+filled by steals; `--e1-slots chord`: the perf sweep's chord just
+struck) at --e1-engines engines (each copy at its own sample
+offset and steal fade), 256-sample chunks: its cluster form (E4's group
+body on a cluster of eight blocks per engine) is checked bit for bit
 against `kernels.engine.render_voices` first, then timed beside its two
-knock-outs (no slot sum; no tile, cluster barrier or sum) and E4 on the
-same slots (`kernels.render.voice_render`, the group body without E1's
-gates and sum). Run on a machine with a card:
+knock-outs (no slot sum; no tile, cluster barrier or sum); its thread
+form (a thread per slot) without its votes (as it ran before) and with
+them at launch bounds of 1 (the library's), 3 and 4 blocks per SM, each
+checked bit for bit against render_voices too; and E4 on the same slots
+(`kernels.render.voice_render`, the group body without E1's gates and
+sum), up to 128 engines. Each variant's copies of the slots are made
+before its timed calls. Run on a machine with a card:
 
     python tools/torch_voice_breakdown.py [--samples 2048] [--reps 3]
+        [--e1-engines 1,5,128] [--e1-slots session|chord]
 """
 
 import argparse
@@ -53,8 +59,13 @@ STAMPED = len(VARIANTS) - 1
 PARTS = ("modes", "sum", "tail", "stores")
 # voice_breakdown.cu's E1 variants, in order; E1's engines and chunk
 E1_VARIANTS = ("E1 (library)", "E1 without the slot sum",
-               "E1 without tile, cluster barrier and sum")
-E1_ENGINES = (1, 5, 128)
+               "E1 without tile, cluster barrier and sum",
+               "E1 thread form without votes (before)",
+               "E1 thread form, votes, 1 block per SM (library)",
+               "E1 thread form, votes, 3 blocks per SM",
+               "E1 thread form, votes, 4 blocks per SM")
+# the variants that compute E1 (the knock-outs do not)
+E1_EXACT = (0, 3, 4, 5, 6)
 E1_CHUNK = 256
 SR = 44100.0
 # BASELINE.json config 4 (chip_smoke.py's CALIB_NOTES, CALIB_VELOCITIES)
@@ -91,6 +102,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--samples", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--e1-engines", default="1,5,128")
+    ap.add_argument("--e1-slots", choices=("session", "chord"),
+                    default="session")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -205,7 +219,9 @@ def main(argv=None):
             row["us_per_sample"] = row["ms"] * 1e3 / n
         results[label] = rows
 
-    e1 = e1_rows(dll, dev, ms_of, same, stream)
+    e1 = e1_rows(dll, dev, same, stream, args.reps,
+                 [int(x) for x in args.e1_engines.split(",")],
+                 args.e1_slots)
     print(f"{card}; {n} samples, {args.reps} reps; every variant "
           "bit-identical to the library's kernel on both cases and on 133 "
           "ragged voices (NaN, inf)")
@@ -218,8 +234,9 @@ def main(argv=None):
                 print("            " + ", ".join(
                     f"{k} {v:.3f}" for k, v in row["parts_ms"].items())
                     + " ms")
-    print(f"E1, {E1_CHUNK}-sample chunks (the library's kernel "
-          "bit-identical to render_voices; the knock-outs timed only)")
+    print(f"E1, {E1_CHUNK}-sample chunks (the cluster form and the four "
+          "thread forms bit-identical to render_voices; the knock-outs "
+          "timed only)")
     for b, rows in e1.items():
         print(f"  {b} engine{'s' if b > 1 else ''}: " + "; ".join(
             f"{r['variant']} {r['ms']:.4f} ms" for r in rows))
@@ -231,9 +248,12 @@ def main(argv=None):
     return results
 
 
-def e1_rows(dll, dev, ms_of, same, stream):
-    """E1 and its knock-outs, and E4 on the same slots, at E1_ENGINES
-    engines: {engines: [{"variant", "ms"}]}."""
+def e1_rows(dll, dev, same, stream, reps, widths, slots="session"):
+    """E1's variants, and E4 on the same slots up to 128 engines, at
+    `widths` engines: {engines: [{"variant", "ms"}]}. `slots` "chord":
+    the perf sweep's chord (MIDI 48, 55, 60, 63, 67, 70 at 0.95) just
+    struck on a fresh engine, as tools/torch_perf_sweep.py and
+    chip_smoke.py phase 28 (d) broadcast it, in place of the session."""
     import torch
 
     from openwurli_tpu_torch.engine import Engine
@@ -241,15 +261,18 @@ def e1_rows(dll, dev, ms_of, same, stream):
     from openwurli_tpu_torch.kernels import render as kr
 
     eng = Engine(SR, device=dev)
-    for k, note in enumerate((41, 48, 55, 60, 64, 67, 72, 79, 84, 93)):
-        eng.note_on(note, 0.35 + 0.06 * k)
-    eng.render(2048)
-    for note in range(33, 97):  # fills the bank; steals with fades
-        eng.note_on(note, 0.5)
+    if slots == "chord":
+        for note in (48, 55, 60, 63, 67, 70):
+            eng.note_on(note, 0.95)
+    else:
+        for k, note in enumerate((41, 48, 55, 60, 64, 67, 72, 79, 84, 93)):
+            eng.note_on(note, 0.35 + 0.06 * k)
+        eng.render(2048)
+        for note in range(33, 97):  # fills the bank; steals with fades
+            eng.note_on(note, 0.5)
     n = E1_CHUNK
 
-    def run(w, cols):
-        a = [c.clone() for c in cols]
+    def launch(w, a):
         mono = torch.empty((a[0].shape[0], n), dtype=torch.float64,
                            device=dev)
         err = dll.e1b_launch(w, *[c.data_ptr() for c in a],
@@ -259,8 +282,22 @@ def e1_rows(dll, dev, ms_of, same, stream):
             raise RuntimeError(f"{E1_VARIANTS[w]}: cudaError {err}")
         return mono, a
 
+    def timed(fn, cols):
+        """ms per call of fn over reps copies made beforehand (one call
+        first)."""
+        copies = [[c.clone() for c in cols] for _ in range(reps + 1)]
+        fn(copies[0])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for c in copies[1:]:
+            fn(c)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
     out = {}
-    for b in E1_ENGINES:
+    for b in widths:
         cols = [x.expand(b, *x.shape).clone()
                 for x in (eng.vpar, eng.vst, eng.vsti, eng.eng_i)]
         e = torch.arange(b, device=dev)
@@ -269,18 +306,21 @@ def e1_rows(dll, dev, ms_of, same, stream):
             cols[3][:, ek.MAX_VOICES:ek.SLOTS] - e[:, None], min=0)
         ref = [c.clone() for c in cols]
         ref_mono = ek.render_voices(*ref, n, eng.fade_len, SR)
-        mono, st = run(0, cols)
-        if not (same(mono, ref_mono)
-                and all(same(x, y) for x, y in zip(st, ref))):
-            raise RuntimeError(f"E1 at {b} engines differs from "
-                               "render_voices")
-        rows = [{"variant": name, "ms": ms_of(lambda: run(w, cols))}
+        for w in E1_EXACT:
+            mono, st = launch(w, [c.clone() for c in cols])
+            if not (same(mono, ref_mono)
+                    and all(same(x, y) for x, y in zip(st, ref))):
+                raise RuntimeError(f"{E1_VARIANTS[w]} at {b} engines "
+                                   "differs from render_voices")
+        rows = [{"variant": name,
+                 "ms": timed(lambda a, w=w: launch(w, a), cols)}
                 for w, name in enumerate(E1_VARIANTS)]
-        voices = [c.transpose(0, 1).reshape(c.shape[1], -1).contiguous()
-                  for c in cols[:3]]
-        rows.append({"variant": "E4 on the same slots",
-                     "ms": ms_of(lambda: kr.voice_render(
-                         *[v.clone() for v in voices], n))})
+        if b <= 128:
+            voices = [c.transpose(0, 1).reshape(c.shape[1], -1).contiguous()
+                      for c in cols[:3]]
+            rows.append({"variant": "E4 on the same slots",
+                         "ms": timed(lambda v: kr.voice_render(*v, n),
+                                     voices)})
         out[b] = rows
     return out
 

@@ -6,7 +6,8 @@
 //                   before its own lane redesign)
 //   thread guarded  the same with cos, pow, exp, sqrt and tanh run only
 //                   where their value is selected, a vote per warp (the
-//                   lane kernel's rule) and nothing else changed
+//                   lane kernel's rule) and nothing else changed:
+//                   `voice_sample_guarded`, which E1's thread form runs
 //   lanes           `voice_lanes_kernel<TAP>` (E4 now), eight threads per
 //                   voice, at 32 and 128 threads per block, with its
 //                   stores staged through shared memory, and stamped:
@@ -26,123 +27,6 @@
 #include "../openwurli_tpu_torch/csrc/engine.cu"
 
 namespace {
-
-// hammer.noise_step with the fade's cos only where a voice of the warp is
-// in its burst and its fade, and nothing where none is in its burst
-__device__ __forceinline__ double noise_sample_guarded(Voice& v,
-                                                       bool valid) {
-  const bool active = v.nrem > 0;
-  if (!__any_sync(FULL, valid && active)) return 0.0;
-  const bool in_fade = v.nfade > 0;
-  double nenv = 1.0;
-  if (__any_sync(FULL, valid && active && in_fade)) {
-    const double tf = (double)(16 - v.nfade) / 16.0;
-    nenv = in_fade ? 0.5 * (1.0 - cos(M_PI * tf)) : 1.0;
-  }
-  const long long r = lcg(v.nrng);
-  const double noise =
-      (double)(r >= 2147483648LL ? r - 4294967296LL : r) / 2147483647.0;
-  const double y = v.b0 * noise + v.z1;
-  const double nz1 = v.b1 * noise - v.a1 * y + v.z2;
-  const double nz2 = v.b2 * noise - v.a2 * y;
-  const double noise_out = active ? v.namp * nenv * y : 0.0;
-  if (active) {
-    v.namp = v.namp * v.ndecay;
-    v.nrem = v.nrem - 1;
-    if (in_fade) v.nfade = v.nfade - 1;
-    v.z1 = nz1;
-    v.z2 = nz2;
-    v.nrng = r;
-  }
-  return noise_out;
-}
-
-// voice_sample with its libm calls guarded by warp votes
-template <bool TAP>
-__device__ __forceinline__ double voice_sample_guarded(Voice& v,
-                                                       double* reed_tap,
-                                                       bool valid) {
-  const double rel = v.dact ? v.dcount + 1.0 : v.dcount;
-  const bool past = rel > v.dramp;
-  const bool in_ramp = v.dact && !v.ddone && !past;
-  const bool done2 = v.ddone || (v.dact && past);
-  const bool damp = __any_sync(FULL, valid && in_ramp);
-  const double ratio = damp ? rel / jmax(v.dramp, 1e-30) : 0.0;
-  for (int k = 0; k < NM; ++k) {
-    double f = 1.0;
-    if (damp) {
-      const double inst = v.drate[k] * ratio;
-      f = in_ramp ? exp(-inst) : 1.0;
-    }
-    v.env[k] = v.env[k] * f;
-    v.env[k] = v.env[k] * ((v.dact && done2) ? v.dmult[k] : 1.0);
-  }
-  const bool ramping = (double)v.nn < v.ramp_n;
-  double onset = 1.0;
-  if (__any_sync(FULL, valid && ramping)) {
-    const double cosine = 0.5 * (1.0 - cos((double)v.nn * v.ramp_inc));
-    const bool lin = v.shape <= 1.001, sq = v.shape >= 1.999;
-    double pw = 0.0;
-    if (__any_sync(FULL, valid && ramping && !lin && !sq))
-      pw = pow(jmax(cosine, 0.0), v.shape);
-    const double shaped = lin ? cosine : sq ? cosine * cosine : pw;
-    onset = ramping ? shaped : 1.0;
-  }
-  if ((v.nn & 15) == 0) {
-    long long js = v.jst;
-    for (int k = 0; k < NM; ++k) {
-      js = lcg(js);
-      const double u = (double)(js >> 1) / 2147483647.5;
-      const double nz = (u * 2.0 - 1.0) * 1.7320508080;
-      v.drift[k] = v.revert * v.drift[k] + v.diffusion * nz;
-    }
-    v.jst = js;
-  }
-  double reed_out = 0.0;
-  for (int k = 0; k < NM; ++k) {
-    const double term = v.amp[k] * v.s[k] * onset * v.env[k];
-    reed_out = (k == 0) ? term : reed_out + term;
-  }
-  const bool renorm = ((v.nn & 1023) == 0) && v.nn > 0;
-  const bool any_renorm = __any_sync(FULL, valid && renorm);
-  for (int k = 0; k < NM; ++k) {
-    const double dp = v.drift[k] * v.phase_inc[k];
-    const double ci = v.cos_inc[k] - dp * v.sin_inc[k];
-    const double si = v.sin_inc[k] + dp * v.cos_inc[k];
-    const double s_new = v.s[k] * ci + v.c[k] * si;
-    const double c_new = v.c[k] * ci - v.s[k] * si;
-    v.env[k] = v.env[k] * v.decay[k];
-    double scale = 1.0;
-    if (any_renorm)
-      scale = renorm ? 1.0 / sqrt(s_new * s_new + c_new * c_new) : 1.0;
-    v.s[k] = s_new * scale;
-    v.c[k] = c_new * scale;
-  }
-  v.nn += 1;
-  v.dcount = rel;
-  v.ddone = done2;
-
-  double yy;
-  if constexpr (TAP) {
-    *reed_tap = reed_out;
-    yy = reed_out * v.ds;
-  } else {
-    const double noise_out = noise_sample_guarded(v, valid);
-    yy = (reed_out + noise_out) * v.ds;
-  }
-  const double ay = fabs(yy);
-  double ys = yy;
-  if (__any_sync(FULL, valid && !(ay < 0.94))) {
-    const double rng = 0.98 - 0.94;
-    const double sat = 0.94 + rng * tanh((ay - 0.94) / rng);
-    if (!(ay < 0.94)) ys = yy >= 0.0 ? sat : -sat;
-  }
-  const double omy = 1.0 - ys;
-  const double alpha = v.beta * omy;
-  v.q = (v.q * (1.0 - alpha) + 2.0 * v.beta) / (1.0 + alpha);
-  if constexpr (TAP) return (v.q * omy - 1.0) * 1.8375;
-  return (v.q * omy - 1.0) * 1.8375 * v.gain;
-}
 
 // a thread per voice, blocks of 32; GUARDED: the voting step, every
 // thread of a warp in every vote (voices past g hold zeros and store
@@ -207,8 +91,106 @@ int e4b_launch_tap(int which, const double* vpar, double* vst,
 
 // E1 (engine_voices_kernel, a cluster of eight blocks per engine) and its
 // knock-outs, timed only: without the leader's slot sum, and without the
-// tile, the cluster barrier and the sum (each block's slots alone)
-enum { W1_LIBRARY, W1_NO_SUM, W1_NO_CLUSTER, kE1Variants };
+// tile, the cluster barrier and the sum (each block's slots alone); then
+// E1's thread form (engine_voices_thread_kernel, a thread per slot)
+// without its votes (as it ran before), the library's (its votes, 1 block
+// per SM) and with votes at launch bounds of 3 and 4 blocks per SM, each
+// exact
+enum {
+  W1_LIBRARY, W1_NO_SUM, W1_NO_CLUSTER, W1_THREAD_UNGUARDED, W1_THREAD_1,
+  W1_THREAD_3, W1_THREAD_4, kE1Variants
+};
+
+namespace {
+
+// a copy of engine_voices_thread_kernel (E1's thread form) at another
+// launch bound (MIN_BLOCKS blocks per SM) and, with GUARDED false,
+// voice_sample on every slot (E1's thread form before its votes)
+template <int MIN_BLOCKS, bool GUARDED>
+__global__ void __launch_bounds__(SLOTS, MIN_BLOCKS)
+e1b_thread_kernel(const double* __restrict__ vpar, double* vst,
+                  long long* vsti, long long* eng_i, double* mono, int n,
+                  double fade_len, double sample_rate) {
+  __shared__ double tile[E1_TILE][SLOTS];
+  __shared__ int bad_tile[E1_TILE];
+  __shared__ unsigned long long fires;
+  const size_t e = blockIdx.x;
+  vpar += e * NPAR * SLOTS;
+  vst += e * NST * SLOTS;
+  vsti += e * NSTI * SLOTS;
+  eng_i += e * ENG_I;
+  mono += e * (size_t)n;
+  const int j = threadIdx.x;
+  const bool main_slot = j < MAXV;
+  Voice v;
+  voice_load(v, vpar, vst, vsti, SLOTS, j);
+  long long gate = eng_i[j];
+  if (j == 0) fires = 0;
+
+  for (int t0 = 0; t0 < n; t0 += E1_TILE) {
+    const int tn = min(E1_TILE, n - t0);
+    if (j < E1_TILE) bad_tile[j] = 0;
+    __syncthreads();
+    for (int tt = 0; tt < tn; ++tt) {
+      const double out = GUARDED ? voice_sample_guarded<false>(v, nullptr,
+                                                               true)
+                                 : voice_sample<false>(v, nullptr);
+      double g;
+      bool bad;
+      if (main_slot) {
+        const double x = gate != 0 ? out : 0.0;
+        bad = !finite(x);
+        g = bad ? 0.0 : x;
+        if (bad) gate = 0;
+      } else {
+        const double gn = (double)gate / fade_len;
+        const double sv = gate > 0 ? out * gn : 0.0;
+        gate = gate - 1 > 0 ? gate - 1 : 0;
+        bad = !finite(sv);
+        g = bad ? 0.0 : sv;
+        if (bad) gate = 0;
+      }
+      tile[tt][j] = g;
+      if (bad) atomicOr(&bad_tile[tt], 1);
+    }
+    __syncthreads();
+    if (j < tn) {
+      double m = tile[j][0], st = tile[j][MAXV];
+      for (int k = 1; k < MAXV; ++k) {
+        m = m + tile[j][k];
+        st = st + tile[j][MAXV + k];
+      }
+      mono[t0 + j] = m + st;
+      if (bad_tile[j]) atomicAdd(&fires, 1ULL);
+    }
+    __syncthreads();
+  }
+
+  if (main_slot && gate != 0) {
+    const double rel_s = v.dact ? v.dcount / sample_rate : 0.0;
+    bool silent = v.dact && rel_s > 10.0;
+    bool quiet = true;
+    for (int k = 0; k < NM; ++k)
+      quiet = quiet && fabs(v.amp[k] * v.env[k]) <= 1e-4;
+    if (silent || quiet) gate = 0;
+  }
+  voice_store(v, vst, vsti, SLOTS, j);
+  eng_i[j] = gate;
+  __syncthreads();
+  if (j == 0) eng_i[EI_FIRES] += (long long)fires;
+}
+
+template <int MIN_BLOCKS, bool GUARDED>
+int e1b_thread(const double* vpar, double* vst, long long* vsti,
+               long long* eng_i, double* mono, int n, int b,
+               double fade_len, double sample_rate, cudaStream_t stream) {
+  e1b_thread_kernel<MIN_BLOCKS, GUARDED>
+      <<<b, SLOTS, 0, stream>>>(vpar, vst, vsti, eng_i, mono, n, fade_len,
+                                sample_rate);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" int e1b_count() { return kE1Variants; }
 
@@ -216,6 +198,7 @@ extern "C" int e1b_launch(int which, const double* vpar, double* vst,
                           long long* vsti, long long* eng_i, double* mono,
                           int n, int b, double fade_len, double sample_rate,
                           cudaStream_t stream) {
+  if (n < 0 || b <= 0) return (int)cudaErrorInvalidValue;
   switch (which) {
     case W1_LIBRARY:
       return launch_engine_voices(vpar, vst, vsti, eng_i, mono, n, b,
@@ -227,6 +210,18 @@ extern "C" int e1b_launch(int which, const double* vpar, double* vst,
     case W1_NO_CLUSTER:
       return launch_engine_voices<E1_NO_CLUSTER>(
           vpar, vst, vsti, eng_i, mono, n, b, fade_len, sample_rate, stream);
+    case W1_THREAD_UNGUARDED:
+      return e1b_thread<1, false>(vpar, vst, vsti, eng_i, mono, n, b,
+                                  fade_len, sample_rate, stream);
+    case W1_THREAD_1:
+      return ow_engine_voices_thread(vpar, vst, vsti, eng_i, mono, n, b,
+                                     fade_len, sample_rate, stream);
+    case W1_THREAD_3:
+      return e1b_thread<3, true>(vpar, vst, vsti, eng_i, mono, n, b,
+                                 fade_len, sample_rate, stream);
+    case W1_THREAD_4:
+      return e1b_thread<4, true>(vpar, vst, vsti, eng_i, mono, n, b,
+                                 fade_len, sample_rate, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
