@@ -93,9 +93,9 @@ over 128 distinct ones (32 E2 blocks of four warps) and each other
 instantiation over two (noise on one) against their batched plain
 versions; E8 on 33 circuits from seeded starts at three depths (a kicked
 and a NaN circuit) and E9 on 33 streams (a 200 V spike, a NaN and an inf
-stream). E5 and E7 run a warp per stream and E3 one warp (the melange,
-DK and mna steps on a warp; the melange and DK steps also in E2). E2
-runs a warp, a half-warp or a thread per engine by width: the warp and
+stream). E5 and E7 run a warp per stream, E8 a warp per circuit and E3
+one warp (the melange, DK and mna steps on a warp; the melange and DK
+steps also in E2). E2 runs a warp, a half-warp or a thread per engine by width: the warp and
 thread forms are held to each other bit for bit on the kicked, guard #2
 (at the first sample and midway), session, melange plugin, behavioral
 session and 128-engine chunks and timed there in turns (thread, warp,
@@ -347,7 +347,7 @@ def ptxas_lines(log):
 WARP_KERNELS = ("E2<dk, circuit> warp", "E2<melange, circuit> warp",
                 "E2<dk, behavioral> warp", "E2<melange, behavioral> warp",
                 "E6", "E5<melange>", "E5<dk>", "E7<diff>", "E7<shadow>",
-                "E3", "E9")
+                "E3", "E8", "E9")
 HALF_KERNELS = ("E2<dk, circuit> half", "E2<melange, circuit> half",
                 "E2<dk, behavioral> half", "E2<melange, behavioral> half")
 HALF_STEP = ("mna_step_segILi21ELi16ELi8ELi16E", "mna_step_segILi7ELi4ELi2ELi4E",
@@ -356,6 +356,9 @@ HALF_STEP = ("mna_step_segILi21ELi16ELi8ELi16E", "mna_step_segILi7ELi4ELi2ELi4E"
 WARP_STEP = ("mna_step_warpILi21ELi16ELi8ELi16E", "mna_step_warpILi7ELi4ELi2ELi4E",
              "power_amp_step_warp", "tremolo_step_warp", "melange_step_warp",
              "dk_step_warp")
+# the steps of E2's behavioral thread form (a thread's values in
+# registers, its rows in shared memory)
+THREAD_STEP = ("tremolo_step_reg", "dk_step_reg", "melange_step_reg")
 
 
 def function_frames(log, key):
@@ -2637,18 +2640,21 @@ E8_OPS_STEP = 30 + 2 * LIBM_OPS
 E9_OPS_SAMPLE = 21 + 40 + 25
 STAGE_SR = 88200.0
 # E2's thread forms' ptxas (registers, stack bytes, spill stores, spill
-# loads) as built before E8 and E9 existed (NVIDIA H100 80GB HBM3, the
-# card machine's nvcc): E8 and E9 add callers of E2's tremolo and
-# power-amp steps, and must not move the existing kernels' allocation; nor
-# must the warp steps beside them (E6, E5<melange>, E5<dk>, E7 and E9, a
-# warp per stream since, E3, one warp since, E4 and E1's cluster form,
-# eight threads per voice since, E1's thread form, its libm behind votes
-# since, and E2's warp and half forms are not in the list)
+# loads; NVIDIA H100 80GB HBM3, the card machine's nvcc): the circuit
+# instantiations as built before E8 and E9 existed (E8 and E9 add callers
+# of E2's tremolo and power-amp steps, and must not move the existing
+# kernels' allocation; nor must the warp steps beside them), the
+# behavioral ones as built with their working set in registers and shared
+# memory (before that 255 / 2880 / 208 / 212 and 255 / 3824 / 120 / 136,
+# the engine's rows in a local array). E6, E5<melange>, E5<dk>, E7, E9,
+# E3 and E8 (a warp per stream or circuit since), E4 and E1's cluster form
+# (eight threads per voice), E1's thread form (its libm behind votes) and
+# E2's warp and half forms are not in the list.
 EARLIER_PTXAS = {
     "E2<dk, circuit> thread": (255, 6912, 80, 136),
     "E2<melange, circuit> thread": (255, 7152, 128, 176),
-    "E2<dk, behavioral> thread": (255, 2880, 208, 212),
-    "E2<melange, behavioral> thread": (255, 3824, 120, 136)}
+    "E2<dk, behavioral> thread": (244, 40, 0, 0),
+    "E2<melange, behavioral> thread": (254, 40, 0, 0)}
 STAGE_NAMES = ("voices", "preamp twin", "tremolo", "power amp")
 
 
@@ -2765,7 +2771,7 @@ def stage_phases(dev, card, launches, vb, mc, ptxas):
         f"{v['spill_stores']} / {v['spill_loads']} bytes spilled"
         for k, v in sorted(stage_ptxas.items()))
         + (f"; E2's thread forms ({len(EARLIER_PTXAS)} entries) "
-           "as before E8 and E9"
+           "as EARLIER_PTXAS holds them"
            if ptxas else "; no build log (library already built)"),
         flush=True)
 
@@ -3757,6 +3763,15 @@ def main():
         check(all(v and all(f == (0, 0, 0) for f in v)
                   for v in steps.values()),
               f"the segment steps' functions use stack or spill: {steps}")
+        # E2's behavioral thread form: its steps' functions use no stack
+        # and do not spill (the kernels' own frames are EARLIER_PTXAS's)
+        steps = {k: function_frames(_build.BUILD_LOG, k) for k in THREAD_STEP}
+        print("phase 1 the behavioral thread form's step functions (stack, "
+              "spill stores, spill loads): " + "; ".join(
+                  f"{k} {v}" for k, v in steps.items()), flush=True)
+        check(all(v and all(f == (0, 0, 0) for f in v)
+                  for v in steps.values()),
+              f"the thread steps' functions use stack or spill: {steps}")
 
     # ── phase 2: K1 on the card against its plain version on the card ──
     notes = np.repeat(np.arange(36, 100), 4).astype(np.float64)
@@ -4936,7 +4951,7 @@ def main():
         main_path_ms=e7["main_path_ms"], cli=cli_k["cli"]))
     for name, key, replaces, scan, form in (
             ("tremolo_scan", "E8", "openwurli_tpu/circuits/tremolo.py:207",
-             "tools/stage_bench.py:82", "a thread per circuit"),
+             "tools/stage_bench.py:82", "a warp per circuit"),
             ("power_amp_scan", "E9",
              "openwurli_tpu/circuits/power_amp.py:210",
              "tools/stage_bench.py:83", "a warp per stream")):

@@ -30,8 +30,9 @@
 //                         sample at its own LDR resistance: the CLI's
 //                         gain, harmonics and pump measurements
 //   E8 tremolo_scan       G tremolo circuits over n steps at the
-//                         tremolo's own rate: the oscillator, the vactrol
-//                         and the divider's shunt at a depth per circuit
+//                         tremolo's own rate, a warp per circuit: the
+//                         oscillator, the vactrol and the divider's shunt
+//                         at a depth per circuit
 //                         (tools/torch_stage_bench.py's "tremolo")
 //   E9 power_amp_scan     G power-amp streams over n samples at the input's
 //                         rate, rail sag on, a warp per stream (the stage
@@ -52,14 +53,14 @@
 // voice (slot) by eight threads (its seven modes on threads, then its
 // group's samples on threads; E1 a cluster of eight blocks per engine, and
 // a thread per slot above its crossover, where a full card's throughput
-// favours one thread per voice), E8
-// each circuit by one thread walking the data-dependent Newton solves
-// sample by sample. The bytes are a few
+// favours one thread per voice), every other kernel each stream, circuit
+// or engine through the data-dependent Newton solves sample by sample.
+// The bytes are a few
 // hundred per sample and the operations some 10^4-10^5 f64 per base
 // sample, far from the card's rates; what bounds the time is the length of
 // the dependent chain of f64 operations and libm calls per sample. E6, E9,
-// E3 and E2's circuit instantiations shorten that chain with a warp per
-// stream, settle or engine (mna_step_warp: the rows of every matvec, BJT,
+// E3, E8 and E2's circuit instantiations shorten that chain with a warp per
+// stream, settle, circuit or engine (mna_step_warp: the rows of every matvec, BJT,
 // Jacobian row, pivot update and junction limit on their own lanes, the
 // solver block staged in shared memory, no local memory in the solve);
 // E5<melange> and E2<melange, *> run the melange preamp's step on a
@@ -69,7 +70,8 @@
 // half-warps, each junction's exp on a lane of its own). At width E2 runs
 // the same steps on half-warps, two engines to a warp, whose lanes the
 // warp form leaves idle (engine_chain_half_kernel), or a thread per engine
-// (32 engines per warp). The design takes two exact savings: each Newton loop
+// (32 engines per warp; the behavioral instantiations with every value of
+// a step in registers and the engine's rows in shared memory). The design takes two exact savings: each Newton loop
 // ends once every row has converged (the masked iterations of the
 // reference change nothing), and E2 reuses the
 // speaker's coefficients while the character is unchanged.
@@ -2056,10 +2058,10 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
-// Threefry-2x32, 20 rounds (prng.threefry2x32)
-__device__ __noinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t c1,
-                                      uint32_t c2, uint32_t* o1,
-                                      uint32_t* o2) {
+// Threefry-2x32, 20 rounds (prng.threefry2x32): inline (threefry_pair)
+// and as a call (threefry)
+__device__ __forceinline__ uint2 threefry_pair(uint32_t k1, uint32_t k2,
+                                               uint32_t c1, uint32_t c2) {
   const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
   uint32_t x0 = c1 + ks[0], x1 = c2 + ks[1];
@@ -2073,8 +2075,15 @@ __device__ __noinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t c1,
     x0 = x0 + ks[(i + 1) % 3];
     x1 = x1 + ks[(i + 2) % 3] + (uint32_t)(i + 1);
   }
-  *o1 = x0;
-  *o2 = x1;
+  return make_uint2(x0, x1);
+}
+
+__device__ __noinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t c1,
+                                      uint32_t c2, uint32_t* o1,
+                                      uint32_t* o2) {
+  const uint2 h = threefry_pair(k1, k2, c1, c2);
+  *o1 = h.x;
+  *o2 = h.y;
 }
 
 // XLA's float64 erf_inv (prng.erfinv): coefficients from the highest
@@ -2104,7 +2113,7 @@ __constant__ double kErfinvGt16[17] = {
     7.599527703001776e-05, -0.00021503011930044477, -0.00013871931833623122,
     1.0103004648645344, 4.849906401408584};
 
-__device__ __noinline__ double erfinv_xla(double x) {
+__device__ __forceinline__ double erfinv_core(double x) {
   const double w = -log1p(x * -x);
   const bool lt625 = w < 6.25, lt16 = w < 16.0;
   const double sqrt_w = sqrt(w);
@@ -2117,19 +2126,28 @@ __device__ __noinline__ double erfinv_xla(double x) {
   return fabs(x) == 1.0 ? x * INFINITY : p * x;
 }
 
+__device__ __noinline__ double erfinv_xla(double x) { return erfinv_core(x); }
+
 // jax.random.normal(sub, (10,), float64)[i]: 64 random bits (the hash of
 // the counts (0, i)), their top 52 as a uniform on [nextafter(-1, 0), 1),
-// then sqrt(2) erfinv
+// then sqrt(2) erfinv; INLINE: the hash and erfinv inline, not calls
+template <bool INLINE = false>
 __device__ __forceinline__ double normal_draw(uint32_t s1, uint32_t s2,
                                               uint32_t i) {
   constexpr double lo = -0x1.fffffffffffffp-1;  // nextafter(-1, 0)
   uint32_t b1, b2;
-  threefry(s1, s2, 0u, i, &b1, &b2);
+  if constexpr (INLINE) {
+    const uint2 h = threefry_pair(s1, s2, 0u, i);
+    b1 = h.x;
+    b2 = h.y;
+  } else {
+    threefry(s1, s2, 0u, i, &b1, &b2);
+  }
   const unsigned long long mant =
       ((unsigned long long)b1 << 20) | (unsigned long long)(b2 >> 12);
   const double floats = (double)mant * 0x1p-52;
   const double u = jmax(floats * 2.0 + lo, lo);
-  return 1.4142135623730951 * erfinv_xla(u);
+  return 1.4142135623730951 * (INLINE ? erfinv_core(u) : erfinv_xla(u));
 }
 
 // the 2N5089s' Gummel-Poon currents and the 1N4148's
@@ -2711,8 +2729,9 @@ __device__ __noinline__ double tremolo_step_warp(const double* trem,
 }
 
 // power_amp.behavioral_process: 8 Newton iterations on
-// y = f(A(x − βy)), memoryless; output normalised to ±1
-__device__ __noinline__ double behavioral(double x) {
+// y = f(A(x − βy)), memoryless; output normalised to ±1; inline
+// (behavioral_core) and as a call (behavioral)
+__device__ __forceinline__ double behavioral_core(double x) {
   constexpr double A = 19000.0;
   constexpr double beta = 220.0 / (220.0 + 15000.0);
   constexpr double vt_sq = 0.013 * 0.013;
@@ -2735,6 +2754,10 @@ __device__ __noinline__ double behavioral(double x) {
     y = y - residual / jacobian;
   }
   return y / 22.0;
+}
+
+__device__ __noinline__ double behavioral(double x) {
+  return behavioral_core(x);
 }
 
 struct Biquad { double b0, b1, b2, a1, a2; };
@@ -2873,18 +2896,919 @@ __device__ __noinline__ double chain_sample(const double* c, double* ch, double 
 // E2's thread form: a thread per engine, blocks of E2_BLOCK, in the
 // wrapper's widest band (kernels/engine.py chain_form; the behavioral
 // instantiations at width, the circuit ones in none). Thread e runs
-// engine e's chain: row e of chain (B, CHAIN_ROWS), mono (B, n) and out (B, n), its
-// own flags sag[e] and noise_scale[e], its own speaker coefficients; the
+// engine e's chain: row e of chain (B, CHAIN_ROWS), mono (B, n) and out
+// (B, n), its own noise scale, its own speaker coefficients; the
 // constants are shared. Each row is one thread's alone, so the layout is
 // engine-major as render_states returns it; a thread reads one mono word
 // and writes one output word per sample, against some 10^4-10^5 float64
-// operations of the sample's chain. Across each chain_sample call (not
-// inlined) the loop keeps only e and t: the row offsets come again from
-// the kernel's parameters and the flags from memory each sample (the
-// flags' pointers are not __restrict__, so the loads stay in the loop),
-// which keeps the live values, and so the spills, of a kernel that took
-// one engine's flags as parameters.
+// operations of the sample's chain. The behavioral instantiations run
+// chain_thread_behavioral below (their working set in registers and
+// shared memory); the circuit ones, whose 16 × 16 power-amp Newton does
+// not fit in registers, run chain_sample on the engine's rows in a local
+// array `ch`. Across each chain_sample call (not inlined) the loop keeps
+// only e and t: the row offsets come again from the kernel's parameters
+// and the flags from memory each sample (the flags' pointers are not
+// __restrict__, so the loads stay in the loop), which keeps the live
+// values, and so the spills, of a kernel that took one engine's flags as
+// parameters.
 constexpr int E2_BLOCK = 32;
+
+// ═══════════ E2's thread form of the behavioral power amp ═══════════
+//
+// engine_chain_kernel<PRE, PA_BEHAVIORAL>: a thread per engine, as the
+// thread form has always been (its lane efficiency is what wins at width),
+// with nothing of the sample's recurrence in local memory. The constant
+// blocks that it reads (the oscillator's solver block, the DK or melange
+// block, the misc scalars) are staged in shared memory once per block as
+// the warp forms stage them; every thread reads the same address, so the
+// reads broadcast. The chain rows that the behavioral models use (the
+// oversampler, the tremolo, the speaker, the smoothers, the preamp) live
+// in a shared-memory frame laid out row-major across the block's engines
+// (row k of engine e at frame[k * E2_BLOCK + e], so a warp's access to
+// one row touches 32 consecutive words); the power amp's rows, memoryless
+// here, stay in the chain in global memory, where only guard #2 writes
+// them, and the speaker's coefficients in registers (with the melange
+// preamp in the frame, as they would spill around its step). Each step (the
+// tremolo's mna step, the twin DK or melange step) is a function of fixed
+// size that takes the frame and scalars, and no per-thread array: it
+// loads its rows into register arrays, runs its loops over rows and
+// columns fully unrolled (only the Newton, pass and twin loops stay
+// loops, and a twin's values enter and leave them by selects, so no array
+// is addressed at run time), reads its constants where it uses them
+// (opaque_zero), and stores its rows back; the melange preamp's rows
+// chosen at run time (fb, out, the input) are selects over the unrolled
+// rows. The steps stay calls, so that each is allocated alone
+// (tools/torch_chain_breakdown.py's thread section times the form). Every
+// value and branch is the one-thread step's (mna_step, preamp_step,
+// melange_step, behavioral), in the same order, so the form equals the
+// old thread form, the half and warp forms and chain_plain bit for bit.
+
+// a thread's rows in its block's frame: row k at p[k * E2_BLOCK]
+struct Rows {
+  double* p;
+  __device__ __forceinline__ double& operator[](int k) const {
+    return p[k * E2_BLOCK];
+  }
+  __device__ __forceinline__ Rows at(int k) const {
+    return Rows{p + k * E2_BLOCK};
+  }
+};
+
+// the frame's rows: the chain's rows CH_OS_UP_A .. CH_TREM_RLDR and
+// CH_SPK .. the character smoother's last, then the preamp's rows
+// (PreState or MelState); with the melange preamp, then the speaker's
+// coefficients (SPK_COEFFS rows, Speaker's fields in order), which in
+// registers would live across the melange step's calls and spill
+enum ThreadRow {
+  TR_TREM = CH_TREM_V, TR_SPK = CH_TREM_RLDR + 1,
+  TR_SM_VOLUME = TR_SPK + CH_SM_VOLUME - CH_SPK,
+  TR_SM_DEPTH = TR_SPK + CH_SM_DEPTH - CH_SPK,
+  TR_SM_CHAR = TR_SPK + CH_SM_CHAR - CH_SPK, TR_PRE = TR_SM_CHAR + 4
+};
+constexpr int SPK_COEFFS = sizeof(Speaker) / sizeof(double);
+static_assert(SPK_COEFFS * sizeof(double) == sizeof(Speaker),
+              "Speaker: doubles only");
+template <int PRE>
+struct ThreadRows {
+  static constexpr bool SPK_IN_FRAME = PRE == PRE_MELANGE;
+  static constexpr int SPK_K =
+      TR_PRE + (PRE == PRE_MELANGE ? (int)MS_ROWS : (int)PS_ROWS);
+  static constexpr int N = SPK_K + (SPK_IN_FRAME ? SPK_COEFFS : 0);
+};
+
+// the frame row of chain row k, or -1 (the power amp's rows and the other
+// preamp's)
+template <int PRE>
+__device__ __forceinline__ int thread_row(int k) {
+  constexpr int pre = PRE == PRE_MELANGE ? CH_MEL_V : CH_PRE_V;
+  constexpr int pre_n = PRE == PRE_MELANGE ? (int)MS_ROWS : (int)PS_ROWS;
+  if (k < TR_SPK) return k;
+  if (k >= CH_SPK && k < CH_SM_CHAR + 4) return TR_SPK + k - CH_SPK;
+  if (k >= pre && k < pre + pre_n) return TR_PRE + k - pre;
+  return -1;
+}
+
+// An opaque 0 (the compiler cannot see its value): a loop that reads its
+// constants through `s + opaque_zero()` reads each where it is used, in
+// every iteration, rather than having them all hoisted into registers
+// before the loop, which would spill.
+__device__ __forceinline__ int opaque_zero() {
+  int z = 0;
+  asm volatile("" : "+r"(z));
+  return z;
+}
+
+// ── the generic mna step in registers (the staged block: every matrix
+// transposed, a[c * R + r]) ──
+
+// the staged R × C matrix a times x, columns summed in index order
+template <int R, int C>
+__device__ __forceinline__ void matvec_reg(const double* a,
+                                           const double (&x)[C],
+                                           double (&y)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    double acc = a[r] * x[0];
+#pragma unroll
+    for (int c = 1; c < C; ++c) acc = acc + a[c * R + r] * x[c];
+    y[r] = acc;
+  }
+}
+
+// max_abs over the first n entries (n ≥ 1)
+template <int K>
+__device__ __forceinline__ double max_abs_reg(const double (&x)[K],
+                                              int n = K) {
+  double m = fabs(x[0]);
+#pragma unroll
+  for (int i = 1; i < K; ++i) {
+    const double a = fabs(x[i]);
+    if (i < n && (a != a || a > m)) m = a;
+  }
+  return m;
+}
+
+// ge_solve_f32 on the rounded system aug, unrolled
+template <int M>
+__device__ __forceinline__ void ge_solve_f32_reg(float (&aug)[M][M + 1],
+                                                 double (&x_out)[M]) {
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const float piv = aug[k][k];
+    const float inv = 1.0f / (fabsf(piv) > 1e-30f ? piv : 1e-30f);
+#pragma unroll
+    for (int c = k + 1; c <= M; ++c) aug[k][c] = aug[k][c] * inv;
+#pragma unroll
+    for (int i = k + 1; i < M; ++i) {
+      const double fac = (double)aug[i][k];
+#pragma unroll
+      for (int c = k + 1; c <= M; ++c)
+        aug[i][c] = (float)((double)aug[i][c] - fac * (double)aug[k][c]);
+    }
+  }
+  float x[M];
+#pragma unroll
+  for (int i = M - 1; i >= 0; --i) {
+    float acc = aug[i][M];
+#pragma unroll
+    for (int j = i + 1; j < M; ++j)
+      acc = (float)((double)acc - (double)aug[i][j] * (double)x[j]);
+    x[i] = acc;
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) x_out[i] = (double)x[i];
+}
+
+// the currents of NB BJTs on staged parameters (parameter j of BJT b at
+// gp[j * NB + b]), their ports' voltages v[2b], v[2b + 1]
+template <int NB>
+__device__ __forceinline__ void currents_reg(const double* gp,
+                                             const double* v, double* i) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    double i0, i1;
+    bjt_currents(gp + b, NB, v[2 * b], v[2 * b + 1], &i0, &i1);
+    i[2 * b] = i0;
+    i[2 * b + 1] = i1;
+  }
+}
+
+// their derivatives (derivs)
+template <int NB>
+__device__ __forceinline__ void derivs_reg(const double* gp, const double* v,
+                                           double* top, double* bot) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    double t[2], u[2];
+    bjt_derivs(gp + b, NB, v[2 * b], v[2 * b + 1], t, u);
+    top[2 * b] = t[0];
+    top[2 * b + 1] = t[1];
+    bot[2 * b] = u[0];
+    bot[2 * b + 1] = u[1];
+  }
+}
+
+// nr_solve in registers; k_eff staged
+template <int N, int M, int NB, int ITERS>
+__device__ __forceinline__ double nr_solve_reg(const double* s,
+                                               const double* k_eff,
+                                               const double (&p)[M],
+                                               double (&v_nl)[M],
+                                               double (&i)[M]) {
+  using L = SL<N, M, NB>;
+  double f[M], ki[M];
+#pragma unroll 1
+  for (int it = 0; it < ITERS; ++it) {
+    const int z = opaque_zero();
+    currents_reg<NB>(s + z + L::GPC, v_nl, i);
+    matvec_reg<M, M>(k_eff + z, i, ki);
+    bool conv = true;
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+      f[r] = v_nl[r] - p[r] - ki[r];
+      conv = conv && fabs(f[r]) < 1e-9;
+    }
+    if (conv) return max_abs_reg(f);
+    double top[M], bot[M], dv[M];
+    derivs_reg<NB>(s + z + L::GPD, v_nl, top, bot);
+    float aug[M][M + 1];
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        const int r0 = 2 * (k / 2);
+        aug[r][k] = (float)((r == k ? 1.0 : 0.0) -
+                            (k_eff[z + r0 * M + r] * top[k] +
+                             k_eff[z + (r0 + 1) * M + r] * bot[k]));
+      }
+      aug[r][M] = (float)f[r];
+    }
+    ge_solve_f32_reg<M>(aug, dv);
+#pragma unroll
+    for (int r = 0; r < M; ++r) {
+      const double v_old = v_nl[r];
+      const double v_new = v_old - jclip(dv[r], -2.0, 2.0);
+      const double nvt = s[z + L::NVT + r];
+      const double delta = v_new - v_old;
+      const double lim = v_old + nvt * log1p(jmax(delta, 0.0) / nvt);
+      const bool apply = (v_new > s[z + L::VCRIT + r]) && (delta > 2.0 * nvt);
+      v_nl[r] = apply ? lim : v_new;
+    }
+  }
+  currents_reg<NB>(s + L::GPC, v_nl, i);
+  matvec_reg<M, M>(k_eff, i, ki);
+#pragma unroll
+  for (int r = 0; r < M; ++r) f[r] = v_nl[r] - p[r] - ki[r];
+  return max_abs_reg(f);
+}
+
+template <int N>
+__device__ __forceinline__ bool failed_reg(const double (&v)[N],
+                                           double resid, int n_nodes) {
+  bool nonfin = false;
+#pragma unroll
+  for (int r = 0; r < N; ++r) nonfin = nonfin || !finite(v[r]);
+  return resid > 1e-3 || max_abs_reg(v, n_nodes) > 55.0 || nonfin;
+}
+
+// mna_step in registers with no extra sources (the tremolo's), on the
+// solver rows v (N), i (M), v_nl (M), resid, diag (5) from row 0 of st
+template <int N, int M, int NB, int ITERS>
+__device__ __forceinline__ void mna_step_reg(const double* s_in, Rows st) {
+  using L = SL<N, M, NB>;
+  constexpr int RESID = N + 2 * M, DIAG = RESID + 1;
+  double v0[N], i0[M], vnl0[M];
+#pragma unroll
+  for (int r = 0; r < N; ++r) v0[r] = st[r];
+#pragma unroll
+  for (int r = 0; r < M; ++r) {
+    i0[r] = st[N + r];
+    vnl0[r] = st[N + M + r];
+  }
+  const double cooldown = st[DIAG];
+  const int n_nodes = (int)s_in[L::N_NODES];
+  const bool trap_primary = s_in[L::TRAP_PRIMARY] != 0.0;
+  double v[N], i_new[M], v_nl[M], resid = 0.0;
+  bool need_be = false;
+  // solve_once: the trapezoidal pass, then the BE replay where needed
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    const double* s = s_in + opaque_zero();
+    const bool be = pass == 1;
+    const double* a_hist = s + (be ? L::AHBE : L::AH);
+    const double* s_mat = s + (be ? L::SBE : L::S);
+    const double* s_ni = s + (be ? L::SNIBE : L::SNI);
+    const double* k_eff = s + (be ? L::KBE : L::K);
+    const double* w_sc = s + (be ? L::WSBE : L::WS);
+    const double trap_i = be ? 0.0 : s[L::TRAP_I];
+    double rhs[N], t[N], v_lin[N], p[M];
+    matvec_reg<N, N>(a_hist, v0, rhs);
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      rhs[r] = rhs[r] + w_sc[r] * s[L::W + r] + 0.0;  // w_extra = 0
+    matvec_reg<N, M>(s + L::NI, i0, t);
+#pragma unroll
+    for (int r = 0; r < N; ++r) rhs[r] = rhs[r] + trap_i * t[r];
+    matvec_reg<N, N>(s_mat, rhs, v_lin);
+    matvec_reg<M, N>(s + L::NV, v_lin, p);
+#pragma unroll
+    for (int r = 0; r < M; ++r) v_nl[r] = vnl0[r];
+    resid = nr_solve_reg<N, M, NB, ITERS>(s, k_eff, p, v_nl, i_new);
+    matvec_reg<N, M>(s_ni, i_new, t);
+#pragma unroll
+    for (int r = 0; r < N; ++r) v[r] = v_lin[r] + t[r];
+    if (be) break;
+    need_be = trap_primary &&
+              (failed_reg<N>(v, resid, n_nodes) || cooldown > 0.0);
+    if (!need_be) break;
+  }
+  const double* s = s_in + opaque_zero();
+  const bool fail = failed_reg<N>(v, resid, n_nodes);
+  double dv[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) dv[r] = v[r] - v0[r];
+  const double dv_max = max_abs_reg(dv);
+  const bool damp_hit = finite(dv_max) && dv_max > 30.0;
+  const double scale = damp_hit ? 30.0 / jmax(dv_max, 1e-30) : 1.0;
+  bool bad = false;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    v[r] = v0[r] + dv[r] * scale;
+    bad = bad || !finite(v[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < N; ++r) st[r] = bad ? s[L::VDC + r] : v[r];
+#pragma unroll
+  for (int r = 0; r < M; ++r) {
+    st[N + r] = bad ? s[L::IDC + r] : i_new[r];
+    st[N + M + r] = bad ? s[L::VNLDC + r] : v_nl[r];
+  }
+  st[RESID] = resid;
+  st[DIAG] = fail ? 64.0 : (cooldown - 1.0 > 0.0 ? cooldown - 1.0 : 0.0);
+  st[DIAG + 1] = st[DIAG + 1] + (fail ? 1.0 : 0.0);
+  st[DIAG + 2] = st[DIAG + 2] + (bad ? 1.0 : 0.0);
+  st[DIAG + 3] = st[DIAG + 3] + (damp_hit ? 1.0 : 0.0);
+  st[DIAG + 4] = st[DIAG + 4] + (need_be ? 1.0 : 0.0);
+}
+
+// tremolo_step in registers on the frame's tremolo rows; s the staged
+// oscillator block, misc the staged scalars
+__device__ __noinline__ double tremolo_step_reg(const double* s,
+                                                const double* misc, Rows f,
+                                                double depth) {
+  const Rows tr = f.at(TR_TREM);
+  mna_step_reg<7, 4, 2, 4>(s, tr);
+  const double v_out = tr[(int)misc[M_TREM_OUT]];
+  double env = tr[CH_TREM_ENV - CH_TREM_V], r_ldr;
+  const double shunt = vactrol_shunt(misc, v_out, depth, &env, &r_ldr);
+  tr[CH_TREM_ENV - CH_TREM_V] = env;
+  tr[CH_TREM_RLDR - CH_TREM_V] = r_ldr;
+  return shunt;
+}
+
+// ── the twin DK preamp in registers (the staged block: A_neg and S_base
+// transposed) ──
+
+// init_preamp on the PreState rows
+__device__ __forceinline__ void init_dk_rows(const double* pc, Rows ps) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) ps[PS_V + 8 * r + n] = pc[PR_V_DC + n];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      ps[PS_I + 2 * r + k] = pc[PR_I_NL_DC + k];
+      ps[PS_VNL + 2 * r + k] = pc[PR_V_NL_DC + k];
+    }
+    ps[PS_JCIN + r] = pc[PR_J_CIN_DC];
+    ps[PS_CINPREV + r] = pc[PR_J_CIN_DC];
+  }
+  ps[PS_GPREV] = 1.0 / 1000000.0;
+}
+
+// preamp_step on the PreState rows ps, each twin's predictor and
+// corrector in a loop of its own (the twin's rows in registers, its
+// predictor parked in its v rows, its corrected values in its rows until
+// the reset test); → main − shadow
+__device__ __noinline__ double dk_step_reg(const double* pc, Rows ps,
+                                           double g, double x) {
+  const double gprev = ps[PS_GPREV];
+  const double sm_k = g / (1.0 + pc[PR_S_FB_FB] * g);
+  double cin[2] = {0.0, 0.0}, p0[2] = {0.0, 0.0}, p1[2] = {0.0, 0.0};
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+    const double* pz = pc + opaque_zero();
+    const Rows tw = ps.at(8 * r);
+    double v[8], rhs[8], vpb[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) v[n] = tw[PS_V + n];
+    matvec_reg<8, 8>(pz + PR_A_NEG, v, rhs);
+    rhs[FB] = rhs[FB] + (-gprev) * v[FB];
+    const double u = r == 0 ? x : 0.0;
+    const double cin_now = pz[PR_G_CIN] * u + ps[PS_JCIN + r];
+    rhs[B1] = rhs[B1] + (cin_now + ps[PS_CINPREV + r]);
+    const double i0 = ps[PS_I + 2 * r], i1 = ps[PS_I + 2 * r + 1];
+    rhs[E1] = rhs[E1] + i0;
+    rhs[C1] = rhs[C1] + (-i0);
+    rhs[E2] = rhs[E2] + i1;
+    rhs[C2] = rhs[C2] + (-i1);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) rhs[n] = rhs[n] + pz[PR_TWO_W + n];
+    matvec_reg<8, 8>(pz + PR_S_BASE, rhs, vpb);
+    double vp[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      vp[n] = vpb[n] - (sm_k * vpb[FB]) * pz[PR_S_FB_COL + n];
+      tw[PS_V + n] = vp[n];  // the old v is read no more
+    }
+    const double q0 = vp[B1] - vp[E1], q1 = vp[C1] - vp[E2];
+    cin[0] = r == 0 ? cin_now : cin[0];
+    cin[1] = r == 0 ? cin[1] : cin_now;
+    p0[0] = r == 0 ? q0 : p0[0];
+    p0[1] = r == 0 ? p0[1] : q0;
+    p1[0] = r == 0 ? q1 : p1[0];
+    p1[1] = r == 0 ? p1[1] : q1;
+  }
+  double kc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) kc[k] = pc[PR_K + k] - sm_k * pc[PR_K_OUTER + k];
+  double v0[2], v1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    v0[r] = ps[PS_VNL + 2 * r];
+    v1[r] = ps[PS_VNL + 2 * r + 1];
+  }
+#pragma unroll 1
+  for (int it = 0; it < 6; ++it) {
+    double f0[2], f1[2], gm0[2], gm1[2];
+    bool conv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      double ic0, ic1;
+      bjt_ic_gm(v0[r], &ic0, &gm0[r]);
+      bjt_ic_gm(v1[r], &ic1, &gm1[r]);
+      f0[r] = v0[r] - p0[r] - kc[0] * ic0 - kc[1] * ic1;
+      f1[r] = v1[r] - p1[r] - kc[2] * ic0 - kc[3] * ic1;
+      conv[r] = fabs(f0[r]) < 1e-9 && fabs(f1[r]) < 1e-9;
+    }
+    if (conv[0] && conv[1]) break;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const double j00 = 1.0 - kc[0] * gm0[r];
+      const double j01 = -kc[1] * gm1[r];
+      const double j10 = -kc[2] * gm0[r];
+      const double j11 = 1.0 - kc[3] * gm1[r];
+      const double det = j00 * j11 - j01 * j10;
+      const bool big = fabs(det) > 1e-30;
+      const bool ok = !conv[r] && big;
+      const double inv_det = big ? 1.0 / det : 0.0;
+      const double dv0 = inv_det * (j11 * f0[r] - j01 * f1[r]);
+      const double dv1 = inv_det * (j00 * f1[r] - j10 * f0[r]);
+      v0[r] = v0[r] - (ok ? dv0 : 0.0);
+      v1[r] = v1[r] - (ok ? dv1 : 0.0);
+    }
+  }
+  // the corrector, twin by twin, into the twin's rows; then the reset to
+  // the DC point on a non-finite output
+  double out_n[2] = {0.0, 0.0};
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+    const double* pz = pc + opaque_zero();
+    const Rows tw = ps.at(8 * r);
+    const double a0 = r == 0 ? v0[0] : v0[1];
+    const double a1 = r == 0 ? v1[0] : v1[1];
+    double ic0, ic1, gm;
+    bjt_ic_gm(a0, &ic0, &gm);
+    bjt_ic_gm(a1, &ic1, &gm);
+    const double dot = pz[PR_SFB_NI] * ic0 + pz[PR_SFB_NI + 1] * ic1;
+    double b1 = 0.0, o = 0.0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const double s_ni = ic0 * pz[PR_NI_COL0 + n] + ic1 * pz[PR_NI_COL1 + n];
+      const double v_new =
+          tw[PS_V + n] + s_ni - (sm_k * dot) * pz[PR_S_FB_COL + n];
+      tw[PS_V + n] = v_new;
+      b1 = n == B1 ? v_new : b1;
+      o = n == OUTN ? v_new : o;
+    }
+    const double u = r == 0 ? x : 0.0;
+    const double jc =
+        -pz[PR_GC_1PC] * (u - b1) - pz[PR_C_CIN] * ps[PS_JCIN + r];
+    ps[PS_I + 2 * r] = ic0;
+    ps[PS_I + 2 * r + 1] = ic1;
+    ps[PS_VNL + 2 * r] = a0;
+    ps[PS_VNL + 2 * r + 1] = a1;
+    ps[PS_JCIN + r] = jc;
+    ps[PS_CINPREV + r] = r == 0 ? cin[0] : cin[1];
+    out_n[0] = r == 0 ? o : out_n[0];
+    out_n[1] = r == 0 ? out_n[1] : o;
+  }
+  const double out = out_n[0] - out_n[1];
+  const bool bad = !finite(out);
+  if (bad) {
+    init_dk_rows(pc, ps);
+  }
+  ps[PS_GPREV] = g;
+  return bad ? 0.0 : out;
+}
+
+// ── the twin melange preamp in registers (the staged block: every
+// matrix transposed, the BJTs' parameters too) ──
+
+// x[sel] of an unrolled array, sel chosen at run time (x[0] if none)
+template <int K>
+__device__ __forceinline__ double pick(const double (&x)[K], int sel) {
+  double y = x[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) y = k == sel ? x[k] : y;
+  return y;
+}
+
+// K_corr = K − sm_k · K_outer (melange_step's kc), entry (r, c), from the
+// staged block where it is used: 25 values are too many to keep live
+// through Newton
+__device__ __forceinline__ double kcorr(const double* mc, double sm_k, int r,
+                                        int c) {
+  return mc[ML_K + c * 5 + r] - sm_k * mc[ML_K_OUTER + c * 5 + r];
+}
+
+// mel_currents on the staged block
+__device__ __forceinline__ void mel_currents_reg(const double* mc,
+                                                 const double (&vnl)[5],
+                                                 double (&i)[5]) {
+  currents_reg<2>(mc + ML_CUR, vnl, i);
+  i[4] = mc[ML_DIODE] * (limexp(vnl[4] / mc[ML_DIODE + 1]) - 1.0);
+}
+
+// melange_step on the MelState rows ms; `scale` is noise_enabled ·
+// noise_gain; → main − shadow. Each twin's predictor, corrector and
+// Newton update run in loops over the twins (the twin's rows in
+// registers, its predictor parked in its v rows); the residual passes of
+// both twins run together.
+__device__ __noinline__ double melange_step_reg(const double* mc, Rows ms,
+                                                double g, double x,
+                                                double scale) {
+  constexpr int N = 13, M = 5, NR = 10;
+  const int fb = (int)mc[ML_IDX], outn = (int)mc[ML_IDX + 1];
+  const int row_in = (int)mc[ML_IDX + 2];
+  // the key advances on every step; the noise enters the main row only.
+  // Each draw replaces its row of the last draws once read (melange_step
+  // writes them all at its end; nothing reads them between).
+  const uint32_t k1 = (uint32_t)ms[MS_KEY], k2 = (uint32_t)ms[MS_KEY + 1];
+  const uint2 nk = threefry_pair(k1, k2, 0u, 0u);
+  const uint2 sk = threefry_pair(k1, k2, 0u, 1u);
+  // the noise current inject · (w_new + w_prev), its columns summed in
+  // index order as each draw comes
+  double i_noise[N];
+#pragma unroll 1
+  for (int r = 0; r < NR; ++r) {
+    const double w_new =
+        normal_draw<true>(sk.x, sk.y, (uint32_t)r) * mc[ML_SIGMA + r] * scale;
+    const double i_r = w_new + ms[MS_WPREV + r];
+    ms[MS_WPREV + r] = w_new;
+    const double* col = mc + ML_INJECT + r * N;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      i_noise[n] = r == 0 ? col[n] * i_r : i_noise[n] + col[n] * i_r;
+  }
+  const double gprev = ms[MS_GPREV];
+  const double sm_k = g / (1.0 + mc[ML_S_FB_FB] * g);
+  // each twin's predictor into its v rows (the old v is read no more),
+  // its ports' p
+  double p[2][M];
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+    const double* mz = mc + opaque_zero();
+    const Rows tv = ms.at(N * r), ti = ms.at(M * r);
+    double v[N], ii[M], rhs[N], t[N], vpb[N], v_pred[N], q[M];
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n] = tv[MS_V + n];
+#pragma unroll
+    for (int m = 0; m < M; ++m) ii[m] = ti[MS_I + m];
+    matvec_reg<N, N>(mz + ML_A_HIST, v, rhs);
+    const double v_fb = pick(v, fb);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      rhs[n] = n == fb ? rhs[n] + (-gprev) * v_fb : rhs[n];
+#pragma unroll
+    for (int n = 0; n < N; ++n) rhs[n] = rhs[n] + mz[ML_WS_W + n];
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      rhs[n] = n == row_in ? rhs[n] + (r == 0 ? x : 0.0) : rhs[n];
+    matvec_reg<N, M>(mz + ML_N_I, ii, t);
+#pragma unroll
+    for (int n = 0; n < N; ++n) rhs[n] = rhs[n] + t[n];
+#pragma unroll
+    for (int n = 0; n < N; ++n) rhs[n] = rhs[n] + (r == 0 ? i_noise[n] : 0.0);
+    matvec_reg<N, N>(mz + ML_S, rhs, vpb);
+    const double vpb_fb = pick(vpb, fb);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      v_pred[n] = vpb[n] - (sm_k * vpb_fb) * mz[ML_S_FB_COL + n];
+      tv[MS_V + n] = v_pred[n];
+    }
+    matvec_reg<M, N>(mz + ML_N_V, v_pred, q);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      p[0][m] = r == 0 ? q[m] : p[0][m];
+      p[1][m] = r == 0 ? p[1][m] : q[m];
+    }
+  }
+  double vnl[2][M];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int m = 0; m < M; ++m) vnl[r][m] = ms[MS_VNL + M * r + m];
+  // at most 12 Newton iterations; a converged twin stays put, and the
+  // loop ends once both have (the rest would change nothing)
+#pragma unroll 1
+  for (int it = 0; it < 12; ++it) {
+    const double* mz = mc + opaque_zero();
+    double f[2][M];
+    bool conv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      double i[M];
+      mel_currents_reg(mz, vnl[r], i);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        double ki = kcorr(mz, sm_k, m, 0) * i[0];
+#pragma unroll
+        for (int c = 1; c < M; ++c) ki = ki + kcorr(mz, sm_k, m, c) * i[c];
+        f[r][m] = vnl[r][m] - p[r][m] - ki;
+      }
+      conv[r] = max_abs_reg(f[r]) < 1e-9;
+    }
+    if (conv[0] && conv[1]) break;
+#pragma unroll 1
+    for (int r = 0; r < 2; ++r) {
+      if (r == 0 ? conv[0] : conv[1]) continue;
+      const double* mw = mc + opaque_zero();
+      double vv[M], top[4], bot[4], dv[M], val, dval;
+#pragma unroll
+      for (int m = 0; m < M; ++m) vv[m] = r == 0 ? vnl[0][m] : vnl[1][m];
+      derivs_reg<2>(mw + ML_DER, vv, top, bot);
+      limexp_d(vv[4] / mw[ML_DIODE + 1], &val, &dval);
+      const double g_d = mw[ML_DIODE] * dval / mw[ML_DIODE + 1];
+      float aug[M][M + 1];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int r0 = 2 * (k / 2);
+          aug[m][k] = (float)((m == k ? 1.0 : 0.0) -
+                              (kcorr(mw, sm_k, m, r0) * top[k] +
+                               kcorr(mw, sm_k, m, r0 + 1) * bot[k]));
+        }
+        aug[m][4] =
+            (float)((m == 4 ? 1.0 : 0.0) - kcorr(mw, sm_k, m, 4) * g_d);
+        aug[m][M] = (float)(r == 0 ? f[0][m] : f[1][m]);
+      }
+      ge_solve_f32_reg<M>(aug, dv);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const double nv = vv[m] - jclip(dv[m], -0.5, 0.5);
+        vnl[0][m] = r == 0 ? nv : vnl[0][m];
+        vnl[1][m] = r == 0 ? vnl[1][m] : nv;
+      }
+    }
+  }
+  // the corrector, twin by twin, into the twin's rows; then the reset to
+  // the DC point on a non-finite output
+  double out_n[2] = {0.0, 0.0};
+#pragma unroll 1
+  for (int r = 0; r < 2; ++r) {
+    const double* mz = mc + opaque_zero();
+    const Rows tv = ms.at(N * r), ti = ms.at(M * r);
+    double vv[M], i[M], s_ni[N];
+#pragma unroll
+    for (int m = 0; m < M; ++m) vv[m] = r == 0 ? vnl[0][m] : vnl[1][m];
+    mel_currents_reg(mz, vv, i);
+    matvec_reg<N, M>(mz + ML_S_NI, i, s_ni);
+    double dot = mz[ML_SFB_NI] * i[0];
+#pragma unroll
+    for (int c = 1; c < M; ++c) dot = dot + mz[ML_SFB_NI + c] * i[c];
+    double o = 0.0;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const double v_new =
+          tv[MS_V + n] + s_ni[n] - (sm_k * dot) * mz[ML_S_FB_COL + n];
+      tv[MS_V + n] = v_new;
+      o = n == outn ? v_new : o;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      ti[MS_I + m] = i[m];
+      ti[MS_VNL + m] = vv[m];
+    }
+    out_n[0] = r == 0 ? o : out_n[0];
+    out_n[1] = r == 0 ? out_n[1] : o;
+  }
+  const double out = out_n[0] - out_n[1];
+  const bool bad = !finite(out);
+  if (bad) {
+#pragma unroll 1
+    for (int r = 0; r < 2; ++r) {
+      const Rows tv = ms.at(N * r), ti = ms.at(M * r);
+#pragma unroll
+      for (int n = 0; n < N; ++n) tv[MS_V + n] = mc[ML_V_DC + n];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        ti[MS_I + m] = mc[ML_I_DC + m];
+        ti[MS_VNL + m] = mc[ML_V_NL_DC + m];
+      }
+    }
+  }
+  ms[MS_GPREV] = g;
+  ms[MS_KEY] = (double)nk.x;
+  ms[MS_KEY + 1] = (double)nk.y;
+  return bad ? 0.0 : out;
+}
+
+// init_melange on the MelState rows
+__device__ __forceinline__ void init_melange_rows(const double* mc,
+                                                  Rows ms) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int n = 0; n < 13; ++n) ms[MS_V + 13 * r + n] = mc[ML_V_DC + n];
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+      ms[MS_I + 5 * r + m] = mc[ML_I_DC + m];
+      ms[MS_VNL + 5 * r + m] = mc[ML_V_NL_DC + m];
+    }
+  }
+  ms[MS_GPREV] = 1.0 / 1000000.0;
+  ms[MS_KEY] = 0.0;
+  ms[MS_KEY + 1] = 24301.0;  // 0x5EED
+#pragma unroll
+  for (int r = 0; r < 10; ++r) ms[MS_WPREV + r] = 0.0;
+}
+
+// ── the rest of the chain on the frame ──
+
+__device__ __forceinline__ double branch_step_rows(const double* coeffs,
+                                                   Rows st, double x) {
+  double y = x;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const double out = coeffs[k] * y + st[k];
+    st[k] = y - coeffs[k] * out;
+    y = out;
+  }
+  return y;
+}
+
+__device__ __forceinline__ double smoother_next_rows(Rows s) {
+  const bool active = s[3] > 0.0;
+  double nxt = active ? s[0] + s[2] : s[0];
+  const double rem = active ? s[3] - 1.0 : s[3];
+  nxt = (active && rem == 0.0) ? s[1] : nxt;
+  s[0] = nxt;
+  s[3] = rem;
+  return nxt;
+}
+
+// speaker_design, inline
+__device__ __forceinline__ Speaker speaker_coeffs(double chr, double sr) {
+  const double cc = jclip(chr, 0.0, 1.0);
+  return Speaker{design(false, 20.0 * pow(30.0 / 20.0, cc), 0.75, sr),
+                 design(true, 20000.0 * pow(5500.0 / 20000.0, cc), 0.707, sr),
+                 0.2 * cc, 0.6 * cc, 2.0 * cc, cc};
+}
+
+// speaker_step on the frame's speaker rows
+__device__ __forceinline__ double speaker_step_rows(const Speaker& sk,
+                                                    Rows spk, double x,
+                                                    double alpha) {
+  double z[5];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) z[q] = spk[q];
+  const double y = speaker_step(sk, z, x, alpha);
+#pragma unroll
+  for (int q = 0; q < 5; ++q) spk[q] = z[q];
+  return y;
+}
+
+// the speaker's coefficients to and from their frame rows
+__device__ __forceinline__ void put_speaker(const Speaker& k, Rows r) {
+  const double* q = reinterpret_cast<const double*>(&k);
+#pragma unroll
+  for (int j = 0; j < SPK_COEFFS; ++j) r[j] = q[j];
+}
+
+__device__ __forceinline__ Speaker get_speaker(Rows r) {
+  Speaker k;
+  double* q = reinterpret_cast<double*>(&k);
+#pragma unroll
+  for (int j = 0; j < SPK_COEFFS; ++j) q[j] = r[j];
+  return k;
+}
+
+// chain_sample<PRE, PA_BEHAVIORAL> on the frame f; s_trem, s_pre and misc
+// the staged blocks; pa the power amp's constants and row the engine's
+// chain row (guard #2's reset of the power amp's rows); last_char and
+// spk_k the speaker's character and coefficients of the engine (with the
+// melange preamp the coefficients in the frame, spk_k unused)
+template <int PRE>
+__device__ __forceinline__ double chain_sample_reg(
+    const double* s_trem, const double* s_pre, const double* misc,
+    const double* pa, double* row, Rows f, double mono, double noise_scale,
+    double& last_char, Speaker& spk_k) {
+  const double depth = smoother_next_rows(f.at(TR_SM_DEPTH));
+  const double vol = smoother_next_rows(f.at(TR_SM_VOLUME));
+  const double chr = smoother_next_rows(f.at(TR_SM_CHAR));
+  const bool os = misc[M_OVERSAMPLE] != 0.0;
+  double u0 = mono, u1 = 0.0;
+  if (os) {
+    u0 = branch_step_rows(kBranchA, f.at(CH_OS_UP_A), mono);
+    u1 = branch_step_rows(kBranchB, f.at(CH_OS_UP_B), mono);
+  }
+  // the nonlinear step (tremolo → LDR → preamp → behavioral power amp) at
+  // one call site: once, or twice oversampled
+  double y0 = 0.0, y1 = 0.0;
+#pragma unroll 1
+  for (int h = 0; h < (os ? 2 : 1); ++h) {
+    const double shunt = tremolo_step_reg(s_trem, misc, f, depth);
+    const double g = 1.0 / jmax(shunt, 1000.0);
+    const double u = h == 0 ? u0 : u1;
+    double pre;
+    if constexpr (PRE == PRE_DK)
+      pre = dk_step_reg(s_pre, f.at(TR_PRE), g, u);
+    else
+      pre = melange_step_reg(s_pre, f.at(TR_PRE), g, u, noise_scale);
+    const double drive = 0.25;  // tables.FIXED_CIRCUIT_DRIVE
+    const double y = behavioral_core(pre * drive);
+    y0 = h == 0 ? y : y0;
+    y1 = h == 0 ? y1 : y;
+  }
+  double amp_out = y0;
+  if (os) {
+    const double a = branch_step_rows(kBranchA, f.at(CH_OS_DOWN_A), y0);
+    const double b = branch_step_rows(kBranchB, f.at(CH_OS_DOWN_B), y1);
+    amp_out = (a + f[CH_OS_DELAY]) * 0.5;
+    f[CH_OS_DELAY] = b;
+  }
+  // speaker: coefficients redesigned only when the character moved
+  using TRows = ThreadRows<PRE>;
+  if (__double_as_longlong(chr) != __double_as_longlong(last_char)) {
+    last_char = chr;
+    if constexpr (TRows::SPK_IN_FRAME)
+      put_speaker(speaker_coeffs(chr, misc[M_SPK_SR]), f.at(TRows::SPK_K));
+    else
+      spk_k = speaker_coeffs(chr, misc[M_SPK_SR]);
+  }
+  if constexpr (TRows::SPK_IN_FRAME) spk_k = get_speaker(f.at(TRows::SPK_K));
+  const Rows spk = f.at(TR_SPK);
+  const double y = speaker_step_rows(spk_k, spk, amp_out, misc[M_SPK_ALPHA]);
+  const double out = y * misc[M_POST_GAIN] * vol;
+  if (!finite(out)) {
+    // NaN guard #2: preamp (the melange one's noise key and draws
+    // included), oversampler, power amp and speaker reset
+#pragma unroll
+    for (int k = 0; k < OS_ROWS; ++k) f[CH_OS_UP_A + k] = 0.0;
+    if constexpr (PRE == PRE_DK)
+      init_dk_rows(s_pre, f.at(TR_PRE));
+    else
+      init_melange_rows(s_pre, f.at(TR_PRE));
+    init_power_amp(pa, row);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) spk[k] = 0.0;
+    return 0.0;
+  }
+  return out;
+}
+
+// engine_chain_kernel<PRE, PA_BEHAVIORAL>'s body: the block stages the
+// constants and its engines' rows (coalesced: the block's rows are
+// consecutive in the chain), each thread runs its engine's samples on its
+// column of the frame, and the block stores the rows back
+template <int PRE>
+__device__ __forceinline__ void chain_thread_behavioral(
+    const double* __restrict__ c, const double* __restrict__ mono,
+    double* chain, float* out, int n, int b, const double* noise_scale) {
+  constexpr int ROWS = ThreadRows<PRE>::N;
+  constexpr int PRE_BLOCK = PRE == PRE_MELANGE ? (int)ML_SIZE : PR_SIZE;
+  __shared__ double s_trem[TREM_BLOCK];
+  __shared__ double s_pre[PRE_BLOCK];
+  __shared__ double s_misc[N_MISC];
+  __shared__ double frame[ROWS * E2_BLOCK];
+  stage_block<7, 4, 2>(c + C_TREM, s_trem);
+  if constexpr (PRE == PRE_MELANGE)
+    stage_melange(c + C_MEL, s_pre);
+  else
+    stage_dk(c + C_PRE, s_pre);
+  for (int k = threadIdx.x; k < N_MISC; k += blockDim.x)
+    s_misc[k] = c[C_MISC + k];
+  const int e0 = blockIdx.x * E2_BLOCK;
+  const int nb = min(E2_BLOCK, b - e0);
+  double* rows = chain + (size_t)e0 * CHAIN_ROWS;
+  for (int q = threadIdx.x; q < nb * CHAIN_ROWS; q += blockDim.x) {
+    const int r = thread_row<PRE>(q % CHAIN_ROWS);
+    if (r >= 0) frame[r * E2_BLOCK + q / CHAIN_ROWS] = rows[q];
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < nb) {
+    const int e = e0 + threadIdx.x;
+    const Rows f{frame + threadIdx.x};
+    double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
+    Speaker spk_k;
+    const double ns = noise_scale[e];
+    double* row = chain + (size_t)e * CHAIN_ROWS;
+    for (int t = 0; t < n; ++t) {
+      const size_t i = (size_t)e * n + t;
+      const int z = opaque_zero();
+      out[i] = (float)chain_sample_reg<PRE>(
+          s_trem + z, s_pre + z, s_misc + z, c + C_PA, row, f, mono[i], ns,
+          last_char, spk_k);
+    }
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < nb * CHAIN_ROWS; q += blockDim.x) {
+    const int r = thread_row<PRE>(q % CHAIN_ROWS);
+    if (r >= 0) rows[q] = frame[r * E2_BLOCK + q / CHAIN_ROWS];
+  }
+}
 
 template <int PRE, int PA>
 __global__ void engine_chain_kernel(const double* __restrict__ c,
@@ -2892,20 +3816,25 @@ __global__ void engine_chain_kernel(const double* __restrict__ c,
                                     double* chain, float* out, int n, int b,
                                     const unsigned char* sag,
                                     const double* noise_scale) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= b) return;
-  double ch[CHAIN_ROWS];
-  for (int k = 0; k < CHAIN_ROWS; ++k)
-    ch[k] = chain[(size_t)e * CHAIN_ROWS + k];
-  double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
-  Speaker spk_k;
-  for (int t = 0; t < n; ++t) {
-    const size_t i = (size_t)e * n + t;
-    out[i] = (float)chain_sample<PRE, PA>(c, ch, mono[i], sag[e] != 0,
-                                          noise_scale[e], &last_char, &spk_k);
+  if constexpr (PA == PA_BEHAVIORAL) {
+    chain_thread_behavioral<PRE>(c, mono, chain, out, n, b, noise_scale);
+  } else {
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= b) return;
+    double ch[CHAIN_ROWS];
+    for (int k = 0; k < CHAIN_ROWS; ++k)
+      ch[k] = chain[(size_t)e * CHAIN_ROWS + k];
+    double last_char = __longlong_as_double(0x7ff8dead0000beefLL);  // NaN
+    Speaker spk_k;
+    for (int t = 0; t < n; ++t) {
+      const size_t i = (size_t)e * n + t;
+      out[i] = (float)chain_sample<PRE, PA>(c, ch, mono[i], sag[e] != 0,
+                                            noise_scale[e], &last_char,
+                                            &spk_k);
+    }
+    for (int k = 0; k < CHAIN_ROWS; ++k)
+      chain[(size_t)e * CHAIN_ROWS + k] = ch[k];
   }
-  for (int k = 0; k < CHAIN_ROWS; ++k)
-    chain[(size_t)e * CHAIN_ROWS + k] = ch[k];
 }
 
 // E2's warp form: a warp per engine. Lane 0 runs what has no parallel
@@ -4200,34 +5129,51 @@ pa_speaker_scan_kernel(const double* __restrict__ c,
 
 // The tremolo and the power amp alone, at the stage's own rate, in the
 // chain's constant layout (C_TREM, C_PA, C_MISC; the preamp block unused).
-// E8, a thread per circuit, runs the chain's `tremolo_step`: its state
+// E8 runs a warp per circuit, E8_WARPS to a block sharing one staged copy
+// of the oscillator's solver block: E2's `tremolo_step_warp` (the
+// oscillator's mna step on the warp, then the vactrol and the divider on
+// every lane) at the circuit's depth, lane 0 writing the shunt; its state
 // (E8_ROWS, G) holds the chain's rows CH_TREM_V .. CH_TREM_RLDR of each
-// circuit, its output (n, G) the shunt impedance after each step at the
-// circuit's depth. E9 is E6 without volume² and without the speaker: a
-// warp per stream, four per block sharing one staged copy of the power
-// amp's solver block, `power_amp_step_warp` with rail sag on, lane 0
-// writing the output; its state (E9_ROWS, G) holds the rows CH_PA_V ..
-// CH_PA_LAST, E6's first rows. x and out are time major.
-constexpr int E8_BLOCK = 32;
+// circuit, each row loaded and stored by the lane that owns it. E9 is E6
+// without volume² and without the speaker: a warp per stream, four per
+// block sharing one staged copy of the power amp's solver block,
+// `power_amp_step_warp` with rail sag on, lane 0 writing the output; its
+// state (E9_ROWS, G) holds the rows CH_PA_V .. CH_PA_LAST, E6's first
+// rows. x and out are time major.
+constexpr int E8_WARPS = 4;
 constexpr int E8_ROWS = CH_TREM_RLDR + 1 - CH_TREM_V;
+constexpr int E8_ENV = CH_TREM_ENV - CH_TREM_V;  // after load_lane's rows
+static_assert(E8_ENV + 2 == E8_ROWS, "E8's rows: the oscillator's, env, r");
 constexpr int E9_WARPS = 4;
 constexpr int E9_ROWS = CH_PA_LAST + 1 - CH_PA_V;
 
-__global__ void __launch_bounds__(E8_BLOCK)
+__global__ void __launch_bounds__(E8_WARPS * 32)
 tremolo_scan_kernel(const double* __restrict__ c, double* state,
                     const double* __restrict__ depth, double* out, int n,
                     int g) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= g) return;
-  double ch[CHAIN_ROWS];  // only the tremolo's rows
-  for (int k = 0; k < E8_ROWS; ++k)
-    ch[CH_TREM_V + k] = state[(size_t)k * g + j];
+  __shared__ double s_trem[TREM_BLOCK];
+  __shared__ WarpScratch scratch[E8_WARPS];
+  stage_block<7, 4, 2>(c + C_TREM, s_trem);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (j >= g) return;  // the whole warp: no block-wide sync follows
+  TremWarp tr;
+  load_lane<7, 4>(tr.s, state + j, g, lane);
+  tr.env = state[(size_t)E8_ENV * g + j];
+  tr.r_ldr = state[(size_t)(E8_ENV + 1) * g + j];
   const double* misc = c + C_MISC;
   const double d = depth[j];
-  for (int t = 0; t < n; ++t)
-    out[(size_t)t * g + j] = tremolo_step(c, misc, ch, d);
-  for (int k = 0; k < E8_ROWS; ++k)
-    state[(size_t)k * g + j] = ch[CH_TREM_V + k];
+  WarpScratch* w = &scratch[warp];
+  for (int t = 0; t < n; ++t) {
+    const double y = tremolo_step_warp(s_trem, misc, tr, d, w);
+    if (lane == 0) out[(size_t)t * g + j] = y;
+  }
+  store_lane<7, 4>(tr.s, state + j, g, lane);
+  if (lane == 0) {
+    state[(size_t)E8_ENV * g + j] = tr.env;
+    state[(size_t)(E8_ENV + 1) * g + j] = tr.r_ldr;
+  }
 }
 
 // One block per SM is enough: without that bound ptxas caps E9 at 128
@@ -4440,8 +5386,10 @@ extern "C" int ow_tremolo_scan(const double* consts, int n_consts,
   if (n_consts != C_TOTAL || n < 0 || g < 0)
     return (int)cudaErrorInvalidValue;
   if (g == 0) return 0;
-  tremolo_scan_kernel<<<(g + E8_BLOCK - 1) / E8_BLOCK, E8_BLOCK, 0,
-                        stream>>>(consts, state, depth, out, n, g);
+  const int blocks = (g + E8_WARPS - 1) / E8_WARPS;
+  const int warps = g < E8_WARPS ? g : E8_WARPS;
+  tremolo_scan_kernel<<<blocks, warps * 32, 0, stream>>>(consts, state,
+                                                         depth, out, n, g);
   return (int)cudaGetLastError();
 }
 

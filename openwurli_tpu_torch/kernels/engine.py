@@ -31,13 +31,15 @@ ops, so on the card the sample loops are kernels of `csrc/engine.cu`:
     `CHAIN_WARP_MAX_ENGINES`, a half-warp per engine
     (`engine_chain_half_kernel`: the same on a 16-lane segment, two
     engines to a warp) up to `CHAIN_HALF_MAX_ENGINES`, and a thread per
-    engine (`engine_chain_kernel`) above. The three forms agree bit for
-    bit.
+    engine (`engine_chain_kernel`; the behavioral instantiations with
+    each step's values in registers and the engine's rows in shared
+    memory) above. The three forms agree bit for bit.
   * **E3 `tremolo_settle`**: the tremolo oscillator's mna step alone, n
     times, on one warp (E2's tremolo step without the vactrol).
-  * **E8 `tremolo_scan`**: G tremolo circuits, a thread each, over n
-    steps at the tremolo's own rate (`tremolo.step`: oscillator, vactrol,
-    the divider's shunt at the circuit's depth), E2's tremolo step.
+  * **E8 `tremolo_scan`**: G tremolo circuits, a warp each (four to a
+    block), over n steps at the tremolo's own rate (`tremolo.step`:
+    oscillator, vactrol, the divider's shunt at the circuit's depth), E2's
+    warp tremolo step.
   * **E9 `power_amp_scan`**: G streams, a warp each (four to a block),
     over n samples of `power_amp.step` with rail sag on at the input's
     rate, E2's and E6's warp power-amp step alone (E6 without volume² and
@@ -177,13 +179,17 @@ CHAIN_LAUNCHES_BY_FORM = {(p, a, f): 0 for p in ("dk", "melange")
 #   melange Engine and its plugin) keeps the warp form; 2-255 engines are
 #   not measured on distinct engines.
 #   <dk, behavioral>: 256: 178.5-181.8 / 178.6-182.1; 512: 342.0-347.5 /
-#   339.1-340.5; 1024: 573.3-577.6 / 628.3-634.1 / 334.9-337.1; 2048:
-#   570.3-571.9 / 1001.7-1011.3 / 624.3-628.9; 4096: 1007.0-1011.0 /
-#   1105.0-1108.3 (half / thread).
+#   339.1-340.5; 1024: 573.3-577.6 / 628.3-634.1. Half / thread (the
+#   thread form with its working set in registers and shared memory):
+#   512: 336.1-337.4 / 214.5-215.2; 1024: 625.9-633.5 / 401.4-405.2;
+#   2048: 1021.2-1024.3 / 736.9-744.2; 4096: 995.3-1002.0 /
+#   1275.3-1281.5; 8192: 1195.1-1212.7 / 1994.4-2005.2; 16384:
+#   1220.7-1226.0 / 2780.3-2790.2.
 #   <melange, behavioral>: 256: 40.1-43.7 / 42.6-42.9; 512: 85.3-86.1 /
-#   84.5-85.2; 1024: 159.1-160.3 / 164.8-166.7; 2048: 200.2-203.0 /
-#   293.8-302.1; 4096: 287.5-296.1 / 150.6-151.6 (half / thread); 8192:
-#   373.5-376.0 / 284.8-285.8; 16384: 373.0-376.9 / 480.2-484.8.
+#   84.5-85.2; 1024: 159.1-160.3 / 164.8-166.7. Half / thread (as
+#   above): 512: 84.3-85.0 / 28.6-28.8; 1024: 164.9-166.6 / 57.4-57.8;
+#   2048: 298.7-301.9 / 114.1-114.9; 4096: 287.3-291.0 / 222.8-224.4;
+#   8192: 367.6-370.9 / 425.2-427.9; 16384: 372.8-376.6 / 777.0-782.9.
 # The broadcast chord's sweeps (PERF.md §5) gave the same bands but for
 # <melange, circuit>, whose warp form led there up to 512 engines.
 CHAIN_WARP_MAX_ENGINES = {("dk", "circuit"): 0,
@@ -193,7 +199,7 @@ CHAIN_WARP_MAX_ENGINES = {("dk", "circuit"): 0,
 CHAIN_HALF_MAX_ENGINES = {("dk", "circuit"): None,
                           ("melange", "circuit"): None,
                           ("dk", "behavioral"): 2048,
-                          ("melange", "behavioral"): 8192}
+                          ("melange", "behavioral"): 4096}
 
 
 def chain_form(preamp_model: str, pa_model: str, b: int) -> str:

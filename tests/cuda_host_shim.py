@@ -48,6 +48,8 @@ SHIM_H = r"""
 #define __launch_bounds__(...)
 typedef void* cudaStream_t;
 struct alignas(16) float4 { float x, y, z, w; };
+struct uint2 { uint32_t x, y; };
+inline uint2 make_uint2(uint32_t x, uint32_t y) { return {x, y}; }
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };

@@ -1094,3 +1094,90 @@ def test_stage_scans_from_carried_state(cuda):
     head = ek.power_amp_scan(88200.0, x[:15].contiguous(), two)
     tail = ek.power_amp_scan(88200.0, x[15:].contiguous(), two)
     assert _same_bits(whole, torch.cat([head, tail])) and _same_bits(one, two)
+
+
+@pytest.mark.parametrize("g", [1, 5, 33])
+def test_tremolo_scan_kernel_warp_geometry(cuda, g):
+    """E8, a warp per circuit, four to a block: one circuit, a partial
+    block, eight blocks and a partial one; the kicked circuit (its BE
+    replay) and the NaN one off the block's first circuit; output and
+    state bit for bit."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    st, depth = _tremolo_case(cuda, g=40)
+    st, depth = st[:, :g].contiguous(), depth[:g].contiguous()
+    st[0, 5 % g] += 70.0
+    if g >= 5:
+        st[2, g - 2] = float("nan")
+    a, b = st.clone(), st.clone()
+    out = ek.tremolo_scan(88200.0, a, depth, 64)
+    ref = ek.tremolo_scan_plain(88200.0, b, depth, 64)
+    assert _same_bits(out, ref) and _same_bits(a, b)
+    assert torch.isfinite(out).all()
+
+
+def _thread_form_batch(cuda, cp, kinds, n=12):
+    """tests/test_torch_thread_forms.py's engines on the card: "clean" a
+    440 Hz sine from rest, "kicked" the tremolo 70 V off and a 30 V spike
+    at sample 5, "guard" a NaN in mono at 3 and a NaN volume target from
+    6 (guard #2); the depth ramping on "clean", the character on "kicked";
+    the power amp's rows off rest."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    t = np.arange(n)
+    sine = 0.3 * np.sin(2 * np.pi * 440 * t / SR)
+    states, monos = [], []
+    for kind in kinds:
+        state = ek.init_chain(cp, volume=0.8, depth=0.7, character=0.3)
+        mono = torch.from_numpy(sine.copy())
+        name = {"clean": "sm_depth", "kicked": "sm_char"}.get(kind)
+        if name:
+            a, _ = ek.CHAIN_OFF[name]
+            state[a + 1:a + 4] = torch.tensor([0.2, -0.05, 10.0],
+                                              dtype=torch.float64)
+        if kind == "kicked":
+            state[ek.CHAIN_OFF["trem_v"][0]] += 70.0
+            mono[5] = 30.0
+        elif kind == "guard":
+            mono[3] = float("nan")
+            a, _ = ek.CHAIN_OFF["sm_volume"]
+            state[a + 1:a + 4] = torch.tensor([float("nan"), 0.0, 6.0],
+                                              dtype=torch.float64)
+        states.append(state)
+        monos.append(mono)
+    state = torch.stack(states).to(cuda)
+    lo, hi = ek.CHAIN_OFF["pa_v"][0], ek.CHAIN_OFF["pa_last"][1]
+    state[:, lo:hi] += 1.0
+    b = len(kinds)
+    noise = 30.0 if cp.preamp_model == "melange" else 0.0
+    return (state.contiguous(), torch.stack(monos).to(cuda).contiguous(),
+            torch.tensor([k != 1 for k in range(b)], device=cuda),
+            torch.full((b,), noise, dtype=torch.float64, device=cuda))
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 33, 8192])
+@pytest.mark.parametrize("pre", ["dk", "melange"])
+def test_engine_chain_behavioral_thread_form(cuda, pre, b, monkeypatch):
+    """E2's behavioral thread form (each step's values in registers, the
+    engine's rows in shared memory) against the plain version bit for bit,
+    output and every chain row, on clean, kicked and guard #2 engines in
+    turn: at 1-4 engines, at 33 (a partial second block) and at 8192 × 32
+    (the first 128 engines replayed by the plain version)."""
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    cp = ek.chain_params(SR, pre, "behavioral")
+    kinds = [("clean", "kicked", "guard")[(k + 2) % 3] for k in range(b)]
+    state, mono, sag, scale = _thread_form_batch(cuda, cp, kinds,
+                                                 n=32 if b > 33 else 12)
+    _force_chain_form(monkeypatch, ek, pre, "behavioral", "thread")
+    s_ = state.clone()
+    out = ek.render_chain(cp, mono, s_, sag, scale)
+    m = min(b, 128)
+    p = state[:m].clone()
+    ref = ek.chain_plain(cp, mono[:m].contiguous(), p, sag[:m].contiguous(),
+                         scale[:m].contiguous())
+    assert _same_bits(out[:m], ref) and _same_bits(s_[:m], p)
+    assert torch.isfinite(out).all()
+    if b > m:   # the copies of each kind agree with their first
+        for k in range(3):
+            assert _same_bits(out[k::3], out[k:k + 1].expand_as(out[k::3]))

@@ -32,6 +32,8 @@
 // The tremolo family runs E3's layout (one circuit, its OSC_ROWS rows);
 // the power-amp family E9's (x and out (n, G), the rows CH_PA_V ..
 // CH_PA_LAST (G columns)), a warp per stream, four to a block, as E6.
+// Beside them, E8 (the tremolo scan) before its warp redesign, a thread
+// per circuit, for timing against the library's E8.
 
 #include "../openwurli_tpu_torch/csrc/engine.cu"
 
@@ -306,10 +308,47 @@ mb_pa_warp_kernel(const double* __restrict__ c,
     for (int k = 0; k < N_PARTS; ++k) parts[(size_t)k * g + j] = acc[k];
 }
 
+// ── E8: the tremolo scan (the oscillator, the vactrol, the divider) ──
+
+// E8 before its warp redesign: a thread per circuit, blocks of 32, E2's
+// one-thread tremolo_step on the circuit's rows in a local array
+__global__ void __launch_bounds__(32)
+mb_e8_thread_kernel(const double* __restrict__ c, double* state,
+                    const double* __restrict__ depth, double* out, int n,
+                    int g) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= g) return;
+  double ch[CHAIN_ROWS];  // only the tremolo's rows
+  for (int k = 0; k < E8_ROWS; ++k)
+    ch[CH_TREM_V + k] = state[(size_t)k * g + j];
+  const double* misc = c + C_MISC;
+  const double d = depth[j];
+  for (int t = 0; t < n; ++t)
+    out[(size_t)t * g + j] = tremolo_step(c, misc, ch, d);
+  for (int k = 0; k < E8_ROWS; ++k)
+    state[(size_t)k * g + j] = ch[CH_TREM_V + k];
+}
+
 constexpr int kTremVariants = 3;
 constexpr int kPaVariants = 3;
 
 }  // namespace
+
+// E8: 0 a thread per circuit (before), 1 the library's (a warp per
+// circuit); consts the chain's layout (kernels.engine.scan_consts), state
+// (E8_ROWS, G), out (n, G)
+extern "C" int mb_e8_launch(int which, const double* consts, int n_consts,
+                            double* state, const double* depth, double* out,
+                            int n, int g, cudaStream_t stream) {
+  if (which == 1)
+    return ow_tremolo_scan(consts, n_consts, state, depth, out, n, g,
+                           stream);
+  if (which != 0 || n_consts != C_TOTAL || n < 0 || g <= 0)
+    return (int)cudaErrorInvalidValue;
+  mb_e8_thread_kernel<<<(g + 31) / 32, 32, 0, stream>>>(consts, state, depth,
+                                                        out, n, g);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int mb_parts() { return N_PARTS; }
 extern "C" int mb_trem_count() { return kTremVariants; }

@@ -31,11 +31,24 @@ form with each thread's clock64 cycles summed by part).
     0's share (the smoothers, the allpass branches, the speaker and guard
     #2's test, on lane 0 of each segment) and the rest; each part's share
     of lane 0's cycles and of the other lanes'.
+  * The behavioral thread form (a thread per engine), both preamps, on
+    the same kind of chunk broadcast to --thread-engines engines: the
+    library's (each step's values in registers, the engine's rows in
+    shared memory), the form before it (`cb_thread_old`: `chain_sample`
+    over the engine's rows in a local array) and the old form stamped by
+    part are first checked bit for bit against the library's
+    render_chain, then timed old, new, new, old (ms per chunk), and the
+    stamped run's cycles split into the tremolo, the preamp's twins,
+    `behavioral()` and the rest (each part's share of a thread's cycles,
+    the mean over the engines).
 
-Prints the card and its power limit, then one JSON line:
+--sections picks the parts to run (behavioral, half, thread). Prints the
+card and its power limit, then one JSON line:
 
     python tools/torch_chain_breakdown.py [--reps 5] [--history 1536]
         [--calls 4096] [--half-engines 1,8192]
+        [--thread-engines 1,8192,16384,32768]
+        [--sections behavioral,half,thread]
 """
 
 import argparse
@@ -55,6 +68,8 @@ SETTINGS = {"all lanes": "-DOW_BEHAVIORAL_ALL_LANES=1",
             "half stamped": "-DOW_HALF_STAMPS=1"}
 # engine.cu's HalfPart, in order
 HALF_PARTS = ("newton", "votes", "lane 0", "rest")
+# chain_breakdown.cu's ThreadPart, in order
+THREAD_PARTS = ("tremolo", "preamp twins", "behavioral", "rest")
 MODELS = (("dk", "circuit"), ("melange", "circuit"), ("dk", "behavioral"),
           ("melange", "behavioral"))
 
@@ -109,7 +124,10 @@ def main(argv=None):
     ap.add_argument("--history", type=int, default=1536)
     ap.add_argument("--calls", type=int, default=4096)
     ap.add_argument("--half-engines", default="1,8192")
+    ap.add_argument("--thread-engines", default="1,8192,16384,32768")
+    ap.add_argument("--sections", default="behavioral,half,thread")
     args = ap.parse_args(argv)
+    sections = args.sections.split(",")
 
     import torch
 
@@ -124,7 +142,9 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    builds = {name: build(name) for name in SETTINGS}
+    need = {"all lanes", *(["lane 0"] if "behavioral" in sections else []),
+            *(["half stamped"] if "half" in sections else [])}
+    builds = {name: build(name) for name in SETTINGS if name in need}
     procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
              for name, (cmd, _) in builds.items()}
@@ -139,6 +159,11 @@ def main(argv=None):
                                         p]
         dll.cb_behavioral.argtypes = [p, i, p]
         dll.cb_half_parts.argtypes = [p, p]
+        dll.cb_thread_old.argtypes = [i, i, p, i, p, p, p, i, i, p, p, p,
+                                      p]
+        if dll.cb_thread_part_count() != len(THREAD_PARTS):
+            raise RuntimeError("the tool's THREAD_PARTS and "
+                               "chain_breakdown.cu differ")
         libs[name] = dll
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -161,7 +186,7 @@ def main(argv=None):
         return start.elapsed_time(end) / args.reps
 
     rows = {}
-    for pre in ("dk", "melange"):
+    for pre in ("dk", "melange") if "behavioral" in sections else ():
         cp, mono, chain, sag_t, scale_t = chunk_inputs(
             ek, Engine, pre, "behavioral", args.history, dev)
         flat = ek._flat_on(ek._cp_key(cp), dev)
@@ -203,13 +228,86 @@ def main(argv=None):
         if err:
             raise RuntimeError(f"cb_behavioral: cudaError {err}")
 
-    call_us = ms_of(calls) * 1e3 / args.calls
-    half = half_rows(args, ek, Engine, libs, dev, stream, same, ms_of)
+    call_us = (ms_of(calls) * 1e3 / args.calls if "behavioral" in sections
+               else None)
+    half = (half_rows(args, ek, Engine, libs, dev, stream, same, ms_of)
+            if "half" in sections else {})
+    thread = (thread_rows(args, ek, Engine, libs["all lanes"], dev, stream,
+                          same, ms_of) if "thread" in sections else {})
+    for key, row in thread.items():
+        print(f"<{key}> engines: old / new / new / old "
+              + " / ".join(f"{t:.3f}" for t in row["ms"])
+              + " ms per chunk; the old form's cycles: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in row["old_share"].items()),
+              flush=True)
     print(json.dumps({"card": card, "chunk": CHUNK, "reps": args.reps,
                       "bit_identical": True, "behavioral": rows,
-                      "behavioral_call_us": call_us, "half": half}),
+                      "behavioral_call_us": call_us, "half": half,
+                      "thread": thread}),
           flush=True)
     return 0
+
+
+def thread_rows(args, ek, Engine, dll, dev, stream, same, ms_of):
+    """The behavioral thread form, new and old, and the old one's stamped
+    parts, at --thread-engines engines of the chord broadcast."""
+    import torch
+
+    out = {}
+    for pre in ("dk", "melange"):
+        cp, mono1, chain1, sag1, scale1 = chunk_inputs(
+            ek, Engine, pre, "behavioral", args.history, dev)
+        flat = ek._flat_on(ek._cp_key(cp), dev)
+        pre_i = ek.PREAMP_MODELS.index(pre)
+        for b in [int(x) for x in args.thread_engines.split(",")]:
+            mono = mono1.expand(b, CHUNK).contiguous()
+            chain = chain1.expand(b, -1).contiguous()
+            sag = sag1.expand(b).contiguous()
+            scale = scale1.expand(b).contiguous()
+            parts = torch.zeros((b, len(THREAD_PARTS)), dtype=torch.int64,
+                                device=dev)
+
+            def run(kind):
+                st = chain.clone()
+                o = torch.empty((b, CHUNK), dtype=torch.float32, device=dev)
+                if kind == "new":
+                    err = dll.ow_engine_chain(
+                        flat.data_ptr(), flat.numel(), mono.data_ptr(),
+                        st.data_ptr(), o.data_ptr(), CHUNK, b,
+                        sag.data_ptr(), pre_i, 1, scale.data_ptr(),
+                        ek.CHAIN_FORMS.index("thread"), stream)
+                else:
+                    err = dll.cb_thread_old(
+                        pre_i, int(kind == "stamped"), flat.data_ptr(),
+                        flat.numel(), mono.data_ptr(), st.data_ptr(),
+                        o.data_ptr(), CHUNK, b, sag.data_ptr(),
+                        scale.data_ptr(), parts.data_ptr(), stream)
+                if err:
+                    raise RuntimeError(f"{pre} {kind} at {b}: cudaError "
+                                       f"{err}")
+                return o, st
+
+            lib_st = chain.clone()
+            lib_out = ek.render_chain(cp, mono, lib_st, sag, scale)
+            for kind in ("new", "old", "stamped"):
+                o, st = run(kind)
+                if not (same(o, lib_out) and same(st, lib_st)):
+                    raise SystemExit(f"<{pre}, behavioral> thread form "
+                                     f"{kind} at {b} engines differs from "
+                                     "the library's render_chain")
+            times = [ms_of(lambda k=k: run(k))
+                     for k in ("old", "new", "new", "old")]
+            parts.zero_()
+            stamped_ms = ms_of(lambda: run("stamped"))
+            cyc = parts.double().cpu()
+            share = (cyc / cyc.sum(1, keepdim=True)).mean(0)
+            out[f"{pre}, behavioral, {b}"] = {
+                "ms": times, "stamped_old_ms": stamped_ms,
+                "old_share": dict(zip(THREAD_PARTS, share.tolist())),
+                "us_per_base_sample": {
+                    "old": (times[0] + times[3]) * 500 / CHUNK,
+                    "new": (times[1] + times[2]) * 500 / CHUNK}}
+    return out
 
 
 def half_rows(args, ek, Engine, libs, dev, stream, same, ms_of):

@@ -21,10 +21,19 @@ It times each variant with CUDA events (µs per step) and splits the
 stamped one's step into its parts: each part's share of the stamped
 cycles times the stamped variant's µs per step, with the Newton
 evaluations (residual passes), iterations (eliminations) and BE replays
-per step. Run on a machine with a card:
+per step. Beside them, E8 (the stage bench's tremolo scan) before its warp
+redesign (a thread per circuit) and now, at --e8-circuits × --e8-steps,
+both checked bit for bit against the library's, timed thread, warp, warp,
+thread. Run on a machine with a card:
 
     python tools/torch_mna_breakdown.py [--trem-steps 8192]
         [--pa-samples 512] [--pa-streams 1,512] [--reps 3]
+        [--e8-circuits 32,512] [--e8-steps 2000] [--sections trem,pa,e8]
+
+With --e8-bound it only computes E8's bound at each --e8-circuits ×
+--e8-steps, as chip_smoke.py's phase 29 does (the bytes moved and the f64
+operations that the plain version's own Newton counts give, over the
+card's rates), running the plain version on the CPU; it needs no card.
 """
 
 import argparse
@@ -69,7 +78,9 @@ def build():
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.mb_trem_launch.argtypes = [i, p, i, p, p, i, p]
     dll.mb_pa_launch.argtypes = [i, p, i, p, p, p, p, i, i, p]
-    for f in (dll.mb_trem_launch, dll.mb_pa_launch, dll.mb_parts,
+    dll.mb_e8_launch.argtypes = [i, p, i, p, p, p, i, i, p]
+    for f in (dll.mb_trem_launch, dll.mb_pa_launch, dll.mb_e8_launch,
+              dll.mb_parts,
               dll.mb_trem_count, dll.mb_pa_count):
         f.restype = i
     if (dll.mb_parts() != len(TIMED) + len(COUNTS)
@@ -116,7 +127,16 @@ def main(argv=None):
     ap.add_argument("--pa-samples", type=int, default=512)
     ap.add_argument("--pa-streams", default="1,512")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--e8-circuits", default="32,512")
+    ap.add_argument("--e8-steps", type=int, default=2000)
+    ap.add_argument("--sections", default="trem,pa,e8",
+                    help="which of trem, pa, e8 to run")
+    ap.add_argument("--e8-bound", action="store_true",
+                    help="only E8's bound, on the CPU")
     args = ap.parse_args(argv)
+    sections = args.sections.split(",")
+    if args.e8_bound:
+        return e8_bound(args)
 
     import numpy as np
     import torch
@@ -152,98 +172,106 @@ def main(argv=None):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.reps
 
-    # ── the tremolo oscillator: E3's layout ──
-    block = ek._trem_block_on(SR, dev)
+    trem_rows, pa_rows, nt, n = [], {}, args.trem_steps, args.pa_samples
+    if "trem" in sections:
+        # ── the tremolo oscillator: E3's layout ──
+        block = ek._trem_block_on(SR, dev)
 
-    def trem(w, st, n):
-        parts = torch.zeros(n_parts, dtype=torch.int64, device=dev)
-        err = dll.mb_trem_launch(w, block.data_ptr(), block.numel(),
-                                 st.data_ptr(), parts.data_ptr(), n, stream)
-        if err:
-            raise RuntimeError(f"tremolo variant {w}: cudaError {err}")
-        return parts
+        def trem(w, st, n):
+            parts = torch.zeros(n_parts, dtype=torch.int64, device=dev)
+            err = dll.mb_trem_launch(w, block.data_ptr(), block.numel(),
+                                     st.data_ptr(), parts.data_ptr(), n, stream)
+            if err:
+                raise RuntimeError(f"tremolo variant {w}: cudaError {err}")
+            return parts
 
-    start = ek.osc_flat(tremolo.perturbed_start(tremolo.make_params(SR),
-                                                dev))
-    nan_start = start.clone()
-    nan_start[2] = float("nan")
-    nt = args.trem_steps
-    for st0 in (start, nan_start):
-        ref = ek.settle(SR, st0.clone(), nt)
-        for w, (name, _) in enumerate(TREM_VARIANTS):
-            st = st0.clone()
-            trem(w, st, nt)
-            if not same(st, ref):
-                raise RuntimeError(f"tremolo {name} differs from E3")
-    trem_rows = [{"variant": "E3 through kernels.engine.settle",
-                  "us_per_step": ms_of(lambda: ek.settle(
-                      SR, start.clone(), nt)) * 1e3 / nt}]
-    for w, (name, stamped) in enumerate(TREM_VARIANTS):
-        row = {"variant": name, "us_per_step": ms_of(
-            lambda: trem(w, start.clone(), nt)) * 1e3 / nt}
-        if stamped:
-            us, counts = split(trem(w, start.clone(), nt)[:, None],
-                               row["us_per_step"], nt)
-            row.update(parts_us_per_step=us, counts_per_step=counts,
-                       summary=summary(us, counts))
-        trem_rows.append(row)
-
-    # ── the power amp: E9's layout ──
-    consts = torch.from_numpy(ek.scan_consts(SR, "power_amp")).to(dev)
-
-    def pa(w, x, st):
-        out = torch.empty_like(x)
-        parts = torch.zeros((n_parts, x.shape[1]), dtype=torch.int64,
-                            device=dev)
-        err = dll.mb_pa_launch(w, consts.data_ptr(), consts.numel(),
-                               x.data_ptr(), st.data_ptr(), out.data_ptr(),
-                               parts.data_ptr(), x.shape[0], x.shape[1],
-                               stream)
-        if err:
-            raise RuntimeError(f"power-amp variant {w}: cudaError {err}")
-        return out, parts
-
-    def kicked(n=64, g=4):
-        rng = np.random.default_rng(15)
-        t = np.arange(n)[:, None]
-        x = rng.uniform(0.02, 0.4, g) * np.sin(2 * np.pi * 1000 * t / SR)
-        x[:, 3] *= 6.0
-        x[n // 3, 1] = 200.0
-        x[n // 4, 2] = np.nan
-        st = ek.init_power_amp_scan_state(SR, g, dev)
-        r0 = ek.CHAIN_OFF["pa_rails"][0] - ek.CHAIN_OFF["pa_v"][0]
-        st[r0:r0 + 4, 3] = torch.tensor([21.0, 21.8, 0.3, 0.1],
-                                        dtype=torch.float64, device=dev)
-        return torch.as_tensor(x, device=dev).contiguous(), st
-
-    n = args.pa_samples
-    t = torch.arange(n, dtype=torch.float64, device=dev)
-    sine = 0.05 * torch.sin(2 * np.pi * 1000 * t / SR)
-    widths = [int(g) for g in args.pa_streams.split(",")]
-    cases = [kicked()] + [
-        (sine[:, None].repeat(1, g).contiguous(),
-         ek.init_power_amp_scan_state(SR, g, dev)) for g in widths]
-    for x, st0 in cases:
-        ref_st = st0.clone()
-        ref = ek.power_amp_scan(SR, x, ref_st)
-        for w, (name, _) in enumerate(PA_VARIANTS):
-            st = st0.clone()
-            out, _ = pa(w, x, st)
-            if not (same(out, ref) and same(st, ref_st)):
-                raise RuntimeError(f"power amp {name} differs from E9")
-    pa_rows = {}
-    for g, (x, st0) in zip(widths, cases[1:]):
-        rows = []
-        for w, (name, stamped) in enumerate(PA_VARIANTS):
+        start = ek.osc_flat(tremolo.perturbed_start(tremolo.make_params(SR),
+                                                    dev))
+        nan_start = start.clone()
+        nan_start[2] = float("nan")
+        nt = args.trem_steps
+        for st0 in (start, nan_start):
+            ref = ek.settle(SR, st0.clone(), nt)
+            for w, (name, _) in enumerate(TREM_VARIANTS):
+                st = st0.clone()
+                trem(w, st, nt)
+                if not same(st, ref):
+                    raise RuntimeError(f"tremolo {name} differs from E3")
+        trem_rows = [{"variant": "E3 through kernels.engine.settle",
+                      "us_per_step": ms_of(lambda: ek.settle(
+                          SR, start.clone(), nt)) * 1e3 / nt}]
+        for w, (name, stamped) in enumerate(TREM_VARIANTS):
             row = {"variant": name, "us_per_step": ms_of(
-                lambda: pa(w, x, st0.clone())) * 1e3 / n}
+                lambda: trem(w, start.clone(), nt)) * 1e3 / nt}
             if stamped:
-                us, counts = split(pa(w, x, st0.clone())[1],
-                                   row["us_per_step"], n)
+                us, counts = split(trem(w, start.clone(), nt)[:, None],
+                                   row["us_per_step"], nt)
                 row.update(parts_us_per_step=us, counts_per_step=counts,
                            summary=summary(us, counts))
-            rows.append(row)
-        pa_rows[g] = rows
+            trem_rows.append(row)
+
+    if "pa" in sections:
+        # ── the power amp: E9's layout ──
+        consts = torch.from_numpy(ek.scan_consts(SR, "power_amp")).to(dev)
+
+        def pa(w, x, st):
+            out = torch.empty_like(x)
+            parts = torch.zeros((n_parts, x.shape[1]), dtype=torch.int64,
+                                device=dev)
+            err = dll.mb_pa_launch(w, consts.data_ptr(), consts.numel(),
+                                   x.data_ptr(), st.data_ptr(), out.data_ptr(),
+                                   parts.data_ptr(), x.shape[0], x.shape[1],
+                                   stream)
+            if err:
+                raise RuntimeError(f"power-amp variant {w}: cudaError {err}")
+            return out, parts
+
+        def kicked(n=64, g=4):
+            rng = np.random.default_rng(15)
+            t = np.arange(n)[:, None]
+            x = rng.uniform(0.02, 0.4, g) * np.sin(2 * np.pi * 1000 * t / SR)
+            x[:, 3] *= 6.0
+            x[n // 3, 1] = 200.0
+            x[n // 4, 2] = np.nan
+            st = ek.init_power_amp_scan_state(SR, g, dev)
+            r0 = ek.CHAIN_OFF["pa_rails"][0] - ek.CHAIN_OFF["pa_v"][0]
+            st[r0:r0 + 4, 3] = torch.tensor([21.0, 21.8, 0.3, 0.1],
+                                            dtype=torch.float64, device=dev)
+            return torch.as_tensor(x, device=dev).contiguous(), st
+
+        n = args.pa_samples
+        t = torch.arange(n, dtype=torch.float64, device=dev)
+        sine = 0.05 * torch.sin(2 * np.pi * 1000 * t / SR)
+        widths = [int(g) for g in args.pa_streams.split(",")]
+        cases = [kicked()] + [
+            (sine[:, None].repeat(1, g).contiguous(),
+             ek.init_power_amp_scan_state(SR, g, dev)) for g in widths]
+        for x, st0 in cases:
+            ref_st = st0.clone()
+            ref = ek.power_amp_scan(SR, x, ref_st)
+            for w, (name, _) in enumerate(PA_VARIANTS):
+                st = st0.clone()
+                out, _ = pa(w, x, st)
+                if not (same(out, ref) and same(st, ref_st)):
+                    raise RuntimeError(f"power amp {name} differs from E9")
+        pa_rows = {}
+        for g, (x, st0) in zip(widths, cases[1:]):
+            rows = []
+            for w, (name, stamped) in enumerate(PA_VARIANTS):
+                row = {"variant": name, "us_per_step": ms_of(
+                    lambda: pa(w, x, st0.clone())) * 1e3 / n}
+                if stamped:
+                    us, counts = split(pa(w, x, st0.clone())[1],
+                                       row["us_per_step"], n)
+                    row.update(parts_us_per_step=us, counts_per_step=counts,
+                               summary=summary(us, counts))
+                rows.append(row)
+            pa_rows[g] = rows
+
+    # ── E8: the tremolo scan, before and now ──
+    e8_rows = {}
+    if "e8" in sections:
+        e8_rows = e8_abba(args, dll, ek, dev, stream, same, ms_of)
 
     def show(rows):
         for row in rows:
@@ -260,21 +288,114 @@ def main(argv=None):
                     f"{c['iterations']:.2f} iterations, "
                     f"{c['be_replays']:.3f} BE replays")
 
-    print(f"{card}; tremolo <7, 4, 2, 4>: 1 circuit x {nt} steps at "
-          f"{SR:g} Hz, {args.reps} reps; every variant bit-identical to E3 "
-          "there and from a NaN start")
-    show(trem_rows)
+    if trem_rows:
+        print(f"{card}; tremolo <7, 4, 2, 4>: 1 circuit x {nt} steps at "
+              f"{SR:g} Hz, {args.reps} reps; every variant bit-identical to "
+              "E3 there and from a NaN start")
+        show(trem_rows)
     for g, rows in pa_rows.items():
         print(f"power amp <21, 16, 8, 16>: {g} streams x {n} samples of the "
               f"stage bench's sine; every variant bit-identical to E9 there "
               "and on 4 kicked streams")
         show(rows)
+    for g, row in e8_rows.items():
+        print(f"{card}; E8 {g} circuits x {args.e8_steps} steps at {SR:g} "
+              "Hz (seeded starts, depths 0 / 0.5 / 1), both bit-identical "
+              "to the library's tremolo_scan, thread / warp / warp / thread: "
+              + " / ".join(f"{u:.3f}" for u in row["us_per_step"])
+              + " us per step")
     ptxas = [" ".join(line.split()) for line in log.splitlines()
              if "mb_" in line or "mna_step" in line or "Used" in line
              or "stack frame" in line]
     print(json.dumps({"card": card, "trem_steps": nt, "trem": trem_rows,
-                      "pa_samples": n, "pa": pa_rows, "ptxas": ptxas}))
+                      "pa_samples": n, "pa": pa_rows,
+                      "e8_steps": args.e8_steps, "e8": e8_rows,
+                      "ptxas": ptxas}))
     return trem_rows, pa_rows
+
+
+def e8_abba(args, dll, ek, dev, stream, same, ms_of):
+    """E8 before (a thread per circuit) and now (the library's, a warp per
+    circuit) at each of --e8-circuits: both checked bit for bit, output
+    and state, against `kernels.engine.tremolo_scan` from seeded starts at
+    depths 0 / 0.5 / 1, then timed thread, warp, warp, thread; µs per
+    step, by width."""
+    import numpy as np
+    import torch
+
+    consts = torch.from_numpy(ek.scan_consts(SR, "tremolo")).to(dev)
+    n = args.e8_steps
+
+    def run(w, st, depth):
+        out = torch.empty((n, st.shape[1]), dtype=torch.float64, device=dev)
+        err = dll.mb_e8_launch(w, consts.data_ptr(), consts.numel(),
+                               st.data_ptr(), depth.data_ptr(),
+                               out.data_ptr(), n, st.shape[1], stream)
+        if err:
+            raise RuntimeError(f"E8 variant {w}: cudaError {err}")
+        return out
+
+    rows = {}
+    for g in [int(x) for x in args.e8_circuits.split(",")]:
+        rng = np.random.default_rng(29)
+        st0 = ek.init_tremolo_scan_state(SR, g, dev)
+        st0[:ek.N_T] += torch.as_tensor(
+            rng.uniform(-0.05, 0.05, (ek.N_T, g)), device=dev)
+        depth = torch.tensor([(0.0, 0.5, 1.0)[j % 3] for j in range(g)],
+                             dtype=torch.float64, device=dev)
+        ref_st = st0.clone()
+        ref = ek.tremolo_scan(SR, ref_st, depth, n)
+        for w in (0, 1):
+            st = st0.clone()
+            if not (same(run(w, st, depth), ref) and same(st, ref_st)):
+                raise RuntimeError(f"E8 variant {w} at {g} circuits differs "
+                                   "from the library's tremolo_scan")
+        st = st0.clone()
+        rows[g] = {"us_per_step": [
+            ms_of(lambda w=w: run(w, st, depth)) * 1e3 / n
+            for w in (0, 1, 1, 0)]}
+    return rows
+
+
+def e8_bound(args):
+    """E8's bound at each --e8-circuits × --e8-steps from the seeded starts
+    of e8_abba, as chip_smoke.py's compare_tremolo_scan counts it: each
+    input read once and each output written once over the card's memory
+    rate, against the plain version's Newton calls and eliminations and
+    each step's vactrol over its f64 rate. → {circuits: (ms, bound by)}."""
+    import runpy
+
+    import numpy as np
+    import torch
+
+    from openwurli_tpu_torch.circuits import mna
+    from openwurli_tpu_torch.kernels import engine as ek
+
+    smoke = runpy.run_path(os.path.join(REPO, "chip_smoke.py"),
+                           run_name="chip_smoke")
+    n, rows = args.e8_steps, {}
+    for g in [int(x) for x in args.e8_circuits.split(",")]:
+        rng = np.random.default_rng(29)
+        st = ek.init_tremolo_scan_state(SR, g, "cpu")
+        st[:ek.N_T] += torch.as_tensor(rng.uniform(-0.05, 0.05, (ek.N_T, g)))
+        depth = torch.tensor([(0.0, 0.5, 1.0)[j % 3] for j in range(g)],
+                             dtype=torch.float64)
+        n_bytes = (2 * st.numel() + depth.numel() + n * g
+                   + ek.scan_consts(SR, "tremolo").size) * 8
+        n0 = dict(mna.NEWTON_COUNTS)
+        ek.tremolo_scan_plain(SR, st, depth, n)
+        count = {k: mna.NEWTON_COUNTS[k] - n0.get(k, 0)
+                 for k in mna.NEWTON_COUNTS}
+        solves = count.get((ek.M_T, "solves"), 0)
+        iters = count.get((ek.M_T, "iterations"), 0)
+        ops = n * g * smoke["E8_OPS_STEP"] + smoke["mna_ops"](
+            ek.N_T, ek.M_T, ek.NB_T, solves, iters)
+        rows[g] = smoke["bound64"](n_bytes, ops)
+        print(f"E8 {g} circuits x {n} steps at {SR:g} Hz (seeded starts, "
+              f"depths 0 / 0.5 / 1): {solves} Newton calls, {iters} "
+              f"eliminations, bound {rows[g][0]:.5f} ms ({rows[g][1]}), "
+              f"{rows[g][0] * 1e3 / n:.6f} us per step")
+    return rows
 
 
 if __name__ == "__main__":
